@@ -1,0 +1,187 @@
+"""``shrimpy-tpu-torch`` CLI: the reconstruction verbs of the port.
+
+The verbs ``deskew``, ``deconvolve`` and ``reconstruct`` take the same
+options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
+(default ``cuda``). Pixel size and z step come from the store's scale
+metadata and are injected into the settings, as in the JAX CLI. The
+settings are the JAX package's pydantic models (one YAML runs on both
+packages); the port reads them by attribute.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+from pathlib import Path
+
+import click
+
+
+@click.group()
+@click.version_option(version="0.1.0", prog_name="shrimpy-tpu-torch")
+@click.option("-v", "--verbose", is_flag=True, help="DEBUG-level logging.")
+def cli(verbose: bool) -> None:
+    """PyTorch + CUDA reconstruction engine for mantis OME-Zarr datasets."""
+    logging.basicConfig(
+        level=logging.DEBUG if verbose else logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
+    )
+
+
+def _inject_from_store(settings, input_path: Path) -> None:
+    """Read (pixel size, z step) from the store scale and inject."""
+    from shrimpy_tpu.config.schemas import inject_derived_parameters
+    from shrimpy_tpu.io.ngff import open_ngff
+
+    sz, sy, _ = open_ngff(input_path).position().zyx_scale
+    inject_derived_parameters(settings, pixel_size_um=sy, z_step_um=sz)
+
+
+def _run_reconstruct(
+    input, output, settings, devices, space, batch, resume, profile_dir, device
+):
+    from shrimpy_tpu_torch.runtime.stream import reconstruct_store
+    from shrimpy_tpu_torch.utils.device import resolve_device
+    from shrimpy_tpu_torch.utils.timing import profiler_trace
+
+    if (devices or 1) > 1 or space > 1:
+        raise click.ClickException(
+            "the PyTorch port runs one device (--devices/--space > 1 is "
+            "ROADMAP queue 1 item 11)"
+        )
+    try:
+        resolve_device(device)
+    except RuntimeError as exc:
+        raise click.ClickException(str(exc)) from None
+    _inject_from_store(settings, Path(input))
+    try:
+        with profiler_trace(profile_dir):
+            summary = reconstruct_store(
+                input, output, settings, batch_size=batch, resume=resume, device=device
+            )
+    except NotImplementedError as exc:
+        raise click.ClickException(str(exc)) from None
+    click.echo(json.dumps(summary, indent=2))
+
+
+_shared = [
+    click.argument("input", type=click.Path(exists=True)),
+    click.option("-o", "--output", required=True, type=click.Path()),
+    click.option("--devices", type=int, default=None, help="Device count (1 only)."),
+    click.option("--space", type=int, default=1, help="X-axis sharding factor (1 only)."),
+    click.option("--batch", type=int, default=None, help="Volumes per step."),
+    click.option("--resume", is_flag=True, help="Skip completed volumes."),
+    click.option("--profile", "profile_dir", type=click.Path(), default=None,
+                 help="Write a torch.profiler trace to this directory."),
+    click.option("--device", default="cuda", show_default=True,
+                 help="Torch device: 'cuda', 'cuda:N' or 'cpu'."),
+]
+
+
+def shared_options(f):
+    for opt in reversed(_shared):
+        f = opt(f)
+    return f
+
+
+@cli.command()
+@shared_options
+@click.option("--ls-angle-deg", type=float, default=None,
+              help="Light-sheet tilt; default = the microscope profile's angle.")
+@click.option("--px-to-scan-ratio", type=float, default=None)
+@click.option("--keep-overhang", is_flag=True)
+@click.option("--average-n-slices", type=int, default=1, show_default=True)
+@click.option("--microscope", default="mantis", show_default=True,
+              help="Profile supplying the instrument's optical defaults.")
+def deskew(
+    input, output, devices, space, batch, resume, profile_dir, device,
+    ls_angle_deg, px_to_scan_ratio, keep_overhang, average_n_slices, microscope,
+):
+    """Deskew every volume of an OME-Zarr store."""
+    from shrimpy_tpu.config import DeskewSettings, ReconstructSettings
+    from shrimpy_tpu.config.microscopes import get_microscope
+
+    try:
+        prof = get_microscope(microscope)
+    except KeyError as exc:
+        raise click.ClickException(str(exc)) from None
+    if not prof.implemented:
+        raise click.ClickException(
+            f"{prof.name} support is not yet implemented. Coming soon!"
+        )
+    if ls_angle_deg is None:
+        if prof.ls_angle_deg is None:
+            raise click.ClickException(
+                f"microscope {microscope!r} declares no light-sheet "
+                "angle; pass --ls-angle-deg"
+            )
+        ls_angle_deg = prof.ls_angle_deg
+    settings = ReconstructSettings(
+        deskew=DeskewSettings(
+            ls_angle_deg=ls_angle_deg,
+            px_to_scan_ratio=px_to_scan_ratio,
+            keep_overhang=keep_overhang,
+            average_n_slices=average_n_slices,
+        )
+    )
+    _run_reconstruct(input, output, settings, devices, space, batch, resume,
+                     profile_dir, device)
+
+
+@cli.command()
+@shared_options
+@click.option("--psf", "psf_path", type=click.Path(exists=True), default=None,
+              help="PSF volume (.npy or OME-Zarr); default synthetic.")
+@click.option("--iterations", type=int, default=20, show_default=True)
+@click.option("--algorithm",
+              type=click.Choice(["auto", "fft", "separable", "hybrid"]),
+              default="auto", show_default=True,
+              help="Only the separable path is ported; 'fft' and 'hybrid' raise.")
+def deconvolve(
+    input, output, devices, space, batch, resume, profile_dir, device,
+    psf_path, iterations, algorithm,
+):
+    """Richardson-Lucy deconvolve every volume of an OME-Zarr store."""
+    from shrimpy_tpu.config import DeconvolveSettings, ReconstructSettings
+
+    settings = ReconstructSettings(
+        deconvolve=DeconvolveSettings(
+            psf_path=psf_path, iterations=iterations, algorithm=algorithm
+        )
+    )
+    _run_reconstruct(input, output, settings, devices, space, batch, resume,
+                     profile_dir, device)
+
+
+@cli.command()
+@shared_options
+@click.option("-c", "--config", "config_path", type=click.Path(exists=True),
+              required=True,
+              help="ReconstructSettings YAML, or a multi-arm file with a "
+                   "top-level 'arms:' mapping (per-arm output stores).")
+def reconstruct(input, output, devices, space, batch, resume, profile_dir, device,
+                config_path):
+    """Run the configured pipeline (deskew/deconvolve)."""
+    import yaml
+
+    from shrimpy_tpu.config import ReconstructSettings
+    from shrimpy_tpu.config.schemas import ReconstructArms, load_yaml_config
+
+    with open(config_path) as f:
+        raw_cfg = yaml.safe_load(f) or {}
+    if "arms" in raw_cfg:
+        arms = ReconstructArms(**raw_cfg)
+        out = Path(output)
+        for arm_name, settings in arms.arms.items():
+            arm_out = out.with_name(f"{out.stem}_{arm_name}.zarr")
+            click.echo(f"== arm {arm_name} -> {arm_out}")
+            _run_reconstruct(input, arm_out, settings, devices, space, batch,
+                             resume, profile_dir, device)
+        return
+    settings = load_yaml_config(config_path, ReconstructSettings)
+    _run_reconstruct(input, output, settings, devices, space, batch, resume,
+                     profile_dir, device)
+
+
+if __name__ == "__main__":
+    cli()

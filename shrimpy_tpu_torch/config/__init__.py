@@ -1,0 +1,98 @@
+"""Settings as the port reads them.
+
+The port reads its settings by attribute, so a pydantic
+``shrimpy_tpu.config.ReconstructSettings`` works unchanged (one YAML
+runs on both packages), and so does a :class:`types.SimpleNamespace`
+with the same field names — what the compute path uses where pydantic
+is not installed (a GPU host with only torch). The builders below make such
+namespaces with the schema's defaults for exactly the fields the port
+reads; ``tests/test_torch_pipeline.py`` pins these defaults to
+``shrimpy_tpu/config/schemas.py``.
+"""
+
+from __future__ import annotations
+
+from types import SimpleNamespace
+
+DESKEW_DEFAULTS = {
+    "ls_angle_deg": 30.0,
+    "px_to_scan_ratio": None,
+    "pixel_size_um": None,
+    "scan_step_um": None,
+    "keep_overhang": False,
+    "average_n_slices": 1,
+    "backend": "auto",
+}
+
+DECONVOLVE_DEFAULTS = {
+    "iterations": 20,
+    "psf_path": None,
+    "epsilon": 1e-6,
+    "pad_mode": "reflect",
+    "algorithm": "auto",
+    "separable_tol": 1e-4,
+    "max_separable_terms": 6,
+    "psf_denoise": "auto",
+    "psf_denoise_max_residual": 0.05,
+    "psf_crop_tol": 1e-5,
+    "max_extended_terms": 24,
+    "separable_backend": "auto",
+    "fused_low_precision_iters": 0,
+    "acceleration": "none",
+    "donate_input": False,
+}
+
+IO_RETRY_DEFAULTS = {"attempts": 3, "wait_s": 1.0, "contain_failures": True}
+
+RECONSTRUCT_DEFAULTS = {
+    "deskew": None,
+    "phase": None,
+    "registration": None,
+    "deconvolve": None,
+    "channels": None,
+    "positions": None,
+    "time_indices": None,
+    "output_dtype": "float32",
+    "pyramid_levels": 0,
+    "shard_volumes": False,
+}
+
+
+def _make(defaults: dict, overrides: dict) -> SimpleNamespace:
+    unknown = set(overrides) - set(defaults)
+    if unknown:
+        raise TypeError(f"unknown settings fields: {sorted(unknown)}")
+    return SimpleNamespace(**{**defaults, **overrides})
+
+
+def deskew_settings(**overrides) -> SimpleNamespace:
+    return _make(DESKEW_DEFAULTS, overrides)
+
+
+def deconvolve_settings(**overrides) -> SimpleNamespace:
+    return _make(DECONVOLVE_DEFAULTS, overrides)
+
+
+def reconstruct_settings(**overrides) -> SimpleNamespace:
+    ns = _make({**RECONSTRUCT_DEFAULTS, "io_retry": None}, overrides)
+    if ns.io_retry is None:
+        ns.io_retry = SimpleNamespace(**IO_RETRY_DEFAULTS)
+    return ns
+
+
+def require_ratio(deskew) -> float:
+    """``px_to_scan_ratio``, derived from ``pixel_size_um /
+    scan_step_um`` (rounded to 3 places) when unset — the rule of
+    ``DeskewSettings._derive_ratio``."""
+    r = deskew.px_to_scan_ratio
+    if r is None and deskew.pixel_size_um is not None and deskew.scan_step_um is not None:
+        r = round(deskew.pixel_size_um / deskew.scan_step_um, 3)
+    if r is None:
+        raise ValueError(
+            "px_to_scan_ratio is not set; provide it directly or via "
+            "pixel_size_um + scan_step_um (normally injected from "
+            "dataset metadata — see inject_derived_parameters)"
+        )
+    if not r > 0:
+        raise ValueError("px_to_scan_ratio must be > 0")
+    return r

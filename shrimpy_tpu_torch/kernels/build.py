@@ -1,0 +1,130 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every ``shrimpy_tpu_torch/csrc/*.cu`` is compiled at first use, in one
+``nvcc`` call, into one shared library with a plain C interface::
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/libshrimpy_kernels_<hash>.so csrc/*.cu
+
+and loaded with :mod:`ctypes`. The sources include no PyTorch header,
+so the build takes seconds (PyTorch's ``cpp_extension.load`` builds
+against torch's headers and takes minutes). The library lands in
+``shrimpy_tpu_torch/build/`` under a name keyed by a hash of the
+sources and flags, so an edited kernel is never served a stale build.
+
+Calling convention of every C entry point: device pointers and the
+CUDA stream are ``void*`` (``ctypes.c_void_p``: a plain int argument
+would be cut to 32 bits), extents are ``long long`` and the function
+returns ``cudaGetLastError()`` as an ``int``; :func:`check` raises on a
+non-zero code. A failed build raises with nvcc's stderr.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "build"
+
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+_F32 = ctypes.c_float
+
+# C signature of every entry point in csrc/ (argtypes; restype is int).
+SIGNATURES: dict[str, list] = {
+    # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
+    # ns, nt, nx, nz, ny, n_groups, a_avg, stream
+    "shrimpy_deskew": [_P] * 10 + [_I64] * 6 + [_I32, _P],
+    # in, out, taps, k, outer, n, inner, stream
+    "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P],
+    # in, prev, aux, out, taps, k, rows, n, mode, eps, stream
+    "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I32, _F32, _P],
+}
+
+_LOCK = threading.Lock()
+_LIB: ctypes.CDLL | None = None
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def find_nvcc() -> str:
+    """``nvcc`` from ``$CUDA_HOME``, ``/usr/local/cuda`` or ``$PATH``."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and $PATH): the CUDA kernels are built from "
+            f"{CSRC_DIR} at first use and need the CUDA toolkit"
+        )
+    return found
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libshrimpy_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into the keyed library (if absent)."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The kernel library, built on first call and cached per process."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.shrimpy_error_string.argtypes = [ctypes.c_int]
+            lib.shrimpy_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def check(code: int, name: str) -> None:
+    """Raise when a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = load_library().shrimpy_error_string(code).decode()
+        raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")

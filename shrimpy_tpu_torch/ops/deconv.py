@@ -1,0 +1,329 @@
+"""Richardson-Lucy deconvolution, separable path (counterpart of the
+slice's part of ``shrimpy_tpu/ops/deconv.py``).
+
+The host numpy helpers — PSF support cropping and odd padding, the
+separable decomposition with its denoise and extended-rank tiers, and
+``gaussian_psf`` — are copies of the JAX module's (which imports jax at
+the top; a GPU host running the port need not have jax).
+``tests/test_torch_rl.py`` pins each
+copy to its original.
+
+Backend resolution (``settings.separable_backend``):
+
+* ``auto`` and ``fused`` run :func:`shrimpy_tpu_torch.ops.rl_fused.rl_fused`,
+  the zero-boundary RL on the half-PSF padded grid — the JAX package's
+  choice on the TPU. Off the TPU, JAX's ``auto`` means the circular
+  ``matmul`` backend (``deconv.py:1107``): the two boundaries give
+  different images near the edges, so compare the port with the
+  ``fused`` backend or the ``boundary="zero"`` oracle.
+* ``matmul``, ``linear_pallas``, ``zy_pallas``, ``fused_iter`` raise
+  :class:`NotImplementedError` naming the ROADMAP item that ports them;
+  so do ``acceleration: biggs``, the FFT/hybrid algorithms,
+  ``fused_low_precision_iters > 0`` and ``donate_input: true``. None is
+  silently ignored. (``matmul_precision`` chooses MXU dot passes on the
+  TPU; the port's kernels are float32 FMA throughout, so it is not read.)
+"""
+
+from __future__ import annotations
+
+import logging
+
+import numpy as np
+import torch
+
+from shrimpy_tpu_torch.config import deconvolve_settings
+from shrimpy_tpu_torch.utils.device import as_tensor
+
+logger = logging.getLogger(__name__)
+
+_UNPORTED_BACKENDS = {
+    "matmul": "ROADMAP queue 1 item 3 (circulant matmul backend)",
+    "linear_pallas": "ROADMAP queue 2 kernel 3 (conv3_pallas._convzy_linear_jit)",
+    "zy_pallas": "ROADMAP queue 2 kernel 4 (conv3_pallas._convzy_pallas_jit)",
+    "fused_iter": "ROADMAP queue 2 kernel 6 (rl_fused_iter._rl_iter_pass)",
+}
+
+
+def _separable_candidates(
+    psf: np.ndarray, max_terms: int
+) -> list[tuple[float, np.ndarray, np.ndarray, np.ndarray]]:
+    """SVD-cascade separable candidates, strongest first: unfold Z vs
+    YX, then split each YX mode."""
+    psf = np.asarray(psf, dtype=np.float64)
+    nz, ny, nx = psf.shape
+    u, s, vt = np.linalg.svd(psf.reshape(nz, ny * nx), full_matrices=False)
+    candidates: list[tuple[float, np.ndarray, np.ndarray, np.ndarray]] = []
+    for r in range(min(len(s), max_terms)):
+        if s[r] <= 0:
+            break
+        plane = vt[r].reshape(ny, nx)
+        pu, ps, pvt = np.linalg.svd(plane, full_matrices=False)
+        for q in range(min(len(ps), max_terms)):
+            weight = s[r] * ps[q]
+            if weight <= 0:
+                break
+            candidates.append((weight, u[:, r], pu[:, q] * ps[q] * s[r], pvt[q]))
+    candidates.sort(key=lambda c: -c[0])
+    return candidates
+
+
+def separable_decompose(
+    psf: np.ndarray, tol: float = 1e-4, max_terms: int = 6
+) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]] | None:
+    """Greedy rank-K separable decomposition ``psf ~ sum_k wz_k x wy_k x wx_k``
+    within relative Frobenius error ``tol``; None when ``max_terms``
+    terms cannot reach it."""
+    psf = np.asarray(psf, dtype=np.float64)
+    candidates = _separable_candidates(psf, max_terms)
+    norm = np.linalg.norm(psf)
+    recon = np.zeros_like(psf)
+    terms: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    for _, wz, wy, wx in candidates[: max_terms * max_terms]:
+        terms.append(
+            (wz.astype(np.float32), wy.astype(np.float32), wx.astype(np.float32))
+        )
+        recon = recon + np.einsum("z,y,x->zyx", wz, wy, wx)
+        if np.linalg.norm(psf - recon) / max(norm, 1e-30) <= tol:
+            if len(terms) > max_terms:
+                return None
+            return terms
+    return None
+
+
+def separable_truncate(
+    psf: np.ndarray,
+    max_terms: int = 6,
+    plateau_rtol: float | None = None,
+    stop_below: float | None = None,
+) -> tuple[list[tuple[np.ndarray, np.ndarray, np.ndarray]], float]:
+    """Best-effort top-K separable truncation: ``(terms, rel_residual)``
+    (the measured-PSF denoiser; see the JAX module)."""
+    psf = np.asarray(psf, dtype=np.float64)
+    candidates = _separable_candidates(psf, max_terms)[:max_terms]
+    norm = np.linalg.norm(psf)
+    recon = np.zeros_like(psf)
+    terms: list[tuple[np.ndarray, np.ndarray, np.ndarray]] = []
+    residual = 1.0
+    for _, wz, wy, wx in candidates:
+        new = recon + np.einsum("z,y,x->zyx", wz, wy, wx)
+        new_residual = float(np.linalg.norm(psf - new) / max(norm, 1e-30))
+        if (
+            plateau_rtol is not None
+            and terms
+            and residual - new_residual < plateau_rtol * residual
+            and (stop_below is None or residual <= stop_below)
+        ):
+            # Noise plateau: more rank past the knee models iid noise.
+            break
+        terms.append(
+            (wz.astype(np.float32), wy.astype(np.float32), wx.astype(np.float32))
+        )
+        recon = new
+        residual = new_residual
+    return terms, residual
+
+
+def plan_separable_terms(
+    psf_np: np.ndarray, settings
+) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]] | None:
+    """Resolve the separable term set for a PSF under ``settings``:
+    strict decomposition within ``separable_tol``, then at extended rank,
+    then (``psf_denoise != 'off'``) rank-K truncation accepted below
+    ``psf_denoise_max_residual``; otherwise None (the FFT path)."""
+    psf_unit = np.asarray(psf_np, np.float64)
+    psf_unit = psf_unit / psf_unit.sum()
+    terms = separable_decompose(
+        psf_unit, tol=settings.separable_tol, max_terms=settings.max_separable_terms
+    )
+    if terms is not None:
+        return terms
+    extended = max(settings.max_extended_terms, settings.max_separable_terms)
+    if extended > settings.max_separable_terms:
+        terms = separable_decompose(
+            psf_unit, tol=settings.separable_tol, max_terms=extended
+        )
+        if terms is not None:
+            logger.warning(
+                "PSF needs extended rank %d (> max_separable_terms=%d) to "
+                "reach tol=%g; separable path, cost linear in the rank",
+                len(terms), settings.max_separable_terms,
+                settings.separable_tol,
+            )
+            return terms
+    if settings.psf_denoise == "off":
+        logger.warning(
+            "PSF not separable within tol=%g and psf_denoise='off': it "
+            "needs the FFT path",
+            settings.separable_tol,
+        )
+        return None
+    terms, residual = separable_truncate(
+        psf_unit,
+        max_terms=extended,
+        plateau_rtol=0.08,
+        stop_below=settings.psf_denoise_max_residual,
+    )
+    if residual <= settings.psf_denoise_max_residual:
+        logger.warning(
+            "PSF not strictly separable: denoised to rank-%d (discarded "
+            "residual %.2e Frobenius, treated as measurement noise); "
+            "deconvolving with the truncated PSF on the separable path",
+            len(terms),
+            residual,
+        )
+        return terms
+    logger.warning(
+        "PSF rank-%d residual %.2e exceeds psf_denoise_max_residual=%g "
+        "(non-separable structure beyond extended rank): it needs the "
+        "FFT path",
+        len(terms),
+        residual,
+        settings.psf_denoise_max_residual,
+    )
+    return None
+
+
+def _crop_psf_support(psf_np: np.ndarray, rel_tol: float) -> np.ndarray:
+    """Trim near-zero border planes, preserving the ``k // 2`` centre
+    (symmetric margins; magnitude threshold ``rel_tol * max|psf|``)."""
+    if rel_tol <= 0:
+        return psf_np
+    mask = np.abs(psf_np) > rel_tol * float(np.abs(psf_np).max())
+    slices = []
+    for ax in range(psf_np.ndim):
+        other = tuple(a for a in range(psf_np.ndim) if a != ax)
+        hit = np.argwhere(mask.any(axis=other)).ravel()
+        if hit.size == 0:
+            return psf_np
+        margin = min(int(hit.min()), psf_np.shape[ax] - 1 - int(hit.max()))
+        slices.append(slice(margin, psf_np.shape[ax] - margin))
+    return psf_np[tuple(slices)]
+
+
+def _pad_psf_to_odd(psf_np: np.ndarray) -> np.ndarray:
+    """Append a zero plane to even-length PSF axes, so ``taps[::-1]``
+    around ``k // 2`` is the adjoint (the centre element is unchanged)."""
+    pad = [(0, 1 - n % 2) for n in psf_np.shape]
+    if not any(hi for _, hi in pad):
+        return psf_np
+    return np.pad(psf_np, pad)
+
+
+def gaussian_psf(
+    shape_zyx: tuple[int, int, int], sigma_zyx: tuple[float, float, float]
+) -> np.ndarray:
+    """Separable Gaussian PSF (unit sum), centered at ``shape//2``."""
+    axes = []
+    for n, sigma in zip(shape_zyx, sigma_zyx):
+        u = np.arange(n, dtype=np.float64) - n // 2
+        axes.append(np.exp(-0.5 * (u / sigma) ** 2))
+    psf = axes[0][:, None, None] * axes[1][None, :, None] * axes[2][None, None, :]
+    return (psf / psf.sum()).astype(np.float32)
+
+
+def prepare_psf(psf, settings) -> np.ndarray:
+    """The working PSF: float32, support-cropped, odd on every axis."""
+    psf_np = np.asarray(psf, dtype=np.float32)
+    return _pad_psf_to_odd(_crop_psf_support(psf_np, settings.psf_crop_tol))
+
+
+def check_ported(settings) -> None:
+    """Raise :class:`NotImplementedError` for deconvolution settings the
+    port does not run yet (never silently ignored)."""
+    if settings.acceleration != "none":
+        raise NotImplementedError(
+            f"acceleration={settings.acceleration!r} is not ported yet: "
+            "ROADMAP queue 2 kernel 2b (rl_fused ratio_accel/mult_accel)"
+        )
+    if settings.algorithm in ("fft", "hybrid"):
+        raise NotImplementedError(
+            f"algorithm={settings.algorithm!r} is not ported yet: ROADMAP "
+            "queue 1 item 8 (non-separable and hybrid RL)"
+        )
+    if settings.fused_low_precision_iters > 0:
+        raise NotImplementedError(
+            "fused_low_precision_iters > 0 (2-pass bf16 TPU dots) is not "
+            "ported: the CUDA kernel is float32 FMA throughout (ROADMAP "
+            "queue 1 item 2)"
+        )
+    if settings.donate_input:
+        raise NotImplementedError(
+            "donate_input=True is not ported yet: ROADMAP queue 1 item 3"
+        )
+    resolve_separable_backend(settings.separable_backend)
+
+
+def resolve_separable_backend(backend: str) -> str:
+    """``auto``/``fused`` -> ``fused``; the others are not ported yet."""
+    if backend in ("auto", "fused"):
+        return "fused"
+    if backend in _UNPORTED_BACKENDS:
+        raise NotImplementedError(
+            f"separable_backend={backend!r} is not ported yet: "
+            f"{_UNPORTED_BACKENDS[backend]}"
+        )
+    raise ValueError(f"unknown separable_backend {backend!r}")
+
+
+def plan_terms(psf_np: np.ndarray, settings):
+    """Separable terms of the working PSF under ``settings`` (the FFT
+    fallback of a non-separable PSF is not ported: it raises)."""
+    terms = plan_separable_terms(psf_np, settings)
+    if terms is None:
+        if settings.algorithm == "separable":
+            raise ValueError(
+                "PSF is not separable within separable_tol="
+                f"{settings.separable_tol} (<= {settings.max_separable_terms} terms) "
+                "and rank-truncation denoising would discard more than "
+                f"psf_denoise_max_residual={settings.psf_denoise_max_residual}; "
+                "use algorithm='fft' or raise the tolerance"
+            )
+        raise NotImplementedError(
+            "the PSF is not separable and the FFT RL path is not ported "
+            "yet: ROADMAP queue 1 item 8"
+        )
+    return terms
+
+
+def rl_separable(image, psf_np, terms, settings, iterations: int, *,
+                 plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Separable-path RL: resolve the backend and run it (the single
+    dispatch point shared by :func:`richardson_lucy` and the pipeline)."""
+    resolve_separable_backend(settings.separable_backend)
+    from shrimpy_tpu_torch.ops.rl_fused import rl_fused
+
+    return rl_fused(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
+
+
+def richardson_lucy(
+    image,
+    psf,
+    settings=None,
+    *,
+    iterations: int | None = None,
+    terms=None,
+    device=None,
+    plain: bool = False,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Richardson-Lucy deconvolution of a (Z, Y, X) ``image`` by ``psf``.
+
+    ``image`` is a tensor or numpy array, moved to ``device`` when one
+    is given. ``terms`` overrides the planned separable decomposition
+    (a list of numpy ``(wz, wy, wx)`` triples, e.g. from
+    ``shrimpy_tpu.ops.deconv.plan_separable_terms``). Returns a
+    ``dtype`` tensor of ``image.shape`` on the image's device.
+    """
+    settings = settings or deconvolve_settings()
+    check_ported(settings)
+    iters = iterations if iterations is not None else settings.iterations
+    image = as_tensor(image, device)
+    psf_np = prepare_psf(psf, settings)
+    if image.dim() != 3 or psf_np.ndim != 3:
+        raise ValueError(
+            f"the separable path takes a 3-D image and PSF, got {tuple(image.shape)} "
+            f"and {psf_np.shape}"
+        )
+    if terms is None:
+        terms = plan_terms(psf_np, settings)
+    return rl_separable(image, psf_np, terms, settings, iters, plain=plain, dtype=dtype)

@@ -1,0 +1,1 @@
+"""Streaming store reconstruction (imports tensorstore via shrimpy_tpu.io)."""
