@@ -11,19 +11,31 @@ or any check fails. Phases:
 3. each kernel against its plain PyTorch version on the card, on the
    same inputs: the deskew at the production raw (1201, 256, 1600) and
    at (300, 512, 512) with ``keep_overhang`` and ``average_n_slices=3``;
-   the RL half-step in ``ratio``, ``mult`` and ``plain`` modes on the
-   production carry (136, 2908, 1620) and on a smaller carry with a
-   2-term PSF. Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken
-   in another order);
+   the RL half-step in ``ratio``, ``mult`` and ``plain`` modes, the
+   Biggs half-step in ``ratio_accel`` and ``mult_accel`` modes (alpha
+   0.6, random bf16 dx/g_prev; mult_accel in place) and the
+   ``convzy_linear`` z+y kernel (both tap orders), each on the
+   production carry (136, 2908, 1620) and on a (40, 300, 400) carry
+   with a 2-term asymmetric PSF. Tolerance: max|a-b| / max|b| <= 1e-4
+   (float32 sums taken in another order); the bf16 Biggs state within
+   one bf16 ulp, the step-length sums within 1e-5 relative;
 4. the main path through ``build_reconstruct_step`` — deskew, then
    RL-20 with the (9, 21, 21) PSF — on a (1, 1201, 256, 1600) batch from
    a fixed seed, with the kernels' launch counters reset just before and
    read just after; the result against the same step on the plain
    versions in float64 on the card, within the BASELINE budget
    max|a-b| / max|b| <= 1e-3;
+4b. the same step with ``acceleration: biggs`` and 10 iterations (the
+   RL-20-equivalent), against its float64 plain path (bf16 state) by
+   the two-tier gate of ``tests/test_rl_fused.py:244-245``: 99.99 % of
+   voxels within 5e-4 of the scale, every voxel within 2e-2;
+4c. the same two steps on ``separable_backend: linear_pallas``: RL-20
+   within 1e-4 of phase 4's output, Biggs RL-10 within the two-tier gate
+   of phase 4b's;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
-   kernel, kernel, plain), launch counts, peak memory, then the kernel
-   JSON line, the card line and the final ``{"ok": true, ...}`` line.
+   kernel, kernel, plain), launch counts (a path's plain versions must
+   have run on no CUDA tensor), peak memory, then the kernel JSON line,
+   the card line and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -40,12 +52,17 @@ SEED = 0
 RAW_SHAPE = (1201, 256, 1600)  # bench.py::_run_headline
 PSF_SHAPE, PSF_SIGMA = (9, 21, 21), (1.5, 3.0, 3.0)
 ITERATIONS = 20
+BIGGS_ITERATIONS = 10  # bench.py config 7, rl10_biggs_accelerated
 KERNEL_RTOL = 1e-4
+SUM_RTOL = 1e-5  # the Biggs step-length sums
 STEP_RTOL = 1e-3  # BASELINE.md parity budget
+LINEAR_RTOL = 1e-4  # linear_pallas vs fused (tests/test_rl_fused.py:186)
+BULK_TOL, BULK_SHARE, MAX_TOL = 5e-4, 0.9999, 2e-2  # two-tier Biggs gate
 
 
-def headline_settings():
-    """bench.py::_run_headline's ReconstructSettings, as a namespace."""
+def headline_settings(**deconvolve):
+    """bench.py::_run_headline's ReconstructSettings, as a namespace;
+    ``deconvolve`` overrides its deconvolve fields."""
     from shrimpy_tpu_torch.config import (
         deconvolve_settings,
         deskew_settings,
@@ -54,7 +71,7 @@ def headline_settings():
 
     return reconstruct_settings(
         deskew=deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386),
-        deconvolve=deconvolve_settings(iterations=ITERATIONS),
+        deconvolve=deconvolve_settings(**{"iterations": ITERATIONS, **deconvolve}),
     )
 
 
@@ -93,8 +110,106 @@ def compare(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def two_tier(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """The Biggs gate: a share >= BULK_SHARE of voxels within BULK_TOL
+    of max|b|, every voxel within MAX_TOL; returns max|a-b| / max|b|."""
+    scale = float(b.double().abs().max())
+    diff = (a.double() - b.double()).abs()
+    share = float((diff <= BULK_TOL * scale).double().mean())
+    worst = float(diff.max()) / scale
+    ok = share >= BULK_SHARE and worst <= MAX_TOL
+    print(f"  {name}: max|a-b|/max|b| = {worst:.3e} (tol {MAX_TOL:g}), share within "
+          f"{BULK_TOL:g} = {share:.6f} (tol {BULK_SHARE}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"{name}: two-tier gate failed ({worst:.3e}, {share:.6f})")
+    return worst
+
+
+def bf16_within_ulp(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """Equal, or within one bf16 ulp of ``b`` (ulp <= |b| * 2**-7)."""
+    a32, b32 = a.float(), b.float()
+    ulps = float(((a32 - b32).abs() / (b32.abs() * 2.0**-7).clamp_min(1e-30)).max())
+    exact = bool(torch.equal(a, b))
+    print(f"  {name}: {'bit-equal' if exact else f'max {ulps:.3f} bf16 ulp'}", flush=True)
+    if not ulps <= 1.0:
+        raise AssertionError(f"{name}: {ulps:.3f} bf16 ulp apart")
+
+
+def sum_close(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    err = abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+    print(f"  {name}: {float(a):.9g} vs {float(b):.9g}, rel {err:.3e} (tol {SUM_RTOL:g})",
+          flush=True)
+    if not err <= SUM_RTOL:
+        raise AssertionError(f"{name}: relative error {err:.3e} > {SUM_RTOL:g}")
+
+
 def uniform(shape, gen, lo=0.0, hi=1.0) -> torch.Tensor:
     return torch.rand(shape, generator=gen, device="cuda") * (hi - lo) + lo
+
+
+def counters() -> dict:
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_linear_cuda, convzy_linear_plain
+    from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
+    from shrimpy_tpu_torch.ops.rl_fused import half_step_cuda, half_step_plain
+
+    return {
+        "deskew": (deskew_cuda, "launches"),
+        "rl_half_step": (half_step_cuda, "launches"),
+        "rl_half_step_accel": (half_step_cuda, "accel_launches"),
+        "convzy_linear": (convzy_linear_cuda, "launches"),
+        "plain_half_step_on_cuda": (half_step_plain, "cuda_calls"),
+        "plain_convzy_on_cuda": (convzy_linear_plain, "cuda_calls"),
+    }
+
+
+def drive(step, batch, want: dict) -> tuple[torch.Tensor, dict, float]:
+    """Run ``step`` once with every count set to 0 just before and read
+    just after; fail unless each named kernel ran and no plain version
+    saw a CUDA tensor. Returns (output, counts, peak GiB); the peak
+    counts what was allocated before (the batch, kept references), and
+    the line printed also gives the step's own rise above that."""
+    table = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    out = step(batch)
+    torch.cuda.synchronize()
+    counts = {name: getattr(obj, attr) for name, (obj, attr) in table.items()}
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  launches: {counts}; peak allocated {peak_gib:.2f} GiB "
+          f"({peak_gib - before / 2**30:.2f} above the {before / 2**30:.2f} GiB held before)",
+          flush=True)
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    if bad:
+        raise AssertionError(f"launch counts {bad}, want {want} (others 0)")
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("non-finite output")
+    return out, counts, peak_gib
+
+
+def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
+    """Warm host-clock times, alternated plain, kernel, kernel, plain."""
+
+    def wall(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    plain(batch)  # warm
+    plain_s, kernel_s = [], []
+    for fn, acc in ((plain, plain_s), (step, kernel_s), (step, kernel_s), (plain, plain_s)):
+        acc.append(wall(fn))
+    k, p = sum(kernel_s) / 2, sum(plain_s) / 2
+    print(f"  {label} kernel path: {k * 1e3:.1f} ms/volume, {vox / k / 1e9:.4f} GVox/s  "
+          f"{kernel_s}")
+    print(f"  {label} plain f32 path: {p * 1e3:.1f} ms/volume, {vox / p / 1e9:.4f} GVox/s  "
+          f"{plain_s}")
+    return {"gvox_s": vox / k / 1e9, "plain_gvox_s": vox / p / 1e9, "ms": k * 1e3,
+            "plain_ms": p * 1e3}
 
 
 def phase_deskew(gen) -> dict:
@@ -117,18 +232,11 @@ def phase_deskew(gen) -> dict:
 
 
 def phase_rl(gen) -> dict:
-    import numpy as np
-
-    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, plan_terms, prepare_psf
     from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_step_cuda, half_step_plain
 
-    deconv = headline_settings().deconvolve
-    psf_np = prepare_psf(gaussian_psf(PSF_SHAPE, PSF_SIGMA), deconv)
-    terms = plan_terms(psf_np, deconv)
-    radii = tuple(k // 2 for k in psf_np.shape)
-    print(f"  PSF {psf_np.shape}: {len(terms)} separable term(s), radii {radii}")
-
-    eps = deconv.epsilon
+    terms, carry = production_terms()
+    print(f"  PSF {PSF_SHAPE}: {len(terms)} separable term(s), carry {carry}")
+    eps = headline_settings().deconvolve.epsilon
 
     def modes(shape, terms, label):
         """All three modes, kernel against plain; the ratio error back."""
@@ -144,71 +252,191 @@ def phase_rl(gen) -> dict:
         }
         return errs["ratio"], conv, inp, aux
 
-    carry = tuple(n + 2 * r for n, r in zip((128, 2888, 1600), radii))
     err, conv, inp, aux = modes(carry, terms, f"{carry}")
     out = torch.empty_like(inp)
     scratch = [torch.empty_like(inp) for _ in range(2)]
     ms = gpu_ms(lambda: half_step_cuda(inp, aux, conv, "ratio", eps, out=out, scratch=scratch), 10)
     plain_ms = gpu_ms(lambda: half_step_plain(inp, aux, conv, "ratio", eps), 2)
     del inp, aux, out, scratch
-
-    # A 2-term PSF with asymmetric taps of unequal radii per axis.
-    rng = np.random.default_rng(SEED)
-    two = [tuple(rng.random(k).astype(np.float32) for k in (7, 11, 13)) for _ in range(2)]
-    modes((40, 300, 400), two, "(40, 300, 400) 2 terms")
+    modes((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
-def phase_step(gen) -> dict:
-    from shrimpy_tpu_torch.ops.deconv import gaussian_psf
-    from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
-    from shrimpy_tpu_torch.ops.rl_fused import half_step_cuda
-    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step, output_shape
+def production_terms():
+    """The headline PSF's separable terms and the production carry."""
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, plan_terms, prepare_psf
 
-    settings = headline_settings()
-    psf = gaussian_psf(PSF_SHAPE, PSF_SIGMA)
-    batch = uniform((1, *RAW_SHAPE), gen, 0.0, 100.0)
-    step = build_reconstruct_step(settings, psf=psf, device="cuda")
-    plain32 = build_reconstruct_step(settings, psf=psf, device="cuda", plain=True)
-    out_zyx = output_shape(RAW_SHAPE, settings)
-    vox = math.prod(out_zyx)
+    deconv = headline_settings().deconvolve
+    psf_np = prepare_psf(gaussian_psf(PSF_SHAPE, PSF_SIGMA), deconv)
+    radii = tuple(k // 2 for k in psf_np.shape)
+    carry = tuple(n + 2 * r for n, r in zip((128, 2888, 1600), radii))
+    return plan_terms(psf_np, deconv), carry
 
-    # The main path: counters reset just before, read just after.
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    deskew_cuda.launches = 0
-    half_step_cuda.launches = 0
-    out = step(batch)
-    torch.cuda.synchronize()
-    launches = {"deskew": deskew_cuda.launches, "rl_half_step": half_step_cuda.launches}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  main path launches: {launches}; peak allocated {peak_gib:.2f} GiB")
-    if not all(n > 0 for n in launches.values()):
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
-    if tuple(out.shape) != (1, *out_zyx) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"bad output: shape {tuple(out.shape)}, want (1, {out_zyx})")
 
-    ref = build_reconstruct_step(settings, psf=psf, device="cuda", plain=True,
-                                 dtype=torch.float64)(batch)
+def two_term_psf():
+    """A 2-term PSF with asymmetric taps of unequal radii per axis."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED)
+    return [tuple(rng.random(k).astype(np.float32) for k in (7, 11, 13)) for _ in range(2)]
+
+
+def phase_accel(gen) -> dict:
+    """ratio_accel and mult_accel against their plain versions."""
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_step_cuda, half_step_plain
+
+    eps = headline_settings().deconvolve.epsilon
+    alpha = torch.tensor(0.6, device="cuda")
+
+    def check(shape, terms, label):
+        conv = Stencil(terms, device="cuda")
+        adj = Stencil(terms, flip=True, device="cuda")
+        x = uniform(shape, gen, 0.0, 10.5)
+        data = uniform(shape, gen, 0.0, 5.0)
+        ratio = uniform(shape, gen, 0.5, 10.5)
+        dx = uniform(shape, gen, -1.0, 1.0).to(torch.bfloat16)
+        gp = uniform(shape, gen, 0.0, 1.0).to(torch.bfloat16)
+        err = compare(f"ratio_accel {label}",
+                      half_step_cuda(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha),
+                      half_step_plain(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha),
+                      KERNEL_RTOL)
+        want = half_step_plain(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp, alpha=alpha)
+        got = half_step_cuda(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp, alpha=alpha)
+        if got[0] is not x or got[1] is not dx or got[2] is not gp:
+            raise AssertionError("mult_accel did not update x, dx and g_prev in place")
+        err = max(err, compare(f"mult_accel x_new {label}", x, want[0], KERNEL_RTOL))
+        bf16_within_ulp(f"mult_accel dx {label}", dx, want[1])
+        bf16_within_ulp(f"mult_accel g {label}", gp, want[2])
+        sum_close(f"mult_accel <g, g_prev> {label}", got[3], want[3])
+        sum_close(f"mult_accel <g, g> {label}", got[4], want[4])
+        return err, conv, adj, x, data, ratio, dx, gp
+
+    terms, carry = production_terms()
+    err, conv, adj, x, data, ratio, dx, gp = check(carry, terms, f"{carry}")
+    out = torch.empty_like(x)
+    scratch = [torch.empty_like(x) for _ in range(2)]
+    parts = torch.empty((2, carry[0] * carry[1]), device="cuda")
+    r_ms = gpu_ms(lambda: half_step_cuda(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha,
+                                         out=out, scratch=scratch), 10)
+    r_plain = gpu_ms(lambda: half_step_plain(x, data, conv, "ratio_accel", eps, dx=dx,
+                                             alpha=alpha), 2)
+    # mult_accel in place: x grows by ~conv(ratio) ~ 5.5 a call, far
+    # from overflow in 11 calls.
+    m_ms = gpu_ms(lambda: half_step_cuda(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp,
+                                         alpha=alpha, scratch=scratch, partials=parts), 10)
+    m_plain = gpu_ms(lambda: half_step_plain(ratio, x, adj, "mult_accel", eps, dx=dx,
+                                             g_prev=gp, alpha=alpha), 2)
+    del x, data, ratio, dx, gp, out, scratch, parts
+    check((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms")
+    return {"max_abs_err": err, "ms": (r_ms + m_ms) / 2, "plain_ms": (r_plain + m_plain) / 2,
+            "ms_ratio_accel": r_ms, "plain_ms_ratio_accel": r_plain,
+            "ms_mult_accel": m_ms, "plain_ms_mult_accel": m_plain}
+
+
+def phase_convzy(gen) -> dict:
+    """convzy_linear against its plain version, both tap orders."""
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_linear_cuda, convzy_linear_plain
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil
+
+    terms, carry = production_terms()
+    res = {}
+    for shape, tt, label in ((carry, terms, f"{carry}"),
+                             ((40, 300, 400), two_term_psf(), "(40, 300, 400)")):
+        v = uniform(shape, gen, 0.0, 10.0)
+        for flip in (False, True):
+            for t, (kz, ky, _) in enumerate(Stencil(tt, flip=flip).host):
+                err = compare(f"convzy_linear {label} term {t} flip={flip}",
+                              convzy_linear_cuda(v, kz, ky), convzy_linear_plain(v, kz, ky),
+                              KERNEL_RTOL)
+                if shape == carry:
+                    res["max_abs_err"] = max(err, res.get("max_abs_err", 0.0))
+        if shape == carry:
+            kz, ky, _ = Stencil(tt).host[0]
+            kzd, kyd = (torch.tensor(k, dtype=torch.float32, device="cuda") for k in (kz, ky))
+            out = torch.empty_like(v)
+            res["ms"] = gpu_ms(lambda: convzy_linear_cuda(v, kzd, kyd, out=out), 10)
+            res["plain_ms"] = gpu_ms(lambda: convzy_linear_plain(v, kz, ky), 2)
+            del out
+        del v
+    return res
+
+
+class Steps:
+    """The production batch and the reconstruct steps of phases 4-4c."""
+
+    def __init__(self, gen):
+        from shrimpy_tpu_torch.ops.deconv import gaussian_psf
+        from shrimpy_tpu_torch.parallel.pipeline import output_shape
+
+        self.psf = gaussian_psf(PSF_SHAPE, PSF_SIGMA)
+        self.batch = uniform((1, *RAW_SHAPE), gen, 0.0, 100.0)
+        self.out_zyx = output_shape(RAW_SHAPE, headline_settings())
+        self.vox = math.prod(self.out_zyx)
+
+    def build(self, plain=False, dtype=torch.float32, **deconvolve):
+        from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+
+        return build_reconstruct_step(headline_settings(**deconvolve), psf=self.psf,
+                                      device="cuda", plain=plain, dtype=dtype)
+
+    def check_shape(self, out):
+        if tuple(out.shape) != (1, *self.out_zyx):
+            raise AssertionError(f"bad output shape {tuple(out.shape)}, want (1, {self.out_zyx})")
+
+
+def phase_step(steps: Steps) -> dict:
+    """Phase 4: deskew + RL-20 on the fused backend."""
+    step = steps.build()
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "rl_half_step": 2 * ITERATIONS})
+    steps.check_shape(out)
+    ref = steps.build(plain=True, dtype=torch.float64)(steps.batch)
     compare("whole step (deskew + RL-20) vs float64 plain", out, ref, STEP_RTOL)
     del ref
+    times = timed_pair(step, steps.build(plain=True), steps.batch, steps.vox, "RL-20")
+    return {"out": out, "launches": counts, "peak_gib": peak, **times}
 
-    def wall(fn) -> float:
+
+def phase_biggs(steps: Steps) -> dict:
+    """Phase 4b: deskew + Biggs RL-10 in the half-step kernels."""
+    kw = {"acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
+    step = steps.build(**kw)
+    out, counts, peak = drive(step, steps.batch,
+                              {"deskew": 1, "rl_half_step_accel": 2 * BIGGS_ITERATIONS})
+    steps.check_shape(out)
+    ref = steps.build(plain=True, dtype=torch.float64, **kw)(steps.batch)
+    err = two_tier("Biggs RL-10 step vs float64 plain (bf16 state)", out, ref)
+    del ref
+    times = timed_pair(step, steps.build(plain=True, **kw), steps.batch, steps.vox,
+                       "Biggs RL-10 (RL-20-equivalent)")
+    return {"out": out, "launches": counts, "peak_gib": peak, "rel_err": err, **times}
+
+
+def phase_linear(steps: Steps, rl20: torch.Tensor, biggs: torch.Tensor) -> dict:
+    """Phase 4c: the same steps on separable_backend linear_pallas."""
+    res = {}
+    for label, kw, ref, n in (
+        ("RL-20", {}, rl20, 2 * ITERATIONS),
+        ("Biggs RL-10", {"acceleration": "biggs", "iterations": BIGGS_ITERATIONS}, biggs,
+         2 * BIGGS_ITERATIONS),
+    ):
+        step = steps.build(separable_backend="linear_pallas", **kw)
+        out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_linear": n})
+        steps.check_shape(out)
+        if ref is rl20:
+            err = rel_err(out, ref)
+            compare("linear_pallas RL-20 vs fused kernel RL-20", out, ref, LINEAR_RTOL)
+        else:
+            err = two_tier("linear_pallas Biggs RL-10 vs fused kernel Biggs RL-10", out, ref)
+        del out
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fn(batch)
+        step(steps.batch)
         torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    plain32(batch)  # warm
-    plain_s, kernel_s = [], []
-    for fn, acc in ((plain32, plain_s), (step, kernel_s), (step, kernel_s), (plain32, plain_s)):
-        acc.append(wall(fn))
-    k, p = sum(kernel_s) / 2, sum(plain_s) / 2
-    print(f"  kernel path: {k * 1e3:.1f} ms/volume, {vox / k / 1e9:.4f} GVox/s  {kernel_s}")
-    print(f"  plain f32 path: {p * 1e3:.1f} ms/volume, {vox / p / 1e9:.4f} GVox/s  {plain_s}")
-    return {"launches": launches, "gvox_s": vox / k / 1e9, "plain_gvox_s": vox / p / 1e9,
-            "peak_gib": peak_gib}
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"  linear_pallas {label}: {ms:.1f} ms/volume, "
+              f"{steps.vox / ms / 1e6:.4f} GVox/s (warm)", flush=True)
+        res[label] = {"launches": counts, "peak_gib": peak, "rel_err": err, "ms": ms}
+    return res
 
 
 def main() -> int:
@@ -234,13 +462,30 @@ def main() -> int:
     print("[3] kernels against their plain versions", flush=True)
     desk = phase_deskew(gen)
     rl = phase_rl(gen)
+    accel = phase_accel(gen)
+    zy = phase_convzy(gen)
     torch.cuda.empty_cache()
+    steps = Steps(gen)
     print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
-    step = phase_step(gen)
-    print(f"[5] {card}: kernel path {step['gvox_s']:.4f} GVox/s, plain f32 path "
-          f"{step['plain_gvox_s']:.4f} GVox/s; deskew kernel {desk['ms']:.3f} ms "
-          f"(plain {desk['plain_ms']:.3f}); RL half-step kernel {rl['ms']:.3f} ms "
-          f"(plain {rl['plain_ms']:.3f}); peak {step['peak_gib']:.2f} GiB", flush=True)
+    step = phase_step(steps)
+    torch.cuda.empty_cache()
+    print("[4b] deskew + Biggs RL-10 (in-kernel) at raw (1201, 256, 1600)", flush=True)
+    biggs = phase_biggs(steps)
+    torch.cuda.empty_cache()
+    print("[4c] the same steps on separable_backend linear_pallas", flush=True)
+    lin = phase_linear(steps, step.pop("out"), biggs.pop("out"))
+    print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
+          f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
+          f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
+          f"{biggs['rel_err']:.3e}; linear_pallas RL-20 {lin['RL-20']['ms']:.1f} ms, "
+          f"Biggs RL-10 {lin['Biggs RL-10']['ms']:.1f} ms; deskew kernel {desk['ms']:.3f} ms "
+          f"(plain {desk['plain_ms']:.3f}); RL half-step {rl['ms']:.3f} ms (plain "
+          f"{rl['plain_ms']:.3f}); ratio_accel {accel['ms_ratio_accel']:.3f} ms (plain "
+          f"{accel['plain_ms_ratio_accel']:.3f}); mult_accel {accel['ms_mult_accel']:.3f} ms "
+          f"(plain {accel['plain_ms_mult_accel']:.3f}); convzy_linear {zy['ms']:.3f} ms "
+          f"(plain {zy['plain_ms']:.3f}); peak {step['peak_gib']:.2f} / "
+          f"{biggs['peak_gib']:.2f} / {lin['RL-20']['peak_gib']:.2f} / "
+          f"{lin['Biggs RL-10']['peak_gib']:.2f} GiB", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
@@ -249,6 +494,14 @@ def main() -> int:
          "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
          "launches": step["launches"]["rl_half_step"], **rl},
+        {"name": "rl_half_step_accel", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
+         "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
+         "launches": biggs["launches"]["rl_half_step_accel"], **accel},
+        {"name": "convzy_linear", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/convzy_linear.cu",
+         "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
+         "launches": lin["RL-20"]["launches"]["convzy_linear"], **zy},
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -2,7 +2,8 @@
 // over T rank-1 terms plus the RL epilogue.
 //
 // Replaces the TPU kernel shrimpy_tpu/ops/rl_fused.py::_rl_fused_pass in
-// modes "ratio", "mult" and "plain" (callers conv3_fused and rl_fused).
+// modes "ratio", "mult", "plain", "ratio_accel" and "mult_accel"
+// (callers conv3_fused and rl_fused).
 // Semantics (oracle: richardson_lucy_reference_separable(boundary="zero")):
 //
 //   conv(v) = sum_t X_t Y_t Z_t v,   (A v)[n] = sum_i k[i] * v[n + r - i]
@@ -12,8 +13,17 @@
 //   ratio: out = aux / max(conv(in), eps)   (aux = data)
 //   mult:  out = aux * conv(in)             (aux = est, may alias out)
 //   plain: out = conv(in)
+// Biggs-Andrews accelerated modes (alpha is a device scalar, dx and g
+// are bf16 carries; y = max(x + alpha*dx, 0) never exists in memory):
+//   ratio_accel: out = data / max(conv(y), eps), y formed as the z pass
+//                of every term loads x (conv_axis_kernel<true>)
+//   mult_accel:  x_new = y * conv(ratio) over x, dx = bf16(x_new - x)
+//                over dx, g = bf16(x_new - y) over g_prev, and per-block
+//                float32 partial sums of g*g_prev and g*g
+//                (conv_x_accel_kernel); the wrapper sums the partials
+//                with torch.sum (deterministic: no float atomics)
 //
-// Two kernels, launched by ops/rl_fused.py::half_step_cuda per term as
+// Three kernels, launched by ops/rl_fused.py::half_step_cuda per term as
 // z pass -> y pass -> x pass:
 //   * conv_axis: a 1-D convolution along the middle axis of an
 //     (outer, n, inner) view (z: (1, gz, gy*gx), y: (gz, gy, gx)).
@@ -24,7 +34,15 @@
 //   * conv_x: the x pass on contiguous rows, one block per (z, y) row:
 //     the whole row plus halo is staged in shared memory, then each
 //     thread produces outputs, adds the partial sum of earlier terms
-//     (prev) and applies the epilogue in the same launch.
+//     (prev) and applies the epilogue in the same launch. The linear
+//     backend (ops/conv3_cuda.py) runs its x axis with it too.
+//   * conv_x_accel: conv_x with the mult_accel epilogue, the last term's
+//     x pass of that mode. The TPU kernel carries its partials in one
+//     resident (8, 128) block across a sequential grid; here blocks run
+//     in no order, so each writes its own pair and a second pass sums.
+// The accelerated modes move more: ratio_accel's z pass reads the bf16
+// dx (half a carry) per term; mult_accel's x pass reads dx and g_prev and
+// writes them back (two carries' worth of bf16).
 // All arithmetic is float32 FMA (no TF32, no tensor cores). The TPU
 // layout machinery (y<->x swap, staggered est offset, 128-lane rounding,
 // bf16 hi/lo split) is not ported: these kernels work on the exact G
@@ -38,6 +56,7 @@
 // Fusing the passes (z+y in one launch, a ring of planes in shared
 // memory, TMA) is the lever for a later change.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -51,10 +70,22 @@ constexpr int kThreadsInner = 128;  // threads along the contiguous axis
 constexpr int kTileN = 32;          // outputs per thread along the conv axis
 constexpr int kThreadsRow = 128;    // threads per x row
 
+// The extrapolated point y = max(x + alpha*dx, 0), rounded as the plain
+// version rounds it (x + alpha*dx as a product, then a sum, never one
+// FMA): conv_axis_kernel<true> and conv_x_accel_kernel must form the
+// same y bit for bit, or g = x_new - y is off by an ulp.
+__device__ __forceinline__ float extrapolate(float x, __nv_bfloat16 d, float alpha) {
+  return fmaxf(__fadd_rn(x, __fmul_rn(alpha, __bfloat162float(d))), 0.f);
+}
+
+// kAccel: the input is y formed on load from x (in), dx and *alpha.
+template <bool kAccel>
 __global__ void conv_axis_kernel(const float* __restrict__ in,
                                  float* __restrict__ out,
                                  const float* __restrict__ taps, int k,
-                                 long long n, long long inner) {
+                                 long long n, long long inner,
+                                 const __nv_bfloat16* __restrict__ dx,
+                                 const float* __restrict__ alpha) {
   extern __shared__ float col[];  // [(kTileN + 2r) * kThreadsInner]
   const int r = k / 2;
   const long long i = (long long)blockIdx.x * kThreadsInner + threadIdx.x;
@@ -63,12 +94,18 @@ __global__ void conv_axis_kernel(const float* __restrict__ in,
   const long long plane = (long long)blockIdx.z * n * inner;
   const float* src = in + plane + i;
   float* dst = out + plane + i;
+  const __nv_bfloat16* dsrc = kAccel ? dx + plane + i : nullptr;
+  const float a = kAccel ? *alpha : 0.f;
   const int span = kTileN + 2 * r;
 #pragma unroll 8
   for (int j = 0; j < span; ++j) {
     const long long m = n0 - r + j;
-    col[j * kThreadsInner + threadIdx.x] =
-        (m >= 0 && m < n) ? src[m * inner] : 0.f;
+    float v = 0.f;
+    if (m >= 0 && m < n) {
+      v = src[m * inner];
+      if (kAccel) v = extrapolate(v, dsrc[m * inner], a);
+    }
+    col[j * kThreadsInner + threadIdx.x] = v;
   }
   const int count = (int)min((long long)kTileN, n - n0);
   for (int o = 0; o < count; ++o) {
@@ -114,6 +151,70 @@ __global__ void conv_x_kernel(const float* __restrict__ in, const float* prev,
   }
 }
 
+// The x pass of mode mult_accel. x, dx and g are read and written in
+// place (each element by one thread), so none of them is __restrict__.
+// partials[blockIdx.x] and partials[rows + blockIdx.x] receive this
+// row's sums of g*g_prev and g*g over the bf16-rounded g.
+__global__ void conv_x_accel_kernel(const float* __restrict__ in,
+                                    const float* prev, float* x,
+                                    __nv_bfloat16* dx, __nv_bfloat16* g,
+                                    const float* __restrict__ alpha,
+                                    float* __restrict__ partials,
+                                    const float* __restrict__ taps, int k,
+                                    long long rows, long long n) {
+  extern __shared__ float row[];  // [n + 2r]
+  __shared__ float red[2][kThreadsRow / 32];
+  const int r = k / 2;
+  const long long base = (long long)blockIdx.x * n;
+  for (long long j = threadIdx.x; j < n + 2 * r; j += kThreadsRow) {
+    const long long m = j - r;
+    row[j] = (m >= 0 && m < n) ? in[base + m] : 0.f;
+  }
+  __syncthreads();
+  const float a = *alpha;
+  float s_num = 0.f, s_den = 0.f;
+  for (long long c0 = threadIdx.x; c0 < n; c0 += kThreadsRow) {
+    float acc = 0.f;
+    const float* c = row + c0 + 2 * r;
+    for (int t = 0; t < k; ++t) {
+      acc = fmaf(taps[t], c[-t], acc);
+    }
+    if (prev != nullptr) acc += prev[base + c0];
+    const long long e = base + c0;
+    const float xo = x[e];
+    const float y = extrapolate(xo, dx[e], a);
+    const float xn = __fmul_rn(y, acc);
+    const __nv_bfloat16 gb = __float2bfloat16_rn(__fsub_rn(xn, y));
+    const float gf = __bfloat162float(gb);
+    const float gp = __bfloat162float(g[e]);
+    x[e] = xn;
+    dx[e] = __float2bfloat16_rn(__fsub_rn(xn, xo));
+    g[e] = gb;
+    s_num = fmaf(gf, gp, s_num);
+    s_den = fmaf(gf, gf, s_den);
+  }
+  // Fixed-order block reduction: warp shuffles, then warp 0 in order.
+  for (int off = 16; off > 0; off >>= 1) {
+    s_num += __shfl_down_sync(0xffffffffu, s_num, off);
+    s_den += __shfl_down_sync(0xffffffffu, s_den, off);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (lane == 0) {
+    red[0][warp] = s_num;
+    red[1][warp] = s_den;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t_num = 0.f, t_den = 0.f;
+    for (int w = 0; w < kThreadsRow / 32; ++w) {
+      t_num += red[0][w];
+      t_den += red[1][w];
+    }
+    partials[blockIdx.x] = t_num;
+    partials[rows + blockIdx.x] = t_den;
+  }
+}
+
 int set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
@@ -122,16 +223,26 @@ int set_smem(const void* kernel, size_t bytes) {
 
 }  // namespace
 
+// dx == nullptr: plain input; otherwise y = max(in + *alpha * dx, 0).
 extern "C" int shrimpy_conv_axis(const void* in, void* out, const void* taps,
                                  int k, long long outer, long long n,
-                                 long long inner, void* stream) {
+                                 long long inner, const void* dx,
+                                 const void* alpha, void* stream) {
   const size_t smem = (size_t)(kTileN + 2 * (k / 2)) * kThreadsInner * sizeof(float);
-  int err = set_smem((const void*)conv_axis_kernel, smem);
+  const void* kernel = dx != nullptr ? (const void*)conv_axis_kernel<true>
+                                     : (const void*)conv_axis_kernel<false>;
+  int err = set_smem(kernel, smem);
   if (err != 0) return err;
   dim3 grid((unsigned)((inner + kThreadsInner - 1) / kThreadsInner),
             (unsigned)((n + kTileN - 1) / kTileN), (unsigned)outer);
-  conv_axis_kernel<<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
-      (const float*)in, (float*)out, (const float*)taps, k, n, inner);
+  if (dx != nullptr) {
+    conv_axis_kernel<true><<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
+        (const float*)in, (float*)out, (const float*)taps, k, n, inner,
+        (const __nv_bfloat16*)dx, (const float*)alpha);
+  } else {
+    conv_axis_kernel<false><<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
+        (const float*)in, (float*)out, (const float*)taps, k, n, inner, nullptr, nullptr);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -145,5 +256,19 @@ extern "C" int shrimpy_conv_x(const void* in, const void* prev, const void* aux,
   conv_x_kernel<<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
       (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
       (const float*)taps, k, n, mode, eps);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int shrimpy_conv_x_accel(const void* in, const void* prev, void* x,
+                                    void* dx, void* g, const void* alpha,
+                                    void* partials, const void* taps, int k,
+                                    long long rows, long long n, void* stream) {
+  const size_t smem = (size_t)(n + 2 * (k / 2)) * sizeof(float);
+  int err = set_smem((const void*)conv_x_accel_kernel, smem);
+  if (err != 0) return err;
+  conv_x_accel_kernel<<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
+      (const float*)in, (const float*)prev, (float*)x, (__nv_bfloat16*)dx,
+      (__nv_bfloat16*)g, (const float*)alpha, (float*)partials,
+      (const float*)taps, k, rows, n);
   return (int)cudaGetLastError();
 }

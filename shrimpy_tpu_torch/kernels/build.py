@@ -1,10 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every ``shrimpy_tpu_torch/csrc/*.cu`` is compiled at first use, in one
-``nvcc`` call, into one shared library with a plain C interface::
+Every ``shrimpy_tpu_torch/csrc/*.cu`` is compiled at first use, one
+``nvcc`` process per source, all started together, and the objects are
+linked into one shared library with a plain C interface::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/libshrimpy_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu     # each, in parallel
+    nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
+         -o build/libshrimpy_kernels_<hash>.so <objs>
 
 and loaded with :mod:`ctypes`. The sources include no PyTorch header,
 so the build takes seconds (PyTorch's ``cpp_extension.load`` builds
@@ -34,7 +37,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -46,10 +49,14 @@ SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
     # ns, nt, nx, nz, ny, n_groups, a_avg, stream
     "shrimpy_deskew": [_P] * 10 + [_I64] * 6 + [_I32, _P],
-    # in, out, taps, k, outer, n, inner, stream
-    "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P],
+    # in, out, taps, k, outer, n, inner, dx, alpha, stream
+    "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P, _P, _P],
     # in, prev, aux, out, taps, k, rows, n, mode, eps, stream
     "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I32, _F32, _P],
+    # in, prev, x, dx, g, alpha, partials, taps, k, rows, n, stream
+    "shrimpy_conv_x_accel": [_P] * 8 + [_I32, _I64, _I64, _P],
+    # in, out, kz, nkz, ky, nky, gz, gy, gx, stream
+    "shrimpy_convzy_linear": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
 }
 
 _LOCK = threading.Lock()
@@ -89,21 +96,42 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into the keyed library (if absent)."""
+    """Compile every ``csrc/*.cu`` into the keyed library (if absent):
+    one nvcc per source, all at once, then one link."""
     out = library_path()
     if out.exists():
         return out
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    work = BUILD_DIR / f"objs.{os.getpid()}"
+    work.mkdir(exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    objs = [work / f"{src.stem}.o" for src in sources()]
+    procs = []
+    try:
+        for src, obj in zip(sources(), objs):
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 

@@ -16,12 +16,20 @@ Backend resolution (``settings.separable_backend``):
   ``matmul`` backend (``deconv.py:1107``): the two boundaries give
   different images near the edges, so compare the port with the
   ``fused`` backend or the ``boundary="zero"`` oracle.
-* ``matmul``, ``linear_pallas``, ``zy_pallas``, ``fused_iter`` raise
+* ``linear_pallas`` runs :func:`rl_linear`, the same zero-boundary RL
+  through the z+y kernel of :mod:`shrimpy_tpu_torch.ops.conv3_cuda` and
+  the x pass, with Biggs acceleration by the generic
+  :func:`shrimpy_tpu_torch.ops.rl_outer.run_rl_outer` (as
+  ``_rl_sep_linear`` does).
+* ``acceleration: biggs`` runs on both: in the half-step kernels on
+  ``fused``, through the generic loop on ``linear_pallas``.
+* ``matmul``, ``zy_pallas``, ``fused_iter`` raise
   :class:`NotImplementedError` naming the ROADMAP item that ports them;
-  so do ``acceleration: biggs``, the FFT/hybrid algorithms,
-  ``fused_low_precision_iters > 0`` and ``donate_input: true``. None is
-  silently ignored. (``matmul_precision`` chooses MXU dot passes on the
-  TPU; the port's kernels are float32 FMA throughout, so it is not read.)
+  so do the FFT/hybrid algorithms, ``fused_low_precision_iters > 0`` and
+  ``donate_input: true``. None is silently ignored. (``matmul_precision``
+  chooses MXU dot passes on the TPU, including ``linear_pallas``'s x
+  einsum; the port's kernels are float32 FMA throughout, so it is not
+  read.)
 """
 
 from __future__ import annotations
@@ -38,7 +46,6 @@ logger = logging.getLogger(__name__)
 
 _UNPORTED_BACKENDS = {
     "matmul": "ROADMAP queue 1 item 3 (circulant matmul backend)",
-    "linear_pallas": "ROADMAP queue 2 kernel 3 (conv3_pallas._convzy_linear_jit)",
     "zy_pallas": "ROADMAP queue 2 kernel 4 (conv3_pallas._convzy_pallas_jit)",
     "fused_iter": "ROADMAP queue 2 kernel 6 (rl_fused_iter._rl_iter_pass)",
 }
@@ -230,11 +237,8 @@ def prepare_psf(psf, settings) -> np.ndarray:
 def check_ported(settings) -> None:
     """Raise :class:`NotImplementedError` for deconvolution settings the
     port does not run yet (never silently ignored)."""
-    if settings.acceleration != "none":
-        raise NotImplementedError(
-            f"acceleration={settings.acceleration!r} is not ported yet: "
-            "ROADMAP queue 2 kernel 2b (rl_fused ratio_accel/mult_accel)"
-        )
+    if settings.acceleration not in ("none", "biggs"):
+        raise ValueError(f"unknown acceleration {settings.acceleration!r}")
     if settings.algorithm in ("fft", "hybrid"):
         raise NotImplementedError(
             f"algorithm={settings.algorithm!r} is not ported yet: ROADMAP "
@@ -254,9 +258,12 @@ def check_ported(settings) -> None:
 
 
 def resolve_separable_backend(backend: str) -> str:
-    """``auto``/``fused`` -> ``fused``; the others are not ported yet."""
+    """``auto``/``fused`` -> ``fused``; ``linear_pallas`` as is; the
+    others are not ported yet."""
     if backend in ("auto", "fused"):
         return "fused"
+    if backend == "linear_pallas":
+        return backend
     if backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"separable_backend={backend!r} is not ported yet: "
@@ -289,10 +296,45 @@ def rl_separable(image, psf_np, terms, settings, iterations: int, *,
                  plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Separable-path RL: resolve the backend and run it (the single
     dispatch point shared by :func:`richardson_lucy` and the pipeline)."""
-    resolve_separable_backend(settings.separable_backend)
+    if resolve_separable_backend(settings.separable_backend) == "linear_pallas":
+        return rl_linear(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
     from shrimpy_tpu_torch.ops.rl_fused import rl_fused
 
     return rl_fused(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
+
+
+def rl_linear(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
+              plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``linear_pallas`` RL (counterpart of ``_rl_sep_linear``): the
+    step ``est * conv3^T(data / max(conv3(est), eps))`` on the
+    zero-boundary G grid, each conv3 one
+    :func:`~shrimpy_tpu_torch.ops.conv3_cuda.linear_half_step` (z+y
+    kernel, then x), iterated by :func:`run_rl_outer`, Biggs-accelerated
+    when ``settings.acceleration == "biggs"``. ``plain=True`` runs the
+    plain versions on any device in ``dtype`` (the reference path).
+    Float32 throughout on the card (``matmul_precision`` is not read).
+    """
+    from shrimpy_tpu_torch.ops.conv3_cuda import linear_half_step, linear_half_step_plain
+    from shrimpy_tpu_torch.ops.rl_fused import crop_grid, start_on_grid
+    from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
+
+    eps = float(settings.epsilon)
+    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype)
+    kernel = not plain and est.is_cuda
+    if kernel:
+        scratch = [torch.empty_like(est) for _ in range(1 if len(terms) == 1 else 2)]
+        ratio_buf = torch.empty_like(est)
+
+    def step(v: torch.Tensor) -> torch.Tensor:
+        # Updates v in place on the card: run_rl_outer never reads it again.
+        if kernel:
+            ratio = linear_half_step(v, data, conv, "ratio", eps, out=ratio_buf, scratch=scratch)
+            return linear_half_step(ratio, v, adj, "mult", eps, out=v, scratch=scratch)
+        half = linear_half_step_plain if plain else linear_half_step
+        return half(half(v, data, conv, "ratio", eps), v, adj, "mult", eps)
+
+    est = run_rl_outer([(step, iterations)], est, settings.acceleration == "biggs")
+    return crop_grid(est, image.shape, conv.radii)
 
 
 def richardson_lucy(

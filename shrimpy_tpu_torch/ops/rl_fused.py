@@ -22,6 +22,16 @@ the JAX kernel's limits (``rz <= bz``, ``ry <= 120``, ``rx <= 128``) do
 not apply; the kernel raises on what it cannot take (shared-memory
 bounds in :func:`half_step_cuda`).
 
+``acceleration: biggs`` runs Biggs-Andrews RL inside the half-steps,
+as the JAX ``fused`` backend does (``rl_fused.py:937-987``): mode
+``ratio_accel`` convolves ``y = max(x + alpha*dx, 0)`` formed as x is
+read, and mode ``mult_accel`` writes ``x_new = y * conv^T(ratio)``,
+``dx = bf16(x_new - x)``, ``g = bf16(x_new - y)`` and the step-length
+sums ``<g, g_prev>``, ``<g, g>``; ``alpha`` stays a device scalar (see
+:mod:`shrimpy_tpu_torch.ops.rl_outer` for the algorithm). The state
+``dx``/``g`` is bf16 in every dtype, so the float64 plain run is the
+reference for the same algorithm.
+
 :func:`half_step` dispatches on the device: :func:`half_step_plain`
 (shifted-slice FMAs; any float dtype, so also the float64 reference) for
 a CPU tensor, :func:`half_step_cuda` (``csrc/rl_fused.cu``) for a CUDA
@@ -35,9 +45,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from shrimpy_tpu_torch.ops.rl_outer import biggs_state, next_alpha
 from shrimpy_tpu_torch.utils.shapes import round_up
 
-MODES = {"plain": 0, "ratio": 1, "mult": 2}
+MODES = {"plain": 0, "ratio": 1, "mult": 2, "ratio_accel": 1, "mult_accel": 2}
+ACCEL_MODES = ("ratio_accel", "mult_accel")
 PAD_MODES = ("reflect", "edge", "constant")
 
 # Shared-memory ceiling of one block (H100: 227 KB opt-in) and the tile
@@ -116,21 +128,145 @@ def _epilogue(acc: torch.Tensor, aux: torch.Tensor | None, mode: str, eps: float
     return acc
 
 
-def half_step_plain(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6):
-    """One RL half-step in plain PyTorch (any device, any float dtype)."""
+def extrapolate(x: torch.Tensor, dx: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+    """Biggs' extrapolated point ``max(x + alpha * dx, 0)`` in ``x``'s
+    dtype: a product and a sum, each rounded (the kernels round alike)."""
+    return torch.clamp_min(x + alpha * dx.to(x.dtype), 0.0)
+
+
+def half_step_plain(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
+                    dx=None, g_prev=None, alpha=None):
+    """One RL half-step in plain PyTorch (any device, any float dtype).
+
+    ``ratio_accel``: ``inp`` is x, ``aux`` data; returns
+    ``aux / max(conv(extrapolate(x, dx, alpha)), eps)``.
+    ``mult_accel``: ``inp`` is the ratio, ``aux`` is x; returns
+    ``(x_new, dx_new, g_new, num, den)`` as new tensors (the kernel
+    writes the first three over ``aux``, ``dx`` and ``g_prev``), with
+    ``num``/``den`` 0-d sums in ``aux``'s dtype.
+    """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
-    return _epilogue(conv3_plain(inp, stencil), aux, mode, eps)
+    if inp.is_cuda:
+        half_step_plain.cuda_calls += 1
+    if mode == "ratio_accel":
+        return _epilogue(conv3_plain(extrapolate(inp, dx, alpha), stencil), aux, "ratio", eps)
+    acc = conv3_plain(inp, stencil)
+    if mode != "mult_accel":
+        return _epilogue(acc, aux, mode, eps)
+    y = extrapolate(aux, dx, alpha)
+    x_new = y * acc
+    g = (x_new - y).to(g_prev.dtype)
+    gf = g.to(aux.dtype)
+    num = torch.sum(gf * g_prev.to(aux.dtype))
+    den = torch.sum(gf * gf)
+    return x_new, (x_new - aux).to(dx.dtype), g, num, den
 
 
-def _check_cuda_operand(name: str, t: torch.Tensor, shape) -> None:
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+# Calls of the plain half-step on a CUDA tensor since the last reset:
+# the reference path makes them, a kernel path never does.
+half_step_plain.cuda_calls = 0
+
+
+def _check_cuda_operand(name: str, t: torch.Tensor, shape, dtype=torch.float32) -> None:
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(
-            f"half_step_cuda: {name} must be a contiguous float32 CUDA tensor "
+            f"kernel operand {name} must be a contiguous {dtype} CUDA tensor "
             f"(got {t.dtype} on {t.device}, contiguous={t.is_contiguous()})"
         )
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"half_step_cuda: {name} shape {tuple(t.shape)} != {tuple(shape)}")
+        raise ValueError(f"kernel operand {name} shape {tuple(t.shape)} != {tuple(shape)}")
+
+
+def _check_distinct(**tensors) -> None:
+    ptrs = [t.data_ptr() for t in tensors.values()]
+    if len(set(ptrs)) != len(ptrs):
+        raise ValueError(f"kernel operands {', '.join(tensors)} must not alias")
+
+
+def _check_stencil(stencil: Stencil, inp: torch.Tensor) -> None:
+    if stencil.dev is None or stencil.dev[0][0].device != inp.device:
+        raise ValueError("the stencil has no taps on this CUDA device")
+
+
+def _check_x_row(gx: int, rx: int) -> None:
+    # +64 bytes: conv_x_accel_kernel's static reduction buffer.
+    if (gx + 2 * rx) * 4 + 64 > _SMEM_BYTES:
+        raise ValueError(f"x row {gx} + 2*{rx} exceeds the x pass's shared memory")
+
+
+def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float) -> None:
+    """The x pass of ``csrc/rl_fused.cu`` (``conv_x_kernel``) over the
+    rows of ``src``: ``out = epilogue(X src + prev)``, with mode
+    ``plain`` when ``aux`` is None. Operands are checked by the caller."""
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+
+    gz, gy, gx = src.shape
+    check(load_library().shrimpy_conv_x(
+        src.data_ptr(), prev.data_ptr() if prev is not None else None,
+        aux.data_ptr() if aux is not None else None, out.data_ptr(),
+        kx.data_ptr(), kx.numel(), gz * gy, gx,
+        MODES[mode] if aux is not None else 0, float(eps),
+        torch.cuda.current_stream(src.device).cuda_stream,
+    ), "shrimpy_conv_x")
+
+
+def check_io_cuda(inp: torch.Tensor, aux: torch.Tensor | None, mode: str, name: str):
+    """The carry operands of a CUDA half-step: ``inp`` a 3-D float32
+    CUDA tensor, ``aux`` one of its shape unless ``mode`` is ``plain``.
+    Returns the shape."""
+    if inp.dim() != 3:
+        raise ValueError(f"{name} takes a 3-D carry, got {tuple(inp.shape)}")
+    shape = tuple(inp.shape)
+    _check_cuda_operand("inp", inp, shape)
+    if mode != "plain":
+        if aux is None:
+            raise ValueError(f"mode {mode!r} needs aux")
+        _check_cuda_operand("aux", aux, shape)
+    return shape
+
+
+def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: int, *,
+                   out=None, scratch=None, extra=None, x_last=None, name: str) -> torch.Tensor:
+    """The term loop of a CUDA half-step, shared by the ``fused`` and
+    ``linear_pallas`` routes (operands checked by :func:`check_io_cuda`).
+
+    Per term, ``zy(inp, kz, ky, scratch)`` runs the z and y taps into its
+    ``n_zy`` scratch carries and returns the result; the x pass
+    (``conv_x``) adds the earlier terms' sum and, on the last term,
+    applies the epilogue of ``mode`` into ``out``. ``x_last(h, prev, kx)``
+    replaces that last x pass when given. ``out`` may be ``aux`` but
+    alias no other operand, nor any of ``extra`` (name -> tensor).
+    ``scratch`` (``n_zy`` carries, one more with several terms) and
+    ``out`` are allocated when not given.
+    """
+    shape = tuple(inp.shape)
+    _check_stencil(stencil, inp)
+    _check_x_row(shape[2], stencil.radii[2])
+    n_terms = len(stencil.dev)
+    need = n_zy + (n_terms > 1)
+    if scratch is None:
+        scratch = [torch.empty_like(inp) for _ in range(need)]
+    if len(scratch) < need:
+        raise ValueError(f"{name}: {n_terms} terms need {need} scratch carries")
+    for i, s in enumerate(scratch[:need]):
+        _check_cuda_operand(f"scratch[{i}]", s, shape)
+    if out is None:
+        out = torch.empty_like(inp)
+    _check_cuda_operand("out", out, shape)
+    _check_distinct(inp=inp, out=out, **{f"scratch[{i}]": s for i, s in enumerate(scratch[:need])},
+                    **(extra or {}))
+    acc = scratch[n_zy] if n_terms > 1 else None
+    for t, (kz, ky, kx) in enumerate(stencil.dev):
+        h = zy(inp, kz, ky, scratch[:n_zy])
+        last = t == n_terms - 1
+        prev = acc if t > 0 else None
+        if last and x_last is not None:
+            x_last(h, prev, kx)
+        else:
+            conv_x_cuda(h, prev, aux if last and mode != "plain" else None,
+                        out if last else acc, kx, mode, eps)
+    return out
 
 
 def half_step_cuda(
@@ -142,7 +278,11 @@ def half_step_cuda(
     *,
     out: torch.Tensor | None = None,
     scratch: list[torch.Tensor] | None = None,
-) -> torch.Tensor:
+    dx: torch.Tensor | None = None,
+    g_prev: torch.Tensor | None = None,
+    alpha: torch.Tensor | None = None,
+    partials: torch.Tensor | None = None,
+):
     """One RL half-step with the CUDA kernels of ``csrc/rl_fused.cu``.
 
     ``inp`` and ``aux`` are (gz, gy, gx) float32 CUDA tensors; ``out``
@@ -150,79 +290,97 @@ def half_step_cuda(
     ``scratch`` (2 carries, 3 with more than one term) is allocated when
     not given. Per term: z pass and y pass into scratch, then the x pass
     adds the earlier terms' partial sum and applies the epilogue.
+
+    Accelerated modes take ``dx`` (bf16 carry) and ``alpha`` (a float32
+    CUDA scalar, read by the kernels, never by the host).
+    ``ratio_accel`` returns ``out``. ``mult_accel`` also takes ``g_prev``
+    (bf16) and ``partials`` (float32 (2, gz*gy), allocated when not
+    given), writes ``x_new`` over ``aux``, ``dx_new`` over ``dx`` and
+    ``g`` over ``g_prev``, and returns ``(aux, dx, g_prev, num, den)``
+    with ``num``/``den`` 0-d float32 CUDA tensors summed from the
+    per-row partials by ``torch.sum``.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
-    if inp.dim() != 3:
-        raise ValueError(f"half_step_cuda takes a 3-D carry, got {tuple(inp.shape)}")
-    shape = tuple(inp.shape)
+    shape = check_io_cuda(inp, aux, mode, "half_step_cuda")
     gz, gy, gx = shape
-    _check_cuda_operand("inp", inp, shape)
-    if mode != "plain":
-        if aux is None:
-            raise ValueError(f"mode {mode!r} needs aux")
-        _check_cuda_operand("aux", aux, shape)
-    if stencil.dev is None or stencil.dev[0][0].device != inp.device:
-        raise ValueError("half_step_cuda: the stencil has no taps on this CUDA device")
-    rz, ry, rx = stencil.radii
-    r_axis = max(rz, ry)
+    accel = mode in ACCEL_MODES
+    extra = {}
+    if accel:
+        if dx is None or alpha is None or (mode == "mult_accel" and g_prev is None):
+            raise ValueError(f"mode {mode!r} needs dx, alpha" +
+                             (" and g_prev" if mode == "mult_accel" else ""))
+        _check_cuda_operand("dx", dx, shape, torch.bfloat16)
+        if not alpha.is_cuda or alpha.dtype != torch.float32 or alpha.numel() != 1 \
+                or alpha.device != inp.device:
+            raise ValueError("half_step_cuda: alpha must be a float32 CUDA scalar on the carry's device")
+        extra["dx"] = dx
+    if mode == "mult_accel":
+        _check_cuda_operand("g_prev", g_prev, shape, torch.bfloat16)
+        if out is not None and out.data_ptr() != aux.data_ptr():
+            raise ValueError("half_step_cuda: mult_accel writes x_new over aux (out must be aux)")
+        out = aux
+        if partials is None:
+            partials = torch.empty((2, gz * gy), dtype=torch.float32, device=inp.device)
+        _check_cuda_operand("partials", partials, (2, gz * gy))
+        extra.update(g_prev=g_prev, partials=partials)
+    r_axis = max(stencil.radii[:2])
     if (_TILE_N + 2 * r_axis) * _THREADS_INNER * 4 > _SMEM_BYTES:
         raise ValueError(f"half_step_cuda: z/y radius {r_axis} exceeds the kernel's shared memory")
-    if (gx + 2 * rx) * 4 > _SMEM_BYTES:
-        raise ValueError(f"half_step_cuda: x row {gx} + 2*{rx} exceeds the kernel's shared memory")
     if gz > _MAX_GRID_YZ or round_up(gy, _TILE_N) // _TILE_N > _MAX_GRID_YZ:
         raise ValueError(f"half_step_cuda: carry {shape} exceeds the launch grid")
-    n_terms = len(stencil.dev)
-    need = 2 if n_terms == 1 else 3
-    if scratch is None:
-        scratch = [torch.empty_like(inp) for _ in range(need)]
-    if len(scratch) < need:
-        raise ValueError(f"half_step_cuda: {n_terms} terms need {need} scratch carries")
-    for i, s in enumerate(scratch[:need]):
-        _check_cuda_operand(f"scratch[{i}]", s, shape)
-    if out is None:
-        out = torch.empty_like(inp)
-    _check_cuda_operand("out", out, shape)
-    busy = [inp.data_ptr()] + [s.data_ptr() for s in scratch[:need]]
-    if out.data_ptr() in busy or len(set(busy)) != len(busy):
-        raise ValueError("half_step_cuda: out, inp and scratch must not alias")
 
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
-    lib = load_library()
     stream = torch.cuda.current_stream(inp.device).cuda_stream
-    s1, s2 = scratch[0], scratch[1]
-    acc = scratch[2] if n_terms > 1 else None
-    aux_ptr = aux.data_ptr() if aux is not None else None
-    for t, (kz, ky, kx) in enumerate(stencil.dev):
-        check(lib.shrimpy_conv_axis(inp.data_ptr(), s1.data_ptr(), kz.data_ptr(),
-                                    kz.numel(), 1, gz, gy * gx, stream), "shrimpy_conv_axis(z)")
-        check(lib.shrimpy_conv_axis(s1.data_ptr(), s2.data_ptr(), ky.data_ptr(),
-                                    ky.numel(), gz, gy, gx, stream), "shrimpy_conv_axis(y)")
-        last = t == n_terms - 1
-        prev = acc.data_ptr() if t > 0 else None
-        check(lib.shrimpy_conv_x(
-            s2.data_ptr(), prev, aux_ptr if last else None,
-            out.data_ptr() if last else acc.data_ptr(), kx.data_ptr(), kx.numel(),
-            gz * gy, gx, MODES[mode] if last else 0, float(eps), stream,
-        ), "shrimpy_conv_x")
-    half_step_cuda.launches += 1
+    z_extra = (dx.data_ptr(), alpha.data_ptr()) if mode == "ratio_accel" else (None, None)
+
+    def zy(v, kz, ky, scratch):
+        s1, s2 = scratch
+        lib = load_library()
+        check(lib.shrimpy_conv_axis(v.data_ptr(), s1.data_ptr(), kz.data_ptr(), kz.numel(),
+                                    1, gz, gy * gx, *z_extra, stream), "shrimpy_conv_axis(z)")
+        check(lib.shrimpy_conv_axis(s1.data_ptr(), s2.data_ptr(), ky.data_ptr(), ky.numel(),
+                                    gz, gy, gx, None, None, stream), "shrimpy_conv_axis(y)")
+        return s2
+
+    def x_accel(h, prev, kx):
+        check(load_library().shrimpy_conv_x_accel(
+            h.data_ptr(), prev.data_ptr() if prev is not None else None, aux.data_ptr(),
+            dx.data_ptr(), g_prev.data_ptr(), alpha.data_ptr(), partials.data_ptr(),
+            kx.data_ptr(), kx.numel(), gz * gy, gx, stream,
+        ), "shrimpy_conv_x_accel")
+
+    out = run_terms_cuda(inp, aux, stencil, mode, eps, zy, 2, out=out, scratch=scratch,
+                         extra=extra, x_last=x_accel if mode == "mult_accel" else None,
+                         name="half_step_cuda")
+    if accel:
+        half_step_cuda.accel_launches += 1
+    else:
+        half_step_cuda.launches += 1
+    if mode == "mult_accel":
+        sums = partials.sum(dim=1)
+        return aux, dx, g_prev, sums[0], sums[1]
     return out
 
 
 # Half-steps launched since the last reset (chip_smoke.py reads and
-# resets it); each is 3 kernel launches per separable term.
+# resets them): ``launches`` in modes ratio/mult/plain, ``accel_launches``
+# in modes ratio_accel/mult_accel; each is 3 kernel launches per term.
 half_step_cuda.launches = 0
+half_step_cuda.accel_launches = 0
 
 
 def half_step(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
-              out=None, scratch=None) -> torch.Tensor:
+              out=None, scratch=None, partials=None, **accel):
     """RL half-step: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor (``out``/``scratch`` are kernel buffers
-    and unused there)."""
+    version for a CPU tensor (``out``/``scratch``/``partials`` are
+    kernel buffers and unused there). ``accel``: ``dx``, ``g_prev``,
+    ``alpha`` of the accelerated modes."""
     if inp.is_cuda:
-        return half_step_cuda(inp, aux, stencil, mode, eps, out=out, scratch=scratch)
-    return half_step_plain(inp, aux, stencil, mode, eps)
+        return half_step_cuda(inp, aux, stencil, mode, eps, out=out, scratch=scratch,
+                              partials=partials, **accel)
+    return half_step_plain(inp, aux, stencil, mode, eps, **accel)
 
 
 def pad_to_grid(image: torch.Tensor, radii, pad_mode: str) -> torch.Tensor:
@@ -245,6 +403,25 @@ def pad_to_grid(image: torch.Tensor, radii, pad_mode: str) -> torch.Tensor:
     return out
 
 
+def start_on_grid(image: torch.Tensor, psf_np, terms, settings, dtype: torch.dtype):
+    """What the zero-boundary backends start from: the stencils of
+    ``terms`` (conv and adjoint) on the image's device, and on the G grid
+    ``data = max(g, 0)`` and ``est = max(g, eps)`` in ``dtype``."""
+    radii = tuple(k // 2 for k in psf_np.shape)
+    conv = Stencil(terms, device=image.device)
+    adj = Stencil(terms, flip=True, device=image.device)
+    if conv.radii != radii:
+        raise ValueError(f"term radii {conv.radii} do not match the PSF radii {radii}")
+    g = pad_to_grid(image.to(dtype), radii, settings.pad_mode)
+    # Not in place: with zero radii g is the caller's image itself.
+    return conv, adj, torch.clamp_min(g, 0.0), torch.clamp_min(g, float(settings.epsilon))
+
+
+def crop_grid(est: torch.Tensor, shape, radii) -> torch.Tensor:
+    """The image's (Z, Y, X) ``shape`` cut from the G grid."""
+    return est[tuple(slice(r, r + n) for r, n in zip(radii, shape))].contiguous()
+
+
 def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
              plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Zero-boundary separable RL of a (Z, Y, X) ``image`` on its device.
@@ -253,36 +430,45 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     returns them; ``psf_np`` (already cropped and odd) fixes the radii.
     ``plain=True`` runs :func:`half_step_plain` on any device in
     ``dtype`` (the reference path); otherwise :func:`half_step`.
+    ``settings.acceleration == "biggs"`` runs the in-kernel Biggs body.
     Memory: data, est and ratio carries plus the kernel's 2-3 scratch
-    carries; the mult half-step updates est in place.
+    carries; the mult half-step updates est in place (with Biggs also
+    dx and g_prev, two bf16 carries).
     """
-    radii = tuple(k // 2 for k in psf_np.shape)
     eps = float(settings.epsilon)
-    conv = Stencil(terms, device=image.device)
-    adj = Stencil(terms, flip=True, device=image.device)
-    if conv.radii != radii:
-        raise ValueError(f"term radii {conv.radii} do not match the PSF radii {radii}")
-    g = pad_to_grid(image.to(dtype), radii, settings.pad_mode)
-    data = torch.clamp_min(g, 0.0)
-    # Not in place: with zero radii g is the caller's image itself.
-    est = torch.clamp_min(g, eps)
-    del g
-    if plain:
+    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype)
+    kernel = not plain and est.is_cuda
+    step = half_step_plain if plain else half_step
+    biggs = settings.acceleration == "biggs"
+    bufs, ratio_buf = {}, None  # the kernels' buffers, allocated once per run
+    if kernel:
+        ratio_buf = torch.empty_like(est)
+        bufs["scratch"] = [torch.empty_like(est) for _ in range(2 if len(terms) == 1 else 3)]
+        if biggs:
+            bufs["partials"] = torch.empty((2, est.shape[0] * est.shape[1]),
+                                           dtype=torch.float32, device=est.device)
+
+    def hs(inp, aux, st, mode, out=None, **kw):
+        if kernel:
+            kw.update(bufs, out=out)
+        return step(inp, aux, st, mode, eps, **kw)
+
+    if biggs:
+        # Biggs-Andrews in the half-steps (rl_outer.py has the
+        # algorithm): alpha, num and den never leave the device.
+        dx, g_prev, den_prev, alpha = biggs_state(est)
         for _ in range(iterations):
-            ratio = half_step_plain(est, data, conv, "ratio", eps)
-            est = half_step_plain(ratio, est, adj, "mult", eps)
+            ratio = hs(est, data, conv, "ratio_accel", out=ratio_buf, dx=dx, alpha=alpha)
+            est, dx, g_prev, num, den = hs(ratio, est, adj, "mult_accel",
+                                           dx=dx, g_prev=g_prev, alpha=alpha)
             del ratio
+            alpha = next_alpha(num, den_prev)
+            den_prev = den.float()
+        del dx, g_prev
     else:
-        ratio = torch.empty_like(est) if est.is_cuda else None
-        scratch = (
-            [torch.empty_like(est) for _ in range(2 if len(terms) == 1 else 3)]
-            if est.is_cuda else None
-        )
         for _ in range(iterations):
-            ratio = half_step(est, data, conv, "ratio", eps, out=ratio, scratch=scratch)
-            est = half_step(ratio, est, adj, "mult", eps, out=est, scratch=scratch)
-        del ratio, scratch
-    del data
-    rz, ry, rx = radii
-    nz, ny, nx = image.shape
-    return est[rz : rz + nz, ry : ry + ny, rx : rx + nx].contiguous()
+            ratio = hs(est, data, conv, "ratio", out=ratio_buf)
+            est = hs(ratio, est, adj, "mult", out=est)
+            del ratio
+    del data, bufs, ratio_buf
+    return crop_grid(est, image.shape, conv.radii)

@@ -22,6 +22,10 @@ from shrimpy_tpu.ops.deskew_pallas import _deskew_pallas_jit, _plan
 from shrimpy_tpu_torch.ops import deskew as tdeskew
 from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda, plan_tables
 
+# One intra-op thread: the suite runs one process per core, and torch's
+# default of a thread per core in each of them oversubscribes the cores.
+torch.set_num_threads(1)
+
 # (raw shape, keep_overhang, average_n_slices, value scale): the JAX
 # pallas tests' geometries, z-averaging, and the long-scan band-clamp
 # geometry (several y blocks of overhang) both ways.

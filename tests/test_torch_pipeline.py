@@ -54,6 +54,10 @@ from shrimpy_tpu_torch.runtime.feed import DeviceFeed
 from shrimpy_tpu_torch.utils.retry import robust_call
 from shrimpy_tpu_torch.utils.timing import StageTimer
 
+# One intra-op thread: the suite runs one process per core, and torch's
+# default of a thread per core in each of them oversubscribes the cores.
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 
 
@@ -132,6 +136,40 @@ def test_cli_reconstruct_demo_config_on_cpu(tmp_path):
     summary = json.loads((out / "reconstruct_summary.json").read_text())
     assert summary["device"] == "cpu" and summary["volumes"] == 1
     assert summary["device_memory_gib"] == {}  # no CUDA here: no gauges
+
+
+def test_cli_reconstruct_biggs_linear_pallas_on_cpu(tmp_path):
+    """A YAML that sets ``acceleration: biggs`` and ``separable_backend:
+    linear_pallas`` runs through ``shrimpy-tpu-torch reconstruct``: read
+    back, equal to the port's reconstruct_batch with those settings."""
+    raw, _ = synthetic_ls_stack(tmp_path / "ls.zarr", raw_shape_szx=(40, 24, 32))
+    cfg = tmp_path / "biggs_linear.yml"
+    cfg.write_text(textwrap.dedent("""
+        deskew:
+          ls_angle_deg: 30.0
+        deconvolve:
+          iterations: 4
+          acceleration: biggs
+          separable_backend: linear_pallas
+    """))
+    out = tmp_path / "out.zarr"
+    result = CliRunner().invoke(cli, ["reconstruct", str(tmp_path / "ls.zarr"), "-o", str(out),
+                                      "-c", str(cfg), "--device", "cpu"])
+    assert result.exit_code == 0, result.output
+    got = np.asarray(open_ngff(out).position().volume(0, 0))
+    from shrimpy_tpu.config.schemas import load_yaml_config
+
+    settings = load_yaml_config(cfg, ReconstructSettings)
+    sz, sy, _ = open_ngff(tmp_path / "ls.zarr").position().zyx_scale
+    inject_derived_parameters(settings, pixel_size_um=sy, z_step_um=sz)
+    assert settings.deconvolve.acceleration == "biggs"
+    want = reconstruct_batch(raw[None], settings, psf=tstream._load_psf(settings))[0].numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    plain = settings.model_copy(deep=True)
+    plain.deconvolve.acceleration = "none"
+    assert not np.array_equal(
+        got, reconstruct_batch(raw[None], plain, psf=tstream._load_psf(plain))[0].numpy())
 
 
 def test_cli_deskew_and_deconvolve_verbs(tmp_path):
@@ -244,16 +282,25 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
     ({"phase": PhaseSettings()}, "phase"),
     ({"registration": RegistrationSettings(transform_path="t.json")}, "registration"),
     ({"shard_volumes": True}, "shard_volumes"),
-    ({"deconvolve": DeconvolveSettings(acceleration="biggs")}, "2b"),
+    ({"deconvolve": DeconvolveSettings(acceleration="biggs", iterations=3)}, None),
     ({"deconvolve": DeconvolveSettings(algorithm="hybrid")}, "item 8"),
-    ({"deconvolve": DeconvolveSettings(separable_backend="linear_pallas")}, "kernel 3"),
+    ({"deconvolve": DeconvolveSettings(separable_backend="linear_pallas", iterations=3)},
+     None),
 ])
 def test_unported_pipeline_settings_raise(update, match):
+    """Stages and settings the port does not run raise; those it has
+    come to run (``match`` None) give a finite batch of the right shape."""
     settings = ReconstructSettings(deskew=DeskewSettings(px_to_scan_ratio=0.386),
                                    **update)
     psf = gaussian_psf((5, 7, 7), (1.0, 1.5, 1.5))
-    with pytest.raises(NotImplementedError, match=match):
-        build_reconstruct_step(settings, psf=psf)
+    if match is None:
+        raw = np.random.default_rng(3).random((1, 40, 24, 20)).astype(np.float32)
+        out = build_reconstruct_step(settings, psf=psf)(raw)
+        assert tuple(out.shape) == (1, *output_shape((40, 24, 20), settings))
+        assert bool(torch.isfinite(out).all())
+    else:
+        with pytest.raises(NotImplementedError, match=match):
+            build_reconstruct_step(settings, psf=psf)
     with pytest.raises(NotImplementedError, match="mesh"):
         build_reconstruct_step(ReconstructSettings(), mesh=object())
 
@@ -387,6 +434,8 @@ def test_build_keys_library_by_sources_and_reports_nvcc_errors(tmp_path, monkeyp
 
 
 def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
+    """One build: an nvcc per source for sm_90a, then one link; a second
+    build() finds the keyed library and calls nvcc no more."""
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "cuda"))
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     log = tmp_path / "calls"
@@ -397,10 +446,16 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
     assert first.exists() and first.parent == tmp_path / "build"
     assert build.build() == first
     calls = log.read_text().splitlines()
-    assert len(calls) == 1
-    assert "arch=compute_90a,code=sm_90a" in calls[0]
-    assert all(str(s) in calls[0] for s in build.sources())
-    assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu"}
+    assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu",
+                                                 "convzy_linear.cu"}
+    assert len(calls) == len(build.sources()) + 1
+    assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
+    compiles = [c for c in calls if " -c " in c]
+    for src in build.sources():
+        assert sum(str(src) in c for c in compiles) == 1
+    (link,) = [c for c in calls if "-shared" in c]
+    assert sum(w.endswith(".o") for w in link.split()) == len(build.sources())
+    assert not list((tmp_path / "build").glob("objs.*"))  # objects removed
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):

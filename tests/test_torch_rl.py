@@ -31,6 +31,10 @@ from shrimpy_tpu_torch.ops.rl_fused import (
 from tests.test_deconv_separable import asymmetric_psf
 from tests.test_rl_fused import _oracle_conv3
 
+# One intra-op thread: the suite runs one process per core, and torch's
+# default of a thread per core in each of them oversubscribes the cores.
+torch.set_num_threads(1)
+
 
 def _rank2_psf(shape=(7, 11, 11)):
     a = jdeconv.gaussian_psf(shape, (1.0, 1.5, 2.0)).astype(np.float64)
@@ -226,21 +230,27 @@ def test_rl_settings_by_namespace_equal_pydantic():
 
 
 @pytest.mark.parametrize("update,exc,match", [
-    ({"acceleration": "biggs"}, NotImplementedError, "2b"),
+    ({"acceleration": "biggs"}, None, "runs"),
     ({"algorithm": "fft"}, NotImplementedError, "item 8"),
     ({"algorithm": "hybrid"}, NotImplementedError, "item 8"),
     ({"fused_low_precision_iters": 2}, NotImplementedError, "float32"),
     ({"donate_input": True}, NotImplementedError, "donate_input"),
     ({"separable_backend": "matmul"}, NotImplementedError, "matmul"),
-    ({"separable_backend": "linear_pallas"}, NotImplementedError, "kernel 3"),
+    ({"separable_backend": "linear_pallas"}, None, "runs"),
     ({"separable_backend": "zy_pallas"}, NotImplementedError, "kernel 4"),
     ({"separable_backend": "fused_iter"}, NotImplementedError, "kernel 6"),
 ])
 def test_unported_settings_raise(update, exc, match):
-    s = DeconvolveSettings(iterations=1).model_copy(update=update)
+    """Settings the port does not run raise naming their ROADMAP item;
+    those it has come to run (``exc`` None) give a finite result."""
+    s = DeconvolveSettings(iterations=3).model_copy(update=update)
+    img = np.ones((6, 20, 20), np.float32)
+    if exc is None:
+        out = tdeconv.richardson_lucy(img, PSFS["asymmetric"](), s)
+        assert out.shape == img.shape and bool(torch.isfinite(out).all())
+        return
     with pytest.raises(exc, match=match):
-        tdeconv.richardson_lucy(np.ones((6, 20, 20), np.float32),
-                                PSFS["asymmetric"](), s)
+        tdeconv.richardson_lucy(img, PSFS["asymmetric"](), s)
 
 
 def test_non_separable_psf_raises():
@@ -270,7 +280,7 @@ def test_stencil_and_kernel_guards():
     with pytest.raises(ValueError, match="CUDA tensor"):
         half_step_cuda(vol, vol, Stencil(terms), "ratio")
     with pytest.raises(ValueError, match="mode"):
-        half_step_plain(vol, vol, Stencil(terms), "ratio_accel")
+        half_step_plain(vol, vol, Stencil(terms), "ratio_bf16")
     with pytest.raises(ValueError, match="radii"):
         rl_fused(vol, np.ones((3, 9, 9), np.float32), terms, deconvolve_settings(), 1)
 
