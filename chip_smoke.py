@@ -16,9 +16,15 @@ or any check fails. Phases:
    0.6, random bf16 dx/g_prev; mult_accel in place) and the
    ``convzy_linear`` z+y kernel (both tap orders), each on the
    production carry (136, 2908, 1620) and on a (40, 300, 400) carry
-   with a 2-term asymmetric PSF. Tolerance: max|a-b| / max|b| <= 1e-4
-   (float32 sums taken in another order); the bf16 Biggs state within
-   one bf16 ulp, the step-length sums within 1e-5 relative;
+   with a 2-term asymmetric PSF; the circular ``convzy_circular`` z+y
+   kernel and ``conv3_circular`` (both tap orders) on those carries and
+   on a (3, 9, 40) grid smaller than the radii (4, 10, 10), and the
+   circular x pass in ``ratio``, ``mult`` and ``plain`` modes against
+   the dense circulant product (also with a row that wraps twice);
+   ``conv3_circular``, which no backend reaches, is then driven once at
+   the production carry with the counts reset. Tolerance: max|a-b| /
+   max|b| <= 1e-4 (float32 sums taken in another order); the bf16 Biggs
+   state within one bf16 ulp, the step-length sums within 1e-5 relative;
 4. the main path through ``build_reconstruct_step`` — deskew, then
    RL-20 with the (9, 21, 21) PSF — on a (1, 1201, 256, 1600) batch from
    a fixed seed, with the kernels' launch counters reset just before and
@@ -32,6 +38,14 @@ or any check fails. Phases:
 4c. the same two steps on ``separable_backend: linear_pallas``: RL-20
    within 1e-4 of phase 4's output, Biggs RL-10 within the two-tier gate
    of phase 4b's;
+4d. the same two steps on ``separable_backend: zy_pallas`` (circular
+   boundaries on the same G grid), each against its float64 plain path:
+   RL-20 within 1e-3, timed against the plain float32 path; Biggs RL-10
+   by the two-tier gate;
+4e. deskew + RL-20 on ``separable_backend: matmul`` (circulant products
+   on the block-rounded (136, 2944, 1664) grid, no kernel of the
+   repository) against the same backend in float64 on the card, within
+   1e-3; warm time and peak memory;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line,
@@ -148,7 +162,14 @@ def uniform(shape, gen, lo=0.0, hi=1.0) -> torch.Tensor:
 
 
 def counters() -> dict:
-    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_linear_cuda, convzy_linear_plain
+    from shrimpy_tpu_torch.ops.conv3_cuda import (
+        conv3_circular_cuda,
+        conv3_circular_plain,
+        convzy_circular_cuda,
+        convzy_circular_plain,
+        convzy_linear_cuda,
+        convzy_linear_plain,
+    )
     from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
     from shrimpy_tpu_torch.ops.rl_fused import half_step_cuda, half_step_plain
 
@@ -157,8 +178,12 @@ def counters() -> dict:
         "rl_half_step": (half_step_cuda, "launches"),
         "rl_half_step_accel": (half_step_cuda, "accel_launches"),
         "convzy_linear": (convzy_linear_cuda, "launches"),
+        "convzy_circular": (convzy_circular_cuda, "launches"),
+        "conv3_circular": (conv3_circular_cuda, "launches"),
         "plain_half_step_on_cuda": (half_step_plain, "cuda_calls"),
         "plain_convzy_on_cuda": (convzy_linear_plain, "cuda_calls"),
+        "plain_convzy_circular_on_cuda": (convzy_circular_plain, "cuda_calls"),
+        "plain_conv3_circular_on_cuda": (conv3_circular_plain, "cuda_calls"),
     }
 
 
@@ -361,6 +386,90 @@ def phase_convzy(gen) -> dict:
     return res
 
 
+def phase_circular(gen) -> tuple[dict, dict, dict]:
+    """convzy_circular, conv3_circular and the circular x pass against
+    their plain versions; then conv3_circular driven once with the
+    counts reset (no backend reaches it). Returns the three kernels'
+    entries: max|a-b| over every check, times at the production carry."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.ops.conv3_cuda import (
+        conv3_circular,
+        conv3_circular_cuda,
+        conv3_circular_plain,
+        convzy_circular_cuda,
+        convzy_circular_plain,
+        x_circulant_plain,
+    )
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil, _epilogue, conv_x_cuda
+
+    eps = headline_settings().deconvolve.epsilon
+    terms, carry = production_terms()
+    zy, c3, xp = ({"max_abs_err": 0.0} for _ in range(3))
+    for shape, tt, label in ((carry, terms, f"{carry}"),
+                             ((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms"),
+                             ((3, 9, 40), terms, "(3, 9, 40) multi-wrap")):
+        v = uniform(shape, gen, 0.0, 10.0)
+        for flip in (False, True):
+            st = Stencil(tt, flip=flip, device="cuda")
+            for t, (kz, ky, _) in enumerate(st.host):
+                err = compare(f"convzy_circular {label} term {t} flip={flip}",
+                              convzy_circular_cuda(v, kz, ky), convzy_circular_plain(v, kz, ky),
+                              KERNEL_RTOL)
+                zy["max_abs_err"] = max(zy["max_abs_err"], err)
+            err = compare(f"conv3_circular {label} flip={flip}", conv3_circular_cuda(v, st),
+                          conv3_circular_plain(v, st), KERNEL_RTOL)
+            c3["max_abs_err"] = max(c3["max_abs_err"], err)
+        if shape == carry:
+            st = Stencil(tt, device="cuda")
+            kz, ky, _ = st.host[0]
+            kzd, kyd, _ = st.dev[0]
+            out = torch.empty_like(v)
+            scratch = [torch.empty_like(v)]
+            zy["ms"] = gpu_ms(lambda: convzy_circular_cuda(v, kzd, kyd, out=out), 10)
+            zy["plain_ms"] = gpu_ms(lambda: convzy_circular_plain(v, kz, ky), 2)
+            c3["ms"] = gpu_ms(lambda: conv3_circular_cuda(v, st, out=out, scratch=scratch), 10)
+            c3["plain_ms"] = gpu_ms(lambda: conv3_circular_plain(v, st), 2)
+            del out, scratch
+        del v
+    # The x pass alone: the production row, and a row of 21 under 45 taps.
+    rng = np.random.default_rng(SEED)
+    for shape, kx, label in ((carry, Stencil(terms).host[0][2], f"{carry}"),
+                             ((5, 9, 21), rng.random(45).astype(np.float32), "(5, 9, 21) 45 taps")):
+        h = uniform(shape, gen, 0.5, 10.5)
+        aux = uniform(shape, gen, 0.0, 5.0)
+        kxd = torch.tensor(np.asarray(kx, np.float32), device="cuda")
+        out = torch.empty_like(h)
+        for mode in ("ratio", "mult", "plain"):
+            a = None if mode == "plain" else aux
+            conv_x_cuda(h, None, a, out, kxd, mode, eps, wrap=True)
+            err = compare(f"circular x pass {mode} {label}", out,
+                          _epilogue(x_circulant_plain(h, kx), a, mode, eps), KERNEL_RTOL)
+            xp["max_abs_err"] = max(xp["max_abs_err"], err)
+        if shape == carry:
+            xp["ms"] = gpu_ms(lambda: conv_x_cuda(h, None, aux, out, kxd, "ratio", eps,
+                                                  wrap=True), 10)
+            xp["plain_ms"] = gpu_ms(lambda: _epilogue(x_circulant_plain(h, kx), aux, "ratio",
+                                                      eps), 2)
+        del h, aux, out
+    print("  conv3_circular through its entry point at the production carry:", flush=True)
+    v = uniform(carry, gen, 0.0, 10.0)
+    _, counts, _ = drive(lambda vol: conv3_circular(vol, terms), v,
+                         {"conv3_circular": 1, "convzy_circular": len(terms)})
+    c3["launches"] = counts["conv3_circular"]
+    del v
+    return zy, c3, xp
+
+
+def warm_ms(step, steps) -> float:
+    """Host-clock ms of one warm run of ``step`` on the batch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(steps.batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
 class Steps:
     """The production batch and the reconstruct steps of phases 4-4c."""
 
@@ -428,18 +537,61 @@ def phase_linear(steps: Steps, rl20: torch.Tensor, biggs: torch.Tensor) -> dict:
         else:
             err = two_tier("linear_pallas Biggs RL-10 vs fused kernel Biggs RL-10", out, ref)
         del out
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step(steps.batch)
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3
+        ms = warm_ms(step, steps)
         print(f"  linear_pallas {label}: {ms:.1f} ms/volume, "
               f"{steps.vox / ms / 1e6:.4f} GVox/s (warm)", flush=True)
         res[label] = {"launches": counts, "peak_gib": peak, "rel_err": err, "ms": ms}
     return res
 
 
+def phase_zy(steps: Steps) -> dict:
+    """Phase 4d: RL-20 and Biggs RL-10 on separable_backend zy_pallas,
+    each against its own float64 plain path."""
+    zy = {"separable_backend": "zy_pallas"}
+    step = steps.build(**zy)
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_circular": 2 * ITERATIONS})
+    steps.check_shape(out)
+    ref = steps.build(plain=True, dtype=torch.float64, **zy)(steps.batch)
+    compare("zy_pallas RL-20 step vs float64 plain", out, ref, STEP_RTOL)
+    err = rel_err(out, ref)
+    del out, ref
+    times = timed_pair(step, steps.build(plain=True, **zy), steps.batch, steps.vox,
+                       "zy_pallas RL-20")
+    kw = {**zy, "acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
+    bstep = steps.build(**kw)
+    bout, bcounts, bpeak = drive(bstep, steps.batch,
+                                 {"deskew": 1, "convzy_circular": 2 * BIGGS_ITERATIONS})
+    steps.check_shape(bout)
+    ref = steps.build(plain=True, dtype=torch.float64, **kw)(steps.batch)
+    berr = two_tier("zy_pallas Biggs RL-10 step vs float64 plain (bf16 state)", bout, ref)
+    del bout, ref
+    bms = warm_ms(bstep, steps)
+    print(f"  zy_pallas Biggs RL-10: {bms:.1f} ms/volume, {steps.vox / bms / 1e6:.4f} "
+          "RL-20-equivalent GVox/s (warm)", flush=True)
+    return {"launches": counts, "peak_gib": peak, "rel_err": err, **times,
+            "biggs": {"launches": bcounts, "peak_gib": bpeak, "rel_err": berr, "ms": bms}}
+
+
+def phase_matmul(steps: Steps) -> dict:
+    """Phase 4e: RL-20 on separable_backend matmul against the same
+    backend in float64 on the card."""
+    mm = {"separable_backend": "matmul"}
+    step = steps.build(**mm)
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1})
+    steps.check_shape(out)
+    ref = steps.build(plain=True, dtype=torch.float64, **mm)(steps.batch)
+    compare("matmul RL-20 step vs float64", out, ref, STEP_RTOL)
+    err = rel_err(out, ref)
+    del out, ref
+    ms = warm_ms(step, steps)
+    print(f"  matmul RL-20: {ms:.1f} ms/volume, {steps.vox / ms / 1e6:.4f} GVox/s (warm)",
+          flush=True)
+    return {"launches": counts, "peak_gib": peak, "rel_err": err, "ms": ms,
+            "gvox_s": steps.vox / ms / 1e6}
+
+
 def main() -> int:
+    t_start = time.monotonic()
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -465,6 +617,8 @@ def main() -> int:
     accel = phase_accel(gen)
     zy = phase_convzy(gen)
     torch.cuda.empty_cache()
+    czy, c3, xcirc = phase_circular(gen)
+    torch.cuda.empty_cache()
     steps = Steps(gen)
     print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
     step = phase_step(steps)
@@ -474,6 +628,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     print("[4c] the same steps on separable_backend linear_pallas", flush=True)
     lin = phase_linear(steps, step.pop("out"), biggs.pop("out"))
+    torch.cuda.empty_cache()
+    print("[4d] deskew + RL-20 and Biggs RL-10 on separable_backend zy_pallas", flush=True)
+    zyp = phase_zy(steps)
+    torch.cuda.empty_cache()
+    print("[4e] deskew + RL-20 on separable_backend matmul", flush=True)
+    mmp = phase_matmul(steps)
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -486,6 +646,15 @@ def main() -> int:
           f"(plain {zy['plain_ms']:.3f}); peak {step['peak_gib']:.2f} / "
           f"{biggs['peak_gib']:.2f} / {lin['RL-20']['peak_gib']:.2f} / "
           f"{lin['Biggs RL-10']['peak_gib']:.2f} GiB", flush=True)
+    print(f"[5] {card}: zy_pallas RL-20 {zyp['ms']:.1f} ms, {zyp['gvox_s']:.4f} GVox/s (plain "
+          f"f32 {zyp['plain_ms']:.1f} ms), rel err {zyp['rel_err']:.3e}, peak "
+          f"{zyp['peak_gib']:.2f} GiB; its Biggs RL-10 {zyp['biggs']['ms']:.1f} ms, max rel err "
+          f"{zyp['biggs']['rel_err']:.3e}, peak {zyp['biggs']['peak_gib']:.2f} GiB; matmul RL-20 "
+          f"{mmp['ms']:.1f} ms, {mmp['gvox_s']:.4f} GVox/s, rel err {mmp['rel_err']:.3e}, peak "
+          f"{mmp['peak_gib']:.2f} GiB; convzy_circular {czy['ms']:.3f} ms (plain "
+          f"{czy['plain_ms']:.3f}); circular x pass {xcirc['ms']:.3f} ms (plain "
+          f"{xcirc['plain_ms']:.3f}); conv3_circular {c3['ms']:.3f} ms (plain "
+          f"{c3['plain_ms']:.3f})", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
@@ -499,10 +668,20 @@ def main() -> int:
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
          "launches": biggs["launches"]["rl_half_step_accel"], **accel},
         {"name": "convzy_linear", "route": "cuda",
-         "source": "shrimpy_tpu_torch/csrc/convzy_linear.cu",
+         "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
          "launches": lin["RL-20"]["launches"]["convzy_linear"], **zy},
+        {"name": "convzy_circular", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/convzy.cu",
+         "replaces": "shrimpy_tpu/ops/conv3_pallas.py:175",
+         "launches": zyp["launches"]["convzy_circular"], **czy,
+         "x_pass_max_abs_err": xcirc["max_abs_err"], "x_pass_ms": xcirc["ms"],
+         "x_pass_plain_ms": xcirc["plain_ms"]},
+        {"name": "conv3_circular", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/convzy.cu",
+         "replaces": "shrimpy_tpu/ops/conv3_pallas.py:104", **c3},
     ]
+    print(f"[5] chip_smoke.py total {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

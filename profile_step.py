@@ -1,9 +1,10 @@
 """Where the time of one production step goes, on one NVIDIA GPU.
 
-Run from the repository root: ``python3 profile_step.py``. For each of
-the four paths ``chip_smoke.py`` drives (deskew + RL-20 and deskew +
-Biggs RL-10, on the ``fused`` and ``linear_pallas`` backends) it runs
-one warm step under ``torch.profiler`` and prints:
+Run from the repository root: ``python3 profile_step.py``. For each
+path ``chip_smoke.py`` drives (deskew + RL-20 and deskew + Biggs RL-10
+on the ``fused``, ``linear_pallas`` and ``zy_pallas`` backends, deskew +
+RL-20 on ``matmul``) it runs one warm step under ``torch.profiler`` and
+prints:
 
 * ``wall``: host time of the profiled step, launch to synchronise;
 * ``busy``: the union of the device events' intervals (kernels, copies,
@@ -83,7 +84,11 @@ def main() -> int:
                       ("deskew + Biggs RL-10, fused", biggs),
                       ("deskew + RL-20, linear_pallas", {"separable_backend": "linear_pallas"}),
                       ("deskew + Biggs RL-10, linear_pallas",
-                       {"separable_backend": "linear_pallas", **biggs})):
+                       {"separable_backend": "linear_pallas", **biggs}),
+                      ("deskew + RL-20, zy_pallas", {"separable_backend": "zy_pallas"}),
+                      ("deskew + Biggs RL-10, zy_pallas",
+                       {"separable_backend": "zy_pallas", **biggs}),
+                      ("deskew + RL-20, matmul", {"separable_backend": "matmul"})):
         print(f"== {label}", flush=True)
         profile(steps.build(**kw), steps.batch)
         torch.cuda.empty_cache()

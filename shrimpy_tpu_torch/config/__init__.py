@@ -37,6 +37,7 @@ DECONVOLVE_DEFAULTS = {
     "psf_crop_tol": 1e-5,
     "max_extended_terms": 24,
     "separable_backend": "auto",
+    "matmul_precision": "high",
     "fused_low_precision_iters": 0,
     "acceleration": "none",
     "donate_input": False,

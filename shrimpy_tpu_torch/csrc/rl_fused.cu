@@ -34,8 +34,9 @@
 //   * conv_x: the x pass on contiguous rows, one block per (z, y) row:
 //     the whole row plus halo is staged in shared memory, then each
 //     thread produces outputs, adds the partial sum of earlier terms
-//     (prev) and applies the epilogue in the same launch. The linear
-//     backend (ops/conv3_cuda.py) runs its x axis with it too.
+//     (prev) and applies the epilogue in the same launch. The
+//     linear_pallas and zy_pallas routes (ops/conv3_cuda.py) run their x
+//     axis with it too, zy_pallas with circular rows (kWrap).
 //   * conv_x_accel: conv_x with the mult_accel epilogue, the last term's
 //     x pass of that mode. The TPU kernel carries its partials in one
 //     resident (8, 128) block across a sequential grid; here blocks run
@@ -122,6 +123,10 @@ __global__ void conv_axis_kernel(const float* __restrict__ in,
 
 // prev, aux and out may alias each other (in-place mult pass): no
 // __restrict__ on them. Each element is read and written by one thread.
+// kWrap: the row is circular (the x axis of the zy_pallas route and of
+// conv3_circular, ops/conv3_cuda.py): row[j] = in[(j - r) mod n], with a
+// true modulo so r >= n wraps more than once; otherwise zero outside.
+template <bool kWrap>
 __global__ void conv_x_kernel(const float* __restrict__ in, const float* prev,
                               const float* aux, float* out,
                               const float* __restrict__ taps, int k,
@@ -131,7 +136,14 @@ __global__ void conv_x_kernel(const float* __restrict__ in, const float* prev,
   const long long base = (long long)blockIdx.x * n;
   for (long long j = threadIdx.x; j < n + 2 * r; j += kThreadsRow) {
     const long long m = j - r;
-    row[j] = (m >= 0 && m < n) ? in[base + m] : 0.f;
+    if (kWrap) {
+      // 32-bit: a row fits shared memory, and a 64-bit modulo is
+      // emulated (it cost 0.2-0.4 ms a pass at the production carry).
+      const int mi = (int)m, ni = (int)n;
+      row[j] = in[base + ((mi >= 0 && mi < ni) ? mi : ((mi % ni) + ni) % ni)];
+    } else {
+      row[j] = (m >= 0 && m < n) ? in[base + m] : 0.f;
+    }
   }
   __syncthreads();
   for (long long x = threadIdx.x; x < n; x += kThreadsRow) {
@@ -246,16 +258,25 @@ extern "C" int shrimpy_conv_axis(const void* in, void* out, const void* taps,
   return (int)cudaGetLastError();
 }
 
+// wrap != 0: circular rows (conv_x_kernel<true>).
 extern "C" int shrimpy_conv_x(const void* in, const void* prev, const void* aux,
                               void* out, const void* taps, int k,
                               long long rows, long long n, int mode, float eps,
-                              void* stream) {
+                              int wrap, void* stream) {
   const size_t smem = (size_t)(n + 2 * (k / 2)) * sizeof(float);
-  int err = set_smem((const void*)conv_x_kernel, smem);
+  const void* kernel = wrap ? (const void*)conv_x_kernel<true>
+                            : (const void*)conv_x_kernel<false>;
+  int err = set_smem(kernel, smem);
   if (err != 0) return err;
-  conv_x_kernel<<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
-      (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
-      (const float*)taps, k, n, mode, eps);
+  if (wrap) {
+    conv_x_kernel<true><<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
+        (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
+        (const float*)taps, k, n, mode, eps);
+  } else {
+    conv_x_kernel<false><<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
+        (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
+        (const float*)taps, k, n, mode, eps);
+  }
   return (int)cudaGetLastError();
 }
 

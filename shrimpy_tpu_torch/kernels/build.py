@@ -51,12 +51,13 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_deskew": [_P] * 10 + [_I64] * 6 + [_I32, _P],
     # in, out, taps, k, outer, n, inner, dx, alpha, stream
     "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P, _P, _P],
-    # in, prev, aux, out, taps, k, rows, n, mode, eps, stream
-    "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I32, _F32, _P],
+    # in, prev, aux, out, taps, k, rows, n, mode, eps, wrap, stream
+    "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I32, _F32, _I32, _P],
     # in, prev, x, dx, g, alpha, partials, taps, k, rows, n, stream
     "shrimpy_conv_x_accel": [_P] * 8 + [_I32, _I64, _I64, _P],
     # in, out, kz, nkz, ky, nky, gz, gy, gx, stream
     "shrimpy_convzy_linear": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
+    "shrimpy_convzy_circular": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
 }
 
 _LOCK = threading.Lock()

@@ -8,28 +8,34 @@ the top; a GPU host running the port need not have jax).
 ``tests/test_torch_rl.py`` pins each
 copy to its original.
 
-Backend resolution (``settings.separable_backend``):
+Backend resolution (``settings.separable_backend``,
+:func:`resolve_separable_backend`):
 
-* ``auto`` and ``fused`` run :func:`shrimpy_tpu_torch.ops.rl_fused.rl_fused`,
-  the zero-boundary RL on the half-PSF padded grid — the JAX package's
-  choice on the TPU. Off the TPU, JAX's ``auto`` means the circular
-  ``matmul`` backend (``deconv.py:1107``): the two boundaries give
-  different images near the edges, so compare the port with the
-  ``fused`` backend or the ``boundary="zero"`` oracle.
-* ``linear_pallas`` runs :func:`rl_linear`, the same zero-boundary RL
-  through the z+y kernel of :mod:`shrimpy_tpu_torch.ops.conv3_cuda` and
-  the x pass, with Biggs acceleration by the generic
-  :func:`shrimpy_tpu_torch.ops.rl_outer.run_rl_outer` (as
-  ``_rl_sep_linear`` does).
-* ``acceleration: biggs`` runs on both: in the half-step kernels on
-  ``fused``, through the generic loop on ``linear_pallas``.
-* ``matmul``, ``zy_pallas``, ``fused_iter`` raise
-  :class:`NotImplementedError` naming the ROADMAP item that ports them;
-  so do the FFT/hybrid algorithms, ``fused_low_precision_iters > 0`` and
-  ``donate_input: true``. None is silently ignored. (``matmul_precision``
-  chooses MXU dot passes on the TPU, including ``linear_pallas``'s x
-  einsum; the port's kernels are float32 FMA throughout, so it is not
-  read.)
+* ``fused`` runs :func:`shrimpy_tpu_torch.ops.rl_fused.rl_fused`, the
+  zero-boundary RL on the half-PSF padded grid — the JAX package's
+  choice on the TPU.
+* ``linear_pallas`` and ``zy_pallas`` run :func:`rl_conv3`, RL on the
+  same G grid through the z+y kernel of
+  :mod:`shrimpy_tpu_torch.ops.conv3_cuda` and the x pass, with zero
+  (``_rl_sep_linear``) or circular (``_rl_sep_zy``) boundaries.
+* ``matmul`` runs :func:`shrimpy_tpu_torch.ops.rl_matmul.rl_matmul`,
+  circular RL on the block-rounded ``_sep_pads`` grid by matrix
+  products (``_rl_sep_jit``).
+* ``auto`` resolves from the geometry alone, the same on every device:
+  ``fused`` where its kernels' bounds take the radii and the x row,
+  otherwise ``matmul``, which has none (JAX's fall-through order on the
+  TPU, ``deconv.py:1128-1166``). JAX's ``auto`` off the TPU is always
+  ``matmul`` (``deconv.py:1107``): the two boundaries give different
+  images near the edges, so compare each backend with its own oracle.
+* ``acceleration: biggs`` runs everywhere: in the half-step kernels on
+  ``fused``, through the generic loop
+  :func:`shrimpy_tpu_torch.ops.rl_outer.run_rl_outer` on the others.
+* ``fused_iter`` raises :class:`NotImplementedError` naming the ROADMAP
+  item that ports it; so do the FFT/hybrid algorithms,
+  ``fused_low_precision_iters > 0`` and ``donate_input: true``. None is
+  silently ignored. ``matmul_precision`` chooses MXU dot passes on the
+  TPU; the port's kernels are float32 FMA throughout, and its products
+  are float32 with TF32 off (see :mod:`~shrimpy_tpu_torch.ops.rl_matmul`).
 """
 
 from __future__ import annotations
@@ -44,9 +50,8 @@ from shrimpy_tpu_torch.utils.device import as_tensor
 
 logger = logging.getLogger(__name__)
 
+_BACKENDS = ("auto", "fused", "linear_pallas", "zy_pallas", "matmul")
 _UNPORTED_BACKENDS = {
-    "matmul": "ROADMAP queue 1 item 3 (circulant matmul backend)",
-    "zy_pallas": "ROADMAP queue 2 kernel 4 (conv3_pallas._convzy_pallas_jit)",
     "fused_iter": "ROADMAP queue 2 kernel 6 (rl_fused_iter._rl_iter_pass)",
 }
 
@@ -254,22 +259,33 @@ def check_ported(settings) -> None:
         raise NotImplementedError(
             "donate_input=True is not ported yet: ROADMAP queue 1 item 3"
         )
-    resolve_separable_backend(settings.separable_backend)
+    _check_backend(settings.separable_backend)
 
 
-def resolve_separable_backend(backend: str) -> str:
-    """``auto``/``fused`` -> ``fused``; ``linear_pallas`` as is; the
-    others are not ported yet."""
-    if backend in ("auto", "fused"):
-        return "fused"
-    if backend == "linear_pallas":
-        return backend
+def _check_backend(backend: str) -> None:
     if backend in _UNPORTED_BACKENDS:
         raise NotImplementedError(
             f"separable_backend={backend!r} is not ported yet: "
             f"{_UNPORTED_BACKENDS[backend]}"
         )
-    raise ValueError(f"unknown separable_backend {backend!r}")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown separable_backend {backend!r}")
+
+
+def resolve_separable_backend(backend: str, image_shape, psf_shape) -> str:
+    """The backend that runs a (Z, Y, X) ``image_shape`` with a PSF of
+    ``psf_shape``: ``auto`` -> ``fused`` where the half-step kernels take
+    the G grid and radii (:func:`~shrimpy_tpu_torch.ops.rl_fused.fused_bound_error`),
+    else ``matmul``; the others as named. Geometry only, so a setting
+    that runs on the CPU runs on the card."""
+    from shrimpy_tpu_torch.ops.rl_fused import fused_bound_error
+
+    _check_backend(backend)
+    if backend != "auto":
+        return backend
+    radii = tuple(k // 2 for k in psf_shape)
+    g_shape = tuple(n + 2 * r for n, r in zip(image_shape, radii))
+    return "fused" if fused_bound_error(g_shape, radii) is None else "matmul"
 
 
 def plan_terms(psf_np: np.ndarray, settings):
@@ -294,27 +310,39 @@ def plan_terms(psf_np: np.ndarray, settings):
 
 def rl_separable(image, psf_np, terms, settings, iterations: int, *,
                  plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Separable-path RL: resolve the backend and run it (the single
-    dispatch point shared by :func:`richardson_lucy` and the pipeline)."""
-    if resolve_separable_backend(settings.separable_backend) == "linear_pallas":
-        return rl_linear(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
-    from shrimpy_tpu_torch.ops.rl_fused import rl_fused
+    """Separable-path RL: resolve the backend for this image and run it
+    (the single dispatch point shared by :func:`richardson_lucy` and the
+    pipeline). ``plain``/``dtype`` as in :func:`richardson_lucy`; the
+    ``matmul`` backend has no kernel, so ``plain`` does not change it."""
+    backend = resolve_separable_backend(settings.separable_backend, tuple(image.shape),
+                                        psf_np.shape)
+    if backend == "matmul":
+        from shrimpy_tpu_torch.ops.rl_matmul import rl_matmul
 
-    return rl_fused(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
+        return rl_matmul(image, psf_np, terms, settings, iterations, dtype=dtype)
+    if backend == "fused":
+        from shrimpy_tpu_torch.ops.rl_fused import rl_fused
+
+        return rl_fused(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
+    return rl_conv3(image, psf_np, terms, settings, iterations,
+                    boundary="zero" if backend == "linear_pallas" else "circular",
+                    plain=plain, dtype=dtype)
 
 
-def rl_linear(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
-              plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """``linear_pallas`` RL (counterpart of ``_rl_sep_linear``): the
-    step ``est * conv3^T(data / max(conv3(est), eps))`` on the
-    zero-boundary G grid, each conv3 one
-    :func:`~shrimpy_tpu_torch.ops.conv3_cuda.linear_half_step` (z+y
+def rl_conv3(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
+             boundary: str, plain: bool = False,
+             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``linear_pallas`` (``boundary="zero"``, counterpart of
+    ``_rl_sep_linear``) or ``zy_pallas`` (``"circular"``, ``_rl_sep_zy``)
+    RL: the step ``est * conv3^T(data / max(conv3(est), eps))`` on the
+    G grid, each conv3 one
+    :func:`~shrimpy_tpu_torch.ops.conv3_cuda.conv3_half_step` (z+y
     kernel, then x), iterated by :func:`run_rl_outer`, Biggs-accelerated
     when ``settings.acceleration == "biggs"``. ``plain=True`` runs the
     plain versions on any device in ``dtype`` (the reference path).
-    Float32 throughout on the card (``matmul_precision`` is not read).
+    Float32 FMA throughout on the card (``matmul_precision`` is not read).
     """
-    from shrimpy_tpu_torch.ops.conv3_cuda import linear_half_step, linear_half_step_plain
+    from shrimpy_tpu_torch.ops.conv3_cuda import conv3_half_step, conv3_half_step_plain
     from shrimpy_tpu_torch.ops.rl_fused import crop_grid, start_on_grid
     from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
 
@@ -328,10 +356,13 @@ def rl_linear(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     def step(v: torch.Tensor) -> torch.Tensor:
         # Updates v in place on the card: run_rl_outer never reads it again.
         if kernel:
-            ratio = linear_half_step(v, data, conv, "ratio", eps, out=ratio_buf, scratch=scratch)
-            return linear_half_step(ratio, v, adj, "mult", eps, out=v, scratch=scratch)
-        half = linear_half_step_plain if plain else linear_half_step
-        return half(half(v, data, conv, "ratio", eps), v, adj, "mult", eps)
+            ratio = conv3_half_step(v, data, conv, "ratio", eps, boundary=boundary,
+                                    out=ratio_buf, scratch=scratch)
+            return conv3_half_step(ratio, v, adj, "mult", eps, boundary=boundary, out=v,
+                                   scratch=scratch)
+        half = conv3_half_step_plain if plain else conv3_half_step
+        ratio = half(v, data, conv, "ratio", eps, boundary=boundary)
+        return half(ratio, v, adj, "mult", eps, boundary=boundary)
 
     est = run_rl_outer([(step, iterations)], est, settings.acceleration == "biggs")
     return crop_grid(est, image.shape, conv.radii)

@@ -109,6 +109,19 @@ def _conv_axis_plain(v: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tens
     return out
 
 
+def _conv_axis_circular_plain(v: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
+    """``out[n] = sum_i k[i] v[(n + r - i) mod N]`` along ``axis``: the
+    wrap-pad semantics of ``conv3_pallas.py:119``/``:220``. ``r >= N``
+    is allowed; taps that land on one offset add up, as in
+    ``_circulant``. Each output gets one multiply-add per tap, in tap
+    order (``torch.roll`` by ``i - r``, added in place)."""
+    r = len(taps) // 2
+    out = torch.zeros_like(v)
+    for i, k in enumerate(taps):
+        out.add_(torch.roll(v, i - r, dims=axis), alpha=float(k))
+    return out
+
+
 def conv3_plain(v: torch.Tensor, stencil: Stencil) -> torch.Tensor:
     """Zero-boundary separable conv3 ``sum_t X_t Y_t Z_t v`` (plain)."""
     acc = None
@@ -189,16 +202,39 @@ def _check_stencil(stencil: Stencil, inp: torch.Tensor) -> None:
         raise ValueError("the stencil has no taps on this CUDA device")
 
 
-def _check_x_row(gx: int, rx: int) -> None:
+def _x_row_error(gx: int, rx: int) -> str | None:
     # +64 bytes: conv_x_accel_kernel's static reduction buffer.
     if (gx + 2 * rx) * 4 + 64 > _SMEM_BYTES:
-        raise ValueError(f"x row {gx} + 2*{rx} exceeds the x pass's shared memory")
+        return f"x row {gx} + 2*{rx} exceeds the x pass's shared memory"
+    return None
 
 
-def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float) -> None:
+def _check_x_row(gx: int, rx: int) -> None:
+    msg = _x_row_error(gx, rx)
+    if msg is not None:
+        raise ValueError(msg)
+
+
+def fused_bound_error(shape, radii) -> str | None:
+    """Why the half-step kernels cannot take a ``shape`` (gz, gy, gx)
+    carry with PSF ``radii``, or None when they can. One source for
+    :func:`half_step_cuda`'s refusal and ``auto``'s choice of backend."""
+    gz, gy, gx = shape
+    r_axis = max(radii[:2])
+    if (_TILE_N + 2 * r_axis) * _THREADS_INNER * 4 > _SMEM_BYTES:
+        return f"z/y radius {r_axis} exceeds the kernel's shared memory"
+    if gz > _MAX_GRID_YZ or round_up(gy, _TILE_N) // _TILE_N > _MAX_GRID_YZ:
+        return f"carry {tuple(shape)} exceeds the launch grid"
+    return _x_row_error(gx, radii[2])
+
+
+def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
+                wrap: bool = False) -> None:
     """The x pass of ``csrc/rl_fused.cu`` (``conv_x_kernel``) over the
     rows of ``src``: ``out = epilogue(X src + prev)``, with mode
-    ``plain`` when ``aux`` is None. Operands are checked by the caller."""
+    ``plain`` when ``aux`` is None; ``wrap`` makes X circular (the row
+    is loaded at ``(x - r) mod gx``) instead of zero outside. Operands
+    are checked by the caller."""
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
     gz, gy, gx = src.shape
@@ -206,7 +242,7 @@ def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float) ->
         src.data_ptr(), prev.data_ptr() if prev is not None else None,
         aux.data_ptr() if aux is not None else None, out.data_ptr(),
         kx.data_ptr(), kx.numel(), gz * gy, gx,
-        MODES[mode] if aux is not None else 0, float(eps),
+        MODES[mode] if aux is not None else 0, float(eps), int(wrap),
         torch.cuda.current_stream(src.device).cuda_stream,
     ), "shrimpy_conv_x")
 
@@ -227,18 +263,20 @@ def check_io_cuda(inp: torch.Tensor, aux: torch.Tensor | None, mode: str, name: 
 
 
 def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: int, *,
-                   out=None, scratch=None, extra=None, x_last=None, name: str) -> torch.Tensor:
-    """The term loop of a CUDA half-step, shared by the ``fused`` and
-    ``linear_pallas`` routes (operands checked by :func:`check_io_cuda`).
+                   out=None, scratch=None, extra=None, x_last=None, wrap: bool = False,
+                   name: str) -> torch.Tensor:
+    """The term loop of a CUDA half-step, shared by the ``fused``,
+    ``linear_pallas`` and ``zy_pallas`` routes (operands checked by
+    :func:`check_io_cuda`).
 
     Per term, ``zy(inp, kz, ky, scratch)`` runs the z and y taps into its
     ``n_zy`` scratch carries and returns the result; the x pass
-    (``conv_x``) adds the earlier terms' sum and, on the last term,
-    applies the epilogue of ``mode`` into ``out``. ``x_last(h, prev, kx)``
-    replaces that last x pass when given. ``out`` may be ``aux`` but
-    alias no other operand, nor any of ``extra`` (name -> tensor).
-    ``scratch`` (``n_zy`` carries, one more with several terms) and
-    ``out`` are allocated when not given.
+    (``conv_x``, circular when ``wrap``) adds the earlier terms' sum and,
+    on the last term, applies the epilogue of ``mode`` into ``out``.
+    ``x_last(h, prev, kx)`` replaces that last x pass when given. ``out``
+    may be ``aux`` but alias no other operand, nor any of ``extra``
+    (name -> tensor). ``scratch`` (``n_zy`` carries, one more with
+    several terms) and ``out`` are allocated when not given.
     """
     shape = tuple(inp.shape)
     _check_stencil(stencil, inp)
@@ -265,7 +303,7 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
             x_last(h, prev, kx)
         else:
             conv_x_cuda(h, prev, aux if last and mode != "plain" else None,
-                        out if last else acc, kx, mode, eps)
+                        out if last else acc, kx, mode, eps, wrap=wrap)
     return out
 
 
@@ -324,11 +362,9 @@ def half_step_cuda(
             partials = torch.empty((2, gz * gy), dtype=torch.float32, device=inp.device)
         _check_cuda_operand("partials", partials, (2, gz * gy))
         extra.update(g_prev=g_prev, partials=partials)
-    r_axis = max(stencil.radii[:2])
-    if (_TILE_N + 2 * r_axis) * _THREADS_INNER * 4 > _SMEM_BYTES:
-        raise ValueError(f"half_step_cuda: z/y radius {r_axis} exceeds the kernel's shared memory")
-    if gz > _MAX_GRID_YZ or round_up(gy, _TILE_N) // _TILE_N > _MAX_GRID_YZ:
-        raise ValueError(f"half_step_cuda: carry {shape} exceeds the launch grid")
+    bound = fused_bound_error(shape, stencil.radii)
+    if bound is not None:
+        raise ValueError(f"half_step_cuda: {bound}")
 
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
@@ -383,8 +419,10 @@ def half_step(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
     return half_step_plain(inp, aux, stencil, mode, eps, **accel)
 
 
-def pad_to_grid(image: torch.Tensor, radii, pad_mode: str) -> torch.Tensor:
-    """The G grid: ``image`` padded by ``radii`` with ``pad_mode``.
+def pad_to_grid(image: torch.Tensor, pads, pad_mode: str) -> torch.Tensor:
+    """The grid: ``image`` padded by ``pads``, one ``(lo, hi)`` pair per
+    axis (asymmetric on the ``matmul`` backend's block-rounded axes),
+    with ``pad_mode``.
 
     ``reflect`` and ``edge`` gather with the indices ``np.pad`` gives
     ``arange(n)``, so a pad longer than its axis reflects again as in
@@ -393,33 +431,42 @@ def pad_to_grid(image: torch.Tensor, radii, pad_mode: str) -> torch.Tensor:
     if pad_mode not in PAD_MODES:
         raise ValueError(f"pad_mode {pad_mode!r} not in {PAD_MODES}")
     if pad_mode == "constant":
-        rz, ry, rx = radii
-        return F.pad(image, (rx, rx, ry, ry, rz, rz))
+        (zl, zh), (yl, yh), (xl, xh) = pads
+        return F.pad(image, (xl, xh, yl, yh, zl, zh))
     out = image
-    for axis, r in enumerate(radii):
-        if r:
-            idx = np.pad(np.arange(image.shape[axis]), r, mode=pad_mode)
+    for axis, pad in enumerate(pads):
+        if any(pad):
+            idx = np.pad(np.arange(image.shape[axis]), pad, mode=pad_mode)
             out = out.index_select(axis, torch.from_numpy(idx).to(image.device))
     return out
 
 
+def grid_start(image: torch.Tensor, pads, settings, dtype: torch.dtype):
+    """``data = max(g, 0)`` and ``est = max(g, eps)`` in ``dtype`` on the
+    grid ``g`` of ``image`` padded by ``pads`` (what every RL backend
+    iterates from)."""
+    g = pad_to_grid(image.to(dtype), pads, settings.pad_mode)
+    # Not in place: with zero pads g is the caller's image itself.
+    return torch.clamp_min(g, 0.0), torch.clamp_min(g, float(settings.epsilon))
+
+
 def start_on_grid(image: torch.Tensor, psf_np, terms, settings, dtype: torch.dtype):
-    """What the zero-boundary backends start from: the stencils of
-    ``terms`` (conv and adjoint) on the image's device, and on the G grid
-    ``data = max(g, 0)`` and ``est = max(g, eps)`` in ``dtype``."""
+    """What the stencil backends start from: the stencils of ``terms``
+    (conv and adjoint) on the image's device, and :func:`grid_start` on
+    the G grid (the image padded by the PSF radii)."""
     radii = tuple(k // 2 for k in psf_np.shape)
     conv = Stencil(terms, device=image.device)
     adj = Stencil(terms, flip=True, device=image.device)
     if conv.radii != radii:
         raise ValueError(f"term radii {conv.radii} do not match the PSF radii {radii}")
-    g = pad_to_grid(image.to(dtype), radii, settings.pad_mode)
-    # Not in place: with zero radii g is the caller's image itself.
-    return conv, adj, torch.clamp_min(g, 0.0), torch.clamp_min(g, float(settings.epsilon))
+    return (conv, adj,
+            *grid_start(image, tuple((r, r) for r in radii), settings, dtype))
 
 
-def crop_grid(est: torch.Tensor, shape, radii) -> torch.Tensor:
-    """The image's (Z, Y, X) ``shape`` cut from the G grid."""
-    return est[tuple(slice(r, r + n) for r, n in zip(radii, shape))].contiguous()
+def crop_grid(est: torch.Tensor, shape, lo) -> torch.Tensor:
+    """The image's (Z, Y, X) ``shape`` cut from the grid, starting at the
+    low pads ``lo`` (the radii on the G grid)."""
+    return est[tuple(slice(a, a + n) for a, n in zip(lo, shape))].contiguous()
 
 
 def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,

@@ -26,16 +26,30 @@ from shrimpy_tpu_torch.config import (
     reconstruct_settings,
 )
 from shrimpy_tpu_torch.ops.conv3_cuda import (
+    conv3_circular,
+    conv3_circular_cuda,
+    conv3_circular_plain,
+    conv3_half_step,
+    conv3_half_step_plain,
+    convzy_circular,
+    convzy_circular_cuda,
+    convzy_circular_plain,
     convzy_linear,
     convzy_linear_cuda,
     convzy_linear_plain,
-    linear_half_step,
-    linear_half_step_plain,
+    x_circulant_plain,
 )
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf, richardson_lucy
 from shrimpy_tpu_torch.ops.deskew import deskew_plain, deskew_volume
 from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
-from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_step, half_step_cuda, half_step_plain
+from shrimpy_tpu_torch.ops.rl_fused import (
+    Stencil,
+    _epilogue,
+    conv_x_cuda,
+    half_step,
+    half_step_cuda,
+    half_step_plain,
+)
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
 from shrimpy_tpu_torch.runtime.feed import DeviceFeed
 from shrimpy_tpu_torch.utils.timing import StageTimer
@@ -284,25 +298,32 @@ def test_linear_half_step_kernels_match_plain(cuda, mode, n_terms):
     shape = (23, 57, 75)
     inp = _rand(shape, 15, cuda, 0.5, 10.5)
     aux = _rand(shape, 16, cuda, 0.0, 5.0)
-    out = linear_half_step(inp, aux, st, mode, 1e-6)
+    out = conv3_half_step(inp, aux, st, mode, 1e-6, boundary="zero")
     torch.cuda.synchronize()
-    assert _rel(out, linear_half_step_plain(inp, aux, st, mode, 1e-6)) <= 1e-5
+    assert _rel(out, conv3_half_step_plain(inp, aux, st, mode, 1e-6,
+                                                   boundary="zero")) <= 1e-5
 
 
-@pytest.mark.parametrize("backend", ["fused", "linear_pallas"])
+# The launch counter each backend's RL path advances, two per iteration.
+PATH_COUNTERS = {"fused": (half_step_cuda, "accel_launches"),
+                 "linear_pallas": (convzy_linear_cuda, "launches"),
+                 "zy_pallas": (convzy_circular_cuda, "launches")}
+PLAIN_COUNTERS = (half_step_plain, convzy_linear_plain, convzy_circular_plain, conv3_circular_plain)
+
+
+@pytest.mark.parametrize("backend", ["fused", "linear_pallas", "zy_pallas"])
 def test_biggs_rl_kernel_path_matches_float64_plain(cuda, backend):
     psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
     img = _rand((12, 60, 70), 17, cuda, 0.0, 100.0)
     s = deconvolve_settings(iterations=6, acceleration="biggs", separable_backend=backend)
-    counters = (half_step_cuda.accel_launches, convzy_linear_cuda.launches)
-    half_step_plain.cuda_calls = convzy_linear_plain.cuda_calls = 0
+    obj, attr = PATH_COUNTERS[backend]
+    before = getattr(obj, attr)
+    for f in PLAIN_COUNTERS:
+        f.cuda_calls = 0
     out = richardson_lucy(img, psf, s)
     torch.cuda.synchronize()
-    assert half_step_plain.cuda_calls == convzy_linear_plain.cuda_calls == 0
-    if backend == "fused":
-        assert half_step_cuda.accel_launches == counters[0] + 12
-    else:
-        assert convzy_linear_cuda.launches == counters[1] + 12
+    assert [f.cuda_calls for f in PLAIN_COUNTERS] == [0] * len(PLAIN_COUNTERS)
+    assert getattr(obj, attr) == before + 12
     _two_tier(out, richardson_lucy(img, psf, s, plain=True, dtype=torch.float64))
 
 
@@ -315,7 +336,7 @@ def test_linear_rl_kernel_path_matches_float64_plain_and_fused(cuda):
     assert _rel(out, richardson_lucy(img, psf, deconvolve_settings(iterations=5))) <= 1e-4
 
 
-@pytest.mark.parametrize("backend", ["fused", "linear_pallas"])
+@pytest.mark.parametrize("backend", ["fused", "linear_pallas", "zy_pallas"])
 def test_biggs_startup_equals_plain_rl_on_the_card(cuda, backend):
     psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
     img = _rand((12, 60, 70), 19, cuda, 0.0, 100.0)
@@ -324,3 +345,114 @@ def test_biggs_startup_equals_plain_rl_on_the_card(cuda, backend):
         plain = richardson_lucy(img, psf, s)
         s.acceleration = "biggs"
         torch.testing.assert_close(richardson_lucy(img, psf, s), plain, rtol=0, atol=0)
+
+
+# (tap lengths, shape): the production radii, a 2-term-style odd set, a
+# tiny radius, and a grid smaller than its radii (gz 3 < rz 4, gy 9 <
+# ry 10): taps wrap more than once.
+CIRCULAR_CASES = [
+    ((9, 21, 21), (20, 150, 170)),
+    ((7, 11, 13), (37, 41, 67)),
+    ((1, 3, 5), (5, 6, 300)),
+    ((9, 21, 21), (3, 9, 40)),
+]
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("lengths,shape", CIRCULAR_CASES)
+def test_convzy_circular_kernel_matches_plain(cuda, flip, lengths, shape):
+    wz, wy, _ = _asym_terms(1, lengths, seed=20)[0]
+    v = _rand(shape, 21, cuda, 0.0, 10.0)
+    before = convzy_circular_cuda.launches
+    out = convzy_circular(v, wz, wy, flip=flip)
+    torch.cuda.synchronize()
+    assert convzy_circular_cuda.launches == before + 1
+    kz, ky = (w[::-1] if flip else w for w in (wz, wy))
+    assert _rel(out, convzy_circular_plain(v, kz, ky)) <= 1e-5
+
+
+def test_convzy_circular_refuses_radii_past_shared_memory(cuda):
+    """The circular kernel keeps the linear one's slab: at z radius 4 the
+    y radius bound is 40 (JAX's zy_pallas has none), named in the error."""
+    v = _rand((6, 90, 40), 22, cuda)
+    convzy_circular_cuda(v, np.ones(9), np.ones(81))
+    torch.cuda.synchronize()
+    with pytest.raises(ValueError, match="y radius bound is 40"):
+        convzy_circular_cuda(v, np.ones(9), np.ones(83))
+    with pytest.raises(ValueError, match="alias"):
+        convzy_circular_cuda(v, np.ones(3), np.ones(3), out=v)
+
+
+@pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])
+@pytest.mark.parametrize("kx_len,shape", [(21, (7, 33, 170)), (45, (5, 9, 21))])
+def test_circular_x_pass_matches_plain(cuda, mode, kx_len, shape):
+    """conv_x with wrapped rows against the dense circulant product and
+    the epilogue; (45, gx 21): the row wraps more than once."""
+    kx = np.random.default_rng(kx_len).random(kx_len).astype(np.float32)
+    h = _rand(shape, 23, cuda, 0.5, 10.5)
+    aux = _rand(shape, 24, cuda, 0.0, 5.0)
+    out = torch.empty_like(h)
+    conv_x_cuda(h, None, None if mode == "plain" else aux, out,
+                torch.tensor(kx, device=cuda), mode, 1e-6, wrap=True)
+    torch.cuda.synchronize()
+    want = _epilogue(x_circulant_plain(h.double(), kx), aux.double(), mode, 1e-6)
+    assert _rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("n_terms", [1, 2])
+@pytest.mark.parametrize("lengths,shape", CIRCULAR_CASES[:2] + CIRCULAR_CASES[3:])
+def test_conv3_circular_kernels_match_plain(cuda, flip, n_terms, lengths, shape):
+    terms = _asym_terms(n_terms, lengths, seed=25)
+    v = _rand(shape, 26, cuda, 0.0, 10.0)
+    before = conv3_circular_cuda.launches, convzy_circular_cuda.launches
+    out = conv3_circular(v, terms, flip=flip)
+    torch.cuda.synchronize()
+    assert (conv3_circular_cuda.launches, convzy_circular_cuda.launches) == (
+        before[0] + 1, before[1] + n_terms)
+    assert _rel(out, conv3_circular_plain(v, Stencil(terms, flip=flip))) <= 1e-5
+
+
+@pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])
+@pytest.mark.parametrize("n_terms", [1, 2])
+def test_circular_half_step_kernels_match_plain(cuda, mode, n_terms):
+    st = Stencil(_asym_terms(n_terms, (7, 11, 13), seed=27), flip=mode == "mult", device=cuda)
+    shape = (23, 57, 75)
+    inp = _rand(shape, 28, cuda, 0.5, 10.5)
+    aux = _rand(shape, 29, cuda, 0.0, 5.0)
+    out = conv3_half_step(inp, aux, st, mode, 1e-6, boundary="circular")
+    torch.cuda.synchronize()
+    want = conv3_half_step_plain(inp, aux, st, mode, 1e-6, boundary="circular")
+    assert _rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("pad_mode", ["reflect", "constant"])
+def test_zy_rl_kernel_path_matches_float64_plain(cuda, pad_mode):
+    psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
+    img = _rand((12, 60, 70), 30, cuda, 0.0, 100.0)
+    s = deconvolve_settings(iterations=5, pad_mode=pad_mode, separable_backend="zy_pallas")
+    before = convzy_circular_cuda.launches
+    for f in PLAIN_COUNTERS:
+        f.cuda_calls = 0
+    out = richardson_lucy(img, psf, s)
+    torch.cuda.synchronize()
+    assert convzy_circular_cuda.launches == before + 10
+    assert [f.cuda_calls for f in PLAIN_COUNTERS] == [0] * len(PLAIN_COUNTERS)
+    assert _rel(out, richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)) <= 1e-4
+
+
+def test_matmul_rl_on_the_card_matches_float64(cuda, monkeypatch):
+    """matmul launches no kernel of the repository: float32 products with
+    TF32 off within 1e-4 of float64; TF32 switched on raises."""
+    psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
+    img = _rand((12, 60, 70), 31, cuda, 0.0, 100.0)
+    s = deconvolve_settings(iterations=5, separable_backend="matmul")
+    before = [getattr(o, a) for o, a in PATH_COUNTERS.values()]
+    out = richardson_lucy(img, psf, s)
+    torch.cuda.synchronize()
+    assert [getattr(o, a) for o, a in PATH_COUNTERS.values()] == before
+    assert out.is_cuda and out.dtype == torch.float32
+    assert _rel(out, richardson_lucy(img, psf, s, dtype=torch.float64)) <= 1e-4
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    with pytest.raises(RuntimeError, match="allow_tf32"):
+        richardson_lucy(img, psf, s)

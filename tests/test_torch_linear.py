@@ -19,10 +19,10 @@ from shrimpy_tpu.ops import deconv as jdeconv
 from shrimpy_tpu_torch.config import deconvolve_settings
 from shrimpy_tpu_torch.ops import deconv as tdeconv
 from shrimpy_tpu_torch.ops.conv3_cuda import (
+    conv3_half_step,
+    conv3_half_step_plain,
     convzy_linear,
     convzy_linear_cuda,
-    linear_half_step,
-    linear_half_step_plain,
     toeplitz_banded,
     x_toeplitz_plain,
 )
@@ -71,7 +71,7 @@ def test_plain_linear_conv3_matches_zero_boundary_oracle(flip, dtype):
     out = sum(x_toeplitz_plain(convzy_linear(v, wz, wy), wx) for wz, wy, wx in st.host)
     ref = _oracle_conv3(vol, terms, grid, flip)
     assert _rel(out.numpy(), ref) <= (1e-6 if dtype == torch.float32 else 1e-12)
-    half = linear_half_step(v, None, st, "plain")
+    half = conv3_half_step(v, None, st, "plain", boundary="zero")
     torch.testing.assert_close(half, out, rtol=1e-12, atol=0)
     # The same convolution as the fused route's plain half-step.
     assert _rel(half.numpy(), half_step_plain(v, None, st, "plain").numpy()) <= 1e-6
@@ -83,17 +83,17 @@ def test_linear_half_step_epilogues_and_guards():
     vol = torch.from_numpy((rng.random((10, 30, 26)) * 10 + 0.5).astype(np.float32))
     aux = torch.from_numpy((rng.random((10, 30, 26)) * 5).astype(np.float32))
     conv, adj = Stencil(terms), Stencil(terms, flip=True)
-    c = linear_half_step(vol, aux, conv, "plain")
-    torch.testing.assert_close(linear_half_step(vol, aux, conv, "ratio", 1e-6),
+    c = conv3_half_step(vol, aux, conv, "plain", boundary="zero")
+    torch.testing.assert_close(conv3_half_step(vol, aux, conv, "ratio", 1e-6, boundary="zero"),
                                aux / torch.clamp_min(c, 1e-6), rtol=1e-6, atol=1e-7)
-    torch.testing.assert_close(linear_half_step(vol, aux, adj, "mult"),
-                               aux * linear_half_step(vol, None, adj, "plain"),
+    torch.testing.assert_close(conv3_half_step(vol, aux, adj, "mult", boundary="zero"),
+                               aux * conv3_half_step(vol, None, adj, "plain", boundary="zero"),
                                rtol=1e-6, atol=1e-7)
     before = convzy_linear_cuda.launches
-    linear_half_step(vol, aux, conv, "ratio")
+    conv3_half_step(vol, aux, conv, "ratio", boundary="zero")
     assert convzy_linear_cuda.launches == before
     with pytest.raises(ValueError, match="mode"):
-        linear_half_step_plain(vol, aux, conv, "ratio_accel")
+        conv3_half_step_plain(vol, aux, conv, "ratio_accel", boundary="zero")
     with pytest.raises(ValueError, match="CUDA tensor"):
         convzy_linear_cuda(vol, terms[0][0], terms[0][1])
 

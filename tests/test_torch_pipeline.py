@@ -172,6 +172,42 @@ def test_cli_reconstruct_biggs_linear_pallas_on_cpu(tmp_path):
         got, reconstruct_batch(raw[None], plain, psf=tstream._load_psf(plain))[0].numpy())
 
 
+@pytest.mark.parametrize("backend", ["zy_pallas", "matmul"])
+def test_cli_reconstruct_circular_backends_on_cpu(tmp_path, backend):
+    """A YAML that sets ``separable_backend: zy_pallas`` or ``matmul``
+    runs through ``shrimpy-tpu-torch reconstruct``: read back, equal to
+    the port's reconstruct_batch with those settings, within 1e-4 of
+    JAX's reconstruct_batch on the same backend (Pallas deskew and
+    zy_pallas in interpret mode)."""
+    raw, _ = synthetic_ls_stack(tmp_path / "ls.zarr", raw_shape_szx=(40, 24, 32))
+    cfg = tmp_path / f"{backend}.yml"
+    cfg.write_text(textwrap.dedent(f"""
+        deskew:
+          ls_angle_deg: 30.0
+          backend: pallas
+        deconvolve:
+          iterations: 3
+          separable_backend: {backend}
+    """))
+    out = tmp_path / "out.zarr"
+    result = CliRunner().invoke(cli, ["reconstruct", str(tmp_path / "ls.zarr"), "-o", str(out),
+                                      "-c", str(cfg), "--device", "cpu"])
+    assert result.exit_code == 0, result.output
+    got = np.asarray(open_ngff(out).position().volume(0, 0))
+    from shrimpy_tpu.config.schemas import load_yaml_config
+
+    settings = load_yaml_config(cfg, ReconstructSettings)
+    sz, sy, _ = open_ngff(tmp_path / "ls.zarr").position().zyx_scale
+    inject_derived_parameters(settings, pixel_size_um=sy, z_step_um=sz)
+    assert settings.deconvolve.separable_backend == backend
+    psf = tstream._load_psf(settings)
+    want = reconstruct_batch(raw[None], settings, psf=psf)[0].numpy()
+    assert got.shape == want.shape and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6 * np.abs(want).max())
+    ref = np.asarray(jax_reconstruct_batch(jnp.asarray(raw[None]), settings, psf=psf))[0]
+    assert np.abs(got - ref).max() <= 1e-4 * np.abs(ref).max()
+
+
 def test_cli_deskew_and_deconvolve_verbs(tmp_path):
     raw, _ = synthetic_ls_stack(tmp_path / "ls.zarr", raw_shape_szx=(40, 24, 16))
     runner = CliRunner()
@@ -286,6 +322,9 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
     ({"deconvolve": DeconvolveSettings(algorithm="hybrid")}, "item 8"),
     ({"deconvolve": DeconvolveSettings(separable_backend="linear_pallas", iterations=3)},
      None),
+    ({"deconvolve": DeconvolveSettings(separable_backend="zy_pallas", iterations=3)}, None),
+    ({"deconvolve": DeconvolveSettings(separable_backend="matmul", iterations=3)}, None),
+    ({"deconvolve": DeconvolveSettings(separable_backend="fused_iter")}, "kernel 6"),
 ])
 def test_unported_pipeline_settings_raise(update, match):
     """Stages and settings the port does not run raise; those it has
@@ -446,8 +485,7 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
     assert first.exists() and first.parent == tmp_path / "build"
     assert build.build() == first
     calls = log.read_text().splitlines()
-    assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu",
-                                                 "convzy_linear.cu"}
+    assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu", "convzy.cu"}
     assert len(calls) == len(build.sources()) + 1
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     compiles = [c for c in calls if " -c " in c]
