@@ -22,9 +22,20 @@ or any check fails. Phases:
    circular x pass in ``ratio``, ``mult`` and ``plain`` modes against
    the dense circulant product (also with a row that wraps twice);
    ``conv3_circular``, which no backend reaches, is then driven once at
-   the production carry with the counts reset. Tolerance: max|a-b| /
-   max|b| <= 1e-4 (float32 sums taken in another order); the bf16 Biggs
-   state within one bf16 ulp, the step-length sums within 1e-5 relative;
+   the production carry with the counts reset; the whole-iteration
+   kernel ``rl_iter`` on the production carry, on the (40, 300, 400)
+   carry with the 2-term asymmetric PSF (both tap orders) and on a
+   (5, 37, 45) grid that no tile divides and whose z extent is smaller
+   than 2 rz + 1; the three on-chip probes (shared-memory slice, largest
+   block, split products on the tensor cores) against their plain
+   versions, then driven through their entry points with the counts
+   reset. Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
+   another order); the bf16 Biggs state within one bf16 ulp, the
+   step-length sums within 1e-5 relative. Beside each kernel's time the
+   phase works out its bound from the shapes (bytes it must move over
+   3.35 TB/s, operations over the peak for their type, the larger) and
+   times the one PyTorch call that computes the same function, where
+   there is one (``F.conv3d``, ``torch.matmul``);
 4. the main path through ``build_reconstruct_step`` — deskew, then
    RL-20 with the (9, 21, 21) PSF — on a (1, 1201, 256, 1600) batch from
    a fixed seed, with the kernels' launch counters reset just before and
@@ -46,10 +57,17 @@ or any check fails. Phases:
    on the block-rounded (136, 2944, 1664) grid, no kernel of the
    repository) against the same backend in float64 on the card, within
    1e-3; warm time and peak memory;
+4f. deskew + RL-20 on ``separable_backend: fused_iter`` (one ``rl_iter``
+   launch per iteration, no half-step launch) against its float64 plain
+   path within 1e-3 and against phase 4's ``fused`` output within 1e-4,
+   timed against its plain float32 path; Biggs RL-10 (generic loop) by
+   the two-tier gate; the peak of Biggs RL-10 through
+   ``richardson_lucy`` with and without ``donate_input``, the two
+   results bit-equal;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
-   have run on no CUDA tensor), peak memory, then the kernel JSON line,
-   the card line and the final ``{"ok": true, ...}`` line.
+   have run on no CUDA tensor), peak memory, then the kernel JSON line
+   (ten kernels), the card line and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -72,6 +90,43 @@ SUM_RTOL = 1e-5  # the Biggs step-length sums
 STEP_RTOL = 1e-3  # BASELINE.md parity budget
 LINEAR_RTOL = 1e-4  # linear_pallas vs fused (tests/test_rl_fused.py:186)
 BULK_TOL, BULK_SHARE, MAX_TOL = 5e-4, 0.9999, 2e-2  # two-tier Biggs gate
+FUSED_RTOL = 1e-4  # fused_iter vs fused: the same sums in another order, 20 iterations
+# Published peaks of one H100 SXM: device memory, float32 outside the
+# tensor cores, and dense TF32 and bf16 in them.
+HBM_BYTES_S, FP32_FLOPS, TF32_FLOPS, BF16_FLOPS = 3.35e12, 67e12, 495e12, 989e12
+
+
+def bound(bytes_moved: float, ops: float, peak: float = FP32_FLOPS) -> dict:
+    """The least time the card could take: each input byte read once and
+    each output byte written once at the memory rate, or the operations
+    at their peak rate, whichever is larger."""
+    by_bytes, by_ops = bytes_moved / HBM_BYTES_S * 1e3, ops / peak * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
+def n_taps(terms) -> int:
+    """Taps of every term and axis: FMAs of one separable conv3 per voxel."""
+    return sum(len(w) for term in terms for w in term)
+
+
+def dense_kernel(terms, axes=(0, 1, 2)) -> torch.Tensor:
+    """The dense ``F.conv3d`` weight of the separable ``terms`` over
+    ``axes`` (flipped: conv3d correlates), float32 on the card."""
+    import numpy as np
+
+    psf = 0.0
+    for term in terms:
+        w = [np.asarray(term[a], np.float64)[::-1] if a in axes else np.ones(1) for a in range(3)]
+        psf = psf + np.einsum("z,y,x->zyx", *w)
+    return torch.tensor(np.ascontiguousarray(psf), dtype=torch.float32, device="cuda")[None, None]
+
+
+def library_conv3d(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """One ``F.conv3d`` call, zero boundary: the yardstick the port never
+    calls."""
+    pad = tuple(k // 2 for k in weight.shape[2:])
+    return torch.nn.functional.conv3d(v[None, None], weight, padding=pad)[0, 0]
 
 
 def headline_settings(**deconvolve):
@@ -170,10 +225,19 @@ def counters() -> dict:
         convzy_linear_cuda,
         convzy_linear_plain,
     )
+    from shrimpy_tpu_torch.kernels import probes
     from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
     from shrimpy_tpu_torch.ops.rl_fused import half_step_cuda, half_step_plain
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_plain
 
     return {
+        "rl_iter": (rl_iter_cuda, "launches"),
+        "probe_smem_slice": (probes.dynamic_smem_slice_cuda, "launches"),
+        "probe_smem": (probes.probe_smem, "launches"),
+        "probe_split_dot": (probes.split_dot_cuda, "launches"),
+        "plain_rl_iter_on_cuda": (rl_iter_plain, "cuda_calls"),
+        "plain_probe_slice_on_cuda": (probes.dynamic_smem_slice_plain, "cuda_calls"),
+        "plain_split_dot_on_cuda": (probes.split_dot_plain, "cuda_calls"),
         "deskew": (deskew_cuda, "launches"),
         "rl_half_step": (half_step_cuda, "launches"),
         "rl_half_step_accel": (half_step_cuda, "accel_launches"),
@@ -248,12 +312,17 @@ def phase_deskew(gen) -> dict:
                   deskew_plain(raw, prod), KERNEL_RTOL)
     ms = gpu_ms(lambda: deskew_cuda(raw, prod), 20)
     plain_ms = gpu_ms(lambda: deskew_plain(raw, prod), 3)
+    # Raw read once, the deskewed volume written once; 9 operations a
+    # voxel (two 2-row lerps and the tilt lerp). No single PyTorch call
+    # computes it (F.grid_sample resamples on other coordinates).
+    out_vox = math.prod(deskew_cuda(raw, prod).shape)
+    roof = bound(4 * (raw.numel() + out_vox), 9 * out_vox)
     del raw
     over = deskew_settings(px_to_scan_ratio=0.386, keep_overhang=True, average_n_slices=3)
     raw2 = uniform((300, 512, 512), gen, 0.0, 100.0)
     compare("deskew (300, 512, 512) keep_overhang avg3", deskew_cuda(raw2, over),
             deskew_plain(raw2, over), KERNEL_RTOL)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **roof, "library_ms": None}
 
 
 def phase_rl(gen) -> dict:
@@ -282,9 +351,18 @@ def phase_rl(gen) -> dict:
     scratch = [torch.empty_like(inp) for _ in range(2)]
     ms = gpu_ms(lambda: half_step_cuda(inp, aux, conv, "ratio", eps, out=out, scratch=scratch), 10)
     plain_ms = gpu_ms(lambda: half_step_plain(inp, aux, conv, "ratio", eps), 2)
-    del inp, aux, out, scratch
+    # inp and aux read, out written; an FMA a tap and the division.
+    roof = bound(3 * 4 * inp.numel(), (2 * n_taps(terms) + 1) * inp.numel())
+    del aux, out, scratch
+    # The library's one call for the convolution inside the half-step:
+    # F.conv3d with the dense PSF (float32, TF32 off).
+    weight = dense_kernel(terms)
+    compare(f"F.conv3d dense {tuple(weight.shape[2:])} vs plain conv3", library_conv3d(inp, weight),
+            half_step_plain(inp, None, conv, "plain", eps), 1e-3)
+    library_ms = gpu_ms(lambda: library_conv3d(inp, weight), 1)
+    del inp
     modes((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **roof, "library_ms": library_ms}
 
 
 def production_terms():
@@ -351,9 +429,18 @@ def phase_accel(gen) -> dict:
                                          alpha=alpha, scratch=scratch, partials=parts), 10)
     m_plain = gpu_ms(lambda: half_step_plain(ratio, x, adj, "mult_accel", eps, dx=dx,
                                              g_prev=gp, alpha=alpha), 2)
+    # ratio_accel reads x, data and the bf16 dx and writes the ratio (14
+    # bytes a voxel); mult_accel reads the ratio, x, dx and g and writes
+    # x, dx and g (20). The entry is their mean, as its times are.
+    n = x.numel()
+    ops = (2 * n_taps(terms) + 8) * n
+    roofs = [bound(14 * n, ops), bound(20 * n, ops)]
+    roof = {"bound_ms": (roofs[0]["bound_ms"] + roofs[1]["bound_ms"]) / 2,
+            "bound_by": roofs[1]["bound_by"], "library_ms": None}
     del x, data, ratio, dx, gp, out, scratch, parts
     check((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms")
     return {"max_abs_err": err, "ms": (r_ms + m_ms) / 2, "plain_ms": (r_plain + m_plain) / 2,
+            **roof,
             "ms_ratio_accel": r_ms, "plain_ms_ratio_accel": r_plain,
             "ms_mult_accel": m_ms, "plain_ms_mult_accel": m_plain}
 
@@ -381,6 +468,11 @@ def phase_convzy(gen) -> dict:
             out = torch.empty_like(v)
             res["ms"] = gpu_ms(lambda: convzy_linear_cuda(v, kzd, kyd, out=out), 10)
             res["plain_ms"] = gpu_ms(lambda: convzy_linear_plain(v, kz, ky), 2)
+            res.update(bound(2 * 4 * v.numel(), 2 * (len(kz) + len(ky)) * v.numel()))
+            weight = dense_kernel(tt[:1], axes=(0, 1))
+            compare(f"F.conv3d {tuple(weight.shape[2:])} vs convzy_linear", library_conv3d(v, weight),
+                    out, 1e-3)
+            res["library_ms"] = gpu_ms(lambda: library_conv3d(v, weight), 2)
             del out
         del v
     return res
@@ -430,6 +522,11 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
             zy["plain_ms"] = gpu_ms(lambda: convzy_circular_plain(v, kz, ky), 2)
             c3["ms"] = gpu_ms(lambda: conv3_circular_cuda(v, st, out=out, scratch=scratch), 10)
             c3["plain_ms"] = gpu_ms(lambda: conv3_circular_plain(v, st), 2)
+            # v read, out written. F.conv3d has no circular boundary (it
+            # would take a wrap pad first: two calls), so no library time.
+            zy.update(bound(2 * 4 * v.numel(), 2 * (len(kz) + len(ky)) * v.numel()),
+                      library_ms=None)
+            c3.update(bound(2 * 4 * v.numel(), 2 * n_taps(tt) * v.numel()), library_ms=None)
             del out, scratch
         del v
     # The x pass alone: the production row, and a row of 21 under 45 taps.
@@ -459,6 +556,127 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
     c3["launches"] = counts["conv3_circular"]
     del v
     return zy, c3, xp
+
+
+def phase_iter(gen) -> dict:
+    """rl_iter (one launch per RL iteration) against its plain version."""
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil
+    from shrimpy_tpu_torch.ops.rl_fused_iter import (
+        iter_layout,
+        pack_taps,
+        rl_iter_cuda,
+        rl_iter_plain,
+    )
+
+    eps = headline_settings().deconvolve.epsilon
+    terms, carry = production_terms()
+    res = {}
+    for shape, tt, label in ((carry, terms, f"{carry}"),
+                             ((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms"),
+                             ((5, 37, 45), terms, "(5, 37, 45) ragged, gz < 2rz+1")):
+        conv = Stencil(tt, device="cuda")
+        adj = Stencil(tt, flip=True, device="cuda")
+        est = uniform(shape, gen, 0.5, 10.5)
+        data = uniform(shape, gen, 0.0, 5.0)
+        layout = iter_layout(shape, conv.radii, len(tt))
+        print(f"  rl_iter {label}: tile {layout['tile']}, {layout['smem_bytes']} bytes of shared "
+              "memory a block", flush=True)
+        # Both tap orders: the adjoint's taps as the convolution's and back.
+        for a, b, order in ((conv, adj, "conv, adj"), (adj, conv, "adj, conv")):
+            err = compare(f"rl_iter {label} ({order})", rl_iter_cuda(est, data, a, b, eps),
+                          rl_iter_plain(est, data, a, b, eps), KERNEL_RTOL)
+            if shape == carry:
+                res["max_abs_err"] = max(err, res.get("max_abs_err", 0.0))
+        if shape == carry:
+            out = torch.empty_like(est)
+            taps = pack_taps(conv, adj, "cuda")
+            res["ms"] = gpu_ms(lambda: rl_iter_cuda(est, data, conv, adj, eps, out, taps=taps), 5)
+            res["plain_ms"] = gpu_ms(lambda: rl_iter_plain(est, data, conv, adj, eps), 2)
+            # est and data read, out written; both conv3s' FMAs, the
+            # division and the product. A whole RL iteration is no single
+            # PyTorch call.
+            res.update(bound(3 * 4 * est.numel(), (4 * n_taps(tt) + 2) * est.numel()),
+                       library_ms=None)
+            del out
+        del est, data
+    return res
+
+
+def phase_probes() -> tuple[dict, dict, dict]:
+    """The three on-chip probes against their plain versions, then driven
+    through their entry points with the counts reset."""
+    from shrimpy_tpu_torch.kernels import probes
+    from shrimpy_tpu_torch.ops.rl_fused import _SMEM_BYTES
+
+    x = torch.arange(8 * 512, dtype=torch.float32, device="cuda").reshape(8, 512)
+    got = probes.dynamic_smem_slice_cuda(x)
+    want = probes.dynamic_smem_slice_plain(x)
+    if not torch.equal(got, want):
+        raise AssertionError("probe_dynamic_smem_slice differs from the same indexing in torch")
+    print("  probe_dynamic_smem_slice: exact", flush=True)
+    sl = {"max_abs_err": 0.0, "ms": gpu_ms(lambda: probes.dynamic_smem_slice_cuda(x), 20),
+          "plain_ms": gpu_ms(lambda: probes.dynamic_smem_slice_plain(x), 20),
+          **bound(2 * 4 * x.numel(), x.numel()), "library_ms": None}
+
+    fits = {kb: probes.probe_smem(kb) for kb in probes.SMEM_KB}
+    largest = max(kb for kb, ok in fits.items() if ok) * 1024
+    print(f"  probe_smem: {fits}; largest block {largest} bytes (_SMEM_BYTES {_SMEM_BYTES})",
+          flush=True)
+    if largest != _SMEM_BYTES:
+        raise AssertionError(f"largest block {largest} != _SMEM_BYTES {_SMEM_BYTES}")
+    words = _SMEM_BYTES // 4
+    # The block writes and reads each word once (in shared memory; 8
+    # bytes leave it), 2 integer operations a word at the float32 rate.
+    sm = {"max_abs_err": 0.0, "ms": gpu_ms(lambda: probes.probe_smem(_SMEM_BYTES // 1024), 5),
+          "plain_ms": gpu_ms(lambda: probes.smem_touch_plain(_SMEM_BYTES // 1024), 5),
+          **bound(8, 2 * words), "library_ms": None}
+
+    a, b = probes.dot_operands("cuda", SEED)
+    ref = a.double() @ b.double()
+    scale = float(ref.abs().max())
+    (m, k), n = a.shape, b.shape[1]
+    passes = {"bf16x3": (3, BF16_FLOPS), "tf32": (1, TF32_FLOPS), "tf32x3": (3, TF32_FLOPS),
+              "bf16": (1, BF16_FLOPS), "fma": (1, FP32_FLOPS)}
+    dot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "errors": {}}
+    for mode, (n_pass, peak) in passes.items():
+        c = probes.split_dot_cuda(a, b, mode).double()
+        plain = probes.split_dot_plain(a, b, mode)
+        err, vs_plain = (float((c - r).abs().max()) / scale for r in (ref, plain))
+        gated = mode in ("bf16x3", "tf32x3")
+        print(f"  probe_split_dot {mode}: rel err vs float64 {err:.3e}"
+              f"{f' (tol {probes.SPLIT_RTOL:g})' if gated else ' (reported)'}; vs its plain "
+              f"version {vs_plain:.3e} (tol {KERNEL_RTOL:g})", flush=True)
+        if (gated and not err <= probes.SPLIT_RTOL) or not vs_plain <= KERNEL_RTOL:
+            raise AssertionError(f"probe_split_dot {mode}: {err:.3e} vs float64, {vs_plain:.3e} "
+                                 "vs plain")
+        dot["errors"][mode] = err
+        dot["max_abs_err"] = max(dot["max_abs_err"], vs_plain * scale)
+        dot["ms"] += gpu_ms(lambda: probes.split_dot_cuda(a, b, mode), 20)
+        dot["plain_ms"] += gpu_ms(lambda: probes.split_dot_plain(a, b, mode), 5)
+        dot["bound_ms"] += bound(4 * (m * k + k * n + m * n), 2 * m * n * k * n_pass,
+                                 peak)["bound_ms"]
+    dot["bound_by"] = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, FP32_FLOPS)["bound_by"]
+    # torch.matmul in float32 (TF32 off) is the library's product, once
+    # per mode so that it stands beside the five hand-written ones.
+    dot["library_ms"] = len(passes) * gpu_ms(lambda: torch.matmul(a, b), 20)
+
+    print("  the probes through their entry points:", flush=True)
+
+    def entry(_):
+        if not probes.probe_dynamic_smem_slice():
+            raise AssertionError("probe_dynamic_smem_slice")
+        if probes.largest_smem() != _SMEM_BYTES:
+            raise AssertionError("largest_smem")
+        errs = probes.probe_split_dot(seed=SEED)
+        return torch.tensor([r["err"] for r in errs.values()])
+
+    fit_count = sum(fits.values())
+    _, counts, _ = drive(entry, None, {"probe_smem_slice": 1, "probe_smem": fit_count,
+                                       "probe_split_dot": len(passes)})
+    for entry_dict, name in ((sl, "probe_smem_slice"), (sm, "probe_smem"),
+                             (dot, "probe_split_dot")):
+        entry_dict["launches"] = counts[name]
+    return sl, sm, dot
 
 
 def warm_ms(step, steps) -> float:
@@ -590,6 +808,54 @@ def phase_matmul(steps: Steps) -> dict:
             "gvox_s": steps.vox / ms / 1e6}
 
 
+def phase_fused_iter(steps: Steps, rl20: torch.Tensor) -> dict:
+    """Phase 4f: RL-20 and Biggs RL-10 on separable_backend fused_iter."""
+    from shrimpy_tpu_torch.ops.deconv import richardson_lucy
+    from shrimpy_tpu_torch.ops.deskew import deskew_volume
+
+    fi = {"separable_backend": "fused_iter"}
+    step = steps.build(**fi)
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "rl_iter": ITERATIONS})
+    steps.check_shape(out)
+    compare("fused_iter RL-20 vs fused kernel RL-20", out, rl20, FUSED_RTOL)
+    ref = steps.build(plain=True, dtype=torch.float64, **fi)(steps.batch)
+    compare("fused_iter RL-20 step vs float64 plain", out, ref, STEP_RTOL)
+    err = rel_err(out, ref)
+    del out, ref
+    times = timed_pair(step, steps.build(plain=True, **fi), steps.batch, steps.vox,
+                       "fused_iter RL-20")
+    kw = {**fi, "acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
+    bstep = steps.build(**kw)
+    bout, bcounts, bpeak = drive(bstep, steps.batch, {"deskew": 1, "rl_iter": BIGGS_ITERATIONS})
+    steps.check_shape(bout)
+    ref = steps.build(plain=True, dtype=torch.float64, **kw)(steps.batch)
+    berr = two_tier("fused_iter Biggs RL-10 step vs float64 plain (bf16 state)", bout, ref)
+    del ref
+    bms = warm_ms(bstep, steps)
+    print(f"  fused_iter Biggs RL-10: {bms:.1f} ms/volume, {steps.vox / bms / 1e6:.4f} "
+          "RL-20-equivalent GVox/s (warm)", flush=True)
+    # donate_input through richardson_lucy (the step does not read it):
+    # the caller's deskewed volume is consumed once the carries exist.
+    settings = headline_settings(**kw)
+    peaks = {}
+    for donate in (False, True):
+        settings.deconvolve.donate_input = donate
+        vol = deskew_volume(steps.batch[0], settings.deskew)
+        got, _, peaks[donate] = drive(
+            lambda v: richardson_lucy(v, steps.psf, settings.deconvolve), vol,
+            {"rl_iter": BIGGS_ITERATIONS})
+        if (vol.numel() == 0) != donate:
+            raise AssertionError(f"donate_input={donate}: the volume has {vol.numel()} voxels")
+        if not torch.equal(got, bout[0]):
+            raise AssertionError(f"donate_input={donate}: differs from the step's output")
+        del vol, got
+    print(f"  fused_iter Biggs RL-10 through richardson_lucy: peak {peaks[False]:.2f} GiB, with "
+          f"donate_input {peaks[True]:.2f} GiB", flush=True)
+    return {"launches": counts, "peak_gib": peak, "rel_err": err, **times,
+            "biggs": {"launches": bcounts, "peak_gib": bpeak, "rel_err": berr, "ms": bms,
+                      "peak_rl_gib": peaks[False], "peak_rl_donated_gib": peaks[True]}}
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -619,6 +885,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     czy, c3, xcirc = phase_circular(gen)
     torch.cuda.empty_cache()
+    it = phase_iter(gen)
+    torch.cuda.empty_cache()
+    p_slice, p_smem, p_dot = phase_probes()
     steps = Steps(gen)
     print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
     step = phase_step(steps)
@@ -627,13 +896,18 @@ def main() -> int:
     biggs = phase_biggs(steps)
     torch.cuda.empty_cache()
     print("[4c] the same steps on separable_backend linear_pallas", flush=True)
-    lin = phase_linear(steps, step.pop("out"), biggs.pop("out"))
+    rl20 = step.pop("out")
+    lin = phase_linear(steps, rl20, biggs.pop("out"))
     torch.cuda.empty_cache()
     print("[4d] deskew + RL-20 and Biggs RL-10 on separable_backend zy_pallas", flush=True)
     zyp = phase_zy(steps)
     torch.cuda.empty_cache()
     print("[4e] deskew + RL-20 on separable_backend matmul", flush=True)
     mmp = phase_matmul(steps)
+    torch.cuda.empty_cache()
+    print("[4f] deskew + RL-20 and Biggs RL-10 on separable_backend fused_iter", flush=True)
+    fip = phase_fused_iter(steps, rl20)
+    del rl20
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -655,6 +929,15 @@ def main() -> int:
           f"{czy['plain_ms']:.3f}); circular x pass {xcirc['ms']:.3f} ms (plain "
           f"{xcirc['plain_ms']:.3f}); conv3_circular {c3['ms']:.3f} ms (plain "
           f"{c3['plain_ms']:.3f})", flush=True)
+    print(f"[5] {card}: fused_iter RL-20 {fip['ms']:.1f} ms, {fip['gvox_s']:.4f} GVox/s (fused "
+          f"{step['ms']:.1f} ms; plain f32 {fip['plain_ms']:.1f} ms), rel err {fip['rel_err']:.3e}, "
+          f"peak {fip['peak_gib']:.2f} GiB (fused {step['peak_gib']:.2f}); its Biggs RL-10 "
+          f"{fip['biggs']['ms']:.1f} ms, max rel err {fip['biggs']['rel_err']:.3e}, peak "
+          f"{fip['biggs']['peak_gib']:.2f} GiB; through richardson_lucy "
+          f"{fip['biggs']['peak_rl_gib']:.2f} GiB, with donate_input "
+          f"{fip['biggs']['peak_rl_donated_gib']:.2f} GiB; rl_iter {it['ms']:.3f} ms (plain "
+          f"{it['plain_ms']:.3f}, bound {it['bound_ms']:.3f} by {it['bound_by']}); split-dot "
+          f"errors vs float64 {p_dot['errors']}", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
@@ -680,7 +963,24 @@ def main() -> int:
         {"name": "conv3_circular", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:104", **c3},
+        {"name": "rl_iter", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/rl_iter.cu",
+         "replaces": "shrimpy_tpu/ops/rl_fused_iter.py:246",
+         "launches": fip["launches"]["rl_iter"], **it},
+        {"name": "probe_smem_slice", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/probes.cu",
+         "replaces": "scripts/probe_mosaic.py:22", **p_slice},
+        {"name": "probe_smem", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/probes.cu",
+         "replaces": "scripts/probe_mosaic.py:47", **p_smem},
+        {"name": "probe_split_dot", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/probes.cu",
+         "replaces": "scripts/probe_mosaic.py:65", **p_dot},
     ]
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    for entry in kernels:
+        if keys - set(entry) or not entry["launches"] > 0:
+            raise AssertionError(f"kernel entry {entry.get('name')}: missing "
+                                 f"{sorted(keys - set(entry))} or never launched")
     print(f"[5] chip_smoke.py total {time.monotonic() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,21 +7,27 @@ and runs every TPU kernel of the ported paths as a kernel written by
 hand for Hopper (``csrc/*.cu``, built by :mod:`shrimpy_tpu_torch.kernels.build`).
 
 Ported so far: the main reconstruction path, deskew followed by
-separable Richardson-Lucy on the zero-boundary grid:
+separable Richardson-Lucy on every separable backend:
 
+  L1  shrimpy_tpu_torch.config    settings (namespaces; pydantic schemas)
+      shrimpy_tpu_torch.io        OME-Zarr stores, synthetic fixtures
   L2  shrimpy_tpu_torch.ops       deskew (+ CUDA kernel), separable RL
-                                  (+ CUDA half-step kernel), host plans
+                                  (+ CUDA half-step, z+y and
+                                  whole-iteration kernels), host plans
+      shrimpy_tpu_torch.kernels   the kernel build; the on-chip probes
   L4  shrimpy_tpu_torch.parallel  single-device reconstruct step
   L5  shrimpy_tpu_torch.runtime   streaming store reconstruction
   L6  shrimpy_tpu_torch.cli       ``shrimpy-tpu-torch`` command group
 
-The compute path (ops, kernels, parallel, utils) imports nothing of
-``shrimpy_tpu``, so it runs on a GPU host without jax, pydantic or
-tensorstore. Only the store/CLI layer reuses ``shrimpy_tpu.config`` and
-``shrimpy_tpu.io``, which import no jax.
+No module of the port imports anything of ``shrimpy_tpu``: the store and
+CLI layer has its own copies of the config schemas and the store code
+(pydantic, yaml, tensorstore), and the compute path (ops, kernels,
+parallel, utils) runs on a GPU host that has none of those.
 
 On a CPU tensor every kernel wrapper runs its plain PyTorch twin; on a
-CUDA tensor it launches the kernel or raises.
+CUDA tensor it launches the kernel or raises. A host array (numpy) given
+to an entry point with no ``device`` goes to the card, and raises where
+there is none; pass ``device="cpu"`` to run the plain versions.
 """
 
 __version__ = "0.1.0"

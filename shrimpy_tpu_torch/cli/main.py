@@ -4,8 +4,9 @@ The verbs ``deskew``, ``deconvolve`` and ``reconstruct`` take the same
 options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
 (default ``cuda``). Pixel size and z step come from the store's scale
 metadata and are injected into the settings, as in the JAX CLI. The
-settings are the JAX package's pydantic models (one YAML runs on both
-packages); the port reads them by attribute.
+settings are the port's own pydantic models
+(:mod:`shrimpy_tpu_torch.config.schemas`, a copy of the JAX package's:
+one YAML runs on both packages); the port reads them by attribute.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ def cli(verbose: bool) -> None:
 
 def _inject_from_store(settings, input_path: Path) -> None:
     """Read (pixel size, z step) from the store scale and inject."""
-    from shrimpy_tpu.config.schemas import inject_derived_parameters
-    from shrimpy_tpu.io.ngff import open_ngff
+    from shrimpy_tpu_torch.config.schemas import inject_derived_parameters
+    from shrimpy_tpu_torch.io.ngff import open_ngff
 
     sz, sy, _ = open_ngff(input_path).position().zyx_scale
     inject_derived_parameters(settings, pixel_size_um=sy, z_step_um=sz)
@@ -98,8 +99,8 @@ def deskew(
     ls_angle_deg, px_to_scan_ratio, keep_overhang, average_n_slices, microscope,
 ):
     """Deskew every volume of an OME-Zarr store."""
-    from shrimpy_tpu.config import DeskewSettings, ReconstructSettings
-    from shrimpy_tpu.config.microscopes import get_microscope
+    from shrimpy_tpu_torch.config.microscopes import get_microscope
+    from shrimpy_tpu_torch.config.schemas import DeskewSettings, ReconstructSettings
 
     try:
         prof = get_microscope(microscope)
@@ -142,7 +143,7 @@ def deconvolve(
     psf_path, iterations, algorithm,
 ):
     """Richardson-Lucy deconvolve every volume of an OME-Zarr store."""
-    from shrimpy_tpu.config import DeconvolveSettings, ReconstructSettings
+    from shrimpy_tpu_torch.config.schemas import DeconvolveSettings, ReconstructSettings
 
     settings = ReconstructSettings(
         deconvolve=DeconvolveSettings(
@@ -164,8 +165,11 @@ def reconstruct(input, output, devices, space, batch, resume, profile_dir, devic
     """Run the configured pipeline (deskew/deconvolve)."""
     import yaml
 
-    from shrimpy_tpu.config import ReconstructSettings
-    from shrimpy_tpu.config.schemas import ReconstructArms, load_yaml_config
+    from shrimpy_tpu_torch.config.schemas import (
+        ReconstructArms,
+        ReconstructSettings,
+        load_yaml_config,
+    )
 
     with open(config_path) as f:
         raw_cfg = yaml.safe_load(f) or {}

@@ -1,18 +1,51 @@
 """Settings as the port reads them.
 
 The port reads its settings by attribute, so a pydantic
-``shrimpy_tpu.config.ReconstructSettings`` works unchanged (one YAML
-runs on both packages), and so does a :class:`types.SimpleNamespace`
-with the same field names — what the compute path uses where pydantic
+``ReconstructSettings`` — the port's own
+(:mod:`shrimpy_tpu_torch.config.schemas`, a copy of the JAX package's,
+so one YAML runs on both packages) or one a caller built with the JAX
+package — works unchanged, and so does a :class:`types.SimpleNamespace`
+with the same field names: what the compute path uses where pydantic
 is not installed (a GPU host with only torch). The builders below make such
 namespaces with the schema's defaults for exactly the fields the port
 reads; ``tests/test_torch_pipeline.py`` pins these defaults to
 ``shrimpy_tpu/config/schemas.py``.
+
+The pydantic models, ``inject_derived_parameters`` and
+``load_yaml_config`` are attributes of this package too, imported from
+:mod:`~shrimpy_tpu_torch.config.schemas` at first access, so
+``import shrimpy_tpu_torch.config`` needs neither pydantic nor yaml.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+
+# Names served lazily from config/schemas.py (pydantic + yaml).
+_SCHEMA_NAMES = (
+    "DeconvolveSettings",
+    "DeskewSettings",
+    "DynaTrackConfig",
+    "PhaseApplyInverseSettings",
+    "PhaseSettings",
+    "PhaseTransferFunctionSettings",
+    "ReconstructArms",
+    "ReconstructSettings",
+    "RegistrationSettings",
+    "RoiCenterSettings",
+    "SegmentationSettings",
+    "ShiftSettings",
+    "inject_derived_parameters",
+    "load_yaml_config",
+)
+
+
+def __getattr__(name: str):
+    if name in _SCHEMA_NAMES:
+        from shrimpy_tpu_torch.config import schemas
+
+        return getattr(schemas, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 DESKEW_DEFAULTS = {
     "ls_angle_deg": 30.0,

@@ -44,7 +44,8 @@ _I64 = ctypes.c_longlong
 _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
-# C signature of every entry point in csrc/ (argtypes; restype is int).
+# C signature of every entry point in csrc/ (argtypes; restype is int: a
+# CUDA error code, but for shrimpy_rl_iter_smem, which returns bytes).
 SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
     # ns, nt, nx, nz, ny, n_groups, a_avg, stream
@@ -58,6 +59,16 @@ SIGNATURES: dict[str, list] = {
     # in, out, kz, nkz, ky, nky, gz, gy, gx, stream
     "shrimpy_convzy_linear": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
     "shrimpy_convzy_circular": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
+    # est, data, out, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, threads, eps, stream
+    "shrimpy_rl_iter": [_P] * 4 + [_I32] * 4 + [_I64] * 3 + [_I32, _I32, _I32, _F32, _P],
+    # n_terms, nkz, nky, nkx, ty, tx -> bytes of shared memory a block takes
+    "shrimpy_rl_iter_smem": [_I32] * 6,
+    # x, out, rows, cols, width, stream
+    "shrimpy_probe_smem_slice": [_P, _P, _I32, _I32, _I32, _P],
+    # out, bytes, stream
+    "shrimpy_probe_smem": [_P, _I32, _P],
+    # a, b, hi/lo scratch (a_hi, a_lo, b_hi, b_lo), c, m, n, k, mode, stream
+    "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
 }
 
 _LOCK = threading.Lock()

@@ -14,6 +14,12 @@ Backend resolution (``settings.separable_backend``,
 * ``fused`` runs :func:`shrimpy_tpu_torch.ops.rl_fused.rl_fused`, the
   zero-boundary RL on the half-PSF padded grid — the JAX package's
   choice on the TPU.
+* ``fused_iter`` runs
+  :func:`shrimpy_tpu_torch.ops.rl_fused_iter.rl_fused_iter`, the same RL
+  with one kernel launch per iteration; outside that kernel's
+  shared-memory bound it raises :class:`ValueError` naming the bound.
+  ``auto`` never picks it: JAX's does only under the environment switch
+  ``SHRIMPY_RL_FUSE_ITER=1``, which the port does not read.
 * ``linear_pallas`` and ``zy_pallas`` run :func:`rl_conv3`, RL on the
   same G grid through the z+y kernel of
   :mod:`shrimpy_tpu_torch.ops.conv3_cuda` and the x pass, with zero
@@ -30,10 +36,13 @@ Backend resolution (``settings.separable_backend``,
 * ``acceleration: biggs`` runs everywhere: in the half-step kernels on
   ``fused``, through the generic loop
   :func:`shrimpy_tpu_torch.ops.rl_outer.run_rl_outer` on the others.
-* ``fused_iter`` raises :class:`NotImplementedError` naming the ROADMAP
-  item that ports it; so do the FFT/hybrid algorithms,
-  ``fused_low_precision_iters > 0`` and ``donate_input: true``. None is
-  silently ignored. ``matmul_precision`` chooses MXU dot passes on the
+* ``donate_input: true`` lets :func:`richardson_lucy` consume the
+  caller's tensor once the carries are built (it is left empty; the
+  result is bitwise that of the non-donating run). The pipeline step
+  does not read it, as JAX's does not under a trace.
+* The FFT/hybrid algorithms and ``fused_low_precision_iters > 0`` raise
+  :class:`NotImplementedError` naming the ROADMAP item that ports them.
+  None is silently ignored. ``matmul_precision`` chooses MXU dot passes on the
   TPU; the port's kernels are float32 FMA throughout, and its products
   are float32 with TF32 off (see :mod:`~shrimpy_tpu_torch.ops.rl_matmul`).
 """
@@ -50,10 +59,7 @@ from shrimpy_tpu_torch.utils.device import as_tensor
 
 logger = logging.getLogger(__name__)
 
-_BACKENDS = ("auto", "fused", "linear_pallas", "zy_pallas", "matmul")
-_UNPORTED_BACKENDS = {
-    "fused_iter": "ROADMAP queue 2 kernel 6 (rl_fused_iter._rl_iter_pass)",
-}
+_BACKENDS = ("auto", "fused", "fused_iter", "linear_pallas", "zy_pallas", "matmul")
 
 
 def _separable_candidates(
@@ -255,19 +261,10 @@ def check_ported(settings) -> None:
             "ported: the CUDA kernel is float32 FMA throughout (ROADMAP "
             "queue 1 item 2)"
         )
-    if settings.donate_input:
-        raise NotImplementedError(
-            "donate_input=True is not ported yet: ROADMAP queue 1 item 3"
-        )
     _check_backend(settings.separable_backend)
 
 
 def _check_backend(backend: str) -> None:
-    if backend in _UNPORTED_BACKENDS:
-        raise NotImplementedError(
-            f"separable_backend={backend!r} is not ported yet: "
-            f"{_UNPORTED_BACKENDS[backend]}"
-        )
     if backend not in _BACKENDS:
         raise ValueError(f"unknown separable_backend {backend!r}")
 
@@ -276,8 +273,8 @@ def resolve_separable_backend(backend: str, image_shape, psf_shape) -> str:
     """The backend that runs a (Z, Y, X) ``image_shape`` with a PSF of
     ``psf_shape``: ``auto`` -> ``fused`` where the half-step kernels take
     the G grid and radii (:func:`~shrimpy_tpu_torch.ops.rl_fused.fused_bound_error`),
-    else ``matmul``; the others as named. Geometry only, so a setting
-    that runs on the CPU runs on the card."""
+    else ``matmul`` (never ``fused_iter``); the others as named. Geometry
+    only, so a setting that runs on the CPU runs on the card."""
     from shrimpy_tpu_torch.ops.rl_fused import fused_bound_error
 
     _check_backend(backend)
@@ -309,29 +306,38 @@ def plan_terms(psf_np: np.ndarray, settings):
 
 
 def rl_separable(image, psf_np, terms, settings, iterations: int, *,
-                 plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+                 plain: bool = False, dtype: torch.dtype = torch.float32,
+                 donate: bool = False) -> torch.Tensor:
     """Separable-path RL: resolve the backend for this image and run it
     (the single dispatch point shared by :func:`richardson_lucy` and the
     pipeline). ``plain``/``dtype`` as in :func:`richardson_lucy`; the
-    ``matmul`` backend has no kernel, so ``plain`` does not change it."""
+    ``matmul`` backend has no kernel, so ``plain`` does not change it.
+    ``donate`` lets the backend consume ``image`` once its carries are
+    built."""
     backend = resolve_separable_backend(settings.separable_backend, tuple(image.shape),
                                         psf_np.shape)
     if backend == "matmul":
         from shrimpy_tpu_torch.ops.rl_matmul import rl_matmul
 
-        return rl_matmul(image, psf_np, terms, settings, iterations, dtype=dtype)
+        return rl_matmul(image, psf_np, terms, settings, iterations, dtype=dtype, donate=donate)
+    if backend == "fused_iter":
+        from shrimpy_tpu_torch.ops.rl_fused_iter import rl_fused_iter
+
+        return rl_fused_iter(image, psf_np, terms, settings, iterations, plain=plain,
+                             dtype=dtype, donate=donate)
     if backend == "fused":
         from shrimpy_tpu_torch.ops.rl_fused import rl_fused
 
-        return rl_fused(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype)
+        return rl_fused(image, psf_np, terms, settings, iterations, plain=plain, dtype=dtype,
+                        donate=donate)
     return rl_conv3(image, psf_np, terms, settings, iterations,
                     boundary="zero" if backend == "linear_pallas" else "circular",
-                    plain=plain, dtype=dtype)
+                    plain=plain, dtype=dtype, donate=donate)
 
 
 def rl_conv3(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
              boundary: str, plain: bool = False,
-             dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             dtype: torch.dtype = torch.float32, donate: bool = False) -> torch.Tensor:
     """``linear_pallas`` (``boundary="zero"``, counterpart of
     ``_rl_sep_linear``) or ``zy_pallas`` (``"circular"``, ``_rl_sep_zy``)
     RL: the step ``est * conv3^T(data / max(conv3(est), eps))`` on the
@@ -341,13 +347,16 @@ def rl_conv3(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     when ``settings.acceleration == "biggs"``. ``plain=True`` runs the
     plain versions on any device in ``dtype`` (the reference path).
     Float32 FMA throughout on the card (``matmul_precision`` is not read).
+    ``donate`` consumes ``image`` once the carries exist.
     """
     from shrimpy_tpu_torch.ops.conv3_cuda import conv3_half_step, conv3_half_step_plain
     from shrimpy_tpu_torch.ops.rl_fused import crop_grid, start_on_grid
     from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
 
     eps = float(settings.epsilon)
-    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype)
+    shape = tuple(image.shape)
+    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype, donate=donate)
+    del image
     kernel = not plain and est.is_cuda
     if kernel:
         scratch = [torch.empty_like(est) for _ in range(1 if len(terms) == 1 else 2)]
@@ -365,7 +374,7 @@ def rl_conv3(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
         return half(ratio, v, adj, "mult", eps, boundary=boundary)
 
     est = run_rl_outer([(step, iterations)], est, settings.acceleration == "biggs")
-    return crop_grid(est, image.shape, conv.radii)
+    return crop_grid(est, shape, conv.radii)
 
 
 def richardson_lucy(
@@ -381,11 +390,16 @@ def richardson_lucy(
 ) -> torch.Tensor:
     """Richardson-Lucy deconvolution of a (Z, Y, X) ``image`` by ``psf``.
 
-    ``image`` is a tensor or numpy array, moved to ``device`` when one
-    is given. ``terms`` overrides the planned separable decomposition
-    (a list of numpy ``(wz, wy, wx)`` triples, e.g. from
+    ``image`` is a tensor, which stays on its device unless ``device``
+    moves it, or a numpy array, which goes to ``device`` (the card when
+    None, raising where there is none; ``"cpu"`` asks for the CPU).
+    ``terms`` overrides the planned separable decomposition (a list of
+    numpy ``(wz, wy, wx)`` triples, e.g. from
     ``shrimpy_tpu.ops.deconv.plan_separable_terms``). Returns a
-    ``dtype`` tensor of ``image.shape`` on the image's device.
+    ``dtype`` tensor of ``image.shape`` on the image's device. With
+    ``settings.donate_input`` the image tensor is consumed: it is left
+    empty once the carries are built, and the caller must not read it
+    afterwards (a numpy array is never touched).
     """
     settings = settings or deconvolve_settings()
     check_ported(settings)
@@ -399,4 +413,5 @@ def richardson_lucy(
         )
     if terms is None:
         terms = plan_terms(psf_np, settings)
-    return rl_separable(image, psf_np, terms, settings, iters, plain=plain, dtype=dtype)
+    return rl_separable(image, psf_np, terms, settings, iters, plain=plain, dtype=dtype,
+                        donate=bool(settings.donate_input))

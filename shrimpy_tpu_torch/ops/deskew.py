@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from shrimpy_tpu_torch.config import require_ratio
+from shrimpy_tpu_torch.utils.device import as_tensor
 
 DESKEW_BACKENDS = ("auto", "pallas", "xla")
 
@@ -211,20 +212,21 @@ def deskew_plain(
     return _average_z_groups(out, settings.average_n_slices)
 
 
-def deskew_volume(raw, settings) -> torch.Tensor:
+def deskew_volume(raw, settings, *, device=None) -> torch.Tensor:
     """Deskew a raw (scan, tilt, x) volume -> float32 (Z, Y, X) volume.
 
-    ``raw`` is a tensor (or numpy array, which lands on the CPU). A CPU
-    tensor runs :func:`deskew_plain`; a CUDA tensor runs the CUDA kernel
-    and raises if it cannot (no fallback). ``settings.backend`` must be
-    one of ``auto``, ``pallas``, ``xla``, which all mean this function.
+    ``raw`` is a tensor, which stays on its device unless ``device``
+    moves it, or a numpy array, which goes to ``device`` (the card when
+    None; ``"cpu"`` asks for the CPU). A CPU tensor runs
+    :func:`deskew_plain`; a CUDA tensor runs the CUDA kernel and raises
+    if it cannot (no fallback). ``settings.backend`` must be one of
+    ``auto``, ``pallas``, ``xla``, which all mean this function.
     """
     if settings.backend not in DESKEW_BACKENDS:
         raise ValueError(
             f"deskew backend {settings.backend!r} not in {DESKEW_BACKENDS}"
         )
-    if isinstance(raw, np.ndarray):
-        raw = torch.from_numpy(np.ascontiguousarray(raw))
+    raw = as_tensor(raw, device)
     if raw.is_cuda:
         from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
 

@@ -441,26 +441,41 @@ def pad_to_grid(image: torch.Tensor, pads, pad_mode: str) -> torch.Tensor:
     return out
 
 
-def grid_start(image: torch.Tensor, pads, settings, dtype: torch.dtype):
+def consume(image: torch.Tensor) -> None:
+    """Take a donated tensor: it is left empty (shape ``(0,)``), and its
+    memory returns to the allocator unless a view of the caller's still
+    holds it."""
+    image.set_(torch.empty(0, dtype=image.dtype, device=image.device))
+
+
+def grid_start(image: torch.Tensor, pads, settings, dtype: torch.dtype, *,
+               donate: bool = False):
     """``data = max(g, 0)`` and ``est = max(g, eps)`` in ``dtype`` on the
     grid ``g`` of ``image`` padded by ``pads`` (what every RL backend
-    iterates from)."""
+    iterates from). ``donate`` consumes ``image`` once both exist (the
+    ``donate_input`` setting: the image is dead from here on, and its
+    volume is free for the iterations); read its shape before."""
     g = pad_to_grid(image.to(dtype), pads, settings.pad_mode)
     # Not in place: with zero pads g is the caller's image itself.
-    return torch.clamp_min(g, 0.0), torch.clamp_min(g, float(settings.epsilon))
+    data, est = torch.clamp_min(g, 0.0), torch.clamp_min(g, float(settings.epsilon))
+    if donate:
+        del g
+        consume(image)
+    return data, est
 
 
-def start_on_grid(image: torch.Tensor, psf_np, terms, settings, dtype: torch.dtype):
+def start_on_grid(image: torch.Tensor, psf_np, terms, settings, dtype: torch.dtype, *,
+                  donate: bool = False):
     """What the stencil backends start from: the stencils of ``terms``
     (conv and adjoint) on the image's device, and :func:`grid_start` on
-    the G grid (the image padded by the PSF radii)."""
+    the G grid (the image padded by the PSF radii; ``donate`` as there)."""
     radii = tuple(k // 2 for k in psf_np.shape)
     conv = Stencil(terms, device=image.device)
     adj = Stencil(terms, flip=True, device=image.device)
     if conv.radii != radii:
         raise ValueError(f"term radii {conv.radii} do not match the PSF radii {radii}")
     return (conv, adj,
-            *grid_start(image, tuple((r, r) for r in radii), settings, dtype))
+            *grid_start(image, tuple((r, r) for r in radii), settings, dtype, donate=donate))
 
 
 def crop_grid(est: torch.Tensor, shape, lo) -> torch.Tensor:
@@ -470,7 +485,8 @@ def crop_grid(est: torch.Tensor, shape, lo) -> torch.Tensor:
 
 
 def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
-             plain: bool = False, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+             plain: bool = False, dtype: torch.dtype = torch.float32,
+             donate: bool = False) -> torch.Tensor:
     """Zero-boundary separable RL of a (Z, Y, X) ``image`` on its device.
 
     ``terms`` are (wz, wy, wx) tap triples as ``plan_separable_terms``
@@ -480,10 +496,13 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     ``settings.acceleration == "biggs"`` runs the in-kernel Biggs body.
     Memory: data, est and ratio carries plus the kernel's 2-3 scratch
     carries; the mult half-step updates est in place (with Biggs also
-    dx and g_prev, two bf16 carries).
+    dx and g_prev, two bf16 carries). ``donate`` consumes ``image`` once
+    the carries exist (see :func:`grid_start`).
     """
     eps = float(settings.epsilon)
-    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype)
+    shape = tuple(image.shape)
+    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype, donate=donate)
+    del image
     kernel = not plain and est.is_cuda
     step = half_step_plain if plain else half_step
     biggs = settings.acceleration == "biggs"
@@ -518,4 +537,4 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
             est = hs(ratio, est, adj, "mult", out=est)
             del ratio
     del data, bufs, ratio_buf
-    return crop_grid(est, image.shape, conv.radii)
+    return crop_grid(est, shape, conv.radii)

@@ -179,12 +179,12 @@ def sep_operators(terms, grid, radii, device, dtype) -> tuple[torch.Tensor, ...]
 
 
 def rl_matmul(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
-              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+              dtype: torch.dtype = torch.float32, donate: bool = False) -> torch.Tensor:
     """``matmul`` RL of a (Z, Y, X) ``image`` on its device, in ``dtype``
     (float32 on the card; float64 is the reference). Memory: data and
     est plus, inside a convolution, the input and two carries per axis
     product; the ratio overwrites the forward convolution and the update
-    est in place.
+    est in place. ``donate`` consumes ``image`` once data and est exist.
     """
     if settings.matmul_precision not in PRECISIONS:
         raise ValueError(f"matmul_precision {settings.matmul_precision!r} not in {PRECISIONS}")
@@ -192,13 +192,15 @@ def rl_matmul(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
         raise RuntimeError(
             "separable_backend 'matmul' runs float32 products with TF32 off: TF32 is not "
             "measured against the 1e-3 budget; set torch.backends.cuda.matmul.allow_tf32 = False")
-    pads = _sep_pads(tuple(image.shape), psf_np.shape)
-    grid = tuple(n + lo + hi for n, (lo, hi) in zip(image.shape, pads))
+    shape = tuple(image.shape)
+    pads = _sep_pads(shape, psf_np.shape)
+    grid = tuple(n + lo + hi for n, (lo, hi) in zip(shape, pads))
     radii = tuple(k // 2 for k in psf_np.shape)
     mats = sep_operators(terms, grid, radii, image.device, dtype)
     fwd, adj = mats[:3], mats[3:]
     eps = float(settings.epsilon)
-    data, est = grid_start(image, pads, settings, dtype)
+    data, est = grid_start(image, pads, settings, dtype, donate=donate)
+    del image
 
     def step(v: torch.Tensor) -> torch.Tensor:
         # Updates v in place: run_rl_outer never reads it again.
@@ -207,4 +209,4 @@ def rl_matmul(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
         return v.mul_(conv3_matmul(ratio, adj, radii))
 
     est = run_rl_outer([(step, iterations)], est, settings.acceleration == "biggs")
-    return crop_grid(est, image.shape, [lo for lo, _ in pads])
+    return crop_grid(est, shape, [lo for lo, _ in pads])

@@ -108,8 +108,10 @@ def build_reconstruct_step(
 ):
     """Batched step ``fn(batch_raw, tf=None) -> batch_out``.
 
-    ``batch_raw`` is ``(B, S, T, X)`` (tensor or numpy), moved to
-    ``device`` when one is given; the output is ``(B, Z, Y, X)`` on the
+    ``batch_raw`` is ``(B, S, T, X)``: a tensor, which stays on its
+    device unless ``device`` moves it, or a numpy array, which goes to
+    ``device`` (the card when None, raising where there is none;
+    ``"cpu"`` asks for the CPU). The output is ``(B, Z, Y, X)`` on the
     same device. ``tf`` is accepted for the JAX signature and unused
     (the phase stage is not ported). ``terms`` overrides the planned
     separable decomposition (numpy ``(wz, wy, wx)`` triples). On a CUDA
@@ -140,7 +142,8 @@ def build_reconstruct_step(
 
 def reconstruct_batch(batch_raw, settings, *, psf=None, mesh=None, device=None,
                       terms=None) -> torch.Tensor:
-    """One-shot convenience: build the step and run it."""
+    """One-shot convenience: build the step and run it (``device`` as in
+    :func:`build_reconstruct_step`)."""
     step = build_reconstruct_step(settings, psf=psf, mesh=mesh, device=device, terms=terms)
     return step(batch_raw)
 

@@ -1,1 +1,1 @@
-"""Streaming store reconstruction (imports tensorstore via shrimpy_tpu.io)."""
+"""Streaming store reconstruction (imports tensorstore via shrimpy_tpu_torch.io)."""

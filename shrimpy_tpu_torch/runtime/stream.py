@@ -12,10 +12,10 @@ and a ``non_blocking`` host-to-device copy, and the previous batch's
 device-to-host copy runs on a side CUDA stream while the next batch
 computes.
 
-This layer reads and writes stores through ``shrimpy_tpu.io``
-(tensorstore; it imports no jax). ``plan_work``, ``_Progress``,
-``_load_psf``, ``_create_output_store`` and ``_as_output_dtype`` are
-copies of the JAX module's, which imports jax at the top.
+This layer reads and writes stores through the port's own
+:mod:`shrimpy_tpu_torch.io.ngff` (tensorstore). ``plan_work``,
+``_Progress``, ``_load_psf``, ``_create_output_store`` and
+``_as_output_dtype`` are copies of the JAX module's.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shrimpy_tpu.io import ngff
+from shrimpy_tpu_torch.io import ngff
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf
 from shrimpy_tpu_torch.ops.deskew import get_deskewed_shape
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step, output_shape

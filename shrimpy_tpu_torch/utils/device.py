@@ -1,4 +1,4 @@
-"""Device resolution: an explicit ``device`` argument, checked."""
+"""Device resolution: the card unless the caller says otherwise."""
 
 from __future__ import annotations
 
@@ -22,8 +22,12 @@ def resolve_device(device: str | torch.device | None) -> torch.device | None:
 
 
 def as_tensor(x, device: str | torch.device | None = None) -> torch.Tensor:
-    """Tensor view of ``x`` (numpy or tensor), moved to ``device`` when
-    one is given (else left where it is; numpy lands on the CPU)."""
-    dev = resolve_device(device)
-    t = torch.from_numpy(np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x
-    return t if dev is None else t.to(dev)
+    """Tensor of ``x`` on ``device``. With ``device=None`` a tensor stays
+    on the device its caller put it on, and a host array (numpy) goes to
+    ``cuda`` — :func:`resolve_device` raises where there is no card, so
+    the plain versions never run on the CPU unasked (``device="cpu"``
+    asks)."""
+    if isinstance(x, torch.Tensor):
+        dev = resolve_device(device)
+        return x if dev is None else x.to(dev)
+    return torch.from_numpy(np.ascontiguousarray(x)).to(resolve_device(device or "cuda"))

@@ -95,9 +95,9 @@ def _blurred_img(shape, seed=1):
 def test_biggs_startup_equals_plain_rl(backend, iterations):
     img = _blurred_img((10, 40, 44))
     s = deconvolve_settings(iterations=iterations, separable_backend=backend)
-    plain = tdeconv.richardson_lucy(img, PSF, s)
+    plain = tdeconv.richardson_lucy(img, PSF, s, device="cpu")
     s.acceleration = "biggs"
-    accel = tdeconv.richardson_lucy(img, PSF, s)
+    accel = tdeconv.richardson_lucy(img, PSF, s, device="cpu")
     torch.testing.assert_close(accel, plain, rtol=1e-6, atol=1e-5)
 
 
@@ -111,11 +111,11 @@ def test_fused_biggs_matches_jax_fused_biggs():
     psf_w = jdeconv._pad_psf_to_odd(jdeconv._crop_psf_support(PSF, s.psf_crop_tol))
     terms = jdeconv.plan_separable_terms(psf_w, s)
     ref = np.asarray(jdeconv.richardson_lucy(img, PSF, s))
-    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms).numpy()
+    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms, device="cpu").numpy()
     _two_tier(ours, ref)
     # Acceleration moved the result: the gate is not met by plain RL-6.
     plain = tdeconv.richardson_lucy(img, PSF, s.model_copy(update={"acceleration": "none"}),
-                                    terms=terms).numpy()
+                                    terms=terms, device="cpu").numpy()
     assert np.abs(plain - ref).max() > 1e-3 * np.abs(ref).max()
 
 
@@ -138,11 +138,11 @@ def test_in_kernel_biggs_matches_generic_loop(psf_name):
     psf = PSF if psf_name == "gaussian" else asymmetric_psf((5, 9, 9))
     img = _blurred((12, 60, 70), psf, seed=3)
     s = deconvolve_settings(iterations=8, acceleration="biggs")
-    fused = tdeconv.richardson_lucy(img, psf, s)
+    fused = tdeconv.richardson_lucy(img, psf, s, device="cpu")
     generic = _generic_fused(img, psf, s, 8)
     _two_tier(fused.numpy(), generic.numpy())
     # The float64 plain run keeps the bf16 state: the same algorithm.
-    f64 = tdeconv.richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+    f64 = tdeconv.richardson_lucy(img, psf, s, plain=True, dtype=torch.float64, device="cpu")
     _two_tier(fused.numpy(), f64.numpy())
 
 
@@ -155,7 +155,7 @@ def test_biggs_advances_the_rl_trajectory_faster():
 
     def run(iters, acceleration="none"):
         s = deconvolve_settings(iterations=iters, acceleration=acceleration)
-        return tdeconv.richardson_lucy(img, psf, s, plain=True, dtype=torch.float64).numpy()
+        return tdeconv.richardson_lucy(img, psf, s, plain=True, dtype=torch.float64, device="cpu").numpy()
 
     ref = run(40)
 

@@ -180,13 +180,13 @@ def test_zy_rl_matches_jax_zy_pallas_and_oracle(psf_name):
     s = DeconvolveSettings(algorithm="separable", separable_backend="zy_pallas", iterations=5)
     terms = _jax_terms(psf, s)
     ref = np.asarray(jdeconv.richardson_lucy(img, psf, s))
-    ours = tdeconv.richardson_lucy(img, psf, s, terms=terms).numpy()
+    ours = tdeconv.richardson_lucy(img, psf, s, terms=terms, device="cpu").numpy()
     assert _rel(ours, ref) <= 1e-4
     psf_w = tdeconv.prepare_psf(psf, s)
     oracle = jdeconv.richardson_lucy_reference_separable(
         img, psf, iterations=5, pads=_half_pads(psf_w), terms=terms)
     assert _rel(ours, oracle) <= 1e-3
-    ours64 = tdeconv.richardson_lucy(img, psf, s, terms=terms, plain=True, dtype=torch.float64)
+    ours64 = tdeconv.richardson_lucy(img, psf, s, terms=terms, plain=True, dtype=torch.float64, device="cpu")
     assert _rel(ours64.numpy(), oracle) <= 1e-6
 
 
@@ -196,7 +196,7 @@ def test_zy_rl_odd_shapes(shape):
     the oracle on the half-PSF grid."""
     vol = (np.random.default_rng(sum(shape)).random(shape, dtype=np.float32) * 50 + 1.0)
     s = DeconvolveSettings(algorithm="separable", separable_backend="zy_pallas", iterations=3)
-    ours = tdeconv.richardson_lucy(vol, ODD_PSF, s).numpy()
+    ours = tdeconv.richardson_lucy(vol, ODD_PSF, s, device="cpu").numpy()
     assert ours.shape == shape and np.isfinite(ours).all() and (ours >= 0).all()
     psf_w = tdeconv.prepare_psf(ODD_PSF, s)
     oracle = jdeconv.richardson_lucy_reference_separable(
@@ -209,9 +209,9 @@ def test_zy_rl_agrees_with_matmul_where_grids_coincide():
     is the half-PSF grid, so the two circular backends agree (1e-4)."""
     img = _blurred((10, 32, 32), PSF, seed=9)
     zy = tdeconv.richardson_lucy(img, PSF, DeconvolveSettings(
-        algorithm="separable", separable_backend="zy_pallas", iterations=5))
+        algorithm="separable", separable_backend="zy_pallas", iterations=5), device="cpu")
     mm = tdeconv.richardson_lucy(img, PSF, DeconvolveSettings(
-        algorithm="separable", separable_backend="matmul", iterations=5))
+        algorithm="separable", separable_backend="matmul", iterations=5), device="cpu")
     assert _rel(zy.numpy(), mm.numpy()) <= 1e-4
 
 
@@ -223,8 +223,8 @@ def test_zy_biggs_matches_jax_zy_biggs():
                            acceleration="biggs")
     terms = _jax_terms(PSF, s)
     ref = np.asarray(jdeconv.richardson_lucy(img, PSF, s))
-    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms).numpy()
+    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms, device="cpu").numpy()
     _two_tier(ours, ref)
     plain = tdeconv.richardson_lucy(img, PSF, s.model_copy(update={"acceleration": "none"}),
-                                    terms=terms).numpy()
+                                    terms=terms, device="cpu").numpy()
     assert np.abs(plain - ref).max() > 1e-3 * np.abs(ref).max()

@@ -456,3 +456,162 @@ def test_matmul_rl_on_the_card_matches_float64(cuda, monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="allow_tf32"):
         richardson_lucy(img, psf, s)
+
+
+ITER_CASES = [
+    # tap lengths (z, y, x), carry shape
+    ((9, 21, 21), (20, 100, 130)),
+    ((7, 11, 13), (40, 61, 77)),
+    ((9, 21, 21), (5, 37, 45)),     # z below 2 rz + 1, no tile divides y or x
+    ((1, 1, 1), (6, 20, 33)),       # zero radii
+    ((3, 41, 5), (9, 50, 40)),      # a y radius past the tile
+]
+
+
+@pytest.mark.parametrize("n_terms", [1, 2])
+@pytest.mark.parametrize("lengths,shape", ITER_CASES)
+def test_rl_iter_kernel_matches_plain(cuda, n_terms, lengths, shape):
+    """One launch against the plain iteration, both tap orders (the
+    adjoint's taps as the convolution's and back)."""
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter, rl_iter_cuda, rl_iter_plain
+
+    terms = _asym_terms(n_terms, lengths, seed=32)
+    conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    est = _rand(shape, 33, cuda, 0.5, 10.5)
+    data = _rand(shape, 34, cuda, 0.0, 5.0)
+    keep = est.clone()
+    before = rl_iter_cuda.launches
+    for a, b in ((conv, adj), (adj, conv)):
+        out = rl_iter(est, data, a, b, 1e-6)
+        torch.cuda.synchronize()
+        assert _rel(out, rl_iter_plain(est, data, a, b, 1e-6)) <= 1e-5
+    assert rl_iter_cuda.launches == before + 2
+    assert torch.equal(est, keep)  # the kernel never writes its input
+    with pytest.raises(ValueError, match="alias"):
+        rl_iter_cuda(est, data, conv, adj, 1e-6, est)
+
+
+@pytest.mark.parametrize("tile", [(32, 48), (32, 32), (16, 64), (16, 32), (8, 32), (8, 16), (4, 8)])
+def test_rl_iter_kernel_on_every_tile(cuda, tile):
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_plain
+
+    terms = _asym_terms(2, (5, 9, 11), seed=35)
+    conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    est = _rand((11, 45, 70), 36, cuda, 0.5, 10.5)
+    data = _rand((11, 45, 70), 37, cuda, 0.0, 5.0)
+    out = rl_iter_cuda(est, data, conv, adj, 1e-6, tile=tile)
+    torch.cuda.synchronize()
+    assert _rel(out, rl_iter_plain(est, data, conv, adj, 1e-6)) <= 1e-5
+
+
+@pytest.mark.parametrize("n_terms", [1, 3])
+@pytest.mark.parametrize("radii", [(4, 10, 10), (0, 0, 0), (3, 5, 6), (1, 20, 2)])
+def test_rl_iter_shared_memory_sum_is_the_kernels(cuda, radii, n_terms):
+    """The wrapper's bound and the launch's request are one number."""
+    from shrimpy_tpu_torch.kernels.build import load_library
+    from shrimpy_tpu_torch.ops.rl_fused_iter import TILES, iter_smem_bytes
+
+    lengths = [2 * r + 1 for r in radii]
+    for tile in TILES:
+        assert load_library().shrimpy_rl_iter_smem(n_terms, *lengths, *tile) == iter_smem_bytes(
+            tile, radii, n_terms)
+
+
+def test_rl_iter_kernel_refuses_what_it_cannot_take(cuda):
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda
+
+    terms = [(np.ones(17, np.float32), np.ones(113, np.float32), np.ones(129, np.float32))]
+    conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    vol = torch.ones((4, 30, 30), device=cuda)
+    before = rl_iter_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        rl_iter_cuda(vol, vol.clone(), conv, adj)
+    assert rl_iter_cuda.launches == before
+
+
+@pytest.mark.parametrize("acceleration,iterations", [("none", 5), ("biggs", 6)])
+def test_fused_iter_rl_kernel_path_matches_float64_plain(cuda, acceleration, iterations):
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_plain
+
+    psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
+    img = _rand((12, 60, 70), 38, cuda, 0.0, 100.0)
+    s = deconvolve_settings(iterations=iterations, separable_backend="fused_iter",
+                            acceleration=acceleration)
+    before = rl_iter_cuda.launches, half_step_cuda.launches
+    rl_iter_plain.cuda_calls = 0
+    out = richardson_lucy(img, psf, s)
+    torch.cuda.synchronize()
+    assert (rl_iter_cuda.launches, half_step_cuda.launches) == (before[0] + iterations, before[1])
+    assert rl_iter_plain.cuda_calls == 0
+    ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+    if acceleration == "biggs":
+        _two_tier(out, ref)
+    else:
+        assert _rel(out, ref) <= 1e-4
+        fused = richardson_lucy(img, psf, deconvolve_settings(iterations=iterations))
+        assert _rel(out, fused) <= 1e-5
+
+
+@pytest.mark.parametrize("backend", ["fused_iter", "fused"])
+def test_donate_input_frees_the_volume_on_the_card(cuda, backend):
+    psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
+    s = deconvolve_settings(iterations=4, separable_backend=backend, acceleration="biggs")
+    img = _rand((24, 200, 260), 39, cuda, 0.0, 100.0)
+    peaks, outs = {}, {}
+    for donate in (False, True):
+        s.donate_input = donate
+        vol = img.clone()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # with the first run's output, the second time
+        outs[donate] = richardson_lucy(vol, psf, s)
+        torch.cuda.synchronize()
+        peaks[donate] = torch.cuda.max_memory_allocated() - held
+        assert (vol.numel() == 0) == donate
+    assert torch.equal(outs[True], outs[False])
+    assert peaks[True] <= peaks[False]
+
+
+def test_numpy_input_goes_to_the_card(cuda):
+    """No ``device``: a host array runs on the card, a CPU tensor stays."""
+    psf = gaussian_psf((5, 9, 9), (1.0, 1.6, 1.6))
+    img = np.random.default_rng(40).random((8, 30, 34)).astype(np.float32) * 50
+    s = deconvolve_settings(iterations=2)
+    out = richardson_lucy(img, psf, s)
+    assert out.is_cuda
+    assert not richardson_lucy(torch.from_numpy(img), psf, s).is_cuda
+    desk = deskew_settings(px_to_scan_ratio=0.386)
+    raw = np.random.default_rng(41).random((40, 24, 20)).astype(np.float32)
+    assert deskew_volume(raw, desk).is_cuda
+    assert not deskew_volume(raw, desk, device="cpu").is_cuda
+
+
+def test_probes_on_the_card(cuda):
+    from shrimpy_tpu_torch.kernels import probes
+    from shrimpy_tpu_torch.ops.rl_fused import _SMEM_BYTES
+
+    x = _rand((8, 512), 42, cuda)
+    assert torch.equal(probes.dynamic_smem_slice_cuda(x), probes.dynamic_smem_slice_plain(x))
+    assert probes.probe_dynamic_smem_slice(cuda)
+    assert [probes.probe_smem(kb, cuda) for kb in probes.SMEM_KB] == [True] * 5 + [False]
+    assert probes.largest_smem(cuda) == _SMEM_BYTES
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "tf32", "tf32x3", "bf16", "fma"])
+def test_split_dot_kernels_match_their_plain_versions(cuda, mode):
+    """Each hand-written product within 1e-5 of its split taken with exact
+    accumulation; bf16x3 and 3xTF32 within 1e-5 of float64 too."""
+    from shrimpy_tpu_torch.kernels import probes
+
+    a, b = probes.dot_operands(cuda, 1)
+    got = probes.split_dot_cuda(a, b, mode).double()
+    torch.cuda.synchronize()
+    assert _rel(got, probes.split_dot_plain(a, b, mode)) <= 1e-5
+    if mode in ("bf16x3", "tf32x3"):
+        assert _rel(got, a.double() @ b.double()) <= probes.SPLIT_RTOL
+
+
+def test_probes_entry_point_runs(cuda):
+    from shrimpy_tpu_torch.kernels import probes
+
+    assert probes.main() == 0

@@ -58,7 +58,7 @@ def test_plain_matches_jax_xla_and_pallas(shape, keep_overhang, avg, scale):
     rng = np.random.default_rng(7)
     raw = (rng.random(shape) * scale).astype(np.float32)
     s = _settings(keep_overhang, avg)
-    ours = tdeskew.deskew_volume(raw, s)
+    ours = tdeskew.deskew_volume(raw, s, device="cpu")
     assert ours.dtype == torch.float32 and not ours.is_cuda
     ours = ours.numpy()
     xla = np.asarray(jdeskew._deskew_xla(jnp.asarray(raw), **_jax_kwargs(s)))
@@ -76,7 +76,7 @@ def test_plain_matches_scipy_oracle(keep_overhang, avg):
     rng = np.random.default_rng(3)
     raw = (rng.random((48, 24, 16)) * 50.0).astype(np.float32)
     s = _settings(keep_overhang, avg)
-    ours = tdeskew.deskew_volume(raw, s).numpy()
+    ours = tdeskew.deskew_volume(raw, s, device="cpu").numpy()
     oracle = jdeskew.deskew_reference_scipy(raw, s)
     err = np.abs(ours - oracle).max() / np.abs(oracle).max()
     assert err <= 1e-3, f"rel err {err:.2e}"
@@ -104,7 +104,7 @@ def test_beads_land_correctly():
     s = _settings()
     beads = np.array([[6.0, 60.0, 12.0], [10.0, 80.0, 20.0]])
     raw = render_beads_skewed((64, 48, 32), beads)
-    out = tdeskew.deskew_volume(raw, s).numpy()
+    out = tdeskew.deskew_volume(raw, s, device="cpu").numpy()
     y_off = 47 * math.cos(math.radians(30.0))
     for z, y, x in beads:
         zi, yi, xi = int(round(z)), int(round(y - y_off)), int(round(x))
@@ -222,7 +222,7 @@ def test_cpu_tensor_runs_plain_and_kernel_wrapper_refuses_it():
     s = _settings()
     raw = torch.rand((40, 32, 24), generator=torch.Generator().manual_seed(0))
     before = deskew_cuda.launches
-    out = tdeskew.deskew_volume(raw, s)
+    out = tdeskew.deskew_volume(raw, s, device="cpu")
     assert deskew_cuda.launches == before
     torch.testing.assert_close(out, tdeskew.deskew_plain(raw, s), rtol=0, atol=0)
     with pytest.raises(ValueError, match="CUDA tensor"):
@@ -231,10 +231,10 @@ def test_cpu_tensor_runs_plain_and_kernel_wrapper_refuses_it():
 
 def test_backend_values_all_mean_the_same_function():
     raw = np.random.default_rng(2).random((40, 32, 16)).astype(np.float32)
-    outs = [tdeskew.deskew_volume(raw, _settings(backend=b)).numpy()
+    outs = [tdeskew.deskew_volume(raw, _settings(backend=b), device="cpu").numpy()
             for b in ("auto", "pallas", "xla")]
     np.testing.assert_array_equal(outs[0], outs[1])
     np.testing.assert_array_equal(outs[0], outs[2])
     bogus = _settings().model_copy(update={"backend": "mosaic"})
     with pytest.raises(ValueError, match="backend"):
-        tdeskew.deskew_volume(raw, bogus)
+        tdeskew.deskew_volume(raw, bogus, device="cpu")

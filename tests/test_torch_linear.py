@@ -108,7 +108,7 @@ def test_linear_rl_matches_jax_linear_pallas(acceleration):
     psf_w = jdeconv._pad_psf_to_odd(jdeconv._crop_psf_support(PSF, s.psf_crop_tol))
     terms = jdeconv.plan_separable_terms(psf_w, s)
     ref = np.asarray(jdeconv.richardson_lucy(img, PSF, s))
-    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms).numpy()
+    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms, device="cpu").numpy()
     err = _rel(ours, ref)
     assert err <= 1e-4, f"rel err {err:.2e}"
 
@@ -118,9 +118,9 @@ def test_linear_rl_matches_fused_backend(psf_name):
     psf = PSF if psf_name == "gaussian" else asymmetric_psf((5, 9, 9))
     img = _blurred((14, 90, 100), psf, seed=6)
     lin = tdeconv.richardson_lucy(img, psf, deconvolve_settings(
-        iterations=6, separable_backend="linear_pallas", separable_tol=1e-6))
+        iterations=6, separable_backend="linear_pallas", separable_tol=1e-6), device="cpu")
     fused = tdeconv.richardson_lucy(img, psf, deconvolve_settings(
-        iterations=6, separable_tol=1e-6))
+        iterations=6, separable_tol=1e-6), device="cpu")
     err = _rel(lin.numpy(), fused.numpy())
     assert err <= 1e-4, f"rel err {err:.2e}"
 
@@ -131,12 +131,12 @@ def test_linear_rl_matches_zero_boundary_oracle(pad_mode):
     img = _blurred((12, 40, 36), psf, seed=7)
     s = DeconvolveSettings(iterations=4, pad_mode=pad_mode, separable_tol=1e-6,
                            separable_backend="linear_pallas")
-    ours = tdeconv.richardson_lucy(img, psf, s).numpy()
+    ours = tdeconv.richardson_lucy(img, psf, s, device="cpu").numpy()
     psf_w = tdeconv.prepare_psf(psf, s)
     oracle = jdeconv.richardson_lucy_reference_separable(
         img, psf, iterations=4, pad_mode=pad_mode, terms=tdeconv.plan_terms(psf_w, s),
         pads=tuple((k // 2, k // 2) for k in psf_w.shape), boundary="zero",
     )
     assert _rel(ours, oracle) <= 1e-3
-    ours64 = tdeconv.richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+    ours64 = tdeconv.richardson_lucy(img, psf, s, plain=True, dtype=torch.float64, device="cpu")
     assert _rel(ours64.numpy(), oracle) <= 1e-6

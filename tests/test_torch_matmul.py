@@ -130,11 +130,11 @@ def test_matmul_rl_matches_jax_matmul_and_oracle(psf_name):
     s = DeconvolveSettings(algorithm="separable", separable_backend="matmul", iterations=5)
     terms = _jax_terms(psf, s)
     ref = np.asarray(jdeconv.richardson_lucy(img, psf, s))
-    ours = tdeconv.richardson_lucy(img, psf, s, terms=terms).numpy()
+    ours = tdeconv.richardson_lucy(img, psf, s, terms=terms, device="cpu").numpy()
     assert _rel(ours, ref) <= 1e-4
     oracle = jdeconv.richardson_lucy_reference_separable(img, psf, iterations=5, terms=terms)
     assert _rel(ours, oracle) <= 1e-3
-    ours64 = tdeconv.richardson_lucy(img, psf, s, terms=terms, dtype=torch.float64)
+    ours64 = tdeconv.richardson_lucy(img, psf, s, terms=terms, dtype=torch.float64, device="cpu")
     assert ours64.dtype == torch.float64
     assert _rel(ours64.numpy(), oracle) <= 1e-6
 
@@ -144,7 +144,7 @@ def test_matmul_rl_odd_shapes(shape):
     psf = jdeconv.gaussian_psf((5, 7, 7), (1.0, 1.2, 1.2))
     vol = (np.random.default_rng(sum(shape)).random(shape, dtype=np.float32) * 50 + 1.0)
     s = DeconvolveSettings(algorithm="separable", separable_backend="matmul", iterations=3)
-    ours = tdeconv.richardson_lucy(vol, psf, s).numpy()
+    ours = tdeconv.richardson_lucy(vol, psf, s, device="cpu").numpy()
     assert ours.shape == shape and np.isfinite(ours).all() and (ours >= 0).all()
     oracle = jdeconv.richardson_lucy_reference_separable(vol, psf, iterations=3)
     assert _rel(ours, oracle) <= 1e-3
@@ -162,7 +162,7 @@ def test_matmul_rl_banded_asymmetric_pads(pad_mode, monkeypatch):
     assert pads[1] != (8, 8) and pads[1][0] != pads[1][1] and pads[2][1] > 5
     s = DeconvolveSettings(algorithm="separable", separable_backend="matmul", iterations=4,
                            pad_mode=pad_mode)
-    ours = tdeconv.richardson_lucy(img, psf, s).numpy()
+    ours = tdeconv.richardson_lucy(img, psf, s, device="cpu").numpy()
     oracle = jdeconv.richardson_lucy_reference_separable(img, psf, iterations=4,
                                                          pad_mode=pad_mode)
     assert _rel(ours, oracle) <= 1e-3
@@ -175,10 +175,10 @@ def test_matmul_biggs_matches_jax_matmul_biggs():
                            acceleration="biggs")
     terms = _jax_terms(PSF, s)
     ref = np.asarray(jdeconv.richardson_lucy(img, PSF, s))
-    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms).numpy()
+    ours = tdeconv.richardson_lucy(img, PSF, s, terms=terms, device="cpu").numpy()
     _two_tier(ours, ref)
     plain = tdeconv.richardson_lucy(img, PSF, s.model_copy(update={"acceleration": "none"}),
-                                    terms=terms).numpy()
+                                    terms=terms, device="cpu").numpy()
     assert np.abs(plain - ref).max() > 1e-3 * np.abs(ref).max()
 
 
@@ -188,15 +188,15 @@ def test_matmul_precision_tf32_and_operator_cache(monkeypatch):
     8 entries) and launch no kernel of the repository."""
     img = _blurred((8, 24, 20), PSF, seed=14)
     outs = [tdeconv.richardson_lucy(img, PSF, deconvolve_settings(
-        iterations=2, separable_backend="matmul", matmul_precision=p)) for p in tm.PRECISIONS]
+        iterations=2, separable_backend="matmul", matmul_precision=p), device="cpu") for p in tm.PRECISIONS]
     for out in outs[1:]:
         torch.testing.assert_close(out, outs[0], rtol=0, atol=0)
     with pytest.raises(ValueError, match="matmul_precision"):
         tdeconv.richardson_lucy(img, PSF, deconvolve_settings(
-            separable_backend="matmul", matmul_precision="bf16"))
+            separable_backend="matmul", matmul_precision="bf16"), device="cpu")
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     with pytest.raises(RuntimeError, match="allow_tf32"):
-        tdeconv.richardson_lucy(img, PSF, deconvolve_settings(separable_backend="matmul"))
+        tdeconv.richardson_lucy(img, PSF, deconvolve_settings(separable_backend="matmul"), device="cpu")
     monkeypatch.undo()
     monkeypatch.setattr(tm, "_OPERATORS", type(tm._OPERATORS)())
     terms = [(np.ones(3), np.ones(5), np.ones(5))]
@@ -208,7 +208,7 @@ def test_matmul_precision_tf32_and_operator_cache(monkeypatch):
     before = (half_step_cuda.launches, convzy_linear_cuda.launches,
               convzy_circular_cuda.launches)
     tdeconv.richardson_lucy(img, PSF, deconvolve_settings(iterations=1,
-                                                          separable_backend="matmul"))
+                                                          separable_backend="matmul"), device="cpu")
     assert (half_step_cuda.launches, convzy_linear_cuda.launches,
             convzy_circular_cuda.launches) == before
 
@@ -231,16 +231,15 @@ def test_auto_resolves_from_geometry_alone():
     assert resolve("auto", (8, 20, 20), (1, 425, 1)) == "matmul"
     assert resolve("auto", (8, 20, 60000), (1, 1, 3)) == "matmul"  # x row past shared memory
     assert resolve("zy_pallas", (8, 20, 60000), (1, 1, 3)) == "zy_pallas"
-    with pytest.raises(NotImplementedError, match="kernel 6"):
-        resolve("fused_iter", (8, 20, 20), (1, 3, 1))
+    assert resolve("fused_iter", (8, 20, 20), (1, 3, 1)) == "fused_iter"  # named, never auto's
     with pytest.raises(ValueError, match="unknown"):
         resolve("fft", (8, 20, 20), (1, 3, 1))
     psf = _wide_y_psf()
     s = deconvolve_settings(iterations=2)
     assert tdeconv.prepare_psf(psf, s).shape == (1, 425, 1)
     img = _blurred((3, 16, 12), jdeconv.gaussian_psf((1, 3, 3), (1.0, 1.0, 1.0)), seed=15)
-    out = tdeconv.richardson_lucy(img, psf, s)
+    out = tdeconv.richardson_lucy(img, psf, s, device="cpu")
     assert out.shape == img.shape and bool(torch.isfinite(out).all())
     want = tdeconv.richardson_lucy(img, psf, deconvolve_settings(iterations=2,
-                                                                 separable_backend="matmul"))
+                                                                 separable_backend="matmul"), device="cpu")
     torch.testing.assert_close(out, want, rtol=0, atol=0)
