@@ -7,16 +7,28 @@ exits non-zero without printing a result when any of these is missing
 or any check fails. Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
-2. build every kernel from ``shrimpy_tpu_torch/csrc`` with nvcc (seconds);
+2. build every kernel from ``shrimpy_tpu_torch/csrc`` with nvcc (seconds),
+   the one-launch half-step once for each PSF geometry run below;
 3. each kernel against its plain PyTorch version on the card, on the
    same inputs: the deskew at the production raw (1201, 256, 1600) and
    at (300, 512, 512) with ``keep_overhang`` and ``average_n_slices=3``;
-   the RL half-step in ``ratio``, ``mult`` and ``plain`` modes, the
-   Biggs half-step in ``ratio_accel`` and ``mult_accel`` modes (alpha
-   0.6, random bf16 dx/g_prev; mult_accel in place) and the
-   ``convzy_linear`` z+y kernel (both tap orders), each on the
-   production carry (136, 2908, 1620) and on a (40, 300, 400) carry
-   with a 2-term asymmetric PSF; the circular ``convzy_circular`` z+y
+   the one-launch RL half-step (``csrc/rl_half.cu``) in ``ratio``,
+   ``mult`` and ``plain`` modes and the Biggs half-step in
+   ``ratio_accel`` and ``mult_accel`` modes (alpha 0.6, random bf16
+   dx/g_prev; mult_accel in place), each on the production carry
+   (136, 2908, 1620), on a (40, 300, 400) carry with a 2-term asymmetric
+   PSF and on a (5, 37, 45) grid smaller than a tile on every axis with
+   z < 2 rz + 1: bit-equal to the plain version (the kernel sums every
+   output's taps in the same order), the two Biggs sums within 1e-5; the
+   same kernel timed at the production carry with the streaming
+   runtime's default PSF (9, 15, 15) and with two terms of (9, 21, 21);
+   the three-pass route (``csrc/rl_fused.cu``, kept for geometries past
+   the one-launch kernel's block) in all five modes on the (40, 300, 400)
+   carry against the plain version, at the production carry timed and
+   bit-equal to the one-launch kernel, then driven once through
+   ``richardson_lucy`` with a (121, 9, 9) PSF that only it takes; the
+   ``convzy_linear`` z+y kernel (both tap orders) on the first two
+   carries; the circular ``convzy_circular`` z+y
    kernel and ``conv3_circular`` (both tap orders) on those carries and
    on a (3, 9, 40) grid smaller than the radii (4, 10, 10), and the
    circular x pass in ``ratio``, ``mult`` and ``plain`` modes against
@@ -39,7 +51,8 @@ or any check fails. Phases:
 4. the main path through ``build_reconstruct_step`` — deskew, then
    RL-20 with the (9, 21, 21) PSF — on a (1, 1201, 256, 1600) batch from
    a fixed seed, with the kernels' launch counters reset just before and
-   read just after; the result against the same step on the plain
+   read just after (40 half-steps, each one kernel launch, none on the
+   three-pass route); the result against the same step on the plain
    versions in float64 on the card, within the BASELINE budget
    max|a-b| / max|b| <= 1e-3;
 4b. the same step with ``acceleration: biggs`` and 10 iterations (the
@@ -67,7 +80,8 @@ or any check fails. Phases:
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
-   (ten kernels), the card line and the final ``{"ok": true, ...}`` line.
+   (eleven entries: the ten kernels and the kept three-pass half-step),
+   the card line and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
@@ -179,6 +193,17 @@ def compare(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def same_bits(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
+    """Check that a kernel that sums in its plain version's order gives
+    its bits; returns max|a-b| (0.0)."""
+    equal = bool(torch.equal(a, b))
+    print(f"  {name}: {'bit-equal' if equal else f'max|a-b|/max|b| = {rel_err(a, b):.3e} FAIL'}",
+          flush=True)
+    if not equal:
+        raise AssertionError(f"{name}: not bit-equal to the plain version")
+    return 0.0
+
+
 def two_tier(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
     """The Biggs gate: a share >= BULK_SHARE of voxels within BULK_TOL
     of max|b|, every voxel within MAX_TOL; returns max|a-b| / max|b|."""
@@ -227,7 +252,12 @@ def counters() -> dict:
     )
     from shrimpy_tpu_torch.kernels import probes
     from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
-    from shrimpy_tpu_torch.ops.rl_fused import half_step_cuda, half_step_plain
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        half_step_cuda,
+        half_step_one_launch,
+        half_step_plain,
+        half_step_three_pass,
+    )
     from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_plain
 
     return {
@@ -241,6 +271,8 @@ def counters() -> dict:
         "deskew": (deskew_cuda, "launches"),
         "rl_half_step": (half_step_cuda, "launches"),
         "rl_half_step_accel": (half_step_cuda, "accel_launches"),
+        "rl_half_one_launch": (half_step_one_launch, "launches"),
+        "rl_half_three_pass": (half_step_three_pass, "launches"),
         "convzy_linear": (convzy_linear_cuda, "launches"),
         "convzy_circular": (convzy_circular_cuda, "launches"),
         "conv3_circular": (conv3_circular_cuda, "launches"),
@@ -325,31 +357,62 @@ def phase_deskew(gen) -> dict:
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **roof, "library_ms": None}
 
 
-def phase_rl(gen) -> dict:
-    from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_step_cuda, half_step_plain
+RAGGED = (5, 37, 45)  # smaller than a tile on every axis, z < 2 rz + 1
+SMALL = (40, 300, 400)
+
+
+def phase_rl(gen) -> tuple[dict, dict]:
+    """The half-step in ratio, mult and plain modes: the one-launch
+    kernel on three grids, the three-pass route on one. Returns the two
+    routes' entries."""
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        Stencil,
+        half_layout,
+        half_step_cuda,
+        half_step_one_launch,
+        half_step_plain,
+        half_step_three_pass,
+    )
 
     terms, carry = production_terms()
     print(f"  PSF {PSF_SHAPE}: {len(terms)} separable term(s), carry {carry}")
     eps = headline_settings().deconvolve.epsilon
 
-    def modes(shape, terms, label):
+    def modes(shape, terms, label, step):
         """All three modes, kernel against plain; the ratio error back."""
+        route = "one_launch" if step is half_step_one_launch else "three_pass"
         conv = Stencil(terms, device="cuda")
         adj = Stencil(terms, flip=True, device="cuda")
         inp = uniform(shape, gen, 0.5, 10.5)
         aux = uniform(shape, gen, 0.0, 5.0)
-        errs = {
-            mode: compare(f"rl half-step {mode} {label}",
-                          half_step_cuda(inp, aux, st, mode, eps),
-                          half_step_plain(inp, aux, st, mode, eps), KERNEL_RTOL)
-            for mode, st in (("ratio", conv), ("mult", adj), ("plain", conv))
-        }
-        return errs["ratio"], conv, inp, aux
+        if route == "one_launch":
+            print(f"  rl_half {label}: {half_layout(shape, conv.radii, len(terms))}", flush=True)
+        errs = {}
+        for mode, st in (("ratio", conv), ("mult", adj), ("plain", conv)):
+            got = step(inp, aux, st, mode, eps)
+            want = half_step_plain(inp, aux, st, mode, eps)
+            name = f"rl half-step {mode} {label} ({route})"
+            errs[mode] = (same_bits(name, got, want) if route == "one_launch"
+                          else compare(name, got, want, KERNEL_RTOL))
+        return errs["ratio"], conv, adj, inp, aux
 
-    err, conv, inp, aux = modes(carry, terms, f"{carry}")
+    err, conv, adj, inp, aux = modes(carry, terms, f"{carry}", half_step_one_launch)
     out = torch.empty_like(inp)
+    ms = gpu_ms(lambda: half_step_cuda(inp, aux, conv, "ratio", eps, out=out), 10)
+    est = aux.clone()  # in place, as the RL loop runs it
+    mult_ms = gpu_ms(lambda: half_step_cuda(inp, est, adj, "mult", eps, out=est), 10)
+    del est
+    # The three-pass route on the same operands: the same bits (the
+    # one-launch result above is the plain version's), and its time.
     scratch = [torch.empty_like(inp) for _ in range(2)]
-    ms = gpu_ms(lambda: half_step_cuda(inp, aux, conv, "ratio", eps, out=out, scratch=scratch), 10)
+    out3 = torch.empty_like(inp)
+    three_ms = gpu_ms(lambda: half_step_three_pass(inp, aux, conv, "ratio", eps, out=out3,
+                                                   scratch=scratch), 10)
+    err3 = same_bits(f"rl half-step ratio {carry} (three_pass) vs one launch", out3, out)
+    del out3
+    print(f"  rl half-step ratio {carry}: one launch {ms:.3f} ms (mult in place {mult_ms:.3f}), "
+          f"three passes {three_ms:.3f} ms", flush=True)
+    other = phase_other_psf(inp, aux, eps)
     plain_ms = gpu_ms(lambda: half_step_plain(inp, aux, conv, "ratio", eps), 2)
     # inp and aux read, out written; an FMA a tap and the division.
     roof = bound(3 * 4 * inp.numel(), (2 * n_taps(terms) + 1) * inp.numel())
@@ -361,8 +424,65 @@ def phase_rl(gen) -> dict:
             half_step_plain(inp, None, conv, "plain", eps), 1e-3)
     library_ms = gpu_ms(lambda: library_conv3d(inp, weight), 1)
     del inp
-    modes((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **roof, "library_ms": library_ms}
+    modes(SMALL, two_term_psf(), f"{SMALL} 2 terms", half_step_one_launch)
+    modes(RAGGED, terms, f"{RAGGED} ragged, gz < 2rz+1", half_step_one_launch)
+    modes(SMALL, two_term_psf(), f"{SMALL} 2 terms", half_step_three_pass)
+    shared = {"plain_ms": plain_ms, **roof, "library_ms": library_ms}
+    return ({"max_abs_err": err, "ms": ms, "ms_mult": mult_ms, "ms_three_pass": three_ms,
+             **other, **shared},
+            {"max_abs_err": err3, "ms": three_ms, **shared})
+
+
+OTHER_PSF = ((9, 15, 15), (1.5, 2.5, 2.5))  # runtime/stream.py's PSF when no file is given
+OTHER_TERMS = 2
+
+
+def other_terms() -> dict:
+    """Terms of the geometries phase_other_psf runs, by name."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, plan_terms, prepare_psf
+
+    deconv = headline_settings().deconvolve
+    rng = np.random.default_rng(SEED + 2)
+    return {
+        "other_psf": plan_terms(prepare_psf(gaussian_psf(*OTHER_PSF), deconv), deconv),
+        "two_terms": [tuple(rng.random(k).astype(np.float32) / k for k in PSF_SHAPE)
+                      for _ in range(OTHER_TERMS)],
+    }
+
+
+def phase_other_psf(inp, aux, eps) -> dict:
+    """The one-launch kernel at the production carry on geometries other
+    than the headline's: the streaming runtime's default PSF (9, 15, 15)
+    and a PSF of OTHER_TERMS asymmetric terms of the headline's lengths,
+    mode ratio, timed, each held to the three-pass route's bits (that
+    route is held to the plain version on the small carry)."""
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        Stencil,
+        half_layout,
+        half_step_one_launch,
+        half_step_three_pass,
+    )
+
+    cases = other_terms()
+    carry = tuple(inp.shape)
+    out, out3 = torch.empty_like(inp), torch.empty_like(inp)
+    res = {}
+    for name, terms in cases.items():
+        conv = Stencil(terms, device="cuda")
+        lengths = tuple(2 * r + 1 for r in conv.radii)
+        layout = half_layout(carry, conv.radii, len(terms))
+        ms = gpu_ms(lambda: half_step_one_launch(inp, aux, conv, "ratio", eps, out=out), 10)
+        half_step_three_pass(inp, aux, conv, "ratio", eps, out=out3)
+        label = f"PSF {lengths} x {len(terms)} term(s) {carry}"
+        same_bits(f"rl half-step ratio {label} vs three_pass", out, out3)
+        roof = bound(3 * 4 * inp.numel(), (2 * n_taps(terms) + 1) * inp.numel())
+        print(f"  rl half-step ratio {label}: {layout}, one launch {ms:.3f} ms "
+              f"(bound {roof['bound_ms']:.3f} by {roof['bound_by']})", flush=True)
+        res[f"ms_{name}"] = ms
+        res[f"bound_ms_{name}"] = roof["bound_ms"]
+    return res
 
 
 def production_terms():
@@ -385,13 +505,22 @@ def two_term_psf():
 
 
 def phase_accel(gen) -> dict:
-    """ratio_accel and mult_accel against their plain versions."""
-    from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_step_cuda, half_step_plain
+    """ratio_accel and mult_accel against their plain versions: the
+    one-launch kernel on three grids, the three-pass route on one."""
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        Stencil,
+        half_step_cuda,
+        half_step_one_launch,
+        half_step_plain,
+        half_step_three_pass,
+        partial_rows,
+    )
 
     eps = headline_settings().deconvolve.epsilon
     alpha = torch.tensor(0.6, device="cuda")
 
-    def check(shape, terms, label):
+    def check(shape, terms, label, step):
+        route = "one_launch" if step is half_step_one_launch else "three_pass"
         conv = Stencil(terms, device="cuda")
         adj = Stencil(terms, flip=True, device="cuda")
         x = uniform(shape, gen, 0.0, 10.5)
@@ -399,15 +528,20 @@ def phase_accel(gen) -> dict:
         ratio = uniform(shape, gen, 0.5, 10.5)
         dx = uniform(shape, gen, -1.0, 1.0).to(torch.bfloat16)
         gp = uniform(shape, gen, 0.0, 1.0).to(torch.bfloat16)
-        err = compare(f"ratio_accel {label}",
-                      half_step_cuda(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha),
-                      half_step_plain(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha),
-                      KERNEL_RTOL)
+        label = f"{label} ({route})"
+        exact = route == "one_launch"
+        got = step(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha)
+        want = half_step_plain(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha)
+        err = (same_bits(f"ratio_accel {label}", got, want) if exact
+               else compare(f"ratio_accel {label}", got, want, KERNEL_RTOL))
         want = half_step_plain(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp, alpha=alpha)
-        got = half_step_cuda(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp, alpha=alpha)
+        got = step(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp, alpha=alpha)
         if got[0] is not x or got[1] is not dx or got[2] is not gp:
             raise AssertionError("mult_accel did not update x, dx and g_prev in place")
-        err = max(err, compare(f"mult_accel x_new {label}", x, want[0], KERNEL_RTOL))
+        if exact:
+            same_bits(f"mult_accel x_new {label}", x, want[0])
+        else:
+            err = max(err, compare(f"mult_accel x_new {label}", x, want[0], KERNEL_RTOL))
         bf16_within_ulp(f"mult_accel dx {label}", dx, want[1])
         bf16_within_ulp(f"mult_accel g {label}", gp, want[2])
         sum_close(f"mult_accel <g, g_prev> {label}", got[3], want[3])
@@ -415,20 +549,32 @@ def phase_accel(gen) -> dict:
         return err, conv, adj, x, data, ratio, dx, gp
 
     terms, carry = production_terms()
-    err, conv, adj, x, data, ratio, dx, gp = check(carry, terms, f"{carry}")
+    err, conv, adj, x, data, ratio, dx, gp = check(carry, terms, f"{carry}", half_step_one_launch)
     out = torch.empty_like(x)
-    scratch = [torch.empty_like(x) for _ in range(2)]
-    parts = torch.empty((2, carry[0] * carry[1]), device="cuda")
+    parts = torch.empty((2, partial_rows(carry, conv.radii, len(terms))), device="cuda")
     r_ms = gpu_ms(lambda: half_step_cuda(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha,
-                                         out=out, scratch=scratch), 10)
+                                         out=out), 10)
     r_plain = gpu_ms(lambda: half_step_plain(x, data, conv, "ratio_accel", eps, dx=dx,
                                              alpha=alpha), 2)
     # mult_accel in place: x grows by ~conv(ratio) ~ 5.5 a call, far
-    # from overflow in 11 calls.
+    # from overflow in the 33 calls of the three timings.
     m_ms = gpu_ms(lambda: half_step_cuda(ratio, x, adj, "mult_accel", eps, dx=dx, g_prev=gp,
-                                         alpha=alpha, scratch=scratch, partials=parts), 10)
+                                         alpha=alpha, partials=parts), 10)
     m_plain = gpu_ms(lambda: half_step_plain(ratio, x, adj, "mult_accel", eps, dx=dx,
                                              g_prev=gp, alpha=alpha), 2)
+    # The three-pass route on the same operands: ratio_accel to the same
+    # bits as the one-launch kernel's (held to the plain version above).
+    scratch = [torch.empty_like(x) for _ in range(2)]
+    out3 = torch.empty_like(x)
+    r3_ms = gpu_ms(lambda: half_step_three_pass(x, data, conv, "ratio_accel", eps, dx=dx,
+                                                alpha=alpha, out=out3, scratch=scratch), 10)
+    half_step_one_launch(x, data, conv, "ratio_accel", eps, dx=dx, alpha=alpha, out=out)
+    same_bits(f"ratio_accel {carry} (three_pass) vs one launch", out3, out)
+    del out3
+    m3_ms = gpu_ms(lambda: half_step_three_pass(ratio, x, adj, "mult_accel", eps, dx=dx,
+                                                g_prev=gp, alpha=alpha, scratch=scratch), 10)
+    print(f"  {carry}: ratio_accel one launch {r_ms:.3f} ms, three passes {r3_ms:.3f} ms; "
+          f"mult_accel one launch {m_ms:.3f} ms, three passes {m3_ms:.3f} ms", flush=True)
     # ratio_accel reads x, data and the bf16 dx and writes the ratio (14
     # bytes a voxel); mult_accel reads the ratio, x, dx and g and writes
     # x, dx and g (20). The entry is their mean, as its times are.
@@ -438,11 +584,51 @@ def phase_accel(gen) -> dict:
     roof = {"bound_ms": (roofs[0]["bound_ms"] + roofs[1]["bound_ms"]) / 2,
             "bound_by": roofs[1]["bound_by"], "library_ms": None}
     del x, data, ratio, dx, gp, out, scratch, parts
-    check((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms")
+    check(SMALL, two_term_psf(), f"{SMALL} 2 terms", half_step_one_launch)
+    check(RAGGED, terms, f"{RAGGED} ragged, gz < 2rz+1", half_step_one_launch)
+    check(SMALL, two_term_psf(), f"{SMALL} 2 terms", half_step_three_pass)
     return {"max_abs_err": err, "ms": (r_ms + m_ms) / 2, "plain_ms": (r_plain + m_plain) / 2,
             **roof,
             "ms_ratio_accel": r_ms, "plain_ms_ratio_accel": r_plain,
-            "ms_mult_accel": m_ms, "plain_ms_mult_accel": m_plain}
+            "ms_mult_accel": m_ms, "plain_ms_mult_accel": m_plain,
+            "ms_ratio_accel_three_pass": r3_ms, "ms_mult_accel_three_pass": m3_ms}
+
+
+def phase_three_pass() -> dict:
+    """The three-pass route through its entry point: ``richardson_lucy``
+    with a (121, 9, 9) PSF, whose ring of 2 rz + 2 planes no block of the
+    one-launch kernel holds, plain RL-2 and Biggs RL-2 on a (40, 64, 64)
+    image, each against its float64 plain path. Returns the counts."""
+    from shrimpy_tpu_torch.config import deconvolve_settings
+    from shrimpy_tpu_torch.ops.deconv import (
+        gaussian_psf,
+        plan_terms,
+        prepare_psf,
+        richardson_lucy,
+    )
+    from shrimpy_tpu_torch.ops.rl_fused import half_step_route
+
+    psf = gaussian_psf((121, 9, 9), (20.0, 1.5, 1.5))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    img = uniform((40, 64, 64), gen, 0.0, 100.0)
+    total = {}
+    for kw, name in (({}, "rl_half_step"), ({"acceleration": "biggs"}, "rl_half_step_accel")):
+        s = deconvolve_settings(iterations=2, psf_crop_tol=0.0, **kw)
+        psf_w = prepare_psf(psf, s)
+        radii = tuple(k // 2 for k in psf_w.shape)
+        n_terms = len(plan_terms(psf_w, s))
+        grid = tuple(n + 2 * r for n, r in zip(img.shape, radii))
+        if half_step_route(grid, radii, n_terms) != "three_pass":
+            raise AssertionError(f"PSF {psf_w.shape} on {grid} does not take the three-pass route")
+        out, counts, _ = drive(lambda v: richardson_lucy(v, psf, s), img,
+                               {name: 4, "rl_half_three_pass": 4 * 3 * n_terms})
+        ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+        if kw:
+            two_tier("three-pass Biggs RL-2 vs float64 plain", out, ref)
+        else:
+            compare("three-pass RL-2 vs float64 plain", out, ref, STEP_RTOL)
+        total[name] = counts["rl_half_three_pass"]
+    return total
 
 
 def phase_convzy(gen) -> dict:
@@ -651,14 +837,17 @@ def phase_probes() -> tuple[dict, dict, dict]:
                                  "vs plain")
         dot["errors"][mode] = err
         dot["max_abs_err"] = max(dot["max_abs_err"], vs_plain * scale)
-        dot["ms"] += gpu_ms(lambda: probes.split_dot_cuda(a, b, mode), 20)
+        dot[f"{mode}_ms"] = gpu_ms(lambda: probes.split_dot_cuda(a, b, mode), 20)
+        dot["ms"] += dot[f"{mode}_ms"]
         dot["plain_ms"] += gpu_ms(lambda: probes.split_dot_plain(a, b, mode), 5)
         dot["bound_ms"] += bound(4 * (m * k + k * n + m * n), 2 * m * n * k * n_pass,
                                  peak)["bound_ms"]
     dot["bound_by"] = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, FP32_FLOPS)["bound_by"]
-    # torch.matmul in float32 (TF32 off) is the library's product, once
-    # per mode so that it stands beside the five hand-written ones.
-    dot["library_ms"] = len(passes) * gpu_ms(lambda: torch.matmul(a, b), 20)
+    # No one PyTorch call computes the five products that the entry sums.
+    # torch.matmul in float32 (TF32 off) is the same function as the fma
+    # mode alone, and stands beside that mode's time.
+    dot["library_ms"] = None
+    dot["fma_library_ms"] = gpu_ms(lambda: torch.matmul(a, b), 20)
 
     print("  the probes through their entry points:", flush=True)
 
@@ -714,7 +903,8 @@ class Steps:
 def phase_step(steps: Steps) -> dict:
     """Phase 4: deskew + RL-20 on the fused backend."""
     step = steps.build()
-    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "rl_half_step": 2 * ITERATIONS})
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "rl_half_step": 2 * ITERATIONS,
+                                                  "rl_half_one_launch": 2 * ITERATIONS})
     steps.check_shape(out)
     ref = steps.build(plain=True, dtype=torch.float64)(steps.batch)
     compare("whole step (deskew + RL-20) vs float64 plain", out, ref, STEP_RTOL)
@@ -728,7 +918,8 @@ def phase_biggs(steps: Steps) -> dict:
     kw = {"acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
     step = steps.build(**kw)
     out, counts, peak = drive(step, steps.batch,
-                              {"deskew": 1, "rl_half_step_accel": 2 * BIGGS_ITERATIONS})
+                              {"deskew": 1, "rl_half_step_accel": 2 * BIGGS_ITERATIONS,
+                               "rl_half_one_launch": 2 * BIGGS_ITERATIONS})
     steps.check_shape(out)
     ref = steps.build(plain=True, dtype=torch.float64, **kw)(steps.batch)
     err = two_tier("Biggs RL-10 step vs float64 plain (bf16 state)", out, ref)
@@ -856,6 +1047,26 @@ def phase_fused_iter(steps: Steps, rl20: torch.Tensor) -> dict:
                       "peak_rl_gib": peaks[False], "peak_rl_donated_gib": peaks[True]}}
 
 
+def build_all(build) -> None:
+    """The common library and, beside it, the one-launch half-step
+    kernel for every geometry this script runs, all compilers at once (a
+    geometry missed here is compiled at its first half-step)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from shrimpy_tpu_torch.ops.rl_fused import half_layout
+
+    terms, carry = production_terms()
+    geometries = []
+    for tt in (terms, two_term_psf(), *other_terms().values()):
+        lengths = tuple(len(w) for w in tt[0])
+        tile = half_layout(carry, tuple(k // 2 for k in lengths), len(tt))["tile"]
+        geometries.append((len(tt), *lengths, *tile))
+    with ThreadPoolExecutor(2) as pool:
+        half = pool.submit(build.build_half, geometries)
+        build.load_library()
+        half.result()
+
+
 def main() -> int:
     t_start = time.monotonic()
     if not torch.cuda.is_available():
@@ -872,15 +1083,17 @@ def main() -> int:
           f"{torch.cuda.device_count()} device(s)", flush=True)
 
     t0 = time.monotonic()
-    build.load_library()
+    build_all(build)
     print(f"[2] kernels built from {build.CSRC_DIR.name}/ and loaded in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("[3] kernels against their plain versions", flush=True)
     desk = phase_deskew(gen)
-    rl = phase_rl(gen)
+    rl, rl3 = phase_rl(gen)
     accel = phase_accel(gen)
+    print("  the three-pass route through richardson_lucy:", flush=True)
+    three = phase_three_pass()
     zy = phase_convzy(gen)
     torch.cuda.empty_cache()
     czy, c3, xcirc = phase_circular(gen)
@@ -913,10 +1126,15 @@ def main() -> int:
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
           f"{biggs['rel_err']:.3e}; linear_pallas RL-20 {lin['RL-20']['ms']:.1f} ms, "
           f"Biggs RL-10 {lin['Biggs RL-10']['ms']:.1f} ms; deskew kernel {desk['ms']:.3f} ms "
-          f"(plain {desk['plain_ms']:.3f}); RL half-step {rl['ms']:.3f} ms (plain "
-          f"{rl['plain_ms']:.3f}); ratio_accel {accel['ms_ratio_accel']:.3f} ms (plain "
+          f"(plain {desk['plain_ms']:.3f}); RL half-step {rl['ms']:.3f} ms in one launch (three "
+          f"passes {rl['ms_three_pass']:.3f}, plain {rl['plain_ms']:.3f}; PSF {OTHER_PSF[0]} "
+          f"{rl['ms_other_psf']:.3f}, {OTHER_TERMS} terms of {PSF_SHAPE} "
+          f"{rl['ms_two_terms']:.3f}); ratio_accel "
+          f"{accel['ms_ratio_accel']:.3f} ms (three passes "
+          f"{accel['ms_ratio_accel_three_pass']:.3f}, plain "
           f"{accel['plain_ms_ratio_accel']:.3f}); mult_accel {accel['ms_mult_accel']:.3f} ms "
-          f"(plain {accel['plain_ms_mult_accel']:.3f}); convzy_linear {zy['ms']:.3f} ms "
+          f"(three passes {accel['ms_mult_accel_three_pass']:.3f}, plain "
+          f"{accel['plain_ms_mult_accel']:.3f}); convzy_linear {zy['ms']:.3f} ms "
           f"(plain {zy['plain_ms']:.3f}); peak {step['peak_gib']:.2f} / "
           f"{biggs['peak_gib']:.2f} / {lin['RL-20']['peak_gib']:.2f} / "
           f"{lin['Biggs RL-10']['peak_gib']:.2f} GiB", flush=True)
@@ -943,13 +1161,17 @@ def main() -> int:
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
          "launches": step["launches"]["deskew"], **desk},
         {"name": "rl_half_step", "route": "cuda",
-         "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
+         "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
-         "launches": step["launches"]["rl_half_step"], **rl},
+         "launches": step["launches"]["rl_half_one_launch"], **rl},
         {"name": "rl_half_step_accel", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
+         "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
+         "launches": biggs["launches"]["rl_half_one_launch"], **accel},
+        {"name": "rl_half_step_three_pass", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
-         "launches": biggs["launches"]["rl_half_step_accel"], **accel},
+         "launches": three["rl_half_step"] + three["rl_half_step_accel"], **rl3},
         {"name": "convzy_linear", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",

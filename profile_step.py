@@ -16,14 +16,27 @@ backends, deskew + RL-20 on ``matmul``) it runs one warm step under
 Only device events are read: the CPU-side rows of ``key_averages()``
 repeat the time of the kernels they launch.
 
-``python3 profile_step.py --tiles`` instead times the whole-iteration
-kernel ``rl_iter`` at the production carry on every (ty, tx) tile of
-``ops/rl_fused_iter.py::TILES`` whose rings fit a block (CUDA events,
-warm, 5 launches each), each checked against the first tile's output.
+``python3 profile_step.py --tiles`` instead times, at the production
+carry (CUDA events, warm, 5 launches each): the one-launch half-step
+kernel ``rl_half`` in mode ``ratio`` on every (ty, tx) tile of
+``ops/rl_fused.py::HALF_TILES`` and :data:`MORE_HALF_TILES` that fits a
+block (each tile is a compilation of the kernel), then all five modes
+on the tile the wrapper picks beside the three-pass route's times, and
+mode ``ratio`` with the PSFs of :data:`MORE_PSFS`; and the
+whole-iteration kernel ``rl_iter`` on
+every tile of ``ops/rl_fused_iter.py::TILES`` whose rings fit. Each
+output is checked against the first tile's.
+
+``python3 profile_step.py --stages`` builds ``csrc/rl_half.cu`` with
+``-DRL_HALF_PROFILE`` and prints, for a few tiles, the clocks that
+thread 0 of a block spends in each stage of a plane step (mean over the
+blocks and planes; what it waits at a barrier is part of the stage
+before it).
 """
 
 from __future__ import annotations
 
+import ctypes
 import sys
 import time
 from collections import defaultdict
@@ -105,6 +118,134 @@ def sweep_tiles(cs) -> None:
               f"launch, max|a-b|/max|b| vs the first tile {cs.rel_err(out, first):.3e}", flush=True)
 
 
+# Tiles of rl_half beside ops/rl_fused.py::HALF_TILES that --tiles times.
+MORE_HALF_TILES = ((40, 32), (48, 32), (64, 32))
+# (lengths, sigma) of Gaussian PSFs beside the headline's that --tiles times:
+# the streaming runtime's default, a deeper and a wider one.
+MORE_PSFS = (((9, 15, 15), (1.5, 2.5, 2.5)), ((15, 21, 21), (2.5, 3.0, 3.0)),
+             ((9, 31, 31), (1.5, 4.5, 4.5)))
+STAGES = ("request aux", "z", "barrier 1", "y", "wait copies", "barrier 2", "x + epilogue",
+          "set-up", "step top + cp.async", "TMA issue")
+
+
+def half_operands(cs, gen):
+    """Stencils, (inp, aux, out, dx, g_prev, alpha) at the production
+    carry, and eps."""
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil
+
+    terms, carry = cs.production_terms()
+    conv, adj = Stencil(terms, device="cuda"), Stencil(terms, flip=True, device="cuda")
+    inp, aux = cs.uniform(carry, gen, 0.5, 10.5), cs.uniform(carry, gen, 0.0, 5.0)
+    dx = cs.uniform(carry, gen, -1.0, 1.0).to(torch.bfloat16)
+    g_prev = cs.uniform(carry, gen, 0.0, 1.0).to(torch.bfloat16)
+    alpha = torch.tensor(0.6, device="cuda")
+    eps = cs.headline_settings().deconvolve.epsilon
+    return conv, adj, (inp, aux, torch.empty_like(inp), dx, g_prev, alpha), eps
+
+
+def sweep_half_tiles(cs) -> None:
+    """rl_half at the production carry: mode ratio on every tile that
+    fits, then every mode on both routes."""
+    from shrimpy_tpu_torch.config import deconvolve_settings
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, plan_terms, prepare_psf
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        HALF_TILES,
+        Stencil,
+        half_layout,
+        half_step_one_launch,
+        half_step_three_pass,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    conv, adj, (inp, aux, out, dx, g_prev, alpha), eps = half_operands(cs, gen)
+    lengths = tuple(2 * r + 1 for r in conv.radii)
+    tiles = [t for t in HALF_TILES + MORE_HALF_TILES
+             if half_layout(inp.shape, conv.radii, 1, tile=t) is not None]
+    build.build_half([(1, *lengths, *t) for t in tiles])  # all compilers at once
+    first = None
+    for tile in HALF_TILES + MORE_HALF_TILES:
+        layout = half_layout(inp.shape, conv.radii, 1, tile=tile)
+        if layout is None:
+            print(f"  rl_half tile {tile}: does not fit", flush=True)
+            continue
+        ms = cs.gpu_ms(lambda: half_step_one_launch(inp, aux, conv, "ratio", eps, out=out,
+                                                    tile=tile), 5)
+        if first is None:
+            first = out.clone()
+        print(f"  rl_half tile {tile}: {layout['smem_bytes']} bytes a block, {layout['blocks']} "
+              f"blocks, ratio {ms:.3f} ms a launch, equal to the first tile's "
+              f"{torch.equal(out, first)}", flush=True)
+    del first
+    scratch = [torch.empty_like(inp) for _ in range(2)]
+    for route, step, kw in (("one_launch", half_step_one_launch, {}),
+                            ("three_pass", half_step_three_pass, {"scratch": scratch})):
+        calls = {
+            "plain": lambda: step(inp, None, conv, "plain", eps, out=out, **kw),
+            "ratio": lambda: step(inp, aux, conv, "ratio", eps, out=out, **kw),
+            "mult": lambda: step(inp, aux, adj, "mult", eps, out=aux, **kw),
+            "ratio_accel": lambda: step(inp, aux, conv, "ratio_accel", eps, out=out, dx=dx,
+                                        alpha=alpha, **kw),
+            "mult_accel": lambda: step(inp, aux, adj, "mult_accel", eps, dx=dx, g_prev=g_prev,
+                                       alpha=alpha, **kw),
+        }
+        for mode, call in calls.items():
+            print(f"  half-step {mode} on {route}: {cs.gpu_ms(call, 5):.3f} ms", flush=True)
+        del calls
+    del scratch
+    # Other PSFs on the carry of the same extent (their own tile and build).
+    settings = deconvolve_settings()
+    stencils = []
+    for shape, sigma in MORE_PSFS:
+        terms = plan_terms(prepare_psf(gaussian_psf(shape, sigma), settings), settings)
+        stencils.append(Stencil(terms, device="cuda"))
+    layouts = [half_layout(inp.shape, st.radii, len(st.host)) for st in stencils]
+    build.build_half([(len(st.host), *(2 * r + 1 for r in st.radii), *lay["tile"])
+                      for st, lay in zip(stencils, layouts) if lay is not None])
+    for st, layout in zip(stencils, layouts):
+        name = f"PSF {tuple(2 * r + 1 for r in st.radii)} x {len(st.host)} term(s)"
+        if layout is None:
+            print(f"  rl_half {name}: past the one-launch kernel's block", flush=True)
+            continue
+        ms = cs.gpu_ms(lambda: half_step_one_launch(inp, aux, st, "ratio", eps, out=out), 5)
+        print(f"  rl_half {name}: tile {layout['tile']}, {layout['smem_bytes']} bytes a block, "
+              f"ratio {ms:.3f} ms a launch", flush=True)
+    torch.cuda.empty_cache()
+
+
+def half_stages(cs, tiles=((32, 64), (16, 64), (8, 32))) -> None:
+    """Clocks a plane step of rl_half spends in each of its stages."""
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.rl_fused import half_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    conv, _, (inp, aux, out, _, _, alpha), eps = half_operands(cs, gen)
+    gz, gy, gx = inp.shape
+    rz, ry, rx = conv.radii
+    tiles = [t for t in tiles if half_layout(inp.shape, conv.radii, 1, tile=t) is not None]
+    geometries = [(1, 2 * rz + 1, 2 * ry + 1, 2 * rx + 1, *t) for t in tiles]
+    paths = build.build_half(geometries, flags=("-DRL_HALF_PROFILE",))
+    for tile, path in zip(tiles, paths):
+        layout = half_layout(inp.shape, conv.radii, 1, tile=tile)
+        lib = ctypes.CDLL(str(path))
+        lib.shrimpy_rl_half.argtypes = build.HALF_SIGNATURE
+        lib.shrimpy_rl_half.restype = ctypes.c_int
+        clocks = torch.zeros((layout["blocks"], len(STAGES)), device="cuda")
+
+        def launch():
+            build.check(lib.shrimpy_rl_half(
+                inp.data_ptr(), aux.data_ptr(), out.data_ptr(), None, None, alpha.data_ptr(),
+                clocks.data_ptr(), conv.packed().data_ptr(), 1, 2 * rz + 1, 2 * ry + 1,
+                2 * rx + 1, gz, gy, gx, *tile, 1, 1, float(eps),
+                torch.cuda.current_stream().cuda_stream), "shrimpy_rl_half (profile build)")
+
+        ms = cs.gpu_ms(launch, 3)
+        per_plane = (clocks.mean(dim=0) / gz).tolist()
+        stages = ", ".join(f"{name} {c:.0f}" for name, c in zip(STAGES, per_plane))
+        print(f"  rl_half tile {tile}: {ms:.3f} ms a launch (profile build); clocks a plane: "
+              f"{stages}; total {sum(per_plane):.0f}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: torch.cuda.is_available() is False", file=sys.stderr)
@@ -115,7 +256,11 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     build.load_library()
     if "--tiles" in sys.argv[1:]:
+        sweep_half_tiles(cs)
         sweep_tiles(cs)
+        return 0
+    if "--stages" in sys.argv[1:]:
+        half_stages(cs)
         return 0
     steps = cs.Steps(torch.Generator(device="cuda").manual_seed(cs.SEED))
     biggs = {"acceleration": "biggs", "iterations": cs.BIGGS_ITERATIONS}

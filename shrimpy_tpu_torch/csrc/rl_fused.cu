@@ -60,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "stencil.cuh"
+
 namespace {
 
 // Tile constants chosen by a sweep at the production carry on an H100
@@ -70,14 +72,6 @@ namespace {
 constexpr int kThreadsInner = 128;  // threads along the contiguous axis
 constexpr int kTileN = 32;          // outputs per thread along the conv axis
 constexpr int kThreadsRow = 128;    // threads per x row
-
-// The extrapolated point y = max(x + alpha*dx, 0), rounded as the plain
-// version rounds it (x + alpha*dx as a product, then a sum, never one
-// FMA): conv_axis_kernel<true> and conv_x_accel_kernel must form the
-// same y bit for bit, or g = x_new - y is off by an ulp.
-__device__ __forceinline__ float extrapolate(float x, __nv_bfloat16 d, float alpha) {
-  return fmaxf(__fadd_rn(x, __fmul_rn(alpha, __bfloat162float(d))), 0.f);
-}
 
 // kAccel: the input is y formed on load from x (in), dx and *alpha.
 template <bool kAccel>
@@ -225,12 +219,6 @@ __global__ void conv_x_accel_kernel(const float* __restrict__ in,
     partials[blockIdx.x] = t_num;
     partials[rows + blockIdx.x] = t_den;
   }
-}
-
-int set_smem(const void* kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
 }  // namespace

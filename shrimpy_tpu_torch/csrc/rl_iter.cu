@@ -64,58 +64,9 @@
 
 #include <cuda_runtime.h>
 
+#include "stencil.cuh"
+
 namespace {
-
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
-// Padded length of a k-tap list for the sliding window: 3 zeros, the taps,
-// zeros to a multiple of 4, and one more float4 that the window reads ahead.
-__host__ __device__ constexpr int window_taps(int k) { return round4(k + 3) + 4; }
-__host__ __device__ constexpr int odd(int n) { return n | 1; }
-
-// Four steps of the sliding window: acc[j] += t[d + j] * line[(at - d) *
-// step], d = 0..3. kLo / kHi clamp the source index to >= 0 / <= last.
-template <bool kLo, bool kHi>
-__device__ __forceinline__ void window_steps(const float* __restrict__ line, int step, int at,
-                                             int last, const float4 a, const float4 b,
-                                             float (&acc)[4]) {
-  const float t[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int d = 0; d < 4; ++d) {
-    int u = at - d;
-    if (kHi) u = min(u, last);
-    if (kLo) u = max(u, 0);
-    const float v = line[u * step];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[j] = fmaf(t[d + j], v, acc[j]);
-  }
-}
-
-// acc[j] += sum_i taps[i] * line[(top - 3 - i + j) * step], j = 0..3: four
-// outputs at positions pos .. pos + 3 of a k-tap pass over `line`, with
-// top = pos + 3 + k - 1 the last source element any of them reads. tp is the
-// padded tap list (tp[3 + i] = taps[i]); n4 = round4(k + 3) steps. A source
-// index outside [0, last] meets only zero taps and is clamped to a finite
-// element: the first four steps can pass `last`, the last four can pass 0.
-__device__ __forceinline__ void window4(const float* __restrict__ line, int step, int top,
-                                        int last, const float* __restrict__ tp, int n4,
-                                        float (&acc)[4]) {
-  const float4* tp4 = reinterpret_cast<const float4*>(tp);
-  float4 a = tp4[0], b = tp4[1];
-  if (n4 == 4) {
-    window_steps<true, true>(line, step, top, last, a, b, acc);
-    return;
-  }
-  window_steps<false, true>(line, step, top, last, a, b, acc);
-  int n = 4;
-  for (; n < n4 - 4; n += 4) {
-    a = b;
-    b = tp4[(n >> 2) + 1];
-    window_steps<false, false>(line, step, top - n, last, a, b, acc);
-  }
-  a = b;
-  b = tp4[(n >> 2) + 1];
-  window_steps<true, false>(line, step, top - n, last, a, b, acc);
-}
 
 // The x pass: dst[r * dst_stride + c] = sum_i taps[i] * src[r * src_stride +
 // c + k - 1 - i] for r < rows, c < cols (src is k - 1 wider than dst). Lanes
@@ -186,10 +137,6 @@ __device__ __forceinline__ void z_pass4(const float* __restrict__ ring, int rows
 template <int kThreads>
 __device__ __forceinline__ void fill_zero(float* dst, int n) {
   for (int i = threadIdx.x; i < n; i += kThreads) dst[i] = 0.f;
-}
-
-__host__ __device__ inline int term_tap_floats(int nkz, int nky, int nkx) {
-  return round4(nkz) + window_taps(nky) + window_taps(nkx);
 }
 
 // Floats of shared memory a block takes (the host's sum and the kernel's

@@ -1,8 +1,9 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Every ``shrimpy_tpu_torch/csrc/*.cu`` is compiled at first use, one
-``nvcc`` process per source, all started together, and the objects are
-linked into one shared library with a plain C interface::
+``nvcc`` process per source, all started together (the ``*.cuh`` headers
+beside them are what the sources share), and the objects are linked
+into one shared library with a plain C interface::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu     # each, in parallel
@@ -14,6 +15,14 @@ so the build takes seconds (PyTorch's ``cpp_extension.load`` builds
 against torch's headers and takes minutes). The library lands in
 ``shrimpy_tpu_torch/build/`` under a name keyed by a hash of the
 sources and flags, so an edited kernel is never served a stale build.
+
+One kernel is compiled for its geometry: ``csrc/rl_half.cu`` takes the
+number of terms, the PSF lengths and the tile as macros, so that its tap
+loops unroll. :func:`load_half_library` compiles it at the first
+half-step with a geometry into a library of its own beside the other
+(``librl_half_<hash>_<geometry>.so``, one nvcc run);
+:func:`build_half` starts several geometries' runs together. In the
+common library the file leaves ``shrimpy_rl_half_smem`` alone.
 
 Calling convention of every C entry point: device pointers and the
 CUDA stream are ``void*`` (``ctypes.c_void_p``: a plain int argument
@@ -45,7 +54,8 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
 # C signature of every entry point in csrc/ (argtypes; restype is int: a
-# CUDA error code, but for shrimpy_rl_iter_smem, which returns bytes).
+# CUDA error code, but for shrimpy_rl_iter_smem and shrimpy_rl_half_smem,
+# which return bytes).
 SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
     # ns, nt, nx, nz, ny, n_groups, a_avg, stream
@@ -56,6 +66,8 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I32, _F32, _I32, _P],
     # in, prev, x, dx, g, alpha, partials, taps, k, rows, n, stream
     "shrimpy_conv_x_accel": [_P] * 8 + [_I32, _I64, _I64, _P],
+    # n_terms, nkz, nky, nkx, ty, tx -> bytes of shared memory a block takes
+    "shrimpy_rl_half_smem": [_I32] * 6,
     # in, out, kz, nkz, ky, nky, gz, gy, gx, stream
     "shrimpy_convzy_linear": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
     "shrimpy_convzy_circular": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
@@ -71,8 +83,20 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
 }
 
+# shrimpy_rl_half of a geometry's library: in, aux, out, dx, g, alpha,
+# partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, mode, vec,
+# eps, stream.
+HALF_SIGNATURE = [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P]
+HALF_SOURCE = "rl_half.cu"
+HALF_MACROS = ("RL_HALF_TERMS", "RL_HALF_NKZ", "RL_HALF_NKY", "RL_HALF_NKX",
+               "RL_HALF_TY", "RL_HALF_TX")
+# A C entry point reports a refusal by libcuda (cuTensorMapEncodeTiled) as
+# this plus the CUresult.
+ENCODE_ERROR = 100000
+
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_HALF_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def sources() -> list[Path]:
@@ -98,9 +122,13 @@ def find_nvcc() -> str:
     return found
 
 
+def headers() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cuh"))
+
+
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
@@ -147,6 +175,69 @@ def build() -> Path:
     return out
 
 
+def half_library_path(geometry, flags=()) -> Path:
+    h = hashlib.sha256()
+    for src in [CSRC_DIR / HALF_SOURCE, *headers()]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join([*ARCH_FLAGS, *NVCC_FLAGS, *flags]).encode())
+    name = "x".join(map(str, geometry[:4])) + "_" + "x".join(map(str, geometry[4:]))
+    return BUILD_DIR / f"librl_half_{h.hexdigest()[:16]}_{name}.so"
+
+
+def build_half(geometries, flags=()) -> list[Path]:
+    """Compile ``csrc/rl_half.cu`` for each ``(n_terms, nkz, nky, nkx,
+    ty, tx)`` of ``geometries`` whose library is absent, all nvcc runs
+    started together; ``flags`` are more nvcc flags. Returns the
+    libraries' paths."""
+    paths = [half_library_path(tuple(g), flags) for g in geometries]
+    todo = {p: tuple(g) for p, g in zip(paths, geometries) if not p.exists()}
+    if not todo:
+        return paths
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    try:
+        for out, geometry in todo.items():
+            tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+            cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *flags,
+                   *(f"-D{m}={v}" for m, v in zip(HALF_MACROS, geometry)),
+                   "-shared", "-o", str(tmp), str(CSRC_DIR / HALF_SOURCE)]
+            procs.append((cmd, tmp, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        failed = []
+        for cmd, tmp, out, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("\n".join(failed))
+    finally:
+        for _, tmp, _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            tmp.unlink(missing_ok=True)
+    return paths
+
+
+def load_half_library(geometry) -> ctypes.CDLL:
+    """The library of ``csrc/rl_half.cu`` compiled for ``geometry``
+    ``(n_terms, nkz, nky, nkx, ty, tx)``: built on the first call with
+    it, cached per process and on disk."""
+    geometry = tuple(int(v) for v in geometry)
+    with _LOCK:
+        lib = _HALF_LIBS.get(geometry)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_half([geometry])[0]))
+            lib.shrimpy_rl_half.argtypes = HALF_SIGNATURE
+            lib.shrimpy_rl_half.restype = ctypes.c_int
+            _HALF_LIBS[geometry] = lib
+        return lib
+
+
 def load_library() -> ctypes.CDLL:
     """The kernel library, built on first call and cached per process."""
     global _LIB
@@ -165,6 +256,9 @@ def load_library() -> ctypes.CDLL:
 
 def check(code: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
+    if code >= ENCODE_ERROR:
+        raise RuntimeError(f"{name}: libcuda refused the tensor map of the carry "
+                           f"(cuTensorMapEncodeTiled, CUresult {code - ENCODE_ERROR})")
     if code != 0:
         msg = load_library().shrimpy_error_string(code).decode()
         raise RuntimeError(f"{name}: CUDA error {code} at launch: {msg}")

@@ -17,10 +17,24 @@ are cropped at the end. Oracle:
 
 The TPU layout machinery — the y<->x swap (``fused_best_layout``), the
 staggered est offset, 128-lane tile rounding, the bf16 hi/lo split — is
-not ported: the CUDA kernel works on the exact G grid in float32 FMA, so
+not ported: the CUDA kernels work on the exact G grid in float32 FMA, so
 the JAX kernel's limits (``rz <= bz``, ``ry <= 120``, ``rx <= 128``) do
-not apply; the kernel raises on what it cannot take (shared-memory
-bounds in :func:`half_step_cuda`).
+not apply; :func:`half_step_cuda` raises on what no kernel takes.
+
+A half-step on the card is one launch of ``csrc/rl_half.cu``, as the
+TPU kernel is one ``pallas_call``: a block marches through z with a
+ring of input planes in shared memory (loaded by the TMA engine where
+the x rows and the pointers allow 16-byte copies, else by ``cp.async``),
+so the launch reads the input and ``aux`` once and writes ``out`` once,
+whatever the number of terms. The kernel is compiled for the geometry
+it runs (the PSF's lengths, the number of terms, the tile) at the first
+half-step with it. Its shared memory and the 256 x 256 box of
+a TMA copy bound the radii (:func:`half_bound_error`); past
+that bound the first port's three launches a term run
+(``csrc/rl_fused.cu``: z pass, y pass, x pass with the epilogue, two or
+three scratch carries), which take every geometry inside
+:func:`fused_bound_error`. :func:`half_step_route` is that choice, made
+from the shapes alone and the same on every device.
 
 ``acceleration: biggs`` runs Biggs-Andrews RL inside the half-steps,
 as the JAX ``fused`` backend does (``rl_fused.py:937-987``): mode
@@ -34,8 +48,7 @@ reference for the same algorithm.
 
 :func:`half_step` dispatches on the device: :func:`half_step_plain`
 (shifted-slice FMAs; any float dtype, so also the float64 reference) for
-a CPU tensor, :func:`half_step_cuda` (``csrc/rl_fused.cu``) for a CUDA
-tensor. The plain version does not use ``F.conv1d``: cuDNN runs float32
+a CPU tensor, :func:`half_step_cuda` for a CUDA tensor. The plain version does not use ``F.conv1d``: cuDNN runs float32
 convolutions as TF32 by default, and it must also run in float64.
 """
 
@@ -53,11 +66,43 @@ ACCEL_MODES = ("ratio_accel", "mult_accel")
 PAD_MODES = ("reflect", "edge", "constant")
 
 # Shared-memory ceiling of one block (H100: 227 KB opt-in) and the tile
-# constants of csrc/rl_fused.cu, which bound the radii the kernel takes.
+# constants of csrc/rl_fused.cu, which bound the radii its kernels take.
 _SMEM_BYTES = 232448
 _TILE_N = 32
 _THREADS_INNER = 128
 _MAX_GRID_YZ = 65535
+_MAX_INT = 2**31 - 1
+
+ROUTES = ("one_launch", "three_pass")
+# (ty, tx) tiles of csrc/rl_half.cu in order of preference: the first
+# whose shared memory fits runs (PERF.md has their times at the
+# production carry). ty and tx are multiples of 4. The kernel is compiled
+# for the PSF's lengths, the number of terms and the tile that are run.
+HALF_TILES = ((32, 64), (24, 64), (16, 64), (16, 32), (8, 32))
+# A block of csrc/rl_half.cu: its threads, and the 16-byte chunks of an
+# input slab a thread moves. A thread has at most one 4-row x 2-column
+# piece of the y pass and one 4-output piece of a row of the x pass.
+_HALF_THREADS = 512
+_HALF_CHUNKS = 3
+_HALF_BOX = 256  # rows and columns of a slab: the most a TMA box takes
+
+
+def _round4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def window_taps(k: int) -> int:
+    """Floats a kernel reads of a ``k``-tap x or y list: 3 zeros, the
+    taps, zeros to a multiple of 4, and one more group of 4 that its
+    sliding window reads ahead (``csrc/stencil.cuh``)."""
+    return _round4(k + 3) + 4
+
+
+def term_tap_floats(lengths) -> int:
+    """Floats of one term's packed taps: ``kz`` padded to a multiple of
+    4, then the ``ky`` and ``kx`` windows."""
+    nkz, nky, nkx = lengths
+    return _round4(nkz) + window_taps(nky) + window_taps(nkx)
 
 
 class Stencil:
@@ -88,12 +133,36 @@ class Stencil:
                 )
         dev = torch.device(device) if device is not None else None
         self.dev = None
+        self._packed = None
         if dev is not None and dev.type == "cuda":
             self.dev = [
                 tuple(torch.tensor(w.copy(), dtype=torch.float32, device=dev)
                       for w in term)
                 for term in self.host
             ]
+
+    def packed_host(self) -> np.ndarray:
+        """The taps as ``csrc/rl_half.cu`` and ``csrc/rl_iter.cu`` read
+        them: float32 ``(n_terms, term_tap_floats)``, each term ``kz``
+        (zeros to a multiple of 4), then ``ky`` and ``kx`` each as a
+        :func:`window_taps` list: the taps from index 3, zeros around."""
+        lengths = tuple(2 * r + 1 for r in self.radii)
+        ky_at = _round4(lengths[0])
+        kx_at = ky_at + window_taps(lengths[1])
+        packed = np.zeros((len(self.host), term_tap_floats(lengths)), np.float32)
+        for t, (wz, wy, wx) in enumerate(self.host):
+            packed[t, :lengths[0]] = wz
+            packed[t, ky_at + 3:ky_at + 3 + lengths[1]] = wy
+            packed[t, kx_at + 3:kx_at + 3 + lengths[2]] = wx
+        return packed
+
+    def packed(self) -> torch.Tensor:
+        """:meth:`packed_host` on the stencil's CUDA device, made once."""
+        if self.dev is None:
+            raise ValueError("the stencil has no taps on a CUDA device")
+        if self._packed is None:
+            self._packed = torch.from_numpy(self.packed_host()).to(self.dev[0][0].device)
+        return self._packed
 
 
 def _conv_axis_plain(v: torch.Tensor, taps: np.ndarray, axis: int) -> torch.Tensor:
@@ -216,9 +285,12 @@ def _check_x_row(gx: int, rx: int) -> None:
 
 
 def fused_bound_error(shape, radii) -> str | None:
-    """Why the half-step kernels cannot take a ``shape`` (gz, gy, gx)
-    carry with PSF ``radii``, or None when they can. One source for
-    :func:`half_step_cuda`'s refusal and ``auto``'s choice of backend."""
+    """Why the ``fused`` backend cannot take a ``shape`` (gz, gy, gx)
+    carry with PSF ``radii``, or None when it can: the bound of the
+    three-pass kernels (``csrc/rl_fused.cu``), which is the wider of the
+    two routes' (the one-launch kernel runs only inside it, see
+    :func:`half_step_route`). One source for :func:`half_step_cuda`'s
+    refusal and ``auto``'s choice of backend."""
     gz, gy, gx = shape
     r_axis = max(radii[:2])
     if (_TILE_N + 2 * r_axis) * _THREADS_INNER * 4 > _SMEM_BYTES:
@@ -226,6 +298,96 @@ def fused_bound_error(shape, radii) -> str | None:
     if gz > _MAX_GRID_YZ or round_up(gy, _TILE_N) // _TILE_N > _MAX_GRID_YZ:
         return f"carry {tuple(shape)} exceeds the launch grid"
     return _x_row_error(gx, radii[2])
+
+
+def half_slab(tile, radii) -> tuple[int, int]:
+    """(rows, columns) of the input slab a ``csrc/rl_half.cu`` block
+    keeps of every plane in its ring: the (ty, tx) ``tile`` with its y
+    halos, and in x from ``round4(rx)`` before the tile (so that a
+    16-byte piece of the slab is one of the grid's) to ``rx`` past it,
+    rounded up to whole pieces."""
+    (ty, tx), (_, ry, rx) = tile, radii
+    return ty + 2 * ry, _round4(_round4(rx) + tx + rx)
+
+
+def half_smem_bytes(tile, radii, n_terms: int) -> int:
+    """Dynamic shared memory of one ``csrc/rl_half.cu`` block on a (ty,
+    tx) ``tile``: the packed taps, the ring of ``2 rz + 2`` input slabs
+    (the last one in flight), the z pass's plane (one slab more, after
+    four guard rows of zeros that the y pass's window may reach), the y
+    pass's plane of ty rows of ``tx + round4(2 rx + 4) - 4`` columns
+    (what the x pass's windows of whole 16-byte pieces read), and half
+    a slab for the bf16 ``dx`` in flight (``ratio_accel``), and 16 bytes
+    for the barrier of the bulk copies. The kernel's own sum is
+    ``shrimpy_rl_half_smem``."""
+    rows, cols = half_slab(tile, radii)
+    slab = round_up(rows * cols, 32)  # a slot starts at a multiple of 128 bytes
+    taps = round_up(n_terms * term_tap_floats(tuple(2 * r + 1 for r in radii)), 32)
+    y_plane = tile[0] * (tile[1] + _round4(2 * radii[2] + 4) - 4)
+    return 4 * (taps + (2 * radii[0] + 3) * slab + 4 * cols + y_plane + slab // 2 + 4)
+
+
+def half_layout(shape, radii, n_terms: int = 1, *, tile=None) -> dict | None:
+    """The tile the one-launch half-step kernel runs a (gz, gy, gx) carry
+    with, ``{"tile": (ty, tx), "threads": n, "smem_bytes": n, "blocks":
+    n}``, or None when none of :data:`HALF_TILES` fits
+    (:func:`half_bound_error` says why). ``tile`` forces one."""
+    gz, gy, gx = shape
+    if gy * gx > _MAX_INT:
+        return None
+    for cand in ((tuple(tile),) if tile is not None else HALF_TILES):
+        ty, tx = cand
+        rows, cols = half_slab(cand, radii)
+        smem = half_smem_bytes(cand, radii, n_terms)
+        if (ty % 4 == 0 and tx % 4 == 0 and smem <= _SMEM_BYTES
+                and round_up(rows * cols, 32) // 4 <= _HALF_THREADS * _HALF_CHUNKS
+                and rows <= _HALF_BOX and cols <= _HALF_BOX
+                and (ty // 4) * (cols // 2) <= _HALF_THREADS
+                and ty * (tx // 4) <= _HALF_THREADS
+                and -(-gy // ty) <= _MAX_GRID_YZ):
+            return {"tile": cand, "threads": _HALF_THREADS, "smem_bytes": smem,
+                    "blocks": -(-gy // ty) * -(-gx // tx)}
+    return None
+
+
+def half_bound_error(shape, radii, n_terms: int = 1) -> str | None:
+    """Why the one-launch half-step kernel (``csrc/rl_half.cu``) cannot
+    take a (gz, gy, gx) carry with PSF ``radii`` in ``n_terms`` terms, or
+    None when it can. Geometry alone, the same on every device."""
+    if half_layout(shape, radii, n_terms) is not None:
+        return None
+    gz, gy, gx = shape
+    smallest = HALF_TILES[-1]
+    if gy * gx > _MAX_INT or -(-gy // smallest[0]) > _MAX_GRID_YZ:
+        return (f"carry {tuple(shape)} exceeds the launch grid (a plane of {gy} x {gx} voxels "
+                "is indexed in 32 bits)")
+    rows, cols = half_slab(smallest, radii)
+    return (f"radii {tuple(radii)} exceed the one-launch kernel's block: the ring of its "
+            f"smallest tile {smallest} takes {half_smem_bytes(smallest, radii, n_terms)} bytes "
+            f"of {_SMEM_BYTES}, a slab {rows * cols // 4} 16-byte pieces of "
+            f"{_HALF_THREADS * _HALF_CHUNKS}")
+
+
+def half_step_route(shape, radii, n_terms: int = 1) -> str:
+    """Which kernels run a half-step of the ``fused`` backend on a
+    (gz, gy, gx) carry: ``"one_launch"`` (``csrc/rl_half.cu``) where its
+    block fits (:func:`half_bound_error`), else ``"three_pass"``
+    (``csrc/rl_fused.cu``). Both compute the same function with the same
+    bits; the choice reads the shapes and nothing else, so it is the
+    same on every device. Raises :class:`ValueError` outside
+    :func:`fused_bound_error`, where ``auto`` resolves to ``matmul``."""
+    bound = fused_bound_error(shape, radii)
+    if bound is not None:
+        raise ValueError(f"half_step_cuda: {bound}")
+    return ROUTES[0] if half_bound_error(shape, radii, n_terms) is None else ROUTES[1]
+
+
+def partial_rows(shape, radii, n_terms: int = 1) -> int:
+    """Pairs of partial sums a ``mult_accel`` half-step writes: one a
+    block on the one-launch route, one an x row on the three-pass one."""
+    if half_step_route(shape, radii, n_terms) == ROUTES[0]:
+        return half_layout(shape, radii, n_terms)["blocks"]
+    return shape[0] * shape[1]
 
 
 def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
@@ -264,7 +426,7 @@ def check_io_cuda(inp: torch.Tensor, aux: torch.Tensor | None, mode: str, name: 
 
 def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: int, *,
                    out=None, scratch=None, extra=None, x_last=None, wrap: bool = False,
-                   name: str) -> torch.Tensor:
+                   count_on=None, name: str) -> torch.Tensor:
     """The term loop of a CUDA half-step, shared by the ``fused``,
     ``linear_pallas`` and ``zy_pallas`` routes (operands checked by
     :func:`check_io_cuda`).
@@ -276,7 +438,9 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
     ``x_last(h, prev, kx)`` replaces that last x pass when given. ``out``
     may be ``aux`` but alias no other operand, nor any of ``extra``
     (name -> tensor). ``scratch`` (``n_zy`` carries, one more with
-    several terms) and ``out`` are allocated when not given.
+    several terms) and ``out`` are allocated when not given. ``count_on``
+    is a wrapper whose ``launches`` count goes up by one at each x pass
+    launched here.
     """
     shape = tuple(inp.shape)
     _check_stencil(stencil, inp)
@@ -304,47 +468,25 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
         else:
             conv_x_cuda(h, prev, aux if last and mode != "plain" else None,
                         out if last else acc, kx, mode, eps, wrap=wrap)
+            if count_on is not None:
+                count_on.launches += 1
     return out
 
 
-def half_step_cuda(
-    inp: torch.Tensor,
-    aux: torch.Tensor | None,
-    stencil: Stencil,
-    mode: str,
-    eps: float = 1e-6,
-    *,
-    out: torch.Tensor | None = None,
-    scratch: list[torch.Tensor] | None = None,
-    dx: torch.Tensor | None = None,
-    g_prev: torch.Tensor | None = None,
-    alpha: torch.Tensor | None = None,
-    partials: torch.Tensor | None = None,
-):
-    """One RL half-step with the CUDA kernels of ``csrc/rl_fused.cu``.
-
-    ``inp`` and ``aux`` are (gz, gy, gx) float32 CUDA tensors; ``out``
-    may be ``aux`` (the in-place mult update) but not ``inp``.
-    ``scratch`` (2 carries, 3 with more than one term) is allocated when
-    not given. Per term: z pass and y pass into scratch, then the x pass
-    adds the earlier terms' partial sum and applies the epilogue.
-
-    Accelerated modes take ``dx`` (bf16 carry) and ``alpha`` (a float32
-    CUDA scalar, read by the kernels, never by the host).
-    ``ratio_accel`` returns ``out``. ``mult_accel`` also takes ``g_prev``
-    (bf16) and ``partials`` (float32 (2, gz*gy), allocated when not
-    given), writes ``x_new`` over ``aux``, ``dx_new`` over ``dx`` and
-    ``g`` over ``g_prev``, and returns ``(aux, dx, g_prev, num, den)``
-    with ``num``/``den`` 0-d float32 CUDA tensors summed from the
-    per-row partials by ``torch.sum``.
-    """
+def _check_half_io(inp, aux, mode: str):
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(MODES)}")
-    shape = check_io_cuda(inp, aux, mode, "half_step_cuda")
-    gz, gy, gx = shape
-    accel = mode in ACCEL_MODES
+    return check_io_cuda(inp, aux, mode, "half_step_cuda")
+
+
+def _check_accel(inp, aux, shape, mode: str, out, dx, g_prev, alpha, partials, n_partials: int):
+    """The accelerated modes' operands, alike on both routes of a CUDA
+    half-step. Returns ``(out, partials, extra)``: for ``mult_accel``
+    ``out`` is ``aux`` and ``partials`` is allocated as (2,
+    ``n_partials``) when not given; ``extra`` names the tensors that
+    must alias no carry."""
     extra = {}
-    if accel:
+    if mode in ACCEL_MODES:
         if dx is None or alpha is None or (mode == "mult_accel" and g_prev is None):
             raise ValueError(f"mode {mode!r} needs dx, alpha" +
                              (" and g_prev" if mode == "mult_accel" else ""))
@@ -359,12 +501,79 @@ def half_step_cuda(
             raise ValueError("half_step_cuda: mult_accel writes x_new over aux (out must be aux)")
         out = aux
         if partials is None:
-            partials = torch.empty((2, gz * gy), dtype=torch.float32, device=inp.device)
-        _check_cuda_operand("partials", partials, (2, gz * gy))
+            partials = torch.empty((2, n_partials), dtype=torch.float32, device=inp.device)
+        _check_cuda_operand("partials", partials, (2, n_partials))
         extra.update(g_prev=g_prev, partials=partials)
+    return out, partials, extra
+
+
+def _half_step_result(mode: str, out, aux, dx, g_prev, partials):
+    if mode == "mult_accel":
+        sums = partials.sum(dim=1)
+        return aux, dx, g_prev, sums[0], sums[1]
+    return out
+
+
+def half_step_one_launch(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
+                         out=None, dx=None, g_prev=None, alpha=None, partials=None, tile=None):
+    """One RL half-step as one launch of ``csrc/rl_half.cu``, which is
+    compiled for the stencil's lengths and the tile at the first call
+    with them (``kernels/build.py::load_half_library``). Operands and
+    result as :func:`half_step_cuda`; ``partials`` holds one pair a
+    block. ``tile`` takes a (ty, tx) other than :func:`half_layout`'s
+    choice. Raises :class:`ValueError` past :func:`half_bound_error`."""
+    shape = _check_half_io(inp, aux, mode)
+    n_terms = len(stencil.host)
+    layout = half_layout(shape, stencil.radii, n_terms, tile=tile)
+    if layout is None:
+        raise ValueError("half_step_cuda: " + (
+            half_bound_error(shape, stencil.radii, n_terms)
+            or f"tile {tuple(tile)} does not fit the one-launch kernel's block"))
+    out, partials, extra = _check_accel(inp, aux, shape, mode, out, dx, g_prev, alpha, partials,
+                                        layout["blocks"])
+    _check_stencil(stencil, inp)
+    if out is None:
+        out = torch.empty_like(inp)
+    _check_cuda_operand("out", out, shape)
+    _check_distinct(inp=inp, out=out, **extra)
+
+    from shrimpy_tpu_torch.kernels.build import check, load_half_library
+
+    gz, gy, gx = shape
+    carries = [t for t in (inp, aux, out, dx, g_prev) if t is not None]
+    vec = gx % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in carries)
+    geometry = (n_terms, *(2 * r + 1 for r in stencil.radii), *layout["tile"])
+    kernel_mode = {"ratio_accel": 3, "mult_accel": 4}.get(mode, MODES[mode])
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
+    check(load_half_library(geometry).shrimpy_rl_half(
+        inp.data_ptr(), ptr(aux), out.data_ptr(), ptr(dx), ptr(g_prev), ptr(alpha),
+        ptr(partials), stencil.packed().data_ptr(), *geometry[:4], gz, gy, gx, *geometry[4:],
+        kernel_mode, int(vec), float(eps), torch.cuda.current_stream(inp.device).cuda_stream,
+    ), "shrimpy_rl_half")
+    half_step_one_launch.launches += 1
+    return _half_step_result(mode, out, aux, dx, g_prev, partials)
+
+
+def half_step_three_pass(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
+                         out=None, scratch=None, dx=None, g_prev=None, alpha=None,
+                         partials=None):
+    """One RL half-step as the three launches a term of
+    ``csrc/rl_fused.cu``: a z pass and a y pass into ``scratch`` (2
+    carries, 3 with more than one term; allocated when not given), then
+    the x pass, which adds the earlier terms' partial sum and applies
+    the epilogue. Operands and result as :func:`half_step_cuda`;
+    ``partials`` holds one pair an x row. Raises :class:`ValueError`
+    past :func:`fused_bound_error`."""
+    shape = _check_half_io(inp, aux, mode)
+    gz, gy, gx = shape
     bound = fused_bound_error(shape, stencil.radii)
     if bound is not None:
         raise ValueError(f"half_step_cuda: {bound}")
+    out, partials, extra = _check_accel(inp, aux, shape, mode, out, dx, g_prev, alpha, partials,
+                                        gz * gy)
 
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
@@ -376,8 +585,10 @@ def half_step_cuda(
         lib = load_library()
         check(lib.shrimpy_conv_axis(v.data_ptr(), s1.data_ptr(), kz.data_ptr(), kz.numel(),
                                     1, gz, gy * gx, *z_extra, stream), "shrimpy_conv_axis(z)")
+        half_step_three_pass.launches += 1
         check(lib.shrimpy_conv_axis(s1.data_ptr(), s2.data_ptr(), ky.data_ptr(), ky.numel(),
                                     gz, gy, gx, None, None, stream), "shrimpy_conv_axis(y)")
+        half_step_three_pass.launches += 1
         return s2
 
     def x_accel(h, prev, kx):
@@ -386,32 +597,69 @@ def half_step_cuda(
             dx.data_ptr(), g_prev.data_ptr(), alpha.data_ptr(), partials.data_ptr(),
             kx.data_ptr(), kx.numel(), gz * gy, gx, stream,
         ), "shrimpy_conv_x_accel")
+        half_step_three_pass.launches += 1
 
     out = run_terms_cuda(inp, aux, stencil, mode, eps, zy, 2, out=out, scratch=scratch,
                          extra=extra, x_last=x_accel if mode == "mult_accel" else None,
-                         name="half_step_cuda")
-    if accel:
+                         count_on=half_step_three_pass, name="half_step_cuda")
+    return _half_step_result(mode, out, aux, dx, g_prev, partials)
+
+
+# Kernel launches of each route since the last reset, counted where the
+# kernel is launched: one a half-step, three a term.
+half_step_one_launch.launches = 0
+half_step_three_pass.launches = 0
+
+
+def half_step_cuda(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
+                   out=None, scratch=None, dx=None, g_prev=None, alpha=None, partials=None):
+    """One RL half-step on the card: :func:`half_step_one_launch` where
+    the geometry allows, else :func:`half_step_three_pass`
+    (:func:`half_step_route` chooses from the shapes alone). A kernel
+    that cannot take the operands raises; nothing here reaches the plain
+    version.
+
+    ``inp`` and ``aux`` are (gz, gy, gx) float32 CUDA tensors; ``out``
+    may be ``aux`` (the in-place mult update) but not ``inp``.
+    ``scratch`` is the three-pass route's; the one-launch route needs
+    none.
+
+    Accelerated modes take ``dx`` (bf16 carry) and ``alpha`` (a float32
+    CUDA scalar, read by the kernels, never by the host).
+    ``ratio_accel`` returns ``out``. ``mult_accel`` also takes ``g_prev``
+    (bf16) and ``partials`` (float32 (2, :func:`partial_rows`), allocated
+    when not given), writes ``x_new`` over ``aux``, ``dx_new`` over
+    ``dx`` and ``g`` over ``g_prev``, and returns ``(aux, dx, g_prev,
+    num, den)`` with ``num``/``den`` 0-d float32 CUDA tensors summed
+    from the partials (one pair a block, or a row on the three-pass
+    route) by ``torch.sum``.
+    """
+    shape = _check_half_io(inp, aux, mode)
+    accel = {"dx": dx, "g_prev": g_prev, "alpha": alpha, "partials": partials}
+    if half_step_route(shape, stencil.radii, len(stencil.host)) == ROUTES[0]:
+        res = half_step_one_launch(inp, aux, stencil, mode, eps, out=out, **accel)
+    else:
+        res = half_step_three_pass(inp, aux, stencil, mode, eps, out=out, scratch=scratch,
+                                   **accel)
+    if mode in ACCEL_MODES:
         half_step_cuda.accel_launches += 1
     else:
         half_step_cuda.launches += 1
-    if mode == "mult_accel":
-        sums = partials.sum(dim=1)
-        return aux, dx, g_prev, sums[0], sums[1]
-    return out
+    return res
 
 
-# Half-steps launched since the last reset (chip_smoke.py reads and
-# resets them): ``launches`` in modes ratio/mult/plain, ``accel_launches``
-# in modes ratio_accel/mult_accel; each is 3 kernel launches per term.
+# Half-steps since the last reset (chip_smoke.py reads and resets them):
+# in modes ratio/mult/plain (``launches``) and ratio_accel/mult_accel
+# (``accel_launches``).
 half_step_cuda.launches = 0
 half_step_cuda.accel_launches = 0
 
 
 def half_step(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
               out=None, scratch=None, partials=None, **accel):
-    """RL half-step: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor (``out``/``scratch``/``partials`` are
-    kernel buffers and unused there). ``accel``: ``dx``, ``g_prev``,
+    """RL half-step: the CUDA kernels for a CUDA tensor, the plain
+    version for a CPU tensor (``out``/``scratch``/``partials`` belong to
+    the kernels and are unused there). ``accel``: ``dx``, ``g_prev``,
     ``alpha`` of the accelerated modes."""
     if inp.is_cuda:
         return half_step_cuda(inp, aux, stencil, mode, eps, out=out, scratch=scratch,
@@ -494,10 +742,11 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     ``plain=True`` runs :func:`half_step_plain` on any device in
     ``dtype`` (the reference path); otherwise :func:`half_step`.
     ``settings.acceleration == "biggs"`` runs the in-kernel Biggs body.
-    Memory: data, est and ratio carries plus the kernel's 2-3 scratch
-    carries; the mult half-step updates est in place (with Biggs also
-    dx and g_prev, two bf16 carries). ``donate`` consumes ``image`` once
-    the carries exist (see :func:`grid_start`).
+    Memory: data, est and ratio carries (past the one-launch kernel's
+    bound also the three-pass route's 2-3 scratch carries); the mult
+    half-step updates est in place (with Biggs also dx and g_prev, two
+    bf16 carries). ``donate`` consumes ``image`` once the carries exist
+    (see :func:`grid_start`).
     """
     eps = float(settings.epsilon)
     shape = tuple(image.shape)
@@ -509,9 +758,10 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     bufs, ratio_buf = {}, None  # the kernels' buffers, allocated once per run
     if kernel:
         ratio_buf = torch.empty_like(est)
-        bufs["scratch"] = [torch.empty_like(est) for _ in range(2 if len(terms) == 1 else 3)]
+        if half_step_route(est.shape, conv.radii, len(terms)) == "three_pass":
+            bufs["scratch"] = [torch.empty_like(est) for _ in range(2 if len(terms) == 1 else 3)]
         if biggs:
-            bufs["partials"] = torch.empty((2, est.shape[0] * est.shape[1]),
+            bufs["partials"] = torch.empty((2, partial_rows(est.shape, conv.radii, len(terms))),
                                            dtype=torch.float32, device=est.device)
 
     def hs(inp, aux, st, mode, out=None, **kw):

@@ -42,6 +42,7 @@ import torch
 
 from shrimpy_tpu_torch.ops.rl_fused import (
     _MAX_GRID_YZ,
+    _MAX_INT,
     _SMEM_BYTES,
     Stencil,
     _check_cuda_operand,
@@ -50,10 +51,10 @@ from shrimpy_tpu_torch.ops.rl_fused import (
     _conv_axis_plain,
     crop_grid,
     start_on_grid,
+    term_tap_floats,
+    window_taps,  # noqa: F401  (the tap layout's other half, read by the tests)
 )
 from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
-
-_MAX_INT = 2**31 - 1
 
 # (ty, tx) tiles of csrc/rl_iter.cu in order of preference: the first
 # whose shared memory fits runs. The order is that of their times at the
@@ -66,24 +67,6 @@ def tile_threads(tile) -> int:
     """Threads of a block on ``tile``: 1024 where the tile has work for
     them, else 512 (two blocks an SM where the rings allow)."""
     return 1024 if tile[0] * tile[1] >= 1024 else 512
-
-
-def _round4(n: int) -> int:
-    return (n + 3) & ~3
-
-
-def window_taps(k: int) -> int:
-    """Floats the kernel reads of a ``k``-tap x or y list: 3 zeros, the
-    taps, zeros to a multiple of 4, and one more group of 4 that its
-    sliding window reads ahead."""
-    return _round4(k + 3) + 4
-
-
-def term_tap_floats(lengths) -> int:
-    """Floats of one term's packed taps: ``kz`` padded to a multiple of
-    4, then the ``ky`` and ``kx`` windows."""
-    nkz, nky, nkx = lengths
-    return _round4(nkz) + window_taps(nky) + window_taps(nkx)
 
 
 def iter_smem_bytes(tile, radii, n_terms: int) -> int:
@@ -180,21 +163,11 @@ rl_iter_plain.cuda_calls = 0
 def pack_taps(conv: Stencil, adj: Stencil, device) -> torch.Tensor:
     """Both directions' taps as the kernel reads them: a float32
     ``(2, n_terms, term_tap_floats)`` tensor on ``device``, ``[0]`` the
-    convolution's and ``[1]`` the adjoint's. Each term is ``kz`` (zeros
-    to a multiple of 4), then ``ky`` and ``kx`` each as a
-    :func:`window_taps` list: the taps from index 3, zeros around."""
+    convolution's and ``[1]`` the adjoint's, each as
+    :meth:`~shrimpy_tpu_torch.ops.rl_fused.Stencil.packed_host` lays it out."""
     if conv.radii != adj.radii or len(conv.host) != len(adj.host):
         raise ValueError("the convolution and adjoint stencils differ in radii or terms")
-    lengths = tuple(2 * r + 1 for r in conv.radii)
-    ky_at = _round4(lengths[0])
-    kx_at = ky_at + window_taps(lengths[1])
-    packed = np.zeros((2, len(conv.host), term_tap_floats(lengths)), np.float32)
-    for d, st in enumerate((conv, adj)):
-        for t, (wz, wy, wx) in enumerate(st.host):
-            packed[d, t, :lengths[0]] = wz
-            packed[d, t, ky_at + 3:ky_at + 3 + lengths[1]] = wy
-            packed[d, t, kx_at + 3:kx_at + 3 + lengths[2]] = wx
-    return torch.from_numpy(packed).to(device)
+    return torch.from_numpy(np.stack([conv.packed_host(), adj.packed_host()])).to(device)
 
 
 def rl_iter_cuda(est: torch.Tensor, data: torch.Tensor, conv: Stencil, adj: Stencil,

@@ -43,12 +43,18 @@ from shrimpy_tpu_torch.ops.deconv import gaussian_psf, richardson_lucy
 from shrimpy_tpu_torch.ops.deskew import deskew_plain, deskew_volume
 from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
 from shrimpy_tpu_torch.ops.rl_fused import (
+    HALF_TILES,
     Stencil,
     _epilogue,
     conv_x_cuda,
+    half_layout,
+    half_smem_bytes,
     half_step,
     half_step_cuda,
+    half_step_one_launch,
     half_step_plain,
+    half_step_route,
+    half_step_three_pass,
 )
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
 from shrimpy_tpu_torch.runtime.feed import DeviceFeed
@@ -125,14 +131,18 @@ def test_half_step_in_place_mult_and_scratch_reuse(cuda):
     est = _rand((16, 40, 50), 6, cuda, 0.5, 2.0)
     want = half_step_plain(inp, est, st, "mult")
     scratch = [torch.empty_like(inp) for _ in range(3)]
-    got = half_step_cuda(inp, est, st, "mult", out=est, scratch=scratch)
-    torch.cuda.synchronize()
-    assert got.data_ptr() == est.data_ptr()
-    assert _rel(est, want) <= 1e-5
-    with pytest.raises(ValueError, match="alias"):
-        half_step_cuda(inp, est, st, "mult", out=inp, scratch=scratch)
+    # The scratch carries are the three-pass route's.
+    for step, kw in ((half_step_one_launch, {}), (half_step_three_pass, {"scratch": scratch}),
+                     (half_step_cuda, {"scratch": scratch})):
+        x = est.clone()
+        got = step(inp, x, st, "mult", out=x, **kw)
+        torch.cuda.synchronize()
+        assert got.data_ptr() == x.data_ptr()
+        assert _rel(x, want) <= 1e-5
+        with pytest.raises(ValueError, match="alias"):
+            step(inp, est, st, "mult", out=inp, **kw)
     with pytest.raises(ValueError, match="scratch"):
-        half_step_cuda(inp, est, st, "mult", scratch=scratch[:2])
+        half_step_three_pass(inp, est, st, "mult", scratch=scratch[:2])
 
 
 def test_kernel_wrappers_refuse_what_they_cannot_take(cuda):
@@ -190,6 +200,154 @@ def test_device_feed_round_trip_on_cuda(cuda):
     for i, h in enumerate(handles):
         np.testing.assert_array_equal(feed.collect(h), np.full((2, 8, 9, 10), 2.0 * i + 1))
     assert len(timer.records) == 6
+
+
+# (n_terms, PSF lengths, grid) for the one-launch half-step kernel: the
+# production PSF on a grid whose x rows take 16-byte copies and on one
+# that does not; two asymmetric terms; grids smaller than a tile on every
+# axis with z < 2 rz + 1; odd radii; a z list longer than the planes a
+# thread keeps in registers; a 1 x 1 x 1 PSF.
+HALF_CASES = [
+    (1, (9, 21, 21), (20, 100, 132)),
+    (1, (9, 21, 21), (5, 37, 45)),
+    (2, (7, 11, 13), (40, 70, 136)),
+    (2, (7, 11, 13), (7, 70, 33)),
+    (1, (9, 21, 21), (3, 9, 40)),
+    (3, (7, 19, 23), (9, 50, 68)),
+    (1, (21, 5, 7), (30, 40, 52)),
+    (1, (1, 1, 1), (4, 9, 13)),
+]
+
+
+def _half_all_modes(step, shape, st, adj, seed, device, **route):
+    """Every mode of the half-step ``step`` on one set of operands, as a
+    dict of the tensors each writes; ``mult`` runs in place."""
+    inp = _rand(shape, seed, device, 0.5, 10.5)
+    aux = _rand(shape, seed + 1, device, 0.0, 5.0)
+    dx, gp, alpha = _accel_operands(shape, seed + 2, device)
+    ops = (inp, aux, dx, gp, alpha)
+    out = {}
+    for mode, s in (("plain", st), ("ratio", st)):
+        out[mode] = step(inp, aux, s, mode, 1e-6, **route)
+    x = aux.clone()
+    assert step(inp, x, adj, "mult", 1e-6, out=x, **route).data_ptr() == x.data_ptr()
+    out["mult"] = x
+    out["ratio_accel"] = step(inp, aux, st, "ratio_accel", 1e-6, dx=dx, alpha=alpha, **route)
+    x, d, g = aux.clone(), dx.clone(), gp.clone()
+    got = step(inp, x, adj, "mult_accel", 1e-6, dx=d, g_prev=g, alpha=alpha, **route)
+    assert tuple(t.data_ptr() for t in got[:3]) == (x.data_ptr(), d.data_ptr(), g.data_ptr())
+    out["mult_accel"] = got
+    torch.cuda.synchronize()
+    return ops, out
+
+
+@pytest.mark.parametrize("tile", [None, (16, 32), (8, 32)])
+@pytest.mark.parametrize("n_terms,lengths,shape", HALF_CASES)
+def test_one_launch_half_step_matches_plain_bitwise(cuda, n_terms, lengths, shape, tile):
+    """All five modes of ``csrc/rl_half.cu`` against ``half_step_plain``:
+    the kernel sums each output's taps in the plain version's order, so
+    float32 results are equal bit for bit on every tile (the bf16 state
+    too); the two Biggs sums, added in another order, within 1e-5."""
+    terms = _asym_terms(n_terms, lengths, seed=n_terms)
+    st, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    assert half_step_route(shape, st.radii, n_terms) == "one_launch"
+    before = (half_step_one_launch.launches, half_step_three_pass.launches)
+    (inp, aux, dx, gp, alpha), got = _half_all_modes(half_step_one_launch, shape, st, adj, 20,
+                                                    cuda, tile=tile)
+    # One kernel launch a half-step, none on the other route.
+    assert (half_step_one_launch.launches, half_step_three_pass.launches) == (
+        before[0] + 5, before[1])
+    for mode, s in (("plain", st), ("ratio", st), ("mult", adj)):
+        want = half_step_plain(inp, aux, s, mode, 1e-6)
+        torch.testing.assert_close(got[mode], want, rtol=0, atol=0, msg=mode)
+    want = half_step_plain(inp, aux, st, "ratio_accel", 1e-6, dx=dx, alpha=alpha)
+    torch.testing.assert_close(got["ratio_accel"], want, rtol=0, atol=0)
+    want = half_step_plain(inp, aux, adj, "mult_accel", 1e-6, dx=dx, g_prev=gp, alpha=alpha)
+    for k in range(3):
+        torch.testing.assert_close(got["mult_accel"][k], want[k], rtol=0, atol=0)
+    for k in (3, 4):
+        assert got["mult_accel"][k].dtype == torch.float32 and got["mult_accel"][k].shape == ()
+        assert abs(float(got["mult_accel"][k]) - float(want[k])) <= 1e-5 * abs(float(want[k]))
+
+
+@pytest.mark.parametrize("n_terms,lengths,shape", HALF_CASES[:4])
+def test_both_half_step_routes_give_the_same_bits(cuda, n_terms, lengths, shape):
+    terms = _asym_terms(n_terms, lengths, seed=n_terms)
+    st, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    before = (half_step_three_pass.launches, half_step_cuda.launches,
+              half_step_cuda.accel_launches)
+    _, one = _half_all_modes(half_step_cuda, shape, st, adj, 30, cuda)
+    # The dispatch takes the one-launch route here and counts the half-steps.
+    assert (half_step_three_pass.launches, half_step_cuda.launches,
+            half_step_cuda.accel_launches) == (before[0], before[1] + 3, before[2] + 2)
+    _, three = _half_all_modes(half_step_three_pass, shape, st, adj, 30, cuda)
+    assert half_step_three_pass.launches == before[0] + 5 * 3 * n_terms
+    for mode in ("plain", "ratio", "mult", "ratio_accel"):
+        torch.testing.assert_close(one[mode], three[mode], rtol=0, atol=0, msg=mode)
+    for k in range(3):
+        torch.testing.assert_close(one["mult_accel"][k], three["mult_accel"][k], rtol=0, atol=0)
+
+
+def test_one_launch_half_step_on_carries_that_are_not_16_byte_aligned(cuda):
+    """gx % 4 == 0 but the carries start 4 bytes past a 16-byte boundary:
+    the kernel takes its 4-byte copies, with the same bits."""
+    shape, n = (6, 40, 64), 6 * 40 * 64
+    terms = _asym_terms(1, (5, 9, 9), seed=3)
+    st = Stencil(terms, device=cuda)
+    inp, aux = _rand(shape, 40, cuda, 0.5, 10.5), _rand(shape, 41, cuda, 0.0, 5.0)
+    want = half_step_one_launch(inp, aux, st, "ratio")
+
+    def shifted(t):
+        buf = torch.empty(n + 1, dtype=t.dtype, device=cuda)
+        view = buf[1:].view(shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 == 4 and view.is_contiguous()
+        return view
+
+    got = half_step_one_launch(shifted(inp), shifted(aux), st, "ratio", out=shifted(aux))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_one_launch_half_step_refusals(cuda):
+    st = Stencil(_asym_terms(1, (5, 9, 9), seed=4), device=cuda)
+    shape = (8, 30, 40)
+    inp, aux = _rand(shape, 50, cuda, 0.5, 2.0), _rand(shape, 51, cuda, 0.5, 2.0)
+    dx, gp, alpha = _accel_operands(shape, 52, cuda)
+    with pytest.raises(ValueError, match="alias"):
+        half_step_one_launch(inp, aux, st, "mult", out=inp)
+    with pytest.raises(ValueError, match="alias"):
+        half_step_one_launch(inp, aux, st, "mult_accel", dx=dx, g_prev=dx, alpha=alpha)
+    with pytest.raises(ValueError, match="mode"):
+        half_step_one_launch(inp, aux, st, "divide")
+    with pytest.raises(ValueError, match="does not fit"):
+        half_step_one_launch(inp, aux, st, "ratio", tile=(128, 128))
+    with pytest.raises(ValueError, match="partials"):
+        half_step_one_launch(inp, aux, st, "mult_accel", dx=dx, g_prev=gp, alpha=alpha,
+                             partials=torch.empty((2, shape[0] * shape[1]), device=cuda))
+    big = Stencil(_asym_terms(1, (121, 9, 9), 0), device=cuda)   # past the block: three passes
+    v = torch.ones((130, 20, 20), device=cuda)
+    assert half_step_route(v.shape, big.radii) == "three_pass"
+    with pytest.raises(ValueError, match="exceed the one-launch kernel"):
+        half_step_one_launch(v, v, big, "ratio")
+    before = half_step_three_pass.launches
+    out = half_step_cuda(v, v, big, "ratio")
+    torch.cuda.synchronize()
+    assert half_step_three_pass.launches == before + 3
+    assert _rel(out, half_step_plain(v, v, big, "ratio")) <= 1e-5
+
+
+@pytest.mark.parametrize("n_terms", [1, 3])
+@pytest.mark.parametrize("radii", [(4, 10, 10), (0, 0, 0), (3, 5, 6), (1, 20, 2), (3, 9, 11)])
+def test_half_step_shared_memory_sum_is_the_kernels(cuda, radii, n_terms):
+    from shrimpy_tpu_torch.kernels.build import load_library
+
+    lengths = tuple(2 * r + 1 for r in radii)
+    for tile in HALF_TILES + ((64, 32), (4, 8)):
+        assert load_library().shrimpy_rl_half_smem(n_terms, *lengths, *tile) == half_smem_bytes(
+            tile, radii, n_terms)
+    layout = half_layout((40, 300, 400), radii, n_terms)
+    assert layout is not None and layout["smem_bytes"] <= 232448
 
 
 def _bf16_close(a, b) -> bool:
