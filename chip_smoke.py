@@ -4,11 +4,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It needs one
 CUDA card, ``nvcc`` and the repository's ``shrimpy_tpu_torch`` package,
 imports no jax and none of pydantic, tensorstore, click or yaml, and
 exits non-zero without printing a result when any of these is missing
-or any check fails. Phases:
+or any check fails. ``--parent-iter DIR`` names a directory holding the
+``rl_iter.cu`` and ``stencil.cuh`` of the whole-iteration kernel before
+its redesign (kept out of the package): phase 3 then builds it too,
+checks that it gives the new kernel's bits and times the two in turns.
+Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
 2. build every kernel from ``shrimpy_tpu_torch/csrc`` with nvcc (seconds),
-   the one-launch half-step once for each PSF geometry run below;
+   the one-launch half-step and the whole iteration once for each PSF
+   geometry run below, all compilers at once;
 3. each kernel against its plain PyTorch version on the card, on the
    same inputs: the deskew at the production raw (1201, 256, 1600) and
    at (300, 512, 512) with ``keep_overhang`` and ``average_n_slices=3``;
@@ -35,10 +40,17 @@ or any check fails. Phases:
    the dense circulant product (also with a row that wraps twice);
    ``conv3_circular``, which no backend reaches, is then driven once at
    the production carry with the counts reset; the whole-iteration
-   kernel ``rl_iter`` on the production carry, on the (40, 300, 400)
-   carry with the 2-term asymmetric PSF (both tap orders) and on a
+   kernel ``rl_iter`` (``csrc/rl_iter.cu``) on the production carry, on
+   the (40, 300, 400) carry with the 2-term asymmetric PSF and on a
    (5, 37, 45) grid that no tile divides and whose z extent is smaller
-   than 2 rz + 1; the three on-chip probes (shared-memory slice, largest
+   than 2 rz + 1, both tap orders, bit-equal to the plain version (the
+   same order of sums), timed at the production carry beside its bound
+   by bytes and the bound of its own FMAs with the halo it recomputes
+   (and beside the kernel before the redesign with ``--parent-iter``);
+   then ``fused_iter`` RL-2 through ``richardson_lucy`` with a
+   (17, 61, 61) PSF past the one-launch block, counts reset: the
+   half-step route, no ``rl_iter`` launch, within 1e-3 of float64 and
+   1e-4 of ``fused``; the three on-chip probes (shared-memory slice, largest
    block, split products on the tensor cores) against their plain
    versions, then driven through their entry points with the counts
    reset. Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
@@ -71,7 +83,8 @@ or any check fails. Phases:
    repository) against the same backend in float64 on the card, within
    1e-3; warm time and peak memory;
 4f. deskew + RL-20 on ``separable_backend: fused_iter`` (one ``rl_iter``
-   launch per iteration, no half-step launch) against its float64 plain
+   launch per iteration, no half-step launch: the production geometry
+   takes the one-launch route) against its float64 plain
    path within 1e-3 and against phase 4's ``fused`` output within 1e-4,
    timed against its plain float32 path; Biggs RL-10 (generic loop) by
    the two-tier gate; the peak of Biggs RL-10 through
@@ -258,10 +271,11 @@ def counters() -> dict:
         half_step_plain,
         half_step_three_pass,
     )
-    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_plain
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_half_steps, rl_iter_plain
 
     return {
         "rl_iter": (rl_iter_cuda, "launches"),
+        "rl_iter_half_steps": (rl_iter_half_steps, "launches"),
         "probe_smem_slice": (probes.dynamic_smem_slice_cuda, "launches"),
         "probe_smem": (probes.probe_smem, "launches"),
         "probe_split_dot": (probes.split_dot_cuda, "launches"),
@@ -732,6 +746,9 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
         if shape == carry:
             xp["ms"] = gpu_ms(lambda: conv_x_cuda(h, None, aux, out, kxd, "ratio", eps,
                                                   wrap=True), 10)
+            # Mode ratio, as timed: h and aux read, out written; an FMA a
+            # tap and the division.
+            xp.update(bound(3 * 4 * h.numel(), (2 * len(kx) + 1) * h.numel()))
             xp["plain_ms"] = gpu_ms(lambda: _epilogue(x_circulant_plain(h, kx), aux, "ratio",
                                                       eps), 2)
         del h, aux, out
@@ -744,8 +761,57 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
     return zy, c3, xp
 
 
-def phase_iter(gen) -> dict:
-    """rl_iter (one launch per RL iteration) against its plain version."""
+def iter_fmas(shape, radii, tile, n_terms: int = 1) -> float:
+    """FMAs of one ``csrc/rl_iter.cu`` launch on a (gz, gy, gx) carry,
+    the halo it recomputes included and its windows unpadded: per block
+    and plane the x pass of the est slab, the y and z passes over the
+    footprint, the adjoint x pass over it and the adjoint y and z passes
+    over the tile, each term."""
+    (gz, gy, gx), (rz, ry, rx), (ty, tx) = shape, radii, tile
+    kz, ky, kx = 2 * rz + 1, 2 * ry + 1, 2 * rx + 1
+    sr, mr, mc = ty + 4 * ry, ty + 2 * ry, tx + 2 * rx
+    per_plane = n_terms * (sr * mc * kx + mr * mc * (ky + kz) + mr * tx * kx + ty * tx * (ky + kz))
+    return per_plane * gz * -(-gy // ty) * -(-gx // tx)
+
+
+def parent_iter(parent_dir):
+    """The whole-iteration kernel of the commit before the redesign, built
+    from ``parent_dir`` (its ``rl_iter.cu`` and ``stencil.cuh``, kept out
+    of the package) into a library of its own: a function that launches it
+    on (est, data, out, taps, eps) with the tile and threads it took at the
+    production carry."""
+    import ctypes
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.kernels import build
+
+    src = Path(parent_dir) / "rl_iter.cu"
+    lib_path = build.BUILD_DIR / "librl_iter_parent.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(src)], check=True, capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.shrimpy_rl_iter.argtypes = [p] * 4 + [i32] * 4 + [i64] * 3 + [i32] * 3 + [ctypes.c_float, p]
+    lib.shrimpy_rl_iter.restype = i32
+
+    def launch(est, data, out, taps, radii, eps, tile=(32, 48), threads=1024):
+        build.check(lib.shrimpy_rl_iter(
+            est.data_ptr(), data.data_ptr(), out.data_ptr(), taps.data_ptr(), taps.shape[1],
+            *(2 * r + 1 for r in radii), *est.shape, *tile, threads, float(eps),
+            torch.cuda.current_stream().cuda_stream), "shrimpy_rl_iter (parent)")
+    return launch
+
+
+ROUTE_PSF = ((17, 61, 61), (3.0, 9.0, 9.0))  # past the one-launch block: the half-step route
+
+
+def phase_iter(gen, parent_dir=None) -> dict:
+    """rl_iter (one launch per RL iteration) against its plain version on
+    three grids, both tap orders, bit for bit; timed at the production
+    carry, beside the kernel of the commit before the redesign when
+    ``parent_dir`` holds its source; then the route past the block,
+    driven through ``richardson_lucy`` with the counts reset."""
     from shrimpy_tpu_torch.ops.rl_fused import Stencil
     from shrimpy_tpu_torch.ops.rl_fused_iter import (
         iter_layout,
@@ -758,34 +824,93 @@ def phase_iter(gen) -> dict:
     terms, carry = production_terms()
     res = {}
     for shape, tt, label in ((carry, terms, f"{carry}"),
-                             ((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms"),
-                             ((5, 37, 45), terms, "(5, 37, 45) ragged, gz < 2rz+1")):
+                             (SMALL, two_term_psf(), f"{SMALL} 2 terms"),
+                             (RAGGED, terms, f"{RAGGED} ragged, gz < 2rz+1")):
         conv = Stencil(tt, device="cuda")
         adj = Stencil(tt, flip=True, device="cuda")
         est = uniform(shape, gen, 0.5, 10.5)
         data = uniform(shape, gen, 0.0, 5.0)
         layout = iter_layout(shape, conv.radii, len(tt))
-        print(f"  rl_iter {label}: tile {layout['tile']}, {layout['smem_bytes']} bytes of shared "
-              "memory a block", flush=True)
+        print(f"  rl_iter {label}: {layout}", flush=True)
         # Both tap orders: the adjoint's taps as the convolution's and back.
         for a, b, order in ((conv, adj, "conv, adj"), (adj, conv, "adj, conv")):
-            err = compare(f"rl_iter {label} ({order})", rl_iter_cuda(est, data, a, b, eps),
-                          rl_iter_plain(est, data, a, b, eps), KERNEL_RTOL)
-            if shape == carry:
-                res["max_abs_err"] = max(err, res.get("max_abs_err", 0.0))
+            same_bits(f"rl_iter {label} ({order})", rl_iter_cuda(est, data, a, b, eps),
+                      rl_iter_plain(est, data, a, b, eps))
         if shape == carry:
+            res["max_abs_err"] = 0.0
             out = torch.empty_like(est)
             taps = pack_taps(conv, adj, "cuda")
-            res["ms"] = gpu_ms(lambda: rl_iter_cuda(est, data, conv, adj, eps, out, taps=taps), 5)
+            new = lambda: rl_iter_cuda(est, data, conv, adj, eps, out, taps=taps)  # noqa: E731
+            if parent_dir is not None:
+                old = parent_iter(parent_dir)
+                old_out = torch.empty_like(est)
+                run_old = lambda: old(est, data, old_out, taps, conv.radii, eps)  # noqa: E731
+                new()
+                run_old()
+                same_bits("rl_iter vs the kernel before the redesign", out, old_out)
+                times = {"old": [], "new": []}
+                for which in ("old", "new", "new", "old"):
+                    times[which].append(gpu_ms(run_old if which == "old" else new, 5))
+                res["ms"] = sum(times["new"]) / 2
+                res["ms_parent"] = sum(times["old"]) / 2
+                print(f"  rl_iter {label}: {res['ms']:.3f} ms a launch {times['new']}; the kernel "
+                      f"before the redesign {res['ms_parent']:.3f} {times['old']}", flush=True)
+                del old_out
+            else:
+                res["ms"] = gpu_ms(new, 5)
+                print(f"  rl_iter {label}: {res['ms']:.3f} ms a launch (no --parent-iter: the "
+                      "kernel before the redesign not timed)", flush=True)
             res["plain_ms"] = gpu_ms(lambda: rl_iter_plain(est, data, conv, adj, eps), 2)
             # est and data read, out written; both conv3s' FMAs, the
             # division and the product. A whole RL iteration is no single
-            # PyTorch call.
+            # PyTorch call. Beside it the bound of the FMAs the kernel does,
+            # the halo it recomputes included.
             res.update(bound(3 * 4 * est.numel(), (4 * n_taps(tt) + 2) * est.numel()),
                        library_ms=None)
+            kernel_ops = 2 * iter_fmas(shape, conv.radii, layout["tile"], len(tt))
+            res["bound_ms_kernel_fmas"] = bound(0, kernel_ops)["bound_ms"]
+            print(f"  rl_iter {label}: bound {res['bound_ms']:.3f} ms by {res['bound_by']}; "
+                  f"of its own FMAs with halo ({kernel_ops / 2 / est.numel():.1f} a voxel) "
+                  f"{res['bound_ms_kernel_fmas']:.3f} ms", flush=True)
             del out
         del est, data
+    res["route_launches"] = phase_iter_route()
     return res
+
+
+def phase_iter_route() -> int:
+    """fused_iter past the one-launch kernel's block: RL-2 through
+    ``richardson_lucy`` with a (17, 61, 61) PSF takes the half-step route
+    (no rl_iter launch, no plain version), against the float64 plain path
+    and the ``fused`` backend's output. Returns the route's count."""
+    from shrimpy_tpu_torch.config import deconvolve_settings
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, plan_terms, prepare_psf, richardson_lucy
+    from shrimpy_tpu_torch.ops.rl_fused import half_step_route
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_route
+
+    psf = gaussian_psf(*ROUTE_PSF)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    img = uniform((24, 200, 240), gen, 0.0, 100.0)
+    s = deconvolve_settings(iterations=2, psf_crop_tol=0.0, separable_backend="fused_iter")
+    psf_w = prepare_psf(psf, s)
+    radii = tuple(k // 2 for k in psf_w.shape)
+    n_terms = len(plan_terms(psf_w, s))
+    grid = tuple(n + 2 * r for n, r in zip(img.shape, radii))
+    route, half = rl_iter_route(grid, radii, n_terms), half_step_route(grid, radii, n_terms)
+    print(f"  fused_iter RL-2, PSF {psf_w.shape} x {n_terms} term(s), carry {grid}: route {route}, "
+          f"half-steps {half}", flush=True)
+    if route != "half_steps":
+        raise AssertionError(f"PSF {psf_w.shape} on {grid} does not take the half-step route")
+    per_step = 1 if half == "one_launch" else 3 * n_terms
+    out, counts, _ = drive(lambda v: richardson_lucy(v, psf, s), img,
+                           {"rl_iter_half_steps": 2, "rl_half_step": 4,
+                            f"rl_half_{half}": 4 * per_step})
+    ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+    compare("fused_iter RL-2 on the half-step route vs float64 plain", out, ref, STEP_RTOL)
+    s.separable_backend = "fused"
+    compare("fused_iter RL-2 on the half-step route vs fused", out, richardson_lucy(img, psf, s),
+            FUSED_RTOL)
+    return counts["rl_iter_half_steps"]
 
 
 def phase_probes() -> tuple[dict, dict, dict]:
@@ -1048,27 +1173,36 @@ def phase_fused_iter(steps: Steps, rl20: torch.Tensor) -> dict:
 
 
 def build_all(build) -> None:
-    """The common library and, beside it, the one-launch half-step
-    kernel for every geometry this script runs, all compilers at once (a
-    geometry missed here is compiled at its first half-step)."""
+    """The common library and, beside it, the kernels compiled for their
+    geometry (the one-launch half-step and the whole iteration) for every
+    geometry this script runs, all compilers at once (a geometry missed
+    here is compiled at its first launch)."""
     from concurrent.futures import ThreadPoolExecutor
 
     from shrimpy_tpu_torch.ops.rl_fused import half_layout
+    from shrimpy_tpu_torch.ops.rl_fused_iter import iter_layout
 
     terms, carry = production_terms()
-    geometries = []
+    jobs = []
     for tt in (terms, two_term_psf(), *other_terms().values()):
         lengths = tuple(len(w) for w in tt[0])
         tile = half_layout(carry, tuple(k // 2 for k in lengths), len(tt))["tile"]
-        geometries.append((len(tt), *lengths, *tile))
+        jobs.append(("rl_half", (len(tt), *lengths, *tile)))
+    for shape, tt in ((carry, terms), (SMALL, two_term_psf())):
+        lengths = tuple(len(w) for w in tt[0])
+        tile = iter_layout(shape, tuple(k // 2 for k in lengths), len(tt))["tile"]
+        jobs.append(("rl_iter", (len(tt), *lengths, *tile)))
     with ThreadPoolExecutor(2) as pool:
-        half = pool.submit(build.build_half, geometries)
+        geometries = pool.submit(build.build_geometries, jobs)
         build.load_library()
-        half.result()
+        geometries.result()
 
 
-def main() -> int:
+def main(argv) -> int:
     t_start = time.monotonic()
+    # --parent-iter DIR: the source of the whole-iteration kernel before its
+    # redesign, timed beside the new one in phase 3.
+    parent_dir = argv[argv.index("--parent-iter") + 1] if "--parent-iter" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1098,7 +1232,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     czy, c3, xcirc = phase_circular(gen)
     torch.cuda.empty_cache()
-    it = phase_iter(gen)
+    it = phase_iter(gen, parent_dir)
     torch.cuda.empty_cache()
     p_slice, p_smem, p_dot = phase_probes()
     steps = Steps(gen)
@@ -1145,7 +1279,8 @@ def main() -> int:
           f"{mmp['ms']:.1f} ms, {mmp['gvox_s']:.4f} GVox/s, rel err {mmp['rel_err']:.3e}, peak "
           f"{mmp['peak_gib']:.2f} GiB; convzy_circular {czy['ms']:.3f} ms (plain "
           f"{czy['plain_ms']:.3f}); circular x pass {xcirc['ms']:.3f} ms (plain "
-          f"{xcirc['plain_ms']:.3f}); conv3_circular {c3['ms']:.3f} ms (plain "
+          f"{xcirc['plain_ms']:.3f}, bound {xcirc['bound_ms']:.3f} by {xcirc['bound_by']}); "
+          f"conv3_circular {c3['ms']:.3f} ms (plain "
           f"{c3['plain_ms']:.3f})", flush=True)
     print(f"[5] {card}: fused_iter RL-20 {fip['ms']:.1f} ms, {fip['gvox_s']:.4f} GVox/s (fused "
           f"{step['ms']:.1f} ms; plain f32 {fip['plain_ms']:.1f} ms), rel err {fip['rel_err']:.3e}, "
@@ -1153,8 +1288,10 @@ def main() -> int:
           f"{fip['biggs']['ms']:.1f} ms, max rel err {fip['biggs']['rel_err']:.3e}, peak "
           f"{fip['biggs']['peak_gib']:.2f} GiB; through richardson_lucy "
           f"{fip['biggs']['peak_rl_gib']:.2f} GiB, with donate_input "
-          f"{fip['biggs']['peak_rl_donated_gib']:.2f} GiB; rl_iter {it['ms']:.3f} ms (plain "
-          f"{it['plain_ms']:.3f}, bound {it['bound_ms']:.3f} by {it['bound_by']}); split-dot "
+          f"{fip['biggs']['peak_rl_donated_gib']:.2f} GiB; rl_iter {it['ms']:.3f} ms (before the "
+          f"redesign {it.get('ms_parent', 'not timed')}, plain {it['plain_ms']:.3f}, bound "
+          f"{it['bound_ms']:.3f} by {it['bound_by']}, of its own FMAs "
+          f"{it['bound_ms_kernel_fmas']:.3f}); split-dot "
           f"errors vs float64 {p_dot['errors']}", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
@@ -1181,7 +1318,8 @@ def main() -> int:
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:175",
          "launches": zyp["launches"]["convzy_circular"], **czy,
          "x_pass_max_abs_err": xcirc["max_abs_err"], "x_pass_ms": xcirc["ms"],
-         "x_pass_plain_ms": xcirc["plain_ms"]},
+         "x_pass_plain_ms": xcirc["plain_ms"], "x_pass_bound_ms": xcirc["bound_ms"],
+         "x_pass_bound_by": xcirc["bound_by"]},
         {"name": "conv3_circular", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:104", **c3},
@@ -1213,4 +1351,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

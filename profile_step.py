@@ -23,20 +23,20 @@ kernel ``rl_half`` in mode ``ratio`` on every (ty, tx) tile of
 block (each tile is a compilation of the kernel), then all five modes
 on the tile the wrapper picks beside the three-pass route's times, and
 mode ``ratio`` with the PSFs of :data:`MORE_PSFS`; and the
-whole-iteration kernel ``rl_iter`` on
-every tile of ``ops/rl_fused_iter.py::TILES`` whose rings fit. Each
-output is checked against the first tile's.
+whole-iteration kernel ``rl_iter`` on every tile of
+``ops/rl_fused_iter.py::TILES`` whose block fits (each a compilation).
+Each output is checked against the first tile's.
 
 ``python3 profile_step.py --stages`` builds ``csrc/rl_half.cu`` with
-``-DRL_HALF_PROFILE`` and prints, for a few tiles, the clocks that
-thread 0 of a block spends in each stage of a plane step (mean over the
-blocks and planes; what it waits at a barrier is part of the stage
-before it).
+``-DRL_HALF_PROFILE`` and ``csrc/rl_iter.cu`` with ``-DRL_ITER_PROFILE``
+and prints, for a few tiles, the clocks that thread 0 of a block spends
+in each stage of a plane step (mean over the blocks and plane steps;
+what it waits at a barrier is part of the stage before it, unless the
+barrier is a stage of its own).
 """
 
 from __future__ import annotations
 
-import ctypes
 import sys
 import time
 from collections import defaultdict
@@ -87,35 +87,41 @@ def profile(step, batch) -> None:
         print(f"    {ms:10.3f} ms  x{n:4d}  {name[:100]}", flush=True)
 
 
+def iter_operands(cs, gen):
+    """Stencils, est, data, packed taps at the production carry, and eps."""
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil
+    from shrimpy_tpu_torch.ops.rl_fused_iter import pack_taps
+
+    terms, carry = cs.production_terms()
+    conv, adj = Stencil(terms, device="cuda"), Stencil(terms, flip=True, device="cuda")
+    est, data = cs.uniform(carry, gen, 0.5, 10.5), cs.uniform(carry, gen, 0.0, 5.0)
+    return conv, adj, est, data, pack_taps(conv, adj, "cuda"), cs.headline_settings().deconvolve.epsilon
+
+
 def sweep_tiles(cs) -> None:
-    """rl_iter at the production carry, one time per tile that fits."""
-    from shrimpy_tpu_torch.ops.rl_fused import _SMEM_BYTES, Stencil
-    from shrimpy_tpu_torch.ops.rl_fused_iter import (
-        TILES,
-        iter_smem_bytes,
-        pack_taps,
-        rl_iter_cuda,
-        tile_threads,
-    )
+    """rl_iter at the production carry, one time per tile that fits (each
+    tile a compilation of the kernel, all compiled at once)."""
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.rl_fused_iter import TILES, iter_layout, rl_iter_cuda
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    terms, carry = cs.production_terms()
-    eps = cs.headline_settings().deconvolve.epsilon
-    conv, adj = Stencil(terms, device="cuda"), Stencil(terms, flip=True, device="cuda")
-    taps = pack_taps(conv, adj, "cuda")
-    est, data = cs.uniform(carry, gen, 0.5, 10.5), cs.uniform(carry, gen, 0.0, 5.0)
+    conv, adj, est, data, taps, eps = iter_operands(cs, gen)
+    n_terms, lengths = len(conv.host), tuple(2 * r + 1 for r in conv.radii)
+    layouts = {t: iter_layout(est.shape, conv.radii, n_terms, tile=t) for t in TILES}
+    build.build_geometries([("rl_iter", (n_terms, *lengths, *t))
+                            for t, lay in layouts.items() if lay is not None])
     out, first = torch.empty_like(est), None
-    for tile in TILES:
-        smem = iter_smem_bytes(tile, conv.radii, len(terms))
-        if smem > _SMEM_BYTES:
-            print(f"  tile {tile}: {smem} bytes, does not fit", flush=True)
+    for tile, layout in layouts.items():
+        if layout is None:
+            print(f"  rl_iter tile {tile}: does not fit", flush=True)
             continue
         ms = cs.gpu_ms(lambda: rl_iter_cuda(est, data, conv, adj, eps, out, taps=taps,
                                             tile=tile), 5)
         if first is None:
             first = out.clone()
-        print(f"  tile {tile} x {tile_threads(tile)} threads: {smem} bytes a block, {ms:.3f} ms a "
-              f"launch, max|a-b|/max|b| vs the first tile {cs.rel_err(out, first):.3e}", flush=True)
+        print(f"  rl_iter tile {tile}: {layout['smem_bytes']} bytes a block, {layout['blocks']} "
+              f"blocks, {ms:.3f} ms a launch, equal to the first tile's {torch.equal(out, first)}",
+              flush=True)
 
 
 # Tiles of rl_half beside ops/rl_fused.py::HALF_TILES that --tiles times.
@@ -126,6 +132,8 @@ MORE_PSFS = (((9, 15, 15), (1.5, 2.5, 2.5)), ((15, 21, 21), (2.5, 3.0, 3.0)),
              ((9, 31, 31), (1.5, 4.5, 4.5)))
 STAGES = ("request aux", "z", "barrier 1", "y", "wait copies", "barrier 2", "x + epilogue",
           "set-up", "step top + cp.async", "TMA issue")
+ITER_STAGES = ("B (adjoint y, z, out)", "A.z + ratio", "wait slab", "A.x", "barrier 1",
+               "slab request", "A.y", "B.x", "wait cp.async", "barrier 2")
 
 
 def half_operands(cs, gen):
@@ -162,7 +170,7 @@ def sweep_half_tiles(cs) -> None:
     lengths = tuple(2 * r + 1 for r in conv.radii)
     tiles = [t for t in HALF_TILES + MORE_HALF_TILES
              if half_layout(inp.shape, conv.radii, 1, tile=t) is not None]
-    build.build_half([(1, *lengths, *t) for t in tiles])  # all compilers at once
+    build.build_geometries([("rl_half", (1, *lengths, *t)) for t in tiles])  # all at once
     first = None
     for tile in HALF_TILES + MORE_HALF_TILES:
         layout = half_layout(inp.shape, conv.radii, 1, tile=tile)
@@ -200,8 +208,9 @@ def sweep_half_tiles(cs) -> None:
         terms = plan_terms(prepare_psf(gaussian_psf(shape, sigma), settings), settings)
         stencils.append(Stencil(terms, device="cuda"))
     layouts = [half_layout(inp.shape, st.radii, len(st.host)) for st in stencils]
-    build.build_half([(len(st.host), *(2 * r + 1 for r in st.radii), *lay["tile"])
-                      for st, lay in zip(stencils, layouts) if lay is not None])
+    build.build_geometries([("rl_half", (len(st.host), *(2 * r + 1 for r in st.radii),
+                                         *lay["tile"]))
+                            for st, lay in zip(stencils, layouts) if lay is not None])
     for st, layout in zip(stencils, layouts):
         name = f"PSF {tuple(2 * r + 1 for r in st.radii)} x {len(st.host)} term(s)"
         if layout is None:
@@ -224,12 +233,11 @@ def half_stages(cs, tiles=((32, 64), (16, 64), (8, 32))) -> None:
     rz, ry, rx = conv.radii
     tiles = [t for t in tiles if half_layout(inp.shape, conv.radii, 1, tile=t) is not None]
     geometries = [(1, 2 * rz + 1, 2 * ry + 1, 2 * rx + 1, *t) for t in tiles]
-    paths = build.build_half(geometries, flags=("-DRL_HALF_PROFILE",))
+    paths = build.build_geometries([("rl_half", g) for g in geometries],
+                                   flags=("-DRL_HALF_PROFILE",))
     for tile, path in zip(tiles, paths):
         layout = half_layout(inp.shape, conv.radii, 1, tile=tile)
-        lib = ctypes.CDLL(str(path))
-        lib.shrimpy_rl_half.argtypes = build.HALF_SIGNATURE
-        lib.shrimpy_rl_half.restype = ctypes.c_int
+        lib = build.open_geometry_library("rl_half", path)
         clocks = torch.zeros((layout["blocks"], len(STAGES)), device="cuda")
 
         def launch():
@@ -244,6 +252,37 @@ def half_stages(cs, tiles=((32, 64), (16, 64), (8, 32))) -> None:
         stages = ", ".join(f"{name} {c:.0f}" for name, c in zip(STAGES, per_plane))
         print(f"  rl_half tile {tile}: {ms:.3f} ms a launch (profile build); clocks a plane: "
               f"{stages}; total {sum(per_plane):.0f}", flush=True)
+
+
+def iter_stages(cs, tiles=((32, 48), (48, 32))) -> None:
+    """Clocks a plane step of rl_iter spends in each of its stages."""
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.rl_fused_iter import iter_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    conv, adj, est, data, taps, eps = iter_operands(cs, gen)
+    gz, gy, gx = est.shape
+    n_terms, lengths = len(conv.host), tuple(2 * r + 1 for r in conv.radii)
+    tiles = [t for t in tiles if iter_layout(est.shape, conv.radii, n_terms, tile=t) is not None]
+    paths = build.build_geometries([("rl_iter", (n_terms, *lengths, *t)) for t in tiles],
+                                   flags=("-DRL_ITER_PROFILE",))
+    out = torch.empty_like(est)
+    for tile, path in zip(tiles, paths):
+        layout = iter_layout(est.shape, conv.radii, n_terms, tile=tile)
+        lib = build.open_geometry_library("rl_iter", path)
+        clocks = torch.zeros((layout["blocks"], len(ITER_STAGES)), device="cuda")
+
+        def launch():
+            build.check(lib.shrimpy_rl_iter(
+                est.data_ptr(), data.data_ptr(), out.data_ptr(), taps.data_ptr(),
+                clocks.data_ptr(), n_terms, *lengths, gz, gy, gx, *tile, 1, float(eps),
+                torch.cuda.current_stream().cuda_stream), "shrimpy_rl_iter (profile build)")
+
+        ms = cs.gpu_ms(launch, 3)
+        per_step = (clocks.mean(dim=0) / (gz + 2 * conv.radii[0] + 2)).tolist()
+        stages = ", ".join(f"{name} {c:.0f}" for name, c in zip(ITER_STAGES, per_step))
+        print(f"  rl_iter tile {tile}: {ms:.3f} ms a launch (profile build); clocks a plane "
+              f"step: {stages}; total {sum(per_step):.0f}", flush=True)
 
 
 def main() -> int:
@@ -261,6 +300,7 @@ def main() -> int:
         return 0
     if "--stages" in sys.argv[1:]:
         half_stages(cs)
+        iter_stages(cs)
         return 0
     steps = cs.Steps(torch.Generator(device="cuda").manual_seed(cs.SEED))
     biggs = {"acceleration": "biggs", "iterations": cs.BIGGS_ITERATIONS}

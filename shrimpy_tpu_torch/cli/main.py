@@ -23,10 +23,9 @@ import click
 @click.option("-v", "--verbose", is_flag=True, help="DEBUG-level logging.")
 def cli(verbose: bool) -> None:
     """PyTorch + CUDA reconstruction engine for mantis OME-Zarr datasets."""
-    logging.basicConfig(
-        level=logging.DEBUG if verbose else logging.INFO,
-        format="%(asctime)s %(levelname)s %(name)s: %(message)s",
-    )
+    from shrimpy_tpu_torch.utils.logging import configure_logging
+
+    configure_logging(level=logging.DEBUG if verbose else logging.INFO)
 
 
 def _inject_from_store(settings, input_path: Path) -> None:

@@ -16,13 +16,16 @@ against torch's headers and takes minutes). The library lands in
 ``shrimpy_tpu_torch/build/`` under a name keyed by a hash of the
 sources and flags, so an edited kernel is never served a stale build.
 
-One kernel is compiled for its geometry: ``csrc/rl_half.cu`` takes the
-number of terms, the PSF lengths and the tile as macros, so that its tap
-loops unroll. :func:`load_half_library` compiles it at the first
-half-step with a geometry into a library of its own beside the other
-(``librl_half_<hash>_<geometry>.so``, one nvcc run);
-:func:`build_half` starts several geometries' runs together. In the
-common library the file leaves ``shrimpy_rl_half_smem`` alone.
+Two kernels are compiled for their geometry: ``csrc/rl_half.cu`` and
+``csrc/rl_iter.cu`` take the number of terms, the PSF lengths and the
+tile as macros (``RL_HALF_TERMS`` .. ``RL_HALF_TX``, ``RL_ITER_TERMS`` ..
+``RL_ITER_TX``), so that their tap loops unroll.
+:func:`load_geometry_library` compiles one at its first launch with a
+geometry into a library of its own beside the other
+(``lib<kind>_<hash>_<geometry>.so``, one nvcc run);
+:func:`build_geometries` starts several runs together. In the common
+library each file leaves only its shared-memory sum
+(``shrimpy_rl_half_smem``, ``shrimpy_rl_iter_smem``).
 
 Calling convention of every C entry point: device pointers and the
 CUDA stream are ``void*`` (``ctypes.c_void_p``: a plain int argument
@@ -71,8 +74,6 @@ SIGNATURES: dict[str, list] = {
     # in, out, kz, nkz, ky, nky, gz, gy, gx, stream
     "shrimpy_convzy_linear": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
     "shrimpy_convzy_circular": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
-    # est, data, out, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, threads, eps, stream
-    "shrimpy_rl_iter": [_P] * 4 + [_I32] * 4 + [_I64] * 3 + [_I32, _I32, _I32, _F32, _P],
     # n_terms, nkz, nky, nkx, ty, tx -> bytes of shared memory a block takes
     "shrimpy_rl_iter_smem": [_I32] * 6,
     # x, out, rows, cols, width, stream
@@ -83,20 +84,26 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
 }
 
-# shrimpy_rl_half of a geometry's library: in, aux, out, dx, g, alpha,
-# partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, mode, vec,
-# eps, stream.
-HALF_SIGNATURE = [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P]
-HALF_SOURCE = "rl_half.cu"
-HALF_MACROS = ("RL_HALF_TERMS", "RL_HALF_NKZ", "RL_HALF_NKY", "RL_HALF_NKX",
-               "RL_HALF_TY", "RL_HALF_TX")
+# The kernels compiled for a geometry, by kind: source, macro prefix, entry
+# point and its argtypes. shrimpy_rl_half: in, aux, out, dx, g, alpha,
+# partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, mode, vec, eps,
+# stream. shrimpy_rl_iter: est, data, out, taps, partials, n_terms, nkz, nky,
+# nkx, gz, gy, gx, ty, tx, vec, eps, stream.
+GEOMETRY_KERNELS = {
+    "rl_half": ("rl_half.cu", "RL_HALF", "shrimpy_rl_half",
+                [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P]),
+    "rl_iter": ("rl_iter.cu", "RL_ITER", "shrimpy_rl_iter",
+                [_P] * 5 + [_I32] * 4 + [_I64] * 3 + [_I32] * 3 + [_F32, _P]),
+}
+# The macros of a geometry (n_terms, nkz, nky, nkx, ty, tx), after the prefix.
+GEOMETRY_MACROS = ("TERMS", "NKZ", "NKY", "NKX", "TY", "TX")
 # A C entry point reports a refusal by libcuda (cuTensorMapEncodeTiled) as
 # this plus the CUresult.
 ENCODE_ERROR = 100000
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
-_HALF_LIBS: dict[tuple, ctypes.CDLL] = {}
+_GEOMETRY_LIBS: dict[tuple, ctypes.CDLL] = {}
 
 
 def sources() -> list[Path]:
@@ -175,34 +182,37 @@ def build() -> Path:
     return out
 
 
-def half_library_path(geometry, flags=()) -> Path:
+def geometry_library_path(kind: str, geometry, flags=()) -> Path:
+    source = GEOMETRY_KERNELS[kind][0]
     h = hashlib.sha256()
-    for src in [CSRC_DIR / HALF_SOURCE, *headers()]:
+    for src in [CSRC_DIR / source, *headers()]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join([*ARCH_FLAGS, *NVCC_FLAGS, *flags]).encode())
     name = "x".join(map(str, geometry[:4])) + "_" + "x".join(map(str, geometry[4:]))
-    return BUILD_DIR / f"librl_half_{h.hexdigest()[:16]}_{name}.so"
+    return BUILD_DIR / f"lib{kind}_{h.hexdigest()[:16]}_{name}.so"
 
 
-def build_half(geometries, flags=()) -> list[Path]:
-    """Compile ``csrc/rl_half.cu`` for each ``(n_terms, nkz, nky, nkx,
-    ty, tx)`` of ``geometries`` whose library is absent, all nvcc runs
-    started together; ``flags`` are more nvcc flags. Returns the
-    libraries' paths."""
-    paths = [half_library_path(tuple(g), flags) for g in geometries]
-    todo = {p: tuple(g) for p, g in zip(paths, geometries) if not p.exists()}
+def build_geometries(jobs, flags=()) -> list[Path]:
+    """Compile each ``(kind, (n_terms, nkz, nky, nkx, ty, tx))`` of
+    ``jobs`` whose library is absent, all nvcc runs started together;
+    ``kind`` is a key of :data:`GEOMETRY_KERNELS`, ``flags`` are more
+    nvcc flags. Returns the libraries' paths."""
+    jobs = [(kind, tuple(int(v) for v in g)) for kind, g in jobs]
+    paths = [geometry_library_path(kind, g, flags) for kind, g in jobs]
+    todo = {p: job for p, job in zip(paths, jobs) if not p.exists()}
     if not todo:
         return paths
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     try:
-        for out, geometry in todo.items():
+        for out, (kind, geometry) in todo.items():
+            source, prefix = GEOMETRY_KERNELS[kind][:2]
             tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *flags,
-                   *(f"-D{m}={v}" for m, v in zip(HALF_MACROS, geometry)),
-                   "-shared", "-o", str(tmp), str(CSRC_DIR / HALF_SOURCE)]
+                   *(f"-D{prefix}_{m}={v}" for m, v in zip(GEOMETRY_MACROS, geometry)),
+                   "-shared", "-o", str(tmp), str(CSRC_DIR / source)]
             procs.append((cmd, tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
         failed = []
@@ -223,18 +233,25 @@ def build_half(geometries, flags=()) -> list[Path]:
     return paths
 
 
-def load_half_library(geometry) -> ctypes.CDLL:
-    """The library of ``csrc/rl_half.cu`` compiled for ``geometry``
+def open_geometry_library(kind: str, path) -> ctypes.CDLL:
+    """Load a library of ``kind`` built by :func:`build_geometries`."""
+    lib = ctypes.CDLL(str(path))
+    entry = getattr(lib, GEOMETRY_KERNELS[kind][2])
+    entry.argtypes = GEOMETRY_KERNELS[kind][3]
+    entry.restype = ctypes.c_int
+    return lib
+
+
+def load_geometry_library(kind: str, geometry) -> ctypes.CDLL:
+    """The library of ``csrc/<kind>.cu`` compiled for ``geometry``
     ``(n_terms, nkz, nky, nkx, ty, tx)``: built on the first call with
     it, cached per process and on disk."""
-    geometry = tuple(int(v) for v in geometry)
+    key = (kind, tuple(int(v) for v in geometry))
     with _LOCK:
-        lib = _HALF_LIBS.get(geometry)
+        lib = _GEOMETRY_LIBS.get(key)
         if lib is None:
-            lib = ctypes.CDLL(str(build_half([geometry])[0]))
-            lib.shrimpy_rl_half.argtypes = HALF_SIGNATURE
-            lib.shrimpy_rl_half.restype = ctypes.c_int
-            _HALF_LIBS[geometry] = lib
+            lib = open_geometry_library(kind, build_geometries([key])[0])
+            _GEOMETRY_LIBS[key] = lib
         return lib
 
 

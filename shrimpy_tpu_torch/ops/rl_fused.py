@@ -518,7 +518,7 @@ def half_step_one_launch(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
                          out=None, dx=None, g_prev=None, alpha=None, partials=None, tile=None):
     """One RL half-step as one launch of ``csrc/rl_half.cu``, which is
     compiled for the stencil's lengths and the tile at the first call
-    with them (``kernels/build.py::load_half_library``). Operands and
+    with them (``kernels/build.py::load_geometry_library``). Operands and
     result as :func:`half_step_cuda`; ``partials`` holds one pair a
     block. ``tile`` takes a (ty, tx) other than :func:`half_layout`'s
     choice. Raises :class:`ValueError` past :func:`half_bound_error`."""
@@ -537,7 +537,7 @@ def half_step_one_launch(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
     _check_cuda_operand("out", out, shape)
     _check_distinct(inp=inp, out=out, **extra)
 
-    from shrimpy_tpu_torch.kernels.build import check, load_half_library
+    from shrimpy_tpu_torch.kernels.build import check, load_geometry_library
 
     gz, gy, gx = shape
     carries = [t for t in (inp, aux, out, dx, g_prev) if t is not None]
@@ -548,7 +548,7 @@ def half_step_one_launch(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
     def ptr(t):
         return t.data_ptr() if t is not None else None
 
-    check(load_half_library(geometry).shrimpy_rl_half(
+    check(load_geometry_library("rl_half", geometry).shrimpy_rl_half(
         inp.data_ptr(), ptr(aux), out.data_ptr(), ptr(dx), ptr(g_prev), ptr(alpha),
         ptr(partials), stencil.packed().data_ptr(), *geometry[:4], gz, gy, gx, *geometry[4:],
         kernel_mode, int(vec), float(eps), torch.cuda.current_stream(inp.device).cuda_stream,

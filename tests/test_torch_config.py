@@ -3,15 +3,17 @@ package's, which they are copies of (CPU).
 
 The port imports nothing of ``shrimpy_tpu``, so ``config/schemas.py``,
 ``config/microscopes.py``, ``config/vs_sidecar.py``, ``io/ngff.py``,
-``io/synthetic.py`` and ``utils/fileio.py`` are copies. Each is pinned to
-its original: the code is the same statement for statement (comments and
-docstrings apart), the pydantic models agree field for field and schema
+``io/synthetic.py``, ``utils/fileio.py`` and ``utils/logging.py`` are
+copies. Each is pinned to its original: the code is the same statement
+for statement (comments and docstrings apart; the logging copy's two
+provenance functions record torch in the place of jax), the pydantic models agree field for field and schema
 for schema, one YAML loads to equal dumps, and a store written by either
 package is read by the other with equal arrays and scales.
 """
 
 import ast
 import json
+import logging
 import os
 import re
 import subprocess
@@ -39,6 +41,7 @@ from shrimpy_tpu_torch.io import ngff as tngff
 from shrimpy_tpu_torch.io import synthetic as tsynth
 from shrimpy_tpu_torch.parallel.pipeline import reconstruct_batch
 from shrimpy_tpu_torch.runtime import stream as tstream
+from shrimpy_tpu_torch.utils import logging as tlogging
 from shrimpy_tpu_torch.utils.fileio import atomic_write_text
 
 torch.set_num_threads(1)
@@ -50,10 +53,12 @@ MODELS = sorted(n for n, v in vars(jschemas).items()
                 if isinstance(v, type) and issubclass(v, BaseModel) and v is not BaseModel)
 
 
-def _code(path: Path) -> str:
+def _code(path: Path, skip=()) -> str:
     """The module's statements without docstrings (comments are not in
-    the tree), the package name normalised."""
+    the tree), the package name normalised; top-level functions named in
+    ``skip`` left out."""
     tree = ast.parse(path.read_text().replace("shrimpy_tpu_torch", "shrimpy_tpu"))
+    tree.body = [n for n in tree.body if not (isinstance(n, ast.FunctionDef) and n.name in skip)]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
@@ -65,6 +70,33 @@ def _code(path: Path) -> str:
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_the_original_statement_for_statement(rel):
     assert _code(REPO / "shrimpy_tpu_torch" / rel) == _code(REPO / "shrimpy_tpu" / rel)
+
+
+def test_logging_copy_is_the_original_but_for_its_provenance(tmp_path):
+    """``utils/logging.py`` is the original statement for statement but for
+    the two provenance functions, which record torch where the original
+    records jax (the port imports no jax); the CLI configures it."""
+    skip = ("environment_provenance", "log_environment")
+    rel = "utils/logging.py"
+    assert _code(REPO / "shrimpy_tpu_torch" / rel, skip) == _code(REPO / "shrimpy_tpu" / rel, skip)
+    assert _code(REPO / "shrimpy_tpu_torch" / rel) != _code(REPO / "shrimpy_tpu" / rel)
+    env = tlogging.environment_provenance()
+    assert env["torch"] == torch.__version__ and "jax" not in env and "jaxlib" not in env
+    logger = logging.getLogger("shrimpy_tpu_torch")
+    try:
+        for _ in range(2):  # repeated calls replace the console handler
+            log_file = tlogging.configure_logging(logging.INFO, log_dir=tmp_path,
+                                                  acquisition_name="acq")
+        assert sum(type(h) is logging.StreamHandler for h in logger.handlers) == 1
+        logging.getLogger("shrimpy_tpu_torch.ops.deconv").debug("to the file")
+        tlogging.release_log_file(log_file)
+        assert log_file.parent == tmp_path / "logs" and "to the file" in log_file.read_text()
+        assert CliRunner().invoke(cli, ["-v", "reconstruct", "--help"]).exit_code == 0
+        assert [h.level for h in logger.handlers] == [logging.DEBUG]
+    finally:
+        for h in list(logger.handlers):
+            logger.removeHandler(h)
+            h.close()
 
 
 def test_corrected_comments_are_in_the_copy_only():

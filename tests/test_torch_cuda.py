@@ -617,62 +617,98 @@ def test_matmul_rl_on_the_card_matches_float64(cuda, monkeypatch):
 
 
 ITER_CASES = [
-    # tap lengths (z, y, x), carry shape
-    ((9, 21, 21), (20, 100, 130)),
-    ((7, 11, 13), (40, 61, 77)),
-    ((9, 21, 21), (5, 37, 45)),     # z below 2 rz + 1, no tile divides y or x
-    ((1, 1, 1), (6, 20, 33)),       # zero radii
-    ((3, 41, 5), (9, 50, 40)),      # a y radius past the tile
+    # terms, tap lengths (z, y, x), carry shape
+    *((n, (9, 21, 21), (20, 100, 132)) for n in (1, 2)),  # the slab by TMA
+    *((n, (9, 21, 21), (20, 100, 130)) for n in (1, 2)),  # gx % 4 != 0: by cp.async
+    *((n, (7, 11, 13), (40, 61, 77)) for n in (1, 2)),
+    *((n, (9, 21, 21), (5, 37, 45)) for n in (1, 2)),  # z < 2 rz + 1, no tile divides y or x
+    *((n, (1, 1, 1), (6, 20, 33)) for n in (1, 2)),    # zero radii
+    *((n, (3, 41, 5), (9, 50, 40)) for n in (1, 2)),   # a y radius past the tile
+    (1, (17, 3, 3), (30, 20, 24)),  # 16 adjoint z planes in registers; odd rx by TMA
 ]
 
 
-@pytest.mark.parametrize("n_terms", [1, 2])
-@pytest.mark.parametrize("lengths,shape", ITER_CASES)
+@pytest.mark.parametrize("n_terms,lengths,shape", ITER_CASES)
 def test_rl_iter_kernel_matches_plain(cuda, n_terms, lengths, shape):
     """One launch against the plain iteration, both tap orders (the
-    adjoint's taps as the convolution's and back)."""
-    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter, rl_iter_cuda, rl_iter_plain
+    adjoint's taps as the convolution's and back): the kernel sums in
+    the plain version's order, so the bits are equal."""
+    from shrimpy_tpu_torch.ops.rl_fused_iter import (
+        rl_iter,
+        rl_iter_cuda,
+        rl_iter_half_steps,
+        rl_iter_plain,
+        rl_iter_route,
+    )
 
     terms = _asym_terms(n_terms, lengths, seed=32)
     conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    assert rl_iter_route(shape, conv.radii, n_terms) == "one_launch"
     est = _rand(shape, 33, cuda, 0.5, 10.5)
     data = _rand(shape, 34, cuda, 0.0, 5.0)
     keep = est.clone()
-    before = rl_iter_cuda.launches
+    before = rl_iter_cuda.launches, rl_iter_half_steps.launches
     for a, b in ((conv, adj), (adj, conv)):
         out = rl_iter(est, data, a, b, 1e-6)
         torch.cuda.synchronize()
-        assert _rel(out, rl_iter_plain(est, data, a, b, 1e-6)) <= 1e-5
-    assert rl_iter_cuda.launches == before + 2
+        torch.testing.assert_close(out, rl_iter_plain(est, data, a, b, 1e-6), rtol=0, atol=0)
+    assert (rl_iter_cuda.launches, rl_iter_half_steps.launches) == (before[0] + 2, before[1])
     assert torch.equal(est, keep)  # the kernel never writes its input
     with pytest.raises(ValueError, match="alias"):
         rl_iter_cuda(est, data, conv, adj, 1e-6, est)
 
 
-@pytest.mark.parametrize("tile", [(32, 48), (32, 32), (16, 64), (16, 32), (8, 32), (8, 16), (4, 8)])
+@pytest.mark.parametrize("tile", [(32, 48), (48, 32), (40, 40), (24, 64), (32, 32), (24, 32),
+                                  (16, 64), (16, 32), (8, 32), (8, 16), (4, 8)])
 def test_rl_iter_kernel_on_every_tile(cuda, tile):
-    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_plain
+    from shrimpy_tpu_torch.ops.rl_fused_iter import TILES, rl_iter_cuda, rl_iter_plain
 
+    assert tile in TILES
     terms = _asym_terms(2, (5, 9, 11), seed=35)
     conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
-    est = _rand((11, 45, 70), 36, cuda, 0.5, 10.5)
-    data = _rand((11, 45, 70), 37, cuda, 0.0, 5.0)
+    # gx % 4 == 0: the slab by TMA, with an odd x radius (walked one wider).
+    est = _rand((11, 45, 72), 36, cuda, 0.5, 10.5)
+    data = _rand((11, 45, 72), 37, cuda, 0.0, 5.0)
     out = rl_iter_cuda(est, data, conv, adj, 1e-6, tile=tile)
     torch.cuda.synchronize()
-    assert _rel(out, rl_iter_plain(est, data, conv, adj, 1e-6)) <= 1e-5
+    torch.testing.assert_close(out, rl_iter_plain(est, data, conv, adj, 1e-6), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("n_terms", [1, 3])
-@pytest.mark.parametrize("radii", [(4, 10, 10), (0, 0, 0), (3, 5, 6), (1, 20, 2)])
+def test_rl_iter_kernel_on_a_carry_that_is_not_16_byte_aligned(cuda):
+    """gx % 4 == 0 but est starts 4 bytes past a 16-byte boundary: the
+    slab comes by cp.async, with the same bits."""
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda
+
+    shape, n = (9, 40, 64), 9 * 40 * 64
+    terms = _asym_terms(1, (5, 9, 9), seed=3)
+    conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    est, data = _rand(shape, 43, cuda, 0.5, 10.5), _rand(shape, 44, cuda, 0.0, 5.0)
+    want = rl_iter_cuda(est, data, conv, adj)
+    buf = torch.empty(n + 1, device=cuda)
+    shifted = buf[1:].view(shape)
+    shifted.copy_(est)
+    assert shifted.data_ptr() % 16 == 4 and shifted.is_contiguous()
+    got = rl_iter_cuda(shifted, data, conv, adj)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n_terms", [1, 2])
+@pytest.mark.parametrize("radii", [(4, 10, 10), (0, 0, 0), (3, 5, 6), (1, 20, 2), (8, 3, 3)])
 def test_rl_iter_shared_memory_sum_is_the_kernels(cuda, radii, n_terms):
     """The wrapper's bound and the launch's request are one number."""
     from shrimpy_tpu_torch.kernels.build import load_library
-    from shrimpy_tpu_torch.ops.rl_fused_iter import TILES, iter_smem_bytes
+    from shrimpy_tpu_torch.ops.rl_fused_iter import TILES, iter_layout, iter_smem_bytes
 
     lengths = [2 * r + 1 for r in radii]
-    for tile in TILES:
+    for tile in TILES + ((64, 64), (4, 4)):
         assert load_library().shrimpy_rl_iter_smem(n_terms, *lengths, *tile) == iter_smem_bytes(
             tile, radii, n_terms)
+    # Every tile's shared memory fits these radii; two terms of rz 8 keep
+    # 32 adjoint z planes a thread, past the 16 a block's registers hold.
+    layout = iter_layout((40, 300, 400), radii, n_terms)
+    assert (layout is not None) == (n_terms * 2 * radii[0] <= 16)
+    assert layout is None or layout["smem_bytes"] <= 232448
 
 
 def test_rl_iter_kernel_refuses_what_it_cannot_take(cuda):
@@ -682,9 +718,73 @@ def test_rl_iter_kernel_refuses_what_it_cannot_take(cuda):
     conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
     vol = torch.ones((4, 30, 30), device=cuda)
     before = rl_iter_cuda.launches
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="one-launch kernel's block.*TMA box"):
         rl_iter_cuda(vol, vol.clone(), conv, adj)
+    with pytest.raises(ValueError, match="does not fit"):
+        rl_iter_cuda(vol, vol.clone(), Stencil(_asym_terms(1, (3, 3, 3), 0), device=cuda),
+                     Stencil(_asym_terms(1, (3, 3, 3), 0), flip=True, device=cuda), tile=(6, 8))
     assert rl_iter_cuda.launches == before
+
+
+def test_rl_iter_half_step_route_past_the_block(cuda):
+    """A (17, 61, 61) PSF is past every tile's block: ``rl_iter`` runs the
+    two half-steps (here on their three-pass route), launches no
+    ``rl_iter`` kernel and calls no plain version; the result is the
+    half-steps' bit for bit and the plain iteration's to round-off (the
+    axes in another order)."""
+    from shrimpy_tpu_torch.ops.rl_fused_iter import (
+        rl_iter,
+        rl_iter_cuda,
+        rl_iter_half_steps,
+        rl_iter_plain,
+        rl_iter_route,
+    )
+
+    terms = _asym_terms(1, (17, 61, 61), seed=45)
+    conv, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    shape = (40, 200, 260)
+    assert rl_iter_route(shape, conv.radii, 1) == "half_steps"
+    est, data = _rand(shape, 46, cuda, 0.5, 10.5), _rand(shape, 47, cuda, 0.0, 5.0)
+    keep = est.clone()
+    before = (rl_iter_cuda.launches, rl_iter_half_steps.launches, half_step_cuda.launches,
+              half_step_three_pass.launches)
+    rl_iter_plain.cuda_calls = half_step_plain.cuda_calls = 0
+    with pytest.raises(ValueError, match="one-launch kernel's block"):
+        rl_iter_cuda(est, data, conv, adj)
+    out = rl_iter(est, data, conv, adj, 1e-6)
+    torch.cuda.synchronize()
+    assert (rl_iter_cuda.launches, rl_iter_half_steps.launches, half_step_cuda.launches,
+            half_step_three_pass.launches) == (before[0], before[1] + 1, before[2] + 2,
+                                               before[3] + 6)
+    assert rl_iter_plain.cuda_calls == half_step_plain.cuda_calls == 0
+    assert torch.equal(est, keep)
+    ratio = half_step_cuda(est, data, conv, "ratio", 1e-6)
+    torch.testing.assert_close(out, half_step_cuda(ratio, est, adj, "mult", 1e-6), rtol=0, atol=0)
+    assert _rel(out, rl_iter_plain(est, data, conv, adj, 1e-6)) <= 1e-5
+
+
+@pytest.mark.parametrize("acceleration,iterations", [("none", 3), ("biggs", 4)])
+def test_fused_iter_rl_on_the_half_step_route_matches_float64_plain(cuda, acceleration,
+                                                                     iterations):
+    """``fused_iter`` through ``richardson_lucy`` with a PSF past the
+    one-launch block: the half-step route every iteration, alternating
+    two carries (Biggs reads the step's input after it returns)."""
+    from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_half_steps
+
+    psf = gaussian_psf((17, 61, 61), (3.0, 9.0, 9.0))
+    img = _rand((24, 150, 170), 48, cuda, 0.0, 100.0)
+    s = deconvolve_settings(iterations=iterations, separable_backend="fused_iter",
+                            acceleration=acceleration, psf_crop_tol=0.0)
+    before = rl_iter_cuda.launches, rl_iter_half_steps.launches
+    out = richardson_lucy(img, psf, s)
+    torch.cuda.synchronize()
+    assert (rl_iter_cuda.launches, rl_iter_half_steps.launches) == (before[0],
+                                                                    before[1] + iterations)
+    ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+    if acceleration == "biggs":
+        _two_tier(out, ref)
+    else:
+        assert _rel(out, ref) <= 1e-4
 
 
 @pytest.mark.parametrize("acceleration,iterations", [("none", 5), ("biggs", 6)])
@@ -699,6 +799,7 @@ def test_fused_iter_rl_kernel_path_matches_float64_plain(cuda, acceleration, ite
     rl_iter_plain.cuda_calls = 0
     out = richardson_lucy(img, psf, s)
     torch.cuda.synchronize()
+    # The one-launch route: a kernel launch an iteration, no half-step.
     assert (rl_iter_cuda.launches, half_step_cuda.launches) == (before[0] + iterations, before[1])
     assert rl_iter_plain.cuda_calls == 0
     ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)

@@ -37,7 +37,13 @@ from shrimpy_tpu_torch.kernels import probes
 from shrimpy_tpu_torch.ops import deconv as tdeconv
 from shrimpy_tpu_torch.ops import rl_fused_iter as titer
 from shrimpy_tpu_torch.ops.deskew import deskew_volume
-from shrimpy_tpu_torch.ops.rl_fused import _SMEM_BYTES, Stencil, half_step_plain
+from shrimpy_tpu_torch.ops.rl_fused import (
+    _SMEM_BYTES,
+    Stencil,
+    fused_bound_error,
+    half_step_plain,
+    rl_fused,
+)
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step, reconstruct_batch
 from tests.test_deconv_separable import asymmetric_psf
 from tests.test_torch_biggs import _two_tier
@@ -183,41 +189,93 @@ def test_fused_iter_biggs_startup_is_plain_rl_bitwise(iterations):
                                rtol=0, atol=0)
 
 
+# The geometries where the port's fused_iter raised and JAX's runs: the
+# production image with three deep or wide PSFs, and the test image with
+# the widest JAX's layout takes (its limits rz 8, ry 56, rx 64).
+PAST_THE_BLOCK = [((128, 2888, 1600), (17, 61, 61)), ((128, 2888, 1600), (9, 81, 81)),
+                  ((128, 2888, 1600), (17, 113, 129)), ((12, 280, 650), (17, 113, 129))]
+
+
+def _grid(image, psf):
+    radii = tuple(k // 2 for k in psf)
+    return tuple(n + 2 * r for n, r in zip(image, radii)), radii
+
+
 def test_rl_iter_bounds_are_geometry():
     assert titer.rl_iter_supported((128, 2888, 1600), (9, 21, 21))  # the production volume
     assert titer.rl_iter_supported((128, 2888, 1600), (9, 21, 21), n_terms=2)
     assert titer.rl_iter_supported((34, 290, 388), (7, 11, 13), n_terms=2)  # the 2-term check
     layout = titer.iter_layout((136, 2908, 1620), (4, 10, 10), 1)
-    assert layout == {"tile": titer.TILES[0], "threads": 1024,
+    assert layout == {"tile": titer.TILES[0], "threads": 512, "blocks": 91 * 34,
                       "smem_bytes": titer.iter_smem_bytes(titer.TILES[0], (4, 10, 10), 1)}
-    assert [titer.tile_threads(t) for t in titer.TILES] == [1024] * 3 + [512] * 4
-    # Tiny y/x, which JAX's layout refuses, runs here.
+    assert titer.rl_iter_route((136, 2908, 1620), (4, 10, 10)) == "one_launch"
+    assert titer.iter_slab((32, 48), (4, 10, 10)) == (72, 88)
+    assert titer.iter_slab((32, 48), (3, 5, 5)) == (52, 72)  # 2 rx = 10 rounds up to 12
+    # Tiny y/x, which JAX's layout refuses, runs here in one launch.
     assert titer.rl_iter_supported((10, 32, 32), (5, 9, 9))
-    # Past every tile's shared memory; narrower than JAX's rz 8, ry 56, rx 64.
-    assert not titer.rl_iter_supported((12, 280, 650), (17, 113, 129))
-    assert titer.iter_layout((28, 392, 778), (8, 56, 64), 1) is None
-    msg = titer.iter_bound_error((28, 392, 778), (8, 56, 64), 1)
-    assert "shared memory" in msg and str(_SMEM_BYTES) in msg
-    assert "launch grid" in titer.iter_bound_error((4, 70000, 40000), (1, 1, 1))
-    # More terms take a smaller tile, then none.
-    tiles = [titer.iter_layout((136, 2908, 1620), (4, 10, 10), n) for n in (1, 3, 6, 40)]
-    assert tiles[0]["tile"] == (32, 48) and tiles[-1] is None
-    areas = [t["tile"][0] * t["tile"][1] for t in tiles[:-1]]
-    assert areas == sorted(areas, reverse=True) and areas[-1] < areas[0]
+    assert titer.rl_iter_route((14, 40, 40), (2, 4, 4)) == "one_launch"
+    # Past every tile's block the iteration runs as two half-steps, each
+    # reason named: the ring's shared memory, the TMA box, the registers.
+    for image, psf in PAST_THE_BLOCK:
+        g_shape, radii = _grid(image, psf)
+        assert titer.rl_iter_supported(image, psf)
+        assert titer.iter_layout(g_shape, radii) is None
+        assert titer.rl_iter_route(g_shape, radii) == "half_steps"
+    msg = titer.iter_block_error((144, 2948, 1660), (8, 30, 30), 1)
+    assert "one-launch kernel's block" in msg and "shared memory" in msg and str(_SMEM_BYTES) in msg
+    assert "TMA box" in titer.iter_block_error((28, 392, 778), (8, 56, 64), 1)
+    assert "registers" in titer.iter_block_error((40, 300, 400), (5, 4, 4), 2)
+    assert "16-byte pieces" in titer.iter_block_error((16, 160, 740), (4, 40, 40), 1)
+    assert "launch grid" in titer.iter_block_error((4, 70000, 40000), (1, 1, 1))
+    assert titer.rl_iter_route((4, 70000, 40000), (1, 1, 1)) == "half_steps"
+    # What neither route takes is what fused refuses, named as fused_iter.
+    assert titer.iter_bound_error((4, 30, 60008), (0, 0, 4)) is not None
+    with pytest.raises(ValueError, match="fused_iter.*x row"):
+        titer.rl_iter_route((4, 30, 60008), (0, 0, 4))
+    assert "launch grid" in titer.iter_bound_error((70000, 30, 30), (1, 1, 1))
+    # More terms take a smaller tile, then the half-steps (the adjoint z
+    # pass keeps n_terms * 2 rz planes a thread in registers, at most 16).
+    tiles = [titer.iter_layout((136, 2908, 1620), (4, 10, 10), n) for n in (1, 2, 3)]
+    assert tiles[0]["tile"] == (32, 48) and tiles[2] is None
+    assert tiles[1]["tile"][0] * tiles[1]["tile"][1] < 32 * 48
     assert titer.iter_layout((136, 2908, 1620), (4, 10, 10), 1, tile=(8, 16))["tile"] == (8, 16)
-    assert titer.iter_layout((136, 2908, 1620), (4, 10, 10), 6, tile=(32, 32)) is None
+    assert titer.iter_layout((136, 2908, 1620), (4, 10, 10), 2, tile=(32, 48)) is None
+    assert titer.iter_layout((136, 2908, 1620), (4, 10, 10), 1, tile=(6, 48)) is None
+    assert titer.iter_layout((136, 2908, 1620), (4, 10, 10), 1, tile=(64, 48)) is None
 
 
-def test_fused_iter_outside_its_bound_raises_naming_it():
-    psf = (np.ones((1, 121, 141)) / (121 * 141)).astype(np.float32)
-    s = deconvolve_settings(iterations=1, separable_backend="fused_iter", psf_crop_tol=0.0)
-    with pytest.raises(ValueError, match="fused_iter.*shared memory"):
-        tdeconv.richardson_lucy(np.ones((4, 30, 30), np.float32), psf, s, device="cpu")
-    # 'auto' never resolves to it, whatever the geometry.
-    assert tdeconv.resolve_separable_backend("auto", SHAPE, PSF_SHAPE) == "fused"
-    with pytest.raises(ValueError, match="fused_iter"):
-        titer.rl_fused_iter(torch.ones((4, 30, 30)), psf, [(np.ones(1), np.ones(121) / 121,
-                                                            np.ones(141) / 141)], s, 1)
+@pytest.mark.parametrize("image", [(128, 2888, 1600), (12, 280, 650), (30, 300, 400),
+                                   (6, 140, 300), (64, 512, 256)])
+def test_rl_iter_supported_wherever_jax_s_is(image):
+    """Over PSFs from none to JAX's widest and 1-3 terms: where the JAX
+    package's fused_iter runs, the port's does, on one route or the
+    other."""
+    psfs = [(1, 1, 1), (5, 9, 9), (3, 41, 5), (9, 21, 21), (11, 9, 9), (17, 21, 21),
+            (17, 61, 61), (9, 81, 81), (15, 113, 97), (17, 113, 129)]
+    taken = 0
+    for psf in psfs:
+        g_shape, radii = _grid(image, psf)
+        for n_terms in (1, 2, 3):
+            if jax_rl_iter_supported(image, psf, n_terms=n_terms):
+                taken += 1
+                assert titer.rl_iter_supported(image, psf, n_terms), (psf, n_terms)
+                assert titer.rl_iter_route(g_shape, radii, n_terms) in titer.ROUTES
+    assert taken >= 3
+    for named, psf in PAST_THE_BLOCK:
+        if named == image:
+            assert jax_rl_iter_supported(image, psf) and titer.rl_iter_supported(image, psf)
+
+
+def test_fused_iter_bound_is_narrower_than_jax_only_past_fused_s_launch_grid():
+    """The one gap left (ROADMAP §3): carries wider than the three-pass x
+    pass's row of shared memory, deeper than a launch's z grid or taller
+    than its y grid, which JAX's layout tiles and fused refuses."""
+    for image in ((12, 280, 58100), (70000, 300, 400), (4, 2_100_000, 600)):
+        assert jax_rl_iter_supported(image, (5, 9, 9))
+        assert not titer.rl_iter_supported(image, (5, 9, 9))
+        g_shape, radii = _grid(image, (5, 9, 9))
+        assert titer.iter_bound_error(g_shape, radii) == fused_bound_error(g_shape, radii)
+    assert titer.rl_iter_supported((12, 280, 58000), (5, 9, 9))
 
 
 @settings(max_examples=60, deadline=None)
@@ -227,21 +285,84 @@ def test_iter_layout_fits_shared_memory(rz, ry, rx, n_terms):
     """Whatever it accepts fits a block; what it refuses fits no tile."""
     radii = (rz, ry, rx)
     layout = titer.iter_layout((40, 300, 400), radii, n_terms)
-    fits = [t for t in titer.TILES if titer.iter_smem_bytes(t, radii, n_terms) <= _SMEM_BYTES]
-    if layout is None:
-        assert not fits and titer.iter_bound_error((40, 300, 400), radii, n_terms)
-        return
-    ty, tx = layout["tile"]
-    ring = 2 * rz + 1
-    # Slab and scratch rows at odd strides, the rings compact, the taps
-    # padded for the kernel's float4 window (csrc/rl_iter.cu::smem_floats).
     pad4 = lambda n: -(-n // 4) * 4  # noqa: E731
-    floats = ((ty + 4 * ry) * ((tx + 4 * rx) | 1) + (ty + 4 * ry) * ((tx + 2 * rx) | 1)
-              + n_terms * ring * ((ty + 2 * ry) * (tx + 2 * rx) + ty * tx)
-              + 2 * n_terms * (pad4(ring) + pad4(2 * ry + 4) + 4 + pad4(2 * rx + 4) + 4))
-    assert layout["smem_bytes"] == 4 * floats <= _SMEM_BYTES
-    assert layout["tile"] == fits[0] and titer.iter_bound_error((40, 300, 400), radii,
-                                                                n_terms) is None
+    pad32 = lambda n: -(-n // 32) * 32  # noqa: E731
+
+    def smem(tile):
+        # Taps of both directions; the slab; per term the x-pass plane with
+        # 4 + 3 rows of zeros, the ring of 2 rz + 2 y-pass planes and the
+        # adjoint x-pass plane with 4; the ratio plane; the mbarrier
+        # (csrc/rl_iter.cu::layout_of). Every region 128-byte aligned.
+        ty, tx = tile
+        sr, sw, mr, xw = ty + 4 * ry, tx + 2 * pad4(2 * rx), ty + 2 * ry, tx + pad4(2 * rx)
+        taps = pad32(2 * n_terms * (pad4(2 * rz + 1) + pad4(2 * ry + 4) + 4 + pad4(2 * rx + 4) + 4))
+        per_term = pad32((sr + 7) * xw) + (2 * rz + 2) * pad32(mr * xw) + pad32((mr + 4) * tx)
+        return 4 * (taps + pad32(sr * sw) + n_terms * per_term + pad32(mr * xw) + 4), sr, sw
+
+    def fits(tile):
+        b, sr, sw = smem(tile)
+        return (b <= _SMEM_BYTES and sr <= 256 and sw <= 256 and sr * sw <= 4 * 512 * 8
+                and n_terms * 2 * rz <= 16 and tile[0] // 4 * tile[1] <= 512)
+
+    fitting = [t for t in titer.TILES if fits(t)]
+    if layout is None:
+        assert not fitting and titer.iter_block_error((40, 300, 400), radii, n_terms)
+        assert titer.rl_iter_route((40, 300, 400), radii, n_terms) == "half_steps"
+        return
+    assert layout["smem_bytes"] == smem(layout["tile"])[0] <= _SMEM_BYTES
+    assert layout["tile"] == fitting[0] and titer.iter_block_error((40, 300, 400), radii,
+                                                                   n_terms) is None
+    assert titer.rl_iter_route((40, 300, 400), radii, n_terms) == "one_launch"
+
+
+@pytest.mark.parametrize("n_terms", [1, 2, 3])
+@pytest.mark.parametrize("radii", [(0, 0, 0), (4, 10, 10), (8, 3, 3), (2, 30, 2), (2, 2, 60),
+                                   (8, 30, 30), (4, 40, 40), (8, 56, 64), (5, 4, 4)])
+def test_rl_iter_route_takes_half_steps_exactly_past_the_block(radii, n_terms):
+    g_shape = tuple(n + 2 * r for n, r in zip((12, 280, 650), radii))
+    fits = titer.iter_layout(g_shape, radii, n_terms) is not None
+    assert titer.rl_iter_route(g_shape, radii, n_terms) == ("one_launch" if fits else "half_steps")
+    assert (titer.iter_block_error(g_shape, radii, n_terms) is None) == fits
+    assert titer.iter_bound_error(g_shape, radii, n_terms) is None
+
+
+def test_rl_fused_iter_past_the_block_matches_fused_and_jax():
+    """Two terms of an (11, 9, 9) PSF keep 2 x 10 adjoint z planes a
+    thread, past the one-launch block: the card runs the half-steps. On
+    the CPU both routes are the plain iteration, held here to the fused
+    backend (the same update, the axes in another order: 1e-5) and to
+    JAX's fused_iter (interpret mode) at this file's 1e-5."""
+    def term(sz, sy, sx, amp):
+        g = jdeconv.gaussian_psf((11, 9, 9), (sz, sy, sx)).astype(np.float64)
+        wz, wy, wx = g.sum((1, 2)), g.sum((0, 2)), g.sum((0, 1))
+        return wz * (amp / wz.sum()), wy / wy.sum(), wx / wx.sum()
+
+    terms = [term(1.8, 1.6, 1.6, 0.7), term(2.6, 0.9, 2.2, 0.3)]
+    psf = sum(np.einsum("z,y,x->zyx", *t) for t in terms)
+    g_shape, radii = _grid(SHAPE, psf.shape)
+    assert titer.rl_iter_route(g_shape, radii, 2) == "half_steps"
+    assert jax_rl_iter_supported(SHAPE, psf.shape, n_terms=2)
+    img = _blurred(SHAPE, psf, seed=30)
+    s = DeconvolveSettings(algorithm="separable")
+    ours = titer.rl_fused_iter(torch.from_numpy(img), np.asarray(psf, np.float32), terms, s, 2)
+    fused = rl_fused(torch.from_numpy(img), np.asarray(psf, np.float32), terms, s, 2)
+    assert _rel(ours.numpy(), fused.numpy()) <= 1e-5
+    ref = np.asarray(jax_rl_fused_iter(img, psf, terms, s, 2))
+    assert _rel(ours.numpy(), ref) <= 1e-5
+
+
+def test_fused_iter_outside_its_bound_raises_naming_it():
+    """Only what fused refuses: a y radius whose column of the three-pass
+    route's y pass exceeds its shared memory."""
+    psf = (np.ones((1, 425, 3)) / (425 * 3)).astype(np.float32)
+    s = deconvolve_settings(iterations=1, separable_backend="fused_iter", psf_crop_tol=0.0)
+    with pytest.raises(ValueError, match="fused_iter.*shared memory"):
+        tdeconv.richardson_lucy(np.ones((4, 30, 30), np.float32), psf, s, device="cpu")
+    # 'auto' never resolves to it, whatever the geometry.
+    assert tdeconv.resolve_separable_backend("auto", SHAPE, PSF_SHAPE) == "fused"
+    with pytest.raises(ValueError, match="fused_iter"):
+        titer.rl_fused_iter(torch.ones((4, 30, 30)), psf, [(np.ones(1), np.ones(425) / 425,
+                                                            np.ones(3) / 3)], s, 1)
 
 
 def test_pack_taps_and_wrapper_guards():
@@ -267,6 +388,8 @@ def test_pack_taps_and_wrapper_guards():
         titer.rl_iter_cuda(vol, vol, conv, adj)
     with pytest.raises(ValueError, match="3-D"):
         titer.rl_iter_cuda(vol[0], vol[0], conv, adj)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        titer.rl_iter_half_steps(vol, vol, conv, adj)
 
 
 @pytest.mark.parametrize("backend", ["fused_iter", "fused", "linear_pallas", "matmul"])
