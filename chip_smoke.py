@@ -8,6 +8,8 @@ or any check fails. ``--parent-iter DIR`` names a directory holding the
 ``rl_iter.cu`` and ``stencil.cuh`` of the whole-iteration kernel before
 its redesign (kept out of the package): phase 3 then builds it too,
 checks that it gives the new kernel's bits and times the two in turns.
+``--parent-convzy DIR`` does the same for the z+y kernel before the
+march (``convzy.cu`` of the commit before it), on both boundaries.
 Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
@@ -32,14 +34,25 @@ Phases:
    carry against the plain version, at the production carry timed and
    bit-equal to the one-launch kernel, then driven once through
    ``richardson_lucy`` with a (121, 9, 9) PSF that only it takes; the
-   ``convzy_linear`` z+y kernel (both tap orders) on the first two
-   carries; the circular ``convzy_circular`` z+y
-   kernel and ``conv3_circular`` (both tap orders) on those carries and
-   on a (3, 9, 40) grid smaller than the radii (4, 10, 10), and the
-   circular x pass in ``ratio``, ``mult`` and ``plain`` modes against
-   the dense circulant product (also with a row that wraps twice);
-   ``conv3_circular``, which no backend reaches, is then driven once at
-   the production carry with the counts reset; the whole-iteration
+   z+y step ``convzy_linear`` and ``convzy_circular`` on both of its
+   routes (the march of ``csrc/convzy.cu`` and two ``conv_axis``
+   passes), both tap orders, bit-equal to the plain version, on the
+   production carry, the 2-term (40, 300, 400) one, a carry 4 bytes into
+   its storage with an x extent of 33, a (17, 61, 3) PSF past the
+   kernel before the march, and (circular) a (3, 9, 40) grid smaller
+   than the radii (4, 10, 10); each route timed at the production carry
+   beside the bound and ``F.conv3d`` (and beside the kernel before the
+   march with ``--parent-convzy``); ``conv3_circular`` (both tap
+   orders) on those carries and the circular x pass in ``ratio``,
+   ``mult`` and ``plain`` modes against the dense circulant product
+   (also with a row that wraps twice); ``conv3_circular``, which no
+   backend reaches, is then driven once at the production carry with
+   the counts reset; the two-pass route through ``richardson_lucy`` with
+   a (9, 201, 3) PSF past the march's block on ``linear_pallas`` and
+   ``zy_pallas`` (RL-2 and Biggs RL-2), and the carries repaired with
+   it: a (66000, 2, 6) image on ``linear_pallas`` (the y pass over more
+   than 65535 planes) and a (4, 6, 60000) one on ``zy_pallas`` (x rows
+   in pieces), each against its float64 plain path; the whole-iteration
    kernel ``rl_iter`` (``csrc/rl_iter.cu``) on the production carry, on
    the (40, 300, 400) carry with the 2-term asymmetric PSF and on a
    (5, 37, 45) grid that no tile divides and whose z extent is smaller
@@ -71,9 +84,9 @@ Phases:
    RL-20-equivalent), against its float64 plain path (bf16 state) by
    the two-tier gate of ``tests/test_rl_fused.py:244-245``: 99.99 % of
    voxels within 5e-4 of the scale, every voxel within 2e-2;
-4c. the same two steps on ``separable_backend: linear_pallas``: RL-20
-   within 1e-4 of phase 4's output, Biggs RL-10 within the two-tier gate
-   of phase 4b's;
+4c. the same two steps on ``separable_backend: linear_pallas`` (a march
+   launch a z+y step): RL-20 within 1e-4 of phase 4's output, Biggs
+   RL-10 within the two-tier gate of phase 4b's;
 4d. the same two steps on ``separable_backend: zy_pallas`` (circular
    boundaries on the same G grid), each against its float64 plain path:
    RL-20 within 1e-3, timed against the plain float32 path; Biggs RL-10
@@ -93,12 +106,14 @@ Phases:
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
-   (eleven entries: the ten kernels and the kept three-pass half-step),
+   (twelve entries: the ten kernels, the kept three-pass half-step and
+   the z+y step's two-pass route),
    the card line and the final ``{"ok": true, ...}`` line.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import subprocess
@@ -262,6 +277,8 @@ def counters() -> dict:
         convzy_circular_plain,
         convzy_linear_cuda,
         convzy_linear_plain,
+        convzy_march,
+        convzy_two_pass,
     )
     from shrimpy_tpu_torch.kernels import probes
     from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
@@ -289,6 +306,8 @@ def counters() -> dict:
         "rl_half_three_pass": (half_step_three_pass, "launches"),
         "convzy_linear": (convzy_linear_cuda, "launches"),
         "convzy_circular": (convzy_circular_cuda, "launches"),
+        "convzy_march": (convzy_march, "launches"),
+        "convzy_two_pass": (convzy_two_pass, "launches"),
         "conv3_circular": (conv3_circular_cuda, "launches"),
         "plain_half_step_on_cuda": (half_step_plain, "cuda_calls"),
         "plain_convzy_on_cuda": (convzy_linear_plain, "cuda_calls"),
@@ -645,44 +664,135 @@ def phase_three_pass() -> dict:
     return total
 
 
-def phase_convzy(gen) -> dict:
-    """convzy_linear against its plain version, both tap orders."""
-    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_linear_cuda, convzy_linear_plain
+@functools.lru_cache(maxsize=1)
+def parent_convzy(parent_dir):
+    """The z+y kernel of the commit before the march (``convzy_kernel<kTy,
+    kWrap>``), built from ``parent_dir`` (its ``convzy.cu``, kept out of
+    the package) into a library of its own: a function that launches it
+    on (v, out, kz, ky, boundary)."""
+    import ctypes
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.kernels import build
+
+    lib_path = build.BUILD_DIR / "libconvzy_parent.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(Path(parent_dir) / "convzy.cu")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name in ("shrimpy_convzy_linear", "shrimpy_convzy_circular"):
+        getattr(lib, name).argtypes = [p, p, p, i32, p, i32, i64, i64, i64, p]
+        getattr(lib, name).restype = i32
+
+    def launch(v, out, kz, ky, boundary):
+        name = "shrimpy_convzy_linear" if boundary == "zero" else "shrimpy_convzy_circular"
+        build.check(getattr(lib, name)(v.data_ptr(), out.data_ptr(), kz.data_ptr(), kz.numel(),
+                                       ky.data_ptr(), ky.numel(), *v.shape,
+                                       torch.cuda.current_stream().cuda_stream), f"{name} (parent)")
+    return launch
+
+
+def time_convzy(v, st, boundary, old=None) -> dict:
+    """The z+y step at the production carry on the march (beside the
+    kernel before it, in turns, when ``old`` launches that one) and on the
+    two-pass route, each held to the march's bits; returns their times."""
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_circular_cuda, convzy_linear_cuda, convzy_two_pass
+
+    step = convzy_linear_cuda if boundary == "zero" else convzy_circular_cuda
+    kz, ky, _ = st.dev[0]
+    taps = st.packed()[0]
+    out, other, tmp = torch.empty_like(v), torch.empty_like(v), torch.empty_like(v)
+    new = lambda: step(v, kz, ky, out=out, taps=taps)  # noqa: E731
+    new()
+    res = {}
+    if old is not None:
+        run_old = lambda: old(v, other, kz, ky, boundary)  # noqa: E731
+        run_old()
+        same_bits(f"convzy {boundary} {tuple(v.shape)} vs the kernel before the march", other, out)
+        times = {"old": [], "new": []}
+        for which in ("old", "new", "new", "old"):
+            times[which].append(gpu_ms(run_old if which == "old" else new, 10))
+        res["ms"], res["ms_parent"] = sum(times["new"]) / 2, sum(times["old"]) / 2
+        print(f"  convzy {boundary} {tuple(v.shape)}: march {res['ms']:.3f} ms {times['new']}; the "
+              f"kernel before it {res['ms_parent']:.3f} {times['old']}", flush=True)
+    else:
+        res["ms"] = gpu_ms(new, 10)
+        print(f"  convzy {boundary} {tuple(v.shape)}: march {res['ms']:.3f} ms (no --parent-convzy: "
+              "the kernel before it not timed)", flush=True)
+    two = lambda: convzy_two_pass(v, kz, ky, boundary=boundary, out=other, tmp=tmp)  # noqa: E731
+    two()
+    same_bits(f"convzy {boundary} {tuple(v.shape)} two_pass vs march", other, out)
+    res["ms_two_pass"] = gpu_ms(two, 5)
+    print(f"  convzy {boundary} {tuple(v.shape)}: two passes {res['ms_two_pass']:.3f} ms",
+          flush=True)
+    return res
+
+
+def convzy_cases(terms, carry):
+    """(shape, terms, label, offset in floats) of the z+y checks: the
+    production carry, a 2-term PSF, a carry that is not 16-byte aligned
+    with an x extent no multiple of 4, and radii past the kernel before
+    the march."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 4)
+    wide = [tuple(rng.random(k).astype(np.float32) for k in (17, 61, 3))]
+    return ((carry, terms, f"{carry}", 0), (SMALL, two_term_psf(), f"{SMALL} 2 terms", 0),
+            ((13, 200, 33), terms, "(13, 200, 33) 4 bytes in", 1),
+            ((20, 90, 40), wide, "(20, 90, 40) PSF (17, 61, 3)", 0))
+
+
+def offset_carry(shape, gen, off: int) -> torch.Tensor:
+    """A random carry whose first element lies ``off`` floats into its storage."""
+    n = math.prod(shape)
+    return uniform((n + off,), gen, 0.0, 10.0)[off:].view(shape)
+
+
+def phase_convzy(gen, parent_dir=None) -> dict:
+    """convzy_linear against its plain version, both tap orders and both
+    routes, bit for bit; timed at the production carry (beside the kernel
+    before the march with ``--parent-convzy``)."""
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_linear_cuda, convzy_linear_plain, convzy_two_pass
     from shrimpy_tpu_torch.ops.rl_fused import Stencil
 
     terms, carry = production_terms()
-    res = {}
-    for shape, tt, label in ((carry, terms, f"{carry}"),
-                             ((40, 300, 400), two_term_psf(), "(40, 300, 400)")):
-        v = uniform(shape, gen, 0.0, 10.0)
+    res = {"max_abs_err": 0.0}
+    for shape, tt, label, off in convzy_cases(terms, carry):
+        v = offset_carry(shape, gen, off)
         for flip in (False, True):
-            for t, (kz, ky, _) in enumerate(Stencil(tt, flip=flip).host):
-                err = compare(f"convzy_linear {label} term {t} flip={flip}",
-                              convzy_linear_cuda(v, kz, ky), convzy_linear_plain(v, kz, ky),
-                              KERNEL_RTOL)
-                if shape == carry:
-                    res["max_abs_err"] = max(err, res.get("max_abs_err", 0.0))
+            for t, (kz, ky, _) in enumerate(Stencil(tt, flip=flip, device="cuda").dev):
+                want = convzy_linear_plain(v, kz.cpu().numpy(), ky.cpu().numpy())
+                same_bits(f"convzy_linear {label} term {t} flip={flip}",
+                          convzy_linear_cuda(v, kz, ky), want)
+                same_bits(f"convzy_linear {label} term {t} flip={flip} (two_pass)",
+                          convzy_two_pass(v, kz, ky, boundary="zero", out=torch.empty_like(v)),
+                          want)
+                del want
         if shape == carry:
-            kz, ky, _ = Stencil(tt).host[0]
-            kzd, kyd = (torch.tensor(k, dtype=torch.float32, device="cuda") for k in (kz, ky))
-            out = torch.empty_like(v)
-            res["ms"] = gpu_ms(lambda: convzy_linear_cuda(v, kzd, kyd, out=out), 10)
+            st = Stencil(tt, device="cuda")
+            kz, ky, _ = st.host[0]
+            res.update(time_convzy(v, st, "zero", parent_convzy(parent_dir) if parent_dir else None))
             res["plain_ms"] = gpu_ms(lambda: convzy_linear_plain(v, kz, ky), 2)
             res.update(bound(2 * 4 * v.numel(), 2 * (len(kz) + len(ky)) * v.numel()))
             weight = dense_kernel(tt[:1], axes=(0, 1))
             compare(f"F.conv3d {tuple(weight.shape[2:])} vs convzy_linear", library_conv3d(v, weight),
-                    out, 1e-3)
+                    convzy_linear_cuda(v, kz, ky), 1e-3)
             res["library_ms"] = gpu_ms(lambda: library_conv3d(v, weight), 2)
-            del out
+            print(f"  convzy_linear {carry}: bound {res['bound_ms']:.3f} ms by {res['bound_by']}, "
+                  f"F.conv3d {res['library_ms']:.3f} ms, plain {res['plain_ms']:.3f} ms", flush=True)
         del v
     return res
 
 
-def phase_circular(gen) -> tuple[dict, dict, dict]:
-    """convzy_circular, conv3_circular and the circular x pass against
-    their plain versions; then conv3_circular driven once with the
-    counts reset (no backend reaches it). Returns the three kernels'
-    entries: max|a-b| over every check, times at the production carry."""
+def phase_circular(gen, parent_dir=None) -> tuple[dict, dict, dict]:
+    """convzy_circular (both routes, bit for bit; timed beside the kernel
+    before the march with ``--parent-convzy``), conv3_circular and the
+    circular x pass against their plain versions; then conv3_circular
+    driven once with the counts reset (no backend reaches it). Returns
+    the three kernels' entries: max|a-b| over every check, times at the
+    production carry."""
     import numpy as np
 
     from shrimpy_tpu_torch.ops.conv3_cuda import (
@@ -691,6 +801,7 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
         conv3_circular_plain,
         convzy_circular_cuda,
         convzy_circular_plain,
+        convzy_two_pass,
         x_circulant_plain,
     )
     from shrimpy_tpu_torch.ops.rl_fused import Stencil, _epilogue, conv_x_cuda
@@ -698,27 +809,29 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
     eps = headline_settings().deconvolve.epsilon
     terms, carry = production_terms()
     zy, c3, xp = ({"max_abs_err": 0.0} for _ in range(3))
-    for shape, tt, label in ((carry, terms, f"{carry}"),
-                             ((40, 300, 400), two_term_psf(), "(40, 300, 400) 2 terms"),
-                             ((3, 9, 40), terms, "(3, 9, 40) multi-wrap")):
-        v = uniform(shape, gen, 0.0, 10.0)
+    cases = convzy_cases(terms, carry) + (((3, 9, 40), terms, "(3, 9, 40) multi-wrap", 0),)
+    for shape, tt, label, off in cases:
+        v = offset_carry(shape, gen, off)
         for flip in (False, True):
             st = Stencil(tt, flip=flip, device="cuda")
-            for t, (kz, ky, _) in enumerate(st.host):
-                err = compare(f"convzy_circular {label} term {t} flip={flip}",
-                              convzy_circular_cuda(v, kz, ky), convzy_circular_plain(v, kz, ky),
-                              KERNEL_RTOL)
-                zy["max_abs_err"] = max(zy["max_abs_err"], err)
+            for t, (kz, ky, _) in enumerate(st.dev):
+                want = convzy_circular_plain(v, kz.cpu().numpy(), ky.cpu().numpy())
+                same_bits(f"convzy_circular {label} term {t} flip={flip}",
+                          convzy_circular_cuda(v, kz, ky), want)
+                same_bits(f"convzy_circular {label} term {t} flip={flip} (two_pass)",
+                          convzy_two_pass(v, kz, ky, boundary="circular",
+                                          out=torch.empty_like(v)), want)
+                del want
             err = compare(f"conv3_circular {label} flip={flip}", conv3_circular_cuda(v, st),
                           conv3_circular_plain(v, st), KERNEL_RTOL)
             c3["max_abs_err"] = max(c3["max_abs_err"], err)
         if shape == carry:
             st = Stencil(tt, device="cuda")
             kz, ky, _ = st.host[0]
-            kzd, kyd, _ = st.dev[0]
             out = torch.empty_like(v)
             scratch = [torch.empty_like(v)]
-            zy["ms"] = gpu_ms(lambda: convzy_circular_cuda(v, kzd, kyd, out=out), 10)
+            zy.update(time_convzy(v, st, "circular",
+                                  parent_convzy(parent_dir) if parent_dir else None))
             zy["plain_ms"] = gpu_ms(lambda: convzy_circular_plain(v, kz, ky), 2)
             c3["ms"] = gpu_ms(lambda: conv3_circular_cuda(v, st, out=out, scratch=scratch), 10)
             c3["plain_ms"] = gpu_ms(lambda: conv3_circular_plain(v, st), 2)
@@ -755,10 +868,65 @@ def phase_circular(gen) -> tuple[dict, dict, dict]:
     print("  conv3_circular through its entry point at the production carry:", flush=True)
     v = uniform(carry, gen, 0.0, 10.0)
     _, counts, _ = drive(lambda vol: conv3_circular(vol, terms), v,
-                         {"conv3_circular": 1, "convzy_circular": len(terms)})
+                         {"conv3_circular": 1, "convzy_circular": len(terms),
+                          "convzy_march": len(terms)})
     c3["launches"] = counts["conv3_circular"]
     del v
     return zy, c3, xp
+
+
+TWO_PASS_PSF = ((9, 201, 3), (1.5, 30.0, 0.8))  # y radius 100: no tile of the march fits
+
+
+def rl_drive(backend: str, image_shape, psf_spec, iterations: int, want: dict, seed: int,
+             **kw) -> dict:
+    """RL through ``richardson_lucy`` on ``backend`` with the counts reset,
+    against its float64 plain path; returns the counts."""
+    from shrimpy_tpu_torch.config import deconvolve_settings
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, richardson_lucy
+
+    psf = gaussian_psf(*psf_spec)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    img = uniform(image_shape, gen, 0.0, 100.0)
+    s = deconvolve_settings(iterations=iterations, psf_crop_tol=0.0, separable_backend=backend, **kw)
+    out, counts, _ = drive(lambda v: richardson_lucy(v, psf, s), img, want)
+    ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
+    label = f"{backend} RL-{iterations} {image_shape} PSF {psf_spec[0]}"
+    if kw.get("acceleration") == "biggs":
+        two_tier(f"{label} Biggs vs float64 plain", out, ref)
+    else:
+        compare(f"{label} vs float64 plain", out, ref, STEP_RTOL)
+    return counts
+
+
+def phase_routes() -> dict:
+    """The z+y step's two-pass route through ``richardson_lucy``: a PSF
+    past the march kernel's block on ``linear_pallas`` and ``zy_pallas``
+    (RL-2 each, Biggs too); then the carries repaired in this slice,
+    driven once: a z extent past a launch's grid in the two-pass y pass,
+    and an x row longer than a block's shared memory in the x pass.
+    Returns the two-pass route's launches."""
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_route
+
+    radii = tuple(k // 2 for k in TWO_PASS_PSF[0])
+    image = (16, 120, 64)
+    grid = tuple(n + 2 * r for n, r in zip(image, radii))
+    launches = 0
+    for backend, boundary, name in (("linear_pallas", "zero", "convzy_linear"),
+                                    ("zy_pallas", "circular", "convzy_circular")):
+        if convzy_route(grid, radii[:2], boundary) != "two_pass":
+            raise AssertionError(f"PSF {TWO_PASS_PSF[0]} on {grid} does not take the two-pass route")
+        for kw in ({}, {"acceleration": "biggs"}):
+            counts = rl_drive(backend, image, TWO_PASS_PSF, 2, {name: 4, "convzy_two_pass": 8},
+                              SEED + 5, **kw)
+            launches += counts["convzy_two_pass"]
+    print("  repaired carries: z past a launch's grid (two-pass y pass), an x row in pieces:",
+          flush=True)
+    rl_drive("linear_pallas", (66000, 2, 6), TWO_PASS_PSF, 1,
+             {"convzy_linear": 2, "convzy_two_pass": 4}, SEED + 6)
+    rl_drive("zy_pallas", (4, 6, 60000), ((3, 5, 21), (0.8, 1.0, 3.0)), 1,
+             {"convzy_circular": 2, "convzy_march": 2}, SEED + 7)
+    return {"launches": launches}
 
 
 def iter_fmas(shape, radii, tile, n_terms: int = 1) -> float:
@@ -1063,7 +1231,8 @@ def phase_linear(steps: Steps, rl20: torch.Tensor, biggs: torch.Tensor) -> dict:
          2 * BIGGS_ITERATIONS),
     ):
         step = steps.build(separable_backend="linear_pallas", **kw)
-        out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_linear": n})
+        out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_linear": n,
+                                                      "convzy_march": n})
         steps.check_shape(out)
         if ref is rl20:
             err = rel_err(out, ref)
@@ -1083,7 +1252,8 @@ def phase_zy(steps: Steps) -> dict:
     each against its own float64 plain path."""
     zy = {"separable_backend": "zy_pallas"}
     step = steps.build(**zy)
-    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_circular": 2 * ITERATIONS})
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_circular": 2 * ITERATIONS,
+                                                  "convzy_march": 2 * ITERATIONS})
     steps.check_shape(out)
     ref = steps.build(plain=True, dtype=torch.float64, **zy)(steps.batch)
     compare("zy_pallas RL-20 step vs float64 plain", out, ref, STEP_RTOL)
@@ -1094,7 +1264,8 @@ def phase_zy(steps: Steps) -> dict:
     kw = {**zy, "acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
     bstep = steps.build(**kw)
     bout, bcounts, bpeak = drive(bstep, steps.batch,
-                                 {"deskew": 1, "convzy_circular": 2 * BIGGS_ITERATIONS})
+                                 {"deskew": 1, "convzy_circular": 2 * BIGGS_ITERATIONS,
+                                  "convzy_march": 2 * BIGGS_ITERATIONS})
     steps.check_shape(bout)
     ref = steps.build(plain=True, dtype=torch.float64, **kw)(steps.batch)
     berr = two_tier("zy_pallas Biggs RL-10 step vs float64 plain (bf16 state)", bout, ref)
@@ -1174,11 +1345,12 @@ def phase_fused_iter(steps: Steps, rl20: torch.Tensor) -> dict:
 
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
-    geometry (the one-launch half-step and the whole iteration) for every
-    geometry this script runs, all compilers at once (a geometry missed
-    here is compiled at its first launch)."""
+    geometry (the one-launch half-step, the whole iteration and the z+y
+    march) for every geometry this script runs, all compilers at once (a
+    geometry missed here is compiled at its first launch)."""
     from concurrent.futures import ThreadPoolExecutor
 
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_layout
     from shrimpy_tpu_torch.ops.rl_fused import half_layout
     from shrimpy_tpu_torch.ops.rl_fused_iter import iter_layout
 
@@ -1192,6 +1364,11 @@ def build_all(build) -> None:
         lengths = tuple(len(w) for w in tt[0])
         tile = iter_layout(shape, tuple(k // 2 for k in lengths), len(tt))["tile"]
         jobs.append(("rl_iter", (len(tt), *lengths, *tile)))
+    marches = {(shape, tuple(len(w) for w in tt[0][:2])) for shape, tt, _, _ in convzy_cases(terms, carry)}
+    marches.add(((4, 10, 60020), (3, 5)))  # phase_routes' x row in pieces
+    for shape, lengths in sorted(marches):
+        tile = convzy_layout(shape, tuple(k // 2 for k in lengths))["tile"]
+        jobs += [("convzy", (*lengths, *tile, wrap)) for wrap in (0, 1)]
     with ThreadPoolExecutor(2) as pool:
         geometries = pool.submit(build.build_geometries, jobs)
         build.load_library()
@@ -1203,6 +1380,9 @@ def main(argv) -> int:
     # --parent-iter DIR: the source of the whole-iteration kernel before its
     # redesign, timed beside the new one in phase 3.
     parent_dir = argv[argv.index("--parent-iter") + 1] if "--parent-iter" in argv else None
+    # --parent-convzy DIR: the source of the z+y kernel before the march,
+    # timed beside it in phase 3.
+    parent_zy = argv[argv.index("--parent-convzy") + 1] if "--parent-convzy" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1228,9 +1408,13 @@ def main(argv) -> int:
     accel = phase_accel(gen)
     print("  the three-pass route through richardson_lucy:", flush=True)
     three = phase_three_pass()
-    zy = phase_convzy(gen)
+    zy = phase_convzy(gen, parent_zy)
     torch.cuda.empty_cache()
-    czy, c3, xcirc = phase_circular(gen)
+    czy, c3, xcirc = phase_circular(gen, parent_zy)
+    torch.cuda.empty_cache()
+    print("  the z+y step's two-pass route and the repaired carries through richardson_lucy:",
+          flush=True)
+    routes = phase_routes()
     torch.cuda.empty_cache()
     it = phase_iter(gen, parent_dir)
     torch.cuda.empty_cache()
@@ -1268,8 +1452,9 @@ def main(argv) -> int:
           f"{accel['ms_ratio_accel_three_pass']:.3f}, plain "
           f"{accel['plain_ms_ratio_accel']:.3f}); mult_accel {accel['ms_mult_accel']:.3f} ms "
           f"(three passes {accel['ms_mult_accel_three_pass']:.3f}, plain "
-          f"{accel['plain_ms_mult_accel']:.3f}); convzy_linear {zy['ms']:.3f} ms "
-          f"(plain {zy['plain_ms']:.3f}); peak {step['peak_gib']:.2f} / "
+          f"{accel['plain_ms_mult_accel']:.3f}); convzy_linear {zy['ms']:.3f} ms (before the "
+          f"march {zy.get('ms_parent', 'not timed')}, two passes {zy['ms_two_pass']:.3f}, plain "
+          f"{zy['plain_ms']:.3f}, bound {zy['bound_ms']:.3f}); peak {step['peak_gib']:.2f} / "
           f"{biggs['peak_gib']:.2f} / {lin['RL-20']['peak_gib']:.2f} / "
           f"{lin['Biggs RL-10']['peak_gib']:.2f} GiB", flush=True)
     print(f"[5] {card}: zy_pallas RL-20 {zyp['ms']:.1f} ms, {zyp['gvox_s']:.4f} GVox/s (plain "
@@ -1277,7 +1462,8 @@ def main(argv) -> int:
           f"{zyp['peak_gib']:.2f} GiB; its Biggs RL-10 {zyp['biggs']['ms']:.1f} ms, max rel err "
           f"{zyp['biggs']['rel_err']:.3e}, peak {zyp['biggs']['peak_gib']:.2f} GiB; matmul RL-20 "
           f"{mmp['ms']:.1f} ms, {mmp['gvox_s']:.4f} GVox/s, rel err {mmp['rel_err']:.3e}, peak "
-          f"{mmp['peak_gib']:.2f} GiB; convzy_circular {czy['ms']:.3f} ms (plain "
+          f"{mmp['peak_gib']:.2f} GiB; convzy_circular {czy['ms']:.3f} ms (before the march "
+          f"{czy.get('ms_parent', 'not timed')}, two passes {czy['ms_two_pass']:.3f}, plain "
           f"{czy['plain_ms']:.3f}); circular x pass {xcirc['ms']:.3f} ms (plain "
           f"{xcirc['plain_ms']:.3f}, bound {xcirc['bound_ms']:.3f} by {xcirc['bound_by']}); "
           f"conv3_circular {c3['ms']:.3f} ms (plain "
@@ -1312,14 +1498,20 @@ def main(argv) -> int:
         {"name": "convzy_linear", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
-         "launches": lin["RL-20"]["launches"]["convzy_linear"], **zy},
+         "launches": lin["RL-20"]["launches"]["convzy_march"], **zy},
         {"name": "convzy_circular", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:175",
-         "launches": zyp["launches"]["convzy_circular"], **czy,
+         "launches": zyp["launches"]["convzy_march"], **czy,
          "x_pass_max_abs_err": xcirc["max_abs_err"], "x_pass_ms": xcirc["ms"],
          "x_pass_plain_ms": xcirc["plain_ms"], "x_pass_bound_ms": xcirc["bound_ms"],
          "x_pass_bound_by": xcirc["bound_by"]},
+        {"name": "convzy_two_pass", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
+         "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
+         "launches": routes["launches"], "max_abs_err": 0.0, "ms": zy["ms_two_pass"],
+         "ms_circular": czy["ms_two_pass"],
+         **{k: zy[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "conv3_circular", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:104", **c3},

@@ -27,12 +27,21 @@ whole-iteration kernel ``rl_iter`` on every tile of
 ``ops/rl_fused_iter.py::TILES`` whose block fits (each a compilation).
 Each output is checked against the first tile's.
 
+``--tiles`` also times the z+y march ``csrc/convzy.cu`` on every tile
+of ``ops/conv3_cuda.py::CONVZY_TILES`` and :data:`MORE_ZY_TILES` that
+fits, both boundaries, each output checked against the first tile's;
+then beside the variants of its source in :data:`ZY_VARIANTS` (planes in
+flight, the order of a step's passes, the registers that keep older
+planes; copies built under ``shrimpy_tpu_torch/build/``), timed in turns
+on its first tile and held to the kernel's bits.
+
 ``python3 profile_step.py --stages`` builds ``csrc/rl_half.cu`` with
-``-DRL_HALF_PROFILE`` and ``csrc/rl_iter.cu`` with ``-DRL_ITER_PROFILE``
-and prints, for a few tiles, the clocks that thread 0 of a block spends
-in each stage of a plane step (mean over the blocks and plane steps;
-what it waits at a barrier is part of the stage before it, unless the
-barrier is a stage of its own).
+``-DRL_HALF_PROFILE``, ``csrc/rl_iter.cu`` with ``-DRL_ITER_PROFILE``
+and ``csrc/convzy.cu`` with ``-DCONVZY_PROFILE`` and prints, for a few
+tiles, the clocks that thread 0 of a block spends in each stage of a
+plane step (mean over the blocks and plane steps; what it waits at a
+barrier is part of the stage before it, unless the barrier is a stage of
+its own).
 """
 
 from __future__ import annotations
@@ -285,6 +294,148 @@ def iter_stages(cs, tiles=((32, 48), (48, 32))) -> None:
               f"step: {stages}; total {sum(per_step):.0f}", flush=True)
 
 
+# Tiles of the z+y march beside ops/conv3_cuda.py::CONVZY_TILES that
+# --tiles times, and the stages of a plane step that --stages reads.
+MORE_ZY_TILES = ((128, 16), (16, 64), (48, 32))
+ZY_STAGES = ("set-up", "copy issue", "z", "y", "wait copy", "barrier")
+
+
+def zy_operands(cs, gen):
+    """The headline term's stencil and a carry at the production shape."""
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil
+
+    terms, carry = cs.production_terms()
+    return Stencil(terms[:1], device="cuda"), cs.uniform(carry, gen, 0.0, 10.0)
+
+
+def sweep_zy_tiles(cs) -> None:
+    """The z+y march at the production carry on every tile that fits, both
+    boundaries (each tile and boundary a compilation, all at once)."""
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.conv3_cuda import CONVZY_TILES, convzy_layout, convzy_march
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    st, v = zy_operands(cs, gen)
+    nkz, nky = (2 * r + 1 for r in st.radii[:2])
+    tiles = [t for t in CONVZY_TILES + MORE_ZY_TILES
+             if convzy_layout(v.shape, st.radii[:2], tile=t) is not None]
+    build.build_geometries([("convzy", (nkz, nky, *t, w)) for t in tiles for w in (0, 1)])
+    out, first = torch.empty_like(v), {}
+    for boundary in ("zero", "circular"):
+        for tile in tiles:
+            layout = convzy_layout(v.shape, st.radii[:2], tile=tile)
+            ms = cs.gpu_ms(lambda: convzy_march(v, st.packed()[0], nkz, nky, boundary=boundary,
+                                                out=out, tile=tile), 10)
+            first.setdefault(boundary, out.clone())
+            print(f"  convzy {boundary} tile {tile}: {layout['smem_bytes']} bytes a block, "
+                  f"{layout['blocks']} blocks, {ms:.3f} ms a launch, equal to the first tile's "
+                  f"{torch.equal(out, first[boundary])}", flush=True)
+    torch.cuda.empty_cache()
+
+
+# Variants of csrc/convzy.cu that --tiles times beside it, each a change of
+# its source: planes in flight (kDepth), the order of a step's passes (half
+# the warps take the y pass first), the registers that keep older planes.
+ZY_VARIANTS = {
+    **{f"{d} plane(s) in flight": [("constexpr int kDepth = 3;", f"constexpr int kDepth = {d};")]
+       for d in (1, 2, 4, 5)},
+    "every warp z pass first": [("const bool y_first = (warp >> 2) & 1;",
+                                 "const bool y_first = false;")],
+    "every warp y pass first": [("const bool y_first = (warp >> 2) & 1;",
+                                 "const bool y_first = true;")],
+    "36 registers of kept planes": [("constexpr int kKeepRegisters = 64;",
+                                     "constexpr int kKeepRegisters = 36;")],
+}
+
+
+def sweep_zy_variants(cs, tile=(64, 32)) -> None:
+    """The z+y march beside variants of its source (:data:`ZY_VARIANTS`,
+    copies built under shrimpy_tpu_torch/build/, all at once) at the
+    production carry on ``tile``, both boundaries, timed in turns (each
+    four times, forward and back), every variant held to the kernel's
+    bits."""
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_march
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    st, v = zy_operands(cs, gen)
+    nkz, nky = (2 * r + 1 for r in st.radii[:2])
+    taps = st.packed()[0]
+    work = build.BUILD_DIR / "convzy_variants"
+    work.mkdir(parents=True, exist_ok=True)
+    for header in build.headers():
+        (work / header.name).write_text(header.read_text())
+    source = (build.CSRC_DIR / "convzy.cu").read_text()
+    variants, procs = {}, []
+    for i, (name, edits) in enumerate({"the kernel": [], **ZY_VARIANTS}.items()):
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/convzy.cu no longer has {old!r}")
+            text = text.replace(old, new)
+        src = work / f"convzy_variant{i}.cu"
+        src.write_text(text)
+        for wrap in (0, 1):
+            lib = work / f"libconvzy_variant{i}_{wrap}.so"
+            procs.append(subprocess.Popen(
+                [build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS,
+                 *(f"-DCONVZY_{m}={x}" for m, x in zip(build.CONVZY_MACROS,
+                                                         (nkz, nky, *tile, wrap))),
+                 "-shared", "-o", str(lib), str(src)], stderr=subprocess.DEVNULL))
+            variants[(name, wrap)] = lib
+    if any(p.wait() != 0 for p in procs):
+        raise RuntimeError("a variant of csrc/convzy.cu did not build")
+    want = {w: convzy_march(v, taps, nkz, nky, boundary=("zero", "circular")[w],
+                            out=torch.empty_like(v)) for w in (0, 1)}
+    out, times, keys = torch.empty_like(v), {k: [] for k in variants}, list(variants)
+    for key in keys + keys[::-1] + keys + keys[::-1]:
+        lib = build.open_geometry_library("convzy", variants[key])
+        times[key].append(cs.gpu_ms(lambda: build.check(lib.shrimpy_convzy(
+            v.data_ptr(), out.data_ptr(), taps.data_ptr(), nkz, nky, *v.shape, *tile, key[1], 1,
+            None, torch.cuda.current_stream().cuda_stream), "shrimpy_convzy (variant)"), 10))
+        if not torch.equal(out, want[key[1]]):
+            raise AssertionError(f"variant {key} differs from the kernel")
+    for (name, wrap), t in times.items():
+        print(f"  convzy {('zero', 'circular')[wrap]} tile {tile}, {name}: "
+              f"{sum(t) / len(t):.3f} ms a launch {['%.3f' % x for x in t]}", flush=True)
+    torch.cuda.empty_cache()
+
+
+def zy_stages(cs, tiles=((64, 32), (32, 64))) -> None:
+    """Clocks a plane step of the z+y march spends in each of its stages."""
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_layout
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    st, v = zy_operands(cs, gen)
+    gz, gy, gx = v.shape
+    nkz, nky = (2 * r + 1 for r in st.radii[:2])
+    tiles = [t for t in tiles if convzy_layout(v.shape, st.radii[:2], tile=t) is not None]
+    jobs = [("convzy", (nkz, nky, *t, w)) for t in tiles for w in (0, 1)]
+    paths = build.build_geometries(jobs, flags=("-DCONVZY_PROFILE",))
+    out = torch.empty_like(v)
+    for (_, geometry), path in zip(jobs, paths):
+        layout = convzy_layout(v.shape, st.radii[:2], tile=geometry[2:4])
+        lib = build.open_geometry_library("convzy", path)
+        clocks = torch.zeros((layout["blocks"], len(ZY_STAGES)), device="cuda")
+
+        def launch():
+            build.check(lib.shrimpy_convzy(
+                v.data_ptr(), out.data_ptr(), st.packed()[0].data_ptr(), nkz, nky, gz, gy, gx,
+                *geometry[2:], 1, clocks.data_ptr(), torch.cuda.current_stream().cuda_stream),
+                "shrimpy_convzy (profile build)")
+
+        ms = cs.gpu_ms(launch, 3)
+        per_step = (clocks.mean(dim=0) / (gz + nkz + 1)).tolist()
+        stages = ", ".join(f"{name} {c:.0f}" for name, c in zip(ZY_STAGES, per_step))
+        print(f"  convzy {'circular' if geometry[4] else 'zero'} tile {geometry[2:4]}: {ms:.3f} ms "
+              f"a launch (profile build); clocks a plane step: {stages}; total "
+              f"{sum(per_step):.0f}", flush=True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: torch.cuda.is_available() is False", file=sys.stderr)
@@ -295,10 +446,13 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     build.load_library()
     if "--tiles" in sys.argv[1:]:
+        sweep_zy_tiles(cs)
+        sweep_zy_variants(cs)
         sweep_half_tiles(cs)
         sweep_tiles(cs)
         return 0
     if "--stages" in sys.argv[1:]:
+        zy_stages(cs)
         half_stages(cs)
         iter_stages(cs)
         return 0

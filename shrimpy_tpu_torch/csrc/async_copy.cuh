@@ -25,6 +25,11 @@ __device__ __forceinline__ void copies_commit() { asm volatile("cp.async.commit_
 __device__ __forceinline__ void copies_wait() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void copies_wait_but() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
 
 // The TMA engine's copy of a box of a 3-D tensor, global -> shared: one thread
 // issues it and goes on; the engine computes the addresses, writes zeros for

@@ -30,17 +30,25 @@
 //     Threads run along the contiguous inner axis, so every load
 //     coalesces; each thread stages its own column of kTileN outputs plus
 //     the 2r halo in shared memory (no block-level exchange, so no
-//     barrier) and reads each input value once per tile.
-//   * conv_x: the x pass on contiguous rows, one block per (z, y) row:
-//     the whole row plus halo is staged in shared memory, then each
-//     thread produces outputs, adds the partial sum of earlier terms
-//     (prev) and applies the epilogue in the same launch. The
-//     linear_pallas and zy_pallas routes (ops/conv3_cuda.py) run their x
-//     axis with it too, zy_pallas with circular rows (kWrap).
+//     barrier) and reads each input value once per tile. kWrap makes the
+//     axis circular (the two-pass route of ops/conv3_cuda.py, zy_pallas).
+//   * conv_x: the x pass on contiguous rows: a block takes one piece of a
+//     (z, y) row (the whole row where it fits shared memory) and stages
+//     the piece plus its 2r halo, then each thread produces outputs, adds
+//     the partial sum of earlier terms (prev) and applies the epilogue in
+//     the same launch. The linear_pallas and zy_pallas routes
+//     (ops/conv3_cuda.py) run their x axis with it too, zy_pallas with
+//     circular rows (kWrap).
 //   * conv_x_accel: conv_x with the mult_accel epilogue, the last term's
 //     x pass of that mode. The TPU kernel carries its partials in one
 //     resident (8, 128) block across a sequential grid; here blocks run
 //     in no order, so each writes its own pair and a second pass sums.
+// A block of each kernel takes one tile; where an extent needs more blocks
+// than a launch's grid holds (2^31 - 1 on x, 65535 on y and z), the entry
+// point launches the kernel once for each chunk of the grid, with the
+// chunk's offset, so any extent runs and a carry that fits one grid keeps
+// its one launch and the kernel's code (a grid-stride loop in the kernel
+// made every pass slower at the production carry).
 // The accelerated modes move more: ratio_accel's z pass reads the bf16
 // dx (half a carry) per term; mult_accel's x pass reads dx and g_prev and
 // writes them back (two carries' worth of bf16).
@@ -54,8 +62,10 @@
 // production carry (136, 2908, 1620) f32 = 2.56 GB that is ~18 GB and
 // ~5.4 ms per half-step at 3.35 TB/s, against 9 + 21 + 21 = 51 FMAs per
 // voxel (65 GFLOP per half-step, ~1 ms at 67 TFLOP/s fp32).
-// Fusing the passes (z+y in one launch, a ring of planes in shared
-// memory, TMA) is the lever for a later change.
+// csrc/rl_half.cu fuses the three passes of a half-step into one launch and
+// csrc/convzy.cu the z and y passes of the other stencil backends; these
+// kernels run past those kernels' blocks, and conv_x is the x pass of the
+// linear_pallas and zy_pallas routes.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,20 +83,32 @@ constexpr int kThreadsInner = 128;  // threads along the contiguous axis
 constexpr int kTileN = 32;          // outputs per thread along the conv axis
 constexpr int kThreadsRow = 128;    // threads per x row
 
+// The most blocks a launch asks for on gridDim.x and on y or z.
+constexpr long long kMaxGridX = 2147483647LL, kMaxGridYZ = 65535LL;
+
+// m mod n in [0, n) for any m (a true modulo, only off the axis).
+__device__ __forceinline__ long long wrap_at(long long m, long long n) {
+  return (m >= 0 && m < n) ? m : ((m % n) + n) % n;
+}
+
 // kAccel: the input is y formed on load from x (in), dx and *alpha.
-template <bool kAccel>
+// kWrap: circular, in[m] = in[m mod n] (a true modulo, so r >= n wraps
+// more than once); otherwise zero outside. The block takes inner tile
+// blockIdx.x, tile t0 + blockIdx.y of the axis and outer index z0 +
+// blockIdx.z.
+template <bool kAccel, bool kWrap>
 __global__ void conv_axis_kernel(const float* __restrict__ in,
                                  float* __restrict__ out,
                                  const float* __restrict__ taps, int k,
-                                 long long n, long long inner,
+                                 long long n, long long inner, long long z0, long long t0,
                                  const __nv_bfloat16* __restrict__ dx,
                                  const float* __restrict__ alpha) {
   extern __shared__ float col[];  // [(kTileN + 2r) * kThreadsInner]
   const int r = k / 2;
   const long long i = (long long)blockIdx.x * kThreadsInner + threadIdx.x;
   if (i >= inner) return;  // no barrier below: each thread owns its column
-  const long long n0 = (long long)blockIdx.y * kTileN;
-  const long long plane = (long long)blockIdx.z * n * inner;
+  const long long n0 = (t0 + blockIdx.y) * kTileN;
+  const long long plane = (z0 + blockIdx.z) * n * inner;
   const float* src = in + plane + i;
   float* dst = out + plane + i;
   const __nv_bfloat16* dsrc = kAccel ? dx + plane + i : nullptr;
@@ -96,7 +118,9 @@ __global__ void conv_axis_kernel(const float* __restrict__ in,
   for (int j = 0; j < span; ++j) {
     const long long m = n0 - r + j;
     float v = 0.f;
-    if (m >= 0 && m < n) {
+    if (kWrap) {
+      v = src[wrap_at(m, n) * inner];
+    } else if (m >= 0 && m < n) {
       v = src[m * inner];
       if (kAccel) v = extrapolate(v, dsrc[m * inner], a);
     }
@@ -118,29 +142,36 @@ __global__ void conv_axis_kernel(const float* __restrict__ in,
 // prev, aux and out may alias each other (in-place mult pass): no
 // __restrict__ on them. Each element is read and written by one thread.
 // kWrap: the row is circular (the x axis of the zy_pallas route and of
-// conv3_circular, ops/conv3_cuda.py): row[j] = in[(j - r) mod n], with a
-// true modulo so r >= n wraps more than once; otherwise zero outside.
-template <bool kWrap>
+// conv3_circular, ops/conv3_cuda.py): row[j] = in[(p0 + j - r) mod n], with
+// a true modulo so r >= n wraps more than once; otherwise zero outside.
+// The block takes piece pc0 + blockIdx.y (columns p0 .. p0 + piece) of row
+// row0 + blockIdx.x; a row that fits shared memory is one piece, and
+// kPieces false compiles that case with p0 = 0 (a run-time p0 made the
+// wrapped pass slower at the production carry).
+template <bool kWrap, bool kPieces>
 __global__ void conv_x_kernel(const float* __restrict__ in, const float* prev,
                               const float* aux, float* out,
                               const float* __restrict__ taps, int k,
-                              long long n, int mode, float eps) {
-  extern __shared__ float row[];  // [n + 2r]
+                              long long n, long long piece, long long row0, long long pc0,
+                              int mode, float eps) {
+  extern __shared__ float row[];  // [piece + 2r]
   const int r = k / 2;
-  const long long base = (long long)blockIdx.x * n;
-  for (long long j = threadIdx.x; j < n + 2 * r; j += kThreadsRow) {
-    const long long m = j - r;
+  const long long p0 = kPieces ? (pc0 + blockIdx.y) * piece : 0;
+  const long long base = (row0 + blockIdx.x) * n + p0;  // the piece's first element
+  const long long len = kPieces ? min(piece, n - p0) : n;
+  for (long long j = threadIdx.x; j < len + 2 * r; j += kThreadsRow) {
+    const long long m = p0 + j - r;
     if (kWrap) {
-      // 32-bit: a row fits shared memory, and a 64-bit modulo is
+      // 32-bit: a row is shorter than 2^31, and a 64-bit modulo is
       // emulated (it cost 0.2-0.4 ms a pass at the production carry).
       const int mi = (int)m, ni = (int)n;
-      row[j] = in[base + ((mi >= 0 && mi < ni) ? mi : ((mi % ni) + ni) % ni)];
+      row[j] = in[base - p0 + ((mi >= 0 && mi < ni) ? mi : ((mi % ni) + ni) % ni)];
     } else {
-      row[j] = (m >= 0 && m < n) ? in[base + m] : 0.f;
+      row[j] = (m >= 0 && m < n) ? in[base + j - r] : 0.f;
     }
   }
   __syncthreads();
-  for (long long x = threadIdx.x; x < n; x += kThreadsRow) {
+  for (long long x = threadIdx.x; x < len; x += kThreadsRow) {
     float acc = 0.f;
     const float* c = row + x + 2 * r;
     for (int t = 0; t < k; ++t) {
@@ -159,27 +190,34 @@ __global__ void conv_x_kernel(const float* __restrict__ in, const float* prev,
 
 // The x pass of mode mult_accel. x, dx and g are read and written in
 // place (each element by one thread), so none of them is __restrict__.
-// partials[blockIdx.x] and partials[rows + blockIdx.x] receive this
-// row's sums of g*g_prev and g*g over the bf16-rounded g.
+// Pieces as conv_x_kernel's. Block b = (pc0 + blockIdx.y) * rows + row0 +
+// blockIdx.x of B = rows * pieces writes partials[b] and partials[B + b]: its
+// piece's
+// sums of g*g_prev and g*g over the bf16-rounded g, in a fixed order (a
+// thread's elements in order, then warp shuffles, then the warps in order),
+// so the sums do not depend on the order the blocks run in.
 __global__ void conv_x_accel_kernel(const float* __restrict__ in,
                                     const float* prev, float* x,
                                     __nv_bfloat16* dx, __nv_bfloat16* g,
                                     const float* __restrict__ alpha,
                                     float* __restrict__ partials,
                                     const float* __restrict__ taps, int k,
-                                    long long rows, long long n) {
-  extern __shared__ float row[];  // [n + 2r]
+                                    long long rows, long long n, long long piece,
+                                    long long row0, long long pc0) {
+  extern __shared__ float row[];  // [piece + 2r]
   __shared__ float red[2][kThreadsRow / 32];
   const int r = k / 2;
-  const long long base = (long long)blockIdx.x * n;
-  for (long long j = threadIdx.x; j < n + 2 * r; j += kThreadsRow) {
-    const long long m = j - r;
-    row[j] = (m >= 0 && m < n) ? in[base + m] : 0.f;
+  const long long p0 = (pc0 + blockIdx.y) * piece;
+  const long long base = (row0 + blockIdx.x) * n + p0;
+  const long long len = min(piece, n - p0);
+  for (long long j = threadIdx.x; j < len + 2 * r; j += kThreadsRow) {
+    const long long m = p0 + j - r;
+    row[j] = (m >= 0 && m < n) ? in[base + j - r] : 0.f;
   }
   __syncthreads();
   const float a = *alpha;
   float s_num = 0.f, s_den = 0.f;
-  for (long long c0 = threadIdx.x; c0 < n; c0 += kThreadsRow) {
+  for (long long c0 = threadIdx.x; c0 < len; c0 += kThreadsRow) {
     float acc = 0.f;
     const float* c = row + c0 + 2 * r;
     for (int t = 0; t < k; ++t) {
@@ -216,68 +254,91 @@ __global__ void conv_x_accel_kernel(const float* __restrict__ in,
       t_num += red[0][w];
       t_den += red[1][w];
     }
-    partials[blockIdx.x] = t_num;
-    partials[rows + blockIdx.x] = t_den;
+    const long long b = (pc0 + blockIdx.y) * rows + row0 + blockIdx.x;
+    partials[b] = t_num;
+    partials[rows * ((n + piece - 1) / piece) + b] = t_den;
   }
 }
 
 }  // namespace
 
-// dx == nullptr: plain input; otherwise y = max(in + *alpha * dx, 0).
+// dx == nullptr: plain input; otherwise y = max(in + *alpha * dx, 0) (zero
+// boundary only). wrap != 0: a circular axis.
 extern "C" int shrimpy_conv_axis(const void* in, void* out, const void* taps,
                                  int k, long long outer, long long n,
                                  long long inner, const void* dx,
-                                 const void* alpha, void* stream) {
+                                 const void* alpha, int wrap, void* stream) {
+  if (dx != nullptr && wrap) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)(kTileN + 2 * (k / 2)) * kThreadsInner * sizeof(float);
-  const void* kernel = dx != nullptr ? (const void*)conv_axis_kernel<true>
-                                     : (const void*)conv_axis_kernel<false>;
-  int err = set_smem(kernel, smem);
+  const auto kernel = dx != nullptr ? conv_axis_kernel<true, false>
+                      : wrap        ? conv_axis_kernel<false, true>
+                                    : conv_axis_kernel<false, false>;
+  int err = set_smem((const void*)kernel, smem);
   if (err != 0) return err;
-  dim3 grid((unsigned)((inner + kThreadsInner - 1) / kThreadsInner),
-            (unsigned)((n + kTileN - 1) / kTileN), (unsigned)outer);
-  if (dx != nullptr) {
-    conv_axis_kernel<true><<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
-        (const float*)in, (float*)out, (const float*)taps, k, n, inner,
-        (const __nv_bfloat16*)dx, (const float*)alpha);
-  } else {
-    conv_axis_kernel<false><<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
-        (const float*)in, (float*)out, (const float*)taps, k, n, inner, nullptr, nullptr);
+  const long long n_inner = (inner + kThreadsInner - 1) / kThreadsInner;
+  const long long n_tiles = (n + kTileN - 1) / kTileN;
+  if (n_inner > kMaxGridX) return (int)cudaErrorInvalidValue;
+  for (long long z0 = 0; z0 < outer; z0 += kMaxGridYZ) {
+    for (long long t0 = 0; t0 < n_tiles; t0 += kMaxGridYZ) {
+      const dim3 grid((unsigned)n_inner, (unsigned)min(n_tiles - t0, kMaxGridYZ),
+                      (unsigned)min(outer - z0, kMaxGridYZ));
+      kernel<<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
+          (const float*)in, (float*)out, (const float*)taps, k, n, inner, z0, t0,
+          (const __nv_bfloat16*)dx, (const float*)alpha);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
-// wrap != 0: circular rows (conv_x_kernel<true>).
+// piece: the columns a block stages (ops/rl_fused.py::x_piece; n where the
+// row fits). wrap != 0: circular rows (conv_x_kernel<true>).
 extern "C" int shrimpy_conv_x(const void* in, const void* prev, const void* aux,
                               void* out, const void* taps, int k,
-                              long long rows, long long n, int mode, float eps,
-                              int wrap, void* stream) {
-  const size_t smem = (size_t)(n + 2 * (k / 2)) * sizeof(float);
-  const void* kernel = wrap ? (const void*)conv_x_kernel<true>
-                            : (const void*)conv_x_kernel<false>;
-  int err = set_smem(kernel, smem);
+                              long long rows, long long n, long long piece, int mode,
+                              float eps, int wrap, void* stream) {
+  if (piece < 1 || piece > n) return (int)cudaErrorInvalidValue;
+  const long long pieces = (n + piece - 1) / piece;
+  const size_t smem = (size_t)(piece + 2 * (k / 2)) * sizeof(float);
+  const auto kernel = pieces > 1 ? (wrap ? conv_x_kernel<true, true> : conv_x_kernel<false, true>)
+                                 : (wrap ? conv_x_kernel<true, false> : conv_x_kernel<false, false>);
+  int err = set_smem((const void*)kernel, smem);
   if (err != 0) return err;
-  if (wrap) {
-    conv_x_kernel<true><<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
-        (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
-        (const float*)taps, k, n, mode, eps);
-  } else {
-    conv_x_kernel<false><<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
-        (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
-        (const float*)taps, k, n, mode, eps);
+  for (long long pc0 = 0; pc0 < pieces; pc0 += kMaxGridYZ) {
+    for (long long row0 = 0; row0 < rows; row0 += kMaxGridX) {
+      const dim3 grid((unsigned)min(rows - row0, kMaxGridX), (unsigned)min(pieces - pc0, kMaxGridYZ));
+      kernel<<<grid, kThreadsRow, smem, (cudaStream_t)stream>>>(
+          (const float*)in, (const float*)prev, (const float*)aux, (float*)out,
+          (const float*)taps, k, n, piece, row0, pc0, mode, eps);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
   }
-  return (int)cudaGetLastError();
+  return 0;
 }
 
+// partials: 2 x rows x pieces floats (ops/rl_fused.py::x_blocks).
 extern "C" int shrimpy_conv_x_accel(const void* in, const void* prev, void* x,
                                     void* dx, void* g, const void* alpha,
                                     void* partials, const void* taps, int k,
-                                    long long rows, long long n, void* stream) {
-  const size_t smem = (size_t)(n + 2 * (k / 2)) * sizeof(float);
+                                    long long rows, long long n, long long piece,
+                                    void* stream) {
+  if (piece < 1 || piece > n) return (int)cudaErrorInvalidValue;
+  const long long pieces = (n + piece - 1) / piece;
+  const size_t smem = (size_t)(piece + 2 * (k / 2)) * sizeof(float);
   int err = set_smem((const void*)conv_x_accel_kernel, smem);
   if (err != 0) return err;
-  conv_x_accel_kernel<<<(unsigned)rows, kThreadsRow, smem, (cudaStream_t)stream>>>(
-      (const float*)in, (const float*)prev, (float*)x, (__nv_bfloat16*)dx,
-      (__nv_bfloat16*)g, (const float*)alpha, (float*)partials,
-      (const float*)taps, k, rows, n);
-  return (int)cudaGetLastError();
+  for (long long pc0 = 0; pc0 < pieces; pc0 += kMaxGridYZ) {
+    for (long long row0 = 0; row0 < rows; row0 += kMaxGridX) {
+      const dim3 grid((unsigned)min(rows - row0, kMaxGridX), (unsigned)min(pieces - pc0, kMaxGridYZ));
+      conv_x_accel_kernel<<<grid, kThreadsRow, smem, (cudaStream_t)stream>>>(
+          (const float*)in, (const float*)prev, (float*)x, (__nv_bfloat16*)dx,
+          (__nv_bfloat16*)g, (const float*)alpha, (float*)partials,
+          (const float*)taps, k, rows, n, piece, row0, pc0);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+  }
+  return 0;
 }

@@ -16,16 +16,18 @@ against torch's headers and takes minutes). The library lands in
 ``shrimpy_tpu_torch/build/`` under a name keyed by a hash of the
 sources and flags, so an edited kernel is never served a stale build.
 
-Two kernels are compiled for their geometry: ``csrc/rl_half.cu`` and
+Three kernels are compiled for their geometry: ``csrc/rl_half.cu`` and
 ``csrc/rl_iter.cu`` take the number of terms, the PSF lengths and the
 tile as macros (``RL_HALF_TERMS`` .. ``RL_HALF_TX``, ``RL_ITER_TERMS`` ..
-``RL_ITER_TX``), so that their tap loops unroll.
-:func:`load_geometry_library` compiles one at its first launch with a
-geometry into a library of its own beside the other
+``RL_ITER_TX``), ``csrc/convzy.cu`` the z and y tap lengths, the tile
+and the boundary (``CONVZY_NKZ`` .. ``CONVZY_WRAP``), so that their tap
+loops unroll. :func:`load_geometry_library` compiles one at its first
+launch with a geometry into a library of its own beside the other
 (``lib<kind>_<hash>_<geometry>.so``, one nvcc run);
 :func:`build_geometries` starts several runs together. In the common
 library each file leaves only its shared-memory sum
-(``shrimpy_rl_half_smem``, ``shrimpy_rl_iter_smem``).
+(``shrimpy_rl_half_smem``, ``shrimpy_rl_iter_smem``,
+``shrimpy_convzy_smem``).
 
 Calling convention of every C entry point: device pointers and the
 CUDA stream are ``void*`` (``ctypes.c_void_p``: a plain int argument
@@ -63,17 +65,16 @@ SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
     # ns, nt, nx, nz, ny, n_groups, a_avg, stream
     "shrimpy_deskew": [_P] * 10 + [_I64] * 6 + [_I32, _P],
-    # in, out, taps, k, outer, n, inner, dx, alpha, stream
-    "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P, _P, _P],
-    # in, prev, aux, out, taps, k, rows, n, mode, eps, wrap, stream
-    "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I32, _F32, _I32, _P],
-    # in, prev, x, dx, g, alpha, partials, taps, k, rows, n, stream
-    "shrimpy_conv_x_accel": [_P] * 8 + [_I32, _I64, _I64, _P],
+    # in, out, taps, k, outer, n, inner, dx, alpha, wrap, stream
+    "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P, _P, _I32, _P],
+    # in, prev, aux, out, taps, k, rows, n, piece, mode, eps, wrap, stream
+    "shrimpy_conv_x": [_P] * 5 + [_I32, _I64, _I64, _I64, _I32, _F32, _I32, _P],
+    # in, prev, x, dx, g, alpha, partials, taps, k, rows, n, piece, stream
+    "shrimpy_conv_x_accel": [_P] * 8 + [_I32, _I64, _I64, _I64, _P],
     # n_terms, nkz, nky, nkx, ty, tx -> bytes of shared memory a block takes
     "shrimpy_rl_half_smem": [_I32] * 6,
-    # in, out, kz, nkz, ky, nky, gz, gy, gx, stream
-    "shrimpy_convzy_linear": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
-    "shrimpy_convzy_circular": [_P, _P, _P, _I32, _P, _I32, _I64, _I64, _I64, _P],
+    # nkz, nky, ty, tx -> bytes of shared memory a block takes
+    "shrimpy_convzy_smem": [_I32] * 4,
     # n_terms, nkz, nky, nkx, ty, tx -> bytes of shared memory a block takes
     "shrimpy_rl_iter_smem": [_I32] * 6,
     # x, out, rows, cols, width, stream
@@ -84,19 +85,24 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
 }
 
+# The macros of a geometry of rl_half and rl_iter (n_terms, nkz, nky, nkx,
+# ty, tx) and of convzy (nkz, nky, ty, tx, wrap), after the prefix.
+GEOMETRY_MACROS = ("TERMS", "NKZ", "NKY", "NKX", "TY", "TX")
+CONVZY_MACROS = ("NKZ", "NKY", "TY", "TX", "WRAP")
 # The kernels compiled for a geometry, by kind: source, macro prefix, entry
-# point and its argtypes. shrimpy_rl_half: in, aux, out, dx, g, alpha,
-# partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, mode, vec, eps,
-# stream. shrimpy_rl_iter: est, data, out, taps, partials, n_terms, nkz, nky,
-# nkx, gz, gy, gx, ty, tx, vec, eps, stream.
+# point, its argtypes and the macros. shrimpy_rl_half: in, aux, out, dx, g,
+# alpha, partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, mode,
+# vec, eps, stream. shrimpy_rl_iter: est, data, out, taps, partials, n_terms,
+# nkz, nky, nkx, gz, gy, gx, ty, tx, vec, eps, stream. shrimpy_convzy: in,
+# out, taps, nkz, nky, gz, gy, gx, ty, tx, wrap, vec, clocks, stream.
 GEOMETRY_KERNELS = {
     "rl_half": ("rl_half.cu", "RL_HALF", "shrimpy_rl_half",
-                [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P]),
+                [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P], GEOMETRY_MACROS),
     "rl_iter": ("rl_iter.cu", "RL_ITER", "shrimpy_rl_iter",
-                [_P] * 5 + [_I32] * 4 + [_I64] * 3 + [_I32] * 3 + [_F32, _P]),
+                [_P] * 5 + [_I32] * 4 + [_I64] * 3 + [_I32] * 3 + [_F32, _P], GEOMETRY_MACROS),
+    "convzy": ("convzy.cu", "CONVZY", "shrimpy_convzy",
+               [_P] * 3 + [_I32] * 2 + [_I64] * 3 + [_I32] * 4 + [_P, _P], CONVZY_MACROS),
 }
-# The macros of a geometry (n_terms, nkz, nky, nkx, ty, tx), after the prefix.
-GEOMETRY_MACROS = ("TERMS", "NKZ", "NKY", "NKX", "TY", "TX")
 # A C entry point reports a refusal by libcuda (cuTensorMapEncodeTiled) as
 # this plus the CUresult.
 ENCODE_ERROR = 100000
@@ -189,15 +195,14 @@ def geometry_library_path(kind: str, geometry, flags=()) -> Path:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join([*ARCH_FLAGS, *NVCC_FLAGS, *flags]).encode())
-    name = "x".join(map(str, geometry[:4])) + "_" + "x".join(map(str, geometry[4:]))
-    return BUILD_DIR / f"lib{kind}_{h.hexdigest()[:16]}_{name}.so"
+    return BUILD_DIR / f"lib{kind}_{h.hexdigest()[:16]}_{'x'.join(map(str, geometry))}.so"
 
 
 def build_geometries(jobs, flags=()) -> list[Path]:
-    """Compile each ``(kind, (n_terms, nkz, nky, nkx, ty, tx))`` of
-    ``jobs`` whose library is absent, all nvcc runs started together;
-    ``kind`` is a key of :data:`GEOMETRY_KERNELS`, ``flags`` are more
-    nvcc flags. Returns the libraries' paths."""
+    """Compile each ``(kind, geometry)`` of ``jobs`` whose library is
+    absent, all nvcc runs started together; ``kind`` is a key of
+    :data:`GEOMETRY_KERNELS`, ``geometry`` the values of its macros in
+    order, ``flags`` are more nvcc flags. Returns the libraries' paths."""
     jobs = [(kind, tuple(int(v) for v in g)) for kind, g in jobs]
     paths = [geometry_library_path(kind, g, flags) for kind, g in jobs]
     todo = {p: job for p, job in zip(paths, jobs) if not p.exists()}
@@ -208,10 +213,10 @@ def build_geometries(jobs, flags=()) -> list[Path]:
     procs = []
     try:
         for out, (kind, geometry) in todo.items():
-            source, prefix = GEOMETRY_KERNELS[kind][:2]
+            source, prefix, _, _, macros = GEOMETRY_KERNELS[kind]
             tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *flags,
-                   *(f"-D{prefix}_{m}={v}" for m, v in zip(GEOMETRY_MACROS, geometry)),
+                   *(f"-D{prefix}_{m}={v}" for m, v in zip(macros, geometry)),
                    "-shared", "-o", str(tmp), str(CSRC_DIR / source)]
             procs.append((cmd, tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
@@ -243,9 +248,9 @@ def open_geometry_library(kind: str, path) -> ctypes.CDLL:
 
 
 def load_geometry_library(kind: str, geometry) -> ctypes.CDLL:
-    """The library of ``csrc/<kind>.cu`` compiled for ``geometry``
-    ``(n_terms, nkz, nky, nkx, ty, tx)``: built on the first call with
-    it, cached per process and on disk."""
+    """The library of ``csrc/<kind>.cu`` compiled for ``geometry`` (the
+    values of its macros, :data:`GEOMETRY_KERNELS`): built on the first
+    call with it, cached per process and on disk."""
     key = (kind, tuple(int(v) for v in geometry))
     with _LOCK:
         lib = _GEOMETRY_LIBS.get(key)

@@ -10,10 +10,15 @@ circular (``_convzy_pallas_jit`` over per-call wrap pads,
 ``deconv.py::_circulant``). Here, for ``boundary`` ``"zero"`` or
 ``"circular"``:
 
-* :func:`convzy_linear` / :func:`convzy_circular` is the z+y step:
-  one launch of ``csrc/convzy.cu`` (:func:`convzy_linear_cuda`,
-  :func:`convzy_circular_cuda`, the same kernel with wrapped slab loads)
-  for a CUDA tensor, the plain version for a CPU tensor;
+* :func:`convzy_linear` / :func:`convzy_circular` is the z+y step: on a
+  CUDA tensor the route :func:`convzy_route` picks from the shapes alone,
+  ``"march"`` (:func:`convzy_march`, one launch of ``csrc/convzy.cu``,
+  compiled for the tap lengths, the tile and the boundary, that marches
+  through z with a ring of input slabs in shared memory) where its block
+  fits (:func:`convzy_layout`), else ``"two_pass"``
+  (:func:`convzy_two_pass`, a z pass and a y pass of ``conv_axis`` in
+  ``csrc/rl_fused.cu``, circular when the boundary is). Both give the
+  plain version's bits; a CPU tensor runs the plain version;
 * the x axis is the dense product the JAX package computes
   (:func:`x_toeplitz_plain`, :func:`x_circulant_plain`) in the plain
   version, and the port's ``conv_x`` kernel on the card
@@ -21,20 +26,24 @@ circular (``_convzy_pallas_jit`` over per-call wrap pads,
   circular), which also sums the terms and applies the RL epilogue in
   its launch. The dense product costs ~2 TFLOP per term and
   convolution at the production carry, the banded one 21 FMAs a voxel;
-* :func:`conv3_half_step` is one RL half-step of either route.
+* :func:`conv3_half_step` is one RL half-step of either backend.
 
-The TPU's layouts are not ported: the padded carry of ``linear_pallas``
-(``lp_layout``, ``lp_pad``, ``lp_y_stencil``: 8-plane z pads, 128-row y
-pads, x rounded to 128 lanes, so every DMA start is tile-aligned), the
-wrap pads ``zy_pallas`` builds on every call, and its banded-y MXU
-stencil ``_y_stencil``. A CUDA block masks or wraps its own edges, so
-both routes keep the carry on the exact G grid, as the ``fused``
-backend does, and share its pad/crop code.
+The routes take every radius that JAX's ``linear_pallas`` takes (``rz <=
+8``, ``ry <= 125``: ``lp_layout``) and ``zy_pallas`` radii up to the
+two-pass route's column (:func:`convzy_bound_error`: z and y radii up to
+211); JAX's ``zy_pallas`` has no bound. The TPU's layouts are not
+ported: the padded carry of ``linear_pallas`` (``lp_layout``,
+``lp_pad``, ``lp_y_stencil``: 8-plane z pads, 128-row y pads, x rounded
+to 128 lanes, so every DMA start is tile-aligned), the wrap pads
+``zy_pallas`` builds on every call, and its banded-y MXU stencil
+``_y_stencil``. A CUDA block fills or wraps its own edges, so both
+routes keep the carry on the exact G grid, as the ``fused`` backend
+does, and share its pad/crop code.
 
 :func:`conv3_circular` (kernel 5, ``_conv3_pallas_jit``: all three axes
 as shifted FMAs over wrap-padded tiles) is off the RL path, as in JAX;
-on the card each term runs :func:`convzy_circular_cuda` and then the
-circular x pass.
+on the card each term runs the circular z+y step and then the circular
+x pass.
 """
 
 from __future__ import annotations
@@ -43,24 +52,38 @@ import numpy as np
 import torch
 
 from shrimpy_tpu_torch.ops.rl_fused import (
+    _MAX_GRID_YZ,
+    _MAX_INT,
     _SMEM_BYTES,
+    _THREADS_INNER,
+    _TILE_N,
     Stencil,
     _check_cuda_operand,
     _check_distinct,
     _conv_axis_circular_plain,
     _conv_axis_plain,
     _epilogue,
+    _round4,
     check_io_cuda,
     run_terms_cuda,
+    window_taps,
 )
+from shrimpy_tpu_torch.utils.shapes import round_up
 
-# Tile constants of csrc/convzy.cu: kBz, kTx and the smaller of its two
-# y tiles (kTy = 64 where that slab fits, else 32), and the grid bound of
-# a launch.
-_BZ, _TY, _TX = 8, 32, 32
-_MAX_GRID_YZ = 65535
-_MAX_INT = 2**31 - 1
 _HALF_MODES = ("ratio", "mult", "plain")
+BOUNDARIES = ("zero", "circular")
+ROUTES = ("march", "two_pass")
+# (ty, tx) tiles of csrc/convzy.cu in order of preference: the first that
+# fits runs (PERF.md has their times at the production carry). The kernel
+# is compiled for the tap lengths, the tile and the boundary.
+CONVZY_TILES = ((64, 32), (32, 64), (32, 32), (16, 32), (8, 32))
+# A block of csrc/convzy.cu: its threads (one 4-row piece of the y pass
+# each at most), the rows and columns of a TMA box, the rows of zeros
+# before the z pass's plane, the planes in flight.
+_ZY_THREADS = 512
+_ZY_BOX = 256
+_ZY_GUARD_ROWS = 4
+_ZY_DEPTH = 3
 
 
 def convzy_linear_plain(v: torch.Tensor, kz, ky) -> torch.Tensor:
@@ -89,19 +112,75 @@ def convzy_circular_plain(v: torch.Tensor, kz, ky) -> torch.Tensor:
 convzy_circular_plain.cuda_calls = 0
 
 
-def convzy_smem_bytes(rz: int, ry: int) -> int:
-    """Shared memory of one kTy = 32 ``convzy`` block: the input slab and
-    the taps."""
-    return ((_BZ + 2 * rz) * (_TY + 2 * ry) * _TX + 2 * (rz + ry + 1)) * 4
+def convzy_smem_bytes(tile, radii) -> int:
+    """Dynamic shared memory of one ``csrc/convzy.cu`` block on a (ty,
+    tx) ``tile`` with z and y ``radii``: the taps (``kz`` to a multiple of
+    4, the ``ky`` window), the ring of ``2 rz + 1 + 3`` input slabs of
+    (ty + 2 ry) x tx floats (three in flight), two z-pass planes after
+    their guard rows, each region a multiple of 128 bytes, and an
+    mbarrier a slot. The kernel's own sum is ``shrimpy_convzy_smem``."""
+    (ty, tx), (rz, ry) = tile, radii
+    slab, slots = (ty + 2 * ry) * tx, 2 * rz + 1 + _ZY_DEPTH
+    taps = round_up(_round4(2 * rz + 1) + window_taps(2 * ry + 1), 32)
+    floats = (taps + slots * round_up(slab, 32)
+              + 2 * round_up(_ZY_GUARD_ROWS * tx + slab, 32) + _round4(2 * slots))
+    return 4 * floats
 
 
-def _max_ry(rz: int) -> int:
-    """The largest y radius whose kTy = 32 slab fits beside z radius
-    ``rz`` (-1 when none does)."""
-    ry = -1
-    while convzy_smem_bytes(rz, ry + 1) <= _SMEM_BYTES:
-        ry += 1
-    return ry
+def convzy_layout(shape, radii, *, tile=None) -> dict | None:
+    """The tile the march kernel runs a (gz, gy, gx) carry with, for z
+    and y ``radii``: ``{"tile": (ty, tx), "threads": n, "smem_bytes": n,
+    "blocks": n}``, or None when none of :data:`CONVZY_TILES` fits (the
+    ring's shared memory, a TMA box of 256 x 256, a thread's 4-row piece
+    of the y pass, the launch grid). ``tile`` forces one."""
+    gz, gy, gx = shape
+    rz, ry = radii
+    if gy * gx > _MAX_INT:
+        return None
+    for cand in ((tuple(tile),) if tile is not None else CONVZY_TILES):
+        ty, tx = cand
+        smem = convzy_smem_bytes(cand, radii)
+        if (ty % 4 == 0 and tx % 4 == 0 and (ty // 4) * tx <= _ZY_THREADS
+                and ty + 2 * ry <= _ZY_BOX and tx <= _ZY_BOX and smem <= _SMEM_BYTES
+                and -(-gy // ty) <= _MAX_GRID_YZ):
+            return {"tile": cand, "threads": _ZY_THREADS, "smem_bytes": smem,
+                    "blocks": -(-gy // ty) * -(-gx // tx)}
+    return None
+
+
+def _check_boundary(boundary: str) -> None:
+    if boundary not in BOUNDARIES:
+        raise ValueError(f"boundary {boundary!r} not in {BOUNDARIES}")
+
+
+def convzy_bound_error(shape, radii, boundary: str = "zero") -> str | None:
+    """Why neither route takes the z+y step of a (gz, gy, gx) carry with z
+    and y ``radii``, or None when one does: the march kernel's block
+    (:func:`convzy_layout`), else the two-pass route's column of ``(32 +
+    2 r) x 128`` floats of shared memory. Geometry alone, the same on
+    every device, for either boundary."""
+    _check_boundary(boundary)
+    if convzy_layout(shape, radii) is not None:
+        return None
+    r = max(radii)
+    if (_TILE_N + 2 * r) * _THREADS_INNER * 4 > _SMEM_BYTES:
+        return (f"radii (z {radii[0]}, y {radii[1]}) exceed both z+y routes: no tile of the "
+                f"march kernel fits, and the two-pass route's column of {_TILE_N} + 2*{r} "
+                f"rows x {_THREADS_INNER} floats exceeds {_SMEM_BYTES} bytes")
+    return None
+
+
+def convzy_route(shape, radii, boundary: str = "zero") -> str:
+    """Which kernels run the z+y step of a (gz, gy, gx) carry with z and
+    y ``radii``: ``"march"`` (``csrc/convzy.cu``) where its block fits,
+    else ``"two_pass"`` (two ``conv_axis`` launches). Both give the same
+    bits; the choice reads the shapes and nothing else, so it is the same
+    on every device. Raises :class:`ValueError` past
+    :func:`convzy_bound_error`."""
+    bound = convzy_bound_error(shape, radii, boundary)
+    if bound is not None:
+        raise ValueError(f"convzy: {bound}")
+    return ROUTES[0] if convzy_layout(shape, radii) is not None else ROUTES[1]
 
 
 def device_taps(taps, device) -> torch.Tensor:
@@ -114,67 +193,132 @@ def device_taps(taps, device) -> torch.Tensor:
     return torch.tensor(np.array(taps, np.float32), device=device)
 
 
-def _convzy_cuda(v: torch.Tensor, kz, ky, out, entry: str, name: str) -> torch.Tensor:
-    """Check the operands of a ``csrc/convzy.cu`` launch and launch
-    ``entry`` (the zero-boundary or circular kernel)."""
+def zy_taps(kz: torch.Tensor, ky: torch.Tensor) -> torch.Tensor:
+    """The taps as the march kernel reads them: ``kz`` with zeros to a
+    multiple of 4, then the ``ky`` window (3 zeros, ``ky``, zeros), the
+    first part of a row of :meth:`Stencil.packed`."""
+    nkz, nky = kz.numel(), ky.numel()
+    zeros = kz.new_zeros(_round4(nkz) + window_taps(nky) - nkz - nky)
+    lead = _round4(nkz) - nkz
+    return torch.cat([kz, zeros[:lead + 3], ky, zeros[lead + 3:]])
+
+
+def convzy_march(v: torch.Tensor, taps: torch.Tensor, nkz: int, nky: int, *, boundary: str,
+                 out: torch.Tensor, tile=None) -> torch.Tensor:
+    """The z+y step as one launch of ``csrc/convzy.cu``, compiled for the
+    tap lengths, the tile and the boundary at the first call with them
+    (``kernels/build.py::load_geometry_library``). ``taps`` is
+    :func:`zy_taps` (or a row of ``Stencil.packed``) on ``v``'s device;
+    operands are checked by the caller. ``tile`` takes a (ty, tx) other
+    than :func:`convzy_layout`'s choice. Raises :class:`ValueError` where
+    the block does not fit."""
+    shape = tuple(v.shape)
+    layout = convzy_layout(shape, (nkz // 2, nky // 2), tile=tile)
+    if layout is None:
+        raise ValueError(f"convzy_march: tap lengths ({nkz}, {nky}) on {shape} fit no tile "
+                         f"{'of ' + str(CONVZY_TILES) if tile is None else tuple(tile)}")
+
+    from shrimpy_tpu_torch.kernels.build import check, load_geometry_library
+
+    gz, gy, gx = shape
+    geometry = (nkz, nky, *layout["tile"], int(boundary == "circular"))
+    vec = gx % 4 == 0 and v.data_ptr() % 16 == 0
+    check(load_geometry_library("convzy", geometry).shrimpy_convzy(
+        v.data_ptr(), out.data_ptr(), taps.data_ptr(), nkz, nky, gz, gy, gx, *geometry[2:],
+        int(vec), None, torch.cuda.current_stream(v.device).cuda_stream,
+    ), "shrimpy_convzy")
+    convzy_march.launches += 1
+    return out
+
+
+def convzy_two_pass(v: torch.Tensor, kz: torch.Tensor, ky: torch.Tensor, *, boundary: str,
+                    out: torch.Tensor, tmp: torch.Tensor | None = None) -> torch.Tensor:
+    """The z+y step as two launches of ``conv_axis`` (``csrc/rl_fused.cu``),
+    a z pass into ``tmp`` (a carry, allocated when not given) and a y
+    pass into ``out``, circular when ``boundary`` is: the route past the
+    march kernel's block. Operands are checked by the caller."""
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+
+    gz, gy, gx = v.shape
+    if tmp is None:
+        tmp = torch.empty_like(v)
+    _check_cuda_operand("tmp", tmp, tuple(v.shape))
+    _check_distinct(v=v, out=out, tmp=tmp)
+    wrap = int(boundary == "circular")
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    lib = load_library()
+    check(lib.shrimpy_conv_axis(v.data_ptr(), tmp.data_ptr(), kz.data_ptr(), kz.numel(),
+                                1, gz, gy * gx, None, None, wrap, stream), "shrimpy_conv_axis(z)")
+    convzy_two_pass.launches += 1
+    check(lib.shrimpy_conv_axis(tmp.data_ptr(), out.data_ptr(), ky.data_ptr(), ky.numel(),
+                                gz, gy, gx, None, None, wrap, stream), "shrimpy_conv_axis(y)")
+    convzy_two_pass.launches += 1
+    return out
+
+
+# Kernel launches of each route since the last reset, counted where they are
+# launched: one a step on the march, two on the two-pass route.
+convzy_march.launches = 0
+convzy_two_pass.launches = 0
+
+
+def _convzy_cuda(v: torch.Tensor, kz, ky, out, boundary: str, name: str, taps=None):
+    """Check the operands of a z+y step on the card and run it on the
+    route of :func:`convzy_route`."""
     if v.dim() != 3:
         raise ValueError(f"{name} takes a 3-D carry, got {tuple(v.shape)}")
     shape = tuple(v.shape)
-    gz, gy, gx = shape
     _check_cuda_operand("v", v, shape)
     kz, ky = (device_taps(t, v.device) for t in (kz, ky))
     for label, t in (("kz", kz), ("ky", ky)):
         if t.dtype != torch.float32 or t.device != v.device or t.dim() != 1 or t.numel() % 2 == 0:
             raise ValueError(f"{name}: {label} must be an odd-length float32 "
                              "tap list on the carry's device")
-    rz, ry = kz.numel() // 2, ky.numel() // 2
-    if convzy_smem_bytes(rz, ry) > _SMEM_BYTES:
-        raise ValueError(
-            f"{name}: radii (z {rz}, y {ry}) exceed the kernel's shared memory: the "
-            f"kTy = {_TY} slab takes {convzy_smem_bytes(rz, ry)} bytes of {_SMEM_BYTES}; "
-            f"at z radius {rz} the y radius bound is {_max_ry(rz)}")
-    if max(gz * gy, gy * gx) > _MAX_INT or -(-gy // _TY) > _MAX_GRID_YZ \
-            or -(-gz // _BZ) > _MAX_GRID_YZ:
-        raise ValueError(f"{name}: carry {shape} exceeds the launch grid")
+    radii = (kz.numel() // 2, ky.numel() // 2)
+    route = convzy_route(shape, radii, boundary)
     if out is None:
         out = torch.empty_like(v)
     _check_cuda_operand("out", out, shape)
     _check_distinct(v=v, out=out)
+    if route == ROUTES[1]:
+        return convzy_two_pass(v, kz, ky, boundary=boundary, out=out)
+    if taps is None:
+        taps = zy_taps(kz, ky)
+    if not taps.is_cuda or taps.dtype != torch.float32 or taps.device != v.device \
+            or taps.numel() < _round4(kz.numel()) + window_taps(ky.numel()):
+        raise ValueError(f"{name}: taps must be the packed float32 taps on the carry's device")
+    return convzy_march(v, taps, kz.numel(), ky.numel(), boundary=boundary, out=out)
 
-    from shrimpy_tpu_torch.kernels.build import check, load_library
 
-    check(getattr(load_library(), entry)(
-        v.data_ptr(), out.data_ptr(), kz.data_ptr(), kz.numel(), ky.data_ptr(), ky.numel(),
-        gz, gy, gx, torch.cuda.current_stream(v.device).cuda_stream,
-    ), entry)
-    return out
-
-
-def convzy_linear_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = None) -> torch.Tensor:
-    """The zero-boundary z+y step with the kernel of ``csrc/convzy.cu``.
+def convzy_linear_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = None,
+                       taps: torch.Tensor | None = None) -> torch.Tensor:
+    """The zero-boundary z+y step on the card (replaces ``conv3_pallas.py::
+    _convzy_linear_jit``), on the route of :func:`convzy_route`.
 
     ``v`` is a (gz, gy, gx) float32 CUDA tensor; ``kz``/``ky`` are tap
     lists (numpy, or float32 tensors on ``v``'s device); ``out`` must not
-    alias ``v``. Raises on radii whose slab exceeds shared memory.
+    alias ``v``; ``taps`` (the march kernel's layout, :func:`zy_taps`) is
+    packed here when not given. Raises past :func:`convzy_bound_error`.
     """
-    out = _convzy_cuda(v, kz, ky, out, "shrimpy_convzy_linear", "convzy_linear_cuda")
+    out = _convzy_cuda(v, kz, ky, out, "zero", "convzy_linear_cuda", taps)
     convzy_linear_cuda.launches += 1
     return out
 
 
-# Kernel launches since the last reset (chip_smoke.py reads and resets it).
+# z+y steps since the last reset, on either route (chip_smoke.py reads and
+# resets it).
 convzy_linear_cuda.launches = 0
 
 
-def convzy_circular_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = None) -> torch.Tensor:
-    """The circular z+y step (replaces ``conv3_pallas.py::
-    _convzy_pallas_jit``) with the kernel of ``csrc/convzy.cu``: the
-    zero-boundary kernel with its slab rows loaded at ``m mod N``, so
-    radii past an axis (``r >= N``) wrap more than once. Operands as
-    :func:`convzy_linear_cuda`; the same shared-memory bound on the
-    radii applies, and the error names it (JAX's ``zy_pallas`` has
-    none)."""
-    out = _convzy_cuda(v, kz, ky, out, "shrimpy_convzy_circular", "convzy_circular_cuda")
+def convzy_circular_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = None,
+                         taps: torch.Tensor | None = None) -> torch.Tensor:
+    """The circular z+y step on the card (replaces ``conv3_pallas.py::
+    _convzy_pallas_jit``): the zero-boundary step's routes with rows and
+    planes taken at ``m mod N``, so radii past an axis (``r >= N``) wrap
+    more than once. Operands as :func:`convzy_linear_cuda`; raises past
+    :func:`convzy_bound_error` (radii past 211; JAX's ``zy_pallas`` has
+    no bound)."""
+    out = _convzy_cuda(v, kz, ky, out, "circular", "convzy_circular_cuda", taps)
     convzy_circular_cuda.launches += 1
     return out
 
@@ -246,20 +390,19 @@ def x_circulant_plain(h: torch.Tensor, kx) -> torch.Tensor:
     return _x_dense(h, circulant(h.shape[2], kx))
 
 
-# Per boundary: the plain z+y step, the plain x axis, the z+y kernel and
-# whether the x pass wraps.
-_ROUTES = {
+# Per boundary: the plain z+y step, the plain x axis, the z+y step on the
+# card and whether the x pass wraps.
+_BOUNDARY_OPS = {
     "zero": (convzy_linear_plain, x_toeplitz_plain, convzy_linear_cuda, False),
     "circular": (convzy_circular_plain, x_circulant_plain, convzy_circular_cuda, True),
 }
 
 
-def _route(boundary: str, mode: str):
-    if boundary not in _ROUTES:
-        raise ValueError(f"boundary {boundary!r} not in {tuple(_ROUTES)}")
+def _ops_of(boundary: str, mode: str):
+    _check_boundary(boundary)
     if mode not in _HALF_MODES:
         raise ValueError(f"mode {mode!r} not in {_HALF_MODES}")
-    return _ROUTES[boundary]
+    return _BOUNDARY_OPS[boundary]
 
 
 def conv3_half_step_plain(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
@@ -268,7 +411,7 @@ def conv3_half_step_plain(inp, aux, stencil: Stencil, mode: str, eps: float = 1e
     ``zy_pallas`` (``"circular"``) route in plain PyTorch: per term the
     plain z+y step then the dense x product, summed, then the epilogue
     of ``mode`` (``ratio``, ``mult`` or ``plain``)."""
-    zy_plain, x_plain, _, _ = _route(boundary, mode)
+    zy_plain, x_plain, _, _ = _ops_of(boundary, mode)
     acc = None
     for wz, wy, wx in stencil.host:
         w = x_plain(zy_plain(inp, wz, wy), wx)
@@ -278,16 +421,22 @@ def conv3_half_step_plain(inp, aux, stencil: Stencil, mode: str, eps: float = 1e
 
 def conv3_half_step_cuda(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
                          boundary: str, out=None, scratch=None) -> torch.Tensor:
-    """One RL half-step of either route with the kernels: per term the
-    z+y kernel into scratch, then ``conv_x`` (wrapped when circular) adds
-    the earlier terms' sum and applies the epilogue. ``out`` may be
-    ``aux`` (the in-place mult update) but not ``inp``; ``scratch`` (1
-    carry, 2 with more than one term) is allocated when not given."""
-    _, _, zy_cuda, wrap = _route(boundary, mode)
+    """One RL half-step of either backend with the kernels: per term the
+    z+y step (on :func:`convzy_route`'s route) into scratch, then
+    ``conv_x`` (wrapped when circular) adds the earlier terms' sum and
+    applies the epilogue. ``out`` may be ``aux`` (the in-place mult
+    update) but not ``inp``; ``scratch`` (1 carry, 2 with more than one
+    term) is allocated when not given, as is the two-pass route's carry
+    for its z pass."""
+    _, _, zy_cuda, wrap = _ops_of(boundary, mode)
     check_io_cuda(inp, aux, mode, "conv3_half_step_cuda")
-    return run_terms_cuda(inp, aux, stencil, mode, eps,
-                          lambda v, kz, ky, scratch: zy_cuda(v, kz, ky, out=scratch[0]),
-                          1, out=out, scratch=scratch, wrap=wrap, name="conv3_half_step_cuda")
+
+    def zy(v, t, scratch):
+        kz, ky, _ = stencil.dev[t]
+        return zy_cuda(v, kz, ky, out=scratch[0], taps=stencil.packed()[t])
+
+    return run_terms_cuda(inp, aux, stencil, mode, eps, zy, 1, out=out, scratch=scratch,
+                          wrap=wrap, name="conv3_half_step_cuda")
 
 
 def conv3_half_step(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,

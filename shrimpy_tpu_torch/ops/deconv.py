@@ -21,15 +21,22 @@ Backend resolution (``settings.separable_backend``,
   ``auto`` never picks it: JAX's does only under the environment switch
   ``SHRIMPY_RL_FUSE_ITER=1``, which the port does not read.
 * ``linear_pallas`` and ``zy_pallas`` run :func:`rl_conv3`, RL on the
-  same G grid through the z+y kernel of
+  same G grid through the z+y step of
   :mod:`shrimpy_tpu_torch.ops.conv3_cuda` and the x pass, with zero
-  (``_rl_sep_linear``) or circular (``_rl_sep_zy``) boundaries.
+  (``_rl_sep_linear``) or circular (``_rl_sep_zy``) boundaries. The z+y
+  step marches through z in one launch where its block fits and runs as
+  two single-axis passes past that
+  (:func:`~shrimpy_tpu_torch.ops.conv3_cuda.convzy_route`), so both take
+  every radius JAX's ``linear_pallas`` takes (``rz <= 8``, ``ry <=
+  125``) and z and y radii up to 211
+  (:func:`~shrimpy_tpu_torch.ops.conv3_cuda.convzy_bound_error`); JAX's
+  ``zy_pallas`` has no bound.
 * ``matmul`` runs :func:`shrimpy_tpu_torch.ops.rl_matmul.rl_matmul`,
   circular RL on the block-rounded ``_sep_pads`` grid by matrix
   products (``_rl_sep_jit``).
 * ``auto`` resolves from the geometry alone, the same on every device:
-  ``fused`` where its kernels' bounds take the radii and the x row,
-  otherwise ``matmul``, which has none (JAX's fall-through order on the
+  ``fused`` where its kernels' bounds take the radii, otherwise
+  ``matmul``, which has none (JAX's fall-through order on the
   TPU, ``deconv.py:1128-1166``). JAX's ``auto`` off the TPU is always
   ``matmul`` (``deconv.py:1107``): the two boundaries give different
   images near the edges, so compare each backend with its own oracle.

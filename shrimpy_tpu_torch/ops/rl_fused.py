@@ -29,8 +29,9 @@ so the launch reads the input and ``aux`` once and writes ``out`` once,
 whatever the number of terms. The kernel is compiled for the geometry
 it runs (the PSF's lengths, the number of terms, the tile) at the first
 half-step with it. Its shared memory and the 256 x 256 box of
-a TMA copy bound the radii (:func:`half_bound_error`); past
-that bound the first port's three launches a term run
+a TMA copy bound the radii, and its grid the carry's height
+(:func:`half_bound_error`); past that bound the first port's three
+launches a term run
 (``csrc/rl_fused.cu``: z pass, y pass, x pass with the epilogue, two or
 three scratch carries), which take every geometry inside
 :func:`fused_bound_error`. :func:`half_step_route` is that choice, made
@@ -70,8 +71,13 @@ PAD_MODES = ("reflect", "edge", "constant")
 _SMEM_BYTES = 232448
 _TILE_N = 32
 _THREADS_INNER = 128
+_THREADS_ROW = 128
 _MAX_GRID_YZ = 65535
 _MAX_INT = 2**31 - 1
+# The x pass: the most columns of a row a block stages when the whole row
+# does not fit, and conv_x_accel_kernel's static reduction buffer.
+_X_PIECE = 16384
+_X_STATIC_BYTES = 64
 
 ROUTES = ("one_launch", "three_pass")
 # (ty, tx) tiles of csrc/rl_half.cu in order of preference: the first
@@ -271,15 +277,35 @@ def _check_stencil(stencil: Stencil, inp: torch.Tensor) -> None:
         raise ValueError("the stencil has no taps on this CUDA device")
 
 
-def _x_row_error(gx: int, rx: int) -> str | None:
-    # +64 bytes: conv_x_accel_kernel's static reduction buffer.
-    if (gx + 2 * rx) * 4 + 64 > _SMEM_BYTES:
-        return f"x row {gx} + 2*{rx} exceeds the x pass's shared memory"
+def x_piece(gx: int, rx: int) -> int:
+    """Columns of an x row that a block of ``conv_x`` stages with its 2
+    ``rx`` halo (``csrc/rl_fused.cu``): the whole row where it fits
+    shared memory, else the largest multiple of the block's threads up
+    to :data:`_X_PIECE` that fits; 0 when not even one such piece fits.
+    A row that fits stays one piece, so its launches and bits do not
+    change."""
+    if (gx + 2 * rx) * 4 + _X_STATIC_BYTES <= _SMEM_BYTES:
+        return gx
+    piece = ((_SMEM_BYTES - _X_STATIC_BYTES) // 4 - 2 * rx) // _THREADS_ROW * _THREADS_ROW
+    return min(piece, _X_PIECE) if piece >= _THREADS_ROW else 0
+
+
+def x_blocks(shape, rx: int) -> int:
+    """Blocks of the x pass over a (gz, gy, gx) carry: a piece of a row
+    each. ``conv_x_accel`` writes one pair of partial sums a block."""
+    gz, gy, gx = shape
+    return gz * gy * -(-gx // x_piece(gx, rx))
+
+
+def _x_radius_error(gx: int, rx: int) -> str | None:
+    if x_piece(gx, rx) == 0:
+        return (f"x radius {rx} exceeds the x pass's shared memory (a piece of "
+                f"{_THREADS_ROW} columns and its halo of {2 * rx})")
     return None
 
 
-def _check_x_row(gx: int, rx: int) -> None:
-    msg = _x_row_error(gx, rx)
+def _check_x_radius(gx: int, rx: int) -> None:
+    msg = _x_radius_error(gx, rx)
     if msg is not None:
         raise ValueError(msg)
 
@@ -289,15 +315,15 @@ def fused_bound_error(shape, radii) -> str | None:
     carry with PSF ``radii``, or None when it can: the bound of the
     three-pass kernels (``csrc/rl_fused.cu``), which is the wider of the
     two routes' (the one-launch kernel runs only inside it, see
-    :func:`half_step_route`). One source for :func:`half_step_cuda`'s
-    refusal and ``auto``'s choice of backend."""
-    gz, gy, gx = shape
+    :func:`half_step_route`). Radii alone: the z and y passes' column of
+    shared memory, and the x pass's piece of a row; any extent runs (an
+    entry point launches its grid chunk by chunk where an extent outgrows
+    one, and the x pass takes a long row in pieces). One source for
+    :func:`half_step_cuda`'s refusal and ``auto``'s choice of backend."""
     r_axis = max(radii[:2])
     if (_TILE_N + 2 * r_axis) * _THREADS_INNER * 4 > _SMEM_BYTES:
         return f"z/y radius {r_axis} exceeds the kernel's shared memory"
-    if gz > _MAX_GRID_YZ or round_up(gy, _TILE_N) // _TILE_N > _MAX_GRID_YZ:
-        return f"carry {tuple(shape)} exceeds the launch grid"
-    return _x_row_error(gx, radii[2])
+    return _x_radius_error(shape[2], radii[2])
 
 
 def half_slab(tile, radii) -> tuple[int, int]:
@@ -384,10 +410,11 @@ def half_step_route(shape, radii, n_terms: int = 1) -> str:
 
 def partial_rows(shape, radii, n_terms: int = 1) -> int:
     """Pairs of partial sums a ``mult_accel`` half-step writes: one a
-    block on the one-launch route, one an x row on the three-pass one."""
+    block on the one-launch route, one a block of the x pass (a piece of
+    an x row, :func:`x_blocks`) on the three-pass one."""
     if half_step_route(shape, radii, n_terms) == ROUTES[0]:
         return half_layout(shape, radii, n_terms)["blocks"]
-    return shape[0] * shape[1]
+    return x_blocks(shape, radii[2])
 
 
 def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
@@ -395,15 +422,16 @@ def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
     """The x pass of ``csrc/rl_fused.cu`` (``conv_x_kernel``) over the
     rows of ``src``: ``out = epilogue(X src + prev)``, with mode
     ``plain`` when ``aux`` is None; ``wrap`` makes X circular (the row
-    is loaded at ``(x - r) mod gx``) instead of zero outside. Operands
-    are checked by the caller."""
+    is loaded at ``(x - r) mod gx``) instead of zero outside. A block
+    takes a piece of a row (:func:`x_piece`). Operands, and the x radius
+    (:func:`_x_radius_error`), are checked by the caller."""
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
     gz, gy, gx = src.shape
     check(load_library().shrimpy_conv_x(
         src.data_ptr(), prev.data_ptr() if prev is not None else None,
         aux.data_ptr() if aux is not None else None, out.data_ptr(),
-        kx.data_ptr(), kx.numel(), gz * gy, gx,
+        kx.data_ptr(), kx.numel(), gz * gy, gx, x_piece(gx, kx.numel() // 2),
         MODES[mode] if aux is not None else 0, float(eps), int(wrap),
         torch.cuda.current_stream(src.device).cuda_stream,
     ), "shrimpy_conv_x")
@@ -431,8 +459,8 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
     ``linear_pallas`` and ``zy_pallas`` routes (operands checked by
     :func:`check_io_cuda`).
 
-    Per term, ``zy(inp, kz, ky, scratch)`` runs the z and y taps into its
-    ``n_zy`` scratch carries and returns the result; the x pass
+    Per term ``t``, ``zy(inp, t, scratch)`` runs the term's z and y taps
+    into its ``n_zy`` scratch carries and returns the result; the x pass
     (``conv_x``, circular when ``wrap``) adds the earlier terms' sum and,
     on the last term, applies the epilogue of ``mode`` into ``out``.
     ``x_last(h, prev, kx)`` replaces that last x pass when given. ``out``
@@ -444,7 +472,7 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
     """
     shape = tuple(inp.shape)
     _check_stencil(stencil, inp)
-    _check_x_row(shape[2], stencil.radii[2])
+    _check_x_radius(shape[2], stencil.radii[2])
     n_terms = len(stencil.dev)
     need = n_zy + (n_terms > 1)
     if scratch is None:
@@ -459,8 +487,8 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
     _check_distinct(inp=inp, out=out, **{f"scratch[{i}]": s for i, s in enumerate(scratch[:need])},
                     **(extra or {}))
     acc = scratch[n_zy] if n_terms > 1 else None
-    for t, (kz, ky, kx) in enumerate(stencil.dev):
-        h = zy(inp, kz, ky, scratch[:n_zy])
+    for t, (_, _, kx) in enumerate(stencil.dev):
+        h = zy(inp, t, scratch[:n_zy])
         last = t == n_terms - 1
         prev = acc if t > 0 else None
         if last and x_last is not None:
@@ -565,29 +593,30 @@ def half_step_three_pass(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
     carries, 3 with more than one term; allocated when not given), then
     the x pass, which adds the earlier terms' partial sum and applies
     the epilogue. Operands and result as :func:`half_step_cuda`;
-    ``partials`` holds one pair an x row. Raises :class:`ValueError`
-    past :func:`fused_bound_error`."""
+    ``partials`` holds one pair a block of the x pass (:func:`x_blocks`).
+    Raises :class:`ValueError` past :func:`fused_bound_error`."""
     shape = _check_half_io(inp, aux, mode)
     gz, gy, gx = shape
     bound = fused_bound_error(shape, stencil.radii)
     if bound is not None:
         raise ValueError(f"half_step_cuda: {bound}")
     out, partials, extra = _check_accel(inp, aux, shape, mode, out, dx, g_prev, alpha, partials,
-                                        gz * gy)
+                                        x_blocks(shape, stencil.radii[2]))
 
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
     stream = torch.cuda.current_stream(inp.device).cuda_stream
     z_extra = (dx.data_ptr(), alpha.data_ptr()) if mode == "ratio_accel" else (None, None)
 
-    def zy(v, kz, ky, scratch):
+    def zy(v, t, scratch):
+        kz, ky, _ = stencil.dev[t]
         s1, s2 = scratch
         lib = load_library()
         check(lib.shrimpy_conv_axis(v.data_ptr(), s1.data_ptr(), kz.data_ptr(), kz.numel(),
-                                    1, gz, gy * gx, *z_extra, stream), "shrimpy_conv_axis(z)")
+                                    1, gz, gy * gx, *z_extra, 0, stream), "shrimpy_conv_axis(z)")
         half_step_three_pass.launches += 1
         check(lib.shrimpy_conv_axis(s1.data_ptr(), s2.data_ptr(), ky.data_ptr(), ky.numel(),
-                                    gz, gy, gx, None, None, stream), "shrimpy_conv_axis(y)")
+                                    gz, gy, gx, None, None, 0, stream), "shrimpy_conv_axis(y)")
         half_step_three_pass.launches += 1
         return s2
 
@@ -595,7 +624,7 @@ def half_step_three_pass(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
         check(load_library().shrimpy_conv_x_accel(
             h.data_ptr(), prev.data_ptr() if prev is not None else None, aux.data_ptr(),
             dx.data_ptr(), g_prev.data_ptr(), alpha.data_ptr(), partials.data_ptr(),
-            kx.data_ptr(), kx.numel(), gz * gy, gx, stream,
+            kx.data_ptr(), kx.numel(), gz * gy, gx, x_piece(gx, kx.numel() // 2), stream,
         ), "shrimpy_conv_x_accel")
         half_step_three_pass.launches += 1
 
@@ -631,8 +660,8 @@ def half_step_cuda(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
     when not given), writes ``x_new`` over ``aux``, ``dx_new`` over
     ``dx`` and ``g`` over ``g_prev``, and returns ``(aux, dx, g_prev,
     num, den)`` with ``num``/``den`` 0-d float32 CUDA tensors summed
-    from the partials (one pair a block, or a row on the three-pass
-    route) by ``torch.sum``.
+    from the partials (one pair a block of either route's last kernel)
+    by ``torch.sum``.
     """
     shape = _check_half_io(inp, aux, mode)
     accel = {"dx": dx, "g_prev": g_prev, "alpha": alpha, "partials": partials}

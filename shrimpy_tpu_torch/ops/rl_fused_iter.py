@@ -177,7 +177,9 @@ def iter_bound_error(g_shape, radii, n_terms: int = 1) -> str | None:
     ``radii`` in ``n_terms`` terms, or None when it can: what the
     ``fused`` backend refuses (:func:`~shrimpy_tpu_torch.ops.rl_fused.fused_bound_error`),
     since past the one-launch kernel's block the iteration runs as its
-    half-steps (:func:`rl_iter_route`)."""
+    half-steps (:func:`rl_iter_route`). That is the radii alone: a carry
+    of any extent runs, a long x row in pieces and a carry deeper or
+    taller than a launch's grid on the half-step route."""
     return fused_bound_error(g_shape, radii)
 
 

@@ -26,6 +26,7 @@ from shrimpy_tpu_torch.config import (
     reconstruct_settings,
 )
 from shrimpy_tpu_torch.ops.conv3_cuda import (
+    CONVZY_TILES,
     conv3_circular,
     conv3_circular_cuda,
     conv3_circular_plain,
@@ -37,7 +38,13 @@ from shrimpy_tpu_torch.ops.conv3_cuda import (
     convzy_linear,
     convzy_linear_cuda,
     convzy_linear_plain,
+    convzy_march,
+    convzy_route,
+    convzy_smem_bytes,
+    convzy_two_pass,
     x_circulant_plain,
+    x_toeplitz_plain,
+    zy_taps,
 )
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf, richardson_lucy
 from shrimpy_tpu_torch.ops.deskew import deskew_plain, deskew_volume
@@ -55,6 +62,7 @@ from shrimpy_tpu_torch.ops.rl_fused import (
     half_step_plain,
     half_step_route,
     half_step_three_pass,
+    x_piece,
 )
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
 from shrimpy_tpu_torch.runtime.feed import DeviceFeed
@@ -435,18 +443,128 @@ def test_accel_half_steps_at_alpha_zero_are_plain_bitwise(cuda):
     ((9, 21, 21), (20, 150, 170)),
     ((7, 11, 13), (37, 41, 67)),
     ((1, 3, 5), (5, 6, 300)),
-    ((17, 21, 3), (30, 90, 40)),  # its kTy = 64 slab is too big: the kTy = 32 tile
+    ((17, 21, 3), (30, 90, 40)),
+    ((17, 61, 3), (20, 90, 40)),  # past the slab of the kernel before the march
 ])
 def test_convzy_linear_kernel_matches_plain(cuda, flip, lengths, shape):
+    """The zero-boundary z+y step on its route against the plain version,
+    bit for bit (each output sums its z taps, then its y taps, in the
+    plain version's order)."""
     wz, wy, _ = Stencil(_asym_terms(1, lengths, seed=12), flip=flip).host[0]
     v = _rand(shape, 13, cuda, 0.0, 10.0)
-    before = convzy_linear_cuda.launches
+    before = convzy_linear_cuda.launches, convzy_march.launches
     out = convzy_linear(v, wz, wy)
     torch.cuda.synchronize()
-    assert convzy_linear_cuda.launches == before + 1
-    assert _rel(out, convzy_linear_plain(v, wz, wy)) <= 1e-5
-    with pytest.raises(ValueError, match="shared memory"):
-        convzy_linear_cuda(v, np.ones(41), np.ones(41))
+    assert (convzy_linear_cuda.launches, convzy_march.launches) == (before[0] + 1, before[1] + 1)
+    torch.testing.assert_close(out, convzy_linear_plain(v, wz, wy), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="both z\\+y routes"):
+        convzy_linear_cuda(v, np.ones(3), np.ones(425))
+
+
+# (boundary, tap lengths, grid, offset in floats of the carry's start):
+# the production lengths, a grid smaller than the radii on z and y (taps
+# wrap more than once), carries that are not 16-byte aligned or whose x
+# extent is no multiple of 4, and radii past the kernel before the march.
+ROUTE_CASES = [
+    (b, lengths, shape, off)
+    for b in ("zero", "circular")
+    for lengths, shape, off in (((9, 21), (20, 150, 170), 0), ((9, 21), (3, 9, 40), 0),
+                                ((9, 21), (13, 200, 33), 1), ((7, 11), (37, 41, 68), 1),
+                                ((1, 1), (4, 33, 40), 0), ((17, 61), (12, 90, 40), 0),
+                                ((9, 83), (6, 170, 36), 0))
+]
+
+
+def _offset_carry(shape, seed, device, off):
+    """A carry whose first element lies ``off`` floats into its storage."""
+    n = int(np.prod(shape))
+    return _rand((n + off,), seed, device, 0.0, 10.0)[off:].view(shape)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("boundary,lengths,shape,off", ROUTE_CASES)
+def test_convzy_routes_match_plain_bitwise(cuda, boundary, lengths, shape, off, flip):
+    """The march kernel and the two-pass route each give the plain
+    version's bits, on both boundaries and both tap orders."""
+    rng = np.random.default_rng(sum(lengths))
+    wz, wy = (rng.random(k).astype(np.float32) + 0.1 for k in lengths)
+    if flip:
+        wz, wy = wz[::-1].copy(), wy[::-1].copy()
+    v = _offset_carry(shape, 40, cuda, off)
+    plain = (convzy_linear_plain if boundary == "zero" else convzy_circular_plain)(v, wz, wy)
+    kz, ky = (torch.tensor(w, device=cuda) for w in (wz, wy))
+    assert convzy_route(shape, (len(wz) // 2, len(wy) // 2), boundary) == "march"
+    march = convzy_march(v, zy_taps(kz, ky), len(wz), len(wy), boundary=boundary,
+                         out=torch.empty_like(v))
+    before = convzy_two_pass.launches
+    two = convzy_two_pass(v, kz, ky, boundary=boundary, out=torch.empty_like(v))
+    torch.cuda.synchronize()
+    assert convzy_two_pass.launches == before + 2
+    torch.testing.assert_close(march, plain, rtol=0, atol=0)
+    torch.testing.assert_close(two, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("boundary", ["zero", "circular"])
+@pytest.mark.parametrize("tile", list(CONVZY_TILES))
+def test_convzy_march_on_every_tile(cuda, boundary, tile):
+    wz, wy, _ = _asym_terms(1, (9, 21, 1), seed=41)[0]
+    for shape in ((11, 150, 70), (3, 9, 40)):
+        v = _rand(shape, 42, cuda, 0.0, 10.0)
+        out = convzy_march(v, zy_taps(*(torch.tensor(w, device=cuda) for w in (wz, wy))), 9, 21,
+                           boundary=boundary, out=torch.empty_like(v), tile=tile)
+        torch.cuda.synchronize()
+        plain = (convzy_linear_plain if boundary == "zero" else convzy_circular_plain)(v, wz, wy)
+        torch.testing.assert_close(out, plain, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("radii", [(4, 10), (0, 0), (8, 30), (4, 41), (1, 96), (3, 5)])
+def test_convzy_shared_memory_sum_is_the_kernels(cuda, radii):
+    from shrimpy_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    for tile in CONVZY_TILES:
+        assert lib.shrimpy_convzy_smem(2 * radii[0] + 1, 2 * radii[1] + 1, *tile) == \
+            convzy_smem_bytes(tile, radii)
+
+
+@pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])
+@pytest.mark.parametrize("wrap", [False, True])
+def test_x_pass_in_pieces_matches_plain(cuda, mode, wrap):
+    """A row of 60000 floats does not fit a block's shared memory: the x
+    pass takes it in pieces, each with its halo (wrapped when circular)."""
+    assert x_piece(60000, 10) < 60000
+    kx = np.random.default_rng(43).random(21).astype(np.float32)
+    h = _rand((2, 3, 60000), 44, cuda, 0.5, 10.5)
+    prev = _rand((2, 3, 60000), 45, cuda, 0.0, 1.0)
+    aux = _rand((2, 3, 60000), 46, cuda, 0.0, 5.0)
+    out = torch.empty_like(h)
+    conv_x_cuda(h, prev, None if mode == "plain" else aux, out, torch.tensor(kx, device=cuda),
+                mode, 1e-6, wrap=wrap)
+    torch.cuda.synchronize()
+    x_plain = x_circulant_plain if wrap else x_toeplitz_plain
+    want = _epilogue(x_plain(h.double(), kx) + prev.double(), aux.double(), mode, 1e-6)
+    assert _rel(out, want) <= 1e-5
+
+
+@pytest.mark.parametrize("shape", [(66000, 4, 8), (4, 2_100_000, 8), (2, 6, 60000)])
+def test_three_pass_route_past_the_launch_grid(cuda, shape):
+    """The three passes on carries past a launch's grid (gz > 65535 in the
+    y pass, gy past 65535 tiles of 32) and with x rows in pieces: the
+    plain version's bits, mult_accel's state and sums beside it."""
+    st = Stencil(_asym_terms(1, (3, 5, 7), seed=47), device=cuda)
+    inp = _rand(shape, 48, cuda, 0.5, 10.5)
+    aux = _rand(shape, 49, cuda, 0.0, 5.0)
+    got = half_step_three_pass(inp, aux, st, "ratio", 1e-6)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, half_step_plain(inp, aux, st, "ratio", 1e-6), rtol=0, atol=0)
+    dx, gp, alpha = _accel_operands(shape, 50, cuda)
+    want = half_step_plain(inp, aux, st, "mult_accel", 1e-6, dx=dx, g_prev=gp, alpha=alpha)
+    got = half_step_three_pass(inp, aux, st, "mult_accel", 1e-6, dx=dx, g_prev=gp, alpha=alpha)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0)
+    assert _bf16_close(got[1], want[1]) and _bf16_close(got[2], want[2])
+    for a, b in zip(got[3:], want[3:]):
+        assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
 
 
 @pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])
@@ -526,17 +644,28 @@ def test_convzy_circular_kernel_matches_plain(cuda, flip, lengths, shape):
     torch.cuda.synchronize()
     assert convzy_circular_cuda.launches == before + 1
     kz, ky = (w[::-1] if flip else w for w in (wz, wy))
-    assert _rel(out, convzy_circular_plain(v, kz, ky)) <= 1e-5
+    torch.testing.assert_close(out, convzy_circular_plain(v, kz, ky), rtol=0, atol=0)
 
 
 def test_convzy_circular_refuses_radii_past_shared_memory(cuda):
-    """The circular kernel keeps the linear one's slab: at z radius 4 the
-    y radius bound is 40 (JAX's zy_pallas has none), named in the error."""
+    """Radii the kernel before the march refused (y radius past 40 at z
+    radius 4) now run: on the march where its ring fits, past that on
+    the two-pass route, up to a radius of 211, where the two-pass
+    column outgrows shared memory (JAX's zy_pallas has no bound)."""
     v = _rand((6, 90, 40), 22, cuda)
-    convzy_circular_cuda(v, np.ones(9), np.ones(81))
-    torch.cuda.synchronize()
-    with pytest.raises(ValueError, match="y radius bound is 40"):
-        convzy_circular_cuda(v, np.ones(9), np.ones(83))
+    for nkz, nky, route in ((9, 83, "march"), (9, 85, "march"), (9, 201, "two_pass"),
+                            (17, 251, "two_pass"), (3, 423, "two_pass")):
+        assert convzy_route(v.shape, (nkz // 2, nky // 2), "circular") == route
+        wz, wy = (np.random.default_rng(nky).random(k).astype(np.float32) for k in (nkz, nky))
+        before = convzy_march.launches, convzy_two_pass.launches
+        out = convzy_circular_cuda(v, wz, wy)
+        torch.cuda.synchronize()
+        step = (1, 0) if route == "march" else (0, 2)
+        assert (convzy_march.launches, convzy_two_pass.launches) == (before[0] + step[0],
+                                                                     before[1] + step[1])
+        torch.testing.assert_close(out, convzy_circular_plain(v, wz, wy), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="both z\\+y routes"):
+        convzy_circular_cuda(v, np.ones(9), np.ones(425))
     with pytest.raises(ValueError, match="alias"):
         convzy_circular_cuda(v, np.ones(3), np.ones(3), out=v)
 

@@ -228,11 +228,15 @@ def test_rl_iter_bounds_are_geometry():
     assert "16-byte pieces" in titer.iter_block_error((16, 160, 740), (4, 40, 40), 1)
     assert "launch grid" in titer.iter_block_error((4, 70000, 40000), (1, 1, 1))
     assert titer.rl_iter_route((4, 70000, 40000), (1, 1, 1)) == "half_steps"
-    # What neither route takes is what fused refuses, named as fused_iter.
-    assert titer.iter_bound_error((4, 30, 60008), (0, 0, 4)) is not None
-    with pytest.raises(ValueError, match="fused_iter.*x row"):
-        titer.rl_iter_route((4, 30, 60008), (0, 0, 4))
-    assert "launch grid" in titer.iter_bound_error((70000, 30, 30), (1, 1, 1))
+    # What neither route takes is what fused refuses, named as fused_iter:
+    # radii alone. A long x row runs in pieces, a deep carry on any grid.
+    assert titer.iter_bound_error((4, 30, 60008), (0, 0, 4)) is None
+    assert titer.iter_bound_error((70000, 30, 30), (1, 1, 1)) is None
+    assert titer.iter_bound_error((4, 30, 60200), (0, 0, 29000)) is not None
+    with pytest.raises(ValueError, match="fused_iter.*x radius"):
+        titer.rl_iter_route((4, 30, 60200), (0, 0, 29000))
+    with pytest.raises(ValueError, match="fused_iter.*z/y radius"):
+        titer.rl_iter_route((40, 600, 40), (4, 212, 1))
     # More terms take a smaller tile, then the half-steps (the adjoint z
     # pass keeps n_terms * 2 rz planes a thread in registers, at most 16).
     tiles = [titer.iter_layout((136, 2908, 1620), (4, 10, 10), n) for n in (1, 2, 3)]
@@ -267,14 +271,17 @@ def test_rl_iter_supported_wherever_jax_s_is(image):
 
 
 def test_fused_iter_bound_is_narrower_than_jax_only_past_fused_s_launch_grid():
-    """The one gap left (ROADMAP §3): carries wider than the three-pass x
-    pass's row of shared memory, deeper than a launch's z grid or taller
-    than its y grid, which JAX's layout tiles and fused refuses."""
+    """The gap that ROADMAP §3 logged is closed: carries wider than the
+    three-pass x pass's row of shared memory, deeper than a launch's z
+    grid or taller than its y grid, which JAX's layout tiles, now run
+    (the x pass takes a long row in pieces, and the passes launch their
+    grid chunk by chunk); the two supports agree."""
     for image in ((12, 280, 58100), (70000, 300, 400), (4, 2_100_000, 600)):
         assert jax_rl_iter_supported(image, (5, 9, 9))
-        assert not titer.rl_iter_supported(image, (5, 9, 9))
+        assert titer.rl_iter_supported(image, (5, 9, 9))
         g_shape, radii = _grid(image, (5, 9, 9))
-        assert titer.iter_bound_error(g_shape, radii) == fused_bound_error(g_shape, radii)
+        assert titer.iter_bound_error(g_shape, radii) is None is fused_bound_error(g_shape, radii)
+        assert titer.rl_iter_route(g_shape, radii) in titer.ROUTES
     assert titer.rl_iter_supported((12, 280, 58000), (5, 9, 9))
 
 

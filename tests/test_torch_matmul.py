@@ -221,15 +221,16 @@ def _wide_y_psf():
 
 
 def test_auto_resolves_from_geometry_alone():
-    """``auto`` is ``fused`` where the half-step kernels take the radii and
-    the x row, else ``matmul`` (no bound), on every device: a y radius past
+    """``auto`` is ``fused`` where the half-step kernels take the radii,
+    else ``matmul`` (no bound), on every device: a y radius past
     the kernels' shared memory runs matmul on the CPU too, and the run is
     finite and the same as asking for matmul."""
     resolve = tdeconv.resolve_separable_backend
     assert resolve("auto", (128, 2888, 1600), (9, 21, 21)) == "fused"
     assert resolve("auto", (8, 20, 20), (1, 423, 1)) == "fused"
     assert resolve("auto", (8, 20, 20), (1, 425, 1)) == "matmul"
-    assert resolve("auto", (8, 20, 60000), (1, 1, 3)) == "matmul"  # x row past shared memory
+    assert resolve("auto", (8, 20, 60000), (1, 1, 3)) == "fused"  # a long x row, in pieces
+    assert resolve("auto", (8, 20, 200), (1, 1, 58001)) == "matmul"  # x radius past a piece
     assert resolve("zy_pallas", (8, 20, 60000), (1, 1, 3)) == "zy_pallas"
     assert resolve("fused_iter", (8, 20, 20), (1, 3, 1)) == "fused_iter"  # named, never auto's
     with pytest.raises(ValueError, match="unknown"):
