@@ -9,7 +9,9 @@ or any check fails. ``--parent-iter DIR`` names a directory holding the
 its redesign (kept out of the package): phase 3 then builds it too,
 checks that it gives the new kernel's bits and times the two in turns.
 ``--parent-convzy DIR`` does the same for the z+y kernel before the
-march (``convzy.cu`` of the commit before it), on both boundaries.
+march (``convzy.cu`` of the commit before it), on both boundaries, and
+``--parent-deskew DIR`` for the deskew kernel before its redesign
+(``deskew.cu``), at the production raw and at ``BASELINE.md`` config 1.
 Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
@@ -17,8 +19,15 @@ Phases:
    the one-launch half-step and the whole iteration once for each PSF
    geometry run below, all compilers at once;
 3. each kernel against its plain PyTorch version on the card, on the
-   same inputs: the deskew at the production raw (1201, 256, 1600) and
-   at (300, 512, 512) with ``keep_overhang`` and ``average_n_slices=3``;
+   same inputs: the deskew at the production raw (1201, 256, 1600),
+   timed beside its bound from the raw rows this run's tables read,
+   ``F.affine_grid`` + ``F.grid_sample`` (the same resample from
+   normalized coordinates; it has no z-averaging) and, with
+   ``--parent-deskew``, the kernel before its redesign, bit for bit; the
+   same at ``BASELINE.md`` config 1, raw (300, 2048, 2048) with
+   ``keep_overhang`` and ``average_n_slices=3``; at (300, 512, 512) with
+   those settings; at (410000, 4, 8), whose (2, 1062171, 8) output has
+   more rows than one launch's grid of the kernel before;
    the one-launch RL half-step (``csrc/rl_half.cu``) in ``ratio``,
    ``mult`` and ``plain`` modes and the Biggs half-step in
    ``ratio_accel`` and ``mult_accel`` modes (alpha 0.6, random bf16
@@ -52,7 +61,11 @@ Phases:
    ``zy_pallas`` (RL-2 and Biggs RL-2), and the carries repaired with
    it: a (66000, 2, 6) image on ``linear_pallas`` (the y pass over more
    than 65535 planes) and a (4, 6, 60000) one on ``zy_pallas`` (x rows
-   in pieces), each against its float64 plain path; the whole-iteration
+   in pieces), each against its float64 plain path; a y radius of 215
+   (PSF (3, 431, 3)), past the two-pass route's column, where
+   ``conv_axis`` takes its taps in chunks: the z+y step bit for bit on
+   both boundaries, then ``zy_pallas`` RL-2 through ``richardson_lucy``
+   with the counts reset; the whole-iteration
    kernel ``rl_iter`` (``csrc/rl_iter.cu``) on the production carry, on
    the (40, 300, 400) carry with the 2-term asymmetric PSF and on a
    (5, 37, 45) grid that no tile divides and whose z extent is smaller
@@ -193,9 +206,21 @@ def card_line() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> tuple[float, float]:
+    """(max|a-b|, max|b|) in float64, 2^27 elements at a time (a deskewed
+    volume of BASELINE.md config 1 in float64 would take 14 GB)."""
+    fa, fb = a.reshape(-1), b.reshape(-1)
+    diff = top = 0.0
+    for i in range(0, fa.numel(), 1 << 27):
+        a64, b64 = fa[i:i + (1 << 27)].double(), fb[i:i + (1 << 27)].double()
+        diff = max(diff, float((a64 - b64).abs().max()))
+        top = max(top, float(b64.abs().max()))
+    return diff, top
+
+
 def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
-    a64, b64 = a.double(), b.double()
-    return float((a64 - b64).abs().max() / b64.abs().max().clamp_min(1e-30))
+    diff, top = max_abs(a, b)
+    return diff / max(top, 1e-30)
 
 
 def gpu_ms(fn, reps: int) -> float:
@@ -218,7 +243,7 @@ def compare(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
     print(f"  {name}: max|a-b|/max|b| = {err:.3e} (tol {tol:g}) {status}", flush=True)
     if not err <= tol:
         raise AssertionError(f"{name}: relative error {err:.3e} > {tol:g}")
-    return float((a.double() - b.double()).abs().max())
+    return max_abs(a, b)[0]
 
 
 def same_bits(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
@@ -366,28 +391,178 @@ def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
             "plain_ms": p * 1e3}
 
 
-def phase_deskew(gen) -> dict:
+CONFIG1_RAW = (300, 2048, 2048)  # BASELINE.md config 1: deskew ~2048 x 2048 x 300
+
+
+def config1_settings():
+    """BASELINE.md config 1's deskew: the headline's angle and ratio, the
+    full parallelogram kept, z averaged over 3 slices."""
     from shrimpy_tpu_torch.config import deskew_settings
-    from shrimpy_tpu_torch.ops.deskew import deskew_plain
+
+    return deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386, keep_overhang=True,
+                           average_n_slices=3)
+
+
+@functools.lru_cache(maxsize=1)
+def parent_deskew(parent_dir):
+    """The deskew kernel before the redesign (a block of 128 threads
+    walking 16 output rows, four 4-byte gathers an output), built from
+    ``parent_dir`` (its ``deskew.cu``, kept out of the package) into a
+    library of its own: a function that runs it on (raw, settings) with
+    the same tables."""
+    import ctypes
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.deskew_cuda import TABLE_KEYS, device_plan
+
+    lib_path = build.BUILD_DIR / "libdeskew_parent.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(Path(parent_dir) / "deskew.cu")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    lib.shrimpy_deskew.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 6 + [
+        ctypes.c_int, ctypes.c_void_p]
+    lib.shrimpy_deskew.restype = ctypes.c_int
+
+    def launch(raw, settings):
+        tab = device_plan(raw, settings)
+        out = torch.empty((tab["n_groups"], tab["ny"], raw.shape[2]), device=raw.device)
+        build.check(lib.shrimpy_deskew(
+            raw.data_ptr(), out.data_ptr(), *(tab["dev"][k].data_ptr() for k in TABLE_KEYS),
+            *raw.shape, tab["nz"], tab["ny"], tab["n_groups"], tab["a_avg"],
+            torch.cuda.current_stream().cuda_stream), "shrimpy_deskew (parent)")
+        return out
+    return launch
+
+
+def deskew_bound(raw: torch.Tensor, settings) -> dict:
+    """The least time of the deskew on these inputs: each raw row that an
+    output reads with a nonzero weight read once, the output written once;
+    9 operations a raw-rate output voxel (two 2-row lerps and the tilt
+    lerp) at the float32 rate."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.ops.deskew_cuda import device_plan
+
+    tab = device_plan(raw, settings)
+    ns, nt, nx = raw.shape
+    need = np.zeros((ns, nt), bool)
+    for wt, t in (("wt0", "t0"), ("wt1", "t1")):
+        for w, row in (("w00", "s0"), ("w01", "s1")):
+            z, y = np.nonzero((tab[w] != 0) & (tab[wt] != 0)[:, None])
+            need[tab[row][z, y], tab[t][z]] = True
+    rows = int(need.sum())
+    print(f"  deskew {tuple(raw.shape)}: {rows} of {ns * nt} raw rows read with a nonzero weight",
+          flush=True)
+    return bound(4 * nx * (rows + tab["n_groups"] * tab["ny"]), 9 * tab["nz"] * tab["ny"] * nx)
+
+
+def library_deskew(raw: torch.Tensor, settings) -> torch.Tensor:
+    """The same order-1 resample as one ``F.affine_grid`` and one
+    ``F.grid_sample`` (5-D, trilinear, zero padding, ``align_corners``),
+    from float32 normalized coordinates: the yardstick the port never
+    calls. It has no z-averaging (``average_n_slices`` 1 only)."""
+    from shrimpy_tpu_torch.ops.deskew import _geometry
+
+    if settings.average_n_slices != 1:
+        raise ValueError("F.grid_sample has no z-averaging")
+    ns, nt, nx = raw.shape
+    g = _geometry(tuple(raw.shape), settings)
+    nz, ny, r, tan_t = g["nz_full"], g["ny"], g["r"], math.tan(g["theta"])
+    # Output (zo, yo, xo) at normalized (zn, yn, xn) in [-1, 1]; raw t =
+    # zo / sin, s = r (yo + y_offset - zo / tan), both to [-1, 1].
+    a_t = (nz - 1) / ((nt - 1) * g["sin_t"]) if nt > 1 else 0.0
+    c = 2 * r / max(ns - 1, 1)
+    theta = torch.tensor([[[1.0, 0.0, 0.0, 0.0],
+                           [0.0, 0.0, a_t, a_t - 1.0],
+                           [0.0, c * (ny - 1) / 2, -c * (nz - 1) / (2 * tan_t),
+                            c * ((ny - 1) / 2 + g["y_offset"] - (nz - 1) / (2 * tan_t)) - 1.0]]],
+                         dtype=torch.float32, device=raw.device)
+    grid = torch.nn.functional.affine_grid(theta, [1, 1, nz, ny, nx], align_corners=True)
+    return torch.nn.functional.grid_sample(raw[None, None], grid, mode="bilinear",
+                                           padding_mode="zeros", align_corners=True)[0, 0]
+
+
+def time_deskew(raw, settings, old=None) -> dict:
+    """The deskew kernel on ``raw`` (beside the kernel before the redesign,
+    held to its bits and timed in turns, when ``old`` runs that one)."""
     from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
 
+    label = f"deskew {tuple(raw.shape)}"
+    new = lambda: deskew_cuda(raw, settings)  # noqa: E731
+    if old is None:
+        res = {"ms": gpu_ms(new, 10)}
+        print(f"  {label}: {res['ms']:.3f} ms (no --parent-deskew: the kernel before it not timed)",
+              flush=True)
+        return res
+    same_bits(f"{label} vs the kernel before the redesign", old(raw, settings), new())
+    times = {"old": [], "new": []}
+    for which in ("old", "new", "new", "old"):
+        times[which].append(gpu_ms((lambda: old(raw, settings)) if which == "old" else new, 10))
+    res = {"ms": sum(times["new"]) / 2, "ms_parent": sum(times["old"]) / 2}
+    print(f"  {label}: {res['ms']:.3f} ms {times['new']}; the kernel before it "
+          f"{res['ms_parent']:.3f} {times['old']}", flush=True)
+    return res
+
+
+def phase_deskew(gen, parent_dir=None) -> dict:
+    """The deskew kernel against its plain version at the production raw and
+    at BASELINE.md config 1, each timed beside its bound (and beside the
+    kernel before the redesign with ``--parent-deskew``), the production
+    one also beside ``F.affine_grid`` + ``F.grid_sample``; then a raw whose
+    output has more rows than one launch's grid of the kernel before."""
+    from shrimpy_tpu_torch.config import deskew_settings
+    from shrimpy_tpu_torch.ops.deskew import deskew_plain
+    from shrimpy_tpu_torch.ops.deskew_cuda import _device_tables, deskew_cuda
+
+    old = parent_deskew(parent_dir) if parent_dir else None
     prod = headline_settings().deskew
     raw = uniform(RAW_SHAPE, gen, 0.0, 100.0)
-    err = compare("deskew (1201, 256, 1600)", deskew_cuda(raw, prod),
-                  deskew_plain(raw, prod), KERNEL_RTOL)
-    ms = gpu_ms(lambda: deskew_cuda(raw, prod), 20)
-    plain_ms = gpu_ms(lambda: deskew_plain(raw, prod), 3)
-    # Raw read once, the deskewed volume written once; 9 operations a
-    # voxel (two 2-row lerps and the tilt lerp). No single PyTorch call
-    # computes it (F.grid_sample resamples on other coordinates).
-    out_vox = math.prod(deskew_cuda(raw, prod).shape)
-    roof = bound(4 * (raw.numel() + out_vox), 9 * out_vox)
+    want = deskew_plain(raw, prod)
+    err = compare(f"deskew {RAW_SHAPE}", deskew_cuda(raw, prod), want, KERNEL_RTOL)
+    res = {"max_abs_err": err, **time_deskew(raw, prod, old), **deskew_bound(raw, prod)}
+    res["plain_ms"] = gpu_ms(lambda: deskew_plain(raw, prod), 3)
+    lib_err = rel_err(library_deskew(raw, prod), want)
+    del want
+    res["library_ms"] = gpu_ms(lambda: library_deskew(raw, prod), 3)
+    res["library_rel_err"] = lib_err
+    print(f"  deskew {RAW_SHAPE}: bound {res['bound_ms']:.3f} ms by {res['bound_by']}, plain "
+          f"{res['plain_ms']:.3f} ms, F.affine_grid + F.grid_sample {res['library_ms']:.3f} ms "
+          f"(max|a-b|/max|b| {lib_err:.3e} against the plain version)", flush=True)
     del raw
-    over = deskew_settings(px_to_scan_ratio=0.386, keep_overhang=True, average_n_slices=3)
+    torch.cuda.empty_cache()
+    over = config1_settings()
+    raw = uniform(CONFIG1_RAW, gen, 0.0, 100.0)
+    out = deskew_cuda(raw, over)
+    want = deskew_plain(raw, over)
+    err = compare(f"deskew {CONFIG1_RAW} keep_overhang avg3", out, want, KERNEL_RTOL)
+    res["max_abs_err"] = max(res["max_abs_err"], err)
+    del out, want
+    torch.cuda.empty_cache()
+    c1 = {**time_deskew(raw, over, old), **deskew_bound(raw, over),
+          "plain_ms": gpu_ms(lambda: deskew_plain(raw, over), 1), "library_ms": None}
+    print(f"  deskew {CONFIG1_RAW} keep_overhang avg3: bound {c1['bound_ms']:.3f} ms by "
+          f"{c1['bound_by']}, plain {c1['plain_ms']:.3f} ms; F.grid_sample has no z-averaging",
+          flush=True)
+    res.update({f"config1_{k}": v for k, v in c1.items()})
+    del raw
+    torch.cuda.empty_cache()
     raw2 = uniform((300, 512, 512), gen, 0.0, 100.0)
     compare("deskew (300, 512, 512) keep_overhang avg3", deskew_cuda(raw2, over),
             deskew_plain(raw2, over), KERNEL_RTOL)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **roof, "library_ms": None}
+    tall = deskew_settings(px_to_scan_ratio=0.386)
+    raw3 = uniform((410000, 4, 8), gen, 0.0, 100.0)
+    out = deskew_cuda(raw3, tall)
+    if not out.shape[1] > 65535 * 16:
+        raise AssertionError(f"deskew (410000, 4, 8): output {tuple(out.shape)} is not past the grid")
+    compare(f"deskew (410000, 4, 8) -> {tuple(out.shape)}", out, deskew_plain(raw3, tall),
+            KERNEL_RTOL)
+    # The plans of these shapes (76 MB of tables at config 1 and (410000,
+    # 4, 8)) would stay cached and count in every later path's peak.
+    _device_tables.cache_clear()
+    return res
 
 
 RAGGED = (5, 37, 45)  # smaller than a tile on every axis, z < 2 rz + 1
@@ -926,7 +1101,38 @@ def phase_routes() -> dict:
              {"convzy_linear": 2, "convzy_two_pass": 4}, SEED + 6)
     rl_drive("zy_pallas", (4, 6, 60000), ((3, 5, 21), (0.8, 1.0, 3.0)), 1,
              {"convzy_circular": 2, "convzy_march": 2}, SEED + 7)
+    launches += phase_wide_radius()
     return {"launches": launches}
+
+
+WIDE_PSF = ((3, 431, 3), (0.8, 60.0, 0.8))  # y radius 215: past the two-pass route's column
+
+
+def phase_wide_radius() -> int:
+    """A y radius past 211, where the two-pass route's column of 32 + 2 r
+    rows outgrows a block and conv_axis takes the taps in chunks: the z+y
+    step bit for bit on both boundaries on the (6, 440, 40) grid of a
+    (4, 10, 38) image, then zy_pallas RL-2 through richardson_lucy with
+    the counts reset. Returns the two-pass route's launches there."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.ops.conv3_cuda import (
+        convzy_circular_cuda,
+        convzy_circular_plain,
+        convzy_linear_cuda,
+        convzy_linear_plain,
+    )
+
+    print(f"  PSF {WIDE_PSF[0]}: z+y radii past the two-pass route's column", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    v = uniform((6, 440, 40), gen, 0.0, 10.0)
+    wz, wy = (np.random.default_rng(k).random(k).astype(np.float32) for k in WIDE_PSF[0][:2])
+    for name, step, plain in (("convzy_linear", convzy_linear_cuda, convzy_linear_plain),
+                              ("convzy_circular", convzy_circular_cuda, convzy_circular_plain)):
+        same_bits(f"{name} (6, 440, 40) taps {WIDE_PSF[0][:2]}", step(v, wz, wy), plain(v, wz, wy))
+    counts = rl_drive("zy_pallas", (4, 10, 38), WIDE_PSF, 2,
+                      {"convzy_circular": 4, "convzy_two_pass": 8}, SEED + 8)
+    return counts["convzy_two_pass"]
 
 
 def iter_fmas(shape, radii, tile, n_terms: int = 1) -> float:
@@ -1383,6 +1589,9 @@ def main(argv) -> int:
     # --parent-convzy DIR: the source of the z+y kernel before the march,
     # timed beside it in phase 3.
     parent_zy = argv[argv.index("--parent-convzy") + 1] if "--parent-convzy" in argv else None
+    # --parent-deskew DIR: the source of the deskew kernel before its
+    # redesign, held to the new one's bits and timed beside it in phase 3.
+    parent_desk = argv[argv.index("--parent-deskew") + 1] if "--parent-deskew" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1403,7 +1612,8 @@ def main(argv) -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("[3] kernels against their plain versions", flush=True)
-    desk = phase_deskew(gen)
+    desk = phase_deskew(gen, parent_desk)
+    torch.cuda.empty_cache()
     rl, rl3 = phase_rl(gen)
     accel = phase_accel(gen)
     print("  the three-pass route through richardson_lucy:", flush=True)
@@ -1444,7 +1654,11 @@ def main(argv) -> int:
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
           f"{biggs['rel_err']:.3e}; linear_pallas RL-20 {lin['RL-20']['ms']:.1f} ms, "
           f"Biggs RL-10 {lin['Biggs RL-10']['ms']:.1f} ms; deskew kernel {desk['ms']:.3f} ms "
-          f"(plain {desk['plain_ms']:.3f}); RL half-step {rl['ms']:.3f} ms in one launch (three "
+          f"(before the redesign {desk.get('ms_parent', 'not timed')}, plain "
+          f"{desk['plain_ms']:.3f}, bound {desk['bound_ms']:.3f}, F.grid_sample "
+          f"{desk['library_ms']:.3f}; config 1 {desk['config1_ms']:.3f}, before "
+          f"{desk.get('config1_ms_parent', 'not timed')}, bound {desk['config1_bound_ms']:.3f}); "
+          f"RL half-step {rl['ms']:.3f} ms in one launch (three "
           f"passes {rl['ms_three_pass']:.3f}, plain {rl['plain_ms']:.3f}; PSF {OTHER_PSF[0]} "
           f"{rl['ms_other_psf']:.3f}, {OTHER_TERMS} terms of {PSF_SHAPE} "
           f"{rl['ms_two_terms']:.3f}); ratio_accel "

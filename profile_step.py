@@ -35,6 +35,20 @@ flight, the order of a step's passes, the registers that keep older
 planes; copies built under ``shrimpy_tpu_torch/build/``), timed in turns
 on its first tile and held to the kernel's bits.
 
+``python3 profile_step.py --deskew`` times the deskew kernel
+``csrc/deskew.cu`` and the variants of its source in
+:data:`DESKEW_VARIANTS` (band slots, rows a thread) on the tiles of
+:data:`DESKEW_TILES`, at the production raw and at ``BASELINE.md``
+config 1, each output held to the kernel's bits, beside the time of a
+copy of the raw and a fill of the output.
+
+``python3 profile_step.py --conv-axis`` times ``conv_axis``
+(``csrc/rl_fused.cu``) beside a copy of its source built with every tap
+list in chunks (:data:`CONV_AXIS_CHUNKED`), in turns, on the z and y
+launches of the two-pass z+y route and of the three-pass half-step at
+the production carry (plain, circular and Biggs-extrapolated input) and
+with y tap lists of 201 and 423, each output held to the other's bits.
+
 ``python3 profile_step.py --stages`` builds ``csrc/rl_half.cu`` with
 ``-DRL_HALF_PROFILE``, ``csrc/rl_iter.cu`` with ``-DRL_ITER_PROFILE``
 and ``csrc/convzy.cu`` with ``-DCONVZY_PROFILE`` and prints, for a few
@@ -436,6 +450,161 @@ def zy_stages(cs, tiles=((64, 32), (32, 64))) -> None:
     torch.cuda.empty_cache()
 
 
+# Variants of csrc/deskew.cu that --deskew times beside it, each a change of
+# its source: band slots (in flight: one fewer), the float4 sums a thread
+# keeps (rows of a tile it owns).
+DESKEW_VARIANTS = {
+    "3 slots": [("constexpr int kSlots = 2;", "constexpr int kSlots = 3;")],
+    "4 slots": [("constexpr int kSlots = 2;", "constexpr int kSlots = 4;")],
+    "8 rows a thread": [("constexpr int kRowsThread = 16;", "constexpr int kRowsThread = 8;")],
+    "8 rows a thread, 3 slots": [("constexpr int kRowsThread = 16;",
+                                  "constexpr int kRowsThread = 8;"),
+                                 ("constexpr int kSlots = 2;", "constexpr int kSlots = 3;")],
+}
+# (ty, tx) output tiles of the deskew that --deskew times in each variant.
+DESKEW_TILES = ((64, 256), (32, 256), (16, 256), (128, 128), (64, 128), (32, 128), (256, 64),
+                (128, 64), (64, 64))
+
+
+def sweep_deskew(cs) -> None:
+    """The deskew kernel and the variants of its source in
+    :data:`DESKEW_VARIANTS` (copies built under shrimpy_tpu_torch/build/,
+    all at once) on every tile of :data:`DESKEW_TILES` that the variant
+    takes, at the production raw and at BASELINE.md config 1, timed in
+    turns (forward and back), every output held to the kernel's bits."""
+    import ctypes
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.deskew_cuda import TABLE_KEYS, band_rows, deskew_cuda, device_plan
+
+    work = build.BUILD_DIR / "deskew_variants"
+    work.mkdir(parents=True, exist_ok=True)
+    for header in build.headers():
+        (work / header.name).write_text(header.read_text())
+    source = (build.CSRC_DIR / "deskew.cu").read_text()
+    libs, procs = {}, []
+    for i, (name, edits) in enumerate({"the kernel": [], **DESKEW_VARIANTS}.items()):
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/deskew.cu no longer has {old!r}")
+            text = text.replace(old, new)
+        src, lib = work / f"deskew_variant{i}.cu", work / f"libdeskew_variant{i}.so"
+        src.write_text(text)
+        procs.append(subprocess.Popen([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS,
+                                       "-shared", "-o", str(lib), str(src)],
+                                      stderr=subprocess.DEVNULL))
+        libs[name] = lib
+    if any(proc.wait() != 0 for proc in procs):
+        raise RuntimeError("a variant of csrc/deskew.cu did not build")
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    for shape, settings in ((cs.RAW_SHAPE, cs.headline_settings().deskew),
+                            (cs.CONFIG1_RAW, cs.config1_settings())):
+        raw = cs.uniform(shape, gen, 0.0, 100.0)
+        want = deskew_cuda(raw, settings)
+        tab = device_plan(raw, settings)
+        out = torch.empty_like(want)
+        runs = {}
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            lib.shrimpy_deskew.argtypes = build.SIGNATURES["shrimpy_deskew"]
+            for tile in DESKEW_TILES:
+                args = (raw.data_ptr(), out.data_ptr(),
+                        *(tab["dev"][k].data_ptr() for k in TABLE_KEYS), *shape, tab["nz"],
+                        tab["ny"], tab["n_groups"], tab["a_avg"], *tile, band_rows(tab, tile[0]),
+                        1, torch.cuda.current_stream().cuda_stream)
+                if lib.shrimpy_deskew(*args) != 0:
+                    continue  # the variant does not take the tile
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"deskew {name} tile {tile} differs from the kernel")
+                runs[(name, tile)] = (lib, args)
+        times = {key: [] for key in runs}
+        order = list(runs)
+        for key in order + order[::-1]:
+            lib, args = runs[key]
+            times[key].append(cs.gpu_ms(lambda: lib.shrimpy_deskew(*args), 10))
+        for (name, tile), t in sorted(times.items(), key=lambda kv: sum(kv[1])):
+            print(f"  deskew {shape} {name}, tile {tile}: {sum(t) / len(t):.3f} ms "
+                  f"{['%.3f' % x for x in t]}", flush=True)
+        # What the card's memory gives plain traffic of these sizes.
+        copy = cs.gpu_ms(lambda: raw.clone(), 10)
+        fill = cs.gpu_ms(lambda: out.fill_(0.0), 10)
+        print(f"  deskew {shape}: raw.clone() {copy:.3f} ms, {8 * raw.numel() / copy / 1e9:.3f} "
+              f"TB/s; out.fill_ {fill:.3f} ms, {4 * out.numel() / fill / 1e9:.3f} TB/s", flush=True)
+        del raw, want, out
+        torch.cuda.empty_cache()
+
+
+# (axis, taps, wrap, extrapolated input) of the conv_axis launches that
+# --conv-axis times at the production carry: the two-pass z+y route's (zero
+# and circular), the three-pass half-step's (plain and Biggs input), and y
+# tap lists of 201 and 423 (the most one staged column holds).
+CONV_AXIS_CASES = (("z", 9, 0, False), ("y", 21, 0, False), ("z", 9, 1, False),
+                   ("y", 21, 1, False), ("z", 9, 0, True), ("y", 21, 0, True),
+                   ("y", 201, 0, False), ("y", 423, 1, False))
+
+
+# The edit of csrc/rl_fused.cu that --conv-axis times beside it: every tap
+# list through conv_axis_kernel's chunked body, also one that fits a column.
+CONV_AXIS_CHUNKED = ("const bool chunks = k > kMaxChunk;", "const bool chunks = true;")
+
+
+def time_conv_axis(cs) -> None:
+    """``conv_axis`` of the common library beside a copy of
+    ``csrc/rl_fused.cu`` edited by :data:`CONV_AXIS_CHUNKED` (built under
+    shrimpy_tpu_torch/build/), timed in turns (chunked, kernel, kernel,
+    chunked) at the production carry on each of :data:`CONV_AXIS_CASES`,
+    each output held to the kernel's bits."""
+    import ctypes
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build
+
+    source = (build.CSRC_DIR / "rl_fused.cu").read_text()
+    if CONV_AXIS_CHUNKED[0] not in source:
+        raise RuntimeError(f"csrc/rl_fused.cu no longer has {CONV_AXIS_CHUNKED[0]!r}")
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = build.BUILD_DIR / "rl_fused_chunked.cu"
+    lib_path = build.BUILD_DIR / "librl_fused_chunked.so"
+    src.write_text(source.replace(*CONV_AXIS_CHUNKED))
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared",
+                    "-I", str(build.CSRC_DIR), "-o", str(lib_path), str(src)], check=True)
+    chunked = ctypes.CDLL(str(lib_path))
+    chunked.shrimpy_conv_axis.argtypes = build.SIGNATURES["shrimpy_conv_axis"]
+    libs = {"chunked": chunked, "kernel": build.load_library()}
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    gz, gy, gx = cs.production_terms()[1]
+    v = cs.uniform((gz, gy, gx), gen, 0.0, 100.0)
+    dx = (cs.uniform((gz, gy, gx), gen, -1.0, 1.0)).to(torch.bfloat16)
+    alpha = torch.tensor([0.5], device="cuda")
+    outs = {which: torch.empty_like(v) for which in libs}
+    stream = torch.cuda.current_stream().cuda_stream
+    for axis, k, wrap, accel in CONV_AXIS_CASES:
+        taps = cs.uniform((k,), gen)
+        shape = (1, gz, gy * gx) if axis == "z" else (gz, gy, gx)
+        extra = (dx.data_ptr(), alpha.data_ptr()) if accel else (None, None)
+
+        def run(which):
+            return libs[which].shrimpy_conv_axis(v.data_ptr(), outs[which].data_ptr(),
+                                                 taps.data_ptr(), k, *shape, *extra, wrap, stream)
+
+        for which in outs:
+            build.check(run(which), f"shrimpy_conv_axis ({which})")
+        torch.cuda.synchronize()
+        if not torch.equal(outs["chunked"], outs["kernel"]):
+            raise AssertionError(f"conv_axis {axis} k {k} wrap {wrap} accel {accel}: the chunked "
+                                 "body's bits differ")
+        times = {which: [] for which in libs}
+        for which in ("chunked", "kernel", "kernel", "chunked"):
+            times[which].append(cs.gpu_ms(lambda: run(which), 10))
+        o, n = sum(times["chunked"]) / 2, sum(times["kernel"]) / 2
+        print(f"  conv_axis {axis} k {k} wrap {wrap} accel {int(accel)}: kernel {n:.3f} ms "
+              f"{['%.3f' % x for x in times['kernel']]}, every list chunked {o:.3f} "
+              f"{['%.3f' % x for x in times['chunked']]} ({100 * (o - n) / n:+.2f} %)", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: torch.cuda.is_available() is False", file=sys.stderr)
@@ -445,6 +614,12 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     build.load_library()
+    if "--conv-axis" in sys.argv[1:]:
+        time_conv_axis(cs)
+        return 0
+    if "--deskew" in sys.argv[1:]:
+        sweep_deskew(cs)
+        return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)
         sweep_zy_variants(cs)

@@ -125,17 +125,6 @@ __device__ __forceinline__ int wrap_index(int m, int n) {
   return (m >= 0 && m < n) ? m : ((m % n) + n) % n;
 }
 
-// cp.async of 16 or 4 bytes that zero-fills its destination when !valid
-// (src-size 0: nothing is read).
-__device__ __forceinline__ void copy16z(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void copy4z(void* dst, const void* src, bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)), "l"(src),
-               "r"(valid ? 4 : 0));
-}
-
 #ifdef CONVZY_NKZ
 // The geometry this build is for.
 struct Geo {

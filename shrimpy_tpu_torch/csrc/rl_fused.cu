@@ -82,6 +82,9 @@ namespace {
 constexpr int kThreadsInner = 128;  // threads along the contiguous axis
 constexpr int kTileN = 32;          // outputs per thread along the conv axis
 constexpr int kThreadsRow = 128;    // threads per x row
+// The most taps one staged column of conv_axis serves: kTileN + kMaxChunk - 1
+// rows of kThreadsInner floats fill a block's 232,448 bytes (radius 211).
+constexpr int kMaxChunk = 232448 / (4 * kThreadsInner) - kTileN + 1;
 
 // The most blocks a launch asks for on gridDim.x and on y or z.
 constexpr long long kMaxGridX = 2147483647LL, kMaxGridYZ = 65535LL;
@@ -95,15 +98,22 @@ __device__ __forceinline__ long long wrap_at(long long m, long long n) {
 // kWrap: circular, in[m] = in[m mod n] (a true modulo, so r >= n wraps
 // more than once); otherwise zero outside. The block takes inner tile
 // blockIdx.x, tile t0 + blockIdx.y of the axis and outer index z0 +
-// blockIdx.z.
-template <bool kAccel, bool kWrap>
+// blockIdx.z. kChunks: the taps come in chunks of `chunk`, each staged as a
+// column of kTileN + chunk - 1 rows, for tap lists whose whole column
+// outgrows shared memory (k > kMaxChunk); each chunk goes on from the partial
+// sums the chunk before wrote to out, so every output still sums its taps
+// in ascending order from zero and keeps the bits of one column. A list
+// that fits runs the one-column body (kChunks false): the chunked body on
+// one chunk took 3-63 % longer at the production carry (profile_step.py
+// --conv-axis, NVIDIA H100 80GB HBM3, 700 W).
+template <bool kAccel, bool kWrap, bool kChunks>
 __global__ void conv_axis_kernel(const float* __restrict__ in,
                                  float* __restrict__ out,
-                                 const float* __restrict__ taps, int k,
+                                 const float* __restrict__ taps, int k, int chunk,
                                  long long n, long long inner, long long z0, long long t0,
                                  const __nv_bfloat16* __restrict__ dx,
                                  const float* __restrict__ alpha) {
-  extern __shared__ float col[];  // [(kTileN + 2r) * kThreadsInner]
+  extern __shared__ float col[];  // [(kTileN + min(k, chunk) - 1) * kThreadsInner]
   const int r = k / 2;
   const long long i = (long long)blockIdx.x * kThreadsInner + threadIdx.x;
   if (i >= inner) return;  // no barrier below: each thread owns its column
@@ -113,29 +123,37 @@ __global__ void conv_axis_kernel(const float* __restrict__ in,
   float* dst = out + plane + i;
   const __nv_bfloat16* dsrc = kAccel ? dx + plane + i : nullptr;
   const float a = kAccel ? *alpha : 0.f;
-  const int span = kTileN + 2 * r;
-#pragma unroll 8
-  for (int j = 0; j < span; ++j) {
-    const long long m = n0 - r + j;
-    float v = 0.f;
-    if (kWrap) {
-      v = src[wrap_at(m, n) * inner];
-    } else if (m >= 0 && m < n) {
-      v = src[m * inner];
-      if (kAccel) v = extrapolate(v, dsrc[m * inner], a);
-    }
-    col[j * kThreadsInner + threadIdx.x] = v;
-  }
   const int count = (int)min((long long)kTileN, n - n0);
-  for (int o = 0; o < count; ++o) {
-    // out[n0 + o] = sum_t k[t] * in[n0 + o + r - t]; in[m] sits at
-    // column row m - n0 + r, i.e. o + 2r - t.
-    float acc = 0.f;
-    const float* c = col + (o + 2 * r) * kThreadsInner + threadIdx.x;
-    for (int t = 0; t < k; ++t) {
-      acc = fmaf(taps[t], c[-t * kThreadsInner], acc);
+  const int n_chunks = kChunks ? (k + chunk - 1) / chunk : 1;
+  for (int c = 0; c < n_chunks; ++c) {
+    // Taps tc .. tc + kc - 1 read in[m] for m from n0 + r - tc - kc + 1: the
+    // column's row j holds in[that + j].
+    const int tc = kChunks ? c * chunk : 0;
+    const int kc = kChunks ? min(chunk, k - tc) : k;
+    const long long m0 = n0 + r - tc - kc + 1;
+    const int span = kTileN + kc - 1;
+#pragma unroll 8
+    for (int j = 0; j < span; ++j) {
+      const long long m = m0 + j;
+      float v = 0.f;
+      if (kWrap) {
+        v = src[wrap_at(m, n) * inner];
+      } else if (m >= 0 && m < n) {
+        v = src[m * inner];
+        if (kAccel) v = extrapolate(v, dsrc[m * inner], a);
+      }
+      col[j * kThreadsInner + threadIdx.x] = v;
     }
-    dst[(n0 + o) * inner] = acc;
+    for (int o = 0; o < count; ++o) {
+      // out[n0 + o] = sum_t k[t] * in[n0 + o + r - t]; in[m] sits at
+      // column row m - m0, i.e. o + kc - 1 - (t - tc).
+      float acc = (kChunks && c > 0) ? dst[(n0 + o) * inner] : 0.f;
+      const float* cp = col + (o + kc - 1) * kThreadsInner + threadIdx.x;
+      for (int t = 0; t < kc; ++t) {
+        acc = fmaf(taps[tc + t], cp[-t * kThreadsInner], acc);
+      }
+      dst[(n0 + o) * inner] = acc;
+    }
   }
 }
 
@@ -263,16 +281,23 @@ __global__ void conv_x_accel_kernel(const float* __restrict__ in,
 }  // namespace
 
 // dx == nullptr: plain input; otherwise y = max(in + *alpha * dx, 0) (zero
-// boundary only). wrap != 0: a circular axis.
+// boundary only). wrap != 0: a circular axis. A tap list whose column of
+// kTileN + k - 1 rows outgrows a block's shared memory (k > kMaxChunk, a
+// radius past 211) runs in chunks of kMaxChunk taps (conv_axis_kernel's
+// kChunks).
 extern "C" int shrimpy_conv_axis(const void* in, void* out, const void* taps,
                                  int k, long long outer, long long n,
                                  long long inner, const void* dx,
                                  const void* alpha, int wrap, void* stream) {
   if (dx != nullptr && wrap) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(kTileN + 2 * (k / 2)) * kThreadsInner * sizeof(float);
-  const auto kernel = dx != nullptr ? conv_axis_kernel<true, false>
-                      : wrap        ? conv_axis_kernel<false, true>
-                                    : conv_axis_kernel<false, false>;
+  const bool chunks = k > kMaxChunk;
+  const size_t smem = (size_t)(kTileN + min(k, kMaxChunk) - 1) * kThreadsInner * sizeof(float);
+  const auto kernel = dx != nullptr ? (chunks ? conv_axis_kernel<true, false, true>
+                                              : conv_axis_kernel<true, false, false>)
+                      : wrap        ? (chunks ? conv_axis_kernel<false, true, true>
+                                              : conv_axis_kernel<false, true, false>)
+                                    : (chunks ? conv_axis_kernel<false, false, true>
+                                              : conv_axis_kernel<false, false, false>);
   int err = set_smem((const void*)kernel, smem);
   if (err != 0) return err;
   const long long n_inner = (inner + kThreadsInner - 1) / kThreadsInner;
@@ -283,7 +308,7 @@ extern "C" int shrimpy_conv_axis(const void* in, void* out, const void* taps,
       const dim3 grid((unsigned)n_inner, (unsigned)min(n_tiles - t0, kMaxGridYZ),
                       (unsigned)min(outer - z0, kMaxGridYZ));
       kernel<<<grid, kThreadsInner, smem, (cudaStream_t)stream>>>(
-          (const float*)in, (float*)out, (const float*)taps, k, n, inner, z0, t0,
+          (const float*)in, (float*)out, (const float*)taps, k, kMaxChunk, n, inner, z0, t0,
           (const __nv_bfloat16*)dx, (const float*)alpha);
       err = (int)cudaGetLastError();
       if (err != 0) return err;

@@ -59,12 +59,13 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
 # C signature of every entry point in csrc/ (argtypes; restype is int: a
-# CUDA error code, but for shrimpy_rl_iter_smem and shrimpy_rl_half_smem,
-# which return bytes).
+# CUDA error code, but for the shrimpy_*_smem functions, which return bytes).
 SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
-    # ns, nt, nx, nz, ny, n_groups, a_avg, stream
-    "shrimpy_deskew": [_P] * 10 + [_I64] * 6 + [_I32, _P],
+    # ns, nt, nx, nz, ny, n_groups, a_avg, ty, tx, rows, vec, stream
+    "shrimpy_deskew": [_P] * 10 + [_I64] * 6 + [_I32] * 5 + [_P],
+    # rows, planes, tx, ty -> bytes of shared memory a block takes
+    "shrimpy_deskew_smem": [_I32] * 4,
     # in, out, taps, k, outer, n, inner, dx, alpha, wrap, stream
     "shrimpy_conv_axis": [_P, _P, _P, _I32, _I64, _I64, _I64, _P, _P, _I32, _P],
     # in, prev, aux, out, taps, k, rows, n, piece, mode, eps, wrap, stream

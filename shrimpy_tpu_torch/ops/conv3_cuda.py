@@ -28,10 +28,13 @@ circular (``_convzy_pallas_jit`` over per-call wrap pads,
   convolution at the production carry, the banded one 21 FMAs a voxel;
 * :func:`conv3_half_step` is one RL half-step of either backend.
 
-The routes take every radius that JAX's ``linear_pallas`` takes (``rz <=
-8``, ``ry <= 125``: ``lp_layout``) and ``zy_pallas`` radii up to the
-two-pass route's column (:func:`convzy_bound_error`: z and y radii up to
-211); JAX's ``zy_pallas`` has no bound. The TPU's layouts are not
+Between them the routes take every z and y radius, as JAX's
+``zy_pallas`` does (and all that its ``linear_pallas`` takes, ``rz <= 8``,
+``ry <= 125``: ``lp_layout``): where the two-pass route's column of
+``32 + 2 r`` rows outgrows a block's shared memory (radii past 211),
+``conv_axis`` takes the taps in chunks, each going on from the partial
+sums the chunk before wrote (:func:`convzy_bound_error` is None for every
+radius). The TPU's layouts are not
 ported: the padded carry of ``linear_pallas`` (``lp_layout``,
 ``lp_pad``, ``lp_y_stencil``: 8-plane z pads, 128-row y pads, x rounded
 to 128 lanes, so every DMA start is tile-aligned), the wrap pads
@@ -55,8 +58,6 @@ from shrimpy_tpu_torch.ops.rl_fused import (
     _MAX_GRID_YZ,
     _MAX_INT,
     _SMEM_BYTES,
-    _THREADS_INNER,
-    _TILE_N,
     Stencil,
     _check_cuda_operand,
     _check_distinct,
@@ -155,18 +156,13 @@ def _check_boundary(boundary: str) -> None:
 
 def convzy_bound_error(shape, radii, boundary: str = "zero") -> str | None:
     """Why neither route takes the z+y step of a (gz, gy, gx) carry with z
-    and y ``radii``, or None when one does: the march kernel's block
-    (:func:`convzy_layout`), else the two-pass route's column of ``(32 +
-    2 r) x 128`` floats of shared memory. Geometry alone, the same on
-    every device, for either boundary."""
+    and y ``radii``, or None when one does: always None for a known
+    ``boundary``. The march takes what fits its block
+    (:func:`convzy_layout`), the two-pass route the rest, its taps in
+    chunks of 423 (``csrc/rl_fused.cu::kMaxChunk``) past radius 211. Kept
+    beside :func:`fused_bound_error` so that every backend's bound has one
+    source; geometry alone, the same on every device."""
     _check_boundary(boundary)
-    if convzy_layout(shape, radii) is not None:
-        return None
-    r = max(radii)
-    if (_TILE_N + 2 * r) * _THREADS_INNER * 4 > _SMEM_BYTES:
-        return (f"radii (z {radii[0]}, y {radii[1]}) exceed both z+y routes: no tile of the "
-                f"march kernel fits, and the two-pass route's column of {_TILE_N} + 2*{r} "
-                f"rows x {_THREADS_INNER} floats exceeds {_SMEM_BYTES} bytes")
     return None
 
 
@@ -174,12 +170,9 @@ def convzy_route(shape, radii, boundary: str = "zero") -> str:
     """Which kernels run the z+y step of a (gz, gy, gx) carry with z and
     y ``radii``: ``"march"`` (``csrc/convzy.cu``) where its block fits,
     else ``"two_pass"`` (two ``conv_axis`` launches). Both give the same
-    bits; the choice reads the shapes and nothing else, so it is the same
-    on every device. Raises :class:`ValueError` past
-    :func:`convzy_bound_error`."""
-    bound = convzy_bound_error(shape, radii, boundary)
-    if bound is not None:
-        raise ValueError(f"convzy: {bound}")
+    bits and take every radius; the choice reads the shapes and nothing
+    else, so it is the same on every device."""
+    _check_boundary(boundary)
     return ROUTES[0] if convzy_layout(shape, radii) is not None else ROUTES[1]
 
 
@@ -298,7 +291,7 @@ def convzy_linear_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = No
     ``v`` is a (gz, gy, gx) float32 CUDA tensor; ``kz``/``ky`` are tap
     lists (numpy, or float32 tensors on ``v``'s device); ``out`` must not
     alias ``v``; ``taps`` (the march kernel's layout, :func:`zy_taps`) is
-    packed here when not given. Raises past :func:`convzy_bound_error`.
+    packed here when not given. Every radius runs.
     """
     out = _convzy_cuda(v, kz, ky, out, "zero", "convzy_linear_cuda", taps)
     convzy_linear_cuda.launches += 1
@@ -315,9 +308,8 @@ def convzy_circular_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = 
     """The circular z+y step on the card (replaces ``conv3_pallas.py::
     _convzy_pallas_jit``): the zero-boundary step's routes with rows and
     planes taken at ``m mod N``, so radii past an axis (``r >= N``) wrap
-    more than once. Operands as :func:`convzy_linear_cuda`; raises past
-    :func:`convzy_bound_error` (radii past 211; JAX's ``zy_pallas`` has
-    no bound)."""
+    more than once. Operands as :func:`convzy_linear_cuda`; every radius
+    runs, as in JAX's ``zy_pallas``."""
     out = _convzy_cuda(v, kz, ky, out, "circular", "convzy_circular_cuda", taps)
     convzy_circular_cuda.launches += 1
     return out

@@ -26,11 +26,10 @@ Backend resolution (``settings.separable_backend``,
   (``_rl_sep_linear``) or circular (``_rl_sep_zy``) boundaries. The z+y
   step marches through z in one launch where its block fits and runs as
   two single-axis passes past that
-  (:func:`~shrimpy_tpu_torch.ops.conv3_cuda.convzy_route`), so both take
-  every radius JAX's ``linear_pallas`` takes (``rz <= 8``, ``ry <=
-  125``) and z and y radii up to 211
-  (:func:`~shrimpy_tpu_torch.ops.conv3_cuda.convzy_bound_error`); JAX's
-  ``zy_pallas`` has no bound.
+  (:func:`~shrimpy_tpu_torch.ops.conv3_cuda.convzy_route`; past radius
+  211 with its taps in chunks), so both take every z and y radius, as
+  JAX's ``zy_pallas`` does (its ``linear_pallas`` takes ``rz <= 8``,
+  ``ry <= 125``).
 * ``matmul`` runs :func:`shrimpy_tpu_torch.ops.rl_matmul.rl_matmul`,
   circular RL on the block-rounded ``_sep_pads`` grid by matrix
   products (``_rl_sep_jit``).

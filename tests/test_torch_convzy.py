@@ -73,8 +73,8 @@ def test_production_geometry_marches():
 @given(rz=st.integers(0, 12), ry=st.integers(0, 130), gy=st.sampled_from([9, 300, 2908]))
 def test_convzy_route_marches_exactly_where_the_block_fits(rz, ry, gy):
     """Whatever the layout accepts fits a block; it picks the first tile
-    that does; past every tile the two-pass route runs (its column takes
-    radii up to 211)."""
+    that does; past every tile the two-pass route runs (it takes every
+    radius)."""
     shape = (40, gy, 400)
 
     def fits(tile):
@@ -116,15 +116,38 @@ def test_convzy_bound_takes_every_radius_of_jax_s_linear_pallas():
     assert c3.convzy_route(CARRY, (8, 125), "zero") == "two_pass"
 
 
-def test_zy_pallas_radius_past_the_two_pass_column_is_refused():
-    """The one z+y radius left that JAX's zy_pallas takes and the port
-    refuses (ROADMAP §3): past 211, where the two-pass route's column of
-    (32 + 2 r) x 128 floats outgrows a block's shared memory."""
-    assert c3.convzy_bound_error((8, 440, 40), (4, 211), "circular") is None
-    msg = c3.convzy_bound_error((8, 440, 40), (4, 212), "circular")
-    assert "both z+y routes" in msg and "212" in msg and str(trl._SMEM_BYTES) in msg
-    with pytest.raises(ValueError, match="both z\\+y routes"):
-        c3.convzy_route((8, 440, 40), (212, 0), "zero")
+def test_zy_pallas_takes_radii_past_the_two_pass_column():
+    """The z+y radius gap against JAX's zy_pallas is closed (ROADMAP §3):
+    past 211, where the two-pass route's column of (32 + 2 r) x 128
+    floats outgrows a block's shared memory, conv_axis takes the taps in
+    chunks, so every radius has a route, on either boundary and axis."""
+    column = lambda r: (trl._TILE_N + 2 * r) * trl._THREADS_INNER * 4  # noqa: E731
+    assert column(211) <= trl._SMEM_BYTES < column(212)
+    for r in (211, 212, 300, 600):
+        for radii in ((4, r), (r, 0), (r, r)):
+            for boundary in c3.BOUNDARIES:
+                assert c3.convzy_bound_error((8, 440, 40), radii, boundary) is None
+                assert c3.convzy_route((8, 440, 40), radii, boundary) == "two_pass"
+    with pytest.raises(ValueError, match="boundary"):
+        c3.convzy_bound_error((8, 440, 40), (4, 212), "reflect")
+
+
+def test_rl_past_the_two_pass_column_matches_jax():
+    """RL-2 on zy_pallas with a (3, 431, 3) PSF (y radius 215, past the
+    two-pass route's column) on a small image, against JAX's zy_pallas in
+    interpret mode; on the card the two-pass route takes its taps in
+    chunks. (JAX's linear_pallas refuses a y radius past 125.)"""
+    psf = jdeconv.gaussian_psf((3, 431, 3), (0.8, 60.0, 0.8))
+    img = _blurred((4, 10, 38), psf, seed=37)
+    s = DeconvolveSettings(algorithm="separable", separable_backend="zy_pallas", iterations=2,
+                           psf_crop_tol=0.0)
+    psf_w = jdeconv._pad_psf_to_odd(jdeconv._crop_psf_support(psf, s.psf_crop_tol))
+    assert psf_w.shape == (3, 431, 3)
+    terms = jdeconv.plan_separable_terms(psf_w, s)
+    ref = np.asarray(jdeconv.richardson_lucy(img, psf, s))
+    ours = tdeconv.richardson_lucy(img, psf, s, terms=terms, device="cpu").numpy()
+    assert _rel(ours, ref) <= 1e-4
+    assert c3.convzy_route((6, 440, 40), (1, 215), "circular") == "two_pass"
 
 
 def test_zy_taps_are_the_first_part_of_a_packed_row():

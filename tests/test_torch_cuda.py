@@ -88,18 +88,44 @@ def _rand(shape, seed, device, lo=0.0, hi=1.0):
     return torch.from_numpy((g.random(shape) * (hi - lo) + lo).astype(np.float32)).to(device)
 
 
-@pytest.mark.parametrize("shape,keep_overhang,avg,angle", [
-    ((40, 32, 24), False, 1, 30.0),
-    ((40, 32, 24), True, 1, 30.0),
-    ((41, 30, 130), True, 3, 30.0),
-    ((40, 32, 16), False, 4, 45.0),
-    ((180, 64, 64), True, 1, 30.0),
-    ((180, 64, 64), False, 2, 60.0),
-])
-def test_deskew_kernel_matches_plain(cuda, shape, keep_overhang, avg, angle):
-    s = deskew_settings(ls_angle_deg=angle, px_to_scan_ratio=0.386,
+# (raw shape, keep_overhang, average_n_slices, angle, px_to_scan_ratio,
+# offset in floats of raw in its storage): the JAX tests' geometries, then
+# the tile edges of csrc/deskew.cu: x extents of 1, 13 and 130 (the last
+# two no multiple of 4: the cp.async path), a y extent no tile divides, a
+# scan extent shorter than a band (the TMA box reaches past raw), a ratio
+# of 1.5, a partial tail group of 4, a raw 4 bytes into its storage.
+DESKEW_CASES = [
+    ((40, 32, 24), False, 1, 30.0, 0.386, 0),
+    ((40, 32, 24), True, 1, 30.0, 0.386, 0),
+    ((41, 30, 130), True, 3, 30.0, 0.386, 0),
+    ((40, 32, 16), False, 4, 45.0, 0.386, 0),
+    ((180, 64, 64), True, 1, 30.0, 0.386, 0),
+    ((180, 64, 64), False, 2, 60.0, 0.386, 0),
+    ((40, 32, 1), True, 1, 30.0, 0.386, 0),
+    ((40, 32, 13), False, 1, 30.0, 0.386, 0),
+    ((40, 32, 130), False, 1, 30.0, 0.386, 0),
+    ((200, 64, 256), False, 1, 30.0, 0.386, 0),
+    ((6, 32, 24), True, 1, 30.0, 0.386, 0),
+    ((3, 64, 32), True, 2, 30.0, 0.386, 0),
+    ((60, 16, 24), True, 1, 30.0, 1.5, 0),
+    ((41, 27, 64), True, 4, 30.0, 0.386, 0),
+    ((40, 32, 24), True, 1, 30.0, 0.386, 1),
+    ((40, 32, 16), False, 3, 30.0, 0.386, 1),
+]
+
+
+def _raw(shape, seed, device, off=0):
+    """A random raw volume whose first element lies ``off`` floats into its storage."""
+    n = int(np.prod(shape))
+    return _rand((n + off,), seed, device, 0.0, 100.0)[off:].view(shape)
+
+
+@pytest.mark.parametrize("shape,keep_overhang,avg,angle,ratio,off", DESKEW_CASES)
+def test_deskew_kernel_matches_plain(cuda, shape, keep_overhang, avg, angle, ratio, off):
+    s = deskew_settings(ls_angle_deg=angle, px_to_scan_ratio=ratio,
                         keep_overhang=keep_overhang, average_n_slices=avg)
-    raw = _rand(shape, 1, cuda, 0.0, 100.0)
+    raw = _raw(shape, 1, cuda, off)
+    assert (raw.data_ptr() % 16 == 0) == (off == 0)
     before = deskew_cuda.launches
     out = deskew_volume(raw, s)
     torch.cuda.synchronize()
@@ -107,6 +133,74 @@ def test_deskew_kernel_matches_plain(cuda, shape, keep_overhang, avg, angle):
     ref = deskew_plain(raw, s)
     assert out.shape == ref.shape and out.is_cuda
     assert _rel(out, ref) <= 1e-5
+
+
+def _deskew_on_tile(raw, settings, tile):
+    """``csrc/deskew.cu`` launched on a forced ``tile``: the arguments
+    ``deskew_cuda`` passes, from ``device_plan`` and ``deskew_layout``
+    (which raises where the tile does not fit)."""
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+    from shrimpy_tpu_torch.ops.deskew_cuda import TABLE_KEYS, deskew_layout, device_plan
+
+    tab = device_plan(raw, settings)
+    layout = deskew_layout(raw.shape, tab, tile=tile)
+    out = torch.empty((tab["n_groups"], tab["ny"], raw.shape[2]), device=raw.device)
+    vec = raw.shape[2] % 4 == 0 and raw.data_ptr() % 16 == 0
+    check(load_library().shrimpy_deskew(
+        raw.data_ptr(), out.data_ptr(), *(tab["dev"][k].data_ptr() for k in TABLE_KEYS),
+        *raw.shape, tab["nz"], tab["ny"], tab["n_groups"], tab["a_avg"], *layout["tile"],
+        layout["rows"], int(vec), torch.cuda.current_stream(raw.device).cuda_stream),
+        "shrimpy_deskew")
+    return out
+
+
+@pytest.mark.parametrize("tile", [(64, 256), (32, 256), (16, 128), (8, 64), (1, 256), (48, 4),
+                                  (13, 12)])
+@pytest.mark.parametrize("shape,off", [((200, 64, 256), 0), ((200, 64, 250), 0),
+                                       ((200, 64, 256), 1)])
+def test_deskew_kernel_on_every_tile(cuda, shape, off, tile):
+    """Every tile gives the chosen tile's bits: the same sums in the same
+    order, whatever band and rows a thread takes."""
+    s = deskew_settings(px_to_scan_ratio=0.386, keep_overhang=True, average_n_slices=3)
+    raw = _raw(shape, 2, cuda, off)
+    want = deskew_cuda(raw, s)
+    got = _deskew_on_tile(raw, s, tile)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert _rel(got, deskew_plain(raw, s)) <= 1e-5
+
+
+@pytest.mark.parametrize("shape,keep_overhang", [((410000, 4, 8), False), ((410000, 2, 8), True)])
+def test_deskew_past_the_old_launch_grid(cuda, shape, keep_overhang):
+    """Outputs of (2, 1062171, 8) and (2, 1062176, 8): more rows than the
+    kernel before the redesign took in one launch's grid (65535 x 16),
+    which raised; the persistent grid walks them."""
+    s = deskew_settings(px_to_scan_ratio=0.386, keep_overhang=keep_overhang)
+    raw = _raw(shape, 3, cuda)
+    out = deskew_cuda(raw, s)
+    torch.cuda.synchronize()
+    ref = deskew_plain(raw, s)
+    assert out.shape == ref.shape and out.shape[1] > 65535 * 16
+    assert _rel(out, ref) <= 1e-5
+
+
+def test_deskew_shared_memory_sum_is_the_kernels(cuda):
+    from shrimpy_tpu_torch.kernels.build import load_library
+    from shrimpy_tpu_torch.ops.deskew_cuda import deskew_smem_bytes
+
+    lib = load_library()
+    for rows, planes, tx, ty in ((27, 2, 256, 64), (1, 1, 4, 3), (200, 2, 8, 512),
+                                 (256, 2, 256, 1), (14, 2, 256, 32)):
+        assert lib.shrimpy_deskew_smem(rows, planes, tx, ty) == deskew_smem_bytes(rows, planes,
+                                                                                tx, ty)
+
+
+def test_deskew_kernel_refuses_a_tile_that_does_not_fit(cuda):
+    s = deskew_settings(px_to_scan_ratio=0.386)
+    raw = _raw((200, 64, 256), 4, cuda)
+    for tile in ((128, 256), (64, 260), (64, 6), (1024, 64)):
+        with pytest.raises(ValueError, match="does not fit"):
+            _deskew_on_tile(raw, s, tile)
 
 
 def _asym_terms(n_terms, lengths, seed):
@@ -457,8 +551,11 @@ def test_convzy_linear_kernel_matches_plain(cuda, flip, lengths, shape):
     torch.cuda.synchronize()
     assert (convzy_linear_cuda.launches, convzy_march.launches) == (before[0] + 1, before[1] + 1)
     torch.testing.assert_close(out, convzy_linear_plain(v, wz, wy), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="both z\\+y routes"):
-        convzy_linear_cuda(v, np.ones(3), np.ones(425))
+    # A y radius of 212 (refused before the two-pass route took its taps in
+    # chunks) runs, bit for bit.
+    wide = np.random.default_rng(425).random(425).astype(np.float32)
+    torch.testing.assert_close(convzy_linear_cuda(v, np.ones(3), wide),
+                               convzy_linear_plain(v, np.ones(3), wide), rtol=0, atol=0)
 
 
 # (boundary, tap lengths, grid, offset in floats of the carry's start):
@@ -650,11 +747,13 @@ def test_convzy_circular_kernel_matches_plain(cuda, flip, lengths, shape):
 def test_convzy_circular_refuses_radii_past_shared_memory(cuda):
     """Radii the kernel before the march refused (y radius past 40 at z
     radius 4) now run: on the march where its ring fits, past that on
-    the two-pass route, up to a radius of 211, where the two-pass
-    column outgrows shared memory (JAX's zy_pallas has no bound)."""
+    the two-pass route, and past a radius of 211, where the two-pass
+    column outgrows shared memory, with its taps in chunks (JAX's
+    zy_pallas has no bound either). Only an aliased output is refused."""
     v = _rand((6, 90, 40), 22, cuda)
     for nkz, nky, route in ((9, 83, "march"), (9, 85, "march"), (9, 201, "two_pass"),
-                            (17, 251, "two_pass"), (3, 423, "two_pass")):
+                            (17, 251, "two_pass"), (3, 423, "two_pass"), (9, 425, "two_pass"),
+                            (3, 851, "two_pass"), (425, 3, "two_pass")):
         assert convzy_route(v.shape, (nkz // 2, nky // 2), "circular") == route
         wz, wy = (np.random.default_rng(nky).random(k).astype(np.float32) for k in (nkz, nky))
         before = convzy_march.launches, convzy_two_pass.launches
@@ -664,10 +763,43 @@ def test_convzy_circular_refuses_radii_past_shared_memory(cuda):
         assert (convzy_march.launches, convzy_two_pass.launches) == (before[0] + step[0],
                                                                      before[1] + step[1])
         torch.testing.assert_close(out, convzy_circular_plain(v, wz, wy), rtol=0, atol=0)
-    with pytest.raises(ValueError, match="both z\\+y routes"):
-        convzy_circular_cuda(v, np.ones(9), np.ones(425))
     with pytest.raises(ValueError, match="alias"):
         convzy_circular_cuda(v, np.ones(3), np.ones(3), out=v)
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("lengths,shape", [((3, 431), (6, 440, 40)), ((431, 3), (440, 6, 40)),
+                                           ((5, 901), (4, 300, 33)), ((425, 425), (8, 12, 36))])
+def test_convzy_radius_past_the_two_pass_column_matches_plain(cuda, lengths, shape, flip):
+    """z or y radii of 212 and more (the two-pass route's taps in chunks of
+    423) on both boundaries, bit-equal to the plain versions: a chunk goes
+    on from the partial sums the one before wrote. (5, 901) on a 300-row
+    grid and (425, 425) on (8, 12, 36) wrap the circular axis many times."""
+    wz, wy = (np.random.default_rng(k).random(k).astype(np.float32) for k in lengths)
+    if flip:
+        wz, wy = wz[::-1].copy(), wy[::-1].copy()
+    v = _rand(shape, 23, cuda, 0.0, 10.0)
+    for boundary, step, plain in (("zero", convzy_linear_cuda, convzy_linear_plain),
+                                  ("circular", convzy_circular_cuda, convzy_circular_plain)):
+        assert convzy_route(v.shape, tuple(k // 2 for k in lengths), boundary) == "two_pass"
+        out = step(v, wz, wy)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, plain(v, wz, wy), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("backend", ["linear_pallas", "zy_pallas"])
+def test_rl_with_a_psf_past_the_two_pass_column(cuda, backend):
+    """RL-2 with a (3, 431, 3) PSF (y radius 215) through richardson_lucy
+    on a (4, 10, 38) image, whose G grid is (6, 440, 40): four two-pass z+y
+    steps of two launches each, within 1e-4 of the float64 plain path."""
+    psf = gaussian_psf((3, 431, 3), (0.8, 60.0, 0.8))
+    img = _rand((4, 10, 38), 24, cuda, 0.0, 100.0)
+    s = deconvolve_settings(iterations=2, psf_crop_tol=0.0, separable_backend=backend)
+    before = convzy_two_pass.launches
+    out = richardson_lucy(img, psf, s)
+    torch.cuda.synchronize()
+    assert convzy_two_pass.launches == before + 8
+    assert _rel(out, richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)) <= 1e-4
 
 
 @pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])

@@ -20,6 +20,7 @@ from shrimpy_tpu.io.synthetic import render_beads_skewed
 from shrimpy_tpu.ops import deskew as jdeskew
 from shrimpy_tpu.ops.deskew_pallas import _deskew_pallas_jit, _plan
 from shrimpy_tpu_torch.ops import deskew as tdeskew
+from shrimpy_tpu_torch.ops import deskew_cuda as dcuda
 from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda, plan_tables
 
 # One intra-op thread: the suite runs one process per core, and torch's
@@ -216,6 +217,128 @@ def test_kernel_tables_reproduce_pallas(shape, keep_overhang, avg, scale):
         _deskew_pallas_jit(jnp.asarray(raw), **_jax_kwargs(s), interpret=True)
     )
     np.testing.assert_allclose(ours, pallas, rtol=1e-4, atol=1e-3 * scale / 100)
+
+
+def test_production_tables_weight_both_tilt_planes():
+    """At 30 degrees float64 sin(30) is 0.49999999999999994, so t = z / sin
+    lands an ulp past 2 z: wt1 is nonzero (<= 2.84e-14) on 127 of the 128
+    output z of the production raw, and the kernel reads both tilt planes
+    of those z. The tables follow JAX's _plan; a plan that snapped these
+    weights to 0 would skip those planes and change what is computed."""
+    tab = plan_tables((1201, 256, 1600), _settings())
+    assert tab["nz"] == 128 and tab["n_groups"] == 128
+    live = tab["wt1"] != 0
+    assert int(live.sum()) == 127 and not live[0]
+    assert 0 < float(np.abs(tab["wt1"]).max()) <= 2.9e-14
+    assert (tab["wt0"] != 0).all()
+    assert (tab["t1"][1:] == tab["t0"][1:] + 1).all()
+
+
+# (raw shape, settings) of the kernel's layout checks: the production raw,
+# BASELINE.md config 1, outputs past the old kernel's launch grid, x
+# extents of 1 and 13, a scan extent shorter than a band, a ratio of 1.5,
+# one tilt plane.
+LAYOUT_CASES = [
+    ((1201, 256, 1600), {}),
+    ((300, 2048, 2048), {"keep_overhang": True, "average_n_slices": 3}),
+    ((410000, 4, 8), {}),
+    ((410000, 2, 8), {"keep_overhang": True}),
+    ((40, 32, 1), {"keep_overhang": True}),
+    ((40, 32, 13), {}),
+    ((6, 32, 24), {"keep_overhang": True}),
+    ((60, 16, 24), {"keep_overhang": True, "px_to_scan_ratio": 1.5}),
+    ((50, 1, 24), {"keep_overhang": True}),
+]
+
+
+def _plan_settings(kw):
+    kw = dict(kw)
+    return DeskewSettings(ls_angle_deg=30.0, px_to_scan_ratio=kw.pop("px_to_scan_ratio", 0.386),
+                          **kw)
+
+
+@pytest.mark.parametrize("shape,kw", LAYOUT_CASES)
+def test_kernel_layout_fits_every_band(shape, kw):
+    """The band of one z and one tile (scan rows s0 at its first row .. s1
+    at its last) spans at most ``rows`` rows, and the ring fits a block;
+    the clamped indices are non-decreasing in y, so s0 at the first row is
+    the band's least row; t1 - t0 is 0 or 1 (the band's planes)."""
+    tab = plan_tables(shape, _plan_settings(kw))
+    assert (np.diff(tab["s0"], axis=1) >= 0).all() and (np.diff(tab["s1"], axis=1) >= 0).all()
+    assert np.isin(tab["t1"] - tab["t0"], (0, 1)).all()
+    lay = dcuda.deskew_layout(shape, tab)
+    ty, tx = lay["tile"]
+    assert tx == min(256, -(-shape[2] // 4) * 4) and lay["planes"] == min(shape[1], 2)
+    assert -(-ty // (256 // (tx // 4))) <= 16
+    ceil128 = lambda n: -(-n // 128) * 128  # noqa: E731
+    assert lay["smem_bytes"] == 2 * (lay["rows"] * ceil128(4 * lay["planes"] * tx)
+                                     + ceil128(16 * ty) + 128 + 8)
+    assert lay["smem_bytes"] <= 232448
+    spans = [int((tab["s1"][:, min(y0 + ty, tab["ny"]) - 1] - tab["s0"][:, y0]).max()) + 1
+             for y0 in range(0, tab["ny"], ty)]
+    assert max(spans) == lay["rows"] == dcuda.band_rows(tab, ty)
+    assert lay["tiles"] == tab["n_groups"] * -(-tab["ny"] // ty) * -(-shape[2] // tx)
+    if shape[0] == 410000:  # past the kernel before: 65535 blocks of 16 rows
+        assert tab["ny"] > 65535 * 16
+
+
+def test_kernel_layout_of_the_production_raw_and_forced_tiles():
+    tab = plan_tables((1201, 256, 1600), _settings())
+    lay = dcuda.deskew_layout((1201, 256, 1600), tab)
+    assert lay == {"tile": (64, 256), "rows": 27, "planes": 2, "smem_bytes": 112912,
+                   "tiles": 128 * 46 * 7}
+    assert dcuda.deskew_layout((1201, 256, 1600), tab, tile=(16, 128))["rows"] == 8
+    for tile in ((128, 256), (64, 260), (64, 6), (1024, 64), (0, 256)):
+        with pytest.raises(ValueError, match="does not fit"):
+            dcuda.deskew_layout((1201, 256, 1600), tab, tile=tile)
+    # A ratio so large that the ring of 64-row bands outgrows a block:
+    # smaller tiles.
+    big = plan_tables((2000, 8, 256), _plan_settings({"px_to_scan_ratio": 6.0}))
+    lay = dcuda.deskew_layout((2000, 8, 256), big)
+    assert lay["tile"][0] < 64 and lay["smem_bytes"] <= 232448
+    assert dcuda.deskew_smem_bytes(dcuda.band_rows(big, 64), 2, 256, 64) > 232448
+
+
+def _band_kernel(raw: np.ndarray, tab: dict, layout: dict) -> np.ndarray:
+    """csrc/deskew.cu's walk in numpy: per tile and z the band of rows x
+    planes x tx from (s0 at the tile's first row, t0, x0), zero past raw,
+    read at the band-local rows and planes, float64, each z's sum added to
+    its group as :func:`_apply_tables` adds it."""
+    ns, nt, nx = raw.shape
+    (ty, tx), rows, planes = layout["tile"], layout["rows"], layout["planes"]
+    pad = np.zeros((ns + rows, nt + 1, nx + tx))
+    pad[:ns, :nt, :nx] = raw
+    out = np.zeros((tab["n_groups"], tab["ny"], nx))
+    for g in range(tab["n_groups"]):
+        for y0 in range(0, tab["ny"], ty):
+            ys = np.arange(y0, min(y0 + ty, tab["ny"]))
+            for x0 in range(0, nx, tx):
+                for z in range(g * tab["a_avg"], min((g + 1) * tab["a_avg"], tab["nz"])):
+                    s_lo, t_lo = tab["s0"][z, y0], tab["t0"][z]
+                    band = pad[s_lo:s_lo + rows, t_lo:t_lo + planes, x0:x0 + tx]
+                    l0, l1 = tab["s0"][z, ys] - s_lo, tab["s1"][z, ys] - s_lo
+                    assert l0.min() >= 0 and l1.max() < rows
+                    u0, u1 = tab["w00"][z, ys, None], tab["w01"][z, ys, None]
+                    acc = 0.0
+                    for wt, p in ((tab["wt0"][z], 0), (tab["wt1"][z], tab["t1"][z] - t_lo)):
+                        if wt != 0:
+                            acc = acc + float(wt) * (u0 * band[l0, p] + u1 * band[l1, p])
+                    out[g, ys, x0:x0 + tx] += (acc + np.zeros((len(ys), tx)))[:, :nx - x0]
+    return out
+
+
+@pytest.mark.parametrize("shape,kw", [c for c in LAYOUT_CASES if np.prod(c[0]) < 100_000]
+                         + [((41, 27, 20), {"keep_overhang": True, "average_n_slices": 4})])
+@pytest.mark.parametrize("tile", [None, (8, 8), (3, 4)])
+def test_band_walk_reproduces_the_tables(shape, kw, tile):
+    """The kernel's band-local reads (the band starting at s0 of the tile's
+    first row, ``rows`` rows and ``planes`` planes, zero past raw) give
+    exactly what the tables give read from raw directly."""
+    s = _plan_settings(kw)
+    tab = plan_tables(shape, s)
+    raw = np.random.default_rng(5).random(shape)
+    layout = dcuda.deskew_layout(shape, tab, tile=tile)
+    np.testing.assert_array_equal(_band_kernel(raw, tab, layout), _apply_tables(raw, tab))
 
 
 def test_cpu_tensor_runs_plain_and_kernel_wrapper_refuses_it():
