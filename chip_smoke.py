@@ -79,7 +79,16 @@ Phases:
    1e-4 of ``fused``; the three on-chip probes (shared-memory slice, largest
    block, split products on the tensor cores) against their plain
    versions, then driven through their entry points with the counts
-   reset. Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
+   reset; the affine warp (``csrc/affine.cu``) at the deskewed volume
+   (128, 2888, 1600) on four maps (a fractional translation, the refine's
+   lower-triangular form, 2- and 30-degree rotations), each to the same
+   shape and to (136, 2800, 1700), against the plain version in float64
+   (1e-4) and float32 (1e-3: the plain float32 version rounds M u + t as
+   the JAX gather does), timed beside its bound from the voxels the map
+   reads and ``F.affine_grid`` + ``F.grid_sample``; its gradient with
+   respect to the map at the refine grid (128, 722, 400), twice (the same
+   bits), the 12 sums against float64 autograd of the plain version.
+   Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
    another order); the bf16 Biggs state within one bf16 ulp, the
    step-length sums within 1e-5 relative. Beside each kernel's time the
    phase works out its bound from the shapes (bytes it must move over
@@ -116,11 +125,20 @@ Phases:
    the two-tier gate; the peak of Biggs RL-10 through
    ``richardson_lucy`` with and without ``donate_input``, the two
    results bit-equal;
+4g. ``estimate_registration`` (``pcc+refine``, defaults) on a blob pair
+   of the deskewed shape, the moving volume the float64 plain warp of a
+   known lower-triangular map: first and warm seconds, the recovered map
+   against the truth (offset within 0.3 px, diagonal within 0.02), the
+   counts (102 warps, 100 gradients); at ``bench.py``'s (64, 256, 256) the
+   kernel path's estimate against the plain path's;
+4h. deskew + register-apply (a transform JSON) + RL-20 on ``fused``: one
+   warp launch, against its float64 plain step within 1e-3, timed against
+   the plain float32 path, peak memory;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
-   (twelve entries: the ten kernels, the kept three-pass half-step and
-   the z+y step's two-pass route),
+   (fourteen entries: the twelve kernels, the kept three-pass half-step
+   and the z+y step's two-pass route),
    the card line and the final ``{"ok": true, ...}`` line.
 """
 
@@ -197,6 +215,13 @@ def headline_settings(**deconvolve):
         deskew=deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386),
         deconvolve=deconvolve_settings(**{"iterations": ITERATIONS, **deconvolve}),
     )
+
+
+def deskewed_shape() -> tuple[int, int, int]:
+    """The deskewed volume of the production raw, (128, 2888, 1600)."""
+    from shrimpy_tpu_torch.parallel.pipeline import output_shape
+
+    return tuple(output_shape(RAW_SHAPE, headline_settings()))
 
 
 def card_line() -> str:
@@ -313,9 +338,14 @@ def counters() -> dict:
         half_step_plain,
         half_step_three_pass,
     )
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, affine_warp_grad_cuda
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain
     from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_half_steps, rl_iter_plain
 
     return {
+        "affine_warp": (affine_warp_cuda, "launches"),
+        "affine_warp_grad": (affine_warp_grad_cuda, "launches"),
+        "plain_affine_on_cuda": (affine_apply_plain, "cuda_calls"),
         "rl_iter": (rl_iter_cuda, "launches"),
         "rl_iter_half_steps": (rl_iter_half_steps, "launches"),
         "probe_smem_slice": (probes.dynamic_smem_slice_cuda, "launches"),
@@ -1367,6 +1397,284 @@ def phase_probes() -> tuple[dict, dict, dict]:
     return sl, sm, dot
 
 
+# Registration (csrc/affine.cu): the warp on four maps, its gradient at the
+# refine grid, the production estimate and the registered step.
+AFFINE_OTHER_SHAPE = (136, 2800, 1700)  # deeper and wider, shorter in y
+REGISTER_SMALL = (64, 256, 256)  # bench.py::_config_register
+DOWN = 4  # RegistrationSettings.downsample_yx: the refine's y/x stride
+# The refine's default form: scale, shear and a fractional offset.
+LOWER_MAP = ([[1.003, 0.0, 0.0], [0.012, 0.997, 0.0], [-0.018, 0.015, 1.002]], [0.4, -3.2, 2.6])
+# The register phase's truth: a residual misalignment (the far edge moves
+# by up to 0.43 px beside the translation) well inside what the default
+# refine reaches in its 100 steps: an Adam step moves an entry of its dm by
+# ~lr = 0.05, and a y scale of 1e-4 is 1.16 units of dm on the stride-4 grid
+# of the deskewed volume (4 x 2888 x 1e-4). Scales of 4e-4 (4.6 units) left
+# the offset 0.39 px from the truth after 100 steps.
+TRUE_MAP = ([[1.0, 0.0, 0.0], [0.0002, 1.0001, 0.0], [-0.0001, 0.00015, 0.9999]],
+            [0.4, -3.2, 2.6])
+
+
+def f32_map(m, t):
+    import numpy as np
+
+    return np.asarray(m, np.float32), np.asarray(t, np.float32)
+
+
+def affine_maps(shape) -> dict:
+    """The maps phase affine runs: a fractional translation, the refine's
+    lower-triangular form, and 2- and 30-degree rotations in the yx plane
+    about the volume's center (the last, JAX's gather tier)."""
+    import numpy as np
+
+    maps = {"translate": f32_map(np.eye(3), LOWER_MAP[1]), "lower": f32_map(*LOWER_MAP)}
+    center = (np.asarray(shape, np.float64) - 1) / 2
+    for deg in (2, 30):
+        c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+        m = np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+        maps[f"rot{deg}"] = f32_map(m, center - m @ center)
+    return maps
+
+
+def warp_reads(vol_shape, m, t, out_shape, step: int = 1 << 24) -> int:
+    """Input voxels the warp reads with a nonzero weight (float64
+    coordinates, output z-slabs of ``step`` voxels at a time)."""
+    touched = torch.zeros(math.prod(vol_shape), dtype=torch.bool, device="cuda")
+    nz, ny, nx = vol_shape
+    m64 = torch.tensor(m, dtype=torch.float64, device="cuda")
+    t64 = torch.tensor(t, dtype=torch.float64, device="cuda")
+    oz, oy, ox = out_shape
+    yy = torch.arange(oy, dtype=torch.float64, device="cuda")[:, None]
+    xx = torch.arange(ox, dtype=torch.float64, device="cuda")[None, :]
+    slabs = max(1, step // (oy * ox))
+    for z0 in range(0, oz, slabs):
+        zz = torch.arange(z0, min(z0 + slabs, oz), dtype=torch.float64, device="cuda")[:, None, None]
+        c = [(m64[a, 0] * zz + m64[a, 1] * yy + m64[a, 2] * xx + t64[a]).reshape(-1)
+             for a in range(3)]
+        base = [torch.floor(v) for v in c]
+        frac = [v - b for v, b in zip(c, base)]
+        base = [b.to(torch.int64) for b in base]
+        for dz in (0, 1):
+            for dy in (0, 1):
+                for dx in (0, 1):
+                    idx = [base[0] + dz, base[1] + dy, base[2] + dx]
+                    keep = torch.ones_like(idx[0], dtype=torch.bool)
+                    for a, (i, n, d) in enumerate(zip(idx, vol_shape, (dz, dy, dx))):
+                        keep &= (i >= 0) & (i < n) & ((frac[a] > 0) if d else True)
+                    touched[((idx[0] * ny + idx[1]) * nx + idx[2])[keep]] = True
+    return int(touched.sum())
+
+
+def library_affine(vol: torch.Tensor, m, t, out_shape) -> torch.Tensor:
+    """The same warp as one ``F.affine_grid`` and one ``F.grid_sample``
+    (5-D, trilinear, zero padding, ``align_corners``), from float32
+    normalized coordinates: the yardstick the port never calls."""
+    import numpy as np
+
+    n_in = np.asarray(vol.shape, np.float64)
+    n_out = np.asarray(out_shape, np.float64)
+    m, t = np.asarray(m, np.float64), np.asarray(t, np.float64)
+    # in_a = sum_b M_ab u_b + t_a with u_b = (g_b + 1)(O_b - 1) / 2 and
+    # g_in_a = 2 in_a / (N_a - 1) - 1; theta is in (x, y, z) order.
+    lin = m * (n_out[None, :] - 1) / (n_in[:, None] - 1)
+    const = (m @ (n_out - 1) + 2 * t) / (n_in - 1) - 1
+    theta = np.zeros((3, 4))
+    theta[:, :3] = lin[::-1, ::-1]
+    theta[:, 3] = const[::-1]
+    grid = torch.nn.functional.affine_grid(
+        torch.tensor(theta[None], dtype=torch.float32, device=vol.device),
+        [1, 1, *out_shape], align_corners=True)
+    return torch.nn.functional.grid_sample(vol[None, None], grid, mode="bilinear",
+                                           padding_mode="zeros", align_corners=True)[0, 0]
+
+
+def phase_affine(gen) -> dict:
+    """The warp kernel on four maps, each at the deskewed volume's shape and
+    at AFFINE_OTHER_SHAPE, against the plain version in float64 (within
+    KERNEL_RTOL: the kernel forms coordinates in fixed point from float64)
+    and in float32 (within STEP_RTOL: the plain float32 version rounds
+    M u + t by up to ~2.4e-4 px, as the JAX gather does); timed beside its
+    bound from the voxels the map reads, the float32 plain version and
+    F.affine_grid + F.grid_sample."""
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, map_params
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain
+
+    shape = deskewed_shape()
+    vol = uniform(shape, gen, 0.0, 100.0)
+    res = {"max_abs_err": 0.0, "maps": {}}
+    for name, (m, t) in affine_maps(shape).items():
+        params = map_params(torch.from_numpy(m).cuda(), torch.from_numpy(t).cuda())
+        for out_shape in (shape, AFFINE_OTHER_SHAPE):
+            label = f"affine_warp {name} -> {out_shape}"
+            out = affine_warp_cuda(vol, params, out_shape)
+            ref = affine_apply_plain(vol, m, t, out_shape, dtype=torch.float64)
+            err = compare(f"{label} vs float64 plain", out, ref, KERNEL_RTOL)
+            ref32 = affine_apply_plain(vol, m, t, out_shape)
+            compare(f"{label} vs float32 plain", out, ref32, STEP_RTOL)
+            print(f"  {label}: float32 plain vs float64 plain {rel_err(ref32, ref):.3e}",
+                  flush=True)
+            del ref32
+            lib = library_affine(vol, m, t, out_shape)
+            lib_err = rel_err(lib, ref)
+            del out, ref, lib
+            entry = {"max_abs_err": err, "ms": gpu_ms(lambda: affine_warp_cuda(
+                vol, params, out_shape), 10),
+                "library_ms": gpu_ms(lambda: library_affine(vol, m, t, out_shape), 3),
+                "library_rel_err": lib_err,
+                **bound(4 * (warp_reads(shape, m, t, out_shape) + math.prod(out_shape)),
+                        30 * math.prod(out_shape))}
+            if out_shape == shape:
+                entry["plain_ms"] = gpu_ms(lambda: affine_apply_plain(vol, m, t, out_shape), 1)
+            torch.cuda.empty_cache()
+            print(f"  {label}: {entry['ms']:.3f} ms, bound {entry['bound_ms']:.3f} by "
+                  f"{entry['bound_by']}, plain {entry.get('plain_ms', float('nan')):.3f}, "
+                  f"F.affine_grid + F.grid_sample {entry['library_ms']:.3f} "
+                  f"(max|a-b|/max|b| {lib_err:.3e} against float64)", flush=True)
+            res["maps"][f"{name} {out_shape}"] = entry
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+    # The row: the refine's lower-triangular form at the volume's shape.
+    main = res["maps"][f"lower {shape}"]
+    res.update({k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    return res
+
+
+def refine_map(m, t):
+    """``(m, t)`` as the refine sees it on its y/x-strided grid."""
+    import numpy as np
+
+    return f32_map(np.asarray(m, np.float64) @ np.diag([1.0, DOWN, DOWN]), t)
+
+
+def phase_affine_grad(gen) -> dict:
+    """The grad kernel at the production refine grid (the deskewed volume
+    sampled every DOWN rows and columns), twice (the same bits), against
+    float64 autograd of the plain version: the 12 sums within KERNEL_RTOL
+    of the largest. Timed beside its bound (grad_out and the input voxels
+    the map reads) and the float32 plain version's autograd."""
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_grad_cuda, map_params
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain
+
+    shape = deskewed_shape()
+    grid = (shape[0], -(-shape[1] // DOWN), -(-shape[2] // DOWN))
+    vol = uniform(shape, gen, 0.0, 100.0)
+    g = uniform(grid, gen, -1.0, 1.0)
+    m, t = refine_map(*LOWER_MAP)
+    params = map_params(torch.from_numpy(m).cuda(), torch.from_numpy(t).cuda())
+    got = affine_warp_grad_cuda(vol, g, params)
+    if not torch.equal(got, affine_warp_grad_cuda(vol, g, params)):
+        raise AssertionError("affine_warp_grad: two runs differ")
+
+    def plain(dtype):
+        mt = torch.tensor(m, dtype=dtype, device="cuda", requires_grad=True)
+        tt = torch.tensor(t, dtype=dtype, device="cuda", requires_grad=True)
+        (affine_apply_plain(vol, mt, tt, grid, dtype=dtype) * g.to(dtype)).sum().backward()
+        return torch.cat([mt.grad.reshape(9), tt.grad])
+
+    want = plain(torch.float64)
+    err = compare(f"affine_warp_grad at {grid} from {shape}: 12 sums vs float64 autograd "
+                  "(run twice: the same bits)", got, want, KERNEL_RTOL)
+    print(f"  affine_warp_grad sums {got.tolist()}", flush=True)
+    res = {"max_abs_err": err, "ms": gpu_ms(lambda: affine_warp_grad_cuda(vol, g, params), 10),
+           "plain_ms": gpu_ms(lambda: plain(torch.float32), 1), "library_ms": None,
+           **bound(4 * (warp_reads(shape, m, t, grid) + math.prod(grid)), 60 * math.prod(grid))}
+    print(f"  affine_warp_grad: {res['ms']:.3f} ms, bound {res['bound_ms']:.3f} by "
+          f"{res['bound_by']}, float32 plain autograd {res['plain_ms']:.3f} ms", flush=True)
+    return res
+
+
+def blob_volume(shape, gen, n_blobs: int, sigma=(3.0, 6.0, 6.0)) -> torch.Tensor:
+    """A sum of ``n_blobs`` Gaussian blobs (amplitude 100, each added in its
+    +-4 sigma box) at seeded positions, plus N(0, 0.5) noise, float32."""
+    vol = torch.randn(shape, generator=gen, device="cuda") * 0.5
+    pos = torch.rand((n_blobs, 3), generator=gen, device="cuda").cpu().numpy()
+    half = [int(4 * s) for s in sigma]
+    axes = [torch.arange(-h, h + 1, dtype=torch.float32, device="cuda") for h in half]
+    for p in pos:
+        center = [int(p[a] * (shape[a] - 1)) for a in range(3)]
+        box, prof = [], []
+        for a in range(3):
+            lo, hi = max(0, center[a] - half[a]), min(shape[a], center[a] + half[a] + 1)
+            box.append(slice(lo, hi))
+            d = axes[a][lo - center[a] + half[a]:hi - center[a] + half[a]]
+            prof.append(torch.exp(-0.5 * (d / sigma[a]) ** 2))
+        vol[tuple(box)] += 100.0 * prof[0][:, None, None] * prof[1][None, :, None] * prof[2]
+    return vol
+
+
+def phase_register(gen) -> dict:
+    """estimate_registration (pcc+refine, defaults) on a blob pair of the
+    deskewed shape, moving = the float64 plain warp of fixed by TRUE_MAP:
+    first and warm seconds, the recovered map against the truth's inverse
+    (offset within 0.3 px, diagonal within 0.02), the counts (a warp a
+    refine step and two more, a grad kernel a step, no plain warp); then at
+    bench.py's (64, 256, 256) the kernel path's estimate against the plain
+    path's (matrix within 1e-4, offset within 1e-3)."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config import registration_settings
+    from shrimpy_tpu_torch.ops.pcc import phase_cross_correlation
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain, estimate_registration
+
+    settings = registration_settings()
+    m, t = f32_map(*TRUE_MAP)
+    inv = np.linalg.inv(m.astype(np.float64))
+    truth_m, truth_t = inv, -inv @ t.astype(np.float64)
+    shape = deskewed_shape()
+    fixed = blob_volume(shape, gen, 3000)
+    moving = affine_apply_plain(fixed, m, t, dtype=torch.float64).float()
+    result = {}
+
+    def estimate(_):
+        t0 = time.perf_counter()
+        result["res"] = estimate_registration(fixed, moving, settings)
+        torch.cuda.synchronize()
+        result.setdefault("seconds", []).append(time.perf_counter() - t0)
+        return torch.from_numpy(np.concatenate([result["res"].matrix.ravel(),
+                                                result["res"].offset]))
+
+    iters = settings.refine_iterations
+    _, counts, peak = drive(estimate, None, {"affine_warp": iters + 2, "affine_warp_grad": iters})
+    estimate(None)
+    pcc = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        phase_cross_correlation(fixed, moving, upsample="parabolic")
+        pcc.append(time.perf_counter() - t0)
+    res = result["res"]
+    off_err = float(np.abs(res.offset - truth_t).max())
+    diag_err = float(np.abs(np.diag(res.matrix) - np.diag(truth_m)).max())
+    mat_err = float(np.abs(res.matrix - truth_m).max())
+    corners = np.array([[z, y, x] for z in (0, shape[0] - 1) for y in (0, shape[1] - 1)
+                        for x in (0, shape[2] - 1)], np.float64)
+    disp = float(np.abs(corners @ (res.matrix - truth_m).T + (res.offset - truth_t)).max())
+    first, warm = result["seconds"]
+    print(f"  estimate_registration {shape}: first call {first:.3f} s, warm {warm:.3f} s; "
+          f"seed {res.translation_seed.tolist()}, offset error {off_err:.4f} px (tol 0.3), "
+          f"diagonal error {diag_err:.2e} (tol 0.02), matrix error {mat_err:.2e}, largest "
+          f"displacement error at a corner "
+          f"{disp:.4f} px, final loss {res.final_loss:.5f}; its PCC seed alone after it "
+          f"{pcc[0]:.3f} s, then {pcc[1]:.3f} s", flush=True)
+    if not (off_err <= 0.3 and diag_err <= 0.02):
+        raise AssertionError(f"estimate_registration: offset {off_err:.4f} px, diagonal "
+                             f"{diag_err:.2e} from the truth")
+    out = {"first_s": first, "warm_s": warm, "pcc_s": pcc[1], "offset_err_px": off_err,
+           "diag_err": diag_err, "matrix_err": mat_err,
+           "corner_err_px": disp, "launches": counts, "peak_gib": peak}
+    del fixed, moving
+    torch.cuda.empty_cache()
+    small = blob_volume(REGISTER_SMALL, gen, 12)
+    moved = affine_apply_plain(small, m, t, dtype=torch.float64).float()
+    got = estimate_registration(small, moved, settings)
+    ref = estimate_registration(small, moved, settings, plain=True)
+    dm, dt = float(np.abs(got.matrix - ref.matrix).max()), float(np.abs(got.offset - ref.offset).max())
+    print(f"  estimate_registration {REGISTER_SMALL}: kernel path vs plain path: matrix "
+          f"{dm:.2e} (tol 1e-4), offset {dt:.2e} px (tol 1e-3)", flush=True)
+    if not (dm <= 1e-4 and dt <= 1e-3):
+        raise AssertionError(f"estimate_registration {REGISTER_SMALL}: the kernel path differs "
+                             f"from the plain path ({dm:.2e}, {dt:.2e})")
+    out.update({"small_matrix_diff": dm, "small_offset_diff": dt})
+    return out
+
+
 def warm_ms(step, steps) -> float:
     """Host-clock ms of one warm run of ``step`` on the batch."""
     torch.cuda.synchronize()
@@ -1388,11 +1696,17 @@ class Steps:
         self.out_zyx = output_shape(RAW_SHAPE, headline_settings())
         self.vox = math.prod(self.out_zyx)
 
-    def build(self, plain=False, dtype=torch.float32, **deconvolve):
+    def build(self, plain=False, dtype=torch.float32, transform=None, **deconvolve):
+        """The step on the headline settings; ``transform`` (a JSON path)
+        adds the registration stage."""
+        from shrimpy_tpu_torch.config import registration_settings
         from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
 
-        return build_reconstruct_step(headline_settings(**deconvolve), psf=self.psf,
-                                      device="cuda", plain=plain, dtype=dtype)
+        settings = headline_settings(**deconvolve)
+        if transform is not None:
+            settings.registration = registration_settings(transform_path=str(transform))
+        return build_reconstruct_step(settings, psf=self.psf, device="cuda", plain=plain,
+                                      dtype=dtype)
 
     def check_shape(self, out):
         if tuple(out.shape) != (1, *self.out_zyx):
@@ -1549,6 +1863,39 @@ def phase_fused_iter(steps: Steps, rl20: torch.Tensor) -> dict:
                       "peak_rl_gib": peaks[False], "peak_rl_donated_gib": peaks[True]}}
 
 
+def transform_json(m, t) -> str:
+    """The map as the register verb writes it, in the (git-ignored) build
+    directory; its path."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.kernels import build
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / "chip_smoke_transform.json"
+    path.write_text(json.dumps({"matrix_zyx": np.asarray(m, np.float32).tolist(),
+                                "offset_zyx": np.asarray(t, np.float32).tolist()}))
+    return str(path)
+
+
+def phase_step_reg(steps: Steps) -> dict:
+    """Phase 4h: deskew + register-apply (LOWER_MAP from a transform JSON)
+    + RL-20 on the fused backend: one warp launch a volume, against the
+    float64 plain step."""
+    path = transform_json(*LOWER_MAP)
+    step = steps.build(transform=path)
+    out, counts, peak = drive(step, steps.batch, {"deskew": 1, "affine_warp": 1,
+                                                  "rl_half_step": 2 * ITERATIONS,
+                                                  "rl_half_one_launch": 2 * ITERATIONS})
+    steps.check_shape(out)
+    ref = steps.build(plain=True, dtype=torch.float64, transform=path)(steps.batch)
+    compare("registered step (deskew + affine + RL-20) vs float64 plain", out, ref, STEP_RTOL)
+    err = rel_err(out, ref)
+    del out, ref
+    times = timed_pair(step, steps.build(plain=True, transform=path), steps.batch, steps.vox,
+                       "deskew + register + RL-20")
+    return {"launches": counts, "peak_gib": peak, "rel_err": err, **times}
+
+
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
     geometry (the one-launch half-step, the whole iteration and the z+y
@@ -1629,6 +1976,12 @@ def main(argv) -> int:
     it = phase_iter(gen, parent_dir)
     torch.cuda.empty_cache()
     p_slice, p_smem, p_dot = phase_probes()
+    torch.cuda.empty_cache()
+    print("  the affine warp and its gradient (csrc/affine.cu):", flush=True)
+    aff = phase_affine(gen)
+    torch.cuda.empty_cache()
+    agrad = phase_affine_grad(gen)
+    torch.cuda.empty_cache()
     steps = Steps(gen)
     print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
     step = phase_step(steps)
@@ -1649,6 +2002,12 @@ def main(argv) -> int:
     print("[4f] deskew + RL-20 and Biggs RL-10 on separable_backend fused_iter", flush=True)
     fip = phase_fused_iter(steps, rl20)
     del rl20
+    torch.cuda.empty_cache()
+    print(f"[4g] estimate_registration (pcc+refine, defaults) at {deskewed_shape()}", flush=True)
+    reg = phase_register(gen)
+    torch.cuda.empty_cache()
+    print("[4h] deskew + register-apply + RL-20 at raw (1201, 256, 1600)", flush=True)
+    sreg = phase_step_reg(steps)
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -1693,6 +2052,16 @@ def main(argv) -> int:
           f"{it['bound_ms']:.3f} by {it['bound_by']}, of its own FMAs "
           f"{it['bound_ms_kernel_fmas']:.3f}); split-dot "
           f"errors vs float64 {p_dot['errors']}", flush=True)
+    print(f"[5] {card}: deskew + register + RL-20 {sreg['ms']:.1f} ms, {sreg['gvox_s']:.4f} GVox/s "
+          f"(without the registration {step['ms']:.1f} ms; plain f32 {sreg['plain_ms']:.1f} ms), "
+          f"rel err {sreg['rel_err']:.3e}, peak {sreg['peak_gib']:.2f} GiB (without "
+          f"{step['peak_gib']:.2f}); affine_warp {aff['ms']:.3f} ms (bound {aff['bound_ms']:.3f}, "
+          f"plain {aff['plain_ms']:.3f}, F.grid_sample {aff['library_ms']:.3f}; "
+          + ", ".join(f"{k} {v['ms']:.3f}" for k, v in aff["maps"].items())
+          + f"); affine_warp_grad {agrad['ms']:.3f} ms (bound {agrad['bound_ms']:.3f}, plain "
+          f"autograd {agrad['plain_ms']:.3f}); estimate {reg['first_s']:.3f} s first, "
+          f"{reg['warm_s']:.3f} s warm, offset error {reg['offset_err_px']:.4f} px, peak "
+          f"{reg['peak_gib']:.2f} GiB", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
@@ -1732,6 +2101,14 @@ def main(argv) -> int:
         {"name": "rl_iter", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/rl_iter.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused_iter.py:246",
          "launches": fip["launches"]["rl_iter"], **it},
+        {"name": "affine_warp", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/affine.cu",
+         "replaces": "shrimpy_tpu/ops/register.py:472 (XLA, no TPU kernel)",
+         "launches": sreg["launches"]["affine_warp"],
+         "register_launches": reg["launches"]["affine_warp"], **aff},
+        {"name": "affine_warp_grad", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/affine.cu",
+         "replaces": "shrimpy_tpu/ops/register.py:609 (XLA, no TPU kernel)",
+         "launches": reg["launches"]["affine_warp_grad"], **agrad},
         {"name": "probe_smem_slice", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/probes.cu",
          "replaces": "scripts/probe_mosaic.py:22", **p_slice},

@@ -3,7 +3,8 @@
 Run from the repository root: ``python3 profile_step.py``. For each
 path ``chip_smoke.py`` drives (deskew + RL-20 and deskew + Biggs RL-10
 on the ``fused``, ``fused_iter``, ``linear_pallas`` and ``zy_pallas``
-backends, deskew + RL-20 on ``matmul``) it runs one warm step under
+backends, deskew + RL-20 on ``matmul``, and deskew + register-apply +
+RL-20 on ``fused``) it runs one warm step under
 ``torch.profiler`` and prints:
 
 * ``wall``: host time of the profiled step, launch to synchronise;
@@ -48,6 +49,16 @@ list in chunks (:data:`CONV_AXIS_CHUNKED`), in turns, on the z and y
 launches of the two-pass z+y route and of the three-pass half-step at
 the production carry (plain, circular and Biggs-extrapolated input) and
 with y tap lists of 201 and 423, each output held to the other's bits.
+
+``python3 profile_step.py --affine`` times the warp and grad kernels of
+``csrc/affine.cu`` beside builds of the edits in :data:`AFFINE_VARIANTS`
+(the x loops' unroll, a cap on registers), at the deskewed volume on
+``chip_smoke.py``'s four maps and at the refine grid, each output held to
+the kernel's bits, with each build's register counts.
+
+``python3 profile_step.py --rl-input`` times RL-20 on ``fused`` alone on
+the deskewed production volume, on its registered warp and on the
+deskewed volume zeroed where the warp has no support.
 
 ``python3 profile_step.py --stages`` builds ``csrc/rl_half.cu`` with
 ``-DRL_HALF_PROFILE``, ``csrc/rl_iter.cu`` with ``-DRL_ITER_PROFILE``
@@ -605,6 +616,143 @@ def time_conv_axis(cs) -> None:
               f"{['%.3f' % x for x in times['chunked']]} ({100 * (o - n) / n:+.2f} %)", flush=True)
 
 
+# Edits of csrc/affine.cu that --affine builds and times beside it: the
+# warp's x loop unrolled 1, 2 or 8 times (4 in the kernel), the grad's 1
+# or 2 times (4), and registers capped so that 3 or 4 blocks of 256
+# threads fit an SM.
+_WARP_LOOP = "#pragma unroll 4\n      for (int x = lane; x < e.ox; x += 32) {\n        sample"
+_GRAD_LOOP = "#pragma unroll 4  // the grad's x loop"
+_BOUNDS = "constexpr int kMinBlocks = 1;"
+AFFINE_VARIANTS = {
+    "unroll 1": [(_WARP_LOOP, _WARP_LOOP.replace("unroll 4", "unroll 1"))],
+    "unroll 2": [(_WARP_LOOP, _WARP_LOOP.replace("unroll 4", "unroll 2"))],
+    "unroll 8": [(_WARP_LOOP, _WARP_LOOP.replace("unroll 4", "unroll 8"))],
+    "min blocks 3": [(_BOUNDS, "constexpr int kMinBlocks = 3;")],
+    "min blocks 4": [(_BOUNDS, "constexpr int kMinBlocks = 4;")],
+    "grad unroll 1": [(_GRAD_LOOP, "#pragma unroll 1")],
+    "grad unroll 2": [(_GRAD_LOOP, "#pragma unroll 2")],
+}
+
+
+def sweep_affine(cs) -> None:
+    """The warp and grad kernels of ``csrc/affine.cu`` beside the builds of
+    :data:`AFFINE_VARIANTS` (under shrimpy_tpu_torch/build/, all at once,
+    each with its ptxas register count), timed in turns (forward and back)
+    at the deskewed volume (the warp on chip_smoke's four maps) and at the
+    refine grid (the grad), every warp held to the kernel's bits and every
+    grad within 1e-9 of it; beside them a copy of the volume."""
+    import ctypes
+    import re
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, affine_warp_grad_cuda, map_params
+
+    work = build.BUILD_DIR / "affine_variants"
+    work.mkdir(parents=True, exist_ok=True)
+    source = (build.CSRC_DIR / "affine.cu").read_text()
+    libs, procs = {}, []
+    for i, (name, edits) in enumerate({"the kernel": [], **AFFINE_VARIANTS}.items()):
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/affine.cu no longer has {old!r}")
+            text = text.replace(old, new)
+        src, lib = work / f"affine_variant{i}.cu", work / f"libaffine_variant{i}.so"
+        src.write_text(text)
+        procs.append((name, subprocess.Popen(
+            [build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-Xptxas", "-v",
+             "-shared", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        libs[name] = lib
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"affine.cu {name} did not build:\n{err}")
+        regs = re.findall(r"Compiling entry function '(\S+)'.*?Used (\d+) registers", err, re.S)
+        print(f"  affine.cu {name}: registers " + ", ".join(
+            f"{k.split('affine_')[-1][:40]} {r}" for k, r in regs), flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    shape = cs.deskewed_shape()
+    vol = cs.uniform(shape, gen, 0.0, 100.0)
+    grid = (shape[0], -(-shape[1] // cs.DOWN), -(-shape[2] // cs.DOWN))
+    g = cs.uniform(grid, gen, -1.0, 1.0)
+    stream = torch.cuda.current_stream().cuda_stream
+    cases = {f"warp {k}": (m, t, False) for k, (m, t) in cs.affine_maps(shape).items()}
+    cases["grad lower"] = (*cs.refine_map(*cs.LOWER_MAP), True)
+    for case, (m, t, grad) in cases.items():
+        params = map_params(torch.from_numpy(m).cuda(), torch.from_numpy(t).cuda())
+        want = (affine_warp_grad_cuda(vol, g, params) if grad
+                else affine_warp_cuda(vol, params, shape))
+        runs = {}
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            for fn in ("shrimpy_affine_warp", "shrimpy_affine_grad_blocks",
+                       "shrimpy_affine_warp_grad"):
+                getattr(lib, fn).argtypes = build.SIGNATURES[fn]
+            out = torch.empty_like(want)
+            if grad:
+                part = torch.empty((lib.shrimpy_affine_grad_blocks(*shape, *grid[:2]), 12),
+                                   dtype=torch.float64, device="cuda")
+                args = (vol.data_ptr(), g.data_ptr(), params.data_ptr(), part.data_ptr(),
+                        out.data_ptr(), *shape, *grid, stream)
+                fn = lib.shrimpy_affine_warp_grad
+            else:
+                args = (vol.data_ptr(), out.data_ptr(), None, params.data_ptr(), *shape, *shape,
+                        stream)
+                fn = lib.shrimpy_affine_warp
+            build.check(fn(*args), name)
+            torch.cuda.synchronize()
+            # A build whose registers let more blocks fit an SM runs the grad
+            # on a larger grid: its float64 sums then add in another order.
+            if not (torch.equal(out, want) or grad and torch.allclose(out, want, rtol=1e-9,
+                                                                        atol=0.0)):
+                raise AssertionError(f"affine {case} {name} differs from the kernel")
+            runs[name] = (fn, args, out, part if grad else None)
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            fn, args = runs[name][:2]
+            times[name].append(cs.gpu_ms(lambda: fn(*args), 10))
+        for name, t_ in sorted(times.items(), key=lambda kv: sum(kv[1])):
+            print(f"  affine {case}, {name}: {sum(t_) / len(t_):.3f} ms "
+                  f"{['%.3f' % x for x in t_]}", flush=True)
+        del runs
+    copy = cs.gpu_ms(lambda: vol.clone(), 10)
+    print(f"  affine: vol.clone() {copy:.3f} ms, {8 * vol.numel() / copy / 1e9:.3f} TB/s",
+          flush=True)
+
+
+def time_rl_inputs(cs) -> None:
+    """RL-20 on ``fused`` alone (``richardson_lucy``, CUDA events, warm) on
+    the deskewed production volume, on its warp by chip_smoke's
+    LOWER_MAP (the registered step's RL input) and on the deskewed volume
+    with the voxels the warp leaves out of support set to 0: whether the
+    RL kernels' time depends on the warp's zero border."""
+    from shrimpy_tpu_torch.ops.deconv import richardson_lucy
+    from shrimpy_tpu_torch.ops.deskew import deskew_volume
+    from shrimpy_tpu_torch.ops.register import affine_apply
+
+    steps = cs.Steps(torch.Generator(device="cuda").manual_seed(cs.SEED))
+    settings, psf = cs.headline_settings(), steps.psf
+    vol = deskew_volume(steps.batch[0], settings.deskew)
+    m, t = cs.f32_map(*cs.LOWER_MAP)
+    warped = affine_apply(vol, m, t)
+    support = affine_apply(torch.ones_like(vol), m, t) > 0.999
+    inputs = {"deskewed": vol, "warped": warped, "deskewed, zero outside the warp's support":
+              vol * support}
+    del steps
+    torch.cuda.empty_cache()
+    print(f"  the warp leaves {int((~support).sum())} of {support.numel()} voxels out of support",
+          flush=True)
+    times = {name: [] for name in inputs}
+    for name in list(inputs) + list(inputs)[::-1]:
+        times[name].append(cs.gpu_ms(
+            lambda: richardson_lucy(inputs[name], psf, settings.deconvolve), 2))
+    for name, t_ in times.items():
+        print(f"  RL-20 on the {name} volume: {sum(t_) / len(t_):.3f} ms "
+              f"{['%.3f' % x for x in t_]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: torch.cuda.is_available() is False", file=sys.stderr)
@@ -620,6 +768,12 @@ def main() -> int:
     if "--deskew" in sys.argv[1:]:
         sweep_deskew(cs)
         return 0
+    if "--affine" in sys.argv[1:]:
+        sweep_affine(cs)
+        return 0
+    if "--rl-input" in sys.argv[1:]:
+        time_rl_inputs(cs)
+        return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)
         sweep_zy_variants(cs)
@@ -633,7 +787,9 @@ def main() -> int:
         return 0
     steps = cs.Steps(torch.Generator(device="cuda").manual_seed(cs.SEED))
     biggs = {"acceleration": "biggs", "iterations": cs.BIGGS_ITERATIONS}
+    transform = cs.transform_json(*cs.LOWER_MAP)
     for label, kw in (("deskew + RL-20, fused", {}),
+                      ("deskew + register + RL-20, fused", {"transform": transform}),
                       ("deskew + Biggs RL-10, fused", biggs),
                       ("deskew + RL-20, fused_iter", {"separable_backend": "fused_iter"}),
                       ("deskew + Biggs RL-10, fused_iter",

@@ -1,8 +1,8 @@
 """``shrimpy-tpu-torch`` CLI: the reconstruction verbs of the port.
 
-The verbs ``deskew``, ``deconvolve`` and ``reconstruct`` take the same
-options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
-(default ``cuda``). Pixel size and z step come from the store's scale
+The verbs ``deskew``, ``deconvolve``, ``reconstruct`` and ``register``
+take the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus
+``--device`` (default ``cuda``). Pixel size and z step come from the store's scale
 metadata and are injected into the settings, as in the JAX CLI. The
 settings are the port's own pydantic models
 (:mod:`shrimpy_tpu_torch.config.schemas`, a copy of the JAX package's:
@@ -26,6 +26,14 @@ def cli(verbose: bool) -> None:
     from shrimpy_tpu_torch.utils.logging import configure_logging
 
     configure_logging(level=logging.DEBUG if verbose else logging.INFO)
+
+
+def _channel_index(names: list, channel: str) -> int:
+    """Channel index, or a click error listing the available names."""
+    try:
+        return names.index(channel)
+    except ValueError:
+        raise click.ClickException(f"channel {channel!r} not in the store (has {names})") from None
 
 
 def _inject_from_store(settings, input_path: Path) -> None:
@@ -161,7 +169,7 @@ def deconvolve(
                    "top-level 'arms:' mapping (per-arm output stores).")
 def reconstruct(input, output, devices, space, batch, resume, profile_dir, device,
                 config_path):
-    """Run the configured pipeline (deskew/deconvolve)."""
+    """Run the configured pipeline (deskew/register/deconvolve)."""
     import yaml
 
     from shrimpy_tpu_torch.config.schemas import (
@@ -184,6 +192,61 @@ def reconstruct(input, output, devices, space, batch, resume, profile_dir, devic
     settings = load_yaml_config(config_path, ReconstructSettings)
     _run_reconstruct(input, output, settings, devices, space, batch, resume,
                      profile_dir, device)
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+@click.option("--fixed-channel", required=True)
+@click.option("--moving-channel", required=True)
+@click.option("--moving-input", type=click.Path(exists=True), default=None,
+              help="Store holding the moving channel (defaults to INPUT): the "
+                   "dual-arm case registers the lightsheet store against the "
+                   "labelfree store.")
+@click.option("-o", "--output", type=click.Path(), required=True,
+              help="Output JSON transform file.")
+@click.option("--timepoint", type=int, default=0, show_default=True)
+@click.option("--method", type=click.Choice(["pcc", "pcc+refine"]),
+              default="pcc+refine", show_default=True)
+@click.option("--device", default="cuda", show_default=True,
+              help="Torch device: 'cuda', 'cuda:N' or 'cpu'.")
+def register(input, fixed_channel, moving_channel, moving_input, output, timepoint, method,
+             device):
+    """Estimate the affine transform aligning a moving channel onto a
+    fixed channel (same store or a sibling arm store)."""
+    import numpy as np
+    import torch
+
+    from shrimpy_tpu_torch.config.schemas import RegistrationSettings
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+    from shrimpy_tpu_torch.ops.register import estimate_registration
+    from shrimpy_tpu_torch.utils.device import resolve_device
+    from shrimpy_tpu_torch.utils.fft import match_shape
+
+    try:
+        dev = resolve_device(device)
+    except RuntimeError as exc:
+        raise click.ClickException(str(exc)) from None
+    pos = open_ngff(input).position()
+    mov_pos = open_ngff(moving_input).position() if moving_input else pos
+    fixed = pos.volume(timepoint, _channel_index(pos.channel_names, fixed_channel))
+    moving = mov_pos.volume(timepoint, _channel_index(mov_pos.channel_names, moving_channel))
+    fixed = torch.from_numpy(np.ascontiguousarray(fixed)).to(dev)
+    moving = torch.from_numpy(np.ascontiguousarray(moving)).to(dev)
+    if moving.shape != fixed.shape:
+        # Cross-arm volumes may differ in extent: match on the fixed grid
+        # (zero-pad / center-crop) before estimating.
+        moving = match_shape(moving, tuple(fixed.shape), mode="constant")
+    result = estimate_registration(fixed, moving, RegistrationSettings(method=method))
+    transform = {
+        "matrix_zyx": result.matrix.tolist(),
+        "offset_zyx": result.offset.tolist(),
+        "translation_seed_zyx": result.translation_seed.tolist(),
+        "final_loss": result.final_loss,
+        "fixed_channel": fixed_channel,
+        "moving_channel": moving_channel,
+    }
+    Path(output).write_text(json.dumps(transform, indent=2))
+    click.echo(json.dumps(transform, indent=2))
 
 
 if __name__ == "__main__":

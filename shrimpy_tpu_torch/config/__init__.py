@@ -76,6 +76,17 @@ DECONVOLVE_DEFAULTS = {
     "donate_input": False,
 }
 
+REGISTRATION_DEFAULTS = {
+    "method": "pcc+refine",
+    "maximum_shift": 1.0,
+    "refine_iterations": 100,
+    "learning_rate": 0.05,
+    "loss": "ncc",
+    "parameterization": "triangular",
+    "downsample_yx": 4,
+    "transform_path": None,
+}
+
 IO_RETRY_DEFAULTS = {"attempts": 3, "wait_s": 1.0, "contain_failures": True}
 
 RECONSTRUCT_DEFAULTS = {
@@ -105,6 +116,10 @@ def deskew_settings(**overrides) -> SimpleNamespace:
 
 def deconvolve_settings(**overrides) -> SimpleNamespace:
     return _make(DECONVOLVE_DEFAULTS, overrides)
+
+
+def registration_settings(**overrides) -> SimpleNamespace:
+    return _make(REGISTRATION_DEFAULTS, overrides)
 
 
 def reconstruct_settings(**overrides) -> SimpleNamespace:

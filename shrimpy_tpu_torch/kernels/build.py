@@ -59,7 +59,8 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 
 # C signature of every entry point in csrc/ (argtypes; restype is int: a
-# CUDA error code, but for the shrimpy_*_smem functions, which return bytes).
+# CUDA error code, but for the shrimpy_*_smem functions, which return bytes,
+# and shrimpy_affine_grad_blocks, which returns a count).
 SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
     # ns, nt, nx, nz, ny, n_groups, a_avg, ty, tx, rows, vec, stream
@@ -84,6 +85,12 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_probe_smem": [_P, _I32, _P],
     # a, b, hi/lo scratch (a_hi, a_lo, b_hi, b_lo), c, m, n, k, mode, stream
     "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
+    # vol, out, support (or null), params, nz, ny, nx, oz, oy, ox, stream
+    "shrimpy_affine_warp": [_P] * 4 + [_I64] * 6 + [_P],
+    # nz, ny, nx, oz, oy -> partial rows of shrimpy_affine_warp_grad (negative: an error)
+    "shrimpy_affine_grad_blocks": [_I64] * 5,
+    # vol, grad_out, params, partials, grad, nz, ny, nx, oz, oy, ox, stream
+    "shrimpy_affine_warp_grad": [_P] * 5 + [_I64] * 6 + [_P],
 }
 
 # The macros of a geometry of rl_half and rl_iter (n_terms, nkz, nky, nkx,

@@ -1,13 +1,16 @@
-"""Single-device reconstruction step: deskew -> deconvolve (counterpart
-of ``shrimpy_tpu/parallel/pipeline.py``: ``build_reconstruct_step``,
-``reconstruct_batch``, ``output_shape``, ``_stage_fns``, ``_deconv_fn``).
+"""Single-device reconstruction step: deskew -> register -> deconvolve
+(counterpart of ``shrimpy_tpu/parallel/pipeline.py``:
+``build_reconstruct_step``, ``reconstruct_batch``, ``output_shape``,
+``_stage_fns``, ``_register_fn``, ``_deconv_fn``).
 
 The JAX step is one jit program mapped over the batch and sharded over
 a mesh. PyTorch runs eagerly, so the port's step is a Python loop over
 the volumes of a ``(B, S, T, X)`` batch on one device: the deskew
-kernel, then separable RL (two half-step kernels per iteration). The
-phase and registration stages, ``shard_volumes`` and a mesh are not
-ported yet and raise :class:`NotImplementedError`.
+kernel, then the affine warp of a transform JSON when
+``registration.transform_path`` is set (one kernel launch), then
+separable RL (two half-step kernels per iteration). The phase stage,
+``shard_volumes`` and a mesh are not ported yet and raise
+:class:`NotImplementedError`.
 
 Settings are read by attribute: a pydantic ``ReconstructSettings`` or
 a :class:`types.SimpleNamespace` with the same field names (see
@@ -31,6 +34,7 @@ from shrimpy_tpu_torch.ops.deskew import (
     deskew_volume,
     get_deskewed_shape,
 )
+from shrimpy_tpu_torch.ops.register import affine_apply, affine_apply_plain
 from shrimpy_tpu_torch.utils.device import as_tensor, resolve_device
 
 
@@ -48,10 +52,6 @@ def _check_ported(settings, mesh) -> None:
         raise NotImplementedError(
             "the phase stage is not ported yet: ROADMAP queue 1 item 7"
         )
-    if settings.registration is not None:
-        raise NotImplementedError(
-            "the registration stage is not ported yet: ROADMAP queue 1 item 6"
-        )
 
 
 def _deskew_fn(settings, *, plain: bool, dtype: torch.dtype):
@@ -63,6 +63,34 @@ def _deskew_fn(settings, *, plain: bool, dtype: torch.dtype):
     if plain:
         return lambda raw: deskew_plain(raw, desk, dtype=dtype)
     return lambda raw: deskew_volume(raw, desk)
+
+
+def _register_fn(settings, *, plain: bool, dtype: torch.dtype):
+    """Affine-apply stage from the transform JSON the ``register`` verb
+    writes (``{"matrix_zyx", "offset_zyx"}``), read once here; None
+    without ``registration.transform_path``, as in the JAX package."""
+    reg = settings.registration
+    if reg is None or reg.transform_path is None:
+        return None
+    import json
+
+    with open(reg.transform_path) as f:
+        transform = json.load(f)
+    matrix = np.asarray(transform["matrix_zyx"], np.float32)
+    offset = np.asarray(transform["offset_zyx"], np.float32)
+    if plain:
+        return lambda vol: affine_apply_plain(vol, matrix, offset, tuple(vol.shape), dtype=dtype)
+    # The map on each device the step meets, copied there once: a copy from
+    # the host a volume would wait for the card to finish the deskew.
+    maps = {}
+
+    def apply(vol: torch.Tensor) -> torch.Tensor:
+        if vol.device not in maps:
+            maps[vol.device] = (torch.from_numpy(matrix).to(vol.device),
+                                torch.from_numpy(offset).to(vol.device))
+        return affine_apply(vol, *maps[vol.device], tuple(vol.shape))
+
+    return apply
 
 
 def _deconv_fn(settings, psf, *, terms=None, plain: bool, dtype: torch.dtype):
@@ -88,10 +116,12 @@ def _deconv_fn(settings, psf, *, terms=None, plain: bool, dtype: torch.dtype):
 
 def _stage_fns(settings, psf, mesh=None, *, terms=None, plain=False,
                dtype=torch.float32):
-    """``(deskew_fn | None, deconv_fn | None)`` per-volume stages."""
+    """``(deskew_fn, register_fn, deconv_fn)`` per-volume stages, each
+    None where the settings leave it out."""
     _check_ported(settings, mesh)
     return (
         _deskew_fn(settings, plain=plain, dtype=dtype),
+        _register_fn(settings, plain=plain, dtype=dtype),
         _deconv_fn(settings, psf, terms=terms, plain=plain, dtype=dtype),
     )
 
@@ -119,7 +149,7 @@ def build_reconstruct_step(
     plain PyTorch versions in ``dtype`` instead (the reference path).
     """
     dev = resolve_device(device)
-    deskew_fn, deconv_fn = _stage_fns(
+    deskew_fn, register_fn, deconv_fn = _stage_fns(
         settings, psf, mesh, terms=terms, plain=plain, dtype=dtype
     )
 
@@ -132,6 +162,8 @@ def build_reconstruct_step(
             vol = batch[b]
             if deskew_fn is not None:
                 vol = deskew_fn(vol)
+            if register_fn is not None:
+                vol = register_fn(vol)
             if deconv_fn is not None:
                 vol = deconv_fn(vol)
             outs.append(vol.to(dtype))

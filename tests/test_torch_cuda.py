@@ -1135,3 +1135,146 @@ def test_probes_entry_point_runs(cuda):
     from shrimpy_tpu_torch.kernels import probes
 
     assert probes.main() == 0
+
+
+# The affine warp (csrc/affine.cu). Maps: a fractional translation, the
+# refine's near-identity lower-triangular form, a 2-degree and a 30-degree
+# rotation in the yx plane about the volume's center. Against the float64
+# plain version within 1e-5 of max|ref| (the kernel forms coordinates in
+# float64 and sums the corners in float32); the warp of ones (support)
+# within 1e-6.
+def _affine_map(kind: str, shape):
+    import math
+
+    if kind == "translate":
+        return np.eye(3, dtype=np.float32), np.array([0.4, -3.2, 2.6], np.float32)
+    if kind == "lower":
+        m = np.array([[1.003, 0.0, 0.0], [0.012, 0.997, 0.0], [-0.018, 0.015, 1.002]],
+                     np.float32)
+        return m, np.array([0.4, -3.2, 2.6], np.float32)
+    deg = {"rot2": 2.0, "rot30": 30.0}[kind]
+    c, s = math.cos(math.radians(deg)), math.sin(math.radians(deg))
+    m = np.array([[1.0, 0.0, 0.0], [0.0, c, -s], [0.0, s, c]])
+    center = (np.asarray(shape, np.float64) - 1) / 2
+    return m.astype(np.float32), (center - m @ center).astype(np.float32)
+
+
+AFFINE_KINDS = ("translate", "lower", "rot2", "rot30")
+
+
+@pytest.mark.parametrize("out_shape", [None, (7, 29, 70), (3, 50, 17)])
+@pytest.mark.parametrize("kind", AFFINE_KINDS)
+def test_affine_warp_matches_plain(cuda, kind, out_shape):
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, map_params
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain
+
+    vol = _rand((5, 37, 45), 50, cuda, 0.0, 50.0)
+    shape = out_shape or tuple(vol.shape)
+    m, t = _affine_map(kind, vol.shape)
+    params = map_params(torch.from_numpy(m).to(cuda), torch.from_numpy(t).to(cuda))
+    out, sup = affine_warp_cuda(vol, params, shape, support=True)
+    torch.cuda.synchronize()
+    assert tuple(out.shape) == shape
+    ref = affine_apply_plain(vol, m, t, shape, dtype=torch.float64)
+    assert _rel(out, ref) <= 1e-5
+    ones = affine_apply_plain(torch.ones_like(vol), m, t, shape, dtype=torch.float64)
+    assert float((sup.double() - ones).abs().max()) <= 1e-6
+    assert torch.equal(affine_warp_cuda(vol, params, shape), out)
+
+
+@pytest.mark.parametrize("vol_shape,out_shape", [((3, 6, 8), (2, 40000, 8)),
+                                                 ((70000, 2, 3), (70000, 2, 3))])
+def test_affine_warp_past_65535_rows(cuda, vol_shape, out_shape):
+    from shrimpy_tpu_torch.ops.register import affine_apply, affine_apply_plain
+
+    vol = _rand(vol_shape, 51, cuda, 0.0, 10.0)
+    m, t = _affine_map("lower", vol_shape)
+    out = affine_apply(vol, m, t, out_shape)
+    torch.cuda.synchronize()
+    assert out.shape[0] * out.shape[1] > 65535
+    assert _rel(out, affine_apply_plain(vol, m, t, out_shape, dtype=torch.float64)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", AFFINE_KINDS)
+def test_affine_grad_matches_float64_autograd_and_repeats_its_bits(cuda, kind):
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_grad_cuda, map_params
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain
+
+    vol = _rand((9, 61, 53), 52, cuda, 0.0, 50.0)
+    m, t = _affine_map(kind, vol.shape)
+    m = m @ np.diag([1.0, 2.0, 2.0]).astype(np.float32)  # a stride-2 refine grid
+    shape = (9, 31, 27)
+    g = _rand(shape, 53, cuda, -1.0, 1.0)
+    params = map_params(torch.from_numpy(m).to(cuda), torch.from_numpy(t).to(cuda))
+    first = affine_warp_grad_cuda(vol, g, params)
+    second = affine_warp_grad_cuda(vol, g, params)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    mt = torch.tensor(m, dtype=torch.float64, device=cuda, requires_grad=True)
+    tt = torch.tensor(t, dtype=torch.float64, device=cuda, requires_grad=True)
+    (affine_apply_plain(vol, mt, tt, shape, dtype=torch.float64) * g.double()).sum().backward()
+    want = torch.cat([mt.grad.reshape(9), tt.grad])
+    assert _rel(first, want) <= 1e-5
+
+
+def test_affine_warp_function_differentiates_the_map_only(cuda):
+    from shrimpy_tpu_torch.ops.affine_cuda import AffineWarp
+
+    vol = _rand((6, 20, 24), 54, cuda)
+    m = torch.eye(3, device=cuda, requires_grad=True)
+    t = torch.tensor([0.3, -1.2, 0.8], device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="vol must not require"):
+        AffineWarp.apply(vol.clone().requires_grad_(), m, t, (6, 20, 24), False)
+    out, sup = AffineWarp.apply(vol, m, t, (6, 20, 24), True)
+    assert not sup.requires_grad and out.requires_grad
+    (out * out).sum().backward()
+    assert m.grad.shape == (3, 3) and t.grad.shape == (3,)
+    assert bool(torch.isfinite(m.grad).all() and torch.isfinite(t.grad).all())
+
+
+def test_registration_on_the_card_never_reaches_the_plain_version(cuda, tmp_path):
+    """affine_apply, estimate_registration and the registered step on CUDA
+    tensors launch the kernels (counted) and never the plain version; the
+    plain path on the card agrees with the kernel path."""
+    import json
+
+    from shrimpy_tpu_torch.config import registration_settings
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, affine_warp_grad_cuda
+    from shrimpy_tpu_torch.ops.register import (
+        affine_apply,
+        affine_apply_plain,
+        estimate_registration,
+    )
+
+    shape = (16, 64, 64)
+    rng = np.random.default_rng(55)
+    z, y, x = np.meshgrid(*(np.arange(n, dtype=np.float64) for n in shape), indexing="ij")
+    fixed = sum(100.0 * np.exp(-0.5 * (((z - cz) / 2.0) ** 2 + ((y - cy) / 4.0) ** 2
+                                       + ((x - cx) / 4.0) ** 2))
+                for cz, cy, cx in rng.uniform(4, np.array(shape) - 4, (12, 3)))
+    fixed = torch.from_numpy(fixed.astype(np.float32)).to(cuda)
+    m, t = _affine_map("lower", shape)
+    moving = affine_apply_plain(fixed, m, t, dtype=torch.float64).float()
+    affine_warp_cuda.launches = affine_warp_grad_cuda.launches = 0
+    affine_apply_plain.cuda_calls = 0
+    s = registration_settings(refine_iterations=7)
+    got = estimate_registration(fixed, moving, s)
+    assert (affine_warp_cuda.launches, affine_warp_grad_cuda.launches) == (9, 7)
+    assert affine_apply_plain.cuda_calls == 0
+    ref = estimate_registration(fixed, moving, s, plain=True)
+    assert affine_apply_plain.cuda_calls > 0
+    np.testing.assert_allclose(got.matrix, ref.matrix, atol=1e-4)
+    np.testing.assert_allclose(got.offset, ref.offset, atol=1e-3)
+    affine_warp_cuda.launches = 0
+    affine_apply_plain.cuda_calls = 0
+    assert affine_apply(fixed, m, t).is_cuda and affine_warp_cuda.launches == 1
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"matrix_zyx": m.tolist(), "offset_zyx": t.tolist()}))
+    settings = reconstruct_settings(deskew=deskew_settings(px_to_scan_ratio=0.386),
+                                    registration=registration_settings(transform_path=str(path)))
+    raw = _rand((1, 40, 24, 20), 56, cuda, 0.0, 100.0)
+    out = build_reconstruct_step(settings)(raw)
+    assert out.is_cuda and affine_warp_cuda.launches == 2
+    assert affine_apply_plain.cuda_calls == 0
+    ref = build_reconstruct_step(settings, plain=True, dtype=torch.float64)(raw)
+    assert _rel(out, ref) <= 1e-5

@@ -457,6 +457,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                          r"from shrimpy_tpu[. ]|import shrimpy_tpu$)", re.M)
     files = _port_sources()
     assert len(files) > 25
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {f"shrimpy_tpu_torch/{m}.py" for m in ("utils/fft", "ops/pcc", "ops/register",
+                                                   "ops/affine_cuda")} <= names
     hits = {str(f.relative_to(REPO)): pattern.findall(f.read_text()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
     # The pattern does catch what it is after.
@@ -467,7 +470,11 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
 
 
 @pytest.mark.parametrize("module", ["shrimpy_tpu_torch.cli.main",
-                                    "shrimpy_tpu_torch.runtime.stream"])
+                                    "shrimpy_tpu_torch.runtime.stream",
+                                    "shrimpy_tpu_torch.ops.register",
+                                    "shrimpy_tpu_torch.ops.pcc",
+                                    "shrimpy_tpu_torch.ops.affine_cuda",
+                                    "shrimpy_tpu_torch.utils.fft"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no
@@ -478,6 +485,7 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
         if hasattr(mod, "cli"):
             from click.testing import CliRunner
             assert CliRunner().invoke(mod.cli, ["reconstruct", "--help"]).exit_code == 0
+            assert CliRunner().invoke(mod.cli, ["register", "--help"]).exit_code == 0
             from shrimpy_tpu_torch.config import ReconstructSettings, load_yaml_config
             load_yaml_config("configs/reconstruct_demo.yml", ReconstructSettings)
             from shrimpy_tpu_torch.config.microscopes import get_microscope

@@ -316,7 +316,7 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
 
 @pytest.mark.parametrize("update,match", [
     ({"phase": PhaseSettings()}, "phase"),
-    ({"registration": RegistrationSettings(transform_path="t.json")}, "registration"),
+    ({"registration": RegistrationSettings(transform_path="transform.json")}, None),
     ({"shard_volumes": True}, "shard_volumes"),
     ({"deconvolve": DeconvolveSettings(acceleration="biggs", iterations=3)}, None),
     ({"deconvolve": DeconvolveSettings(algorithm="hybrid")}, "item 8"),
@@ -326,9 +326,15 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
     ({"deconvolve": DeconvolveSettings(separable_backend="matmul", iterations=3)}, None),
     ({"deconvolve": DeconvolveSettings(separable_backend="fused_iter", iterations=3)}, None),
 ])
-def test_unported_pipeline_settings_raise(update, match):
+def test_unported_pipeline_settings_raise(update, match, tmp_path):
     """Stages and settings the port does not run raise; those it has
-    come to run (``match`` None) give a finite batch of the right shape."""
+    come to run (``match`` None) give a finite batch of the right shape.
+    A registration case reads a real transform JSON from ``tmp_path``."""
+    if "registration" in update:
+        path = tmp_path / update["registration"].transform_path
+        path.write_text(json.dumps({"matrix_zyx": [[1.01, 0, 0], [0.02, 0.99, 0], [0, 0, 1]],
+                                    "offset_zyx": [0.5, -1.5, 2.0]}))
+        update = {"registration": RegistrationSettings(transform_path=str(path))}
     settings = ReconstructSettings(deskew=DeskewSettings(px_to_scan_ratio=0.386),
                                    **update)
     psf = gaussian_psf((5, 7, 7), (1.0, 1.5, 1.5))
@@ -487,7 +493,8 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
     assert build.build() == first
     calls = log.read_text().splitlines()
     assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu", "rl_half.cu",
-                                                 "convzy.cu", "rl_iter.cu", "probes.cu"}
+                                                 "convzy.cu", "rl_iter.cu", "probes.cu",
+                                                 "affine.cu"}
     assert len(calls) == len(build.sources()) + 1
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     compiles = [c for c in calls if " -c " in c]
