@@ -11,7 +11,10 @@ checks that it gives the new kernel's bits and times the two in turns.
 ``--parent-convzy DIR`` does the same for the z+y kernel before the
 march (``convzy.cu`` of the commit before it), on both boundaries, and
 ``--parent-deskew DIR`` for the deskew kernel before its redesign
-(``deskew.cu``), at the production raw and at ``BASELINE.md`` config 1.
+(``deskew.cu``), at the production raw and at ``BASELINE.md`` config 1,
+and ``--parent-affine DIR`` for the affine kernels before the two-launch
+refine step (``affine.cu``): its gradient kernel, and a refine step
+built on it, each timed beside the new one.
 Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
@@ -52,11 +55,18 @@ Phases:
    than the radii (4, 10, 10); each route timed at the production carry
    beside the bound and ``F.conv3d`` (and beside the kernel before the
    march with ``--parent-convzy``); ``conv3_circular`` (both tap
-   orders) on those carries and the circular x pass in ``ratio``,
+   orders) on those carries, on a (20, 150, 256) one with blocks in the
+   grid and on its seams, and past the one-launch block with a (9, 201, 3)
+   PSF, its one launch (``csrc/rl_half.cu`` built with
+   ``RL_HALF_WRAP=1``) bit-equal to the two-launch route (the circular z+y
+   step, then the circular x pass) and both against the plain version,
+   the two timed in turns at the production carry beside
+   ``torch.nn.Conv3d(padding_mode="circular")`` with the dense kernel;
+   the circular x pass in ``ratio``,
    ``mult`` and ``plain`` modes against the dense circulant product
    (also with a row that wraps twice); ``conv3_circular``, which no
    backend reaches, is then driven once at the production carry with
-   the counts reset; the two-pass route through ``richardson_lucy`` with
+   the counts reset (one launch); the two-pass route through ``richardson_lucy`` with
    a (9, 201, 3) PSF past the march's block on ``linear_pallas`` and
    ``zy_pallas`` (RL-2 and Biggs RL-2), and the carries repaired with
    it: a (66000, 2, 6) image on ``linear_pallas`` (the y pass over more
@@ -85,9 +95,12 @@ Phases:
    shape and to (136, 2800, 1700), against the plain version in float64
    (1e-4) and float32 (1e-3: the plain float32 version rounds M u + t as
    the JAX gather does), timed beside its bound from the voxels the map
-   reads and ``F.affine_grid`` + ``F.grid_sample``; its gradient with
-   respect to the map at the refine grid (128, 722, 400), twice (the same
-   bits), the 12 sums against float64 autograd of the plain version.
+   reads and ``F.affine_grid`` + ``F.grid_sample``; the refine step's two
+   launches at the refine grid (128, 722, 400) on a blob pair, ncc and
+   mse, twice (the same bits), the loss and the 12 sums against the plain
+   objective in float64 (within 1e-5), each launch timed beside its bound
+   by voxels and by 32-byte sectors (and, with ``--parent-affine``, beside
+   the gradient kernel before).
    Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
    another order); the bf16 Biggs state within one bf16 ulp, the
    step-length sums within 1e-5 relative. Beside each kernel's time the
@@ -129,7 +142,9 @@ Phases:
    of the deskewed shape, the moving volume the float64 plain warp of a
    known lower-triangular map: first and warm seconds, the recovered map
    against the truth (offset within 0.3 px, diagonal within 0.02), the
-   counts (102 warps, 100 gradients); at ``bench.py``'s (64, 256, 256) the
+   counts (102 sums launches, 100 gradient launches, no warp), a refine
+   step's ms in the estimate and alone (beside the step before with
+   ``--parent-affine``); at ``bench.py``'s (64, 256, 256) the
    kernel path's estimate against the plain path's;
 4h. deskew + register-apply (a transform JSON) + RL-20 on ``fused``: one
    warp launch, against its float64 plain step within 1e-3, timed against
@@ -137,7 +152,7 @@ Phases:
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
-   (fourteen entries: the twelve kernels, the kept three-pass half-step
+   (fifteen entries: the thirteen kernels, the kept three-pass half-step
    and the z+y step's two-pass route),
    the card line and the final ``{"ok": true, ...}`` line.
 """
@@ -323,6 +338,7 @@ def counters() -> dict:
     from shrimpy_tpu_torch.ops.conv3_cuda import (
         conv3_circular_cuda,
         conv3_circular_plain,
+        conv3_one_launch,
         convzy_circular_cuda,
         convzy_circular_plain,
         convzy_linear_cuda,
@@ -338,13 +354,14 @@ def counters() -> dict:
         half_step_plain,
         half_step_three_pass,
     )
-    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, affine_warp_grad_cuda
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, refine_grad_cuda, refine_sums_cuda
     from shrimpy_tpu_torch.ops.register import affine_apply_plain
     from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_half_steps, rl_iter_plain
 
     return {
         "affine_warp": (affine_warp_cuda, "launches"),
-        "affine_warp_grad": (affine_warp_grad_cuda, "launches"),
+        "refine_sums": (refine_sums_cuda, "launches"),
+        "refine_grad": (refine_grad_cuda, "launches"),
         "plain_affine_on_cuda": (affine_apply_plain, "cuda_calls"),
         "rl_iter": (rl_iter_cuda, "launches"),
         "rl_iter_half_steps": (rl_iter_half_steps, "launches"),
@@ -364,6 +381,7 @@ def counters() -> dict:
         "convzy_march": (convzy_march, "launches"),
         "convzy_two_pass": (convzy_two_pass, "launches"),
         "conv3_circular": (conv3_circular_cuda, "launches"),
+        "conv3_one_launch": (conv3_one_launch, "launches"),
         "plain_half_step_on_cuda": (half_step_plain, "cuda_calls"),
         "plain_convzy_on_cuda": (convzy_linear_plain, "cuda_calls"),
         "plain_convzy_circular_on_cuda": (convzy_circular_plain, "cuda_calls"),
@@ -991,19 +1009,57 @@ def phase_convzy(gen, parent_dir=None) -> dict:
     return res
 
 
+def library_conv3d_circular(v: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """One ``torch.nn.Conv3d(..., padding_mode="circular", bias=False)``
+    call with ``weight``: the circular yardstick the port never calls."""
+    conv = torch.nn.Conv3d(1, 1, tuple(weight.shape[2:]), padding=tuple(k // 2 for k in
+                           weight.shape[2:]), padding_mode="circular", bias=False).cuda()
+    conv.weight.data.copy_(weight)
+    with torch.no_grad():
+        return conv(v[None, None])[0, 0]
+
+
+def time_conv3(v, st) -> dict:
+    """conv3_circular at the production carry on its one launch
+    (``rl_half.cu``'s circular build) and on the two-launch route it
+    replaces, in turns (two, one, one, two), the first held to the
+    second's bits."""
+    from shrimpy_tpu_torch.ops.conv3_cuda import conv3_half_step_cuda, conv3_one_launch
+
+    out, other, scratch = torch.empty_like(v), torch.empty_like(v), [torch.empty_like(v)]
+    one = lambda: conv3_one_launch(v, st, out=out)  # noqa: E731
+    two = lambda: conv3_half_step_cuda(v, None, st, "plain", boundary="circular",  # noqa: E731
+                                       out=other, scratch=scratch)
+    one()
+    two()
+    same_bits(f"conv3_circular {tuple(v.shape)} one launch vs z+y then x", out, other)
+    times = {"one": [], "two": []}
+    for which in ("two", "one", "one", "two"):
+        times[which].append(gpu_ms(one if which == "one" else two, 10))
+    res = {"ms": sum(times["one"]) / 2, "ms_zy_then_x": sum(times["two"]) / 2}
+    print(f"  conv3_circular {tuple(v.shape)}: one launch {res['ms']:.3f} ms {times['one']}; "
+          f"z+y then x {res['ms_zy_then_x']:.3f} {times['two']}", flush=True)
+    return res
+
+
 def phase_circular(gen, parent_dir=None) -> tuple[dict, dict, dict]:
     """convzy_circular (both routes, bit for bit; timed beside the kernel
-    before the march with ``--parent-convzy``), conv3_circular and the
-    circular x pass against their plain versions; then conv3_circular
-    driven once with the counts reset (no backend reaches it). Returns
-    the three kernels' entries: max|a-b| over every check, times at the
-    production carry."""
+    before the march with ``--parent-convzy``), conv3_circular (both
+    routes, bit for bit, and against the plain version) and the circular x
+    pass against their plain versions; conv3_circular past the one-launch
+    block; then conv3_circular driven once with the counts reset (no
+    backend reaches it). Returns the three kernels' entries: max|a-b| over
+    every check, times at the production carry beside torch.nn.Conv3d
+    with a circular padding (the dense (9, 21, 1) kernel of the z+y step,
+    the dense sum of the terms for conv3)."""
     import numpy as np
 
     from shrimpy_tpu_torch.ops.conv3_cuda import (
         conv3_circular,
         conv3_circular_cuda,
         conv3_circular_plain,
+        conv3_circular_route,
+        conv3_half_step_cuda,
         convzy_circular_cuda,
         convzy_circular_plain,
         convzy_two_pass,
@@ -1014,8 +1070,7 @@ def phase_circular(gen, parent_dir=None) -> tuple[dict, dict, dict]:
     eps = headline_settings().deconvolve.epsilon
     terms, carry = production_terms()
     zy, c3, xp = ({"max_abs_err": 0.0} for _ in range(3))
-    cases = convzy_cases(terms, carry) + (((3, 9, 40), terms, "(3, 9, 40) multi-wrap", 0),)
-    for shape, tt, label, off in cases:
+    for shape, tt, label, off in conv3_cases(terms, carry):
         v = offset_carry(shape, gen, off)
         for flip in (False, True):
             st = Stencil(tt, flip=flip, device="cuda")
@@ -1027,26 +1082,49 @@ def phase_circular(gen, parent_dir=None) -> tuple[dict, dict, dict]:
                           convzy_two_pass(v, kz, ky, boundary="circular",
                                           out=torch.empty_like(v)), want)
                 del want
-            err = compare(f"conv3_circular {label} flip={flip}", conv3_circular_cuda(v, st),
+            route = conv3_circular_route(shape, st.radii, len(tt))
+            got = conv3_circular_cuda(v, st)
+            if route == "one_launch":
+                same_bits(f"conv3_circular {label} flip={flip} one launch vs z+y then x", got,
+                          conv3_half_step_cuda(v, None, st, "plain", boundary="circular"))
+            err = compare(f"conv3_circular {label} flip={flip} ({route})", got,
                           conv3_circular_plain(v, st), KERNEL_RTOL)
             c3["max_abs_err"] = max(c3["max_abs_err"], err)
+            del got
         if shape == carry:
             st = Stencil(tt, device="cuda")
             kz, ky, _ = st.host[0]
-            out = torch.empty_like(v)
-            scratch = [torch.empty_like(v)]
             zy.update(time_convzy(v, st, "circular",
                                   parent_convzy(parent_dir) if parent_dir else None))
             zy["plain_ms"] = gpu_ms(lambda: convzy_circular_plain(v, kz, ky), 2)
-            c3["ms"] = gpu_ms(lambda: conv3_circular_cuda(v, st, out=out, scratch=scratch), 10)
+            c3.update(time_conv3(v, st))
             c3["plain_ms"] = gpu_ms(lambda: conv3_circular_plain(v, st), 2)
-            # v read, out written. F.conv3d has no circular boundary (it
-            # would take a wrap pad first: two calls), so no library time.
-            zy.update(bound(2 * 4 * v.numel(), 2 * (len(kz) + len(ky)) * v.numel()),
-                      library_ms=None)
-            c3.update(bound(2 * 4 * v.numel(), 2 * n_taps(tt) * v.numel()), library_ms=None)
-            del out, scratch
+            # v read, out written.
+            zy.update(bound(2 * 4 * v.numel(), 2 * (len(kz) + len(ky)) * v.numel()))
+            c3.update(bound(2 * 4 * v.numel(), 2 * n_taps(tt) * v.numel()))
+            for entry, weight, want, name in (
+                    (zy, dense_kernel(tt[:1], axes=(0, 1)),
+                     convzy_circular_cuda(v, st.dev[0][0], st.dev[0][1]), "convzy_circular"),
+                    (c3, dense_kernel(tt), conv3_circular_cuda(v, st), "conv3_circular")):
+                compare(f"Conv3d circular {tuple(weight.shape[2:])} vs {name}",
+                        library_conv3d_circular(v, weight), want, 1e-3)
+                del want
+                entry["library_ms"] = gpu_ms(lambda: library_conv3d_circular(v, weight),
+                                             1 if name == "conv3_circular" else 2)
+                print(f"  {name} {carry}: bound {entry['bound_ms']:.3f} ms by "
+                      f"{entry['bound_by']}, Conv3d circular {entry['library_ms']:.3f} ms, plain "
+                      f"{entry['plain_ms']:.3f} ms", flush=True)
         del v
+    # Past the one-launch block: the z+y step, then the x pass.
+    wide = [tuple(np.random.default_rng(SEED + 5).random(k).astype(np.float32)
+                  for k in TWO_PASS_PSF[0])]
+    v = uniform((6, 210, 20), gen, 0.0, 10.0)
+    st = Stencil(wide, device="cuda")
+    if conv3_circular_route(tuple(v.shape), st.radii) != "zy_then_x":
+        raise AssertionError("conv3_circular: a (9, 201, 3) PSF should be past the block")
+    err = compare("conv3_circular (6, 210, 20) PSF (9, 201, 3) (zy_then_x)",
+                  conv3_circular_cuda(v, st), conv3_circular_plain(v, st), KERNEL_RTOL)
+    c3["max_abs_err"] = max(c3["max_abs_err"], err)
     # The x pass alone: the production row, and a row of 21 under 45 taps.
     rng = np.random.default_rng(SEED)
     for shape, kx, label in ((carry, Stencil(terms).host[0][2], f"{carry}"),
@@ -1073,11 +1151,17 @@ def phase_circular(gen, parent_dir=None) -> tuple[dict, dict, dict]:
     print("  conv3_circular through its entry point at the production carry:", flush=True)
     v = uniform(carry, gen, 0.0, 10.0)
     _, counts, _ = drive(lambda vol: conv3_circular(vol, terms), v,
-                         {"conv3_circular": 1, "convzy_circular": len(terms),
-                          "convzy_march": len(terms)})
-    c3["launches"] = counts["conv3_circular"]
+                         {"conv3_circular": 1, "conv3_one_launch": 1})
+    c3["launches"] = counts["conv3_one_launch"]
     del v
     return zy, c3, xp
+
+
+def conv3_cases(terms, carry):
+    """convzy_cases, and a grid smaller than the radii (wraps twice) and an
+    aligned carry with interior and seam blocks of every kind."""
+    return convzy_cases(terms, carry) + (((3, 9, 40), terms, "(3, 9, 40) multi-wrap", 0),
+                                         ((20, 150, 256), terms, "(20, 150, 256) seams", 0))
 
 
 TWO_PASS_PSF = ((9, 201, 3), (1.5, 30.0, 0.8))  # y radius 100: no tile of the march fits
@@ -1435,9 +1519,10 @@ def affine_maps(shape) -> dict:
     return maps
 
 
-def warp_reads(vol_shape, m, t, out_shape, step: int = 1 << 24) -> int:
-    """Input voxels the warp reads with a nonzero weight (float64
-    coordinates, output z-slabs of ``step`` voxels at a time)."""
+def warp_footprint(vol_shape, m, t, out_shape, step: int = 1 << 24) -> tuple[int, int]:
+    """(input voxels the warp reads with a nonzero weight, 32-byte sectors
+    of the input that hold them), in float64 coordinates, output z-slabs
+    of ``step`` voxels at a time."""
     touched = torch.zeros(math.prod(vol_shape), dtype=torch.bool, device="cuda")
     nz, ny, nx = vol_shape
     m64 = torch.tensor(m, dtype=torch.float64, device="cuda")
@@ -1461,7 +1546,9 @@ def warp_reads(vol_shape, m, t, out_shape, step: int = 1 << 24) -> int:
                     for a, (i, n, d) in enumerate(zip(idx, vol_shape, (dz, dy, dx))):
                         keep &= (i >= 0) & (i < n) & ((frac[a] > 0) if d else True)
                     touched[((idx[0] * ny + idx[1]) * nx + idx[2])[keep]] = True
-    return int(touched.sum())
+    pad = (-touched.numel()) % 8
+    sectors = torch.nn.functional.pad(touched, (0, pad)).view(-1, 8).any(dim=1)
+    return int(touched.sum()), int(sectors.sum())
 
 
 def library_affine(vol: torch.Tensor, m, t, out_shape) -> torch.Tensor:
@@ -1520,7 +1607,7 @@ def phase_affine(gen) -> dict:
                 vol, params, out_shape), 10),
                 "library_ms": gpu_ms(lambda: library_affine(vol, m, t, out_shape), 3),
                 "library_rel_err": lib_err,
-                **bound(4 * (warp_reads(shape, m, t, out_shape) + math.prod(out_shape)),
+                **bound(4 * (warp_footprint(shape, m, t, out_shape)[0] + math.prod(out_shape)),
                         30 * math.prod(out_shape))}
             if out_shape == shape:
                 entry["plain_ms"] = gpu_ms(lambda: affine_apply_plain(vol, m, t, out_shape), 1)
@@ -1544,41 +1631,206 @@ def refine_map(m, t):
     return f32_map(np.asarray(m, np.float64) @ np.diag([1.0, DOWN, DOWN]), t)
 
 
-def phase_affine_grad(gen) -> dict:
-    """The grad kernel at the production refine grid (the deskewed volume
-    sampled every DOWN rows and columns), twice (the same bits), against
-    float64 autograd of the plain version: the 12 sums within KERNEL_RTOL
-    of the largest. Timed beside its bound (grad_out and the input voxels
-    the map reads) and the float32 plain version's autograd."""
-    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_grad_cuda, map_params
-    from shrimpy_tpu_torch.ops.register import affine_apply_plain
+@functools.lru_cache(maxsize=1)
+def parent_affine(parent_dir):
+    """The affine kernels of the commit before the two-launch refine step
+    (``affine_warp_grad_kernel``, which reads a materialised grad_out),
+    built from ``parent_dir`` (its ``affine.cu``, kept out of the package)
+    into a library of its own: (warp, grad), functions that launch the
+    warp with its support and the gradient."""
+    import ctypes
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.kernels import build
+
+    lib_path = build.BUILD_DIR / "libaffine_parent.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(Path(parent_dir) / "affine.cu")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i64 = ctypes.c_void_p, ctypes.c_longlong
+    lib.shrimpy_affine_warp.argtypes = [p] * 4 + [i64] * 6 + [p]
+    lib.shrimpy_affine_grad_blocks.argtypes = [i64] * 5
+    lib.shrimpy_affine_warp_grad.argtypes = [p] * 5 + [i64] * 6 + [p]
+    for fn in (lib.shrimpy_affine_warp, lib.shrimpy_affine_grad_blocks,
+               lib.shrimpy_affine_warp_grad):
+        fn.restype = ctypes.c_int
+
+    def warp(vol, params, shape):
+        out, sup = (torch.empty(shape, device="cuda") for _ in range(2))
+        build.check(lib.shrimpy_affine_warp(vol.data_ptr(), out.data_ptr(), sup.data_ptr(),
+                                            params.data_ptr(), *vol.shape, *shape,
+                                            torch.cuda.current_stream().cuda_stream),
+                    "shrimpy_affine_warp (parent)")
+        return out, sup
+
+    def grad(vol, grad_out, params):
+        part = torch.empty((lib.shrimpy_affine_grad_blocks(*vol.shape, *grad_out.shape[:2]), 12),
+                           dtype=torch.float64, device="cuda")
+        out = torch.empty(12, dtype=torch.float64, device="cuda")
+        build.check(lib.shrimpy_affine_warp_grad(
+            vol.data_ptr(), grad_out.data_ptr(), params.data_ptr(), part.data_ptr(),
+            out.data_ptr(), *vol.shape, *grad_out.shape, torch.cuda.current_stream().cuda_stream),
+            "shrimpy_affine_warp_grad (parent)")
+        return out
+    return warp, grad
+
+
+class ParentWarp(torch.autograd.Function):
+    """The commit before's warp with its support, and its gradient kernel
+    of a materialised grad_out: ``apply(matrix, offset, warp, grad)`` with
+    ``warp(params) -> (out, support)`` and ``grad(grad_out, params) -> 12
+    float64`` of :func:`parent_affine` (at module level: a class made in a
+    function makes a reference cycle that would keep the moving volume
+    until the collector runs)."""
+
+    @staticmethod
+    def forward(ctx, matrix, offset, warp, grad):
+        from shrimpy_tpu_torch.ops.affine_cuda import map_params
+
+        params = map_params(matrix, offset)
+        out, sup = warp(params)
+        ctx.save_for_backward(params)
+        ctx.grad_of = grad
+        ctx.mark_non_differentiable(sup)
+        return out, sup
+
+    @staticmethod
+    def backward(ctx, g_out, _):
+        (params,) = ctx.saved_tensors
+        g = ctx.grad_of(g_out.contiguous(), params)
+        return g[:9].reshape(3, 3).float(), g[9:].float(), None, None
+
+
+def refine_step_ms(pair_of, dm0, off0, reps: int = 20) -> float:
+    """Device ms of one refine step, warm: the objective, its backward and
+    Adam, as ``register.py::_refine`` takes it (``pair_of(dm, offset)``
+    gives the loss with its graph)."""
+    dm = dm0.clone().requires_grad_()
+    off = off0.clone().requires_grad_()
+    opt = torch.optim.Adam([dm, off], lr=0.05, betas=(0.9, 0.999), eps=1e-8)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        pair_of(dm, off).backward()
+        opt.step()
+
+    return gpu_ms(step, reps)
+
+
+def refine_steps(moving, fixed_s, parent_dir=None) -> dict:
+    """The refine's objective as ``_refine`` forms it from ``dm`` and the
+    offset, on ``moving`` and the strided ``fixed_s``: ``{"new": ...}``, and
+    with ``parent_dir`` ``"before"``: the step of the commit before (the
+    warp with its support, torch's NCC and its autograd, the gradient
+    kernel of a materialised grad_out)."""
+    from shrimpy_tpu_torch.ops.affine_cuda import refine_objective_cuda, refine_scratch
+    from shrimpy_tpu_torch.ops.register import RefineObjective, ncc_loss
+
+    grid = tuple(fixed_s.shape)
+    scale = torch.diag(torch.tensor([1.0, float(DOWN), float(DOWN)], device="cuda"))
+    coord = float(max(moving.shape))
+    partials = refine_scratch(moving, grid)
+
+    def new_pair(dm, off):
+        return RefineObjective.apply(scale + torch.tril(dm) / coord, off, lambda a, b:
+                                     refine_objective_cuda(moving, fixed_s, a, b, "ncc",
+                                                           partials))
+
+    runs = {"new": new_pair}
+    if parent_dir:
+        old_warp, old_grad = parent_affine(parent_dir)
+
+        def old_pair(dm, off):
+            warped, sup = ParentWarp.apply(scale + torch.tril(dm) / coord, off,
+                                           lambda p: old_warp(moving, p, grid),
+                                           lambda g, p: old_grad(moving, g, p))
+            return ncc_loss(warped, fixed_s, (sup > 0.999).float())
+
+        runs["before"] = old_pair
+    return runs
+
+
+def phase_refine(gen, parent_dir=None) -> tuple[dict, dict]:
+    """The refine step's two launches at the production refine grid (the
+    deskewed volume sampled every DOWN rows and columns) on a blob pair:
+    twice (the same bits), the loss and the 12 sums against the plain
+    objective in float64 (within SUM_RTOL) for ncc and mse; each launch
+    timed beside its bound by the voxels it reads and by the 32-byte
+    sectors that hold them and the float32 plain objective, and with
+    ``--parent-affine`` in turns with the gradient kernel before (which
+    reads a materialised grad_out). Returns the entries of the two
+    kernels."""
+    from shrimpy_tpu_torch.ops.affine_cuda import (
+        map_params,
+        refine_grad_cuda,
+        refine_objective_cuda,
+        refine_scratch,
+        refine_sums_cuda,
+    )
+    from shrimpy_tpu_torch.ops.register import affine_apply, refine_objective_plain
 
     shape = deskewed_shape()
     grid = (shape[0], -(-shape[1] // DOWN), -(-shape[2] // DOWN))
-    vol = uniform(shape, gen, 0.0, 100.0)
-    g = uniform(grid, gen, -1.0, 1.0)
+    moving = blob_volume(shape, gen, 3000)
     m, t = refine_map(*LOWER_MAP)
-    params = map_params(torch.from_numpy(m).cuda(), torch.from_numpy(t).cuda())
-    got = affine_warp_grad_cuda(vol, g, params)
-    if not torch.equal(got, affine_warp_grad_cuda(vol, g, params)):
-        raise AssertionError("affine_warp_grad: two runs differ")
-
-    def plain(dtype):
-        mt = torch.tensor(m, dtype=dtype, device="cuda", requires_grad=True)
-        tt = torch.tensor(t, dtype=dtype, device="cuda", requires_grad=True)
-        (affine_apply_plain(vol, mt, tt, grid, dtype=dtype) * g.to(dtype)).sum().backward()
-        return torch.cat([mt.grad.reshape(9), tt.grad])
-
-    want = plain(torch.float64)
-    err = compare(f"affine_warp_grad at {grid} from {shape}: 12 sums vs float64 autograd "
-                  "(run twice: the same bits)", got, want, KERNEL_RTOL)
-    print(f"  affine_warp_grad sums {got.tolist()}", flush=True)
-    res = {"max_abs_err": err, "ms": gpu_ms(lambda: affine_warp_grad_cuda(vol, g, params), 10),
-           "plain_ms": gpu_ms(lambda: plain(torch.float32), 1), "library_ms": None,
-           **bound(4 * (warp_reads(shape, m, t, grid) + math.prod(grid)), 60 * math.prod(grid))}
-    print(f"  affine_warp_grad: {res['ms']:.3f} ms, bound {res['bound_ms']:.3f} by "
-          f"{res['bound_by']}, float32 plain autograd {res['plain_ms']:.3f} ms", flush=True)
-    return res
+    # fixed: the warp by a map near (m, t), so that the loss is small, not 0.
+    fixed = affine_apply(moving, m, t + 0.3, grid)
+    mt, tt = torch.from_numpy(m).cuda(), torch.from_numpy(t).cuda()
+    params = map_params(mt, tt)
+    partials = refine_scratch(moving, grid)
+    sums, grads = {"max_abs_err": 0.0}, {"max_abs_err": 0.0}
+    for loss in ("ncc", "mse"):
+        got = refine_objective_cuda(moving, fixed, mt, tt, loss, partials)
+        again = refine_objective_cuda(moving, fixed, mt, tt, loss, partials)
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"refine {loss}: two runs differ")
+        want = refine_objective_plain(moving, fixed, mt.double(), tt.double(), loss,
+                                      dtype=torch.float64)
+        err_v = compare(f"refine {loss} loss at {grid} from {shape} vs float64 plain (run twice: "
+                        "the same bits)", got[0].reshape(1), want[0].reshape(1), SUM_RTOL)
+        g = torch.cat([got[1].reshape(9), got[2]]).double()
+        err_g = compare(f"refine {loss} 12 sums vs float64 plain", g,
+                        torch.cat([want[1].reshape(9), want[2]]), SUM_RTOL)
+        print(f"  refine {loss}: loss {float(got[0]):.9g} (float64 {float(want[0]):.9g}), sums "
+              f"{g.tolist()}", flush=True)
+        sums["max_abs_err"] = max(sums["max_abs_err"], err_v)
+        grads["max_abs_err"] = max(grads["max_abs_err"], err_g)
+        del want
+    voxels, sectors = warp_footprint(shape, m, t, grid)
+    stats = refine_sums_cuda(moving, fixed, params, "ncc", partials)[1]
+    run = {"sums": lambda: refine_sums_cuda(moving, fixed, params, "ncc", partials),
+           "grad": lambda: refine_grad_cuda(moving, fixed, params, stats, partials)}
+    if parent_dir:
+        g_out = uniform(grid, gen, -1.0, 1.0)
+        run["old"] = lambda: parent_affine(parent_dir)[1](moving, g_out, params)
+    times = {k: [] for k in run}
+    for k in list(run) + list(run)[::-1]:
+        times[k].append(gpu_ms(run[k], 10))
+    for entry, k, ops in ((sums, "sums", 40), (grads, "grad", 70)):
+        entry["ms"] = sum(times[k]) / 2
+        # The input voxels the map reads and fixed, once; or the sectors
+        # that hold them (DRAM moves whole sectors). Operations: about ops
+        # float32 a voxel, far below either.
+        entry.update(bound(4 * (voxels + math.prod(grid)), ops * math.prod(grid)))
+        entry["bound_ms_sectors"] = (32 * sectors + 4 * math.prod(grid)) / HBM_BYTES_S * 1e3
+        entry["library_ms"] = None
+    if parent_dir:
+        grads["ms_parent"] = sum(times["old"]) / 2
+    sums["plain_ms"] = gpu_ms(lambda: refine_objective_plain(moving, fixed, mt, tt, "ncc",
+                                                             grad=False), 1)
+    grads["plain_ms"] = gpu_ms(lambda: refine_objective_plain(moving, fixed, mt, tt, "ncc"), 1)
+    for entry, name in ((sums, "sums"), (grads, "gradient")):
+        print(f"  refine {name} launch at {grid}: {entry['ms']:.3f} ms, bound "
+              f"{entry['bound_ms']:.3f} by {entry['bound_by']} ({voxels} input voxels), "
+              f"{entry['bound_ms_sectors']:.3f} by {sectors} sectors; plain "
+              f"{entry['plain_ms']:.3f} ms", flush=True)
+    print("  refine kernels in turns: " + ", ".join(f"{k} {times[k]}" for k in times)
+          + ("" if parent_dir else " (no --parent-affine: the gradient kernel before not timed)"),
+          flush=True)
+    del moving, fixed
+    return sums, grads
 
 
 def blob_volume(shape, gen, n_blobs: int, sigma=(3.0, 6.0, 6.0)) -> torch.Tensor:
@@ -1600,12 +1852,15 @@ def blob_volume(shape, gen, n_blobs: int, sigma=(3.0, 6.0, 6.0)) -> torch.Tensor
     return vol
 
 
-def phase_register(gen) -> dict:
+def phase_register(gen, parent_dir=None) -> dict:
     """estimate_registration (pcc+refine, defaults) on a blob pair of the
     deskewed shape, moving = the float64 plain warp of fixed by TRUE_MAP:
     first and warm seconds, the recovered map against the truth's inverse
-    (offset within 0.3 px, diagonal within 0.02), the counts (a warp a
-    refine step and two more, a grad kernel a step, no plain warp); then at
+    (offset within 0.3 px, diagonal within 0.02), the counts (a sums
+    launch a refine step and two more, a gradient launch a step, no warp
+    and no plain warp), a refine step's ms (the warm estimate less one with
+    no step, and a step timed alone beside the step before with
+    ``--parent-affine``); then at
     bench.py's (64, 256, 256) the kernel path's estimate against the plain
     path's (matrix within 1e-4, offset within 1e-3)."""
     import numpy as np
@@ -1632,8 +1887,26 @@ def phase_register(gen) -> dict:
                                                 result["res"].offset]))
 
     iters = settings.refine_iterations
-    _, counts, peak = drive(estimate, None, {"affine_warp": iters + 2, "affine_warp_grad": iters})
+    _, counts, peak = drive(estimate, None, {"refine_sums": iters + 2, "refine_grad": iters})
     estimate(None)
+    # The refine's steps alone: the same estimate with no step, warm.
+    none = registration_settings(refine_iterations=0)
+    estimate_registration(fixed, moving, none)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    estimate_registration(fixed, moving, none)
+    torch.cuda.synchronize()
+    step_ms = (result["seconds"][1] - (time.perf_counter() - t0)) / iters * 1e3
+    # A step timed alone (CUDA events over 20), beside the step before with
+    # --parent-affine, in turns, from the PCC seed.
+    runs = refine_steps(moving, fixed[:, ::DOWN, ::DOWN].contiguous(), parent_dir)
+    dm0 = torch.zeros((3, 3), device="cuda")
+    off0 = torch.tensor(np.asarray(result["res"].translation_seed, np.float32), device="cuda")
+    alone = {k: [] for k in runs}
+    for k in list(runs) + list(runs)[::-1]:
+        alone[k].append(refine_step_ms(runs[k], dm0, off0))
+    print("  refine step alone (objective, backward, Adam), in turns: "
+          + ", ".join(f"{k} {alone[k]}" for k in alone), flush=True)
     pcc = []
     for _ in range(2):
         t0 = time.perf_counter()
@@ -1652,14 +1925,18 @@ def phase_register(gen) -> dict:
           f"diagonal error {diag_err:.2e} (tol 0.02), matrix error {mat_err:.2e}, largest "
           f"displacement error at a corner "
           f"{disp:.4f} px, final loss {res.final_loss:.5f}; its PCC seed alone after it "
-          f"{pcc[0]:.3f} s, then {pcc[1]:.3f} s", flush=True)
+          f"{pcc[0]:.3f} s, then {pcc[1]:.3f} s; a refine step {step_ms:.3f} ms (the warm "
+          f"estimate less one with no step, over {iters})", flush=True)
     if not (off_err <= 0.3 and diag_err <= 0.02):
         raise AssertionError(f"estimate_registration: offset {off_err:.4f} px, diagonal "
                              f"{diag_err:.2e} from the truth")
-    out = {"first_s": first, "warm_s": warm, "pcc_s": pcc[1], "offset_err_px": off_err,
+    out = {"first_s": first, "warm_s": warm, "pcc_s": pcc[1], "step_ms": step_ms,
+           "step_ms_alone": sum(alone["new"]) / 2,
+           **({"step_ms_parent": sum(alone["before"]) / 2} if "before" in alone else {}),
+           "offset_err_px": off_err,
            "diag_err": diag_err, "matrix_err": mat_err,
            "corner_err_px": disp, "launches": counts, "peak_gib": peak}
-    del fixed, moving
+    del fixed, moving, runs
     torch.cuda.empty_cache()
     small = blob_volume(REGISTER_SMALL, gen, 12)
     moved = affine_apply_plain(small, m, t, dtype=torch.float64).float()
@@ -1898,8 +2175,8 @@ def phase_step_reg(steps: Steps) -> dict:
 
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
-    geometry (the one-launch half-step, the whole iteration and the z+y
-    march) for every geometry this script runs, all compilers at once (a
+    geometry (the one-launch half-step and its circular build, the whole
+    iteration and the z+y march) for every geometry this script runs, all compilers at once (a
     geometry missed here is compiled at its first launch)."""
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1922,6 +2199,13 @@ def build_all(build) -> None:
     for shape, lengths in sorted(marches):
         tile = convzy_layout(shape, tuple(k // 2 for k in lengths))["tile"]
         jobs += [("convzy", (*lengths, *tile, wrap)) for wrap in (0, 1)]
+    wrapped = set()
+    for shape, tt, _, _ in conv3_cases(terms, carry):
+        lengths = tuple(len(w) for w in tt[0])
+        layout = half_layout(shape, tuple(k // 2 for k in lengths), len(tt))
+        if layout is not None:
+            wrapped.add((len(tt), *lengths, *layout["tile"], 1))
+    jobs += [("rl_half_wrap", g) for g in sorted(wrapped)]
     with ThreadPoolExecutor(2) as pool:
         geometries = pool.submit(build.build_geometries, jobs)
         build.load_library()
@@ -1939,6 +2223,9 @@ def main(argv) -> int:
     # --parent-deskew DIR: the source of the deskew kernel before its
     # redesign, held to the new one's bits and timed beside it in phase 3.
     parent_desk = argv[argv.index("--parent-deskew") + 1] if "--parent-deskew" in argv else None
+    # --parent-affine DIR: the source of the affine kernels before the
+    # two-launch refine step, timed beside it in phase 3.
+    parent_aff = argv[argv.index("--parent-affine") + 1] if "--parent-affine" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -1980,7 +2267,7 @@ def main(argv) -> int:
     print("  the affine warp and its gradient (csrc/affine.cu):", flush=True)
     aff = phase_affine(gen)
     torch.cuda.empty_cache()
-    agrad = phase_affine_grad(gen)
+    rsums, rgrad = phase_refine(gen, parent_aff)
     torch.cuda.empty_cache()
     steps = Steps(gen)
     print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
@@ -2004,7 +2291,7 @@ def main(argv) -> int:
     del rl20
     torch.cuda.empty_cache()
     print(f"[4g] estimate_registration (pcc+refine, defaults) at {deskewed_shape()}", flush=True)
-    reg = phase_register(gen)
+    reg = phase_register(gen, parent_aff)
     torch.cuda.empty_cache()
     print("[4h] deskew + register-apply + RL-20 at raw (1201, 256, 1600)", flush=True)
     sreg = phase_step_reg(steps)
@@ -2058,9 +2345,13 @@ def main(argv) -> int:
           f"{step['peak_gib']:.2f}); affine_warp {aff['ms']:.3f} ms (bound {aff['bound_ms']:.3f}, "
           f"plain {aff['plain_ms']:.3f}, F.grid_sample {aff['library_ms']:.3f}; "
           + ", ".join(f"{k} {v['ms']:.3f}" for k, v in aff["maps"].items())
-          + f"); affine_warp_grad {agrad['ms']:.3f} ms (bound {agrad['bound_ms']:.3f}, plain "
-          f"autograd {agrad['plain_ms']:.3f}); estimate {reg['first_s']:.3f} s first, "
-          f"{reg['warm_s']:.3f} s warm, offset error {reg['offset_err_px']:.4f} px, peak "
+          + f"); refine sums {rsums['ms']:.3f} ms, gradient {rgrad['ms']:.3f} ms (before "
+          f"{rgrad.get('ms_parent', 'not timed')}; bounds {rsums['bound_ms']:.3f} by voxels, "
+          f"{rsums['bound_ms_sectors']:.3f} by sectors); estimate "
+          f"{reg['first_s']:.3f} s first, {reg['warm_s']:.3f} s warm, refine step "
+          f"{reg['step_ms']:.3f} ms in it, {reg['step_ms_alone']:.3f} alone (before "
+          f"{reg.get('step_ms_parent', 'not timed')}), offset error "
+          f"{reg['offset_err_px']:.4f} px, peak "
           f"{reg['peak_gib']:.2f} GiB", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
@@ -2096,19 +2387,22 @@ def main(argv) -> int:
          "ms_circular": czy["ms_two_pass"],
          **{k: zy[k] for k in ("plain_ms", "bound_ms", "bound_by", "library_ms")}},
         {"name": "conv3_circular", "route": "cuda",
-         "source": "shrimpy_tpu_torch/csrc/convzy.cu",
+         "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:104", **c3},
         {"name": "rl_iter", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/rl_iter.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused_iter.py:246",
          "launches": fip["launches"]["rl_iter"], **it},
         {"name": "affine_warp", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/affine.cu",
          "replaces": "shrimpy_tpu/ops/register.py:472 (XLA, no TPU kernel)",
-         "launches": sreg["launches"]["affine_warp"],
-         "register_launches": reg["launches"]["affine_warp"], **aff},
-        {"name": "affine_warp_grad", "route": "cuda",
+         "launches": sreg["launches"]["affine_warp"], **aff},
+        {"name": "affine_refine_sums", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/affine.cu",
          "replaces": "shrimpy_tpu/ops/register.py:609 (XLA, no TPU kernel)",
-         "launches": reg["launches"]["affine_warp_grad"], **agrad},
+         "launches": reg["launches"]["refine_sums"], **rsums},
+        {"name": "affine_refine_grad", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/affine.cu",
+         "replaces": "shrimpy_tpu/ops/register.py:609 (XLA, no TPU kernel)",
+         "launches": reg["launches"]["refine_grad"], **rgrad},
         {"name": "probe_smem_slice", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/probes.cu",
          "replaces": "scripts/probe_mosaic.py:22", **p_slice},

@@ -50,11 +50,22 @@ launches of the two-pass z+y route and of the three-pass half-step at
 the production carry (plain, circular and Biggs-extrapolated input) and
 with y tap lists of 201 and 423, each output held to the other's bits.
 
-``python3 profile_step.py --affine`` times the warp and grad kernels of
+``python3 profile_step.py --affine`` times the warp and the refine's kernels of
 ``csrc/affine.cu`` beside builds of the edits in :data:`AFFINE_VARIANTS`
-(the x loops' unroll, a cap on registers), at the deskewed volume on
+(the unroll of the x loop the three kernels share, a cap on registers), at the deskewed volume on
 ``chip_smoke.py``'s four maps and at the refine grid, each output held to
 the kernel's bits, with each build's register counts.
+
+``python3 profile_step.py --conv3`` times ``conv3_circular``'s one
+launch (``csrc/rl_half.cu`` built with ``RL_HALF_WRAP=1``) at the
+production carry beside the zero boundary's build and the variants in
+:data:`CONV3_VARIANTS` (where its blocks take their slab), with each
+build's registers and spills, and prints a profile build's clocks a
+plane step over the blocks in the grid and those on a seam.
+
+``python3 profile_step.py --refine`` runs one warm ``estimate_registration``
+at the deskewed shape under ``torch.profiler`` (as a step above), then one
+with no refine step.
 
 ``python3 profile_step.py --rl-input`` times RL-20 on ``fused`` alone on
 the deskewed production volume, on its registered warp and on the
@@ -616,37 +627,41 @@ def time_conv_axis(cs) -> None:
               f"{['%.3f' % x for x in times['chunked']]} ({100 * (o - n) / n:+.2f} %)", flush=True)
 
 
-# Edits of csrc/affine.cu that --affine builds and times beside it: the
-# warp's x loop unrolled 1, 2 or 8 times (4 in the kernel), the grad's 1
-# or 2 times (4), and registers capped so that 3 or 4 blocks of 256
-# threads fit an SM.
-_WARP_LOOP = "#pragma unroll 4\n      for (int x = lane; x < e.ox; x += 32) {\n        sample"
-_GRAD_LOOP = "#pragma unroll 4  // the grad's x loop"
+# Edits of csrc/affine.cu that --affine builds and times beside it: the x
+# loop of walk_row, which the warp and the refine's kernels share, unrolled
+# 1, 2 or 8 times (4 in the kernel), and registers capped so that 3 or 4
+# blocks of 256 threads fit an SM.
+_X_LOOP = "#pragma unroll 4  // the x loop"
 _BOUNDS = "constexpr int kMinBlocks = 1;"
 AFFINE_VARIANTS = {
-    "unroll 1": [(_WARP_LOOP, _WARP_LOOP.replace("unroll 4", "unroll 1"))],
-    "unroll 2": [(_WARP_LOOP, _WARP_LOOP.replace("unroll 4", "unroll 2"))],
-    "unroll 8": [(_WARP_LOOP, _WARP_LOOP.replace("unroll 4", "unroll 8"))],
+    "unroll 1": [(_X_LOOP, "#pragma unroll 1")],
+    "unroll 2": [(_X_LOOP, "#pragma unroll 2")],
+    "unroll 8": [(_X_LOOP, "#pragma unroll 8")],
     "min blocks 3": [(_BOUNDS, "constexpr int kMinBlocks = 3;")],
     "min blocks 4": [(_BOUNDS, "constexpr int kMinBlocks = 4;")],
-    "grad unroll 1": [(_GRAD_LOOP, "#pragma unroll 1")],
-    "grad unroll 2": [(_GRAD_LOOP, "#pragma unroll 2")],
 }
 
 
 def sweep_affine(cs) -> None:
-    """The warp and grad kernels of ``csrc/affine.cu`` beside the builds of
-    :data:`AFFINE_VARIANTS` (under shrimpy_tpu_torch/build/, all at once,
-    each with its ptxas register count), timed in turns (forward and back)
-    at the deskewed volume (the warp on chip_smoke's four maps) and at the
-    refine grid (the grad), every warp held to the kernel's bits and every
-    grad within 1e-9 of it; beside them a copy of the volume."""
+    """The warp and the refine's two kernels of ``csrc/affine.cu`` beside
+    the builds of :data:`AFFINE_VARIANTS` (under shrimpy_tpu_torch/build/,
+    all at once, each with its ptxas register count), timed in turns
+    (forward and back) at the deskewed volume (the warp on chip_smoke's
+    four maps) and at the refine grid (the sums and the gradient, ncc),
+    every warp held to the kernel's bits and every sum within 1e-9 of it;
+    beside them a copy of the volume."""
     import ctypes
     import re
     import subprocess
 
     from shrimpy_tpu_torch.kernels import build
-    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, affine_warp_grad_cuda, map_params
+    from shrimpy_tpu_torch.ops.affine_cuda import (
+        affine_warp_cuda,
+        map_params,
+        refine_grad_cuda,
+        refine_scratch,
+        refine_sums_cuda,
+    )
 
     work = build.BUILD_DIR / "affine_variants"
     work.mkdir(parents=True, exist_ok=True)
@@ -676,39 +691,48 @@ def sweep_affine(cs) -> None:
     shape = cs.deskewed_shape()
     vol = cs.uniform(shape, gen, 0.0, 100.0)
     grid = (shape[0], -(-shape[1] // cs.DOWN), -(-shape[2] // cs.DOWN))
-    g = cs.uniform(grid, gen, -1.0, 1.0)
+    fixed = cs.uniform(grid, gen, 0.0, 100.0)
+    partials = refine_scratch(vol, grid)
     stream = torch.cuda.current_stream().cuda_stream
-    cases = {f"warp {k}": (m, t, False) for k, (m, t) in cs.affine_maps(shape).items()}
-    cases["grad lower"] = (*cs.refine_map(*cs.LOWER_MAP), True)
-    for case, (m, t, grad) in cases.items():
+    cases = {f"warp {k}": (m, t, "warp") for k, (m, t) in cs.affine_maps(shape).items()}
+    cases["refine sums lower"] = (*cs.refine_map(*cs.LOWER_MAP), "sums")
+    cases["refine grad lower"] = (*cs.refine_map(*cs.LOWER_MAP), "grad")
+    for case, (m, t, kind) in cases.items():
         params = map_params(torch.from_numpy(m).cuda(), torch.from_numpy(t).cuda())
-        want = (affine_warp_grad_cuda(vol, g, params) if grad
-                else affine_warp_cuda(vol, params, shape))
+        stats = refine_sums_cuda(vol, fixed, params, "ncc", partials)[1]
+        want = {"warp": lambda: affine_warp_cuda(vol, params, shape),
+                "sums": lambda: stats,
+                "grad": lambda: refine_grad_cuda(vol, fixed, params, stats, partials)}[kind]()
         runs = {}
         for name, path in libs.items():
             lib = ctypes.CDLL(str(path))
-            for fn in ("shrimpy_affine_warp", "shrimpy_affine_grad_blocks",
-                       "shrimpy_affine_warp_grad"):
+            for fn in ("shrimpy_affine_warp", "shrimpy_affine_refine_blocks",
+                       "shrimpy_affine_refine_sums", "shrimpy_affine_refine_grad"):
                 getattr(lib, fn).argtypes = build.SIGNATURES[fn]
             out = torch.empty_like(want)
-            if grad:
-                part = torch.empty((lib.shrimpy_affine_grad_blocks(*shape, *grid[:2]), 12),
-                                   dtype=torch.float64, device="cuda")
-                args = (vol.data_ptr(), g.data_ptr(), params.data_ptr(), part.data_ptr(),
-                        out.data_ptr(), *shape, *grid, stream)
-                fn = lib.shrimpy_affine_warp_grad
+            part = torch.empty((lib.shrimpy_affine_refine_blocks(*shape, *grid[:2]), 12),
+                               dtype=torch.float64, device="cuda")
+            loss = torch.empty((), device="cuda")
+            if kind == "sums":
+                args = (vol.data_ptr(), fixed.data_ptr(), params.data_ptr(), part.data_ptr(),
+                        part.shape[0], out.data_ptr(), loss.data_ptr(), *shape, *grid, 0, stream)
+                fn = lib.shrimpy_affine_refine_sums
+            elif kind == "grad":
+                args = (vol.data_ptr(), fixed.data_ptr(), params.data_ptr(), stats.data_ptr(),
+                        part.data_ptr(), part.shape[0], out.data_ptr(), *shape, *grid, stream)
+                fn = lib.shrimpy_affine_refine_grad
             else:
-                args = (vol.data_ptr(), out.data_ptr(), None, params.data_ptr(), *shape, *shape,
-                        stream)
+                args = (vol.data_ptr(), out.data_ptr(), params.data_ptr(), *shape, *shape, stream)
                 fn = lib.shrimpy_affine_warp
             build.check(fn(*args), name)
             torch.cuda.synchronize()
-            # A build whose registers let more blocks fit an SM runs the grad
-            # on a larger grid: its float64 sums then add in another order.
-            if not (torch.equal(out, want) or grad and torch.allclose(out, want, rtol=1e-9,
-                                                                        atol=0.0)):
+            # A build whose registers let more blocks fit an SM runs the
+            # refine on a larger grid: its float64 sums then add in another
+            # order.
+            if not (torch.equal(out, want) or kind != "warp" and torch.allclose(
+                    out, want, rtol=1e-9, atol=0.0)):
                 raise AssertionError(f"affine {case} {name} differs from the kernel")
-            runs[name] = (fn, args, out, part if grad else None)
+            runs[name] = (fn, args, out, part)
         times = {name: [] for name in runs}
         for name in list(runs) + list(runs)[::-1]:
             fn, args = runs[name][:2]
@@ -720,6 +744,131 @@ def sweep_affine(cs) -> None:
     copy = cs.gpu_ms(lambda: vol.clone(), 10)
     print(f"  affine: vol.clone() {copy:.3f} ms, {8 * vol.numel() / copy / 1e9:.3f} TB/s",
           flush=True)
+
+
+# Edits of csrc/rl_half.cu that --conv3 builds beside its circular build:
+# every block's slab by one TMA copy (a seam block then reads zeros past the
+# grid: timed only, not held to the bits), every block's by 16-byte cp.async.
+_CONV3_TMA = """  const bool tma = kVec && (!Geo::wrap || (y0 - ry >= 0 && y0 + ty + ry <= gy &&
+                                          x0 - nkx / 2 >= 0 && x0 + tx + nkx / 2 <= gx));"""
+CONV3_VARIANTS = {
+    "every block by TMA (seams wrong)": [(_CONV3_TMA, "  const bool tma = kVec;")],
+    "every block by cp.async": [(_CONV3_TMA, "  const bool tma = false;")],
+    "one kept plane fewer": [("constexpr int kKeepRegisters = 54;",
+                              "constexpr int kKeepRegisters = 45;")],
+}
+
+
+def time_conv3(cs) -> None:
+    """conv3_circular's one launch (rl_half.cu, RL_HALF_WRAP=1, mode plain)
+    at the production carry beside the zero boundary's build in mode plain
+    and the builds of :data:`CONV3_VARIANTS` (under shrimpy_tpu_torch/build/,
+    all at once, each with ptxas's registers and spills), timed in turns;
+    then a -DRL_HALF_PROFILE build of the circular kernel: the clocks a
+    plane step of thread 0 spends in each stage, over the blocks whose slab
+    lies in the grid and over those on a seam."""
+    import re
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.conv3_cuda import conv3_one_launch
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_layout
+
+    terms, carry = cs.production_terms()
+    st = Stencil(terms, device="cuda")
+    lengths = tuple(2 * r + 1 for r in st.radii)
+    tile = half_layout(carry, st.radii)["tile"]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    v = cs.uniform(carry, gen, 0.0, 10.0)
+    work = build.BUILD_DIR / "conv3_variants"
+    work.mkdir(parents=True, exist_ok=True)
+    for header in build.headers():
+        (work / header.name).write_text(header.read_text())
+    source = (build.CSRC_DIR / "rl_half.cu").read_text()
+    builds = {"zero boundary": (source, 0, ()), "circular": (source, 1, ())}
+    for name, edits in CONV3_VARIANTS.items():
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/rl_half.cu no longer has {old!r}")
+            text = text.replace(old, new)
+        builds[f"circular, {name}"] = (text, 1, ())
+    builds["circular, profile"] = (source, 1, ("-DRL_HALF_PROFILE",))
+    libs, procs = {}, []
+    for i, (name, (text, wrap, flags)) in enumerate(builds.items()):
+        src, lib = work / f"rl_half_variant{i}.cu", work / f"librl_half_variant{i}.so"
+        src.write_text(text)
+        macros = (1, *lengths, *tile, wrap)
+        procs.append((name, subprocess.Popen(
+            [build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, *flags, "-Xptxas", "-v",
+             *(f"-DRL_HALF_{m}={x}" for m, x in zip(build.GEOMETRY_MACROS + ("WRAP",), macros)),
+             "-shared", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        libs[name] = lib
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"rl_half.cu {name} did not build:\n{err}")
+        regs = re.findall(r"Compiling entry function '(\S+)'.*?(\d+) bytes spill stores.*?"
+                          r"Used (\d+) registers", err, re.S)
+        print(f"  rl_half.cu {name}: " + ", ".join(
+            f"{k[-24:]} {r} registers, {sp} bytes spilled" for k, sp, r in regs), flush=True)
+    want = conv3_one_launch(v, st)
+    out = torch.empty_like(v)
+    taps = st.packed()
+    gz, gy, gx = carry
+
+    def launcher(name, clocks=None):
+        lib = build.open_geometry_library("rl_half", libs[name])
+        return lambda: build.check(lib.shrimpy_rl_half(
+            v.data_ptr(), None, out.data_ptr(), None, None, None,
+            None if clocks is None else clocks.data_ptr(), taps.data_ptr(), 1, *lengths, gz, gy,
+            gx, *tile, 0, 1, 0.0, torch.cuda.current_stream().cuda_stream), name)
+
+    timed = [k for k in builds if k != "circular, profile"]
+    times = {k: [] for k in timed}
+    for name in timed + timed[::-1]:
+        run = launcher(name)
+        times[name].append(cs.gpu_ms(run, 10))
+        if "seams wrong" not in name and name != "zero boundary" and not torch.equal(out, want):
+            raise AssertionError(f"rl_half.cu {name} differs from conv3_one_launch")
+    for name, t in times.items():
+        print(f"  conv3 {carry} mode plain, {name}: {sum(t) / len(t):.3f} ms "
+              f"{['%.3f' % x for x in t]}", flush=True)
+    layout = half_layout(carry, st.radii)
+    clocks = torch.zeros((layout["blocks"], len(STAGES)), device="cuda")
+    launcher("circular, profile", clocks)()
+    torch.cuda.synchronize()
+    ty, tx = tile
+    rz, ry, rx = st.radii
+    nbx = -(-gx // tx)
+    seam = torch.tensor([not (by * ty - ry >= 0 and by * ty + ty + ry <= gy and bx * tx - rx >= 0
+                              and bx * tx + tx + rx <= gx)
+                         for by in range(-(-gy // ty)) for bx in range(nbx)], device="cuda")
+    for label, mask in (("blocks in the grid", ~seam), ("blocks on a seam", seam)):
+        per_plane = (clocks[mask].mean(dim=0) / gz).tolist()
+        print(f"  conv3 circular, {label} ({int(mask.sum())}): clocks a plane: "
+              + ", ".join(f"{n} {c:.0f}" for n, c in zip(STAGES, per_plane))
+              + f"; total {sum(per_plane):.0f}", flush=True)
+    del v, out, want
+    torch.cuda.empty_cache()
+
+
+def profile_refine(cs) -> None:
+    """One warm estimate_registration (pcc+refine, defaults) at the
+    deskewed shape on chip_smoke's blob pair under torch.profiler, as
+    :func:`profile` reads a step; then the same with no refine step."""
+    from shrimpy_tpu_torch.config import registration_settings
+    from shrimpy_tpu_torch.ops.register import affine_apply_plain, estimate_registration
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    fixed = cs.blob_volume(cs.deskewed_shape(), gen, 3000)
+    m, t = cs.f32_map(*cs.TRUE_MAP)
+    moving = affine_apply_plain(fixed, m, t, dtype=torch.float64).float()
+    for label, iters in (("estimate, 100 refine steps", 100), ("estimate, no refine step", 0)):
+        print(f"== {label}", flush=True)
+        settings = registration_settings(refine_iterations=iters)
+        profile(lambda _: estimate_registration(fixed, moving, settings), None)
 
 
 def time_rl_inputs(cs) -> None:
@@ -773,6 +922,12 @@ def main() -> int:
         return 0
     if "--rl-input" in sys.argv[1:]:
         time_rl_inputs(cs)
+        return 0
+    if "--conv3" in sys.argv[1:]:
+        time_conv3(cs)
+        return 0
+    if "--refine" in sys.argv[1:]:
+        profile_refine(cs)
         return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)

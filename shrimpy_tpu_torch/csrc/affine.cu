@@ -36,24 +36,45 @@
 // walk x, so output stores coalesce and a near-identity map's corner loads
 // nearly do (the x + 1 corner is the next lane's x corner, from L1). The 8
 // corners come through the read-only path (__ldg); a corner out of range is
-// not read. Linear indices are 64-bit. With `support` the kernel also
-// writes the warp of a volume of ones (the same weights summed in the same
-// order: the bits of warping torch.ones), which the refine's mask reads.
+// not read. Linear indices are 64-bit.
 // Bound on the card: bytes, each input voxel the map reads once and each
 // output written once: 2 x 2.366 GB / 3.35 TB/s = 1.41 ms for a
 // near-identity map of the production deskewed volume (128, 2888, 1600).
 //
-// affine_warp_grad_kernel: d loss / d (M, t) from grad_out = d loss / d out.
-// Per voxel it recomputes the corners and the trilinear derivative g_a =
-// d out / d in_a (one-sided at integer coordinates: d frac / d in = 1, as
-// jax.grad takes it through floor), and sums s_a = grad_out * g_a times
-// (z, y, x, 1): 12 sums. A lane sums s_a and s_a x along its part of a row
-// in float32 (at most ox / 32 terms) and adds them, times z and y, to its
-// float64 sums at the row's end; a block reduces
-// them by warp shuffles and shared memory to one partial row; a second
-// launch sums the rows in block order. No atomics: the grid is fixed by the
-// device and the extents, so two runs give the same bits. Bound: bytes,
-// grad_out and the input voxels the map reads, once.
+// The refine (register.py::_refine_jit :609, jax.grad through the gather):
+// a step of it is two passes over the refine grid that materialise nothing.
+// Per voxel u of the grid the loss reads the warp a = out[u], the mask
+// w = (support > 0.999) (no gradient: stop_gradient in JAX) and b = fixed[u].
+//   affine_refine_sums_kernel: the loss's weighted sums, in float64 from the
+//     first voxel on (one pass of raw moments cancels where the data's mean
+//     is large beside its spread: float64 keeps ~1e-16 of the mean): ncc
+//     n = sum w, sum w a, sum w b, sum w a^2, sum w b^2, sum w a b; mse
+//     sum w, sum w (a - b)^2. affine_refine_finish_kernel adds the blocks'
+//     partials in block order and forms the loss of register.py::ncc_loss or
+//     mse_loss (clamp_min(n, 1), the + 1e-8 of the NCC's denominator) and
+//     the coefficients of its derivative: d loss / d a = w (alpha (a - ma) +
+//     beta (b - mb)), with ma = mb = 0, alpha = -beta = 2 / n for mse, and
+//     for ncc (centred sums S, r = sqrt(Saa Sbb), D = r + 1e-8)
+//     alpha = Sab Sbb / (D^2 r), beta = -1 / D.
+//   affine_refine_grad_kernel: d loss / d (M, t). Per voxel it recomputes the
+//     corners, the sample, the support and the trilinear derivative g_c =
+//     d out / d in_c (one-sided at integer coordinates: d frac / d in = 1, as
+//     jax.grad takes it through floor), forms grad_out = d loss / d a from the
+//     coefficients in float64, and sums s_c = grad_out * g_c times (z, y, x,
+//     1): 12 sums. A lane sums s_c and s_c x along its part of a row in
+//     float32 (at most ox / 32 terms) and adds them, times z and y, to its
+//     float64 sums at the row's end.
+// Both reduce a block by warp shuffles and shared memory to one partial row,
+// and a second launch sums the rows in block order. No atomics: the grid is
+// fixed by the device and the extents, so two runs give the same bits. All
+// three kernels walk a row in one function (walk_row) and sample in one
+// (blend), so the sample is the warp kernel's, bit for bit, and the support
+// the warp of a volume of ones (the same weights summed in the same order).
+// Bound: bytes, the input voxels the map reads and fixed, once each; DRAM
+// moves whole 32-byte sectors, and the refine grid's stride-4 rows touch
+// half the sectors of every other input row: ~1.33 GB at the production
+// refine grid (128, 722, 400) of (128, 2888, 1600), 0.40 ms, against 0.74 GB
+// and 0.22 ms by the voxels.
 
 #include <cuda_runtime.h>
 
@@ -163,15 +184,12 @@ __device__ __forceinline__ void corners(const float* __restrict__ vol, const Ext
   }
 }
 
-// The trilinear sample (corners out of range read as 0) and, with
+// The trilinear sample of corners v (out of range read as 0) and, with
 // kSupport, the sum of the in-range corners' weights, the warp of a volume
 // of ones: the product over the axes of the in-range weights' sums.
-template <bool kSupport, bool kIdx32>
-__device__ __forceinline__ void sample(const float* __restrict__ vol, const Extents& e,
-                                       const Axis& az, const Axis& ay, const Axis& ax,
-                                       float* value, float* ones) {
-  float v[2][2][2];
-  corners<kIdx32>(vol, e, az, ay, ax, v);
+template <bool kSupport>
+__device__ __forceinline__ void blend(const float v[2][2][2], const Axis& az, const Axis& ay,
+                                      const Axis& ax, float* value, float* ones) {
   const float wz[2] = {1.0f - az.f, az.f}, wy[2] = {1.0f - ay.f, ay.f};
   const float wx[2] = {1.0f - ax.f, ax.f};
   float acc = 0.0f;
@@ -189,14 +207,19 @@ __device__ __forceinline__ void sample(const float* __restrict__ vol, const Exte
   }
 }
 
-// d out / d in_a: the corner weight's factor of axis a is (1 - f_a) or f_a,
-// whose derivatives are -1 and +1.
-template <bool kIdx32>
-__device__ __forceinline__ void slope(const float* __restrict__ vol, const Extents& e,
-                                      const Axis& az, const Axis& ay, const Axis& ax,
-                                      float g[3]) {
+template <bool kSupport, bool kIdx32>
+__device__ __forceinline__ void sample(const float* __restrict__ vol, const Extents& e,
+                                       const Axis& az, const Axis& ay, const Axis& ax,
+                                       float* value, float* ones) {
   float v[2][2][2];
   corners<kIdx32>(vol, e, az, ay, ax, v);
+  blend<kSupport>(v, az, ay, ax, value, ones);
+}
+
+// d out / d in_c: the corner weight's factor of axis c is (1 - f_c) or f_c,
+// whose derivatives are -1 and +1.
+__device__ __forceinline__ void derivative(const float v[2][2][2], const Axis& az,
+                                           const Axis& ay, const Axis& ax, float g[3]) {
   const float w[3][2] = {{1.0f - az.f, az.f}, {1.0f - ay.f, ay.f}, {1.0f - ax.f, ax.f}};
   g[0] = g[1] = g[2] = 0.0f;
 #pragma unroll
@@ -208,6 +231,17 @@ __device__ __forceinline__ void slope(const float* __restrict__ vol, const Exten
       g[2] += w[0][p] * w[1][q] * (v[p][q][1] - v[p][q][0]);
     }
   }
+}
+
+// The sample, its support and its derivative from one read of the corners.
+template <bool kIdx32>
+__device__ __forceinline__ void sample_slope(const float* __restrict__ vol, const Extents& e,
+                                             const Axis& az, const Axis& ay, const Axis& ax,
+                                             float* value, float* ones, float g[3]) {
+  float v[2][2][2];
+  corners<kIdx32>(vol, e, az, ay, ax, v);
+  blend<true>(v, az, ay, ax, value, ones);
+  derivative(v, az, ay, ax, g);
 }
 
 // A row's float64 start (x = 0) and slope per axis; true where the row
@@ -230,11 +264,47 @@ __device__ __forceinline__ bool finite3(const double c[3]) {
   return isfinite(c[0]) && isfinite(c[1]) && isfinite(c[2]);
 }
 
-template <bool kSupport, bool kIdx32>
+// Visits this lane's voxels x = lane, lane + 32, .. of output row (z, y):
+// visit(x, az, ay, ax) with the sample's axes, in fixed point where the row
+// allows (row_of), else in float64 a voxel; visit_nan(x) where the map is
+// not finite there.
+template <class Visit, class VisitNan>
+__device__ __forceinline__ void walk_row(const Map& map, const Extents& e, long long z,
+                                         long long y, int lane, Visit visit, VisitNan visit_nan) {
+  double base[3], step[3];
+  if (row_of(map, z, y, e.ox, base, step)) {
+    long long c[3], dc[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const long long s = __double2ll_rn(step[a] * kFix);
+      c[a] = __double2ll_rn(base[a] * kFix) + s * lane;
+      dc[a] = s * 32;
+    }
+    // Four voxels a lane in flight, 32 corner loads: the warp took 2.71 ms
+    // at the deskewed volume, against 3.46 unrolled twice and 3.22 eight
+    // times (profile_step.py --affine builds those).
+#pragma unroll 4  // the x loop
+    for (int x = lane; x < e.ox; x += 32) {
+      visit(x, axis_fixed(c[0], e.nz), axis_fixed(c[1], e.ny), axis_fixed(c[2], e.nx));
+#pragma unroll
+      for (int a = 0; a < 3; ++a) c[a] += dc[a];
+    }
+    return;
+  }
+  for (int x = lane; x < e.ox; x += 32) {
+    const double c[3] = {fma(step[0], (double)x, base[0]), fma(step[1], (double)x, base[1]),
+                         fma(step[2], (double)x, base[2])};
+    if (!finite3(c))
+      visit_nan(x);
+    else
+      visit(x, axis_double(c[0], e.nz), axis_double(c[1], e.ny), axis_double(c[2], e.nx));
+  }
+}
+
+template <bool kIdx32>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     affine_warp_kernel(const float* __restrict__ vol, float* __restrict__ out,
-                       float* __restrict__ support, const double* __restrict__ params,
-                       Extents e) {
+                       const double* __restrict__ params, Extents e) {
   const Map map = load_map(params);
   const int lane = threadIdx.x & 31;
   const long long n_rows = e.oz * e.oy;
@@ -243,39 +313,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
        r += stride) {
     const long long z = r / e.oy, y = r - z * e.oy;
     float* orow = out + r * e.ox;
-    float* srow = kSupport ? support + r * e.ox : nullptr;
-    double base[3], step[3];
-    if (row_of(map, z, y, e.ox, base, step)) {
-      long long c[3], dc[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const long long s = __double2ll_rn(step[a] * kFix);
-        c[a] = __double2ll_rn(base[a] * kFix) + s * lane;
-        dc[a] = s * 32;
-      }
-      // Four voxels a lane in flight, 32 corner loads: 2.71 ms at the
-      // deskewed volume, against 3.46 unrolled twice and 3.22 eight times
-      // (profile_step.py --affine builds those).
-#pragma unroll 4
-      for (int x = lane; x < e.ox; x += 32) {
-        sample<kSupport, kIdx32>(vol, e, axis_fixed(c[0], e.nz), axis_fixed(c[1], e.ny),
-                         axis_fixed(c[2], e.nx), orow + x, kSupport ? srow + x : nullptr);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) c[a] += dc[a];
-      }
-      continue;
-    }
-    for (int x = lane; x < e.ox; x += 32) {
-      const double c[3] = {fma(step[0], (double)x, base[0]), fma(step[1], (double)x, base[1]),
-                           fma(step[2], (double)x, base[2])};
-      if (!finite3(c)) {  // a map that is not finite gives NaN, as JAX's
-        orow[x] = __int_as_float(0x7fc00000);
-        if (kSupport) srow[x] = __int_as_float(0x7fc00000);
-        continue;
-      }
-      sample<kSupport, kIdx32>(vol, e, axis_double(c[0], e.nz), axis_double(c[1], e.ny),
-                       axis_double(c[2], e.nx), orow + x, kSupport ? srow + x : nullptr);
-    }
+    walk_row(
+        map, e, z, y, lane,
+        [&](int x, const Axis& az, const Axis& ay, const Axis& ax) {
+          sample<false, kIdx32>(vol, e, az, ay, ax, orow + x, nullptr);
+        },
+        // a map that is not finite gives NaN, as JAX's
+        [&](int x) { orow[x] = __int_as_float(0x7fc00000); });
   }
 }
 
@@ -285,89 +329,186 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-template <bool kIdx32>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-    affine_warp_grad_kernel(const float* __restrict__ vol, const float* __restrict__ grad_out,
-                            const double* __restrict__ params, double* __restrict__ partials,
-                            Extents e) {
-  __shared__ double red[kWarps][kSums];
-  const Map map = load_map(params);
+// Adds the block's threads' N sums into row blockIdx.x of partials (kSums
+// wide): warp shuffles, then the warps in order.
+template <int N>
+__device__ __forceinline__ void to_partials(const double (&acc)[N], double* __restrict__ partials) {
+  __shared__ double red[kWarps][N];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  double acc[kSums];
 #pragma unroll
-  for (int k = 0; k < kSums; ++k) acc[k] = 0.0;
-  const long long n_rows = e.oz * e.oy;
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long r = (long long)blockIdx.x * kWarps + warp; r < n_rows; r += stride) {
-    const long long z = r / e.oy, y = r - z * e.oy;
-    const float* grow = grad_out + r * e.ox;
-    // This lane's sums along the row: s_a and s_a * x.
-    float rs[3] = {0.0f, 0.0f, 0.0f}, rsx[3] = {0.0f, 0.0f, 0.0f};
-    double base[3], step[3];
-    if (row_of(map, z, y, e.ox, base, step)) {
-      long long c[3], dc[3];
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        const long long s = __double2ll_rn(step[a] * kFix);
-        c[a] = __double2ll_rn(base[a] * kFix) + s * lane;
-        dc[a] = s * 32;
-      }
-#pragma unroll 4  // the grad's x loop: 0.521 ms at the refine grid, 0.572 not unrolled
-      for (int x = lane; x < e.ox; x += 32) {
-        float g[3];
-        slope<kIdx32>(vol, e, axis_fixed(c[0], e.nz), axis_fixed(c[1], e.ny),
-                      axis_fixed(c[2], e.nx), g);
-        const float go = __ldg(grow + x);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float s = go * g[a];
-          rs[a] += s;
-          rsx[a] = fmaf(s, (float)x, rsx[a]);
-          c[a] += dc[a];
-        }
-      }
-    } else {
-      for (int x = lane; x < e.ox; x += 32) {
-        const double c[3] = {fma(step[0], (double)x, base[0]), fma(step[1], (double)x, base[1]),
-                             fma(step[2], (double)x, base[2])};
-        float g[3];
-        if (!finite3(c)) {
-          g[0] = g[1] = g[2] = __int_as_float(0x7fc00000);
-        } else {
-          slope<kIdx32>(vol, e, axis_double(c[0], e.nz), axis_double(c[1], e.ny),
-                        axis_double(c[2], e.nx), g);
-        }
-        const float go = __ldg(grow + x);
-#pragma unroll
-        for (int a = 0; a < 3; ++a) {
-          const float s = go * g[a];
-          rs[a] += s;
-          rsx[a] = fmaf(s, (float)x, rsx[a]);
-        }
-      }
-    }
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      acc[4 * a] = fma((double)rs[a], (double)z, acc[4 * a]);
-      acc[4 * a + 1] = fma((double)rs[a], (double)y, acc[4 * a + 1]);
-      acc[4 * a + 2] += (double)rsx[a];
-      acc[4 * a + 3] += (double)rs[a];
-    }
-  }
-#pragma unroll
-  for (int k = 0; k < kSums; ++k) {
+  for (int k = 0; k < N; ++k) {
     const double v = warp_sum(acc[k]);
     if (lane == 0) red[warp][k] = v;
   }
   __syncthreads();
-  if (threadIdx.x < kSums) {
+  if (threadIdx.x < N) {
     double s = 0.0;
     for (int w = 0; w < kWarps; ++w) s += red[w][threadIdx.x];
     partials[(long long)blockIdx.x * kSums + threadIdx.x] = s;
   }
 }
 
-// Sums the blocks' partial rows in block order: out = (dM row-major, dt).
+// Sums of the loss: ncc n, a, b, a^2, b^2, a b; mse n, (a - b)^2 (weighted).
+template <bool kMse>
+struct Loss {
+  static constexpr int n = kMse ? 2 : 6;
+};
+
+// One voxel's terms of the sums, in float64. w is 0 or 1; a NaN sample
+// (a map that is not finite) makes the sums NaN, as w * a does in torch.
+template <bool kMse>
+__device__ __forceinline__ void add_moments(float a, float b, float ones,
+                                            double (&acc)[Loss<kMse>::n]) {
+  const double w = ones > 0.999f ? 1.0 : 0.0, da = a, db = b;
+  acc[0] += w;
+  if constexpr (kMse) {
+    const double d = da - db;
+    acc[1] = fma(w * d, d, acc[1]);
+  } else {
+    const double wa = w * da, wb = w * db;
+    acc[1] += wa;
+    acc[2] += wb;
+    acc[3] = fma(wa, da, acc[3]);
+    acc[4] = fma(wb, db, acc[4]);
+    acc[5] = fma(wa, db, acc[5]);
+  }
+}
+
+template <bool kMse, bool kIdx32>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    affine_refine_sums_kernel(const float* __restrict__ vol, const float* __restrict__ fixed,
+                              const double* __restrict__ params, double* __restrict__ partials,
+                              Extents e) {
+  const Map map = load_map(params);
+  const int lane = threadIdx.x & 31;
+  double acc[Loss<kMse>::n];
+#pragma unroll
+  for (int k = 0; k < Loss<kMse>::n; ++k) acc[k] = 0.0;
+  const long long n_rows = e.oz * e.oy;
+  const long long stride = (long long)gridDim.x * kWarps;
+  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); r < n_rows;
+       r += stride) {
+    const long long z = r / e.oy, y = r - z * e.oy;
+    const float* brow = fixed + r * e.ox;
+    walk_row(
+        map, e, z, y, lane,
+        [&](int x, const Axis& az, const Axis& ay, const Axis& ax) {
+          float a, ones;
+          sample<true, kIdx32>(vol, e, az, ay, ax, &a, &ones);
+          add_moments<kMse>(a, __ldg(brow + x), ones, acc);
+        },
+        [&](int x) {
+          const float nan = __int_as_float(0x7fc00000);
+          add_moments<kMse>(nan, __ldg(brow + x), nan, acc);
+        });
+  }
+  to_partials(acc, partials);
+}
+
+// Entries of stats: the loss, then alpha, beta, ma, mb of its derivative
+// d loss / d a = w (alpha (a - ma) + beta (b - mb)), then sum w.
+constexpr int kStats = 6;
+
+// Adds the sums launch's partial rows in block order and forms the loss of
+// register.py::ncc_loss or mse_loss and its derivative's coefficients, in
+// float64: stats (kStats) and the loss as float32.
+template <bool kMse>
+__global__ void affine_refine_finish_kernel(const double* __restrict__ partials, int blocks,
+                                            double* __restrict__ stats, float* __restrict__ loss) {
+  constexpr int n = Loss<kMse>::n;
+  __shared__ double tot[n];
+  const int k = threadIdx.x;
+  if (k < n) {
+    double s = 0.0;
+    for (int b = 0; b < blocks; ++b) s += partials[(long long)b * kSums + k];
+    tot[k] = s;
+  }
+  __syncthreads();
+  if (k != 0) return;
+  const double w = tot[0], cnt = fmax(w, 1.0);  // clamp_min(sum w, 1)
+  double value, alpha, beta, ma = 0.0, mb = 0.0;
+  if constexpr (kMse) {
+    value = tot[1] / cnt;
+    alpha = 2.0 / cnt;
+    beta = -alpha;
+  } else {
+    // Centred sums from the raw ones: S_uv = sum w u v - mu sum v - mv sum u
+    // + mu mv sum w (exact algebra for any clamp of n).
+    ma = tot[1] / cnt;
+    mb = tot[2] / cnt;
+    const double saa = tot[3] - 2.0 * ma * tot[1] + ma * ma * w;
+    const double sbb = tot[4] - 2.0 * mb * tot[2] + mb * mb * w;
+    const double sab = tot[5] - ma * tot[2] - mb * tot[1] + ma * mb * w;
+    const double r = sqrt(saa * sbb), d = r + 1e-8;
+    value = 1.0 - sab / d;
+    alpha = sab * sbb / (d * d * r);
+    beta = -1.0 / d;
+  }
+  stats[0] = value;
+  stats[1] = alpha;
+  stats[2] = beta;
+  stats[3] = ma;
+  stats[4] = mb;
+  stats[5] = w;
+  *loss = (float)value;
+}
+
+template <bool kIdx32>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+    affine_refine_grad_kernel(const float* __restrict__ vol, const float* __restrict__ fixed,
+                              const double* __restrict__ params, const double* __restrict__ stats,
+                              double* __restrict__ partials, Extents e) {
+  const Map map = load_map(params);
+  const double alpha = __ldg(stats + 1), beta = __ldg(stats + 2), ma = __ldg(stats + 3),
+               mb = __ldg(stats + 4);
+  const int lane = threadIdx.x & 31;
+  double acc[kSums];
+#pragma unroll
+  for (int k = 0; k < kSums; ++k) acc[k] = 0.0;
+  const long long n_rows = e.oz * e.oy;
+  const long long stride = (long long)gridDim.x * kWarps;
+  for (long long r = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); r < n_rows;
+       r += stride) {
+    const long long z = r / e.oy, y = r - z * e.oy;
+    const float* brow = fixed + r * e.ox;
+    // This lane's sums along the row: s_c and s_c * x.
+    float rs[3] = {0.0f, 0.0f, 0.0f}, rsx[3] = {0.0f, 0.0f, 0.0f};
+    // grad_out = d loss / d a of the voxel, w (alpha (a - ma) + beta (b - mb)).
+    auto add = [&](int x, float a, float ones, const float g[3]) {
+      const double w = ones > 0.999f ? 1.0 : 0.0;
+      const float go =
+          (float)(w * fma(alpha, (double)a - ma, beta * ((double)__ldg(brow + x) - mb)));
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float s = go * g[c];
+        rs[c] += s;
+        rsx[c] = fmaf(s, (float)x, rsx[c]);
+      }
+    };
+    walk_row(
+        map, e, z, y, lane,
+        [&](int x, const Axis& az, const Axis& ay, const Axis& ax) {
+          float a, ones, g[3];
+          sample_slope<kIdx32>(vol, e, az, ay, ax, &a, &ones, g);
+          add(x, a, ones, g);
+        },
+        [&](int x) {
+          const float nan = __int_as_float(0x7fc00000);
+          const float g[3] = {nan, nan, nan};
+          add(x, nan, nan, g);
+        });
+#pragma unroll
+    for (int c = 0; c < 3; ++c) {
+      acc[4 * c] = fma((double)rs[c], (double)z, acc[4 * c]);
+      acc[4 * c + 1] = fma((double)rs[c], (double)y, acc[4 * c + 1]);
+      acc[4 * c + 2] += (double)rsx[c];
+      acc[4 * c + 3] += (double)rs[c];
+    }
+  }
+  to_partials(acc, partials);
+}
+
+// Sums the grad launch's partial rows in block order: out = (dM row-major, dt).
 __global__ void affine_grad_finish_kernel(const double* __restrict__ partials, int blocks,
                                           double* __restrict__ out) {
   const int k = threadIdx.x;
@@ -401,63 +542,113 @@ bool extents_of(long long nz, long long ny, long long nx, long long oz, long lon
   return true;
 }
 
-// The instance of the grad kernel for a volume of nz x ny x nx.
-const void* grad_kernel_of(long long nz, long long ny, long long nx) {
-  return nz * ny * nx < (1LL << 31) ? (const void*)affine_warp_grad_kernel<true>
-                                    : (const void*)affine_warp_grad_kernel<false>;
+// The refine's kernels for a volume of nz x ny x nx: 32-bit indices where it
+// has fewer than 2^31 voxels.
+struct RefineKernels {
+  const void* sums[2];  // ncc, mse
+  const void* grad;
+};
+
+RefineKernels refine_kernels_of(long long nz, long long ny, long long nx) {
+  if (nz * ny * nx < (1LL << 31))
+    return {{(const void*)affine_refine_sums_kernel<false, true>,
+             (const void*)affine_refine_sums_kernel<true, true>},
+            (const void*)affine_refine_grad_kernel<true>};
+  return {{(const void*)affine_refine_sums_kernel<false, false>,
+           (const void*)affine_refine_sums_kernel<true, false>},
+          (const void*)affine_refine_grad_kernel<false>};
 }
 
 }  // namespace
 
-// params: 12 float64 on the device, M row-major then t. support may be null.
-// Every extent in [1, 2^30].
-extern "C" int shrimpy_affine_warp(const void* vol, void* out, void* support, const void* params,
-                                   long long nz, long long ny, long long nx, long long oz,
-                                   long long oy, long long ox, void* stream) {
+// params: 12 float64 on the device, M row-major then t. Every extent in
+// [1, 2^30].
+extern "C" int shrimpy_affine_warp(const void* vol, void* out, const void* params, long long nz,
+                                   long long ny, long long nx, long long oz, long long oy,
+                                   long long ox, void* stream) {
   Extents e;
   if (!extents_of(nz, ny, nx, oz, oy, ox, &e)) return (int)cudaErrorInvalidValue;
-  const bool idx32 = nz * ny * nx < (1LL << 31);
-  const auto kernel = support ? (idx32 ? affine_warp_kernel<true, true>
-                                       : affine_warp_kernel<true, false>)
-                              : (idx32 ? affine_warp_kernel<false, true>
-                                       : affine_warp_kernel<false, false>);
+  const auto kernel =
+      nz * ny * nx < (1LL << 31) ? affine_warp_kernel<true> : affine_warp_kernel<false>;
   int blocks = 0;
   const int err = grid_of((const void*)kernel, oz * oy, &blocks);
   if (err != 0) return err;
-  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (float*)out, (float*)support, (const double*)params, e);
+  kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>((const float*)vol, (float*)out,
+                                                        (const double*)params, e);
   return (int)cudaGetLastError();
 }
 
-// The number of partial rows shrimpy_affine_warp_grad writes for a volume of
-// nz x ny x nx and an output of oz x oy rows (its scratch holds 12 float64 a
-// row), or a negative error.
-extern "C" int shrimpy_affine_grad_blocks(long long nz, long long ny, long long nx, long long oz,
-                                          long long oy) {
+// The partial rows the refine's launches write for a volume of nz x ny x nx
+// and a grid of oz x oy rows (their scratch: 12 float64 a row, the most of
+// any of its kernels), or a negative error.
+extern "C" int shrimpy_affine_refine_blocks(long long nz, long long ny, long long nx,
+                                            long long oz, long long oy) {
   Extents e;
   if (!extents_of(nz, ny, nx, oz, oy, 1, &e)) return -(int)cudaErrorInvalidValue;
-  int blocks = 0;
-  const int err = grid_of(grad_kernel_of(nz, ny, nx), oz * oy, &blocks);
-  return err != 0 ? -err : blocks;
+  const RefineKernels k = refine_kernels_of(nz, ny, nx);
+  int most = 0;
+  for (const void* kernel : {k.sums[0], k.sums[1], k.grad}) {
+    int blocks = 0;
+    const int err = grid_of(kernel, oz * oy, &blocks);
+    if (err != 0) return -err;
+    most = blocks > most ? blocks : most;
+  }
+  return most;
 }
 
-// grad: 12 float64 on the device, d loss / d M row-major then d loss / d t;
-// partials: scratch of shrimpy_affine_grad_blocks(oz, oy) x 12 float64.
-extern "C" int shrimpy_affine_warp_grad(const void* vol, const void* grad_out, const void* params,
-                                        void* partials, void* grad, long long nz, long long ny,
-                                        long long nx, long long oz, long long oy, long long ox,
-                                        void* stream) {
+// The refine's sums launch and its finish: warp vol (nz, ny, nx) by params
+// onto the grid of fixed (oz, oy, ox), and write stats (kStats float64: the
+// loss, the coefficients of its derivative, sum w) and the loss as one
+// float32. mse: 0 for ncc_loss, 1 for mse_loss. partials: scratch of
+// `capacity` >= shrimpy_affine_refine_blocks rows of 12 float64.
+extern "C" int shrimpy_affine_refine_sums(const void* vol, const void* fixed, const void* params,
+                                          void* partials, int capacity, void* stats, void* loss,
+                                          long long nz, long long ny, long long nx, long long oz,
+                                          long long oy, long long ox, int mse, void* stream) {
+  Extents e;
+  if (!extents_of(nz, ny, nx, oz, oy, ox, &e)) return (int)cudaErrorInvalidValue;
+  const RefineKernels k = refine_kernels_of(nz, ny, nx);
+  const bool idx32 = nz * ny * nx < (1LL << 31);
+  int blocks = 0;
+  int err = grid_of(k.sums[mse ? 1 : 0], oz * oy, &blocks);
+  if (err != 0) return err;
+  if (blocks > capacity) return (int)cudaErrorInvalidValue;
+  const auto s = (cudaStream_t)stream;
+  const auto args = [&](auto kernel) {
+    kernel<<<blocks, kThreads, 0, s>>>((const float*)vol, (const float*)fixed,
+                                       (const double*)params, (double*)partials, e);
+  };
+  if (mse)
+    idx32 ? args(affine_refine_sums_kernel<true, true>) : args(affine_refine_sums_kernel<true, false>);
+  else
+    idx32 ? args(affine_refine_sums_kernel<false, true>)
+          : args(affine_refine_sums_kernel<false, false>);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  (mse ? affine_refine_finish_kernel<true> : affine_refine_finish_kernel<false>)<<<1, 32, 0, s>>>(
+      (const double*)partials, blocks, (double*)stats, (float*)loss);
+  return (int)cudaGetLastError();
+}
+
+// The refine's gradient launch and its finish: grad = d loss / d (M, t), 12
+// float64 (M row-major, then t), from stats of shrimpy_affine_refine_sums
+// with the same map. Arguments as there.
+extern "C" int shrimpy_affine_refine_grad(const void* vol, const void* fixed, const void* params,
+                                          const void* stats, void* partials, int capacity,
+                                          void* grad, long long nz, long long ny, long long nx,
+                                          long long oz, long long oy, long long ox, void* stream) {
   Extents e;
   if (!extents_of(nz, ny, nx, oz, oy, ox, &e)) return (int)cudaErrorInvalidValue;
   const bool idx32 = nz * ny * nx < (1LL << 31);
   int blocks = 0;
-  int err = grid_of(grad_kernel_of(nz, ny, nx), oz * oy, &blocks);
+  int err = grid_of(refine_kernels_of(nz, ny, nx).grad, oz * oy, &blocks);
   if (err != 0) return err;
-  (idx32 ? affine_warp_grad_kernel<true> : affine_warp_grad_kernel<false>)
-      <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)vol, (const float*)grad_out, (const double*)params, (double*)partials, e);
+  if (blocks > capacity) return (int)cudaErrorInvalidValue;
+  const auto s = (cudaStream_t)stream;
+  (idx32 ? affine_refine_grad_kernel<true> : affine_refine_grad_kernel<false>)
+      <<<blocks, kThreads, 0, s>>>((const float*)vol, (const float*)fixed,
+                                   (const double*)params, (const double*)stats,
+                                   (double*)partials, e);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  affine_grad_finish_kernel<<<1, 32, 0, (cudaStream_t)stream>>>((const double*)partials, blocks,
-                                                                (double*)grad);
+  affine_grad_finish_kernel<<<1, 32, 0, s>>>((const double*)partials, blocks, (double*)grad);
   return (int)cudaGetLastError();
 }

@@ -120,11 +120,6 @@ __host__ __device__ inline size_t convzy_smem_floats(int nkz, int nky, int ty, i
          2 * (size_t)round32(kGuardRows * tx + s) + round4(2 * (nkz + kDepth));
 }
 
-// m mod n in [0, n) for any m (a true modulo, only off the axis).
-__device__ __forceinline__ int wrap_index(int m, int n) {
-  return (m >= 0 && m < n) ? m : ((m % n) + n) % n;
-}
-
 #ifdef CONVZY_NKZ
 // The geometry this build is for.
 struct Geo {

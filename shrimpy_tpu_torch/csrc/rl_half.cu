@@ -74,6 +74,20 @@
 //     many planes as ~54 registers hold: six of (9, 21, 21)'s eight, which
 //     takes two thirds of the z pass's shared-memory reads away.
 //
+//   * Circular (RL_HALF_WRAP=1, mode plain only: conv3_circular, the TPU kernel
+//     shrimpy_tpu/ops/conv3_pallas.py::_conv3_pallas_jit, which bakes every
+//     term into one call too): v[m] = v[m mod n] on every axis, any radius.
+//     The z wrap is the plane's index taken mod gz, so a block whose slab lies
+//     in the grid in y and x (the rows and columns its outputs read) still
+//     takes it by one TMA copy; a block whose slab crosses a seam, and every
+//     block of a carry that is not 16-byte aligned or whose rows are no
+//     multiple of 4, loads by cp.async at a true modulo of row and column (16
+//     bytes a copy where gx % 4 == 0: a chunk then never straddles the x seam;
+//     else 4). Only the loads differ from the zero boundary's build: the sums
+//     and their order are the same, so the result has the bits of the
+//     two-launch route (convzy.cu's circular march, then conv_x<true> of
+//     rl_fused.cu), ops/conv3_cuda.py::conv3_circular_route.
+//
 // NVIDIA H100 80GB HBM3, 700 W, carry (136, 2908, 1620), PSF (9, 21, 21),
 // mode ratio (profile_step.py --tiles): tile (32, 64) 4.6 ms, (64, 32) 5.4,
 // (48, 32) 6.1, (24, 64) 6.1, (40, 32) 6.7, (16, 64) 7.2, (16, 32) 11.4,
@@ -158,10 +172,14 @@ __host__ __device__ inline size_t half_smem_floats(int n_terms, int nkz, int nky
 }
 
 #ifdef RL_HALF_NKZ
-// The geometry this build is for.
+#ifndef RL_HALF_WRAP
+#define RL_HALF_WRAP 0
+#endif
+// The geometry this build is for, and its boundary (zero, or circular).
 struct Geo {
   static constexpr int n_terms = RL_HALF_TERMS, nkz = RL_HALF_NKZ, nky = RL_HALF_NKY,
                        nkx = RL_HALF_NKX, ty = RL_HALF_TY, tx = RL_HALF_TX;
+  static constexpr bool wrap = RL_HALF_WRAP != 0;
 };
 constexpr Slab kSlab = slab_of(Geo::nky, Geo::nkx, Geo::ty, Geo::tx);
 constexpr int kSlabFloats = kSlab.sr * kSlab.sw;
@@ -309,8 +327,16 @@ rl_half_kernel(const float* __restrict__ in, const float* aux, float* out, __nv_
 #endif
   const int x0 = blockIdx.x * tx, y0 = blockIdx.y * ty;
   const long long plane = (long long)gy * gx;
+  // The circular build runs mode plain alone: a constant mode lets the
+  // compiler drop the epilogue's operands (registers the march needs).
+  if (Geo::wrap) mode = kPlain;
   const bool accel_in = !kMultAccel && mode == kRatioAccel;
   const float alpha = (kMultAccel || accel_in) ? *alpha_p : 0.f;
+  // The slab by one TMA copy: every block of the zero boundary's build; of
+  // the circular one, the blocks whose outputs read rows and columns of the
+  // grid alone (the columns of the slab past them meet zero taps).
+  const bool tma = kVec && (!Geo::wrap || (y0 - ry >= 0 && y0 + ty + ry <= gy &&
+                                          x0 - nkx / 2 >= 0 && x0 + tx + nkx / 2 <= gx));
 
   // The chunks of every input plane that are this thread's in the z pass, in
   // the cp.async copies and in ratio_accel's extrapolation: chunk tid + j *
@@ -318,6 +344,8 @@ rl_half_kernel(const float* __restrict__ in, const float* aux, float* out, __nv_
   // says that element e lies in the grid. Without the TMA copy a chunk outside
   // the grid, zero in every plane, is zeroed once, in every slot, and never
   // copied.
+  // Circular: every element lies in the grid (its offsets are formed where
+  // a seam block copies, not kept: see the copies below).
   int goff[kChunks];
   unsigned cmask = 0;
 #pragma unroll
@@ -328,7 +356,9 @@ rl_half_kernel(const float* __restrict__ in, const float* aux, float* out, __nv_
       const int row = cid / sw4, cc = cid - row * sw4;
       const int y = y0 - ry + row, x = x0 - sl.rxa + 4 * cc;
       goff[j] = y * gx + x;
-      if (y >= 0 && y < gy) {
+      if (Geo::wrap) {
+        cmask |= 15u << (4 * j);
+      } else if (y >= 0 && y < gy) {
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           if (x + e >= 0 && x + e < gx) cmask |= 1u << (4 * j + e);
@@ -536,12 +566,30 @@ rl_half_kernel(const float* __restrict__ in, const float* aux, float* out, __nv_
   __syncthreads();  // the zeros and the mbarrier are there before the first copy
   for (int q = -nkz; q < gz; ++q) {
     const int incoming = newest + 1 == slots ? 0 : newest + 1;
-    const int p_in = q + rz + 1;
+    const int p_in = Geo::wrap ? wrap_index(q + rz + 1, gz) : q + rz + 1;
     const bool live = p_in >= 0 && p_in < gz;
     {
       const long long base = (long long)p_in * plane;
       float4* dst = ring + (size_t)incoming * s4;
-      if (!kVec || (accel_in && live)) {
+      if (Geo::wrap && !tma) {
+        // A seam block: the chunk's row and columns at a true modulo, formed
+        // here (kept in registers through the march, they cost the other
+        // blocks spills).
+#pragma unroll
+        for (int j = 0; j < kChunks; ++j) {
+          const int cid = tid + j * kThreads;
+          if (cid >= s4) continue;
+          const int row = cid / sw4, x = x0 - sl.rxa + 4 * (cid - row * sw4);
+          const float* src = in + base + (long long)wrap_index(y0 - ry + row, gy) * gx;
+          if (kVec) {
+            copy16z(dst + cid, src + wrap_index(x, gx), true);
+          } else {
+            float* d = reinterpret_cast<float*>(dst + cid);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) copy_async4(d + e, src + wrap_index(x + e, gx));
+          }
+        }
+      } else if (!kVec || (accel_in && live)) {
 #pragma unroll
         for (int j = 0; j < kChunks; ++j) {
           const int cid = tid + j * kThreads;
@@ -569,7 +617,7 @@ rl_half_kernel(const float* __restrict__ in, const float* aux, float* out, __nv_
         }
       }
       RL_HALF_TICK(8);
-      if (kVec && tid == 0) {
+      if (tma && tid == 0) {
         mbar_expect(bar, box_bytes);
         tma_load_3d(dst, &in_map, x0 - sl.rxa, y0 - ry, p_in, bar);
       }
@@ -639,7 +687,7 @@ rl_half_kernel(const float* __restrict__ in, const float* aux, float* out, __nv_
         // y = max(x + alpha*dx, 0) (outside the grid x = dx = 0 gives 0). The
         // barrier publishes the plane to the next step's z pass.
         copies_wait();
-        if (kVec) {
+        if (tma) {
           mbar_wait(bar, parity);
           parity ^= 1u;
         }
@@ -744,7 +792,8 @@ extern "C" int shrimpy_rl_half_smem(int n_terms, int nkz, int nky, int nkx, int 
 #ifdef RL_HALF_NKZ
 // taps: float32 [n_terms][round4(nkz) + window(nky) + window(nkx)], each list
 // padded as the kernel reads it (ops/rl_fused.py::Stencil.packed). The geometry
-// (n_terms .. tx) must be the one this library was compiled for. mode: 0
+// (n_terms .. tx) must be the one this library was compiled for; a circular
+// build (RL_HALF_WRAP=1) takes mode plain alone. mode: 0
 // plain, 1 ratio, 2 mult, 3 ratio_accel (dx, alpha), 4 mult_accel (aux = out =
 // x; dx, g, alpha, partials of 2 x blocks floats). vec: gx % 4 == 0 and every
 // carry pointer 16-byte aligned. A block has 512 threads.
@@ -753,7 +802,7 @@ extern "C" int shrimpy_rl_half(const void* in, const void* aux, void* out, void*
                                int nkz, int nky, int nkx, long long gz, long long gy, long long gx,
                                int ty, int tx, int mode, int vec, float eps, void* stream) {
   if (n_terms != Geo::n_terms || nkz != Geo::nkz || nky != Geo::nky || nkx != Geo::nkx ||
-      ty != Geo::ty || tx != Geo::tx)
+      ty != Geo::ty || tx != Geo::tx || (Geo::wrap && mode != kPlain))
     return (int)cudaErrorInvalidValue;
   // A plane is indexed in 32 bits, and the grid's y extent is a launch's.
   if (gz < 1 || gy < 1 || gx < 1 || gz > INT_MAX || gy * gx > INT_MAX ||

@@ -1,7 +1,7 @@
 // What the stencil kernels share: the packed tap layout, the sliding window
 // that gives a thread four outputs of a 1-D convolution from one walk over
 // its source (rl_half.cu, rl_iter.cu), the rounding of Biggs' extrapolated
-// point, and the shared-memory opt-in.
+// point, the circular index, and the shared-memory opt-in.
 //
 // Convention everywhere: (A v)[n] = sum_i k[i] * v[n + r - i], each output
 // summed from zero in ascending tap order with one FMA a tap, so every kernel
@@ -45,6 +45,18 @@ __device__ __forceinline__ void window_fma(const float4 a, const float4 b, const
 // g = x_new - y is off by an ulp.
 __device__ __forceinline__ float extrapolate(float x, __nv_bfloat16 d, float alpha) {
   return fmaxf(__fadd_rn(x, __fmul_rn(alpha, __bfloat162float(d))), 0.f);
+}
+
+// m mod n in [0, n) for any m: the index of a circular boundary (convzy.cu,
+// rl_half.cu built with RL_HALF_WRAP). One wrap by an add; the divisions of
+// a true modulo only where a radius reaches past the axis (they were most of
+// a seam block's copy issue in rl_half's circular build).
+__device__ __forceinline__ int wrap_index(int m, int n) {
+  if (m < 0)
+    m += n;
+  else if (m >= n)
+    m -= n;
+  return (m >= 0 && m < n) ? m : ((m % n) + n) % n;
 }
 
 // Opt in to more than 48 KB of dynamic shared memory.

@@ -19,7 +19,9 @@ sources and flags, so an edited kernel is never served a stale build.
 Three kernels are compiled for their geometry: ``csrc/rl_half.cu`` and
 ``csrc/rl_iter.cu`` take the number of terms, the PSF lengths and the
 tile as macros (``RL_HALF_TERMS`` .. ``RL_HALF_TX``, ``RL_ITER_TERMS`` ..
-``RL_ITER_TX``), ``csrc/convzy.cu`` the z and y tap lengths, the tile
+``RL_ITER_TX``; kind ``rl_half_wrap`` is ``rl_half.cu``'s circular build
+with ``RL_HALF_WRAP=1``, ``conv3_circular``'s one launch),
+``csrc/convzy.cu`` the z and y tap lengths, the tile
 and the boundary (``CONVZY_NKZ`` .. ``CONVZY_WRAP``), so that their tap
 loops unroll. :func:`load_geometry_library` compiles one at its first
 launch with a geometry into a library of its own beside the other
@@ -60,7 +62,7 @@ _F32 = ctypes.c_float
 
 # C signature of every entry point in csrc/ (argtypes; restype is int: a
 # CUDA error code, but for the shrimpy_*_smem functions, which return bytes,
-# and shrimpy_affine_grad_blocks, which returns a count).
+# and shrimpy_affine_refine_blocks, which returns a count).
 SIGNATURES: dict[str, list] = {
     # raw, out, t0, t1, wt0, wt1, s0, s1, w00, w01,
     # ns, nt, nx, nz, ny, n_groups, a_avg, ty, tx, rows, vec, stream
@@ -85,16 +87,19 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_probe_smem": [_P, _I32, _P],
     # a, b, hi/lo scratch (a_hi, a_lo, b_hi, b_lo), c, m, n, k, mode, stream
     "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
-    # vol, out, support (or null), params, nz, ny, nx, oz, oy, ox, stream
-    "shrimpy_affine_warp": [_P] * 4 + [_I64] * 6 + [_P],
-    # nz, ny, nx, oz, oy -> partial rows of shrimpy_affine_warp_grad (negative: an error)
-    "shrimpy_affine_grad_blocks": [_I64] * 5,
-    # vol, grad_out, params, partials, grad, nz, ny, nx, oz, oy, ox, stream
-    "shrimpy_affine_warp_grad": [_P] * 5 + [_I64] * 6 + [_P],
+    # vol, out, params, nz, ny, nx, oz, oy, ox, stream
+    "shrimpy_affine_warp": [_P] * 3 + [_I64] * 6 + [_P],
+    # nz, ny, nx, oz, oy -> partial rows of the refine's launches (negative: an error)
+    "shrimpy_affine_refine_blocks": [_I64] * 5,
+    # vol, fixed, params, partials, capacity, stats, loss, nz, ny, nx, oz, oy, ox, mse, stream
+    "shrimpy_affine_refine_sums": [_P] * 4 + [_I32] + [_P] * 2 + [_I64] * 6 + [_I32, _P],
+    # vol, fixed, params, stats, partials, capacity, grad, nz, ny, nx, oz, oy, ox, stream
+    "shrimpy_affine_refine_grad": [_P] * 5 + [_I32, _P] + [_I64] * 6 + [_P],
 }
 
 # The macros of a geometry of rl_half and rl_iter (n_terms, nkz, nky, nkx,
-# ty, tx) and of convzy (nkz, nky, ty, tx, wrap), after the prefix.
+# ty, tx; rl_half's circular build also wrap, 1) and of convzy (nkz, nky,
+# ty, tx, wrap), after the prefix.
 GEOMETRY_MACROS = ("TERMS", "NKZ", "NKY", "NKX", "TY", "TX")
 CONVZY_MACROS = ("NKZ", "NKY", "TY", "TX", "WRAP")
 # The kernels compiled for a geometry, by kind: source, macro prefix, entry
@@ -106,6 +111,9 @@ CONVZY_MACROS = ("NKZ", "NKY", "TY", "TX", "WRAP")
 GEOMETRY_KERNELS = {
     "rl_half": ("rl_half.cu", "RL_HALF", "shrimpy_rl_half",
                 [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P], GEOMETRY_MACROS),
+    "rl_half_wrap": ("rl_half.cu", "RL_HALF", "shrimpy_rl_half",
+                     [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P],
+                     GEOMETRY_MACROS + ("WRAP",)),
     "rl_iter": ("rl_iter.cu", "RL_ITER", "shrimpy_rl_iter",
                 [_P] * 5 + [_I32] * 4 + [_I64] * 3 + [_I32] * 3 + [_F32, _P], GEOMETRY_MACROS),
     "convzy": ("convzy.cu", "CONVZY", "shrimpy_convzy",

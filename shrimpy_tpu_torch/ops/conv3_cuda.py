@@ -33,8 +33,7 @@ Between them the routes take every z and y radius, as JAX's
 ``ry <= 125``: ``lp_layout``): where the two-pass route's column of
 ``32 + 2 r`` rows outgrows a block's shared memory (radii past 211),
 ``conv_axis`` takes the taps in chunks, each going on from the partial
-sums the chunk before wrote (:func:`convzy_bound_error` is None for every
-radius). The TPU's layouts are not
+sums the chunk before wrote. The TPU's layouts are not
 ported: the padded carry of ``linear_pallas`` (``lp_layout``,
 ``lp_pad``, ``lp_y_stencil``: 8-plane z pads, 128-row y pads, x rounded
 to 128 lanes, so every DMA start is tile-aligned), the wrap pads
@@ -44,9 +43,14 @@ routes keep the carry on the exact G grid, as the ``fused`` backend
 does, and share its pad/crop code.
 
 :func:`conv3_circular` (kernel 5, ``_conv3_pallas_jit``: all three axes
-as shifted FMAs over wrap-padded tiles) is off the RL path, as in JAX;
-on the card each term runs the circular z+y step and then the circular
-x pass.
+and every term as shifted FMAs over wrap-padded tiles, one call) is off
+the RL path, as in JAX. On the card it is one launch of
+``csrc/rl_half.cu``'s circular build (``RL_HALF_WRAP=1``, mode
+``plain``: :func:`conv3_one_launch`) where that kernel's block fits, else
+each term's circular z+y step and then the circular x pass
+(:func:`conv3_half_step_cuda` in mode ``plain``);
+:func:`conv3_circular_route` chooses from the
+shapes alone, and both routes give the same bits.
 """
 
 from __future__ import annotations
@@ -61,11 +65,13 @@ from shrimpy_tpu_torch.ops.rl_fused import (
     Stencil,
     _check_cuda_operand,
     _check_distinct,
+    _check_stencil,
     _conv_axis_circular_plain,
     _conv_axis_plain,
     _epilogue,
     _round4,
     check_io_cuda,
+    half_layout,
     run_terms_cuda,
     window_taps,
 )
@@ -152,18 +158,6 @@ def convzy_layout(shape, radii, *, tile=None) -> dict | None:
 def _check_boundary(boundary: str) -> None:
     if boundary not in BOUNDARIES:
         raise ValueError(f"boundary {boundary!r} not in {BOUNDARIES}")
-
-
-def convzy_bound_error(shape, radii, boundary: str = "zero") -> str | None:
-    """Why neither route takes the z+y step of a (gz, gy, gx) carry with z
-    and y ``radii``, or None when one does: always None for a known
-    ``boundary``. The march takes what fits its block
-    (:func:`convzy_layout`), the two-pass route the rest, its taps in
-    chunks of 423 (``csrc/rl_fused.cu::kMaxChunk``) past radius 211. Kept
-    beside :func:`fused_bound_error` so that every backend's bound has one
-    source; geometry alone, the same on every device."""
-    _check_boundary(boundary)
-    return None
 
 
 def convzy_route(shape, radii, boundary: str = "zero") -> str:
@@ -458,12 +452,68 @@ def conv3_circular_plain(v: torch.Tensor, stencil: Stencil) -> torch.Tensor:
 conv3_circular_plain.cuda_calls = 0
 
 
+def conv3_circular_route(shape, radii, n_terms: int = 1) -> str:
+    """Which kernels run :func:`conv3_circular_cuda` on a (gz, gy, gx)
+    carry with PSF ``radii`` in ``n_terms`` terms: ``"one_launch"``
+    (:func:`conv3_one_launch`) where the block of ``csrc/rl_half.cu``
+    fits (:func:`~shrimpy_tpu_torch.ops.rl_fused.half_layout`: its ring of
+    ``2 rz + 2`` slabs in 232,448 bytes, the launch grid), else
+    ``"zy_then_x"`` (:func:`conv3_half_step_cuda` in mode ``plain``). Both
+    give the same bits; the choice reads the shapes and nothing else."""
+    return "one_launch" if half_layout(shape, radii, n_terms) is not None else "zy_then_x"
+
+
+def conv3_one_launch(v: torch.Tensor, stencil: Stencil, *, out=None) -> torch.Tensor:
+    """``sum_t X_t Y_t Z_t v``, circular on every axis, as one launch of
+    ``csrc/rl_half.cu`` built with ``RL_HALF_WRAP=1`` for the stencil's
+    lengths, its number of terms and ``half_layout``'s tile (kind
+    ``rl_half_wrap`` of ``kernels/build.py``), in mode ``plain``.
+    ``out`` must not alias ``v``. Raises :class:`ValueError` where the
+    block does not fit."""
+    shape = check_io_cuda(v, None, "plain", "conv3_one_launch")
+    n_terms = len(stencil.host)
+    layout = half_layout(shape, stencil.radii, n_terms)
+    if layout is None:
+        raise ValueError(f"conv3_one_launch: radii {stencil.radii} in {n_terms} terms on {shape} "
+                         "fit no tile of the one-launch kernel's block")
+    _check_stencil(stencil, v)
+    if out is None:
+        out = torch.empty_like(v)
+    _check_cuda_operand("out", out, shape)
+    _check_distinct(v=v, out=out)
+
+    from shrimpy_tpu_torch.kernels.build import check, load_geometry_library
+
+    gz, gy, gx = shape
+    vec = gx % 4 == 0 and v.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    geometry = (n_terms, *(2 * r + 1 for r in stencil.radii), *layout["tile"], 1)
+    check(load_geometry_library("rl_half_wrap", geometry).shrimpy_rl_half(
+        v.data_ptr(), None, out.data_ptr(), None, None, None, None, stencil.packed().data_ptr(),
+        *geometry[:4], gz, gy, gx, *geometry[4:6], 0, int(vec), 0.0,
+        torch.cuda.current_stream(v.device).cuda_stream,
+    ), "shrimpy_rl_half (circular)")
+    conv3_one_launch.launches += 1
+    return out
+
+
+# Launches of the one-launch route since the last reset (the other route's
+# z+y steps count in convzy_circular_cuda.launches).
+conv3_one_launch.launches = 0
+
+
 def conv3_circular_cuda(v: torch.Tensor, stencil: Stencil, *, out=None, scratch=None) -> torch.Tensor:
     """Circular separable conv3 on the card (replaces ``conv3_pallas.py::
-    _conv3_pallas_jit``): per term :func:`convzy_circular_cuda`, then the
-    circular x pass in mode ``plain`` adding the earlier terms."""
-    out = conv3_half_step_cuda(v, None, stencil, "plain", boundary="circular", out=out,
-                               scratch=scratch)
+    _conv3_pallas_jit``), on the route of :func:`conv3_circular_route`:
+    one launch, or per term the z+y step then the x pass (``scratch`` is
+    that route's, allocated when not given)."""
+    if v.dim() != 3:
+        raise ValueError(f"conv3_circular_cuda takes a 3-D carry, got {tuple(v.shape)}")
+    route = conv3_circular_route(tuple(v.shape), stencil.radii, len(stencil.host))
+    if route == "one_launch":
+        out = conv3_one_launch(v, stencil, out=out)
+    else:
+        out = conv3_half_step_cuda(v, None, stencil, "plain", boundary="circular", out=out,
+                                   scratch=scratch)
     conv3_circular_cuda.launches += 1
     return out
 

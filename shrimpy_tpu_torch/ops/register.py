@@ -21,9 +21,11 @@ plain version ports the gather tier alone and is held against all four
 in the tests.
 
 The refine (:func:`estimate_registration`, ``pcc+refine``) is
-``_refine_jit`` in torch: the warp differentiated with respect to the map
-(:class:`~shrimpy_tpu_torch.ops.affine_cuda.AffineWarp` on the card,
-torch autograd of the plain version on the CPU) and
+``_refine_jit`` in torch: the objective and its gradient with respect to
+the map in one call (:class:`RefineObjective`; on the card two kernel
+launches, :func:`~shrimpy_tpu_torch.ops.affine_cuda.refine_objective_cuda`,
+on the CPU :func:`refine_objective_plain`: the closed-form derivative of
+the loss by the warp, then torch autograd of the plain warp) and
 ``torch.optim.Adam(lr, betas=(0.9, 0.999), eps=1e-8)``, in exact
 arithmetic the update of ``optax.adam(lr)``; the two round differently
 (torch divides by ``sqrt(v) / sqrt(1 - b2^t) + eps``, optax by
@@ -137,22 +139,6 @@ def affine_apply(vol, matrix, offset=(0.0, 0.0, 0.0), output_shape=None, *,
     return affine_warp_cuda(vol.to(torch.float32).contiguous(), params, shape)
 
 
-def warp_with_support(moving: torch.Tensor, matrix: torch.Tensor, offset: torch.Tensor,
-                      output_shape, *, plain: bool = False):
-    """``(warp, support)`` of ``moving`` for the refine: the warp,
-    differentiable in ``matrix`` and ``offset``, and the warp of a volume
-    of ones (no gradient). One kernel launch on a CUDA tensor (unless
-    ``plain``); two plain warps otherwise."""
-    if moving.is_cuda and not plain:
-        from shrimpy_tpu_torch.ops.affine_cuda import AffineWarp
-
-        return AffineWarp.apply(moving, matrix, offset, tuple(output_shape), True)
-    warped = affine_apply_plain(moving, matrix, offset, output_shape)
-    with torch.no_grad():
-        support = affine_apply_plain(torch.ones_like(moving), matrix, offset, output_shape)
-    return warped, support
-
-
 # ---------------------------------------------------------------------------
 # Similarity losses
 # ---------------------------------------------------------------------------
@@ -179,6 +165,70 @@ def ncc_loss(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor | None = None) ->
     return 1.0 - torch.sum(w * a * b) / denom
 
 
+def _loss_and_grad_out(a: torch.Tensor, b: torch.Tensor, w: torch.Tensor, loss: str):
+    """The loss of :func:`ncc_loss` or :func:`mse_loss` (weights ``w``) and
+    ``d loss / d a`` in closed form, in ``a``'s dtype: with ``n =
+    clamp_min(sum w, 1)``, mse ``2 w (a - b) / n``; ncc, with the centred
+    sums S and ``D = sqrt(Saa Sbb) + 1e-8``, ``w (Sab Sbb (a - ma) /
+    (D^2 sqrt(Saa Sbb)) - (b - mb) / D)``."""
+    n = torch.clamp_min(torch.sum(w), 1.0)
+    if loss == "mse":
+        d = a - b
+        return torch.sum(w * d * d) / n, 2.0 * w * d / n
+    ac = a - torch.sum(w * a) / n
+    bc = b - torch.sum(w * b) / n
+    saa, sbb, sab = torch.sum(w * ac * ac), torch.sum(w * bc * bc), torch.sum(w * ac * bc)
+    r = torch.sqrt(saa * sbb)
+    d = r + 1e-8
+    return 1.0 - sab / d, w * (sab * sbb / (d * d * r) * ac - bc / d)
+
+
+def refine_objective_plain(moving: torch.Tensor, fixed: torch.Tensor, matrix, offset,
+                           loss: str = "ncc", *, grad: bool = True,
+                           dtype: torch.dtype = torch.float32):
+    """The refine's objective and its gradient in plain PyTorch (any
+    device): ``(value, d_matrix, d_offset)`` (the last two None without
+    ``grad``), the loss of the warp of ``moving`` onto ``fixed``'s grid
+    against ``fixed`` over the voxels whose support (the warp of ones)
+    exceeds 0.999 (no gradient through the mask, as JAX's
+    ``stop_gradient``). The warp and its autograd run in ``dtype``, the
+    loss's sums and ``d loss / d warp`` in float64 (closed form, as the
+    kernels form them), the value in ``dtype``."""
+    shape = tuple(fixed.shape)
+    m = _as_map(matrix, dtype, moving.device).detach().requires_grad_(grad)
+    t = _as_map(offset, dtype, moving.device).detach().requires_grad_(grad)
+    with torch.enable_grad() if grad else torch.no_grad():
+        warped = affine_apply_plain(moving, m, t, shape, dtype=dtype)
+    with torch.no_grad():
+        support = affine_apply_plain(torch.ones_like(moving), m, t, shape, dtype=dtype)
+        w = (support > 0.999).to(torch.float64)
+        value, grad_out = _loss_and_grad_out(warped.detach().double(), fixed.double(), w, loss)
+    if not grad:
+        return value.to(dtype), None, None
+    dm, dt = torch.autograd.grad(warped, (m, t), grad_out.to(dtype))
+    return value.to(dtype), dm, dt
+
+
+class RefineObjective(torch.autograd.Function):
+    """A loss of the map whose forward also computes its gradient:
+    ``RefineObjective.apply(matrix, offset, pair)`` returns ``value`` of
+    ``pair(matrix, offset) -> (value, d_matrix, d_offset)``, and the
+    backward hands back that gradient times the incoming one, so the
+    parameters of the map (``tril``, the grid's scale) take it through
+    autograd and Adam as before."""
+
+    @staticmethod
+    def forward(ctx, matrix, offset, pair):
+        value, dm, dt = pair(matrix.detach(), offset.detach())
+        ctx.save_for_backward(dm, dt)
+        return value
+
+    @staticmethod
+    def backward(ctx, grad_value):
+        dm, dt = ctx.saved_tensors
+        return grad_value * dm, grad_value * dt, None
+
+
 # ---------------------------------------------------------------------------
 # Estimate: PCC seed + differentiable refinement
 # ---------------------------------------------------------------------------
@@ -197,13 +247,23 @@ def _refine(fixed: torch.Tensor, moving: torch.Tensor, offset0: np.ndarray, iter
             plain: bool = False):
     """``_refine_jit``: Adam on the similarity of the warp over a y/x
     strided grid of ``fixed``. Returns (full-resolution matrix, offset,
-    final loss, seed loss)."""
+    final loss, seed loss). A step on a CUDA tensor (unless ``plain``) is
+    the two launches of :func:`refine_objective_cuda`, which make no
+    tensor of the grid; else :func:`refine_objective_plain`."""
     fixed = fixed.to(torch.float32)
     moving = moving.to(torch.float32).contiguous()
     dev = fixed.device
-    fixed_s = fixed[:, ::down, ::down].contiguous() if down > 1 else fixed
-    out_shape = tuple(fixed_s.shape)
-    loss_fn = ncc_loss if loss_name == "ncc" else mse_loss
+    fixed_s = fixed[:, ::down, ::down].contiguous() if down > 1 else fixed.contiguous()
+    if moving.is_cuda and not plain:
+        from shrimpy_tpu_torch.ops.affine_cuda import refine_objective_cuda, refine_scratch
+
+        partials = refine_scratch(moving, fixed_s.shape)
+
+        def pair(m, t, grad=True):
+            return refine_objective_cuda(moving, fixed_s, m, t, loss_name, partials, grad=grad)
+    else:
+        def pair(m, t, grad=True):
+            return refine_objective_plain(moving, fixed_s, m, t, loss_name, grad=grad)
     # The strided grid maps back to full-resolution moving coordinates
     # through the scale; dm is in edge-pixel units (one unit moves the far
     # edge by one pixel), as in the JAX package.
@@ -215,10 +275,9 @@ def _refine(fixed: torch.Tensor, moving: torch.Tensor, offset0: np.ndarray, iter
         return scale + (torch.tril(dm) if param == "triangular" else dm) / coord_scale
 
     def objective(dm, off):
-        warped, support = warp_with_support(moving, matrix_of(dm), off, out_shape, plain=plain)
-        # Score in-support voxels only (the mask holds no gradient).
-        w = (support > 0.999).to(torch.float32)
-        return loss_fn(warped, fixed_s, w)
+        if not torch.is_grad_enabled():
+            return pair(matrix_of(dm), off, grad=False)[0]
+        return RefineObjective.apply(matrix_of(dm), off, pair)
 
     dm = torch.zeros((3, 3), dtype=torch.float32, device=dev, requires_grad=True)
     off = torch.tensor(np.asarray(offset0, np.float32), device=dev, requires_grad=True)

@@ -18,22 +18,27 @@ the two-tier gate of ``tests/test_torch_biggs.py``.
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from shrimpy_tpu.config import DeconvolveSettings
 from shrimpy_tpu.ops import deconv as jdeconv
 from shrimpy_tpu.ops.conv3_pallas import conv3_circular_pallas, convzy_circular_pallas
 from shrimpy_tpu_torch.ops import deconv as tdeconv
+from shrimpy_tpu_torch.ops import rl_fused as trl
 from shrimpy_tpu_torch.ops.conv3_cuda import (
     circulant,
     conv3_circular,
     conv3_circular_cuda,
+    conv3_circular_route,
     conv3_half_step,
+    conv3_one_launch,
     convzy_circular,
     convzy_circular_cuda,
     device_taps,
     x_circulant_plain,
 )
-from shrimpy_tpu_torch.ops.rl_fused import Stencil
+from shrimpy_tpu_torch.ops.rl_fused import Stencil, half_layout, half_smem_bytes
 from tests.test_deconv_separable import asymmetric_psf
 from tests.test_torch_biggs import _two_tier
 from tests.test_torch_rl import _blurred
@@ -121,15 +126,59 @@ def test_conv3_circular_refuses_mismatched_taps_and_cpu_launch():
         conv3_circular_pallas(vol, terms, interpret=True)
     with pytest.raises(ValueError, match="share"):
         conv3_circular(torch.from_numpy(vol), terms)
-    before = (conv3_circular_cuda.launches, convzy_circular_cuda.launches)
+    before = (conv3_circular_cuda.launches, convzy_circular_cuda.launches,
+              conv3_one_launch.launches)
     conv3_circular(torch.from_numpy(vol), terms[:1])
-    assert (conv3_circular_cuda.launches, convzy_circular_cuda.launches) == before
+    assert (conv3_circular_cuda.launches, convzy_circular_cuda.launches,
+            conv3_one_launch.launches) == before
     with pytest.raises(ValueError, match="CUDA tensor"):
         convzy_circular_cuda(torch.from_numpy(vol), terms[0][0], terms[0][1])
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        conv3_one_launch(torch.from_numpy(vol), Stencil(terms[:1]))
     # Reversed (adjoint) numpy taps, one tap included, become tensors.
     for taps in (np.arange(5.0)[::-1], np.ones(1)[::-1]):
         got = device_taps(taps, "cpu")
         assert got.dtype == torch.float32 and got.tolist() == taps.tolist()
+
+
+PRODUCTION_CARRY = (136, 2908, 1620)  # the G grid of the deskewed volume, PSF (9, 21, 21)
+
+
+@pytest.mark.parametrize("n_terms", [1, 2])
+def test_conv3_circular_route_takes_the_production_carry_in_one_launch(n_terms):
+    """The production carry with the (9, 21, 21) PSF runs as one launch of
+    rl_half.cu's circular build: its ring and planes fit the 232,448-byte
+    block on the first tile, (32, 64), one term or two."""
+    radii = (4, 10, 10)
+    assert conv3_circular_route(PRODUCTION_CARRY, radii, n_terms) == "one_launch"
+    layout = half_layout(PRODUCTION_CARRY, radii, n_terms)
+    assert layout["tile"] == (32, 64) and layout["blocks"] == 91 * 26
+    assert layout["smem_bytes"] == half_smem_bytes((32, 64), radii, n_terms)
+    assert layout["smem_bytes"] <= trl._SMEM_BYTES == 232448
+
+
+@pytest.mark.parametrize("radii", [(4, 100, 1), (40, 10, 10), (4, 10, 130)])
+def test_conv3_circular_route_past_the_block_is_zy_then_x(radii):
+    """A PSF whose ring fits no tile of the one-launch kernel's block (a y
+    radius of 100: TWO_PASS_PSF of chip_smoke.py; a z radius of 40; an x
+    radius past a slab's 256 columns) takes the two-launch route."""
+    assert half_layout(PRODUCTION_CARRY, radii) is None
+    assert conv3_circular_route(PRODUCTION_CARRY, radii) == "zy_then_x"
+    assert conv3_circular_route((6, 210, 20), radii) == "zy_then_x"
+
+
+@settings(max_examples=60, deadline=None)
+@given(rz=st.integers(0, 14), ry=st.integers(0, 70), rx=st.integers(0, 70),
+       n_terms=st.integers(1, 3), gy=st.sampled_from([9, 300, 2908]))
+def test_conv3_circular_route_reads_the_shapes_alone(rz, ry, rx, n_terms, gy):
+    """The route is a function of (shape, radii, terms): one launch exactly
+    where half_layout finds a tile, the same answer on every call, from
+    plain tuples with no tensor and no device."""
+    shape = (40, gy, 400)
+    route = conv3_circular_route(shape, (rz, ry, rx), n_terms)
+    assert route in ("one_launch", "zy_then_x")
+    assert (route == "one_launch") == (half_layout(shape, (rz, ry, rx), n_terms) is not None)
+    assert conv3_circular_route(list(shape), [rz, ry, rx], n_terms) == route
 
 
 @pytest.mark.parametrize("n", [1, 9, 40, 131])

@@ -30,8 +30,11 @@ from shrimpy_tpu_torch.ops.conv3_cuda import (
     conv3_circular,
     conv3_circular_cuda,
     conv3_circular_plain,
+    conv3_circular_route,
     conv3_half_step,
+    conv3_half_step_cuda,
     conv3_half_step_plain,
+    conv3_one_launch,
     convzy_circular,
     convzy_circular_cuda,
     convzy_circular_plain,
@@ -824,12 +827,65 @@ def test_circular_x_pass_matches_plain(cuda, mode, kx_len, shape):
 def test_conv3_circular_kernels_match_plain(cuda, flip, n_terms, lengths, shape):
     terms = _asym_terms(n_terms, lengths, seed=25)
     v = _rand(shape, 26, cuda, 0.0, 10.0)
-    before = conv3_circular_cuda.launches, convzy_circular_cuda.launches
+    one = conv3_circular_route(shape, tuple(k // 2 for k in lengths), n_terms) == "one_launch"
+    before = conv3_circular_cuda.launches, convzy_circular_cuda.launches, conv3_one_launch.launches
     out = conv3_circular(v, terms, flip=flip)
     torch.cuda.synchronize()
-    assert (conv3_circular_cuda.launches, convzy_circular_cuda.launches) == (
-        before[0] + 1, before[1] + n_terms)
+    assert (conv3_circular_cuda.launches, convzy_circular_cuda.launches,
+            conv3_one_launch.launches) == (before[0] + 1, before[1] + (0 if one else n_terms),
+                                           before[2] + one)
     assert _rel(out, conv3_circular_plain(v, Stencil(terms, flip=flip))) <= 1e-5
+
+
+# (PSF lengths, carry, offset of the carry in floats): an aligned carry with
+# interior blocks (the TMA copy) and seam blocks (16-byte cp.async), x
+# extents no multiple of 4, a grid smaller than the radii (wraps twice), a
+# carry 4 bytes into its storage.
+CONV3_ONE_LAUNCH_CASES = [
+    ((9, 21, 21), (20, 150, 256), 0),
+    ((7, 11, 13), (37, 41, 67), 0),
+    ((5, 7, 9), (9, 40, 41), 0),
+    ((9, 21, 21), (3, 9, 40), 0),
+    ((9, 21, 21), (13, 200, 32), 1),
+]
+
+
+@pytest.mark.parametrize("flip", [False, True])
+@pytest.mark.parametrize("n_terms", [1, 2])
+@pytest.mark.parametrize("lengths,shape,off", CONV3_ONE_LAUNCH_CASES)
+def test_conv3_one_launch_gives_the_two_launch_route_s_bits(cuda, flip, n_terms, lengths, shape,
+                                                           off):
+    """rl_half.cu's circular build against the route it replaces (the
+    circular z+y step, then the circular x pass), bit for bit, and the
+    plain version within 1e-5."""
+    st = Stencil(_asym_terms(n_terms, lengths, seed=30), flip=flip, device=cuda)
+    n = int(np.prod(shape))
+    v = _rand((n + off,), 31, cuda, 0.0, 10.0)[off:].view(shape)
+    assert conv3_circular_route(shape, st.radii, n_terms) == "one_launch"
+    before = conv3_one_launch.launches
+    out = conv3_one_launch(v, st)
+    torch.cuda.synchronize()
+    assert conv3_one_launch.launches == before + 1
+    two = conv3_half_step_cuda(v, None, st, "plain", boundary="circular")
+    torch.testing.assert_close(out, two, rtol=0, atol=0)
+    assert _rel(out, conv3_circular_plain(v, st)) <= 1e-5
+
+
+def test_conv3_circular_past_the_block_takes_two_launches(cuda):
+    """A (9, 201, 3) PSF fits no tile of the one-launch block: the z+y
+    step on its own route, then the x pass; against the plain version."""
+    terms = _asym_terms(1, (9, 201, 3), seed=32)
+    shape = (6, 210, 20)
+    v = _rand(shape, 33, cuda, 0.0, 10.0)
+    assert conv3_circular_route(shape, (4, 100, 1)) == "zy_then_x"
+    before = conv3_one_launch.launches, convzy_circular_cuda.launches
+    out = conv3_circular(v, terms)
+    torch.cuda.synchronize()
+    assert (conv3_one_launch.launches, convzy_circular_cuda.launches) == (before[0],
+                                                                         before[1] + 1)
+    assert _rel(out, conv3_circular_plain(v, Stencil(terms))) <= 1e-5
+    with pytest.raises(ValueError, match="fit no tile"):
+        conv3_one_launch(v, Stencil(terms, device=cuda))
 
 
 @pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])
@@ -1172,7 +1228,8 @@ def test_affine_warp_matches_plain(cuda, kind, out_shape):
     shape = out_shape or tuple(vol.shape)
     m, t = _affine_map(kind, vol.shape)
     params = map_params(torch.from_numpy(m).to(cuda), torch.from_numpy(t).to(cuda))
-    out, sup = affine_warp_cuda(vol, params, shape, support=True)
+    out = affine_warp_cuda(vol, params, shape)
+    sup = affine_warp_cuda(torch.ones_like(vol), params, shape)
     torch.cuda.synchronize()
     assert tuple(out.shape) == shape
     ref = affine_apply_plain(vol, m, t, shape, dtype=torch.float64)
@@ -1195,41 +1252,98 @@ def test_affine_warp_past_65535_rows(cuda, vol_shape, out_shape):
     assert _rel(out, affine_apply_plain(vol, m, t, out_shape, dtype=torch.float64)) <= 1e-5
 
 
-@pytest.mark.parametrize("kind", AFFINE_KINDS)
-def test_affine_grad_matches_float64_autograd_and_repeats_its_bits(cuda, kind):
-    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_grad_cuda, map_params
-    from shrimpy_tpu_torch.ops.register import affine_apply_plain
-
-    vol = _rand((9, 61, 53), 52, cuda, 0.0, 50.0)
+def _refine_case(kind, cuda, seed=52):
+    """A blob-and-noise volume, fixed on a stride-2 refine grid from its
+    shifted copy, and a map of ``kind`` scaled to that grid."""
+    vol = _rand((9, 61, 53), seed, cuda, 0.0, 50.0)
+    fixed = torch.roll(vol, (1, -2, 3), (0, 1, 2))[:, ::2, ::2].contiguous()
     m, t = _affine_map(kind, vol.shape)
-    m = m @ np.diag([1.0, 2.0, 2.0]).astype(np.float32)  # a stride-2 refine grid
-    shape = (9, 31, 27)
-    g = _rand(shape, 53, cuda, -1.0, 1.0)
-    params = map_params(torch.from_numpy(m).to(cuda), torch.from_numpy(t).to(cuda))
-    first = affine_warp_grad_cuda(vol, g, params)
-    second = affine_warp_grad_cuda(vol, g, params)
+    m = m @ np.diag([1.0, 2.0, 2.0]).astype(np.float32)  # the stride-2 refine grid
+    return vol, fixed, torch.from_numpy(m).to(cuda), torch.from_numpy(t).to(cuda)
+
+
+@pytest.mark.parametrize("loss", ["ncc", "mse"])
+@pytest.mark.parametrize("kind", AFFINE_KINDS)
+def test_refine_pair_matches_float64_plain_and_repeats_its_bits(cuda, kind, loss):
+    """The sums launch and the gradient launch against the plain objective
+    in float64 (loss and the 12 sums within 1e-5 relative), the same bits
+    on two runs, and the loss within 1e-5 of the float32 plain version's.
+    (Its 12 sums are not held to the float32 version's: the derivative is
+    one-sided at integer coordinates, and the decimal entries of "lower"
+    put many voxels on one, e.g. the x coordinate -0.018 z + 0.03 y + 2.004 x + 2.6 at
+    z = 0, y = 10, x = 25, where float32 and float64 coordinates fall on
+    either side: 5.5e-2 between the two plain versions themselves.)"""
+    from shrimpy_tpu_torch.ops.affine_cuda import refine_objective_cuda, refine_scratch
+    from shrimpy_tpu_torch.ops.register import refine_objective_plain
+
+    vol, fixed, m, t = _refine_case(kind, cuda)
+    partials = refine_scratch(vol, fixed.shape)
+    first = refine_objective_cuda(vol, fixed, m, t, loss, partials)
+    second = refine_objective_cuda(vol, fixed, m, t, loss, partials)
     torch.cuda.synchronize()
-    assert torch.equal(first, second)
-    mt = torch.tensor(m, dtype=torch.float64, device=cuda, requires_grad=True)
-    tt = torch.tensor(t, dtype=torch.float64, device=cuda, requires_grad=True)
-    (affine_apply_plain(vol, mt, tt, shape, dtype=torch.float64) * g.double()).sum().backward()
-    want = torch.cat([mt.grad.reshape(9), tt.grad])
-    assert _rel(first, want) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    value, dm, dt = first
+    assert value.dtype == dm.dtype == dt.dtype == torch.float32 and value.shape == ()
+    want = refine_objective_plain(vol, fixed, m.double(), t.double(), loss, dtype=torch.float64)
+    assert abs(float(value) - float(want[0])) <= 1e-5 * abs(float(want[0]))
+    got = torch.cat([dm.reshape(9), dt]).double()
+    assert _rel(got, torch.cat([want[1].reshape(9), want[2]])) <= 1e-5
+    plain32 = refine_objective_plain(vol, fixed, m, t, loss, grad=False)[0]
+    assert abs(float(value) - float(plain32)) <= 1e-5 * abs(float(plain32))
 
 
-def test_affine_warp_function_differentiates_the_map_only(cuda):
-    from shrimpy_tpu_torch.ops.affine_cuda import AffineWarp
+def test_refine_sums_mask_is_the_warp_kernel_s_support(cuda):
+    """The sums launch's n = sum w counts the voxels whose support, the
+    warp kernel's warp of a volume of ones, exceeds 0.999; its mse sum is
+    that of the warp kernel's output, within float64 rounding."""
+    from shrimpy_tpu_torch.ops.affine_cuda import (
+        affine_warp_cuda,
+        map_params,
+        refine_scratch,
+        refine_sums_cuda,
+    )
 
-    vol = _rand((6, 20, 24), 54, cuda)
-    m = torch.eye(3, device=cuda, requires_grad=True)
-    t = torch.tensor([0.3, -1.2, 0.8], device=cuda, requires_grad=True)
-    with pytest.raises(ValueError, match="vol must not require"):
-        AffineWarp.apply(vol.clone().requires_grad_(), m, t, (6, 20, 24), False)
-    out, sup = AffineWarp.apply(vol, m, t, (6, 20, 24), True)
-    assert not sup.requires_grad and out.requires_grad
-    (out * out).sum().backward()
-    assert m.grad.shape == (3, 3) and t.grad.shape == (3,)
-    assert bool(torch.isfinite(m.grad).all() and torch.isfinite(t.grad).all())
+    vol, fixed, m, t = _refine_case("rot30", cuda)
+    params = map_params(m, t)
+    out = affine_warp_cuda(vol, params, fixed.shape)
+    sup = affine_warp_cuda(torch.ones_like(vol), params, fixed.shape)
+    partials = refine_scratch(vol, fixed.shape)
+    value, stats = refine_sums_cuda(vol, fixed, params, "mse", partials)
+    w = (sup > 0.999).double()
+    assert 0 < float(stats[5]) == float(w.sum()) < fixed.numel()
+    want = float((w * (out.double() - fixed.double()) ** 2).sum() / w.sum())
+    assert abs(float(stats[0]) - want) <= 1e-12 * want and float(value) == float(stats[0].float())
+
+
+def test_refine_step_makes_no_tensor_of_the_grid(cuda):
+    """RefineObjective on the card: the loss, the map's gradient through
+    autograd, and no allocation of the refine grid's size in a step (the
+    scratch is made once an estimate)."""
+    from shrimpy_tpu_torch.ops.affine_cuda import refine_objective_cuda, refine_scratch
+    from shrimpy_tpu_torch.ops.register import RefineObjective
+
+    vol = _rand((16, 256, 256), 57, cuda, 0.0, 50.0)
+    fixed = torch.roll(vol, (1, -2, 3), (0, 1, 2))[:, ::4, ::4].contiguous()
+    partials = refine_scratch(vol, fixed.shape)
+    scale = torch.diag(torch.tensor([1.0, 4.0, 4.0], device=cuda))
+
+    def pair(mm, tt):
+        return refine_objective_cuda(vol, fixed, mm, tt, "ncc", partials)
+
+    dm = torch.zeros((3, 3), device=cuda, requires_grad=True)
+    off = torch.tensor([0.5, -1.0, 1.5], device=cuda, requires_grad=True)
+    RefineObjective.apply(scale + torch.tril(dm) / 256.0, off, pair).backward()  # warm
+    dm.grad = off.grad = None
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    value = RefineObjective.apply(scale + torch.tril(dm) / 256.0, off, pair)
+    value.backward()
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - before < 4 * fixed.numel() // 4
+    want = pair(scale + torch.tril(dm.detach()) / 256.0, off.detach())
+    assert torch.equal(value.detach(), want[0])
+    assert torch.equal(dm.grad, torch.tril(want[1]) / 256.0) and torch.equal(off.grad, want[2])
 
 
 def test_registration_on_the_card_never_reaches_the_plain_version(cuda, tmp_path):
@@ -1239,7 +1353,7 @@ def test_registration_on_the_card_never_reaches_the_plain_version(cuda, tmp_path
     import json
 
     from shrimpy_tpu_torch.config import registration_settings
-    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, affine_warp_grad_cuda
+    from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, refine_grad_cuda, refine_sums_cuda
     from shrimpy_tpu_torch.ops.register import (
         affine_apply,
         affine_apply_plain,
@@ -1255,11 +1369,13 @@ def test_registration_on_the_card_never_reaches_the_plain_version(cuda, tmp_path
     fixed = torch.from_numpy(fixed.astype(np.float32)).to(cuda)
     m, t = _affine_map("lower", shape)
     moving = affine_apply_plain(fixed, m, t, dtype=torch.float64).float()
-    affine_warp_cuda.launches = affine_warp_grad_cuda.launches = 0
+    affine_warp_cuda.launches = refine_sums_cuda.launches = refine_grad_cuda.launches = 0
     affine_apply_plain.cuda_calls = 0
     s = registration_settings(refine_iterations=7)
     got = estimate_registration(fixed, moving, s)
-    assert (affine_warp_cuda.launches, affine_warp_grad_cuda.launches) == (9, 7)
+    # The seed's loss, 7 steps of two launches, the final loss: no warp.
+    assert (affine_warp_cuda.launches, refine_sums_cuda.launches,
+            refine_grad_cuda.launches) == (0, 9, 7)
     assert affine_apply_plain.cuda_calls == 0
     ref = estimate_registration(fixed, moving, s, plain=True)
     assert affine_apply_plain.cuda_calls > 0

@@ -9,6 +9,11 @@ Tolerances:
   corners;
 * the gradient of the weighted-NCC objective against ``jax.grad``: rtol
   1e-3 of the largest entry (float32 sums over the grid in another order);
+  the loss within 1e-5; the same of the refine's plain objective
+  (``refine_objective_plain``: closed-form ``d loss / d warp`` from float64
+  sums) for ``ncc`` and ``mse``, the loss within 1e-5 of max(1, |loss|)
+  (an mse loss is the data's scale squared); that objective in float64 against torch
+  autograd of the warp and the loss in float64: 1e-9 of the largest entry;
 * refine parameters after 1 and 5 Adam steps: 1e-5 (``torch.optim.Adam``
   and ``optax.adam`` are one update in exact arithmetic, rounded
   differently); with the defaults both packages recover the truth within
@@ -118,16 +123,22 @@ def test_plain_warp_chunks_give_the_same_bits(monkeypatch):
                                    rtol=0, atol=0)
 
 
-def _objective_pair(down=2):
-    """The refine's objective, weighted NCC over the support mask, as a
-    function of (matrix, offset) in both packages."""
+def _objective_data(down=2):
+    """moving, and fixed on the refine's y/x strided grid."""
     rng = np.random.default_rng(5)
     shape = (8, 24, 20)
     fixed = gaussian_blob(shape, (4.0, 11.0, 9.0), (2.0, 4.0, 3.5), 100.0) + rng.normal(
         0, 1.0, shape).astype(np.float32)
     moving = gaussian_blob(shape, (4.6, 9.3, 10.8), (2.1, 4.2, 3.4), 100.0) + rng.normal(
         0, 1.0, shape).astype(np.float32)
-    fixed_s = fixed[:, ::down, ::down]
+    return moving, np.ascontiguousarray(fixed[:, ::down, ::down])
+
+
+def _objective_pair(down=2, loss="ncc"):
+    """The refine's objective, weighted ``loss`` over the support mask, as a
+    function of (matrix, offset) in both packages (torch: autograd of the
+    plain warp, in the dtype of the map)."""
+    moving, fixed_s = _objective_data(down)
     out_shape = fixed_s.shape
 
     def jax_obj(matrix, offset):
@@ -135,23 +146,31 @@ def _objective_pair(down=2):
         support = jr._affine_apply_jit(jnp.ones_like(jnp.asarray(moving)), matrix, offset,
                                        out_shape)
         w = jax.lax.stop_gradient((support > 0.999).astype(jnp.float32))
-        return jr.ncc_loss(warped, jnp.asarray(fixed_s), w)
+        return (jr.ncc_loss if loss == "ncc" else jr.mse_loss)(warped, jnp.asarray(fixed_s), w)
 
     def torch_obj(matrix, offset):
-        warped, support = tr.warp_with_support(torch.from_numpy(moving), matrix, offset,
-                                               out_shape)
-        w = (support > 0.999).to(torch.float32)
-        return tr.ncc_loss(warped, torch.from_numpy(np.ascontiguousarray(fixed_s)), w)
+        dtype = matrix.dtype
+        vol = torch.from_numpy(moving)
+        warped = tr.affine_apply_plain(vol, matrix, offset, out_shape, dtype=dtype)
+        with torch.no_grad():
+            support = tr.affine_apply_plain(torch.ones_like(vol), matrix, offset, out_shape,
+                                            dtype=dtype)
+        w = (support > 0.999).to(dtype)
+        return (tr.ncc_loss if loss == "ncc" else tr.mse_loss)(
+            warped, torch.from_numpy(fixed_s).to(dtype), w)
 
     return jax_obj, torch_obj
+
+
+def _refine_map(name):
+    m, t = (np.asarray(v, np.float32) for v in MAPS[name])
+    return m @ np.diag([1.0, 2.0, 2.0]).astype(np.float32), t * np.float32(0.3)
 
 
 @pytest.mark.parametrize("name", ["triangular", "blocked", "gather"])
 def test_plain_gradient_matches_jax_grad(name):
     jax_obj, torch_obj = _objective_pair()
-    m, t = (np.asarray(v, np.float32) for v in MAPS[name])
-    m = m @ np.diag([1.0, 2.0, 2.0]).astype(np.float32)  # the strided grid's scale
-    t = t * np.float32(0.3)
+    m, t = _refine_map(name)  # the strided grid's scale
     jl, (jgm, jgt) = jax.value_and_grad(jax_obj, argnums=(0, 1))(jnp.asarray(m), jnp.asarray(t))
     mt = torch.tensor(m, requires_grad=True)
     tt = torch.tensor(t, requires_grad=True)
@@ -161,6 +180,68 @@ def test_plain_gradient_matches_jax_grad(name):
     want = np.concatenate([np.asarray(jgm).ravel(), np.asarray(jgt)])
     got = np.concatenate([mt.grad.numpy().ravel(), tt.grad.numpy()])
     assert np.abs(got - want).max() <= GRAD_RTOL * np.abs(want).max(), (got, want)
+
+
+@pytest.mark.parametrize("loss", ["ncc", "mse"])
+@pytest.mark.parametrize("name", ["triangular", "blocked", "gather"])
+def test_plain_objective_matches_jax_value_and_grad(name, loss):
+    """The refine's plain objective (the kernels' plain version) against
+    jax.value_and_grad of JAX's objective."""
+    jax_obj, _ = _objective_pair(loss=loss)
+    moving, fixed_s = _objective_data()
+    m, t = _refine_map(name)
+    jl, (jgm, jgt) = jax.value_and_grad(jax_obj, argnums=(0, 1))(jnp.asarray(m), jnp.asarray(t))
+    value, dm, dt = tr.refine_objective_plain(torch.from_numpy(moving), torch.from_numpy(fixed_s),
+                                              m, t, loss)
+    assert value.dtype == dm.dtype == dt.dtype == torch.float32
+    assert abs(float(value) - float(jl)) <= 1e-5 * max(1.0, abs(float(jl)))
+    want = np.concatenate([np.asarray(jgm).ravel(), np.asarray(jgt)])
+    got = np.concatenate([dm.numpy().ravel(), dt.numpy()])
+    assert np.abs(got - want).max() <= GRAD_RTOL * np.abs(want).max(), (got, want)
+    no_grad = tr.refine_objective_plain(torch.from_numpy(moving), torch.from_numpy(fixed_s),
+                                        m, t, loss, grad=False)
+    assert no_grad[1] is None and no_grad[2] is None and torch.equal(no_grad[0], value)
+
+
+@pytest.mark.parametrize("loss", ["ncc", "mse"])
+@pytest.mark.parametrize("name", ["triangular", "blocked", "gather"])
+def test_plain_objective_matches_autograd_of_the_plain_path(name, loss):
+    """The closed-form derivative of the loss by the warp against torch
+    autograd through ncc_loss / mse_loss, both in float64."""
+    _, torch_obj = _objective_pair(loss=loss)
+    moving, fixed_s = _objective_data()
+    m, t = (v.astype(np.float64) for v in _refine_map(name))
+    mt = torch.tensor(m, requires_grad=True)
+    tt = torch.tensor(t, requires_grad=True)
+    want_value = torch_obj(mt, tt)
+    want_value.backward()
+    value, dm, dt = tr.refine_objective_plain(torch.from_numpy(moving), torch.from_numpy(fixed_s),
+                                              m, t, loss, dtype=torch.float64)
+    assert abs(float(value) - float(want_value.detach())) <= 1e-12
+    want = torch.cat([mt.grad.reshape(9), tt.grad])
+    got = torch.cat([dm.reshape(9), dt])
+    assert float((got - want).abs().max()) <= 1e-9 * float(want.abs().max()), (got, want)
+
+
+def test_refine_objective_function_hands_back_its_gradient():
+    """RefineObjective: the loss of the pair, and its gradient through the
+    map's parameters (tril and the grid's scale) by autograd."""
+    moving, fixed_s = _objective_data()
+    vol, fixed = torch.from_numpy(moving), torch.from_numpy(fixed_s)
+    m, t = _refine_map("triangular")
+
+    def pair(mm, tt):
+        return tr.refine_objective_plain(vol, fixed, mm, tt, "ncc")
+
+    dm = torch.zeros((3, 3), requires_grad=True)
+    off = torch.tensor(t, requires_grad=True)
+    scale = torch.from_numpy(m)
+    value = tr.RefineObjective.apply(scale + torch.tril(dm) / 24.0, off, pair)
+    value.backward()
+    want_value, want_m, want_t = pair(scale, torch.from_numpy(t))
+    assert torch.equal(value.detach(), want_value)
+    torch.testing.assert_close(dm.grad, torch.tril(want_m) / 24.0, rtol=0, atol=0)
+    torch.testing.assert_close(off.grad, want_t, rtol=0, atol=0)
 
 
 def _scene(center, shape=(16, 32, 32)):
