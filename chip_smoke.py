@@ -12,9 +12,12 @@ checks that it gives the new kernel's bits and times the two in turns.
 march (``convzy.cu`` of the commit before it), on both boundaries, and
 ``--parent-deskew DIR`` for the deskew kernel before its redesign
 (``deskew.cu``), at the production raw and at ``BASELINE.md`` config 1,
-and ``--parent-affine DIR`` for the affine kernels before the two-launch
+``--parent-affine DIR`` for the affine kernels before the two-launch
 refine step (``affine.cu``): its gradient kernel, and a refine step
-built on it, each timed beside the new one.
+built on it, each timed beside the new one; and ``--parent-probes DIR``
+for the probe kernels before their redesign (``probes.cu``): each held
+to the new one (the slice bit for bit, every product mode within 1e-5)
+and timed beside it in turns.
 Phases:
 
 1. the card (``nvidia-smi`` name and power limit) and torch/CUDA versions;
@@ -87,9 +90,15 @@ Phases:
    (17, 61, 61) PSF past the one-launch block, counts reset: the
    half-step route, no ``rl_iter`` launch, within 1e-3 of float64 and
    1e-4 of ``fused``; the three on-chip probes (shared-memory slice, largest
-   block, split products on the tensor cores) against their plain
-   versions, then driven through their entry points with the counts
-   reset; the affine warp (``csrc/affine.cu``) at the deskewed volume
+   block, split products on the tensor cores through ``wgmma``, one
+   launch a mode, at the probe's shapes and three more) against their
+   plain versions (1e-5; bf16x3 and 3xTF32 also against float64), each
+   timed alone (back-to-back launches queued behind a spin kernel, so
+   neither the host nor the read back is in the window) beside an empty
+   kernel of its launch shape, and as a call of its entry, read back
+   included; the largest block beside its bound at one SM's
+   shared-memory rate; then driven through their entry points with the
+   counts reset; the affine warp (``csrc/affine.cu``) at the deskewed volume
    (128, 2888, 1600) on four maps (a fractional translation, the refine's
    lower-triangular form, 2- and 30-degree rotations), each to the same
    shape and to (136, 2800, 1700), against the plain version in float64
@@ -366,7 +375,7 @@ def counters() -> dict:
         "rl_iter": (rl_iter_cuda, "launches"),
         "rl_iter_half_steps": (rl_iter_half_steps, "launches"),
         "probe_smem_slice": (probes.dynamic_smem_slice_cuda, "launches"),
-        "probe_smem": (probes.probe_smem, "launches"),
+        "probe_smem": (probes.smem_touch_cuda, "launches"),
         "probe_split_dot": (probes.split_dot_cuda, "launches"),
         "plain_rl_iter_on_cuda": (rl_iter_plain, "cuda_calls"),
         "plain_probe_slice_on_cuda": (probes.dynamic_smem_slice_plain, "cuda_calls"),
@@ -1401,34 +1410,157 @@ def phase_iter_route() -> int:
     return counts["rl_iter_half_steps"]
 
 
-def phase_probes() -> tuple[dict, dict, dict]:
-    """The three on-chip probes against their plain versions, then driven
-    through their entry points with the counts reset."""
+def kernel_ms(fn, reps: int = 50) -> float:
+    """Mean device time of ``fn``'s launches back to back, the host kept
+    out of the window: a spin kernel holds the stream while the host
+    queues the ``reps`` calls (longer until the window opens after the
+    last of them is queued), so no launch waits for the host."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 22
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / reps
+        cycles *= 4
+    raise AssertionError("the host did not queue the launches ahead of the card")
+
+
+def in_turns(new, old=None) -> dict:
+    """``kernel_ms`` of ``new``; with ``old``, of both in turns (old, new,
+    new, old), each the mean of its two."""
+    if old is None:
+        return {"ms": kernel_ms(new)}
+    p1, n1, n2, p2 = kernel_ms(old), kernel_ms(new), kernel_ms(new), kernel_ms(old)
+    return {"ms": (n1 + n2) / 2, "ms_parent": (p1 + p2) / 2}
+
+
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (``nvidia-smi``), the rate of the
+    one-SM shared-memory bound."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+
+
+@functools.lru_cache(maxsize=1)
+def parent_probes(parent_dir):
+    """The probe kernels of the commit before their redesign (the
+    ``nvcuda::wmma`` products, three launches a bf16 mode), built from
+    ``parent_dir`` (its ``probes.cu``, kept out of the package) into a
+    library of their own: (slice, touch, dot), functions that launch the
+    slice into ``out``, the block of ``kb`` KB into a zeroed ``out`` and
+    the product of mode ``mode`` into a new tensor."""
+    import ctypes
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.kernels import build
+
+    lib_path = build.BUILD_DIR / "libprobes_parent.so"
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared", "-o",
+                    str(lib_path), str(Path(parent_dir) / "probes.cu")], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(lib_path))
+    p, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.shrimpy_probe_smem_slice.argtypes = [p, p] + [i32] * 3 + [p]
+    lib.shrimpy_probe_smem.argtypes = [p, i32, p]
+    lib.shrimpy_probe_split_dot.argtypes = [p] * 7 + [i32] * 4 + [p]
+    for fn in (lib.shrimpy_probe_smem_slice, lib.shrimpy_probe_smem, lib.shrimpy_probe_split_dot):
+        fn.restype = ctypes.c_int
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def slice_(x, out):
+        build.check(lib.shrimpy_probe_smem_slice(x.data_ptr(), out.data_ptr(), *x.shape, 128,
+                                                 stream()), "shrimpy_probe_smem_slice (parent)")
+
+    def touch(kb, out):
+        build.check(lib.shrimpy_probe_smem(out.data_ptr(), kb * 1024, stream()),
+                    "shrimpy_probe_smem (parent)")
+
+    def dot(a, b, mode):
+        from shrimpy_tpu_torch.kernels.probes import DOT_MODES
+
+        (m, k), n = a.shape, b.shape[1]
+        pieces = [torch.empty(shape, dtype=torch.bfloat16, device=a.device)
+                  for shape in ((m, k), (m, k), (k, n), (k, n))]
+        c = torch.empty((m, n), device=a.device)
+        build.check(lib.shrimpy_probe_split_dot(a.data_ptr(), b.data_ptr(),
+                                                *(q.data_ptr() for q in pieces), c.data_ptr(),
+                                                m, n, k, DOT_MODES[mode], stream()),
+                    "shrimpy_probe_split_dot (parent)")
+        return c
+    return slice_, touch, dot
+
+
+# The split products' shapes past the probe's, (m, k, n): the smallest
+# tile, ragged k and n, a deep k.
+DOT_EXTRA_SHAPES = ((64, 16, 8), (192, 168, 264), (64, 1024, 256))
+
+
+def phase_probes(parent_dir=None) -> tuple[dict, dict, dict]:
+    """The three on-chip probes against their plain versions, each timed
+    alone (``kernel_ms``: back-to-back launches, the opt-in and the read
+    back outside the window) beside an empty kernel of its launch shape
+    (``floor_ms``) and, under ``ms_host``, with the host (a call of the
+    entry, its read back included); with ``parent_dir`` also the kernels
+    before the redesign, in turns, each product mode held to theirs; then
+    the probes driven through their entry points with the counts reset."""
     from shrimpy_tpu_torch.kernels import probes
     from shrimpy_tpu_torch.ops.rl_fused import _SMEM_BYTES
 
+    t0 = time.monotonic()
+    old = parent_probes(parent_dir) if parent_dir else None
     x = torch.arange(8 * 512, dtype=torch.float32, device="cuda").reshape(8, 512)
     got = probes.dynamic_smem_slice_cuda(x)
     want = probes.dynamic_smem_slice_plain(x)
     if not torch.equal(got, want):
         raise AssertionError("probe_dynamic_smem_slice differs from the same indexing in torch")
     print("  probe_dynamic_smem_slice: exact", flush=True)
-    sl = {"max_abs_err": 0.0, "ms": gpu_ms(lambda: probes.dynamic_smem_slice_cuda(x), 20),
+    out_old = torch.empty_like(x)
+    if old:
+        old[0](x, out_old)
+        same_bits("probe_dynamic_smem_slice vs the kernel before", got, out_old)
+    sl = {"max_abs_err": 0.0,
+          **in_turns(lambda: probes.dynamic_smem_slice_cuda(x),
+                     old and (lambda: old[0](x, out_old))),
+          "floor_ms": kernel_ms(lambda: probes.empty_launch(4, 128, 4 * x.numel())),
+          "ms_host": gpu_ms(lambda: probes.dynamic_smem_slice_cuda(x), 20),
           "plain_ms": gpu_ms(lambda: probes.dynamic_smem_slice_plain(x), 20),
           **bound(2 * 4 * x.numel(), x.numel()), "library_ms": None}
 
     fits = {kb: probes.probe_smem(kb) for kb in probes.SMEM_KB}
-    largest = max(kb for kb, ok in fits.items() if ok) * 1024
+    largest = probes.largest_smem()
     print(f"  probe_smem: {fits}; largest block {largest} bytes (_SMEM_BYTES {_SMEM_BYTES})",
           flush=True)
-    if largest != _SMEM_BYTES:
-        raise AssertionError(f"largest block {largest} != _SMEM_BYTES {_SMEM_BYTES}")
+    if list(fits.values()) != [True] * 5 + [False] or largest != _SMEM_BYTES:
+        raise AssertionError(f"probe_smem {fits}, largest block {largest} != {_SMEM_BYTES}")
+    kb = _SMEM_BYTES // 1024
     words = _SMEM_BYTES // 4
-    # The block writes and reads each word once (in shared memory; 8
-    # bytes leave it), 2 integer operations a word at the float32 rate.
-    sm = {"max_abs_err": 0.0, "ms": gpu_ms(lambda: probes.probe_smem(_SMEM_BYTES // 1024), 5),
-          "plain_ms": gpu_ms(lambda: probes.smem_touch_plain(_SMEM_BYTES // 1024), 5),
-          **bound(8, 2 * words), "library_ms": None}
+    out = torch.empty(2, dtype=torch.int32, device="cuda")
+    out_old = torch.zeros(2, dtype=torch.int32, device="cuda")
+    mhz = sm_clock_mhz()
+    # The block writes and reads each word once in shared memory (8 bytes
+    # leave it; 2 integer operations a word at the float32 rate: bound());
+    # bound_ms_smem: those bytes at one SM's 128 bytes a clock.
+    sm = {"max_abs_err": 0.0,
+          **in_turns(lambda: probes.smem_touch_cuda(kb, out),
+                     old and (lambda: old[1](kb, out_old))),
+          "floor_ms": kernel_ms(lambda: probes.empty_launch(1, 1024, _SMEM_BYTES)),
+          "ms_host": gpu_ms(lambda: probes.probe_smem(kb), 5),
+          "plain_ms": gpu_ms(lambda: probes.smem_touch_plain(kb), 5),
+          **bound(8, 2 * words), "library_ms": None,
+          "bound_ms_smem": probes.smem_bound_ms(probes.smem_touch_bytes(kb), mhz),
+          "sm_clock_mhz": mhz}
 
     a, b = probes.dot_operands("cuda", SEED)
     ref = a.double() @ b.double()
@@ -1436,7 +1568,10 @@ def phase_probes() -> tuple[dict, dict, dict]:
     (m, k), n = a.shape, b.shape[1]
     passes = {"bf16x3": (3, BF16_FLOPS), "tf32": (1, TF32_FLOPS), "tf32x3": (3, TF32_FLOPS),
               "bf16": (1, BF16_FLOPS), "fma": (1, FP32_FLOPS)}
-    dot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "errors": {}}
+    dot = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "floor_ms": 0.0,
+           "ms_host": 0.0, "errors": {}}
+    if old:
+        dot["ms_parent"] = 0.0
     for mode, (n_pass, peak) in passes.items():
         c = probes.split_dot_cuda(a, b, mode).double()
         plain = probes.split_dot_plain(a, b, mode)
@@ -1444,23 +1579,52 @@ def phase_probes() -> tuple[dict, dict, dict]:
         gated = mode in ("bf16x3", "tf32x3")
         print(f"  probe_split_dot {mode}: rel err vs float64 {err:.3e}"
               f"{f' (tol {probes.SPLIT_RTOL:g})' if gated else ' (reported)'}; vs its plain "
-              f"version {vs_plain:.3e} (tol {KERNEL_RTOL:g})", flush=True)
-        if (gated and not err <= probes.SPLIT_RTOL) or not vs_plain <= KERNEL_RTOL:
+              f"version {vs_plain:.3e} (tol {probes.SPLIT_RTOL:g})", flush=True)
+        if (gated and not err <= probes.SPLIT_RTOL) or not vs_plain <= probes.SPLIT_RTOL:
             raise AssertionError(f"probe_split_dot {mode}: {err:.3e} vs float64, {vs_plain:.3e} "
                                  "vs plain")
+        for sm_, sk, sn in DOT_EXTRA_SHAPES:
+            xa, xb = probes.dot_operands("cuda", SEED + 1, ((sm_, sk), (sk, sn)))
+            got = probes.split_dot_cuda(xa, xb, mode).double()
+            at = f"at ({sm_}, {sk}) @ ({sk}, {sn})"
+            compare(f"probe_split_dot {mode} {at} vs plain", got,
+                    probes.split_dot_plain(xa, xb, mode), probes.SPLIT_RTOL)
+            if gated:
+                compare(f"probe_split_dot {mode} {at} vs float64", got,
+                        xa.double() @ xb.double(), probes.SPLIT_RTOL)
+        if old:
+            compare(f"probe_split_dot {mode} vs the kernel before", c, old[2](a, b, mode).double(),
+                    probes.SPLIT_RTOL)
         dot["errors"][mode] = err
         dot["max_abs_err"] = max(dot["max_abs_err"], vs_plain * scale)
-        dot[f"{mode}_ms"] = gpu_ms(lambda: probes.split_dot_cuda(a, b, mode), 20)
-        dot["ms"] += dot[f"{mode}_ms"]
+        times = in_turns(lambda: probes.split_dot_cuda(a, b, mode),
+                         old and (lambda: old[2](a, b, mode)))
+        blocks, threads, smem = probes.split_dot_launch(m, n, mode)
+        times["floor_ms"] = kernel_ms(lambda: probes.empty_launch(blocks, threads, smem))
+        times["ms_host"] = gpu_ms(lambda: probes.split_dot_cuda(a, b, mode), 20)
+        for key, value in times.items():
+            dot[f"{mode}_{key}"] = value
+            dot[key] += value
         dot["plain_ms"] += gpu_ms(lambda: probes.split_dot_plain(a, b, mode), 5)
         dot["bound_ms"] += bound(4 * (m * k + k * n + m * n), 2 * m * n * k * n_pass,
                                  peak)["bound_ms"]
     dot["bound_by"] = bound(4 * (m * k + k * n + m * n), 2 * m * n * k, FP32_FLOPS)["bound_by"]
     # No one PyTorch call computes the five products that the entry sums.
     # torch.matmul in float32 (TF32 off) is the same function as the fma
-    # mode alone, and stands beside that mode's time.
+    # mode alone, and stands beside that mode's time (timed alone, and
+    # with the host).
     dot["library_ms"] = None
-    dot["fma_library_ms"] = gpu_ms(lambda: torch.matmul(a, b), 20)
+    dot["fma_library_ms"] = kernel_ms(lambda: torch.matmul(a, b))
+    dot["fma_library_ms_host"] = gpu_ms(lambda: torch.matmul(a, b), 20)
+    for name, e in (("probe_smem_slice", sl), ("probe_smem", sm), ("probe_split_dot", dot)):
+        print(f"  {name}: {e['ms']:.4f} ms alone (floor {e['floor_ms']:.4f}, before "
+              f"{e.get('ms_parent', 'not timed')}), {e['ms_host']:.4f} ms with the host, bound "
+              f"{e['bound_ms']:.6f}" + (f", one SM's shared memory {e['bound_ms_smem']:.6f}"
+                                        if "bound_ms_smem" in e else ""), flush=True)
+    print("  probe_split_dot by mode: " + ", ".join(
+        f"{mode} {dot[mode + '_ms']:.4f} (floor {dot[mode + '_floor_ms']:.4f}, before "
+        f"{dot.get(mode + '_ms_parent', 'not timed')})" for mode in passes)
+        + f"; torch.matmul {dot['fma_library_ms']:.4f}", flush=True)
 
     print("  the probes through their entry points:", flush=True)
 
@@ -1478,6 +1642,7 @@ def phase_probes() -> tuple[dict, dict, dict]:
     for entry_dict, name in ((sl, "probe_smem_slice"), (sm, "probe_smem"),
                              (dot, "probe_split_dot")):
         entry_dict["launches"] = counts[name]
+    print(f"  the probes took {time.monotonic() - t0:.1f} s", flush=True)
     return sl, sm, dot
 
 
@@ -2226,6 +2391,9 @@ def main(argv) -> int:
     # --parent-affine DIR: the source of the affine kernels before the
     # two-launch refine step, timed beside it in phase 3.
     parent_aff = argv[argv.index("--parent-affine") + 1] if "--parent-affine" in argv else None
+    # --parent-probes DIR: the source of the probe kernels before their
+    # redesign, held to the new ones and timed beside them in phase 3.
+    parent_prb = argv[argv.index("--parent-probes") + 1] if "--parent-probes" in argv else None
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
         return 1
@@ -2262,7 +2430,7 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     it = phase_iter(gen, parent_dir)
     torch.cuda.empty_cache()
-    p_slice, p_smem, p_dot = phase_probes()
+    p_slice, p_smem, p_dot = phase_probes(parent_prb)
     torch.cuda.empty_cache()
     print("  the affine warp and its gradient (csrc/affine.cu):", flush=True)
     aff = phase_affine(gen)
@@ -2338,7 +2506,12 @@ def main(argv) -> int:
           f"redesign {it.get('ms_parent', 'not timed')}, plain {it['plain_ms']:.3f}, bound "
           f"{it['bound_ms']:.3f} by {it['bound_by']}, of its own FMAs "
           f"{it['bound_ms_kernel_fmas']:.3f}); split-dot "
-          f"errors vs float64 {p_dot['errors']}", flush=True)
+          f"errors vs float64 {p_dot['errors']}; probes alone: slice {p_slice['ms']:.4f} ms "
+          f"(floor {p_slice['floor_ms']:.4f}), largest block {p_smem['ms']:.4f} ms (floor "
+          f"{p_smem['floor_ms']:.4f}, one SM's bound {p_smem['bound_ms_smem']:.4f}), five "
+          f"products {p_dot['ms']:.4f} ms (before {p_dot.get('ms_parent', 'not timed')}), fma "
+          f"{p_dot['fma_ms']:.4f} ms beside torch.matmul {p_dot['fma_library_ms']:.4f}",
+          flush=True)
     print(f"[5] {card}: deskew + register + RL-20 {sreg['ms']:.1f} ms, {sreg['gvox_s']:.4f} GVox/s "
           f"(without the registration {step['ms']:.1f} ms; plain f32 {sreg['plain_ms']:.1f} ms), "
           f"rel err {sreg['rel_err']:.3e}, peak {sreg['peak_gib']:.2f} GiB (without "

@@ -63,6 +63,12 @@ production carry beside the zero boundary's build and the variants in
 build's registers and spills, and prints a profile build's clocks a
 plane step over the blocks in the grid and those on a seam.
 
+``python3 profile_step.py --probes`` times the split products of
+``csrc/probes.cu`` (each mode alone, launches back to back) beside the
+builds of :data:`PROBE_VARIANTS` (product and fma tiles, the threads that
+split, and two builds timed only: no products, no pieces stored), each
+held to the kernel's bits, with each build's registers.
+
 ``python3 profile_step.py --refine`` runs one warm ``estimate_registration``
 at the deskewed shape under ``torch.profiler`` (as a step above), then one
 with no refine step.
@@ -902,6 +908,98 @@ def time_rl_inputs(cs) -> None:
               f"{['%.3f' % x for x in t_]}", flush=True)
 
 
+# Edits of csrc/probes.cu that --probes builds and times beside it: the
+# product tile and the threads that split, the fma tile, and two builds
+# timed only (their outputs are wrong): one that issues no product, one that
+# stores no piece.
+_DOT_SHAPE = "constexpr int kDotM = 64, kDotN = 32, kDotK = 64, kDotThreads = 384;"
+_FMA_SHAPE = "constexpr int kFmaM = 16, kFmaN = 16, kFmaK = 64, kFmaThreads = 64,"
+PROBE_VARIANTS = {
+    "64 x 64 product tiles": [(_DOT_SHAPE, _DOT_SHAPE.replace("kDotN = 32", "kDotN = 64"))],
+    "one warpgroup splits (256 threads)": [
+        (_DOT_SHAPE, _DOT_SHAPE.replace("kDotThreads = 384", "kDotThreads = 256"))],
+    "four warpgroups split (640 threads)": [
+        (_DOT_SHAPE, _DOT_SHAPE.replace("kDotThreads = 384", "kDotThreads = 640"))],
+    "fma 64 x 64 tiles, 4 x 4 a thread": [
+        (_FMA_SHAPE, "constexpr int kFmaM = 64, kFmaN = 64, kFmaK = 32, kFmaThreads = 256,")],
+    "fma 32 x 32 tiles, 2 x 4 a thread": [
+        (_FMA_SHAPE, "constexpr int kFmaM = 32, kFmaN = 32, kFmaK = 64, kFmaThreads = 128,")],
+    "no products (timed only)": [("      for (int s = 0; s < steps; ++s) {",
+                                  "      for (int s = 0; s < 0; ++s) {")],
+    "no pieces stored (timed only)": [
+        ("      store_pieces<MODE>(a_big,", "      if (false) store_pieces<MODE>(a_big,"),
+        ("      store_pieces<MODE>(b_big,", "      if (false) store_pieces<MODE>(b_big,")],
+}
+
+
+def sweep_probes(cs) -> None:
+    """The split products of ``csrc/probes.cu`` at the probe's (128, 160) @
+    (160, 512), each mode timed alone (``chip_smoke.kernel_ms``) beside the
+    builds of :data:`PROBE_VARIANTS` (all at once, each with its ptxas
+    registers), in turns forward and back; every build but those timed only
+    held to the kernel's bits; beside them ``torch.matmul`` in float32 and
+    an empty kernel of the product's launch shape."""
+    import ctypes
+    import re
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build, probes
+
+    work = build.BUILD_DIR / "probe_variants"
+    work.mkdir(parents=True, exist_ok=True)
+    source = (build.CSRC_DIR / "probes.cu").read_text()
+    libs, procs = {}, []
+    for i, (name, edits) in enumerate({"the kernel": [], **PROBE_VARIANTS}.items()):
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/probes.cu no longer has {old!r}")
+            text = text.replace(old, new)
+        src, lib = work / f"probes_variant{i}.cu", work / f"libprobes_variant{i}.so"
+        src.write_text(text)
+        procs.append((name, subprocess.Popen(
+            [build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-Xptxas", "-v",
+             f"-I{build.CSRC_DIR}", "-shared", "-o", str(lib), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        libs[name] = lib
+    for name, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"probes.cu {name} did not build:\n{err}")
+        regs = re.findall(r"Compiling entry function '\S+?(dot_\w+?kernel(?:ILi\d)?)\S*'.*?"
+                          r"Used (\d+) registers", err, re.S)
+        print(f"  probes.cu {name}: registers " + ", ".join(f"{k} {r}" for k, r in regs),
+              flush=True)
+    a, b = probes.dot_operands("cuda", cs.SEED)
+    stream = torch.cuda.current_stream().cuda_stream
+    for mode, code in probes.DOT_MODES.items():
+        want = probes.split_dot_cuda(a, b, mode)
+        runs = {}
+        for name, path in libs.items():
+            lib = ctypes.CDLL(str(path))
+            lib.shrimpy_probe_split_dot.argtypes = build.SIGNATURES["shrimpy_probe_split_dot"]
+            out = torch.empty_like(want)
+            args = (a.data_ptr(), b.data_ptr(), out.data_ptr(), *want.shape, a.shape[1], code,
+                    stream)
+            build.check(lib.shrimpy_probe_split_dot(*args), name)
+            torch.cuda.synchronize()
+            if "timed only" not in name and not torch.equal(out, want):
+                raise AssertionError(f"probes {mode} {name} differs from the kernel")
+            runs[name] = (lib.shrimpy_probe_split_dot, args)
+        times = {name: [] for name in runs}
+        for name in list(runs) + list(runs)[::-1]:
+            fn, args = runs[name]
+            times[name].append(cs.kernel_ms(lambda: fn(*args)))
+        for name, t_ in sorted(times.items(), key=lambda kv: sum(kv[1])):
+            print(f"  probes {mode}, {name}: {sum(t_) / len(t_):.5f} ms "
+                  f"{['%.5f' % x for x in t_]}", flush=True)
+        blocks, threads, smem = probes.split_dot_launch(*want.shape, mode)
+        print(f"  probes {mode}: an empty kernel of {blocks} x {threads} threads, {smem} bytes: "
+              f"{cs.kernel_ms(lambda: probes.empty_launch(blocks, threads, smem)):.5f} ms",
+              flush=True)
+    print(f"  torch.matmul float32: {cs.kernel_ms(lambda: torch.matmul(a, b)):.5f} ms", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: torch.cuda.is_available() is False", file=sys.stderr)
@@ -928,6 +1026,9 @@ def main() -> int:
         return 0
     if "--refine" in sys.argv[1:]:
         profile_refine(cs)
+        return 0
+    if "--probes" in sys.argv[1:]:
+        sweep_probes(cs)
         return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)

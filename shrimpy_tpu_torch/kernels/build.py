@@ -85,8 +85,12 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_probe_smem_slice": [_P, _P, _I32, _I32, _I32, _P],
     # out, bytes, stream
     "shrimpy_probe_smem": [_P, _I32, _P],
-    # a, b, hi/lo scratch (a_hi, a_lo, b_hi, b_lo), c, m, n, k, mode, stream
-    "shrimpy_probe_split_dot": [_P] * 7 + [_I32] * 4 + [_P],
+    # a, b, c, m, n, k, mode, stream
+    "shrimpy_probe_split_dot": [_P] * 3 + [_I32] * 4 + [_P],
+    # m, n, mode, shape (3 int32: blocks, threads, bytes of shared memory)
+    "shrimpy_probe_split_dot_launch": [_I32] * 3 + [_P],
+    # blocks, threads, bytes of dynamic shared memory, stream
+    "shrimpy_probe_empty": [_I32] * 3 + [_P],
     # vol, out, params, nz, ny, nx, oz, oy, ox, stream
     "shrimpy_affine_warp": [_P] * 3 + [_I64] * 6 + [_P],
     # nz, ny, nx, oz, oy -> partial rows of the refine's launches (negative: an error)

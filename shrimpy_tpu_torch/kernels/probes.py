@@ -6,22 +6,30 @@
   128-aligned lane slice of an on-chip buffer);
 * :func:`probe_smem` — whether a block launches with ``kb`` KB of opt-in
   dynamic shared memory, every word touched and read back (TPU:
-  ``probe_vmem``); :func:`largest_smem` confirms the constant
+  ``probe_vmem``): :func:`smem_touch_cuda` launches the block, which
+  leaves its two words on the card, and :func:`smem_touch_check` reads
+  them; :func:`largest_smem` queues every size of :data:`SMEM_KB`, reads
+  all answers after one synchronisation and confirms the constant
   ``_SMEM_BYTES`` that three kernels' bounds rely on;
 * :func:`probe_split_dot` — a (128, 160) @ (160, 512) product on the
-  tensor cores through ``nvcuda::wmma``, as bf16x3 hi/lo, one-pass TF32,
-  3xTF32 and one-pass bf16, beside a float32 FMA product (TPU:
-  ``probe_bf16_dot``), each held against float64.
+  tensor cores through ``wgmma.mma_async``, as bf16x3 hi/lo, one-pass
+  TF32, 3xTF32 and one-pass bf16, beside a float32 FMA product on the
+  CUDA cores (TPU: ``probe_bf16_dot``), each held against float64. Every
+  mode is one launch that loads float32 tiles and splits them in shared
+  memory.
 
 Each probe has a plain PyTorch version (what a CPU tensor runs) and a
-launch count. Run them all on the card with
-``python -m shrimpy_tpu_torch.kernels.probes``: it prints the results,
-asserts what must hold (the slice is exact, the largest block is
-``_SMEM_BYTES``, bf16x3 and 3xTF32 are within 1e-5 of float64) and
+launch count; :func:`empty_launch` launches an empty kernel of a probe's
+launch shape, the floor its time is read against. Run them all on the
+card with ``python -m shrimpy_tpu_torch.kernels.probes``: it prints the
+results, asserts what must hold (the slice is exact, the largest block
+is ``_SMEM_BYTES``, bf16x3 and 3xTF32 are within 1e-5 of float64) and
 reports the one-pass errors without gating them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -33,6 +41,8 @@ SMEM_KB = (48, 96, 164, 200, 227, 228)
 DOT_SHAPES = ((128, 160), (160, 512))
 DOT_MODES = {"bf16x3": 0, "tf32": 1, "tf32x3": 2, "bf16": 3, "fma": 4}
 SPLIT_RTOL = 1e-5  # bf16x3 and 3xTF32 against float64
+DOT_MULTIPLES = (64, 8, 8)  # m, n, k of split_dot_cuda: wgmma's 64 rows, the TF32 depth
+SMEM_BYTES_PER_CLOCK = 128  # one SM's shared memory
 _PATTERN = 2654435761
 
 
@@ -55,6 +65,9 @@ def dynamic_smem_slice_cuda(x: torch.Tensor, width: int = SLICE_WIDTH) -> torch.
     if x.dim() != 2 or x.shape[1] % width:
         raise ValueError(f"the slice probe takes (rows, n * {width}), got {tuple(x.shape)}")
     _check_cuda_operand("x", x, tuple(x.shape))
+    if width != SLICE_WIDTH or x.data_ptr() % 16:
+        raise ValueError(f"the slice kernel takes width {SLICE_WIDTH} and a 16-byte aligned x, "
+                         f"got width {width} and x {x.data_ptr() % 16} bytes past a boundary")
     if x.numel() * 4 > _SMEM_BYTES:
         raise ValueError(f"{tuple(x.shape)} float32 exceeds a block's shared memory")
     from shrimpy_tpu_torch.kernels.build import check, load_library
@@ -88,33 +101,103 @@ def smem_touch_plain(kb: int) -> tuple[int, int]:
     return words, int(((i * _PATTERN) % 2**32).sum() % 2**32)
 
 
-def probe_smem(kb: int, device="cuda") -> bool:
-    """Whether one block launches with ``kb`` KB of opt-in dynamic shared
-    memory and reads every word back right. A refused opt-in or launch is
-    False, not an error: it is what the probe asks."""
+def _card(device, name: str) -> torch.device:
     dev = torch.device(device)
     if dev.type != "cuda":
-        raise ValueError("probe_smem asks the card: it has no CPU version but smem_touch_plain")
+        raise ValueError(f"{name} asks the card: it has no CPU version but smem_touch_plain")
+    return dev
+
+
+def smem_touch_cuda(kb: int, out: torch.Tensor) -> bool:
+    """Launch one block that holds ``kb`` KB of opt-in dynamic shared
+    memory; it writes the words that read back right and the sum of the
+    pattern into ``out`` (2 int32 on the card) and nothing is read back.
+    A refused opt-in or launch returns False, not an error: it is what
+    the probe asks."""
+    _check_cuda_operand("out", out, (2,), torch.int32)
     from shrimpy_tpu_torch.kernels.build import load_library
 
-    out = torch.zeros(2, dtype=torch.int32, device=dev)
     code = load_library().shrimpy_probe_smem(out.data_ptr(), kb * 1024,
-                                             torch.cuda.current_stream(dev).cuda_stream)
+                                             torch.cuda.current_stream(out.device).cuda_stream)
     if code != 0:
         return False
-    probe_smem.launches += 1
-    torch.cuda.synchronize(dev)
+    smem_touch_cuda.launches += 1
+    return True
+
+
+smem_touch_cuda.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _touch_expected(kb: int) -> tuple[int, int]:
+    return smem_touch_plain(kb)
+
+
+def smem_touch_check(out: torch.Tensor, kb: int) -> bool:
+    """Whether the two words a block of ``kb`` KB left in ``out`` are
+    :func:`smem_touch_plain`'s (worked out once a size)."""
     good, total = (int(v) % 2**32 for v in out.cpu())
-    return (good, total) == smem_touch_plain(kb)
+    return (good, total) == _touch_expected(kb)
 
 
-probe_smem.launches = 0
+def probe_smem(kb: int, device="cuda") -> bool:
+    """Whether one block launches with ``kb`` KB of opt-in dynamic shared
+    memory and reads every word back right."""
+    out = torch.empty(2, dtype=torch.int32, device=_card(device, "probe_smem"))
+    return smem_touch_cuda(kb, out) and smem_touch_check(out, kb)
 
 
 def largest_smem(device="cuda") -> int:
-    """The largest of :data:`SMEM_KB` that launches, in bytes."""
-    fits = [kb for kb in SMEM_KB if probe_smem(kb, device)]
+    """The largest of :data:`SMEM_KB` that launches and reads back right,
+    in bytes: every size queued, then one synchronisation and one read."""
+    dev = _card(device, "largest_smem")
+    out = torch.empty((len(SMEM_KB), 2), dtype=torch.int32, device=dev)
+    ran = [smem_touch_cuda(kb, out[i]) for i, kb in enumerate(SMEM_KB)]
+    torch.cuda.synchronize(dev)
+    words = out.cpu()
+    fits = [kb for kb, r, w in zip(SMEM_KB, ran, words) if r and smem_touch_check(w, kb)]
     return max(fits) * 1024 if fits else 0
+
+
+def smem_bound_ms(bytes_moved: float, sm_clock_mhz: float) -> float:
+    """The least time one SM takes to move ``bytes_moved`` through its
+    shared memory, :data:`SMEM_BYTES_PER_CLOCK` a clock at
+    ``sm_clock_mhz``: the bound of a one-block probe."""
+    return bytes_moved / SMEM_BYTES_PER_CLOCK / (sm_clock_mhz * 1e3)
+
+
+def smem_touch_bytes(kb: int) -> int:
+    """Shared-memory bytes the block of ``kb`` KB moves: each word written
+    once and read once."""
+    return 2 * kb * 1024
+
+
+def empty_launch(blocks: int, threads: int, smem_bytes: int = 0, device="cuda") -> None:
+    """Launch an empty kernel of ``blocks`` blocks of ``threads`` threads
+    with ``smem_bytes`` of dynamic shared memory: the floor of a launch
+    of that shape."""
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+
+    check(load_library().shrimpy_probe_empty(
+        blocks, threads, smem_bytes, torch.cuda.current_stream(torch.device(device)).cuda_stream),
+        "shrimpy_probe_empty")
+    empty_launch.launches += 1
+
+
+empty_launch.launches = 0
+
+
+def split_dot_launch(m: int, n: int, mode: str) -> tuple[int, int, int]:
+    """The launch of ``mode`` at (m, n): blocks, threads a block and bytes
+    of dynamic shared memory (from the kernel library)."""
+    import ctypes
+
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+
+    shape = (ctypes.c_int * 3)()
+    check(load_library().shrimpy_probe_split_dot_launch(m, n, DOT_MODES[mode], shape),
+          "shrimpy_probe_split_dot_launch")
+    return tuple(shape)
 
 
 def round_tf32(x: torch.Tensor) -> torch.Tensor:
@@ -151,28 +234,30 @@ split_dot_plain.cuda_calls = 0
 
 
 def split_dot_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
-    """``a @ b`` in float32 with the hand-written product of ``mode``:
-    ``nvcuda::wmma`` tensor-core tiles (bf16x3, tf32, tf32x3, bf16) or
-    float32 FMAs (fma). Shapes are multiples of 16."""
+    """``a @ b`` in float32 with the hand-written product of ``mode``, one
+    launch: ``wgmma`` tensor-core tiles of the pieces split in the kernel
+    (bf16x3, tf32, tf32x3, bf16) or float32 FMAs (fma). m is a multiple of
+    64, n and k of 8 (:data:`DOT_MULTIPLES`)."""
     if mode not in DOT_MODES:
         raise ValueError(f"mode {mode!r} not in {tuple(DOT_MODES)}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"split_dot_cuda takes (m, k) @ (k, n), got {tuple(a.shape)}, "
                          f"{tuple(b.shape)}")
     (m, k), n = a.shape, b.shape[1]
-    if m % 16 or n % 16 or k % 16:
-        raise ValueError(f"split_dot_cuda: ({m}, {k}) @ ({k}, {n}) is not in multiples of 16")
+    if any(v <= 0 or v % q for v, q in zip((m, n, k), DOT_MULTIPLES)):
+        raise ValueError(f"split_dot_cuda: ({m}, {k}) @ ({k}, {n}) needs m a multiple of "
+                         f"{DOT_MULTIPLES[0]}, n of {DOT_MULTIPLES[1]} and k of {DOT_MULTIPLES[2]}")
     _check_cuda_operand("a", a, (m, k))
     _check_cuda_operand("b", b, (k, n))
+    if a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError("split_dot_cuda copies a and b in 16-byte pieces: they must be "
+                         "16-byte aligned")
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
-    pieces = [torch.empty(shape, dtype=torch.bfloat16, device=a.device)
-              for shape in ((m, k), (m, k), (k, n), (k, n))]
     c = torch.empty((m, n), dtype=torch.float32, device=a.device)
     check(load_library().shrimpy_probe_split_dot(
-        a.data_ptr(), b.data_ptr(), *(p.data_ptr() for p in pieces), c.data_ptr(),
-        m, n, k, DOT_MODES[mode], torch.cuda.current_stream(a.device).cuda_stream),
-        "shrimpy_probe_split_dot")
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), m, n, k, DOT_MODES[mode],
+        torch.cuda.current_stream(a.device).cuda_stream), "shrimpy_probe_split_dot")
     split_dot_cuda.launches += 1
     return c
 
@@ -180,12 +265,12 @@ def split_dot_cuda(a: torch.Tensor, b: torch.Tensor, mode: str) -> torch.Tensor:
 split_dot_cuda.launches = 0
 
 
-def dot_operands(device="cpu", seed: int = 0):
-    """The probe's (128, 160) and (160, 512) standard-normal operands,
-    from a numpy seed."""
+def dot_operands(device="cpu", seed: int = 0, shapes=DOT_SHAPES):
+    """Standard-normal operands of ``shapes`` (the probe's (128, 160) and
+    (160, 512)), from a numpy seed."""
     rng = np.random.default_rng(seed)
     return tuple(torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device)
-                 for shape in DOT_SHAPES)
+                 for shape in shapes)
 
 
 def probe_split_dot(device="cuda", seed: int = 0) -> dict:

@@ -412,6 +412,12 @@ def richardson_lucy(
     iters = iterations if iterations is not None else settings.iterations
     image = as_tensor(image, device)
     psf_np = prepare_psf(psf, settings)
+    if (image.dim() != 3 or psf_np.ndim != 3) and settings.algorithm == "auto":
+        # The JAX package sends these to its FFT RL (rl_fft).
+        raise NotImplementedError(
+            f"a {image.dim()}-D image with a {psf_np.ndim}-D PSF runs on the FFT RL path, "
+            "which is not ported yet: ROADMAP queue 1 item 8 (non-separable and FFT RL)"
+        )
     if image.dim() != 3 or psf_np.ndim != 3:
         raise ValueError(
             f"the separable path takes a 3-D image and PSF, got {tuple(image.shape)} "

@@ -1193,6 +1193,69 @@ def test_probes_entry_point_runs(cuda):
     assert probes.main() == 0
 
 
+@pytest.mark.parametrize("mode", ["bf16x3", "tf32", "tf32x3", "bf16", "fma"])
+@pytest.mark.parametrize("m,k,n", [(64, 16, 8), (192, 168, 264), (64, 1024, 256)])
+def test_split_dot_on_every_tile_shape(cuda, mode, m, k, n):
+    """Past the probe's shapes: one tile, k and n that no tile or k-chunk
+    divides, a deep k; within 1e-5 of the plain version, bf16x3 and 3xTF32
+    within SPLIT_RTOL of float64."""
+    from shrimpy_tpu_torch.kernels import probes
+
+    a, b = probes.dot_operands(cuda, 1, ((m, k), (k, n)))
+    got = probes.split_dot_cuda(a, b, mode).double()
+    torch.cuda.synchronize()
+    assert _rel(got, probes.split_dot_plain(a, b, mode)) <= 1e-5
+    if mode in ("bf16x3", "tf32x3"):
+        assert _rel(got, a.double() @ b.double()) <= probes.SPLIT_RTOL
+
+
+@pytest.mark.parametrize("mode", ["bf16x3", "tf32", "tf32x3", "bf16", "fma"])
+def test_split_dot_is_one_launch(cuda, mode):
+    """Every mode, split included, is one kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from shrimpy_tpu_torch.kernels import probes
+
+    a, b = probes.dot_operands(cuda, 0)
+    probes.split_dot_cuda(a, b, mode)
+    torch.cuda.synchronize()
+    before = probes.split_dot_cuda.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        probes.split_dot_cuda(a, b, mode)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    want = "dot_fma_kernel" if mode == "fma" else f"dot_split_kernel<{probes.DOT_MODES[mode]}>"
+    assert len(kernels) == 1 and want in kernels[0], kernels
+    assert probes.split_dot_cuda.launches == before + 1
+
+
+def test_largest_smem_reads_back_once(cuda, monkeypatch):
+    """Every size is queued, then one synchronisation and one read."""
+    from shrimpy_tpu_torch.kernels import probes
+    from shrimpy_tpu_torch.ops.rl_fused import _SMEM_BYTES
+
+    syncs = []
+    real = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        syncs.append(args)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    before = probes.smem_touch_cuda.launches
+    assert probes.largest_smem(cuda) == _SMEM_BYTES
+    assert len(syncs) == 1
+    assert probes.smem_touch_cuda.launches == before + 5  # 228 KB is refused
+
+
+def test_slice_kernel_takes_width_128(cuda):
+    from shrimpy_tpu_torch.kernels import probes
+
+    x = _rand((8, 512), 43, cuda)
+    with pytest.raises(ValueError, match="width 128"):
+        probes.dynamic_smem_slice_cuda(x, 256)
+
+
 # The affine warp (csrc/affine.cu). Maps: a fractional translation, the
 # refine's near-identity lower-triangular form, a 2-degree and a 30-degree
 # rotation in the yx plane about the volume's center. Against the float64

@@ -539,6 +539,39 @@ def test_split_dot_plain_errors(mode):
         probes.split_dot_cuda(a, b, mode)
 
 
+@pytest.mark.parametrize("m,k,n", [(32, 16, 8), (96, 16, 8), (64, 16, 12), (64, 12, 8),
+                                   (64, 20, 264), (0, 16, 8)])
+def test_split_dot_cuda_refuses_shapes_the_kernel_does_not_take(m, k, n):
+    """m a multiple of 64 (wgmma's rows), n and k of 8 (the TF32 depth):
+    any other shape raises before the card is asked."""
+    a, b = torch.zeros((m, k)), torch.zeros((k, n))
+    for mode in probes.DOT_MODES:
+        with pytest.raises(ValueError, match="multiple of 64"):
+            probes.split_dot_cuda(a, b, mode)
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 16, 8), (192, 168, 264), (64, 1024, 256)])
+def test_split_dot_cuda_refuses_a_cpu_tensor(m, k, n):
+    a, b = probes.dot_operands("cpu", 1, ((m, k), (k, n)))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        probes.split_dot_cuda(a, b, "bf16x3")
+
+
+@pytest.mark.parametrize("probe", [lambda: probes.largest_smem("cpu"),
+                                   lambda: probes.probe_smem(227, torch.device("cpu"))])
+def test_smem_probes_ask_the_card(probe):
+    with pytest.raises(ValueError, match="asks the card"):
+        probe()
+
+
+def test_smem_touch_bound_by_hand():
+    """The largest block writes and reads its 232,448 bytes once: 464,896
+    bytes at 128 a clock are 3632 clocks, 1.834 us at 1980 MHz."""
+    assert probes.smem_touch_bytes(227) == 464896
+    assert probes.smem_bound_ms(464896, 1980.0) == pytest.approx(3632 / 1.98e6, rel=1e-12)
+    assert probes.smem_bound_ms(128, 1000.0) == pytest.approx(1e-6, rel=1e-12)
+
+
 def test_round_tf32_keeps_ten_mantissa_bits():
     x = torch.from_numpy(np.random.default_rng(29).standard_normal(4096).astype(np.float32))
     r = probes.round_tf32(x)

@@ -253,6 +253,34 @@ def test_unported_settings_raise(update, exc, match):
         tdeconv.richardson_lucy(img, PSFS["asymmetric"](), s, device="cpu")
 
 
+def _gauss(shape, sigma):
+    grids = np.meshgrid(*(np.arange(n) - n // 2 for n in shape), indexing="ij")
+    g = np.exp(-sum(x**2 for x in grids) / (2 * sigma**2)).astype(np.float32)
+    return g / g.sum()
+
+
+@pytest.mark.parametrize("algorithm,shape,psf_shape,exc,match", [
+    ("auto", (20, 24), (5, 7), NotImplementedError, "item 8"),
+    ("auto", (40,), (7,), NotImplementedError, "item 8"),
+    ("separable", (20, 24), (5, 7), ValueError, "3-D"),
+])
+def test_not_3d_follows_jax(algorithm, shape, psf_shape, exc, match):
+    """An image and PSF that are not 3-D: under ``auto`` the JAX package
+    runs its FFT RL, which the port raises for (ROADMAP queue 1 item 8);
+    under ``separable`` both raise ValueError."""
+    img = (np.random.default_rng(11).random(shape) * 50 + 1).astype(np.float32)
+    psf = _gauss(psf_shape, 1.2)
+    s = DeconvolveSettings(iterations=2, algorithm=algorithm)
+    if exc is ValueError:
+        with pytest.raises(ValueError, match=match):
+            jdeconv.richardson_lucy(img, psf, s)
+    else:
+        out = np.asarray(jdeconv.richardson_lucy(img, psf, s))
+        assert out.shape == shape and np.isfinite(out).all()
+    with pytest.raises(exc, match=match):
+        tdeconv.richardson_lucy(img, psf, s, device="cpu")
+
+
 def test_non_separable_psf_raises():
     psf = _ring_psf()
     img = np.ones((10, 30, 30), np.float32)
