@@ -109,7 +109,12 @@ Phases:
    mse, twice (the same bits), the loss and the 12 sums against the plain
    objective in float64 (within 1e-5), each launch timed beside its bound
    by voxels and by 32-byte sectors (and, with ``--parent-affine``, beside
-   the gradient kernel before).
+   the gradient kernel before); the band of the ``fft2z`` RL
+   (``csrc/zband.cu``) in ``conv`` and ``corr`` modes against its plain
+   version within 1e-6 on the production grid (144, 3000, 961) with
+   kz = 15 and on (9, 33, 17) with kz = 9 = gz, (20, 37, 45) with kz = 7
+   and one plane (kz = 1), timed at the production grid beside its bound,
+   the plain version and the einsum over a window view of the spectrum.
    Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
    another order); the bf16 Biggs state within one bf16 ulp, the
    step-length sums within 1e-5 relative. Beside each kernel's time the
@@ -158,10 +163,30 @@ Phases:
 4h. deskew + register-apply (a transform JSON) + RL-20 on ``fused``: one
    warp launch, against its float64 plain step within 1e-3, timed against
    the plain float32 path, peak memory;
+4i. ``bench.py`` config 6: RL-20 ``algorithm: fft`` with
+   ``tilted_gaussian_psf()`` (15, 31, 31), non-separable, on a
+   (128, 2888, 1600) volume uniform in [0, 100) through ``richardson_lucy``
+   (``fft_backend: auto`` -> ``fft2z``, grid (144, 3000, 1920)): two band
+   launches an iteration, against the same call on the plain versions in
+   float64 on the card within 1e-3; ms, GVox/s and peak; ``fft3`` timed
+   and held within 2e-4 of ``fft2z``;
+4j-4k. ``bench.py`` configs 8 (``hybrid``, 16 warm + 6 exact) and 9 (16 +
+   3, Biggs on both phases) on that volume and PSF: K and the warm
+   residual of the nonnegative CP terms, the separable backend of the
+   warm phase and its ms, the tail's ms, the total and the peak; at a
+   depth of 4 warm + 3 exact iterations, config 8 against its float64
+   plain path within 1e-3, config 9 by the two-tier gate;
+4l. phase: a brightfield stack (64, 2048, 2048) with the schema's
+   defaults (z_padding 5), yx 0.116 um, z 0.25 um: the host transfer
+   function and the card's inverse timed apart, the inverse against its
+   float64 version within 1e-3, then through the reconstruct step; at
+   (64, 1024, 1024) where the host has too little memory for the
+   transfer function; a simulated weak phase object recovered at
+   (16, 32, 32) (correlation > 0.8);
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
-   (fifteen entries: the thirteen kernels, the kept three-pass half-step
+   (sixteen entries: the fourteen kernels, the kept three-pass half-step
    and the z+y step's two-pass route),
    the card line and the final ``{"ok": true, ...}`` line.
 """
@@ -366,8 +391,11 @@ def counters() -> dict:
     from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, refine_grad_cuda, refine_sums_cuda
     from shrimpy_tpu_torch.ops.register import affine_apply_plain
     from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_half_steps, rl_iter_plain
+    from shrimpy_tpu_torch.ops.zband_cuda import zband_cuda, zband_plain
 
     return {
+        "zband": (zband_cuda, "launches"),
+        "plain_zband_on_cuda": (zband_plain, "cuda_calls"),
         "affine_warp": (affine_warp_cuda, "launches"),
         "refine_sums": (refine_sums_cuda, "launches"),
         "refine_grad": (refine_grad_cuda, "launches"),
@@ -398,10 +426,11 @@ def counters() -> dict:
     }
 
 
-def drive(step, batch, want: dict) -> tuple[torch.Tensor, dict, float]:
+def drive(step, batch, want: dict | None) -> tuple[torch.Tensor, dict, float]:
     """Run ``step`` once with every count set to 0 just before and read
     just after; fail unless each named kernel ran and no plain version
-    saw a CUDA tensor. Returns (output, counts, peak GiB); the peak
+    saw a CUDA tensor (``want`` None: only read the counts, which the
+    caller checks). Returns (output, counts, peak GiB); the peak
     counts what was allocated before (the batch, kept references), and
     the line printed also gives the step's own rise above that."""
     table = counters()
@@ -417,7 +446,8 @@ def drive(step, batch, want: dict) -> tuple[torch.Tensor, dict, float]:
     print(f"  launches: {counts}; peak allocated {peak_gib:.2f} GiB "
           f"({peak_gib - before / 2**30:.2f} above the {before / 2**30:.2f} GiB held before)",
           flush=True)
-    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    bad = {k: v for k, v in counts.items()
+           if (want is None and "plain" in k and v) or (want is not None and v != want.get(k, 0))}
     if bad:
         raise AssertionError(f"launch counts {bad}, want {want} (others 0)")
     if not bool(torch.isfinite(out).all()):
@@ -2338,6 +2368,306 @@ def phase_step_reg(steps: Steps) -> dict:
     return {"launches": counts, "peak_gib": peak, "rel_err": err, **times}
 
 
+# --- The FFT paths: the band kernel (row 9), bench.py configs 6, 8, 9, and phase.
+
+NONSEP_SHAPE = (128, 2888, 1600)  # bench.py::_config_nonsep's default volume
+BAND_RTOL = 1e-6  # the band against its plain version: kz float32 products a voxel
+FFT3_RTOL = 2e-4  # fft2z vs fft3 after 20 iterations (tests/test_deconv.py:94)
+# Ragged grids of the band: gz = kz = 9 (the smallest gz the padded grid can
+# give), a (20, 37, 45) grid with kz 7, and one plane (kz 1).
+BAND_CASES = (((144, 3000, 961), 15), ((9, 33, 17), 9), ((20, 37, 45), 7), ((6, 24, 17), 1))
+# The depth (warm, exact iterations) of the hybrid's float64 check.
+HYBRID_CHECK = (4, 3)
+PHASE_SHAPE, PHASE_SMALL_SHAPE = (64, 2048, 2048), (64, 1024, 1024)
+# What the host transfer function holds at its peak, about eight complex128
+# arrays of (64 + 2 * 5, 2048, 2048).
+PHASE_HOST_GIB = 40
+
+
+def nonsep_psf():
+    """bench.py configs 6, 8 and 9's PSF: ``tilted_gaussian_psf()`` of
+    ``io/synthetic.py`` (15, 31, 31), non-separable (rank-24 residual
+    8.7e-2): a Gaussian with sigma (1.5, 2.5, 5.0) sheared 0.9 in zy and
+    0.8 in yx. Computed here: the port's ``io/synthetic.py`` imports
+    tensorstore, which a card's machine need not have."""
+    import numpy as np
+
+    zz, yy, xx = np.meshgrid(np.arange(15) - 7.0, np.arange(31) - 15.0, np.arange(31) - 15.0,
+                             indexing="ij")
+    psf = np.exp(-0.5 * (((zz + 0.9 * yy) / 1.5) ** 2 + ((yy + 0.8 * xx) / 2.5) ** 2
+                         + (xx / 5.0) ** 2)).astype(np.float32)
+    return psf / psf.sum()
+
+
+def nonsep_settings(config: str):
+    """The deconvolve settings of bench.py's ``_config_nonsep`` (config6,
+    RL-20 ``algorithm: fft``), ``_config_nonsep_hybrid`` (config8, 16 warm
+    + 6 exact) and ``_config_nonsep_hybrid_accel`` (config9, 16 + 3 with
+    Biggs), as namespaces."""
+    from shrimpy_tpu_torch.config import deconvolve_settings
+
+    return deconvolve_settings(**{
+        "config6": {"iterations": ITERATIONS, "algorithm": "fft"},
+        "config8": {"iterations": 6, "algorithm": "hybrid", "hybrid_separable_iters": 16},
+        "config9": {"iterations": 3, "algorithm": "hybrid", "hybrid_separable_iters": 16,
+                    "acceleration": "biggs"},
+    }[config])
+
+
+def complex_uniform(shape, gen) -> torch.Tensor:
+    return torch.complex(uniform(shape, gen, -1.0, 1.0), uniform(shape, gen, -1.0, 1.0))
+
+
+def library_band(spec: torch.Tensor, taps: torch.Tensor, mode: str) -> torch.Tensor:
+    """The band as one PyTorch call, einsum over a window view of the
+    spectrum with its rz wrap planes: the yardstick the port never calls."""
+    kz = taps.shape[0]
+    rz = kz // 2
+    h = taps.flip(0) if mode == "conv" else taps.conj()
+    wrapped = torch.cat([spec[spec.shape[0] - rz:], spec, spec[:rz]]) if rz else spec
+    return torch.einsum("tyx,zyxt->zyx", h, wrapped.unfold(0, kz, 1))
+
+
+def phase_band(gen) -> dict:
+    """The band kernel (csrc/zband.cu) in both modes against its plain
+    version on the production grid and three ragged ones, within BAND_RTOL;
+    timed at the production grid beside its bound, the plain version and
+    the einsum."""
+    from shrimpy_tpu_torch.ops.zband_cuda import zband_cuda, zband_plain
+
+    res = {"max_abs_err": 0.0}
+    for (gz, gy, gxr), kz in BAND_CASES:
+        spec, taps = complex_uniform((gz, gy, gxr), gen), complex_uniform((kz, gy, gxr), gen)
+        for mode in ("conv", "corr"):
+            out = zband_cuda(spec, taps, mode)
+            ref = zband_plain(spec, taps, mode)
+            err = compare(f"zband {mode} ({gz}, {gy}, {gxr}) kz {kz} vs plain",
+                          torch.view_as_real(out), torch.view_as_real(ref), BAND_RTOL)
+            res["max_abs_err"] = max(res["max_abs_err"], err)
+            if gz == BAND_CASES[0][0][0] and mode == "conv":
+                del ref
+                res["ms"] = kernel_ms(lambda: zband_cuda(spec, taps, mode, out=out), 20)
+                res["ms_corr"] = kernel_ms(lambda: zband_cuda(spec, taps, "corr", out=out), 20)
+                res["plain_ms"] = gpu_ms(lambda: zband_plain(spec, taps, mode), 3)
+                cols = gy * gxr
+                res.update(bound(8 * cols * (2 * gz + kz), 8 * kz * gz * cols))
+                del out
+                torch.cuda.empty_cache()
+                # The einsum reads a (gz, gy, gxr, kz) copy of the window view.
+                need = 8 * gz * cols * (kz + 3)
+                free = torch.cuda.mem_get_info()[0]
+                if free > need:
+                    lib = library_band(spec, taps, mode)
+                    compare("zband conv: the einsum vs the kernel", torch.view_as_real(lib),
+                            torch.view_as_real(zband_cuda(spec, taps, mode)), BAND_RTOL)
+                    del lib
+                    torch.cuda.empty_cache()
+                    res["library_ms"] = gpu_ms(lambda: library_band(spec, taps, mode), 2)
+                else:
+                    res["library_ms"] = None
+                    print(f"  zband einsum: not timed, it needs {need / 2**30:.1f} GiB, "
+                          f"{free / 2**30:.1f} free", flush=True)
+                print(f"  zband ({gz}, {gy}, {gxr}) kz {kz}: conv {res['ms']:.3f} ms, corr "
+                      f"{res['ms_corr']:.3f} ms, bound {res['bound_ms']:.3f} by "
+                      f"{res['bound_by']}, plain {res['plain_ms']:.3f}, einsum "
+                      f"{res['library_ms']}", flush=True)
+        del spec, taps
+        torch.cuda.empty_cache()
+    return res
+
+
+def wall_s(fn, *args) -> tuple[torch.Tensor, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_nonsep(vol, psf) -> dict:
+    """bench.py config 6: RL-20 ``algorithm: fft`` (``auto`` -> ``fft2z``)
+    through ``richardson_lucy`` at the production volume, counts reset:
+    two band launches an iteration. Against the same call on the plain
+    versions in float64 on the card (STEP_RTOL); then ``fft3`` timed and
+    held within FFT3_RTOL of ``fft2z``."""
+    from shrimpy_tpu_torch.ops.deconv import resolve_fft_backend, richardson_lucy
+
+    s = nonsep_settings("config6")
+    backend = resolve_fft_backend(s, vol.dim())
+    if backend != "fft2z":
+        raise AssertionError(f"fft_backend auto resolved to {backend}, want fft2z")
+    out, counts, peak = drive(lambda v: richardson_lucy(v, psf, s), vol,
+                              {"zband": 2 * ITERATIONS})
+    _, first = wall_s(richardson_lucy, vol, psf, s)
+    _, ms = wall_s(richardson_lucy, vol, psf, s)
+    ms = min(first, ms) * 1e3
+    ref = richardson_lucy(vol, psf, s, plain=True, dtype=torch.float64)
+    compare("RL-20 fft2z vs float64 plain", out, ref, STEP_RTOL)
+    err = rel_err(out, ref)
+    del ref
+    torch.cuda.empty_cache()
+    s3 = nonsep_settings("config6")
+    s3.fft_backend = "fft3"
+    torch.cuda.reset_peak_memory_stats()
+    out3, _ = wall_s(richardson_lucy, vol, psf, s3)
+    peak3 = torch.cuda.max_memory_allocated() / 2**30
+    _, ms3 = wall_s(richardson_lucy, vol, psf, s3)
+    compare("RL-20 fft3 vs fft2z", out3, out, FFT3_RTOL)
+    del out3, out
+    torch.cuda.empty_cache()
+    vox = math.prod(vol.shape)
+    print(f"  RL-20 fft2z: {ms:.1f} ms, {vox / ms / 1e6:.4f} GVox/s, peak {peak:.2f} GiB; "
+          f"fft3 {ms3 * 1e3:.1f} ms, peak {peak3:.2f} GiB", flush=True)
+    return {"launches": counts, "peak_gib": peak, "ms": ms, "gvox_s": vox / ms / 1e6,
+            "rel_err": err, "fft3_ms": ms3 * 1e3, "fft3_peak_gib": peak3}
+
+
+def phase_hybrid(vol, psf, config: str) -> dict:
+    """bench.py config 8 (hybrid, 16 warm + 6 exact) or 9 (16 + 3, Biggs on
+    both phases) through ``richardson_lucy``: K and the warm residual, the
+    separable backend the warm phase resolves to, the warm phase's and the
+    tail's ms, the total and the peak. Counts: the warm phase alone with
+    the counts reset, then the whole call, which must count exactly those
+    plus two band launches a tail iteration. The float64 check runs at the
+    depth of HYBRID_CHECK (the plain warm phase with K terms takes seconds
+    a half-step in float64): config 8 within STEP_RTOL, config 9 by the
+    two-tier Biggs gate."""
+    from shrimpy_tpu_torch.ops.deconv import (
+        plan_hybrid_terms,
+        prepare_psf,
+        resolve_separable_backend,
+        richardson_lucy,
+        rl_separable,
+    )
+    from shrimpy_tpu_torch.ops.rl_fft import rl_fft
+
+    s = nonsep_settings(config)
+    psf_w = prepare_psf(psf, s)
+    t0 = time.perf_counter()
+    terms, residual = plan_hybrid_terms(psf_w, s)
+    plan_s = time.perf_counter() - t0
+    backend = resolve_separable_backend(s.separable_backend, tuple(vol.shape), psf_w.shape)
+    warm, warm_counts, _ = drive(
+        lambda v: rl_separable(v, psf_w, terms, s, s.hybrid_separable_iters), vol, None)
+    warm_counts = {k: v for k, v in warm_counts.items() if v}
+    _, warm_s = wall_s(rl_separable, vol, psf_w, terms, s, s.hybrid_separable_iters)
+    _, tail_s = wall_s(lambda: rl_fft(vol, psf_w, s, s.iterations, init=warm))
+    del warm
+    torch.cuda.empty_cache()
+    out, counts, peak = drive(lambda v: richardson_lucy(v, psf, s), vol,
+                              {**warm_counts, "zband": 2 * s.iterations})
+    del out
+    _, total_s = wall_s(richardson_lucy, vol, psf, s)
+    torch.cuda.empty_cache()
+    check = nonsep_settings(config)
+    check.hybrid_separable_iters, check.iterations = HYBRID_CHECK
+    out = richardson_lucy(vol, psf, check)
+    ref = richardson_lucy(vol, psf, check, plain=True, dtype=torch.float64)
+    label = f"hybrid {config} at {HYBRID_CHECK[0]} warm + {HYBRID_CHECK[1]} exact"
+    if s.acceleration == "biggs":
+        err = two_tier(f"{label} (Biggs) vs float64 plain (bf16 state)", out, ref)
+    else:
+        compare(f"{label} vs float64 plain", out, ref, STEP_RTOL)
+        err = rel_err(out, ref)
+    del out, ref
+    torch.cuda.empty_cache()
+    vox = math.prod(vol.shape)
+    res = {"k": len(terms), "warm_residual": residual, "warm_backend": backend,
+           "plan_s": plan_s, "warm_ms": warm_s * 1e3, "tail_ms": tail_s * 1e3,
+           "ms": total_s * 1e3, "gvox_s": vox / total_s / 1e9, "peak_gib": peak,
+           "launches": counts, "rel_err": err}
+    print(f"  hybrid {config}: K {res['k']} (residual {residual:.4f}, planned in "
+          f"{plan_s:.2f} s), warm phase on {backend} {res['warm_ms']:.1f} ms, tail "
+          f"{res['tail_ms']:.1f} ms, total {res['ms']:.1f} ms ({res['gvox_s']:.4f} "
+          f"RL-20-equivalent GVox/s), peak {peak:.2f} GiB", flush=True)
+    return res
+
+
+def host_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise AssertionError("no MemAvailable in /proc/meminfo")
+
+
+def phase_phase(gen) -> dict:
+    """Phase reconstruction of a brightfield stack (64, 2048, 2048) with
+    the schema's defaults (z_padding 5, 0.450 um, NA 1.35 / 0.52), yx
+    0.116 um, z 0.25 um: the host transfer function (float64 numpy) and
+    the card's inverse timed apart, the inverse against its float64 path
+    on the card (STEP_RTOL), then through the reconstruct step with the
+    transfer function handed over. (64, 1024, 1024) where the host cannot
+    hold the transfer function's arrays. Then a weak phase object
+    recovered at (16, 32, 32), as tests/test_phase.py:65 does."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config import phase_settings, reconstruct_settings
+    from shrimpy_tpu_torch.ops.phase import (
+        apply_inverse_transfer_function,
+        compute_transfer_function,
+        simulate_defocus_stack,
+        tf_tensor,
+    )
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+
+    print(subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.rstrip(),
+          flush=True)
+    avail = host_available_gib()
+    shape = PHASE_SHAPE if avail >= 1.5 * PHASE_HOST_GIB else PHASE_SMALL_SHAPE
+    print(f"  host memory available {avail:.1f} GiB: phase at {shape}", flush=True)
+    settings = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.25})
+    tfs, inv = settings.transfer_function, settings.apply_inverse
+    t0 = time.perf_counter()
+    tf = compute_transfer_function(shape, tfs)
+    tf_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tf_dev = tf_tensor(tf, "cuda")
+    torch.cuda.synchronize()
+    h2d_s = time.perf_counter() - t0
+    stack = uniform(shape, gen, 0.9, 1.1)
+    out = apply_inverse_transfer_function(stack, tf_dev, inv, z_padding=tfs.z_padding)
+    ref = apply_inverse_transfer_function(stack, tf_dev, inv, z_padding=tfs.z_padding,
+                                          dtype=torch.float64)
+    compare(f"phase inverse {shape} vs float64", out, ref, STEP_RTOL)
+    err = rel_err(out, ref)
+    del ref
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = gpu_ms(lambda: apply_inverse_transfer_function(stack, tf_dev, inv,
+                                                        z_padding=tfs.z_padding), 5)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step = build_reconstruct_step(reconstruct_settings(phase=settings), device="cuda")
+    got = step(stack[None], tf_dev)
+    if not torch.equal(got[0], out):
+        raise AssertionError("the step's phase stage differs from the inverse")
+    _, step_s = wall_s(step, stack[None], tf_dev)
+    del got, out, stack
+    torch.cuda.empty_cache()
+    # Recovery of a simulated weak phase object (tests/test_phase.py:65).
+    small = (16, 32, 32)
+    zz, yy, xx = np.meshgrid(*(np.arange(n) - n / 2.0 for n in small), indexing="ij")
+    phi = 0.1 * np.exp(-0.5 * ((zz / 2.0) ** 2 + (yy / 4.0) ** 2 + (xx / 4.0) ** 2))
+    phi -= phi.mean()
+    small_tfs = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.2,
+                                "z_padding": 0}).transfer_function
+    small_tf = compute_transfer_function(small, small_tfs)
+    sim = simulate_defocus_stack(phi, small_tf, background=1.0)
+    recon = apply_inverse_transfer_function(
+        sim, small_tf, phase_settings(apply_inverse={"regularization_strength": 1e-4})
+        .apply_inverse).cpu().numpy()
+    corr = float(np.corrcoef(recon.ravel(), phi.ravel())[0, 1])
+    print(f"  weak phase object {small}: correlation {corr:.4f} (want > 0.8)", flush=True)
+    if not corr > 0.8:
+        raise AssertionError(f"phase recovery correlation {corr:.4f}")
+    vox = math.prod(shape)
+    print(f"  phase {shape}: host TF {tf_s:.2f} s, to the card {h2d_s:.3f} s, inverse "
+          f"{ms:.3f} ms ({vox / ms / 1e6:.4f} GVox/s), peak {peak:.2f} GiB, the step "
+          f"{step_s * 1e3:.1f} ms", flush=True)
+    return {"shape": shape, "tf_s": tf_s, "h2d_s": h2d_s, "ms": ms, "peak_gib": peak,
+            "step_ms": step_s * 1e3, "rel_err": err, "recovery_corr": corr}
+
+
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
     geometry (the one-launch half-step and its circular build, the whole
@@ -2371,6 +2701,22 @@ def build_all(build) -> None:
         if layout is not None:
             wrapped.add((len(tt), *lengths, *layout["tile"], 1))
     jobs += [("rl_half_wrap", g) for g in sorted(wrapped)]
+    # The hybrid's warm phase (bench.py configs 8 and 9) on its K terms.
+    from shrimpy_tpu_torch.ops.deconv import (
+        plan_hybrid_terms,
+        prepare_psf,
+        resolve_separable_backend,
+    )
+
+    s = nonsep_settings("config8")
+    psf_w = prepare_psf(nonsep_psf(), s)
+    hterms, _ = plan_hybrid_terms(psf_w, s)
+    if resolve_separable_backend(s.separable_backend, NONSEP_SHAPE, psf_w.shape) == "fused":
+        radii = tuple(k // 2 for k in psf_w.shape)
+        layout = half_layout(tuple(n + 2 * r for n, r in zip(NONSEP_SHAPE, radii)), radii,
+                             len(hterms))
+        if layout is not None:
+            jobs.append(("rl_half", (len(hterms), *psf_w.shape, *layout["tile"])))
     with ThreadPoolExecutor(2) as pool:
         geometries = pool.submit(build.build_geometries, jobs)
         build.load_library()
@@ -2437,6 +2783,9 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     rsums, rgrad = phase_refine(gen, parent_aff)
     torch.cuda.empty_cache()
+    print("  the band of the fft2z RL (csrc/zband.cu):", flush=True)
+    band = phase_band(gen)
+    torch.cuda.empty_cache()
     steps = Steps(gen)
     print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
     step = phase_step(steps)
@@ -2463,6 +2812,24 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     print("[4h] deskew + register-apply + RL-20 at raw (1201, 256, 1600)", flush=True)
     sreg = phase_step_reg(steps)
+    del steps
+    torch.cuda.empty_cache()
+    t_fft = time.monotonic()
+    print(f"[4i] bench.py config 6: RL-20 with tilted_gaussian_psf() (non-separable) at "
+          f"{NONSEP_SHAPE}, fft_backend auto", flush=True)
+    nvol, npsf = uniform(NONSEP_SHAPE, gen, 0.0, 100.0), nonsep_psf()
+    nonsep = phase_nonsep(nvol, npsf)
+    torch.cuda.empty_cache()
+    print("[4j] bench.py config 8: hybrid, 16 warm + 6 exact iterations", flush=True)
+    hyb8 = phase_hybrid(nvol, npsf, "config8")
+    torch.cuda.empty_cache()
+    print("[4k] bench.py config 9: hybrid with Biggs, 16 warm + 3 exact iterations", flush=True)
+    hyb9 = phase_hybrid(nvol, npsf, "config9")
+    del nvol
+    torch.cuda.empty_cache()
+    print("[4l] phase reconstruction of a brightfield stack", flush=True)
+    ph = phase_phase(gen)
+    fft_s = time.monotonic() - t_fft
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -2526,6 +2893,18 @@ def main(argv) -> int:
           f"{reg.get('step_ms_parent', 'not timed')}), offset error "
           f"{reg['offset_err_px']:.4f} px, peak "
           f"{reg['peak_gib']:.2f} GiB", flush=True)
+    print(f"[5] {card}: RL-20 fft2z (config 6) {nonsep['ms']:.1f} ms, {nonsep['gvox_s']:.4f} "
+          f"GVox/s, rel err {nonsep['rel_err']:.3e}, peak {nonsep['peak_gib']:.2f} GiB; fft3 "
+          f"{nonsep['fft3_ms']:.1f} ms, peak {nonsep['fft3_peak_gib']:.2f} GiB; hybrid config 8 "
+          f"{hyb8['ms']:.1f} ms (warm {hyb8['warm_ms']:.1f} on {hyb8['warm_backend']}, K "
+          f"{hyb8['k']}, tail {hyb8['tail_ms']:.1f}), rel err {hyb8['rel_err']:.3e}, peak "
+          f"{hyb8['peak_gib']:.2f} GiB; config 9 {hyb9['ms']:.1f} ms (warm "
+          f"{hyb9['warm_ms']:.1f}, tail {hyb9['tail_ms']:.1f}), max rel err "
+          f"{hyb9['rel_err']:.3e}, peak {hyb9['peak_gib']:.2f} GiB; band {band['ms']:.3f} ms "
+          f"(corr {band['ms_corr']:.3f}, bound {band['bound_ms']:.3f}, plain "
+          f"{band['plain_ms']:.3f}, einsum {band['library_ms']}); phase {ph['shape']}: host TF "
+          f"{ph['tf_s']:.2f} s, inverse {ph['ms']:.3f} ms, rel err {ph['rel_err']:.3e}, peak "
+          f"{ph['peak_gib']:.2f} GiB; the FFT phases took {fft_s:.1f} s", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
@@ -2584,6 +2963,10 @@ def main(argv) -> int:
         {"name": "probe_split_dot", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/probes.cu",
          "replaces": "scripts/probe_mosaic.py:65", **p_dot},
+        {"name": "zband", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/zband.cu",
+         "replaces": "shrimpy_tpu/ops/deconv.py:445 (XLA band of _rl_fft2z_jit :340, no TPU "
+                     "kernel)",
+         "launches": nonsep["launches"]["zband"], **band},
     ]
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}

@@ -77,6 +77,23 @@ with no refine step.
 the deskewed production volume, on its registered warp and on the
 deskewed volume zeroed where the warp has no support.
 
+``python3 profile_step.py --fft`` runs one warm call of each FFT path
+of ``chip_smoke.py`` (``bench.py`` config 6: RL-20 ``fft2z`` with the
+non-separable ``tilted_gaussian_psf()`` at (128, 2888, 1600); config 8:
+hybrid, 16 warm + 6 exact) under ``torch.profiler`` as above, and sums
+the device events by kind: transforms (cuFFT), the band
+(``csrc/zband.cu``), the separable warm phase's kernels and the
+elementwise rest. ``--phase`` does the same for the phase step at
+(64, 2048, 2048), the transfer function computed on the host before
+the window.
+
+``python3 profile_step.py --zband`` times the band kernel
+``csrc/zband.cu`` beside builds of the edits in :data:`ZBAND_VARIANTS`
+(a cap on registers for more warps an SM, smaller blocks, the taps read
+from memory at every output instead of kept in registers), in turns, at
+the production grid (144, 3000, 961) with kz = 15, both modes, each
+output held to the kernel's bits, with each build's registers.
+
 ``python3 profile_step.py --stages`` builds ``csrc/rl_half.cu`` with
 ``-DRL_HALF_PROFILE``, ``csrc/rl_iter.cu`` with ``-DRL_ITER_PROFILE``
 and ``csrc/convzy.cu`` with ``-DCONVZY_PROFILE`` and prints, for a few
@@ -112,7 +129,20 @@ def union_us(intervals) -> float:
     return busy
 
 
-def profile(step, batch) -> None:
+def kind(name: str) -> str:
+    """The kind of a device event: transforms, the band, the separable
+    kernels, or the elementwise rest (copies, pads, products)."""
+    low = name.lower()
+    if "fft" in low:
+        return "transforms"
+    if "zband" in low:
+        return "band"
+    if any(k in low for k in ("rl_half", "conv_axis", "conv_x", "gemm", "sgemm", "dgemm")):
+        return "separable"
+    return "elementwise"
+
+
+def profile(step, batch) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -136,6 +166,118 @@ def profile(step, batch) -> None:
         by_name[name][1] += 1
     for name, (ms, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print(f"    {ms:10.3f} ms  x{n:4d}  {name[:100]}", flush=True)
+    kinds = defaultdict(lambda: [0.0, 0])
+    for name, (ms, n) in by_name.items():
+        kinds[kind(name)][0] += ms
+        kinds[kind(name)][1] += n
+    print("  by kind: " + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in
+                                    sorted(kinds.items(), key=lambda kv: -kv[1][0])), flush=True)
+    return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
+            "kinds": {k: v[0] for k, v in kinds.items()}}
+
+
+# Edits of csrc/zband.cu that --zband builds and times beside it.
+ZBAND_VARIANTS = {
+    "3 blocks an SM": [("__launch_bounds__(kThreads)\nzband_reg_kernel",
+                        "__launch_bounds__(kThreads, 3)\nzband_reg_kernel")],
+    "4 blocks an SM": [("__launch_bounds__(kThreads)\nzband_reg_kernel",
+                        "__launch_bounds__(kThreads, 4)\nzband_reg_kernel")],
+    "128 threads": [("constexpr int kThreads = 256;", "constexpr int kThreads = 128;")],
+    "taps from memory": [
+        ("float2 acc = cmul(tap[0], win[r % KZ]);",
+         "float2 acc = cmul(tap_of(h, KZ, 0, cols, col, corr), win[r % KZ]);"),
+        ("acc = cadd(acc, cmul(tap[t], win[(r + t) % KZ]));",
+         "acc = cadd(acc, cmul(tap_of(h, KZ, t, cols, col, corr), win[(r + t) % KZ]));")],
+}
+
+
+def sweep_zband(cs) -> None:
+    """The band kernel beside the builds of ZBAND_VARIANTS, in turns."""
+    import ctypes
+    import subprocess
+
+    from shrimpy_tpu_torch.kernels import build
+
+    source = (build.CSRC_DIR / "zband.cu").read_text()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for i, (label, edits) in enumerate(ZBAND_VARIANTS.items()):
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/zband.cu no longer has {old!r} ({label})")
+            text = text.replace(old, new)
+        src = build.BUILD_DIR / f"zband_variant{i}.cu"
+        src.write_text(text)
+        lib = build.BUILD_DIR / f"libzband_variant{i}.so"
+        cmd = [build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-Xptxas", "-v",
+               "-shared", "-o", str(lib), str(src)]
+        procs[label] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                              stderr=subprocess.PIPE, text=True))
+    libs = {"kernel": build.load_library()}
+    for label, (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}:\n{err}")
+        regs = [line.split("Used ")[1].split(",")[0] for line in err.splitlines()
+                if "Used" in line and "registers" in line]
+        print(f"  {label}: registers by instance {regs}", flush=True)
+        libs[label] = ctypes.CDLL(str(lib))
+        libs[label].shrimpy_zband.argtypes = build.SIGNATURES["shrimpy_zband"]
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    (gz, gy, gxr), kz = cs.BAND_CASES[0]
+    spec, taps = cs.complex_uniform((gz, gy, gxr), gen), cs.complex_uniform((kz, gy, gxr), gen)
+    outs = {which: torch.empty_like(spec) for which in ("kernel", "variant")}
+    stream = torch.cuda.current_stream().cuda_stream
+    for mode in (0, 1):
+        def run(which, out):
+            return libs[which].shrimpy_zband(spec.data_ptr(), taps.data_ptr(), out.data_ptr(),
+                                             gz, kz, gy * gxr, mode, stream)
+
+        build.check(run("kernel", outs["kernel"]), "shrimpy_zband")
+        for label in ZBAND_VARIANTS:
+            build.check(run(label, outs["variant"]), f"shrimpy_zband ({label})")
+            torch.cuda.synchronize()
+            if not torch.equal(outs["variant"], outs["kernel"]):
+                raise AssertionError(f"zband {label}: bits differ from the kernel's")
+            times = {"kernel": [], label: []}
+            for which in ("kernel", label, label, "kernel"):
+                out = outs["kernel" if which == "kernel" else "variant"]
+                times[which].append(cs.kernel_ms(lambda: run(which, out), 10))
+            k, v = sum(times["kernel"]) / 2, sum(times[label]) / 2
+            print(f"  zband mode {mode} {label}: {v:.3f} ms {times[label]} beside the kernel "
+                  f"{k:.3f} {times['kernel']} ({100 * (v - k) / k:+.2f} %)", flush=True)
+
+
+def profile_fft(cs) -> None:
+    """One warm call of bench.py configs 6 and 8 under the profiler."""
+    from shrimpy_tpu_torch.ops.deconv import richardson_lucy
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    vol, psf = cs.uniform(cs.NONSEP_SHAPE, gen, 0.0, 100.0), cs.nonsep_psf()
+    for label, config in (("RL-20 fft2z (config 6)", "config6"),
+                          ("hybrid 16 + 6 (config 8)", "config8")):
+        s = cs.nonsep_settings(config)
+        print(f"== {label} at {cs.NONSEP_SHAPE}", flush=True)
+        profile(lambda v: richardson_lucy(v, psf, s), vol)
+        torch.cuda.empty_cache()
+
+
+def profile_phase(cs) -> None:
+    """One warm phase step at (64, 2048, 2048) under the profiler."""
+    from shrimpy_tpu_torch.config import phase_settings, reconstruct_settings
+    from shrimpy_tpu_torch.ops.phase import compute_transfer_function, tf_tensor
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+
+    settings = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.25})
+    t0 = time.perf_counter()
+    tf = tf_tensor(compute_transfer_function(cs.PHASE_SHAPE, settings.transfer_function), "cuda")
+    print(f"  host transfer function {time.perf_counter() - t0:.2f} s", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    stack = cs.uniform((1, *cs.PHASE_SHAPE), gen, 0.9, 1.1)
+    step = build_reconstruct_step(reconstruct_settings(phase=settings), device="cuda")
+    print(f"== phase step at {cs.PHASE_SHAPE}", flush=True)
+    profile(lambda b: step(b, tf), stack)
 
 
 def iter_operands(cs, gen):
@@ -1029,6 +1171,15 @@ def main() -> int:
         return 0
     if "--probes" in sys.argv[1:]:
         sweep_probes(cs)
+        return 0
+    if "--zband" in sys.argv[1:]:
+        sweep_zband(cs)
+        return 0
+    if "--fft" in sys.argv[1:]:
+        profile_fft(cs)
+        return 0
+    if "--phase" in sys.argv[1:]:
+        profile_phase(cs)
         return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)

@@ -1,7 +1,7 @@
 """``shrimpy-tpu-torch`` CLI: the reconstruction verbs of the port.
 
-The verbs ``deskew``, ``deconvolve``, ``reconstruct`` and ``register``
-take the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus
+The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct`` and
+``register`` take the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus
 ``--device`` (default ``cuda``). Pixel size and z step come from the store's scale
 metadata and are injected into the settings, as in the JAX CLI. The
 settings are the port's own pydantic models
@@ -144,7 +144,8 @@ def deskew(
 @click.option("--algorithm",
               type=click.Choice(["auto", "fft", "separable", "hybrid"]),
               default="auto", show_default=True,
-              help="Only the separable path is ported; 'fft' and 'hybrid' raise.")
+              help="'hybrid' warm-starts the exact FFT path with cheap separable "
+              "iterations on a nonnegative rank-K PSF (non-separable PSFs).")
 def deconvolve(
     input, output, devices, space, batch, resume, profile_dir, device,
     psf_path, iterations, algorithm,
@@ -163,13 +164,33 @@ def deconvolve(
 
 @cli.command()
 @shared_options
+@click.option("--config", "config_path", type=click.Path(exists=True), default=None,
+              help="PhaseSettings YAML (transfer_function / apply_inverse).")
+def phase(input, output, devices, space, batch, resume, profile_dir, device, config_path):
+    """3-D phase reconstruction of brightfield defocus stacks."""
+    from shrimpy_tpu_torch.config.schemas import (
+        PhaseSettings,
+        ReconstructSettings,
+        load_yaml_config,
+    )
+
+    phase_settings = (
+        load_yaml_config(config_path, PhaseSettings) if config_path else PhaseSettings()
+    )
+    settings = ReconstructSettings(phase=phase_settings)
+    _run_reconstruct(input, output, settings, devices, space, batch, resume,
+                     profile_dir, device)
+
+
+@cli.command()
+@shared_options
 @click.option("-c", "--config", "config_path", type=click.Path(exists=True),
               required=True,
               help="ReconstructSettings YAML, or a multi-arm file with a "
                    "top-level 'arms:' mapping (per-arm output stores).")
 def reconstruct(input, output, devices, space, batch, resume, profile_dir, device,
                 config_path):
-    """Run the configured pipeline (deskew/register/deconvolve)."""
+    """Run the configured pipeline (deskew/phase/register/deconvolve)."""
     import yaml
 
     from shrimpy_tpu_torch.config.schemas import (

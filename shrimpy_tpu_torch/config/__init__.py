@@ -74,6 +74,26 @@ DECONVOLVE_DEFAULTS = {
     "fused_low_precision_iters": 0,
     "acceleration": "none",
     "donate_input": False,
+    "fft_backend": "auto",
+    "fft_z_chunk": 8,
+    "hybrid_separable_iters": 16,
+}
+
+PHASE_TF_DEFAULTS = {
+    "wavelength_illumination": 0.450,
+    "index_of_refraction_media": 1.4,
+    "numerical_aperture_detection": 1.35,
+    "numerical_aperture_illumination": 0.52,
+    "z_padding": 5,
+    "invert_phase_contrast": False,
+    "yx_pixel_size": None,
+    "z_pixel_size": None,
+}
+
+PHASE_INVERSE_DEFAULTS = {
+    "reconstruction_algorithm": "Tikhonov",
+    "regularization_strength": 0.01,
+    "transform": "auto",
 }
 
 REGISTRATION_DEFAULTS = {
@@ -116,6 +136,17 @@ def deskew_settings(**overrides) -> SimpleNamespace:
 
 def deconvolve_settings(**overrides) -> SimpleNamespace:
     return _make(DECONVOLVE_DEFAULTS, overrides)
+
+
+def phase_settings(transfer_function=None, apply_inverse=None) -> SimpleNamespace:
+    """``PhaseSettings`` as a namespace; each part a dict of overrides
+    of its defaults or a namespace."""
+    parts = []
+    for given, defaults in ((transfer_function, PHASE_TF_DEFAULTS),
+                            (apply_inverse, PHASE_INVERSE_DEFAULTS)):
+        parts.append(given if isinstance(given, SimpleNamespace)
+                     else _make(defaults, dict(given or {})))
+    return SimpleNamespace(transfer_function=parts[0], apply_inverse=parts[1])
 
 
 def registration_settings(**overrides) -> SimpleNamespace:

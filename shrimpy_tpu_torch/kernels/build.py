@@ -99,6 +99,8 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_affine_refine_sums": [_P] * 4 + [_I32] + [_P] * 2 + [_I64] * 6 + [_I32, _P],
     # vol, fixed, params, stats, partials, capacity, grad, nz, ny, nx, oz, oy, ox, stream
     "shrimpy_affine_refine_grad": [_P] * 5 + [_I32, _P] + [_I64] * 6 + [_P],
+    # spec, taps, out, gz, kz, cols, corr, stream
+    "shrimpy_zband": [_P] * 3 + [_I64] * 3 + [_I32, _P],
 }
 
 # The macros of a geometry of rl_half and rl_iter (n_terms, nkz, nky, nkx,

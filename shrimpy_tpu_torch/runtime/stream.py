@@ -15,7 +15,9 @@ computes.
 This layer reads and writes stores through the port's own
 :mod:`shrimpy_tpu_torch.io.ngff` (tensorstore). ``plan_work``,
 ``_Progress``, ``_load_psf``, ``_create_output_store`` and
-``_as_output_dtype`` are copies of the JAX module's.
+``_as_output_dtype`` are copies of the JAX module's. With a phase stage
+the transfer function is computed once per store, for the post-deskew
+volume, and handed to every step on the device.
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ import torch
 from shrimpy_tpu_torch.io import ngff
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf
 from shrimpy_tpu_torch.ops.deskew import get_deskewed_shape
-from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step, output_shape
+from shrimpy_tpu_torch.ops.phase import compute_transfer_function, tf_tensor
+from shrimpy_tpu_torch.parallel.pipeline import (
+    _stage_input_shape_for_phase,
+    build_reconstruct_step,
+    output_shape,
+)
 from shrimpy_tpu_torch.runtime.feed import DeviceFeed
 from shrimpy_tpu_torch.utils.device import resolve_device
 from shrimpy_tpu_torch.utils.retry import robust_call
@@ -221,6 +228,14 @@ def reconstruct_store(
     # store or journal is touched.
     psf = _load_psf(settings)
     step = build_reconstruct_step(settings, psf=psf, mesh=mesh, device=dev, terms=terms)
+    tf = None
+    if settings.phase is not None:
+        # Once per store, for the volume entering the phase stage;
+        # compute_transfer_function pads by z_padding itself (a padded
+        # shape here would pad twice).
+        tf = tf_tensor(compute_transfer_function(_stage_input_shape_for_phase(raw_zyx, settings),
+                                                 settings.phase.transfer_function),
+                       dev or torch.device("cpu"))
     batch_size = batch_size or 1
 
     progress_path = output_path.with_suffix(output_path.suffix + ".progress.jsonl")
@@ -369,7 +384,7 @@ def reconstruct_store(
             stacked = np.stack(vols + [np.zeros(raw_zyx, np.float32)] * pad)
             device_batch = feed.to_device(stacked)
         with timer.stage("compute"):
-            out = step(device_batch)
+            out = step(device_batch, tf)
             handle = feed.start_to_host(out)
         # The previous batch's D2H ran on the side stream during this
         # batch's compute; its writes overlap the next reads.

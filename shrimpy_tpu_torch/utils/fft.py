@@ -3,9 +3,11 @@
 ``center_crop``, ``pad_to_shape``, ``match_shape``).
 
 Sizes are computed in Python; only the padding and cropping touch the
-tensor, on its own device. ``next_fast_len_tpu`` and the ``tpu_lanes``
-option of ``fast_fft_shape`` round the last axis to the TPU's 128 lanes
-and are not ported: asking for them raises.
+tensor, on its own device. ``next_fast_len_tpu`` (a copy) rounds a last
+axis to a 5-smooth multiple of 128: the FFT RL's padded grid keeps the
+JAX package's rule (``ops/deconv.py::_padded_grid_shape``), so both
+packages convolve on the same circular grid. The ``tpu_lanes`` option of
+``fast_fft_shape`` (the PCC's grid) is not ported: asking for it raises.
 
 Padding goes through an index per axis made by :func:`numpy.pad` on
 ``arange(n)``, so every mode has numpy's (and ``jnp.pad``'s) meaning,
@@ -17,6 +19,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from shrimpy_tpu_torch.utils.shapes import round_up
 
 
 def next_fast_len(n: int) -> int:
@@ -31,6 +35,20 @@ def next_fast_len(n: int) -> int:
         if m == 1:
             return n
         n += 1
+
+
+def next_fast_len_tpu(n: int, lane_multiple: int = 128) -> int:
+    """Smallest 5-smooth multiple of ``lane_multiple`` >= ``n`` (128 =
+    2**7 is 5-smooth, so one exists)."""
+    n = round_up(max(n, lane_multiple), lane_multiple)
+    while True:
+        m = n
+        for p in (2, 3, 5):
+            while m % p == 0:
+                m //= p
+        if m == 1:
+            return n
+        n += lane_multiple
 
 
 def center_crop(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:

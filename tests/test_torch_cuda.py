@@ -1457,3 +1457,106 @@ def test_registration_on_the_card_never_reaches_the_plain_version(cuda, tmp_path
     assert affine_apply_plain.cuda_calls == 0
     ref = build_reconstruct_step(settings, plain=True, dtype=torch.float64)(raw)
     assert _rel(out, ref) <= 1e-5
+
+
+# (gz, gy, gxr, kz) of the band: gz = kz = 9, the smallest gz the padded grid
+# gives; a ragged (20, 37, 45) with kz 7; one plane; kz past gz (wraps
+# twice); an even kz and one past 31 (the kernel that reads its window from
+# memory); columns past one block with z split into segments.
+ZBAND_CASES = [(9, 33, 17, 9), (20, 37, 45, 7), (6, 24, 17, 1), (4, 3, 5, 9), (12, 8, 6, 4),
+               (40, 30, 21, 33), (30, 64, 100, 15)]
+
+
+@pytest.mark.parametrize("mode", ["conv", "corr"])
+@pytest.mark.parametrize("gz,gy,gxr,kz", ZBAND_CASES)
+def test_zband_kernel_matches_plain(cuda, mode, gz, gy, gxr, kz):
+    from shrimpy_tpu_torch.ops.zband_cuda import zband, zband_cuda, zband_plain
+
+    rng = np.random.default_rng(gz * 1000 + kz)
+
+    def crand(shape):
+        return torch.from_numpy((rng.normal(size=shape) + 1j * rng.normal(size=shape))
+                                .astype(np.complex64)).to(cuda)
+
+    spec, taps = crand((gz, gy, gxr)), crand((kz, gy, gxr))
+    before = zband_cuda.launches
+    out = zband(spec, taps, mode)
+    torch.cuda.synchronize()
+    assert zband_cuda.launches == before + 1 and zband_plain.cuda_calls == 0
+    ref = zband_plain(spec, taps, mode)
+    zband_plain.cuda_calls = 0
+    assert _rel(torch.view_as_real(out), torch.view_as_real(ref)) <= 1e-6
+
+
+def test_zband_cuda_guards(cuda):
+    from shrimpy_tpu_torch.ops.zband_cuda import zband_cuda
+
+    spec = torch.zeros((6, 4, 3), dtype=torch.complex64, device=cuda)
+    taps = torch.zeros((3, 4, 3), dtype=torch.complex64, device=cuda)
+    with pytest.raises(ValueError, match="complex64"):
+        zband_cuda(spec.to(torch.complex128), taps.to(torch.complex128), "conv")
+    with pytest.raises(ValueError, match="apart"):
+        zband_cuda(spec, taps, "conv", out=spec)
+
+
+def _tilted():
+    """``io/synthetic.py::tilted_gaussian_psf((7, 9, 9))``, computed here
+    (that module imports tensorstore, which a card's machine need not have)."""
+    zz, yy, xx = np.meshgrid(np.arange(7) - 3.0, np.arange(9) - 4.0, np.arange(9) - 4.0,
+                             indexing="ij")
+    psf = np.exp(-0.5 * (((zz + 0.9 * yy) / 1.5) ** 2 + ((yy + 0.8 * xx) / 2.5) ** 2
+                         + (xx / 5.0) ** 2)).astype(np.float32)
+    return psf / psf.sum()
+
+
+@pytest.mark.parametrize("settings", [
+    {"algorithm": "fft"},
+    {"algorithm": "fft", "fft_backend": "dft2z", "fft_z_chunk": 3},
+    {"algorithm": "fft", "acceleration": "biggs"},
+    {"algorithm": "hybrid", "hybrid_separable_iters": 4},
+    {"algorithm": "hybrid", "hybrid_separable_iters": 4, "acceleration": "biggs"},
+])
+def test_fft_rl_on_card_matches_float64_plain(cuda, settings):
+    """RL-3 fft2z (auto) and hybrid through richardson_lucy on the card:
+    two band launches an iteration, no plain band on a CUDA tensor; against
+    the float64 plain path on the card (Biggs: the two-tier gate)."""
+    from shrimpy_tpu_torch.ops.zband_cuda import zband_cuda, zband_plain
+
+    img = _rand((12, 40, 44), 61, cuda, 0.0, 100.0)
+    s = deconvolve_settings(iterations=3, **settings)
+    zband_cuda.launches = zband_plain.cuda_calls = 0
+    out = richardson_lucy(img, _tilted(), s)
+    torch.cuda.synchronize()
+    assert zband_cuda.launches == 6 and zband_plain.cuda_calls == 0
+    ref = richardson_lucy(img, _tilted(), s, plain=True, dtype=torch.float64)
+    assert zband_plain.cuda_calls == 6
+    zband_plain.cuda_calls = 0
+    if s.acceleration == "biggs":
+        scale = float(ref.abs().max())
+        diff = (out.double() - ref).abs()
+        assert float((diff <= 5e-4 * scale).double().mean()) >= 0.9999
+        assert float(diff.max()) <= 2e-2 * scale
+    else:
+        assert _rel(out, ref) <= 1e-4
+
+
+def test_phase_stage_on_card_matches_float64(cuda):
+    from shrimpy_tpu_torch.config import phase_settings
+    from shrimpy_tpu_torch.ops.phase import (
+        apply_inverse_transfer_function,
+        compute_transfer_function,
+    )
+
+    settings = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.25})
+    raw = _rand((1, 40, 24, 20), 62, cuda, 0.0, 100.0)
+    full = reconstruct_settings(deskew=deskew_settings(px_to_scan_ratio=0.386),
+                                phase=settings)
+    out = build_reconstruct_step(full)(raw)
+    ref = build_reconstruct_step(full, plain=True, dtype=torch.float64)(raw)
+    assert out.is_cuda and _rel(out, ref) <= 1e-5
+    stack = _rand((8, 32, 30), 63, cuda, 0.9, 1.1)
+    tf = compute_transfer_function((8, 32, 30), settings.transfer_function)
+    got = apply_inverse_transfer_function(stack, tf, settings.apply_inverse, z_padding=5)
+    want = apply_inverse_transfer_function(stack, tf, settings.apply_inverse, z_padding=5,
+                                           dtype=torch.float64)
+    assert _rel(got, want) <= 1e-5

@@ -38,9 +38,12 @@ def test_fast_fft_shape_equals_jax(shape, maximum_shift):
 
 
 def test_tpu_lane_rule_is_not_ported():
+    """The PCC's ``tpu_lanes`` grid is not ported; ``next_fast_len_tpu``
+    is (the FFT RL's grid keeps JAX's rule) and equals the original."""
     with pytest.raises(NotImplementedError, match="tpu_lanes"):
         tfft.fast_fft_shape((8, 8), tpu_lanes=True)
-    assert not hasattr(tfft, "next_fast_len_tpu")
+    assert [tfft.next_fast_len_tpu(n) for n in range(5001)] == [
+        jfft.next_fast_len_tpu(n) for n in range(5001)]
 
 
 @pytest.mark.parametrize("mode", ["reflect", "constant"])

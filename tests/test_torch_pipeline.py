@@ -240,9 +240,15 @@ def test_cli_deskew_and_deconvolve_verbs(tmp_path):
     )
     result = runner.invoke(cli, [
         "deconvolve", str(tmp_path / "v.zarr"), "-o", str(tmp_path / "f.zarr"),
-        "--algorithm", "fft", "--device", "cpu",
+        "--iterations", "2", "--algorithm", "fft", "--device", "cpu",
     ])
-    assert result.exit_code != 0 and "not ported" in result.output
+    assert result.exit_code == 0, result.output
+    want = richardson_lucy(vol, gaussian_psf((9, 15, 15), (1.5, 2.5, 2.5)),
+                           DeconvolveSettings(iterations=2, algorithm="fft"),
+                           device="cpu").numpy()
+    np.testing.assert_array_equal(
+        np.asarray(open_ngff(tmp_path / "f.zarr").position().volume(0, 0)), want
+    )
 
 
 def test_reconstruct_store_plate_selection_and_resume(tmp_path):
@@ -315,11 +321,13 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
 
 
 @pytest.mark.parametrize("update,match", [
-    ({"phase": PhaseSettings()}, "phase"),
+    ({"phase": PhaseSettings(transfer_function={"yx_pixel_size": 0.116,
+                                                "z_pixel_size": 0.25})}, None),
     ({"registration": RegistrationSettings(transform_path="transform.json")}, None),
     ({"shard_volumes": True}, "shard_volumes"),
     ({"deconvolve": DeconvolveSettings(acceleration="biggs", iterations=3)}, None),
-    ({"deconvolve": DeconvolveSettings(algorithm="hybrid")}, "item 8"),
+    ({"deconvolve": DeconvolveSettings(algorithm="hybrid", separable_backend="matmul",
+                                       hybrid_separable_iters=3, iterations=2)}, None),
     ({"deconvolve": DeconvolveSettings(separable_backend="linear_pallas", iterations=3)},
      None),
     ({"deconvolve": DeconvolveSettings(separable_backend="zy_pallas", iterations=3)}, None),
@@ -328,8 +336,10 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
 ])
 def test_unported_pipeline_settings_raise(update, match, tmp_path):
     """Stages and settings the port does not run raise; those it has
-    come to run (``match`` None) give a finite batch of the right shape.
-    A registration case reads a real transform JSON from ``tmp_path``."""
+    come to run (``match`` None) give a finite batch of the right shape,
+    and the phase and hybrid stages JAX's ``reconstruct_batch`` within
+    1e-4 (the deskew's budget). A registration case reads a real
+    transform JSON from ``tmp_path``."""
     if "registration" in update:
         path = tmp_path / update["registration"].transform_path
         path.write_text(json.dumps({"matrix_zyx": [[1.01, 0, 0], [0.02, 0.99, 0], [0, 0, 1]],
@@ -343,6 +353,9 @@ def test_unported_pipeline_settings_raise(update, match, tmp_path):
         out = build_reconstruct_step(settings, psf=psf, device="cpu")(raw)
         assert tuple(out.shape) == (1, *output_shape((40, 24, 20), settings))
         assert bool(torch.isfinite(out).all())
+        if "phase" in update or getattr(update.get("deconvolve"), "algorithm", "") == "hybrid":
+            ref = np.asarray(jax_reconstruct_batch(raw, settings, psf=psf))
+            assert np.abs(out.numpy() - ref).max() / np.abs(ref).max() <= 1e-4
     else:
         with pytest.raises(NotImplementedError, match=match):
             build_reconstruct_step(settings, psf=psf, device="cpu")
@@ -494,7 +507,7 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
     calls = log.read_text().splitlines()
     assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu", "rl_half.cu",
                                                  "convzy.cu", "rl_iter.cu", "probes.cu",
-                                                 "affine.cu"}
+                                                 "affine.cu", "zband.cu"}
     assert len(calls) == len(build.sources()) + 1
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     compiles = [c for c in calls if " -c " in c]
