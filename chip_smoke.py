@@ -183,6 +183,21 @@ Phases:
    (64, 1024, 1024) where the host has too little memory for the
    transfer function; a simulated weak phase object recovered at
    (16, 32, 32) (correlation > 0.8);
+4m. tracking (DynaTrack): (a) three production raws (1201, 256, 1600) of
+   seeded blobs on a camera offset with noise, drifting 2 scan steps and
+   3 x pixels a timepoint, through the ``Preprocessor`` (``preprocessing: [deskew]``,
+   ``csrc/deskew.cu``, four launches a method) and the ``Tracker``, each of
+   the six methods: its shifts against the same tracker in float64 on the
+   plain deskew (integer shifts equal, centres of mass within 1e-3 px; the
+   multi-Otsu methods against float64 at the float32 run's bin pair, which
+   must tie the float64 objective's maximum within 1e-5),
+   ``pcc`` and ``template_matching`` within 1 px of the injected drift; the
+   first update, the warm update from the card and from a host numpy
+   stack, the reference's moves and the peak; the blur, multi-Otsu, NCC
+   and PCC alone at the deskewed shape; (b) ``pcc`` with ``preprocessing:
+   [phase]`` on two brightfield stacks of phase 4l's shape shifted in yx,
+   the transfer function a hit of phase 4l's host cache, against float64;
+   the focus metric's index against float64;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
@@ -2668,6 +2683,359 @@ def phase_phase(gen) -> dict:
             "step_ms": step_s * 1e3, "rel_err": err, "recovery_corr": corr}
 
 
+# --- Tracking (DynaTrack): the tracker and its preprocessor at the production
+# raw (deskew on csrc/deskew.cu), and on a brightfield stack through phase.
+TRACK_TIMEPOINTS = 3
+TRACK_DRIFT = (2, 3)  # raw scan steps and x pixels a timepoint
+TRACK_BLOBS = 48
+TRACK_SIGMA = (3.0, 6.0, 6.0)  # deskewed px
+TRACK_BACKGROUND, TRACK_NOISE = 100.0, 10.0  # camera offset, shot noise of ~100 counts
+TRACK_COM_ATOL = 1e-3  # px, centres of mass against float64
+# Multi-Otsu's pair is the argmax of an objective whose best pairs lie within
+# ~1e-6 of each other (4.6e-7 between the first and third at (500, 96, 320),
+# CPU): float32 sums cannot order them. The float32 run's pair must be within
+# this of the float64 objective's maximum.
+OTSU_TIE_RTOL = 1e-5
+TRACK_METHODS = {
+    "pcc": {},
+    "intensity_center_of_mass": {"roi_center": {"background_percentile": 99.0}},
+    "roi_center_pcc": {"roi_center": {"blob_sigma": 10.0}},
+    "multiotsu_center_of_mass": {"segmentation": {"otsu_sigma": 5.0}},
+    "multiotsu_pcc": {"segmentation": {"otsu_sigma": 5.0}},
+    "template_matching": {},  # slice_zyx around the first blob, from track_blobs
+}
+LF_SHIFT = (0, 7, -5)  # the label-free arm's yx drift, px
+LF_FOCUS = 40  # its in-focus slice
+
+
+def track_blobs(gen):
+    """Seeded blob centres and amplitudes in the deskewed frame: centres
+    inside the production volume with a margin of 4 sigma past the drift,
+    amplitudes in [500, 1500) but the first blob's 4000 (one object
+    dominates, so roi_center_pcc has one peak) and its companion's 2000,
+    (3, 10, 8) px from it: the template window holds the pair, a pattern
+    no other window has (NCC ignores amplitude, and one blob alike the
+    others would match them as well as its own moved copy)."""
+    nz, ny, nx = deskewed_shape()
+    r = torch.rand((TRACK_BLOBS, 4), generator=gen, device="cuda").double().cpu().numpy()
+    margin = [4 * s + 2 for s in TRACK_SIGMA]
+    span_y = ny - 2 * margin[1] - TRACK_TIMEPOINTS * TRACK_DRIFT[0] / 0.386
+    centers = [(margin[0] + p[0] * (nz - 2 * margin[0]), margin[1] + p[1] * span_y,
+                margin[2] + p[2] * (nx - 2 * margin[2] - TRACK_TIMEPOINTS * TRACK_DRIFT[1]))
+               for p in r]
+    amps = [4000.0, 2000.0] + [500.0 + 1000.0 * p[3] for p in r[2:]]
+    centers[1] = tuple(c + d for c, d in zip(centers[0], (3.0, 10.0, 8.0)))
+    return centers, amps
+
+
+def track_raw(centers, amps) -> torch.Tensor:
+    """The production raw (scan, tilt, x) of the blobs on the camera
+    offset, each rendered at the raw voxels whose deskewed coordinates lie
+    within 4 sigma of it: raw (s, t, x) sits at deskewed z = t sin(theta),
+    y = s / r + t cos(theta) - y_offset, x (``ops/deskew.py::_geometry``).
+    No noise: each timepoint adds its own (:func:`track_raws`)."""
+    from shrimpy_tpu_torch.ops.deskew import _geometry
+
+    g = _geometry(RAW_SHAPE, headline_settings().deskew)
+    ns, nt, nxr = RAW_SHAPE
+    raw = torch.full(RAW_SHAPE, TRACK_BACKGROUND, device="cuda")
+    sz, sy, sx = TRACK_SIGMA
+    for (cz, cy, cx), amp in zip(centers, amps):
+        t0 = max(0, math.floor((cz - 4 * sz) / g["sin_t"]))
+        t1 = min(nt, math.ceil((cz + 4 * sz) / g["sin_t"]) + 1)
+        s0 = max(0, math.floor(g["r"] * (cy - 4 * sy + g["y_offset"] - t1 * g["cos_t"])))
+        s1 = min(ns, math.ceil(g["r"] * (cy + 4 * sy + g["y_offset"] - t0 * g["cos_t"])) + 1)
+        x0, x1 = max(0, math.floor(cx - 4 * sx)), min(nxr, math.ceil(cx + 4 * sx) + 1)
+        s = torch.arange(s0, s1, device="cuda", dtype=torch.float64)[:, None, None]
+        t = torch.arange(t0, t1, device="cuda", dtype=torch.float64)[None, :, None]
+        x = torch.arange(x0, x1, device="cuda", dtype=torch.float64)[None, None, :]
+        zd = t * g["sin_t"]
+        yd = s / g["r"] + t * g["cos_t"] - g["y_offset"]
+        arg = ((zd - cz) / sz) ** 2 + ((yd - cy) / sy) ** 2 + ((x - cx) / sx) ** 2
+        raw[s0:s1, t0:t1, x0:x1] += (amp * torch.exp(-0.5 * arg)).float()
+    return raw
+
+
+def track_raws(gen, centers, amps) -> list:
+    """TRACK_TIMEPOINTS raws: the blobs rolled by TRACK_DRIFT (scan steps,
+    x px) a timepoint, each with its own N(0, TRACK_NOISE) noise. Noise
+    matters: on a flat background the float32 integral images of the NCC
+    leave windows of no variance with a small positive one, whose NCC
+    blows up (what a camera never gives)."""
+    raw0 = track_raw(centers, amps)
+    raws = []
+    for t in range(TRACK_TIMEPOINTS):
+        raw = torch.roll(raw0, (t * TRACK_DRIFT[0], t * TRACK_DRIFT[1]), dims=(0, 2))
+        raws.append(raw.add_(torch.randn(RAW_SHAPE, generator=gen, device="cuda"),
+                             alpha=TRACK_NOISE))
+    return raws
+
+
+def track_config(method: str, **extra):
+    from shrimpy_tpu_torch.config import dynatrack_settings
+
+    return dynatrack_settings(input_channel="LS", tracking_channel="LS",
+                              tracking_method=method, **{**TRACK_METHODS[method], **extra})
+
+
+def track_otsu_reference(method: str, cfg, raws) -> tuple[list, list]:
+    """The multi-Otsu methods in float64 at the float32 run's bin pair:
+    per timepoint the float32 pair (recomputed as the tracker computes it)
+    and the float64 objective's own pair, the float32 pair held within
+    OTSU_TIE_RTOL of the float64 maximum, then the mask, centre of mass or
+    PCC of the masked blur in float64 at the float32 pair. Returns the
+    shifts and (pair32, pair64, gap) a timepoint."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.ops.features import center_of_mass, gaussian_blur, otsu_objective
+    from shrimpy_tpu_torch.ops.pcc import phase_cross_correlation
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    seg, f64, bins = cfg.segmentation, torch.float64, 256
+    pre32, pre64 = Preprocessor(cfg), Preprocessor(cfg, dtype=f64)
+    shifts, pairs, anchor = [], [], None
+    for raw in raws:
+        _, _, v32 = otsu_objective(gaussian_blur(pre32.tracking_stack(raw), seg.otsu_sigma))
+        k32 = divmod(int(torch.argmax(v32)), bins)
+        del v32
+        blurred = gaussian_blur(pre64.tracking_stack(raw), seg.otsu_sigma, dtype=f64)
+        lo, span, v64 = otsu_objective(blurred, dtype=f64)
+        top = float(v64.max())
+        gap = (top - float(v64[k32])) / top
+        pairs.append((k32, divmod(int(torch.argmax(v64)), bins), gap))
+        if not gap <= OTSU_TIE_RTOL:
+            raise AssertionError(f"{method}: the float32 Otsu pair {k32} is {gap:.2e} below the "
+                                 f"float64 objective's maximum")
+        thr = lo + torch.tensor(k32, dtype=f64, device="cuda") / bins * span
+        mask = (blurred > thr[seg.otsu_component]).to(f64)
+        if method == "multiotsu_center_of_mass":
+            center = (np.asarray(blurred.shape, dtype=np.float64) - 1.0) / 2.0
+            shifts.append(center_of_mass(mask, dtype=f64).cpu().numpy() - center)
+        elif anchor is None:
+            anchor = mask * blurred
+            shifts.append(np.zeros(3))
+        else:
+            shifts.append(phase_cross_correlation(anchor, mask * blurred, dtype=f64)
+                          .astype(np.float64))
+        del blurred, mask, v64
+    return shifts, pairs
+
+
+def timed_update(tracker, pre, stack, t: int):
+    """One update from ``stack`` (raw, on the card or the host): the result
+    and its host-clock ms, launch to the shifts on the host."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = tracker.update(pre.tracking_stack(stack), t)
+    torch.cuda.synchronize()
+    return r, (time.perf_counter() - t0) * 1e3
+
+
+def track_method(method: str, raws, host_raw, slice_zyx, expected) -> dict:
+    """One method over the timepoints: the float32 tracker (t = 0 the first
+    call, t = 1, t = 2 warm from the card and again from a host numpy
+    stack) with the counts reset, against the float64 tracker (the plain
+    deskew, the same ops in float64)."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    extra = {"template": {"slice_zyx": slice_zyx}} if method == "template_matching" else {}
+    cfg = track_config(method, preprocessing=["deskew"],
+                       deskew=vars(headline_settings().deskew), **extra)
+    table = counters()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    pre, tracker = Preprocessor(cfg), Tracker(cfg)
+    got = []
+    r, first_ms = timed_update(tracker, pre, raws[0], 0)
+    got.append(r.shift_px_zyx)
+    r, _ = timed_update(tracker, pre, raws[1], 1)
+    got.append(r.shift_px_zyx)
+    torch.cuda.reset_peak_memory_stats()
+    r, warm_ms = timed_update(tracker, pre, raws[2], 2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got.append(r.shift_px_zyx)
+    r, host_ms = timed_update(tracker, pre, host_raw, 2)
+    if not np.array_equal(r.shift_px_zyx, got[2]):
+        raise AssertionError(f"{method}: the host stack gave {r.shift_px_zyx}, the card's {got[2]}")
+    counts = {k: getattr(obj, attr) for k, (obj, attr) in table.items()}
+    bad = {k: v for k, v in counts.items() if v != (4 if k == "deskew" else 0)}
+    if bad:
+        raise AssertionError(f"{method}: launch counts {bad}, want 4 deskew launches, no other")
+    stages = tracker.timer.as_dict()
+    moves = [rec.seconds for rec in tracker.timer.records if rec.name == "reference_to_device"]
+    del pre, tracker
+    torch.cuda.empty_cache()
+    pre64, tracker64 = Preprocessor(cfg, dtype=torch.float64), Tracker(cfg, dtype=torch.float64)
+    want = [tracker64.update(pre64.tracking_stack(raw), t).shift_px_zyx
+            for t, raw in enumerate(raws)]
+    del pre64, tracker64
+    torch.cuda.empty_cache()
+    com = method.endswith("center_of_mass")
+    err = max(float(np.abs(a - b).max()) for a, b in zip(got, want))
+    otsu = None
+    if method.startswith("multiotsu"):
+        # Held to float64 at the float32 run's pair, which must tie the
+        # float64 maximum; where the float64 run picked the same pair, its
+        # own shifts are that reference's.
+        ref, otsu = track_otsu_reference(method, cfg, raws)
+        torch.cuda.empty_cache()
+        for t, (k32, k64, _) in enumerate(otsu):
+            if k32 == k64 and not np.abs(ref[t] - want[t]).max() <= (
+                    TRACK_COM_ATOL / 10 if com else 0.0):
+                raise AssertionError(f"{method}: t={t} the reference at the tracker's pair "
+                                     f"{ref[t]} differs from the float64 tracker's {want[t]}")
+        err_ref = max(float(np.abs(a - b).max()) for a, b in zip(got, ref))
+    else:
+        err_ref = err
+    if (com and not err_ref <= TRACK_COM_ATOL) or (not com and err_ref != 0.0):
+        raise AssertionError(f"{method}: shifts {got} against float64 {want}"
+                             + (f" (at the float32 pairs: {ref}; pairs {otsu})" if otsu else ""))
+    if method in ("pcc", "template_matching"):
+        for t in (1, 2):
+            if not np.abs(got[t] - expected[t]).max() <= 1.0:
+                raise AssertionError(f"{method}: t={t} shift {got[t]}, injected {expected[t]}")
+    res = {"first_ms": first_ms, "warm_ms": warm_ms, "host_ms": host_ms, "peak_gib": peak,
+           "to_host_ms": stages.get("reference_to_host", 0.0) * 1e3,
+           "to_device_ms": float(np.mean(moves)) * 1e3 if moves else None,
+           "shifts": [s.tolist() for s in got], "max_err_f64": err, "max_err_ref": err_ref,
+           "otsu_pairs": otsu}
+    to_dev = (f"{res['to_device_ms']:.3f} ms" if moves else
+              "none (only the template window moves)" if method == "template_matching" else
+              "none (referenceless)")
+    pairs = ("" if otsu is None else "; Otsu pairs float32 / float64 (gap): " + ", ".join(
+        f"{k32} / {k64} ({gap:.1e})" for k32, k64, gap in otsu)
+        + f", max diff at the float32 pairs {err_ref:.2e}")
+    print(f"  {method}: shifts {res['shifts']} (float64: max diff {err:.2e}{' px' if com else ''}"
+          f"{pairs}); "
+          f"first {first_ms:.1f} ms, warm {warm_ms:.1f} ms from the card, {host_ms:.1f} ms from "
+          f"a host numpy stack; reference to the host {res['to_host_ms']:.1f} ms, to the card "
+          f"{to_dev}; peak {peak:.2f} GiB", flush=True)
+    return res
+
+
+def track_ops(stack, slice_zyx) -> dict:
+    """The tracking ops alone at the deskewed shape, CUDA events, warm."""
+    from shrimpy_tpu_torch.ops.features import gaussian_blur, multi_otsu
+    from shrimpy_tpu_torch.ops.match import match_template
+    from shrimpy_tpu_torch.ops.pcc import phase_cross_correlation
+
+    blurred = gaussian_blur(stack, 5.0)
+    tmpl = stack[tuple(slice(a, b) for a, b in slice_zyx)]
+    moved = torch.roll(stack, (0, 5, 3), dims=(0, 1, 2))
+    res = {"blur_ms": gpu_ms(lambda: gaussian_blur(stack, 5.0), 3),
+           "multi_otsu_ms": gpu_ms(lambda: multi_otsu(blurred), 3),
+           "ncc_ms": gpu_ms(lambda: match_template(moved, tmpl), 3),
+           "pcc_ms": gpu_ms(lambda: phase_cross_correlation(stack, moved), 3)}
+    print(f"  ops alone at {tuple(stack.shape)}: blur (sigma 5) {res['blur_ms']:.3f} ms, "
+          f"multi-Otsu {res['multi_otsu_ms']:.3f} ms, NCC surface {res['ncc_ms']:.3f} ms, "
+          f"PCC {res['pcc_ms']:.3f} ms", flush=True)
+    return res
+
+
+def focus_stack(shape, gen) -> torch.Tensor:
+    """A brightfield defocus stack: one sharp random texture, slice z blurred
+    by a Gaussian of sigma |z - LF_FOCUS| * 0.8 + 0.01 px (by its transfer
+    function), scaled to 1 +- 0.05."""
+    nz, ny, nx = shape
+    spec = torch.fft.rfft2(torch.rand((ny, nx), generator=gen, device="cuda"))
+    fy = torch.fft.fftfreq(ny, device="cuda")[:, None]
+    fx = torch.fft.rfftfreq(nx, device="cuda")[None, :]
+    f2 = fy**2 + fx**2
+    out = torch.empty(shape, device="cuda")
+    for z in range(nz):
+        sigma = abs(z - LF_FOCUS) * 0.8 + 0.01
+        out[z] = torch.fft.irfft2(spec * torch.exp(-2 * math.pi**2 * sigma**2 * f2), s=(ny, nx))
+    return 1.0 + 0.1 * (out - 0.5)
+
+
+def phase_track(gen, phase_shape) -> dict:
+    """(a) The tracker with ``preprocessing: [deskew]`` (``headline_settings``'s
+    deskew) over TRACK_TIMEPOINTS production raws of seeded blobs drifting
+    TRACK_DRIFT (scan steps, x px) a timepoint, every method against its
+    float64 run; pcc and template_matching recover the drift within 1 px;
+    the ops alone. (b) pcc with ``preprocessing: [phase]`` on two
+    brightfield stacks of ``phase_shape`` (phase 4l's) shifted LF_SHIFT,
+    the transfer function from phase 4l's host cache; the focus metric."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.engine.autofocus import focus_from_transverse_band
+    from shrimpy_tpu_torch.ops.phase import _compute_tf_cached
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    t_start = time.monotonic()
+    centers, amps = track_blobs(gen)
+    raws = track_raws(gen, centers, amps)
+    host_raw = raws[-1].cpu().numpy()
+    r = headline_settings().deskew.px_to_scan_ratio
+    expected = [np.array([0.0, t * TRACK_DRIFT[0] / r, t * TRACK_DRIFT[1]])
+                for t in range(TRACK_TIMEPOINTS)]
+    cz, cy, cx = (int(round(c)) for c in centers[0])
+    slice_zyx = ((cz - 10, cz + 10), (cy - 24, cy + 24), (cx - 24, cx + 24))
+    print(f"  {TRACK_BLOBS} blobs, sigma {TRACK_SIGMA} px, on {TRACK_BACKGROUND:g} with noise of "
+          f"{TRACK_NOISE:g}; injected "
+          f"deskewed drift {expected[1].tolist()} px a timepoint; template {slice_zyx}",
+          flush=True)
+    methods = {m: track_method(m, raws, host_raw, slice_zyx, expected) for m in TRACK_METHODS}
+    from shrimpy_tpu_torch.ops.deskew import deskew_volume
+
+    ops = track_ops(deskew_volume(raws[1], headline_settings().deskew), slice_zyx)
+    del raws, host_raw
+    torch.cuda.empty_cache()
+    ls_s = time.monotonic() - t_start
+
+    # (b) label-free: phase, then pcc; the TF from phase 4l's host cache.
+    t_lf = time.monotonic()
+    stack0 = focus_stack(phase_shape, gen)
+    stack1 = torch.roll(stack0, LF_SHIFT[1:], dims=(1, 2))
+    phase = {"transfer_function": {"yx_pixel_size": 0.116, "z_pixel_size": 0.25}}
+    cfg = track_config("pcc", preprocessing=["phase"], phase=phase)
+    pre, tracker = Preprocessor(cfg), Tracker(cfg)
+    before = _compute_tf_cached.cache_info()
+    r0, first_ms = timed_update(tracker, pre, stack0, 0)
+    after = _compute_tf_cached.cache_info()
+    if not (after.hits == before.hits + 1 and after.misses == before.misses):
+        raise AssertionError(f"the tracker's TF missed phase 4l's cache: {before} -> {after}")
+    r1, _ = timed_update(tracker, pre, stack1, 1)
+    torch.cuda.reset_peak_memory_stats()
+    r1w, warm_ms = timed_update(tracker, pre, stack1, 1)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    stages = pre.timer.as_dict()
+    del pre, tracker
+    torch.cuda.empty_cache()
+    pre64, tracker64 = Preprocessor(cfg, dtype=torch.float64), Tracker(cfg, dtype=torch.float64)
+    want = [tracker64.update(pre64.tracking_stack(s), t).shift_px_zyx
+            for t, s in enumerate((stack0, stack1))]
+    del pre64, tracker64
+    torch.cuda.empty_cache()
+    if not (np.array_equal(r0.shift_px_zyx, want[0]) and np.array_equal(r1.shift_px_zyx, want[1])
+            and np.array_equal(r1w.shift_px_zyx, r1.shift_px_zyx)):
+        raise AssertionError(f"label-free pcc {r1.shift_px_zyx} against float64 {want[1]}")
+    if not np.abs(r1.shift_px_zyx - np.array(LF_SHIFT)).max() <= 1.0:
+        raise AssertionError(f"label-free pcc {r1.shift_px_zyx}, injected {LF_SHIFT}")
+    focus = focus_from_transverse_band(stack0, pixel_size_um=0.116)
+    focus64 = focus_from_transverse_band(stack0, pixel_size_um=0.116, dtype=torch.float64)
+    focus_ms = gpu_ms(lambda: focus_from_transverse_band(stack0, pixel_size_um=0.116), 3)
+    if focus != focus64 or focus != LF_FOCUS:
+        raise AssertionError(f"focus index {focus}, float64 {focus64}, in focus {LF_FOCUS}")
+    del stack0, stack1
+    torch.cuda.empty_cache()
+    lf = {"shape": phase_shape, "shift": r1.shift_px_zyx.tolist(), "first_ms": first_ms,
+          "warm_ms": warm_ms, "peak_gib": peak, "tf_to_card_ms": stages["phase_tf"] * 1e3,
+          "phase_ms": stages["phase"] * 1e3 / 3, "tf_cache": str(after),
+          "focus": focus, "focus_ms": focus_ms, "seconds": time.monotonic() - t_lf}
+    print(f"  label-free pcc at {phase_shape}: shift {lf['shift']} (float64 the same; injected "
+          f"{list(LF_SHIFT)}); first {first_ms:.1f} ms (the TF from phase 4l's host cache, "
+          f"{after.hits - before.hits} hit, to the card once: {lf['tf_to_card_ms']:.1f} ms), warm "
+          f"{warm_ms:.1f} ms, the inverse {lf['phase_ms']:.1f} ms an update; peak {peak:.2f} GiB; "
+          f"focus index {focus} (float64 {focus64}) in {focus_ms:.3f} ms", flush=True)
+    return {"methods": methods, "ops": ops, "lf": lf, "ls_seconds": ls_s,
+            "seconds": time.monotonic() - t_start}
+
+
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
     geometry (the one-launch half-step and its circular build, the whole
@@ -2830,6 +3198,9 @@ def main(argv) -> int:
     print("[4l] phase reconstruction of a brightfield stack", flush=True)
     ph = phase_phase(gen)
     fft_s = time.monotonic() - t_fft
+    print(f"[4m] tracking: deskew + each method at raw {RAW_SHAPE}; phase + pcc at "
+          f"{ph['shape']}", flush=True)
+    trk = phase_track(gen, ph["shape"])
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -2905,6 +3276,15 @@ def main(argv) -> int:
           f"{band['plain_ms']:.3f}, einsum {band['library_ms']}); phase {ph['shape']}: host TF "
           f"{ph['tf_s']:.2f} s, inverse {ph['ms']:.3f} ms, rel err {ph['rel_err']:.3e}, peak "
           f"{ph['peak_gib']:.2f} GiB; the FFT phases took {fft_s:.1f} s", flush=True)
+    print(f"[5] {card}: tracking at raw {RAW_SHAPE} (deskewed {deskewed_shape()}), warm update "
+          "ms from the card / from a host numpy stack: "
+          + ", ".join(f"{m} {v['warm_ms']:.1f} / {v['host_ms']:.1f}" for m, v in
+                      trk["methods"].items())
+          + f"; blur {trk['ops']['blur_ms']:.3f} ms, multi-Otsu {trk['ops']['multi_otsu_ms']:.3f}, "
+          f"NCC {trk['ops']['ncc_ms']:.3f}, PCC {trk['ops']['pcc_ms']:.3f}; label-free pcc at "
+          f"{trk['lf']['shape']} {trk['lf']['warm_ms']:.1f} ms warm, {trk['lf']['first_ms']:.1f} "
+          f"first; focus {trk['lf']['focus_ms']:.3f} ms; phase 4m took {trk['seconds']:.1f} s",
+          flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",

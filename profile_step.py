@@ -87,6 +87,12 @@ elementwise rest. ``--phase`` does the same for the phase step at
 (64, 2048, 2048), the transfer function computed on the host before
 the window.
 
+``python3 profile_step.py --track`` runs one warm tracking update of each
+method of ``chip_smoke.py`` phase 4m (``preprocessing: [deskew]`` at the
+production raw) under ``torch.profiler`` as above, and sums the device
+events by kind (:func:`track_kind`): transforms, the deskew kernel, the
+blur's convolutions, reductions and scans, copies, the elementwise rest.
+
 ``python3 profile_step.py --zband`` times the band kernel
 ``csrc/zband.cu`` beside builds of the edits in :data:`ZBAND_VARIANTS`
 (a cap on registers for more warps an SM, smaller blocks, the taps read
@@ -142,7 +148,27 @@ def kind(name: str) -> str:
     return "elementwise"
 
 
-def profile(step, batch) -> dict:
+def track_kind(name: str) -> str:
+    """The kind of a device event of a tracking update: transforms, the
+    deskew kernel, the blur's convolutions (cuDNN), reductions and scans
+    (sums, min/max, argmax, cumsum, bincount), copies, or the elementwise
+    rest."""
+    low = name.lower()
+    if "fft" in low:
+        return "transforms"
+    if "deskew" in low:
+        return "deskew"
+    if any(k in low for k in ("cudnn", "xmma", "implicit", "convolve", "conv2d", "conv1d",
+                              "fprop", "winograd")):
+        return "convolution"
+    if any(k in low for k in ("reduce", "scan", "cumsum", "bincount", "histogram", "argmax")):
+        return "reductions"
+    if any(k in low for k in ("memcpy", "copy", "index", "cat", "gather", "scatter")):
+        return "copies"
+    return "elementwise"
+
+
+def profile(step, batch, kind_of=kind) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as torch_profile
 
@@ -168,8 +194,8 @@ def profile(step, batch) -> dict:
         print(f"    {ms:10.3f} ms  x{n:4d}  {name[:100]}", flush=True)
     kinds = defaultdict(lambda: [0.0, 0])
     for name, (ms, n) in by_name.items():
-        kinds[kind(name)][0] += ms
-        kinds[kind(name)][1] += n
+        kinds[kind_of(name)][0] += ms
+        kinds[kind_of(name)][1] += n
     print("  by kind: " + ", ".join(f"{k} {ms:.3f} ms ({n})" for k, (ms, n) in
                                     sorted(kinds.items(), key=lambda kv: -kv[1][0])), flush=True)
     return {"wall_ms": wall, "busy_ms": busy, "idle": 1 - busy / wall,
@@ -278,6 +304,32 @@ def profile_phase(cs) -> None:
     step = build_reconstruct_step(reconstruct_settings(phase=settings), device="cuda")
     print(f"== phase step at {cs.PHASE_SHAPE}", flush=True)
     profile(lambda b: step(b, tf), stack)
+
+
+def profile_track(cs) -> None:
+    """One warm tracking update a method under the profiler, at the
+    production raw through ``preprocessing: [deskew]`` (chip_smoke.py
+    phase 4m's data and settings), events summed by ``track_kind``."""
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    centers, amps = cs.track_blobs(gen)
+    raws = cs.track_raws(gen, centers, amps)
+    cz, cy, cx = (int(round(c)) for c in centers[0])
+    slice_zyx = ((cz - 10, cz + 10), (cy - 24, cy + 24), (cx - 24, cx + 24))
+    for method in cs.TRACK_METHODS:
+        extra = {"template": {"slice_zyx": slice_zyx}} if method == "template_matching" else {}
+        cfg = cs.track_config(method, preprocessing=["deskew"],
+                              deskew=vars(cs.headline_settings().deskew), **extra)
+        pre, tracker = Preprocessor(cfg), Tracker(cfg)
+        for t in range(cs.TRACK_TIMEPOINTS - 1):
+            tracker.update(pre.tracking_stack(raws[t]), t)
+        print(f"== {method}: one warm update at raw {cs.RAW_SHAPE}", flush=True)
+        profile(lambda raw: tracker.update(pre.tracking_stack(raw), cs.TRACK_TIMEPOINTS - 1),
+                raws[-1], track_kind)
+        del pre, tracker
+        torch.cuda.empty_cache()
 
 
 def iter_operands(cs, gen):
@@ -1180,6 +1232,9 @@ def main() -> int:
         return 0
     if "--phase" in sys.argv[1:]:
         profile_phase(cs)
+        return 0
+    if "--track" in sys.argv[1:]:
+        profile_track(cs)
         return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)

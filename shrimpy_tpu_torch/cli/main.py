@@ -1,8 +1,8 @@
 """``shrimpy-tpu-torch`` CLI: the reconstruction verbs of the port.
 
-The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct`` and
-``register`` take the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus
-``--device`` (default ``cuda``). Pixel size and z step come from the store's scale
+The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``
+and ``track`` take the same options and YAML as ``shrimpy_tpu/cli/main.py``,
+plus ``--device`` (default ``cuda``). Pixel size and z step come from the store's scale
 metadata and are injected into the settings, as in the JAX CLI. The
 settings are the port's own pydantic models
 (:mod:`shrimpy_tpu_torch.config.schemas`, a copy of the JAX package's:
@@ -36,13 +36,17 @@ def _channel_index(names: list, channel: str) -> int:
         raise click.ClickException(f"channel {channel!r} not in the store (has {names})") from None
 
 
-def _inject_from_store(settings, input_path: Path) -> None:
-    """Read (pixel size, z step) from the store scale and inject."""
+def _inject_from_store(settings, input_path: Path) -> tuple:
+    """Read (pixel size, z step) from the store scale and inject; returns
+    the store and its first position."""
     from shrimpy_tpu_torch.config.schemas import inject_derived_parameters
     from shrimpy_tpu_torch.io.ngff import open_ngff
 
-    sz, sy, _ = open_ngff(input_path).position().zyx_scale
+    store = open_ngff(input_path)
+    pos = store.position()
+    sz, sy, _ = pos.zyx_scale
     inject_derived_parameters(settings, pixel_size_um=sy, z_step_um=sz)
+    return store, pos
 
 
 def _run_reconstruct(
@@ -268,6 +272,62 @@ def register(input, fixed_channel, moving_channel, moving_input, output, timepoi
     }
     Path(output).write_text(json.dumps(transform, indent=2))
     click.echo(json.dumps(transform, indent=2))
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+@click.option("-c", "--config", "config_path", type=click.Path(exists=True),
+              required=True, help="DynaTrackConfig YAML.")
+@click.option("-o", "--output", type=click.Path(), default="shifts.csv",
+              show_default=True, help="Shift journal CSV.")
+@click.option("--device", default="cuda", show_default=True,
+              help="Torch device: 'cuda', 'cuda:N' or 'cpu'.")
+def track(input, config_path, output, device):
+    """Run DynaTrack shift estimation over a time-lapse store."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config.schemas import DynaTrackConfig, load_yaml_config
+    from shrimpy_tpu_torch.tracking import ShiftJournal, Tracker
+    from shrimpy_tpu_torch.utils.device import resolve_device
+
+    try:
+        dev = resolve_device(device)
+    except RuntimeError as exc:
+        raise click.ClickException(str(exc)) from None
+    cfg = load_yaml_config(config_path, DynaTrackConfig)
+    store, pos = _inject_from_store(cfg, Path(input))
+    # With a preprocessing chain, the tracker consumes the processed
+    # product of the INPUT channel; otherwise the tracking channel is
+    # read directly from the store.
+    preprocessor = None
+    track_scale = tuple(float(v) for v in pos.zyx_scale)
+    if cfg.preprocessing:
+        from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+        try:
+            preprocessor = Preprocessor(cfg, device=dev)
+        except NotImplementedError as exc:
+            raise click.ClickException(str(exc)) from None
+        c = _channel_index(pos.channel_names, cfg.input_channel)
+        # Deskew changes the voxel grid: px->um conversion and the um
+        # limits must use the PROCESSED stack's scale.
+        track_scale = preprocessor.tracking_scale_zyx(
+            tuple(pos.shape[2:]), track_scale
+        )
+    else:
+        c = _channel_index(pos.channel_names, cfg.tracking_channel)
+    tracker = Tracker(cfg, scale_zyx_um=track_scale, journal=ShiftJournal(output), device=dev)
+    for key, p in store.positions().items():
+        for t in range(p.shape[0]):
+            stack = p.volume(t, c)
+            if preprocessor is not None:
+                stack = preprocessor.tracking_stack(stack)
+            r = tracker.update(stack, t=t, p=key)
+            click.echo(
+                f"t={t} p={key} shift_px={np.round(r.shift_px_zyx, 2).tolist()} "
+                f"stage_um={np.round(r.stage_shift_xyz, 3).tolist()}"
+            )
+    click.echo(f"journal: {output}")
 
 
 if __name__ == "__main__":

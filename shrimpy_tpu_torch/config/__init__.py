@@ -109,6 +109,45 @@ REGISTRATION_DEFAULTS = {
 
 IO_RETRY_DEFAULTS = {"attempts": 3, "wait_s": 1.0, "contain_failures": True}
 
+TRACKING_METHODS = (
+    "pcc",
+    "intensity_center_of_mass",
+    "roi_center_pcc",
+    "multiotsu_center_of_mass",
+    "multiotsu_pcc",
+    "template_matching",
+)
+
+# DynaTrackConfig's fields (input_channel and tracking_channel, required by
+# the schema, default to None here) and those of its nested blocks.
+DYNATRACK_DEFAULTS = {
+    "enabled": True,
+    "input_channel": None,
+    "z_device": None,
+    "shift": None,
+    "tracking_interval": 1,
+    "tracking_method": "pcc",
+    "segmentation": None,
+    "roi_center": None,
+    "template": None,
+    "reference_update_interval": 0,
+    "tracking_channel": None,
+    "preprocessing": None,
+    "deskew": None,
+    "phase": None,
+    "virtual_staining": None,
+    "image_to_stage_matrix_xyz": None,
+    "shift_log_path": None,
+    "debug": False,
+}
+
+DYNATRACK_PARTS = {
+    "shift": {"maximum": 1.0, "limits": None, "dampening": None},
+    "segmentation": {"otsu_sigma": 5.0, "otsu_component": 0},
+    "roi_center": {"blob_sigma": 10.0, "background_percentile": None, "blur_sigma": 0.0},
+    "template": {"slice_zyx": None},
+}
+
 RECONSTRUCT_DEFAULTS = {
     "deskew": None,
     "phase": None,
@@ -157,6 +196,24 @@ def reconstruct_settings(**overrides) -> SimpleNamespace:
     ns = _make({**RECONSTRUCT_DEFAULTS, "io_retry": None}, overrides)
     if ns.io_retry is None:
         ns.io_retry = SimpleNamespace(**IO_RETRY_DEFAULTS)
+    return ns
+
+
+def dynatrack_settings(**overrides) -> SimpleNamespace:
+    """``DynaTrackConfig`` as a namespace; each nested block (``shift``,
+    ``segmentation``, ``roi_center``, ``template``) a dict of overrides
+    of its defaults or a namespace. ``deskew`` and ``phase`` stay dicts,
+    as in the schema. The method checks of the schema's validator hold."""
+    ns = _make(DYNATRACK_DEFAULTS, overrides)
+    for name, defaults in DYNATRACK_PARTS.items():
+        given = getattr(ns, name)
+        if not isinstance(given, SimpleNamespace):
+            setattr(ns, name, _make(defaults, dict(given or {})))
+    if ns.tracking_method not in TRACKING_METHODS:
+        raise ValueError(f"Unknown tracking_method={ns.tracking_method!r}; "
+                         f"use one of {TRACKING_METHODS}")
+    if ns.tracking_method == "template_matching" and ns.template.slice_zyx is None:
+        raise ValueError("tracking_method='template_matching' requires template.slice_zyx")
     return ns
 
 

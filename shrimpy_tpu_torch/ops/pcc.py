@@ -36,14 +36,14 @@ from shrimpy_tpu_torch.utils.fft import fast_fft_shape, match_shape
 TRANSFORMS = ("auto", "xla", "matmul")
 
 
-def _prepare(x: torch.Tensor, fft_shape) -> torch.Tensor:
-    x = x.to(torch.float32)
+def _prepare(x: torch.Tensor, fft_shape, dtype: torch.dtype) -> torch.Tensor:
+    x = x.to(dtype)
     return match_shape(x - torch.mean(x), fft_shape, mode="constant")
 
 
-def _pcc(ref, mov, fft_shape, subpixel: bool) -> np.ndarray:
+def _pcc(ref, mov, fft_shape, subpixel: bool, dtype: torch.dtype) -> np.ndarray:
     """Integer (or parabolic sub-pixel) shift, float32 (``_pcc_jit``)."""
-    ref, mov = _prepare(ref, fft_shape), _prepare(mov, fft_shape)
+    ref, mov = _prepare(ref, fft_shape, dtype), _prepare(mov, fft_shape, dtype)
     corr = torch.fft.irfftn(torch.fft.rfftn(ref) * torch.conj(torch.fft.rfftn(mov)),
                             s=fft_shape)
     corr = torch.fft.fftshift(torch.abs(corr))
@@ -71,16 +71,16 @@ def _pcc(ref, mov, fft_shape, subpixel: bool) -> np.ndarray:
 
 
 def _dft_refine(ref, mov, coarse: np.ndarray, fft_shape, factor: int,
-                halfwidth: int) -> np.ndarray:
+                halfwidth: int, dtype: torch.dtype) -> np.ndarray:
     """Matrix-DFT upsampling around ``coarse`` (``_dft_refine_jit``)."""
-    ref, mov = _prepare(ref, fft_shape), _prepare(mov, fft_shape)
+    ref, mov = _prepare(ref, fft_shape, dtype), _prepare(mov, fft_shape, dtype)
     out = torch.fft.fftn(ref) * torch.conj(torch.fft.fftn(mov))
     n_pts = 2 * halfwidth * factor + 1
     dev = out.device
     for ax, n in enumerate(fft_shape):
-        freqs = torch.fft.fftfreq(n, device=dev, dtype=torch.float32)
-        offs = torch.tensor(coarse[ax], dtype=torch.float32, device=dev) + (
-            torch.arange(n_pts, dtype=torch.float32, device=dev) - halfwidth * factor) / factor
+        freqs = torch.fft.fftfreq(n, device=dev, dtype=dtype)
+        offs = torch.tensor(coarse[ax], dtype=dtype, device=dev) + (
+            torch.arange(n_pts, dtype=dtype, device=dev) - halfwidth * factor) / factor
         # exp(-2i pi k d / N): the correlation at displacement d, which
         # peaks at d = +shift (the sign convention above).
         phase = (-2.0 * math.pi) * (offs[:, None] * freqs[None, :])
@@ -94,7 +94,8 @@ def _dft_refine(ref, mov, coarse: np.ndarray, fft_shape, factor: int,
 
 def phase_cross_correlation(ref, mov, maximum_shift: float = 1.0, *,
                             upsample: str | None = None, upsample_factor: int = 10,
-                            transform: str = "auto", device=None) -> np.ndarray:
+                            transform: str = "auto", device=None,
+                            dtype: torch.dtype = torch.float32) -> np.ndarray:
     """Pixel shift of ``mov`` relative to ``ref`` (axis order preserved),
     as a float32 numpy array.
 
@@ -103,6 +104,7 @@ def phase_cross_correlation(ref, mov, maximum_shift: float = 1.0, *,
     stay on their device unless ``device`` moves them, or numpy arrays,
     which go to ``device`` (the card when None; ``"cpu"`` asks for the
     CPU). ``transform`` is one of :data:`TRANSFORMS`, each ``torch.fft``.
+    ``dtype`` is the arithmetic's type (float64 for a reference run).
     """
     if transform not in TRANSFORMS:
         raise ValueError(f"transform {transform!r} not in {TRANSFORMS}")
@@ -115,7 +117,7 @@ def phase_cross_correlation(ref, mov, maximum_shift: float = 1.0, *,
         raise ValueError(f"ref is {ref.dim()}-D, mov {mov.dim()}-D")
     fft_shape = fast_fft_shape(tuple(max(a, b) for a, b in zip(ref.shape, mov.shape)),
                                maximum_shift)
-    shift = _pcc(ref, mov, fft_shape, upsample == "parabolic")
+    shift = _pcc(ref, mov, fft_shape, upsample == "parabolic", dtype)
     if upsample == "dft":
-        shift = _dft_refine(ref, mov, shift, fft_shape, int(upsample_factor), 1)
+        shift = _dft_refine(ref, mov, shift, fft_shape, int(upsample_factor), 1, dtype)
     return shift

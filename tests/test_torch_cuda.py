@@ -1560,3 +1560,158 @@ def test_phase_stage_on_card_matches_float64(cuda):
     want = apply_inverse_transfer_function(stack, tf, settings.apply_inverse, z_padding=5,
                                            dtype=torch.float64)
     assert _rel(got, want) <= 1e-5
+
+
+# --- Tracking (no kernel of the repository: PyTorch ops, held to float64) ---
+
+TRACK_METHODS = {
+    "pcc": {},
+    "intensity_center_of_mass": {"roi_center": {"blur_sigma": 1.0, "background_percentile": 20.0}},
+    "roi_center_pcc": {"roi_center": {"blob_sigma": 4.0}},
+    "multiotsu_center_of_mass": {},
+    "multiotsu_pcc": {"segmentation": {"otsu_sigma": 1.0}},
+    # Around the first blob: deskewed (10, 158, 24) (raw (s, t, x) sits at
+    # z = t sin 30, y = s / 0.386 + (t - 47) cos 30, x).
+    "template_matching": {"template": {"slice_zyx": ((4, 16), (134, 182), (12, 36))}},
+}
+
+
+def _blobs(shape, centers, device):
+    """Gaussian blobs (sigma (2, 3, 3), amplitude 200) on a flat background
+    of 10. No noise: a blurred noise floor puts many voxels within float32
+    roundoff of an Otsu threshold, and the float32 and float64 masks then
+    differ there (0.027 px of centre in one of ten seeded volumes of
+    (24, 372, 64) on the CPU)."""
+    vol = torch.full(shape, 10.0, device=device)
+    grids = [torch.arange(n, dtype=torch.float32, device=device) for n in shape]
+    for c in centers:
+        g = [torch.exp(-0.5 * ((x - ci) / s) ** 2) for x, ci, s in zip(grids, c, (2.0, 3.0, 3.0))]
+        vol += 200.0 * g[0][:, None, None] * g[1][None, :, None] * g[2][None, None, :]
+    return vol
+
+
+def test_tracking_blur_on_card_is_float64_with_tf32_allowed(cuda):
+    """The blur sets cuDNN's TF32 off itself: with the global flag on, the
+    float32 blur is within 1e-6 of float64 (TF32 would give ~1e-3), and the
+    flag is left as it was."""
+    from shrimpy_tpu_torch.ops.features import gaussian_blur
+
+    vol = _rand((20, 64, 48), 70, cuda, 0.0, 100.0)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for sigma in ((1.0, 2.0, 5.0), 5.0, (0.0, 3.0, 0.7)):
+            got = gaussian_blur(vol, sigma)
+            assert got.is_cuda and got.dtype == torch.float32
+            assert _rel(got, gaussian_blur(vol, sigma, dtype=torch.float64)) <= 1e-6
+            assert _rel(got.cpu(), gaussian_blur(vol.cpu(), sigma)) <= 1e-6
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+
+
+def test_tracking_histogram_ops_on_card_match_cpu_and_float64(cuda):
+    """Counts, percentiles and multi-Otsu thresholds on the card equal the
+    CPU's (the same IEEE operations a step); against float64 within a bin."""
+    from shrimpy_tpu_torch.ops.features import _histogram, histogram_percentile, multi_otsu
+
+    vol = _blobs((24, 64, 56), [(12.0, 30.0, 20.0), (8.0, 12.0, 40.0)], cuda)
+    vol += _rand(vol.shape, 71, cuda, 0.0, 10.0)
+    for bins in (256, 4096):
+        _, _, counts = _histogram(vol.reshape(-1), bins)
+        _, _, cpu = _histogram(vol.cpu().reshape(-1), bins)
+        assert torch.equal(counts.cpu(), cpu)
+    span = float(vol.max() - vol.min())
+    for q in (20.0, 50.0, 99.9):
+        got = histogram_percentile(vol, q)
+        assert got.is_cuda and float(got) == float(histogram_percentile(vol.cpu(), q))
+        assert abs(float(got) - float(histogram_percentile(vol, q, dtype=torch.float64))) \
+            <= span / 4096 * 1.001
+    got = multi_otsu(vol)
+    assert torch.equal(got.cpu(), multi_otsu(vol.cpu()))
+    ref = multi_otsu(vol, dtype=torch.float64)
+    assert float((got.double() - ref).abs().max()) <= span / 256 * 1.001
+
+
+def test_tracking_ncc_com_pcc_and_focus_on_card_match_float64(cuda):
+    from shrimpy_tpu_torch.engine.autofocus import focus_from_transverse_band, focus_power
+    from shrimpy_tpu_torch.ops.features import center_of_mass
+    from shrimpy_tpu_torch.ops.match import match_template, template_match_shift
+    from shrimpy_tpu_torch.ops.pcc import phase_cross_correlation
+
+    g = np.random.default_rng(72)
+    mov = torch.from_numpy(g.normal(size=(16, 48, 40)).astype(np.float32) * 10 + 50).to(cuda)
+    tmpl = mov[3:9, 10:22, 5:17].clone()
+    got = match_template(mov, tmpl)
+    ref = match_template(mov, tmpl, dtype=torch.float64)
+    assert got.is_cuda and float((got.double() - ref).abs().max()) <= 1e-4
+    shifted = torch.roll(mov, (2, -3, 5), dims=(0, 1, 2))
+    sl = ((3, 9), (10, 22), (5, 17))
+    for ref_vol in (mov, mov.cpu()):  # the reference may stay on the host
+        np.testing.assert_array_equal(template_match_shift(ref_vol, shifted, sl), (2, -3, 5))
+    np.testing.assert_array_equal(phase_cross_correlation(mov, shifted), (2, -3, 5))
+    np.testing.assert_array_equal(phase_cross_correlation(mov, shifted, dtype=torch.float64),
+                                  (2, -3, 5))
+    blobs = _blobs((24, 64, 56), [(14.5, 30.0, 20.0)], cuda)
+    com = center_of_mass(blobs)
+    assert float((com.double() - center_of_mass(blobs, dtype=torch.float64)).abs().max()) <= 1e-4
+    stack = _rand((9, 96, 80), 74, cuda, 0.9, 1.1)
+    power = focus_power(stack, pixel_size_um=0.116)
+    assert _rel(power, focus_power(stack, pixel_size_um=0.116, dtype=torch.float64)) <= 1e-5
+    assert focus_from_transverse_band(stack, pixel_size_um=0.116) == \
+        focus_from_transverse_band(stack, pixel_size_um=0.116, dtype=torch.float64)
+
+
+def _chip_smoke():
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("method", list(TRACK_METHODS))
+def test_tracker_on_card_matches_float64(cuda, method):
+    """deskew (``csrc/deskew.cu``) then each method over a drifting raw
+    stack with noise, against the same tracker in float64 (the plain
+    deskew): integer shifts equal, centres of mass within 1e-3 px. The
+    multi-Otsu methods against ``chip_smoke.py::track_otsu_reference``:
+    float64 at the float32 run's bin pair, which must tie the float64
+    objective's maximum (its best pairs lie within ~1e-6). References on
+    the host, in pinned memory."""
+    from shrimpy_tpu_torch.config import dynatrack_settings
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    cfg = dynatrack_settings(tracking_method=method, preprocessing=["deskew"],
+                             deskew={"px_to_scan_ratio": 0.386}, **TRACK_METHODS[method])
+    # The first two blobs make the template's pattern, which the third alone
+    # does not repeat (NCC ignores amplitude, and the blobs are alike).
+    raw0 = _blobs((160, 48, 64), [(70.0, 20.0, 24.0), (72.0, 24.0, 30.0), (90.0, 30.0, 36.0)],
+                  cuda)
+    gen = torch.Generator(device=cuda).manual_seed(75)
+    raws = [torch.roll(raw0, (2 * t, 3 * t), dims=(0, 2))
+            + torch.randn(raw0.shape, generator=gen, device=cuda) for t in range(3)]
+    pre, pre64 = Preprocessor(cfg), Preprocessor(cfg, dtype=torch.float64)
+    tracker, tracker64 = Tracker(cfg), Tracker(cfg, dtype=torch.float64)
+    got, want = [], []
+    for t, raw in enumerate(raws):
+        deskew_cuda.launches = 0
+        got.append(tracker.update(pre.tracking_stack(raw), t).shift_px_zyx)
+        assert deskew_cuda.launches == 1
+        want.append(tracker64.update(pre64.tracking_stack(raw), t).shift_px_zyx)
+        assert deskew_cuda.launches == 1
+    if method.startswith("multiotsu"):
+        want, _ = _chip_smoke().track_otsu_reference(method, cfg, raws)
+    for a, b in zip(got, want):
+        if method.endswith("center_of_mass"):
+            np.testing.assert_allclose(a, b, rtol=0, atol=1e-3)
+        else:
+            np.testing.assert_array_equal(a, b)
+    if method in ("pcc", "template_matching", "multiotsu_pcc"):
+        np.testing.assert_allclose(got[2], [0.0, 4 / 0.386, 6.0], atol=1.0)
+    for ref in tracker._references.values():
+        assert ref.device.type == "cpu" and ref.is_pinned()

@@ -424,22 +424,37 @@ def test_donate_input_matches_and_consumes(backend):
 
 
 @pytest.mark.parametrize("entry", ["richardson_lucy", "deskew_volume", "build_reconstruct_step",
-                                   "reconstruct_batch"])
+                                   "reconstruct_batch", "Tracker.update", "Preprocessor",
+                                   "gaussian_blur", "match_template",
+                                   "focus_from_transverse_band"])
 def test_numpy_input_without_device_asks_for_the_card(entry, monkeypatch):
     """A host array with no ``device`` goes to the card, so without one it
     raises; it never runs the plain versions on the CPU unasked. A tensor
     stays where its caller put it."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from shrimpy_tpu_torch import config as tconfig
+    from shrimpy_tpu_torch.engine.autofocus import focus_from_transverse_band
+    from shrimpy_tpu_torch.ops.features import gaussian_blur
+    from shrimpy_tpu_torch.ops.match import match_template
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
 
     raw = np.random.default_rng(28).random((40, 24, 20)).astype(np.float32)
     desk = tconfig.deskew_settings(px_to_scan_ratio=0.386)
     rec = tconfig.reconstruct_settings(deskew=desk)
+    track = tconfig.dynatrack_settings(tracking_method="intensity_center_of_mass",
+                                       preprocessing=["deskew"], deskew={"px_to_scan_ratio": 0.386})
     calls = {
         "richardson_lucy": lambda x: tdeconv.richardson_lucy(x, PSF, iterations=1),
         "deskew_volume": lambda x: deskew_volume(x, desk),
         "build_reconstruct_step": lambda x: build_reconstruct_step(rec)(x[None]),
         "reconstruct_batch": lambda x: reconstruct_batch(x[None], rec),
+        "Tracker.update": lambda x: torch.from_numpy(Tracker(track).update(x, 0).shift_px_zyx),
+        "Preprocessor": lambda x: Preprocessor(track)(x)["deskewed"],
+        "gaussian_blur": lambda x: gaussian_blur(x, 1.5),
+        "match_template": lambda x: match_template(x, x[:4, :5, :6]),
+        "focus_from_transverse_band": lambda x: torch.tensor(
+            float(focus_from_transverse_band(x, pixel_size_um=0.116))),
     }
     with pytest.raises(RuntimeError, match=r"torch\.cuda\.is_available\(\)"):
         calls[entry](raw)
@@ -474,7 +489,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                     "shrimpy_tpu_torch.ops.register",
                                     "shrimpy_tpu_torch.ops.pcc",
                                     "shrimpy_tpu_torch.ops.affine_cuda",
-                                    "shrimpy_tpu_torch.utils.fft"])
+                                    "shrimpy_tpu_torch.utils.fft",
+                                    "shrimpy_tpu_torch.tracking.preprocess",
+                                    "shrimpy_tpu_torch.engine.autofocus"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no
@@ -486,6 +503,7 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             from click.testing import CliRunner
             assert CliRunner().invoke(mod.cli, ["reconstruct", "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["register", "--help"]).exit_code == 0
+            assert CliRunner().invoke(mod.cli, ["track", "--help"]).exit_code == 0
             from shrimpy_tpu_torch.config import ReconstructSettings, load_yaml_config
             load_yaml_config("configs/reconstruct_demo.yml", ReconstructSettings)
             from shrimpy_tpu_torch.config.microscopes import get_microscope
