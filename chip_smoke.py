@@ -174,7 +174,8 @@ Phases:
    3, Biggs on both phases) on that volume and PSF: K and the warm
    residual of the nonnegative CP terms, the separable backend of the
    warm phase and its ms, the tail's ms, the total and the peak; at a
-   depth of 4 warm + 3 exact iterations, config 8 against its float64
+   depth of HYBRID_CHECK (config 8: 1 warm + 1 exact iteration; config 9:
+   1 + 3, its Biggs tail extrapolating), config 8 against its float64
    plain path within 1e-3, config 9 by the two-tier gate;
 4l. phase: a brightfield stack (64, 2048, 2048) with the schema's
    defaults (z_padding 5), yx 0.116 um, z 0.25 um: the host transfer
@@ -198,6 +199,19 @@ Phases:
    [phase]`` on two brightfield stacks of phase 4l's shape shifted in yx,
    the transfer function a hit of phase 4l's host cache, against float64;
    the focus metric's index against float64;
+4n. virtual staining, every net with weights from its seed: (a) the default
+   unet25d (base 64, depth 3, batch 8) through the ``Preprocessor``
+   (``preprocessing: [phase, vs]``) and the ``Tracker`` (``pcc`` on
+   ``vs_nuclei``) over phase 4m(b)'s two stacks, the first and warm VS and
+   update ms, the peak, the shifts equal to the float32 run's (the same
+   weights computing in float32, no TF32) and the bf16 ``vs_nuclei``
+   within 1e-1 of it; (b) unext2 at ConvNeXt-V2 Tiny widths (blocks
+   (3, 3, 9, 3), dims (96, 192, 384, 768)), the plane head (``in_slices``
+   5) and the voxel-stack head (15 in, 5 out, step 1), on the phase
+   volume: ms, peak, error against the float32 run on 8 planes; (c)
+   ``[deskew, phase, vs]`` on a raw (427, 64, 256) (a YX the net pads): one
+   deskew launch with the counts reset, against the float32 run; beside
+   each net's ms its bound, its FLOPs over the dense bf16 peak;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
@@ -471,7 +485,9 @@ def drive(step, batch, want: dict | None) -> tuple[torch.Tensor, dict, float]:
 
 
 def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
-    """Warm host-clock times, alternated plain, kernel, kernel, plain."""
+    """Warm host-clock times, alternated plain, kernel, kernel, plain. Every
+    caller has run both paths just before (the kernel path counted, the
+    plain one in float64), so no call is spent on a warm-up."""
 
     def wall(fn) -> float:
         torch.cuda.synchronize()
@@ -480,7 +496,6 @@ def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    plain(batch)  # warm
     plain_s, kernel_s = [], []
     for fn, acc in ((plain, plain_s), (step, kernel_s), (step, kernel_s), (plain, plain_s)):
         acc.append(wall(fn))
@@ -2391,8 +2406,10 @@ FFT3_RTOL = 2e-4  # fft2z vs fft3 after 20 iterations (tests/test_deconv.py:94)
 # Ragged grids of the band: gz = kz = 9 (the smallest gz the padded grid can
 # give), a (20, 37, 45) grid with kz 7, and one plane (kz 1).
 BAND_CASES = (((144, 3000, 961), 15), ((9, 33, 17), 9), ((20, 37, 45), 7), ((6, 24, 17), 1))
-# The depth (warm, exact iterations) of the hybrid's float64 check.
-HYBRID_CHECK = (4, 3)
+# The depth (warm, exact iterations) of the hybrids' float64 checks: one of
+# each for config 8 (its plain warm phase takes ~3.3 s a half-step in
+# float64), three exact for config 9 so its Biggs tail extrapolates.
+HYBRID_CHECK = {"config8": (1, 1), "config9": (1, 3)}
 PHASE_SHAPE, PHASE_SMALL_SHAPE = (64, 2048, 2048), (64, 1024, 1024)
 # What the host transfer function holds at its peak, about eight complex128
 # arrays of (64 + 2 * 5, 2048, 2048).
@@ -2516,8 +2533,11 @@ def phase_nonsep(vol, psf) -> dict:
     _, first = wall_s(richardson_lucy, vol, psf, s)
     _, ms = wall_s(richardson_lucy, vol, psf, s)
     ms = min(first, ms) * 1e3
+    t0 = time.monotonic()
     ref = richardson_lucy(vol, psf, s, plain=True, dtype=torch.float64)
-    compare("RL-20 fft2z vs float64 plain", out, ref, STEP_RTOL)
+    check_s = time.monotonic() - t0
+    compare(f"RL-20 fft2z vs float64 plain (the float64 run {check_s:.1f} s)", out, ref,
+            STEP_RTOL)
     err = rel_err(out, ref)
     del ref
     torch.cuda.empty_cache()
@@ -2575,10 +2595,13 @@ def phase_hybrid(vol, psf, config: str) -> dict:
     _, total_s = wall_s(richardson_lucy, vol, psf, s)
     torch.cuda.empty_cache()
     check = nonsep_settings(config)
-    check.hybrid_separable_iters, check.iterations = HYBRID_CHECK
+    check.hybrid_separable_iters, check.iterations = HYBRID_CHECK[config]
     out = richardson_lucy(vol, psf, check)
+    t0 = time.monotonic()
     ref = richardson_lucy(vol, psf, check, plain=True, dtype=torch.float64)
-    label = f"hybrid {config} at {HYBRID_CHECK[0]} warm + {HYBRID_CHECK[1]} exact"
+    label = (f"hybrid {config} at {check.hybrid_separable_iters} warm + {check.iterations} "
+             f"exact (the float64 "
+             f"run {time.monotonic() - t0:.1f} s)")
     if s.acceleration == "biggs":
         err = two_tier(f"{label} (Biggs) vs float64 plain (bf16 state)", out, ref)
     else:
@@ -3036,6 +3059,205 @@ def phase_track(gen, phase_shape) -> dict:
             "seconds": time.monotonic() - t_start}
 
 
+# --- Virtual staining (ROADMAP queue 1 item 10): the default unet25d through
+# the tracker, unext2 at the widths of ConvNeXt-V2 Tiny (Woo et al. 2023) with
+# the plane and the voxel-stack heads, and the [deskew, phase, vs] chain; every
+# net with weights from its seed, against the float32 run of the same weights.
+# bf16 against the float32 run of the same weights, max|a-b| / max|b|: the
+# rounding of a net ~14 layers deep (2e-2 to 6e-2 at base width 8 on the CPU,
+# tests/test_torch_vs.py, where the port's error is held to twice JAX's).
+VS_BF16_RTOL = 1e-1
+VS_F32_BATCH = 4  # the float32 runs' batch: their activations are twice bf16's
+VS_PHASE = {"transfer_function": {"yx_pixel_size": 0.116, "z_pixel_size": 0.25}}
+UNEXT2_TINY = {"encoder_blocks": [3, 3, 9, 3], "dims": [96, 192, 384, 768], "stem_kernel_z": 5}
+VS_NETS = {
+    "unext2 plane head": {"architecture": "unext2", "in_slices": 5, "arch_config": UNEXT2_TINY},
+    "unext2 voxel-stack head": {"architecture": "unext2", "in_slices": 15, "window_step": 1,
+                                "arch_config": {**UNEXT2_TINY, "out_stack_depth": 5}},
+}
+# The chain's raw: deskewed (32, 1050, 256) with the headline deskew, y no
+# multiple of 8 (reflect-padded for the net) and its host transfer function
+# (42 planes with z_padding 5) seconds.
+VS_CHAIN_RAW = (427, 64, 256)
+VS_SLAB = slice(28, 36)  # the unext2 nets' planes held against float32
+BF16_PEAK = 989e12  # dense bf16 on the tensor cores, FLOP/s
+
+
+def vs_track_config(channel: str, steps, **extra):
+    from shrimpy_tpu_torch.config import dynatrack_settings
+
+    return dynatrack_settings(input_channel="LS", tracking_channel=channel,
+                              tracking_method="pcc", preprocessing=list(steps),
+                              phase=VS_PHASE, **extra)
+
+
+def vs_float32(stainer):
+    """``stainer`` made its float32 reference run (the same weights), at
+    batch VS_F32_BATCH."""
+    stainer.model.compute_dtype = torch.float32
+    stainer.settings.batch_slices = VS_F32_BATCH
+    return stainer
+
+
+def vs_stage_ms(pre) -> float:
+    """The last ``vs`` stage of ``pre``'s timer, ms."""
+    return [r.seconds for r in pre.timer.records if r.name == "vs"][-1] * 1e3
+
+
+def vs_volume_flops(stainer, shape) -> float:
+    """The convolutions' and products' FLOPs of one ``predict`` of a
+    ``shape`` volume: one forward's (counted by ``FlopCounterMode`` on the
+    ``meta`` device) times the windows."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from shrimpy_tpu_torch.models.vsunet import build_model
+
+    net, _ = build_model(stainer.settings)
+    with FlopCounterMode(display=False) as fc:
+        net(torch.empty(1, stainer.settings.in_slices, *shape[1:], device="meta"))
+    d = net.out_stack_depth
+    if d == 1:
+        return fc.get_total_flops() * shape[0]
+    last = shape[0] - d
+    return fc.get_total_flops() * (-(-last // stainer.settings.window_step) + 1)
+
+
+def stamp(t_start: float, header: str) -> None:
+    """A phase's header line with the script's seconds so far."""
+    print(f"{header} ({time.monotonic() - t_start:.1f} s in)", flush=True)
+
+
+def vs_ms(fn, *args) -> tuple[object, float]:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_vs(gen, phase_shape) -> dict:
+    """(a) The default unet25d (``VSModelSettings()``) through the
+    ``Preprocessor`` (``[phase, vs]``) and the ``Tracker`` (``pcc`` on
+    ``vs_nuclei``) over two brightfield stacks of ``phase_shape`` (phase
+    4l's, the TF from its host cache) shifted LF_SHIFT: the first and the
+    warm (second) VS and update ms and the peak; the shifts equal the
+    float32 run's and the bf16 ``vs_nuclei`` within VS_BF16_RTOL of it.
+    (b) unext2 at Tiny widths, plane and voxel-stack heads, on the phase
+    volume: first and warm ms, peak, the error against the float32 run on
+    the planes VS_SLAB. (c) ``[deskew, phase, vs]`` on VS_CHAIN_RAW: one
+    deskew launch, the VS product against the float32 run."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    t_start = time.monotonic()
+    stack0 = focus_stack(phase_shape, gen)
+    stack1 = torch.roll(stack0, LF_SHIFT[1:], dims=(1, 2))
+    cfg = vs_track_config("vs_nuclei", ("phase", "vs"))
+    pre, tracker = Preprocessor(cfg), Tracker(cfg)
+    r0, first_ms = timed_update(tracker, pre, stack0, 0)
+    first_vs = vs_stage_ms(pre)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = pre.tracking_stack(stack1)
+    r1 = tracker.update(got, 1)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm_vs = vs_stage_ms(pre)
+    phase_vol = pre(stack0, run_vs=False)["phase"]
+    flops = vs_volume_flops(pre.stainer, tuple(phase_vol.shape))
+    batch = pre.stainer.settings.batch_slices
+    del pre, tracker
+    torch.cuda.empty_cache()
+    t32 = time.monotonic()
+    pre32, tracker32 = Preprocessor(cfg), Tracker(cfg)
+    vs_float32(pre32.stainer)
+    want0 = tracker32.update(pre32.tracking_stack(stack0), 0).shift_px_zyx
+    ref = pre32.tracking_stack(stack1)
+    want1 = tracker32.update(ref, 1).shift_px_zyx
+    f32_s = time.monotonic() - t32
+    del pre32, tracker32
+    compare("unet25d vs_nuclei bf16 vs its float32 run", got, ref, VS_BF16_RTOL)
+    err = rel_err(got, ref)
+    del got, ref, stack0, stack1
+    torch.cuda.empty_cache()
+    if not (np.array_equal(r0.shift_px_zyx, want0) and np.array_equal(r1.shift_px_zyx, want1)):
+        raise AssertionError(f"VS pcc {r0.shift_px_zyx}, {r1.shift_px_zyx} against the float32 "
+                             f"run's {want0}, {want1}")
+    unet = {"shape": phase_shape, "batch": batch, "shift": r1.shift_px_zyx.tolist(),
+            "first_vs_ms": first_vs, "vs_ms": warm_vs, "first_update_ms": first_ms,
+            "update_ms": warm_ms, "peak_gib": peak, "rel_err": err, "tflop": flops / 1e12,
+            "bound_ms": flops / BF16_PEAK * 1e3, "float32_s": f32_s,
+            "seconds": time.monotonic() - t_start}
+    print(f"  unet25d (base 64, depth 3, batch {batch}) at {phase_shape}: VS {warm_vs:.1f} ms "
+          f"warm, "
+          f"{first_vs:.1f} first ({flops / 1e12:.1f} TFLOP, bound {unet['bound_ms']:.1f} ms at "
+          f"the bf16 peak); update {warm_ms:.1f} ms warm, {first_ms:.1f} first; peak "
+          f"{peak:.2f} GiB; shift {unet['shift']} (float32 run {want1.tolist()}; injected "
+          f"{list(LF_SHIFT)}); vs_nuclei rel err {err:.3e} against float32 (its two updates "
+          f"{f32_s:.1f} s); (a) took {unet['seconds']:.1f} s", flush=True)
+
+    nets = {}
+    for label, kw in VS_NETS.items():
+        t_net = time.monotonic()
+        stainer = VirtualStainer(vs_settings(**kw))
+        t0 = time.perf_counter()
+        _, counts, net_peak = drive(lambda v: stainer.predict(v)["vs_nuclei"], phase_vol, {})
+        first = (time.perf_counter() - t0) * 1e3
+        _, ms = vs_ms(stainer.predict, phase_vol)
+        slab = phase_vol[VS_SLAB]
+        out = stainer.predict(slab)["vs_nuclei"]
+        ref = vs_float32(stainer).predict(slab)["vs_nuclei"]
+        compare(f"{label} vs_nuclei bf16 vs its float32 run, planes {VS_SLAB.start}-"
+                f"{VS_SLAB.stop - 1}", out, ref, VS_BF16_RTOL)
+        flops = vs_volume_flops(stainer, tuple(phase_vol.shape))
+        nets[label] = {"ms": ms, "first_ms": first, "peak_gib": net_peak,
+                       "rel_err": rel_err(out, ref), "tflop": flops / 1e12,
+                       "bound_ms": flops / BF16_PEAK * 1e3,
+                       "seconds": time.monotonic() - t_net}
+        print(f"  {label} (blocks {UNEXT2_TINY['encoder_blocks']}, dims "
+              f"{UNEXT2_TINY['dims']}, in_slices {kw['in_slices']}): {ms:.1f} ms warm, "
+              f"{first:.1f} first ({flops / 1e12:.1f} TFLOP, bound "
+              f"{nets[label]['bound_ms']:.1f} ms), peak {net_peak:.2f} GiB, rel err "
+              f"{nets[label]['rel_err']:.3e} against float32; took "
+              f"{nets[label]['seconds']:.1f} s", flush=True)
+        del stainer, out, ref
+        torch.cuda.empty_cache()
+    del phase_vol
+    torch.cuda.empty_cache()
+
+    t_chain = time.monotonic()
+    raw = uniform(VS_CHAIN_RAW, gen, 90.0, 110.0)
+    chain = vs_track_config("vs_nuclei", ("deskew", "phase", "vs"),
+                            deskew=vars(headline_settings().deskew))
+    pre = Preprocessor(chain)
+    t0 = time.perf_counter()
+    out, counts, _ = drive(lambda r: pre(r)["vs_nuclei"], raw, {"deskew": 1})
+    chain_s = time.perf_counter() - t0
+    _, chain_ms = vs_ms(lambda r: pre(r)["vs_nuclei"], raw)
+    shape = tuple(pre(raw, run_vs=False)["phase"].shape)
+    pre32 = Preprocessor(chain)
+    vs_float32(pre32.stainer)
+    ref = pre32(raw)["vs_nuclei"]
+    compare("[deskew, phase, vs] vs_nuclei bf16 vs its float32 run", out, ref, VS_BF16_RTOL)
+    res_c = {"raw": VS_CHAIN_RAW, "shape": shape, "deskew_launches": counts["deskew"],
+             "first_s": chain_s, "ms": chain_ms, "rel_err": rel_err(out, ref),
+             "seconds": time.monotonic() - t_chain}
+    print(f"  [deskew, phase, vs] at raw {VS_CHAIN_RAW} (phase {shape}): "
+          f"{counts['deskew']} deskew launch, first {chain_s:.2f} s (host TF included), warm "
+          f"{chain_ms:.1f} ms, rel err {res_c['rel_err']:.3e} against float32; took "
+          f"{res_c['seconds']:.1f} s", flush=True)
+    del pre, pre32, raw, out, ref
+    torch.cuda.empty_cache()
+    return {"unet25d": unet, "unext2": nets, "chain": res_c,
+            "seconds": time.monotonic() - t_start}
+
+
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
     geometry (the one-launch half-step and its circular build, the whole
@@ -3155,52 +3377,56 @@ def main(argv) -> int:
     band = phase_band(gen)
     torch.cuda.empty_cache()
     steps = Steps(gen)
-    print("[4] main path: deskew + RL-20 at raw (1201, 256, 1600)", flush=True)
+    stamp(t_start, "[4] main path: deskew + RL-20 at raw (1201, 256, 1600)")
     step = phase_step(steps)
     torch.cuda.empty_cache()
-    print("[4b] deskew + Biggs RL-10 (in-kernel) at raw (1201, 256, 1600)", flush=True)
+    stamp(t_start, "[4b] deskew + Biggs RL-10 (in-kernel) at raw (1201, 256, 1600)")
     biggs = phase_biggs(steps)
     torch.cuda.empty_cache()
-    print("[4c] the same steps on separable_backend linear_pallas", flush=True)
+    stamp(t_start, "[4c] the same steps on separable_backend linear_pallas")
     rl20 = step.pop("out")
     lin = phase_linear(steps, rl20, biggs.pop("out"))
     torch.cuda.empty_cache()
-    print("[4d] deskew + RL-20 and Biggs RL-10 on separable_backend zy_pallas", flush=True)
+    stamp(t_start, "[4d] deskew + RL-20 and Biggs RL-10 on separable_backend zy_pallas")
     zyp = phase_zy(steps)
     torch.cuda.empty_cache()
-    print("[4e] deskew + RL-20 on separable_backend matmul", flush=True)
+    stamp(t_start, "[4e] deskew + RL-20 on separable_backend matmul")
     mmp = phase_matmul(steps)
     torch.cuda.empty_cache()
-    print("[4f] deskew + RL-20 and Biggs RL-10 on separable_backend fused_iter", flush=True)
+    stamp(t_start, "[4f] deskew + RL-20 and Biggs RL-10 on separable_backend fused_iter")
     fip = phase_fused_iter(steps, rl20)
     del rl20
     torch.cuda.empty_cache()
-    print(f"[4g] estimate_registration (pcc+refine, defaults) at {deskewed_shape()}", flush=True)
+    stamp(t_start, f"[4g] estimate_registration (pcc+refine, defaults) at {deskewed_shape()}")
     reg = phase_register(gen, parent_aff)
     torch.cuda.empty_cache()
-    print("[4h] deskew + register-apply + RL-20 at raw (1201, 256, 1600)", flush=True)
+    stamp(t_start, "[4h] deskew + register-apply + RL-20 at raw (1201, 256, 1600)")
     sreg = phase_step_reg(steps)
     del steps
     torch.cuda.empty_cache()
     t_fft = time.monotonic()
-    print(f"[4i] bench.py config 6: RL-20 with tilted_gaussian_psf() (non-separable) at "
-          f"{NONSEP_SHAPE}, fft_backend auto", flush=True)
+    stamp(t_start, f"[4i] bench.py config 6: RL-20 with tilted_gaussian_psf() (non-separable) at "
+          f"{NONSEP_SHAPE}, fft_backend auto")
     nvol, npsf = uniform(NONSEP_SHAPE, gen, 0.0, 100.0), nonsep_psf()
     nonsep = phase_nonsep(nvol, npsf)
     torch.cuda.empty_cache()
-    print("[4j] bench.py config 8: hybrid, 16 warm + 6 exact iterations", flush=True)
+    stamp(t_start, "[4j] bench.py config 8: hybrid, 16 warm + 6 exact iterations")
     hyb8 = phase_hybrid(nvol, npsf, "config8")
     torch.cuda.empty_cache()
-    print("[4k] bench.py config 9: hybrid with Biggs, 16 warm + 3 exact iterations", flush=True)
+    stamp(t_start, "[4k] bench.py config 9: hybrid with Biggs, 16 warm + 3 exact iterations")
     hyb9 = phase_hybrid(nvol, npsf, "config9")
     del nvol
     torch.cuda.empty_cache()
-    print("[4l] phase reconstruction of a brightfield stack", flush=True)
+    stamp(t_start, "[4l] phase reconstruction of a brightfield stack")
     ph = phase_phase(gen)
     fft_s = time.monotonic() - t_fft
-    print(f"[4m] tracking: deskew + each method at raw {RAW_SHAPE}; phase + pcc at "
-          f"{ph['shape']}", flush=True)
+    stamp(t_start, f"[4m] tracking: deskew + each method at raw {RAW_SHAPE}; phase + pcc at "
+          f"{ph['shape']}")
     trk = phase_track(gen, ph["shape"])
+    torch.cuda.empty_cache()
+    stamp(t_start, f"[4n] virtual staining: unet25d through the tracker at {ph['shape']}; "
+          f"unext2 at ConvNeXt-V2 Tiny widths; [deskew, phase, vs] at raw {VS_CHAIN_RAW}")
+    vs = phase_vs(gen, ph["shape"])
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -3285,6 +3511,16 @@ def main(argv) -> int:
           f"{trk['lf']['shape']} {trk['lf']['warm_ms']:.1f} ms warm, {trk['lf']['first_ms']:.1f} "
           f"first; focus {trk['lf']['focus_ms']:.3f} ms; phase 4m took {trk['seconds']:.1f} s",
           flush=True)
+    print(f"[5] {card}: virtual staining at {vs['unet25d']['shape']}: unet25d VS "
+          f"{vs['unet25d']['vs_ms']:.1f} ms warm (bound {vs['unet25d']['bound_ms']:.1f}), "
+          f"{vs['unet25d']['first_vs_ms']:.1f} first, update {vs['unet25d']['update_ms']:.1f} ms, "
+          f"peak {vs['unet25d']['peak_gib']:.2f} GiB at batch {vs['unet25d']['batch']}, rel err "
+          f"{vs['unet25d']['rel_err']:.3e}; "
+          + ", ".join(f"{k} {v['ms']:.1f} ms (bound {v['bound_ms']:.1f}), peak "
+                      f"{v['peak_gib']:.2f} GiB, rel err {v['rel_err']:.3e}"
+                      for k, v in vs["unext2"].items())
+          + f"; chain {vs['chain']['ms']:.1f} ms, rel err {vs['chain']['rel_err']:.3e}; phase 4n "
+          f"took {vs['seconds']:.1f} s", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",

@@ -93,6 +93,13 @@ production raw) under ``torch.profiler`` as above, and sums the device
 events by kind (:func:`track_kind`): transforms, the deskew kernel, the
 blur's convolutions, reductions and scans, copies, the elementwise rest.
 
+``python3 profile_step.py --vs`` runs one warm ``VirtualStainer.predict``
+of the default unet25d and of unext2 at ConvNeXt-V2 Tiny widths
+(``chip_smoke.py`` phase 4n's nets, seeded weights) on a (64, 2048, 2048)
+volume under ``torch.profiler`` as above, and sums the device events by
+kind (:func:`vs_kind`): convolutions (cuDNN), dense products (cuBLAS),
+normalisation and elementwise, copies.
+
 ``python3 profile_step.py --zband`` times the band kernel
 ``csrc/zband.cu`` beside builds of the edits in :data:`ZBAND_VARIANTS`
 (a cap on registers for more warps an SM, smaller blocks, the taps read
@@ -166,6 +173,22 @@ def track_kind(name: str) -> str:
     if any(k in low for k in ("memcpy", "copy", "index", "cat", "gather", "scatter")):
         return "copies"
     return "elementwise"
+
+
+def vs_kind(name: str) -> str:
+    """The kind of a device event of a VS forward: convolutions (cuDNN's
+    implicit GEMMs, PyTorch's depthwise kernel), dense products (cuBLAS's
+    GEMMs and ``nvjet`` kernels), copies (casts, layout transforms, concat,
+    gathers), or normalisation and elementwise."""
+    low = name.lower()
+    if any(k in low for k in ("fprop", "implicit", "conv", "winograd", "cudnn")):
+        return "convolutions"
+    if any(k in low for k in ("gemm", "matmul", "nvjet")):
+        return "products"
+    if any(k in low for k in ("memcpy", "copy", "cat", "index", "gather", "scatter", "nchw",
+                              "nhwc", "transpose", "shuffle")):
+        return "copies"
+    return "normalisation and elementwise"
 
 
 def profile(step, batch, kind_of=kind) -> dict:
@@ -329,6 +352,23 @@ def profile_track(cs) -> None:
         profile(lambda raw: tracker.update(pre.tracking_stack(raw), cs.TRACK_TIMEPOINTS - 1),
                 raws[-1], track_kind)
         del pre, tracker
+        torch.cuda.empty_cache()
+
+
+def profile_vs(cs) -> None:
+    """One warm ``predict`` of each net of phase 4n under the profiler, by
+    ``vs_kind``."""
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    vol = cs.uniform(cs.PHASE_SHAPE, gen, -1.0, 1.0)
+    for label, kw in (("unet25d (VSModelSettings())", {}),
+                      ("unext2 plane head", cs.VS_NETS["unext2 plane head"])):
+        stainer = VirtualStainer(vs_settings(**kw))
+        print(f"== {label}: one warm predict at {cs.PHASE_SHAPE}", flush=True)
+        profile(stainer.predict, vol, vs_kind)
+        del stainer
         torch.cuda.empty_cache()
 
 
@@ -1235,6 +1275,9 @@ def main() -> int:
         return 0
     if "--track" in sys.argv[1:]:
         profile_track(cs)
+        return 0
+    if "--vs" in sys.argv[1:]:
+        profile_vs(cs)
         return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)

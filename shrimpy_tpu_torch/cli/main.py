@@ -304,10 +304,7 @@ def track(input, config_path, output, device):
     if cfg.preprocessing:
         from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
 
-        try:
-            preprocessor = Preprocessor(cfg, device=dev)
-        except NotImplementedError as exc:
-            raise click.ClickException(str(exc)) from None
+        preprocessor = Preprocessor(cfg, device=dev)
         c = _channel_index(pos.channel_names, cfg.input_channel)
         # Deskew changes the voxel grid: px->um conversion and the um
         # limits must use the PROCESSED stack's scale.

@@ -21,6 +21,8 @@ from __future__ import annotations
 
 from types import SimpleNamespace
 
+from shrimpy_tpu_torch.config.vs_sidecar import DEFAULT_OUT_CHANNELS, read_vs_sidecar
+
 # Names served lazily from config/schemas.py (pydantic + yaml).
 _SCHEMA_NAMES = (
     "DeconvolveSettings",
@@ -202,8 +204,14 @@ def reconstruct_settings(**overrides) -> SimpleNamespace:
 def dynatrack_settings(**overrides) -> SimpleNamespace:
     """``DynaTrackConfig`` as a namespace; each nested block (``shift``,
     ``segmentation``, ``roi_center``, ``template``) a dict of overrides
-    of its defaults or a namespace. ``deskew`` and ``phase`` stay dicts,
-    as in the schema. The method checks of the schema's validator hold."""
+    of its defaults or a namespace. ``deskew``, ``phase`` and
+    ``virtual_staining`` stay dicts, as in the schema. Every rule of the
+    schema's validator holds, with its messages: the method checks, the
+    channel-name rules (a ``vs_*`` tracking channel must be among the
+    ``out_channels`` of ``virtual_staining``, of its checkpoint's sidecar or
+    the defaults), the allowed steps and ``vs`` after ``phase``; the
+    ``deskew`` and ``phase`` dicts must name known fields. A
+    ``tracking_channel`` left unset (None) skips the channel rules."""
     ns = _make(DYNATRACK_DEFAULTS, overrides)
     for name, defaults in DYNATRACK_PARTS.items():
         given = getattr(ns, name)
@@ -214,7 +222,110 @@ def dynatrack_settings(**overrides) -> SimpleNamespace:
                          f"use one of {TRACKING_METHODS}")
     if ns.tracking_method == "template_matching" and ns.template.slice_zyx is None:
         raise ValueError("tracking_method='template_matching' requires template.slice_zyx")
+    channel = ns.tracking_channel
+    if channel in ("raw", "phase", "deskewed"):
+        raise ValueError(
+            f"tracking_channel={channel!r} names an intermediate product; use the input "
+            "channel name or a virtual_staining target channel")
+    if channel is not None and channel.startswith("vs_"):
+        vs = ns.virtual_staining or {}
+        targets = vs.get("out_channels")
+        if targets is None and vs.get("ckpt_path"):
+            sidecar = read_vs_sidecar(vs["ckpt_path"])
+            if sidecar is not None:
+                targets = sidecar.get("out_channels")
+        if targets is None and not vs.get("ckpt_path"):
+            targets = DEFAULT_OUT_CHANNELS
+        if targets is not None and channel not in targets:
+            raise ValueError(f"tracking_channel={channel!r} is not among "
+                             f"virtual_staining out_channels={targets}")
+    if ns.preprocessing:
+        unknown = set(ns.preprocessing) - {"deskew", "phase", "vs"}
+        if unknown:
+            raise ValueError(f"Unknown preprocessing steps: {sorted(unknown)}")
+        if "vs" in ns.preprocessing and "phase" not in ns.preprocessing:
+            raise ValueError("'vs' preprocessing requires 'phase' first")
+    if ns.deskew is not None:
+        deskew_settings(**ns.deskew)
+    if ns.phase is not None:
+        phase_settings(**ns.phase)
     return ns
+
+
+UNET25D_DEFAULTS = {"base_width": 64, "depth": 3}
+
+UNEXT2_DEFAULTS = {
+    "encoder_blocks": [2, 2, 4],
+    "dims": [48, 96, 192],
+    "decoder_conv_blocks": 1,
+    "stem_kernel_z": None,
+    "head_conv_expansion_ratio": 4,
+    "out_stack_depth": 1,
+}
+
+ARCH_DEFAULTS = {"unet25d": UNET25D_DEFAULTS, "unext2": UNEXT2_DEFAULTS}
+
+VS_DEFAULTS = {
+    "architecture": "unet25d",
+    "arch_config": None,
+    "in_slices": 5,
+    "out_channels": DEFAULT_OUT_CHANNELS,
+    "base_width": 64,
+    "depth": 3,
+    "ckpt_path": None,
+    "seed": 0,
+    "batch_slices": 8,
+    "window_step": 1,
+}
+
+
+def arch_config_dict(architecture: str, cfg: dict) -> dict:
+    """``UNet25DConfig(**cfg).model_dump()`` or ``UNeXt2Config``'s, with
+    their checks and messages: unknown keys are rejected, unext2 needs
+    ``encoder_blocks`` and ``dims`` of one length, at least 2 stages and
+    ``out_stack_depth >= 1``."""
+    if architecture not in ARCH_DEFAULTS:
+        raise ValueError(f"architecture={architecture!r}; use one of {sorted(ARCH_DEFAULTS)}")
+    defaults = ARCH_DEFAULTS[architecture]
+    unknown = set(cfg) - set(defaults)
+    if unknown:
+        raise ValueError(f"unknown {architecture} arch_config fields: {sorted(unknown)}")
+    out = {**defaults, **cfg}
+    if architecture == "unext2":
+        out["encoder_blocks"], out["dims"] = list(out["encoder_blocks"]), list(out["dims"])
+        if len(out["encoder_blocks"]) != len(out["dims"]):
+            raise ValueError(
+                f"encoder_blocks ({len(out['encoder_blocks'])}) and dims "
+                f"({len(out['dims'])}) must have the same number of stages")
+        if len(out["dims"]) < 2:
+            raise ValueError("unext2 needs at least 2 stages")
+        if out["out_stack_depth"] < 1:
+            raise ValueError("out_stack_depth must be >= 1")
+    return out
+
+
+def vs_settings(**overrides) -> SimpleNamespace:
+    """``VSModelSettings`` (the ``virtual_staining`` block) as a namespace.
+    ``fields_set`` holds the names given, as pydantic's ``model_fields_set``
+    does: the checkpoint's sidecar may fill only the others."""
+    ns = _make(VS_DEFAULTS, overrides)
+    if ns.architecture not in ARCH_DEFAULTS:
+        raise ValueError(f"architecture={ns.architecture!r}; use one of {sorted(ARCH_DEFAULTS)}")
+    ns.out_channels = list(ns.out_channels)
+    ns.fields_set = frozenset(overrides)
+    return ns
+
+
+def resolved_arch_config(settings) -> SimpleNamespace:
+    """``VSModelSettings.resolved_arch_config()``: ``arch_config`` checked
+    against the architecture's fields, the unet25d top-level ``base_width``
+    and ``depth`` filling what it leaves unset. ``settings`` is read by
+    attribute (this package's namespace or a pydantic model)."""
+    cfg = dict(settings.arch_config or {})
+    if settings.architecture == "unet25d":
+        cfg.setdefault("base_width", settings.base_width)
+        cfg.setdefault("depth", settings.depth)
+    return SimpleNamespace(**arch_config_dict(settings.architecture, cfg))
 
 
 def require_ratio(deskew) -> float:

@@ -2,7 +2,7 @@
 ``shrimpy_tpu/tracking/preprocess.py``).
 
 :class:`Preprocessor` maps a raw ZYX stack to a dict of products
-(``"raw"``, ``"deskewed"``, ``"phase"``), each a tensor on the stack's
+(``"raw"``, ``"deskewed"``, ``"phase"``, ``"vs_*"``), each a tensor on the stack's
 device; the tracker consumes ``config.tracking_channel`` from it
 (:meth:`Preprocessor.tracking_stack`). The steps are the port's own:
 
@@ -17,41 +17,46 @@ device; the tracker consumes ``config.tracking_channel`` from it
   call (~5 GB at (74, 2048, 2048)). ``timer`` keeps ``phase_tf`` (host TF
   and its move) apart from ``phase`` (the inverse).
 
-Virtual staining (``"vs"``) is ROADMAP queue 1 item 10 and raises.
+* virtual staining (``"vs"``) through
+  :class:`~shrimpy_tpu_torch.models.vsunet.VirtualStainer` on the phase
+  volume, its YX reflect-padded up to the net's multiple and the products
+  (``"vs_nuclei"``, ...) cropped back; the weights go to the volume's
+  device at the first update. :meth:`Preprocessor.tracking_stack` skips it
+  when the tracking channel is not a VS product.
 
 The config is read by attribute: a pydantic ``DynaTrackConfig`` of either
 package or :func:`shrimpy_tpu_torch.config.dynatrack_settings`. Its
-``deskew`` and ``phase`` dicts become the port's settings namespaces
-(:func:`~shrimpy_tpu_torch.config.deskew_settings`,
-:func:`~shrimpy_tpu_torch.config.phase_settings`); a listed step without
-its block runs with the defaults, never a silent skip.
+``deskew``, ``phase`` and ``virtual_staining`` dicts become the port's
+settings namespaces (:func:`~shrimpy_tpu_torch.config.deskew_settings`,
+:func:`~shrimpy_tpu_torch.config.phase_settings`,
+:func:`~shrimpy_tpu_torch.config.vs_settings`); a listed step without its
+block runs with the defaults, never a silent skip.
 """
 
 from __future__ import annotations
 
 import torch
 
-from shrimpy_tpu_torch.config import deskew_settings, phase_settings
+from shrimpy_tpu_torch.config import deskew_settings, phase_settings, vs_settings
 from shrimpy_tpu_torch.utils.device import as_tensor
+from shrimpy_tpu_torch.utils.fft import _pad
 from shrimpy_tpu_torch.utils.timing import StageTimer
 
 
 class Preprocessor:
-    """Configured deskew/phase chain over raw ZYX stacks. A tensor stays on
-    its device; a numpy array goes to ``device`` (the card when None;
+    """Configured deskew/phase/VS chain over raw ZYX stacks. A tensor stays
+    on its device; a numpy array goes to ``device`` (the card when None;
     ``"cpu"`` asks for the CPU). ``dtype`` float64 is the reference run:
-    the plain deskew and the phase inverse in float64."""
+    the plain deskew and the phase inverse in float64; the VS net
+    normalises in float32 and computes in its ``compute_dtype`` whatever
+    ``dtype`` is (``stainer.model.compute_dtype = torch.float32`` makes its
+    reference run)."""
 
     def __init__(self, config, *, device=None, dtype: torch.dtype = torch.float32):
         self.config = config
         self.device = device
         self.dtype = dtype
         self.steps = tuple(config.preprocessing or ())
-        if "vs" in self.steps:
-            raise NotImplementedError(
-                "virtual staining ('vs' preprocessing) is not ported yet "
-                "(ROADMAP queue 1 item 10)"
-            )
         self.deskew = deskew_settings(**(config.deskew or {})) if "deskew" in self.steps else None
         self.phase = None
         if "phase" in self.steps:
@@ -60,11 +65,17 @@ class Preprocessor:
             if unknown:
                 raise TypeError(f"unknown phase settings fields: {sorted(unknown)}")
             self.phase = phase_settings(**parts)
+        self.stainer = None
+        if "vs" in self.steps:
+            from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+
+            self.stainer = VirtualStainer(vs_settings(**(config.virtual_staining or {})),
+                                          device=device)
         self.timer = StageTimer()
         self._tf_key = None
         self._tf = None
 
-    def __call__(self, raw_zyx) -> dict[str, torch.Tensor]:
+    def __call__(self, raw_zyx, *, run_vs: bool = True) -> dict[str, torch.Tensor]:
         out = {"raw": as_tensor(raw_zyx, self.device).to(self.dtype)}
         vol = out["raw"]
         if self.deskew is not None:
@@ -87,6 +98,11 @@ class Preprocessor:
                     vol, tf, self.phase.apply_inverse, z_padding=tfs.z_padding,
                     dtype=self.dtype)
             out["phase"] = vol
+        if self.stainer is not None and run_vs:
+            with self.timer.stage("vs"):
+                preds = self.stainer.predict(_pad_for_unet(vol, self.stainer.pad_exp))
+            for name, pred in preds.items():
+                out[name] = pred[..., : vol.shape[1], : vol.shape[2]]
         return out
 
     def _device_tf(self, vol: torch.Tensor) -> torch.Tensor:
@@ -130,12 +146,26 @@ class Preprocessor:
     def tracking_stack(self, raw_zyx) -> torch.Tensor:
         """The stack the tracker consumes (``config.tracking_channel``): the
         product of that name, else (the input channel's name) the most
-        processed product."""
+        processed product before VS. VS runs only when the channel is one of
+        its targets: with ``[deskew, phase, vs]`` and the input channel, an
+        inference a timepoint would make an output nobody reads. (The JAX
+        package skips VS only for the intermediate products' names, which
+        the config's channel rules reject, so there it always runs; the
+        stack returned is the same.)"""
         channel = self.config.tracking_channel
-        products = self(raw_zyx)
+        needs_vs = self.stainer is not None and channel in self.stainer.settings.out_channels
+        products = self(raw_zyx, run_vs=needs_vs)
         if channel in products:
             return products[channel]
         for key in ("phase", "deskewed", "raw"):
             if key in products:
                 return products[key]
         raise KeyError(channel)
+
+
+def _pad_for_unet(vol: torch.Tensor, depth: int) -> torch.Tensor:
+    """YX reflect-padded up to multiples of ``2**depth`` (cropped back
+    after), as ``np.pad(mode="reflect")``."""
+    m = 2**depth
+    py, px = (-vol.shape[1]) % m, (-vol.shape[2]) % m
+    return _pad(vol, ((0, 0), (0, py), (0, px)), "reflect") if py or px else vol

@@ -1715,3 +1715,91 @@ def test_tracker_on_card_matches_float64(cuda, method):
         np.testing.assert_allclose(got[2], [0.0, 4 / 0.386, 6.0], atol=1.0)
     for ref in tracker._references.values():
         assert ref.device.type == "cpu" and ref.is_pinned()
+
+
+# Virtual staining: the nets of tests/test_torch_vs.py on the card.
+VS_NETS = {
+    "unet25d": {"architecture": "unet25d", "base_width": 8, "depth": 2, "in_slices": 3},
+    "unext2": {"architecture": "unext2", "in_slices": 3,
+               "arch_config": {"encoder_blocks": [1, 1], "dims": [8, 16]}},
+    "unext2_stack": {"architecture": "unext2", "in_slices": 15, "window_step": 2,
+                     "arch_config": {"encoder_blocks": [1, 1], "dims": [12, 24],
+                                     "stem_kernel_z": 5, "out_stack_depth": 5}},
+}
+# bf16 against the float32 run of the same weights: the rounding of a net
+# ~10 layers deep at these narrow widths (5e-2 of the scale on the CPU).
+VS_BF16_RTOL = 1e-1
+
+
+@pytest.mark.parametrize("name", list(VS_NETS))
+def test_vs_predict_on_card_matches_float32_run(cuda, name):
+    """bf16 ``predict`` on the card against the float32-compute run of the
+    same weights on the card; that float32 run within 1e-4 of the CPU's,
+    with TF32 allowed globally (the nets turn it off: TF32 would give
+    ~1e-3); the outputs stay on the card."""
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+
+    stainer = VirtualStainer(vs_settings(**VS_NETS[name], batch_slices=4))
+    vol = _rand((11, 64, 96), 80, cuda, 0.0, 5.0)
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        got = stainer.predict(vol)
+        stainer.model.compute_dtype = torch.float32
+        ref = stainer.predict(vol)
+        assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == (True,
+                                                                                            True)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = before
+    cpu = stainer.predict(vol.cpu())
+    for key in ("vs_nuclei", "vs_membrane"):
+        assert got[key].is_cuda and got[key].shape == vol.shape
+        assert _rel(got[key], ref[key]) <= VS_BF16_RTOL
+        assert _rel(ref[key].cpu(), cpu[key]) <= 1e-4
+
+
+class _VSWindows(torch.nn.Module):
+    """A stand-in voxel-stack net: its window's centre planes as normalised
+    (``tests/test_torch_vs.py::_Windows``)."""
+
+    out_stack_depth = 5
+
+    def forward(self, x):
+        off = (x.shape[1] - self.out_stack_depth) // 2
+        centre = x[:, off:off + self.out_stack_depth]
+        return torch.stack([centre, -centre], 1)
+
+
+@pytest.mark.parametrize("step", [1, 2, 5])
+def test_infer_volume_stack_counts_on_card(cuda, step):
+    """The window sums by ``index_add_`` on the card divide out to the
+    normalised input plane for plane, every step up to d."""
+    from shrimpy_tpu_torch.models.vsunet import infer_volume_stack
+
+    vol = _rand((37, 16, 24), 81 + step, cuda)
+    out = infer_volume_stack(_VSWindows(), vol, in_slices=9, out_stack_depth=5, step=step,
+                             n_out=2, batch=4)
+    norm = (vol - vol.mean()) / (vol.std(correction=0) + 1e-6)
+    assert out.is_cuda and _rel(out[0], norm) <= 1e-6 and _rel(-out[1], norm) <= 1e-6
+
+
+def test_vs_step_keeps_its_products_on_the_card(cuda):
+    """``[phase, vs]`` on a card tensor and on a host array (which goes to
+    the card): every product on the card, the VS products the size of the
+    phase (reflect-padded to the net's multiple and cropped back)."""
+    from shrimpy_tpu_torch.config import dynatrack_settings
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    cfg = dynatrack_settings(
+        input_channel="BF", tracking_channel="vs_nuclei", preprocessing=["phase", "vs"],
+        phase={"transfer_function": {"yx_pixel_size": 0.116, "z_pixel_size": 0.25}},
+        virtual_staining=VS_NETS["unet25d"])
+    pre = Preprocessor(cfg)
+    raw = _rand((9, 30, 42), 82, cuda, 0.9, 1.1)
+    for stack in (raw, raw.cpu().numpy()):
+        out = pre(stack)
+        assert set(out) == {"raw", "phase", "vs_nuclei", "vs_membrane"}
+        assert all(v.is_cuda for v in out.values())
+        assert out["vs_nuclei"].shape == out["phase"].shape == raw.shape
+    assert pre.tracking_stack(raw).is_cuda

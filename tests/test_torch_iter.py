@@ -426,7 +426,7 @@ def test_donate_input_matches_and_consumes(backend):
 @pytest.mark.parametrize("entry", ["richardson_lucy", "deskew_volume", "build_reconstruct_step",
                                    "reconstruct_batch", "Tracker.update", "Preprocessor",
                                    "gaussian_blur", "match_template",
-                                   "focus_from_transverse_band"])
+                                   "focus_from_transverse_band", "VirtualStainer.predict"])
 def test_numpy_input_without_device_asks_for_the_card(entry, monkeypatch):
     """A host array with no ``device`` goes to the card, so without one it
     raises; it never runs the plain versions on the CPU unasked. A tensor
@@ -434,6 +434,7 @@ def test_numpy_input_without_device_asks_for_the_card(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     from shrimpy_tpu_torch import config as tconfig
     from shrimpy_tpu_torch.engine.autofocus import focus_from_transverse_band
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
     from shrimpy_tpu_torch.ops.features import gaussian_blur
     from shrimpy_tpu_torch.ops.match import match_template
     from shrimpy_tpu_torch.tracking import Tracker
@@ -455,6 +456,8 @@ def test_numpy_input_without_device_asks_for_the_card(entry, monkeypatch):
         "match_template": lambda x: match_template(x, x[:4, :5, :6]),
         "focus_from_transverse_band": lambda x: torch.tensor(
             float(focus_from_transverse_band(x, pixel_size_um=0.116))),
+        "VirtualStainer.predict": lambda x: VirtualStainer(tconfig.vs_settings(
+            base_width=8, depth=2, in_slices=3)).predict(x)["vs_nuclei"],
     }
     with pytest.raises(RuntimeError, match=r"torch\.cuda\.is_available\(\)"):
         calls[entry](raw)
@@ -491,7 +494,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                     "shrimpy_tpu_torch.ops.affine_cuda",
                                     "shrimpy_tpu_torch.utils.fft",
                                     "shrimpy_tpu_torch.tracking.preprocess",
-                                    "shrimpy_tpu_torch.engine.autofocus"])
+                                    "shrimpy_tpu_torch.engine.autofocus",
+                                    "shrimpy_tpu_torch.models.convert"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no

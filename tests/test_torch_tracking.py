@@ -14,6 +14,7 @@ statement to the JAX module's.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -305,9 +306,59 @@ def test_tracking_scale_matches_jax():
 
 
 def test_virtual_staining_names_its_item():
-    with pytest.raises(NotImplementedError, match="item 10"):
-        Preprocessor(tconfig.dynatrack_settings(input_channel="BF", tracking_channel="BF",
-                                                preprocessing=["phase", "vs"]))
+    """Item 10's step is ported: ``[phase, vs]`` builds the stainer of the
+    ``virtual_staining`` block and adds its targets to the products
+    (``tests/test_torch_vs.py`` holds them against JAX)."""
+    pre = Preprocessor(tconfig.dynatrack_settings(
+        input_channel="BF", tracking_channel="vs_nuclei", preprocessing=["phase", "vs"],
+        phase={"transfer_function": {"yx_pixel_size": 0.116, "z_pixel_size": 0.25}},
+        virtual_staining={"base_width": 8, "depth": 2, "in_slices": 3}), device="cpu")
+    assert (pre.stainer.settings.base_width, pre.stainer.pad_exp) == (8, 2)
+    raw = np.random.default_rng(24).random((4, 16, 18)).astype(np.float32)
+    out = pre(raw)
+    assert set(out) == {"raw", "phase", "vs_nuclei", "vs_membrane"}
+    assert tuple(out["vs_nuclei"].shape) == raw.shape
+
+
+def _sidecar_dir(tmp_path, out_channels) -> str:
+    path = tmp_path / "ckpt"
+    path.mkdir(exist_ok=True)
+    (path / "vs_model.json").write_text(json.dumps({"format_version": 2,
+                                                     "out_channels": out_channels}))
+    return str(path)
+
+
+@pytest.mark.parametrize(("kw", "message"), [
+    ({"preprocessing": ["vs"]}, "'vs' preprocessing requires 'phase' first"),
+    ({"preprocessing": ["deskew", "blur"]}, "Unknown preprocessing steps: ['blur']"),
+    ({"tracking_channel": "phase"}, "tracking_channel='phase' names an intermediate product"),
+    ({"tracking_channel": "deskewed"}, "names an intermediate product"),
+    ({"tracking_channel": "vs_x"}, "'vs_x' is not among virtual_staining out_channels="
+                                   "['vs_nuclei', 'vs_membrane']"),
+    ({"tracking_channel": "vs_x", "virtual_staining": {"out_channels": ["vs_a"]}},
+     "out_channels=['vs_a']"),
+    ({"tracking_channel": "vs_x", "virtual_staining": {"ckpt_path": "SIDECAR"}},
+     "out_channels=['vs_a', 'vs_b']"),
+    ({"deskew": {"bogus": 1}}, "bogus"),
+])
+def test_dynatrack_settings_rejects_what_jax_rejects(kw, message, tmp_path):
+    """Every rule of ``DynaTrackConfig._check``, with its message: the
+    port's namespace and its pydantic copy reject each config JAX's rejects."""
+    if kw.get("virtual_staining", {}).get("ckpt_path") == "SIDECAR":
+        kw = {**kw, "virtual_staining": {"ckpt_path": _sidecar_dir(tmp_path, ["vs_a", "vs_b"])}}
+    base = {"input_channel": "BF", "tracking_channel": "BF", **kw}
+    for build in (JaxDynaTrackConfig, DynaTrackConfig):
+        with pytest.raises(ValueError) as exc:
+            build(**base)
+        assert message in str(exc.value)
+    with pytest.raises((ValueError, TypeError)) as exc:
+        tconfig.dynatrack_settings(**base)
+    assert message in str(exc.value)
+    # A checkpoint without a sidecar leaves the targets unknown: accepted.
+    ok = {"input_channel": "BF", "tracking_channel": "vs_x", "preprocessing": ["phase", "vs"],
+          "virtual_staining": {"ckpt_path": str(tmp_path / "none")}}
+    JaxDynaTrackConfig(**ok)
+    tconfig.dynatrack_settings(**ok)
 
 
 def test_preprocessor_then_tracker_matches_jax():
