@@ -212,6 +212,33 @@ Phases:
    ``[deskew, phase, vs]`` on a raw (427, 64, 256) (a YX the net pads): one
    deskew launch with the counts reset, against the float32 run; beside
    each net's ms its bound, its FLOPs over the dense bf16 peak;
+4o. virtual-staining training (``models/train.py``), weights from their
+   seeds, on four in-memory (16, 1024, 1024) volumes whose two targets are
+   fixed smooth functions of the input: the default unet25d and unext2 at
+   Tiny widths (plane head), 20 steps each at the CLI's batch 4 and patch
+   128 (learning rates 1e-3 and 1e-4: at 1e-3 the Tiny unext2 diverges),
+   then unet25d 10 steps at batch 16, patch 256, validation every 5
+   steps on one held-out volume: 3 steps of the module's AdamW step in bf16
+   against the same steps in float32 (no TF32) from the same weights and
+   batches (losses within 5e-2), the first and warm step's ms beside the
+   step's bound (3 forward FLOPs over the bf16 peak), the run with every
+   kernel count at 0 (no kernel of the repository: cuDNN and cuBLAS), its
+   peak, the validation loss falling, the best-weights rule (the last
+   evaluation reported worse than every earlier one: the returned weights
+   must be the copy taken at the best, not the live ones, and their
+   validation loss the best's), their checkpoint reloaded into a fresh
+   stainer whose ``predict`` is the trained one's within 1e-6;
+4p. ``BASELINE.md`` config 2: ``synthetic_ls_stack``'s beads (50 at raw
+   (400, 256, 1600), 30 degrees, ratio 0.386) rendered on the card, the PSF
+   measured through ``psf.py::measure_volume_psf`` (the deskew kernel, one
+   launch, then the host code; patch (31, 41, 41)) and on the CPU plain path
+   (equal bead count, the PSF within 1e-5 of its max); the FWHM beside the
+   rendered bead's; K, the cropped radii and the ``rl_half`` tile; deskew +
+   RL-20 on ``fused`` with that PSF at the production raw with the counts
+   reset (one deskew, 40 ``rl_half`` half-steps, each one launch or, past
+   the one-launch block, three a term): ms, GVox/s, peak; on the
+   deskewed volume RL-2 against float64 within 1.5e-6 and RL-20 on a
+   (32, 512, 512) crop within 1e-3;
 5. timings (kernel path and plain float32 path, warm, alternated plain,
    kernel, kernel, plain), launch counts (a path's plain versions must
    have run on no CUDA tensor), peak memory, then the kernel JSON line
@@ -2563,10 +2590,10 @@ def phase_hybrid(vol, psf, config: str) -> dict:
     separable backend the warm phase resolves to, the warm phase's and the
     tail's ms, the total and the peak. Counts: the warm phase alone with
     the counts reset, then the whole call, which must count exactly those
-    plus two band launches a tail iteration. The float64 check runs at the
-    depth of HYBRID_CHECK (the plain warm phase with K terms takes seconds
-    a half-step in float64): config 8 within STEP_RTOL, config 9 by the
-    two-tier Biggs gate."""
+    plus two band launches a tail iteration, each timed as counted. The
+    float64 check runs at the depth of HYBRID_CHECK (the plain warm phase
+    with K terms takes seconds a half-step in float64): config 8 within
+    STEP_RTOL, config 9 by the two-tier Biggs gate."""
     from shrimpy_tpu_torch.ops.deconv import (
         plan_hybrid_terms,
         prepare_psf,
@@ -2582,17 +2609,20 @@ def phase_hybrid(vol, psf, config: str) -> dict:
     terms, residual = plan_hybrid_terms(psf_w, s)
     plan_s = time.perf_counter() - t0
     backend = resolve_separable_backend(s.separable_backend, tuple(vol.shape), psf_w.shape)
+    # The counted runs are timed: build_all compiled the warm phase's kernel.
+    t0 = time.perf_counter()
     warm, warm_counts, _ = drive(
         lambda v: rl_separable(v, psf_w, terms, s, s.hybrid_separable_iters), vol, None)
+    warm_s = time.perf_counter() - t0
     warm_counts = {k: v for k, v in warm_counts.items() if v}
-    _, warm_s = wall_s(rl_separable, vol, psf_w, terms, s, s.hybrid_separable_iters)
     _, tail_s = wall_s(lambda: rl_fft(vol, psf_w, s, s.iterations, init=warm))
     del warm
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
     out, counts, peak = drive(lambda v: richardson_lucy(v, psf, s), vol,
                               {**warm_counts, "zband": 2 * s.iterations})
+    total_s = time.perf_counter() - t0
     del out
-    _, total_s = wall_s(richardson_lucy, vol, psf, s)
     torch.cuda.empty_cache()
     check = nonsep_settings(config)
     check.hybrid_separable_iters, check.iterations = HYBRID_CHECK[config]
@@ -3104,22 +3134,28 @@ def vs_stage_ms(pre) -> float:
     return [r.seconds for r in pre.timer.records if r.name == "vs"][-1] * 1e3
 
 
-def vs_volume_flops(stainer, shape) -> float:
-    """The convolutions' and products' FLOPs of one ``predict`` of a
-    ``shape`` volume: one forward's (counted by ``FlopCounterMode`` on the
-    ``meta`` device) times the windows."""
+def forward_flops(settings, batch: int, yx) -> float:
+    """The convolutions' and products' FLOPs of one forward of a (batch,
+    in_slices, *yx) batch (``FlopCounterMode`` on the ``meta`` device)."""
     from torch.utils.flop_counter import FlopCounterMode
 
     from shrimpy_tpu_torch.models.vsunet import build_model
 
-    net, _ = build_model(stainer.settings)
+    net, _ = build_model(settings)
     with FlopCounterMode(display=False) as fc:
-        net(torch.empty(1, stainer.settings.in_slices, *shape[1:], device="meta"))
-    d = net.out_stack_depth
+        net(torch.empty(batch, settings.in_slices, *yx, device="meta"))
+    return float(fc.get_total_flops())
+
+
+def vs_volume_flops(stainer, shape) -> float:
+    """The FLOPs of one ``predict`` of a ``shape`` volume: one window's
+    forward times the windows."""
+    settings = stainer.settings
+    flops = forward_flops(settings, 1, shape[1:])
+    d = stainer.model.out_stack_depth
     if d == 1:
-        return fc.get_total_flops() * shape[0]
-    last = shape[0] - d
-    return fc.get_total_flops() * (-(-last // stainer.settings.window_step) + 1)
+        return flops * shape[0]
+    return flops * (-(-(shape[0] - d) // settings.window_step) + 1)
 
 
 def stamp(t_start: float, header: str) -> None:
@@ -3256,6 +3292,373 @@ def phase_vs(gen, phase_shape) -> dict:
     torch.cuda.empty_cache()
     return {"unet25d": unet, "unext2": nets, "chain": res_c,
             "seconds": time.monotonic() - t_start}
+
+
+# --- Virtual-staining training (ROADMAP queue 1 item 10): the default
+# unet25d and unext2 at ConvNeXt-V2 Tiny widths (phase 4n's plane head), from
+# their seeds, on four in-memory volumes whose targets are fixed smooth
+# functions of the input, at the CLI's batch 4 and patch 128, then unet25d
+# at batch 16, patch 256. unet25d takes the CLI's learning rate 1e-3; at
+# 1e-3 the Tiny unext2 diverged on the card (its loss 2.1 -> 7.8e4 in 13
+# steps, in bf16 and in float32 alike: Adam's first steps move every weight
+# by the rate, 3072 of them into each output of a block's second pointwise
+# layer), so it takes 1e-4.
+TRAIN_SHAPE, TRAIN_VOLUMES = (16, 1024, 1024), 4
+TRAIN_TARGETS = ["vs_nuclei", "vs_membrane"]  # VSModelSettings()'s out_channels
+TRAIN_RUNS = (  # (net, settings, batch, patch, steps, learning rate)
+    ("unet25d", {}, 4, 128, 20, 1e-3),
+    ("unext2 plane head", VS_NETS["unext2 plane head"], 4, 128, 20, 1e-4),
+    ("unet25d", {}, 16, 256, 10, 1e-3),
+)
+TRAIN_VAL = {"val_fraction": 0.25, "val_every": 5}
+TRAIN_CHECK_STEPS = 3  # the bf16 steps held to the float32 run's
+TRAIN_F32_RTOL = 5e-2  # their losses, relative
+SNAPSHOT_RTOL = 1e-5  # the returned weights' validation loss against the best
+CKPT_RTOL = 1e-6  # a reloaded checkpoint's predict against the trained stainer's
+
+
+class MemoryPosition:
+    """One timepoint held in memory with a store position's interface
+    (``channel_names``, ``shape`` (T, C, Z, Y, X), ``volume(t, c)``): the
+    card's machine has no tensorstore. The targets are ``tanh(2 x)`` and
+    ``sin(3 x)`` of the input ``x``."""
+
+    channel_names = ["phase", *TRAIN_TARGETS]
+
+    def __init__(self, phase):
+        import numpy as np
+
+        self._channels = (phase, np.tanh(2 * phase), np.sin(3 * phase))
+        self.shape = (1, len(self._channels), *phase.shape)
+
+    def volume(self, t: int, c: int):
+        return self._channels[c]
+
+
+class ScriptedLast:
+    """``models/train.py::evaluate`` for ``train_positions``: each
+    evaluation's weights copied and its loss kept; the last of ``count``
+    evaluations is reported worse than any before it, so the best weights
+    are an earlier evaluation's, and the returned ones must be that copy
+    and not the live tensors."""
+
+    def __init__(self, evaluate, count: int):
+        self.evaluate, self.count = evaluate, count
+        self.losses, self.states = [], []
+
+    def __call__(self, model, x, y) -> float:
+        self.losses.append(self.evaluate(model, x, y))
+        self.states.append({k: v.detach().clone() for k, v in model.state_dict().items()})
+        if len(self.losses) == self.count:
+            return 2 * max(self.losses)
+        return self.losses[-1]
+
+
+def train_steps(stainer, batches, lr: float) -> tuple[list, list]:
+    """``models/train.py``'s AdamW and step on ``batches`` from the
+    stainer's weights: (losses, ms a step)."""
+    from shrimpy_tpu_torch.models.train import adamw, train_step
+
+    model = stainer.model.to("cuda").train()
+    opt = adamw(model, lr)
+    losses, ms = [], []
+    for x, y in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses.append(float(train_step(model, opt, x, y)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def phase_train() -> dict:
+    """Phase 4o: each run of TRAIN_RUNS. First TRAIN_CHECK_STEPS steps of
+    the module's step on sampled batches, from the seeded weights, in bf16
+    (the first and warm step's ms) and in float32 (no TF32): the losses
+    within TRAIN_F32_RTOL. Then ``train_positions`` (validation every 5
+    steps on a held-out volume of four) with every kernel count set to 0
+    (the nets run cuDNN and cuBLAS, no kernel of the repository) and its
+    evaluations through ScriptedLast: the validation loss falls, the
+    returned weights are bit for bit the copy taken at the best evaluation
+    and differ from the last's, their validation loss is the best's, their
+    checkpoint reloads into a fresh stainer whose ``predict`` equals the
+    trained one's."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.models import train
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+
+    t_start = time.monotonic()
+    rng = np.random.default_rng(SEED + 7)
+    positions = [MemoryPosition(rng.standard_normal(TRAIN_SHAPE, dtype=np.float32))
+                 for _ in range(TRAIN_VOLUMES)]
+    entries, _, ny0 = train.position_entries(positions, "phase", TRAIN_TARGETS)
+    bank = train._VolumeBank(entries)
+    table = counters()
+    runs = []
+    for i, (label, kw, batch, patch, steps, lr) in enumerate(TRAIN_RUNS):
+        t_run = time.monotonic()
+        settings = vs_settings(**kw, out_channels=TRAIN_TARGETS)
+        brng = np.random.default_rng(SEED)
+        batches = [tuple(train.to_nchw(a, "cuda") for a in train._sample_batch(
+            brng, bank, in_slices=settings.in_slices, patch=patch, batch=batch, augment=True))
+            for _ in range(TRAIN_CHECK_STEPS)]
+        bf16, ms = train_steps(VirtualStainer(settings), batches, lr)
+        stainer32 = VirtualStainer(settings)
+        stainer32.model.compute_dtype = torch.float32
+        f32, _ = train_steps(stainer32, batches, lr)
+        del stainer32, batches
+        torch.cuda.empty_cache()
+        f32_err = max(abs(a - b) / abs(b) for a, b in zip(bf16, f32))
+        print(f"  {label} (batch {batch}, patch {patch}): {TRAIN_CHECK_STEPS} steps, bf16 "
+              f"losses {[round(v, 5) for v in bf16]}, float32 {[round(v, 5) for v in f32]}: "
+              f"max rel {f32_err:.3e} (tol {TRAIN_F32_RTOL:g}) "
+              f"{'ok' if f32_err <= TRAIN_F32_RTOL else 'FAIL'}", flush=True)
+        if not f32_err <= TRAIN_F32_RTOL:
+            raise AssertionError(f"{label}: bf16 losses {bf16} against float32 {f32}")
+
+        ckpt = build.BUILD_DIR / f"chip_smoke_vs_train_{i}"
+        for obj, attr in table.values():
+            setattr(obj, attr, 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        evaluate = train.evaluate
+        scripted = train.evaluate = ScriptedLast(evaluate, steps // TRAIN_VAL["val_every"])
+        try:
+            t0 = time.perf_counter()
+            stainer, report = train.train_positions(
+                positions, input_channel="phase", target_channels=TRAIN_TARGETS,
+                settings=settings, steps=steps, batch=batch, patch=patch, learning_rate=lr,
+                ckpt_path=ckpt, seed=SEED, device="cuda", **TRAIN_VAL)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+        finally:
+            train.evaluate = evaluate
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = {k: getattr(obj, attr) for k, (obj, attr) in table.items()
+                    if getattr(obj, attr)}
+        if launched or report.steps != steps or report.stopped_early:
+            raise AssertionError(f"{label}: {report.steps} steps, stopped early "
+                                 f"{report.stopped_early}, launches {launched}")
+        losses, val = report.losses, scripted.losses
+        # The validation loss, on fixed crops (a training loss is one batch's).
+        if not val[-1] < val[0]:
+            raise AssertionError(f"{label}: the loss did not fall ({losses}, validation {val})")
+        best = report.val_losses.index(report.best_val_loss)
+        state = stainer.model.state_dict()
+        if not (report.val_losses[:-1] == val[:-1] and best < len(val) - 1
+                and all(torch.equal(state[k], v) for k, v in scripted.states[best].items())
+                and any(not torch.equal(state[k], v) for k, v in scripted.states[-1].items())):
+            raise AssertionError(f"{label}: the returned weights are not the copy taken at the "
+                                 f"best evaluation {best} (reported {report.val_losses})")
+
+        _, val_e = train.split_entries(entries, ny0, np.random.default_rng(SEED),
+                                       val_fraction=TRAIN_VAL["val_fraction"], patch=patch)
+        vx, vy = train.validation_crops(train._VolumeBank(val_e), settings, patch=patch,
+                                        batch=batch, seed=SEED)
+        again = train.evaluate(stainer.model, train.to_nchw(vx, "cuda"),
+                               train.to_nchw(vy, "cuda"))
+        snap_err = abs(again - report.best_val_loss) / report.best_val_loss
+        if not snap_err <= SNAPSHOT_RTOL:
+            raise AssertionError(f"{label}: the returned weights' validation loss {again} is not "
+                                 f"the best {report.best_val_loss} ({val})")
+        loaded = VirtualStainer(vs_settings(ckpt_path=str(ckpt)))
+        vol = torch.from_numpy(positions[0].volume(0, 0)[:, :256, :256]).cuda()
+        want = stainer.predict(vol)
+        ckpt_err = max(rel_err(loaded.predict(vol)[c], want[c]) for c in TRAIN_TARGETS)
+        if not ckpt_err <= CKPT_RTOL:
+            raise AssertionError(f"{label}: the reloaded checkpoint's predict is {ckpt_err:.3e} "
+                                 "off the trained stainer's")
+        flops = forward_flops(settings, batch, (patch, patch))
+        run = {"net": label, "batch": batch, "patch": patch, "steps": steps, "lr": lr,
+               "first_step_ms": ms[0], "step_ms": sum(ms[1:]) / len(ms[1:]),
+               "bound_ms": 3 * flops / BF16_PEAK * 1e3, "forward_gflop": flops / 1e9,
+               "run_s": run_s, "peak_gib": peak, "first_loss": losses[0],
+               "last_loss": losses[-1], "val_losses": val, "best_val_loss": report.best_val_loss,
+               "f32_rel_err": f32_err, "snapshot_rel_err": snap_err, "ckpt_rel_err": ckpt_err,
+               "seconds": time.monotonic() - t_run}
+        runs.append(run)
+        print(f"  {label} (batch {batch}, patch {patch}, {steps} steps at {lr:g}): step "
+              f"{run['step_ms']:.2f} ms warm, {ms[0]:.1f} first (bound {run['bound_ms']:.3f} ms: "
+              f"3 x {flops / 1e9:.1f} GFLOP forward at the bf16 peak); run {run_s:.2f} s, peak "
+              f"{peak:.2f} GiB; loss {losses[0]:.4f} -> {losses[-1]:.4f}, validation "
+              f"{[round(v, 4) for v in val]} (the last reported as {report.val_losses[-1]:.4f}); "
+              f"returned weights evaluation {best}'s copy, their validation loss within "
+              f"{snap_err:.1e} of it; checkpoint reload {ckpt_err:.1e}; took "
+              f"{run['seconds']:.1f} s", flush=True)
+        del stainer, loaded, vol, want, scripted, state
+        torch.cuda.empty_cache()
+    return {"runs": runs, "seconds": time.monotonic() - t_start}
+
+
+# --- BASELINE.md config 2: RL-20 of the deskewed production volume with a
+# PSF measured from a bead stack: io/synthetic.py::synthetic_ls_stack's
+# beads at the headline's angle and ratio, rendered on the card.
+BEAD_RAW, BEAD_COUNT = (400, 256, 1600), 50
+BEAD_SIGMA_PX, BEAD_AMPLITUDE = 1.5, 1000.0  # render_beads_skewed's defaults
+BEAD_PX_UM = 0.116  # synthetic_ls_stack's pixel size
+PSF_RTOL = 1e-5  # the card's PSF against the CPU plain path's, of its max
+RL2_RTOL = 1.5e-6  # the first 2 iterations against float64 (ROADMAP queue 3)
+PSF_CROP = (32, 512, 512)
+
+
+def bead_raw(shape=BEAD_RAW, n_beads: int = BEAD_COUNT, *, device="cuda", seed: int = SEED + 5):
+    """``synthetic_ls_stack(raw_shape_szx=shape, n_beads=n_beads,
+    seed=seed)``'s raw, rendered with torch on ``device`` (in float64, as
+    numpy's float32 grid minus a float64 centre computes, summed in
+    float32): (raw float32 tensor, beads (n, 3) lab zyx)."""
+    import numpy as np
+
+    theta, r = math.radians(30.0), 0.386
+    rng = np.random.default_rng(seed)
+    ns, nt, nx = shape
+    z_max = (nt - 1) * math.sin(theta)
+    z = rng.uniform(0.2 * z_max, 0.8 * z_max, n_beads)
+    u = rng.uniform(0.1, 0.9, n_beads)
+    y = z / math.tan(theta) + u * (ns - 1) / r
+    beads = np.stack([z, y, rng.uniform(0.2 * nx, 0.8 * nx, n_beads)], axis=1)
+    axes = [torch.arange(n, dtype=torch.float32, device=device).double() for n in shape]
+    s_idx, t_idx, x_idx = axes[0][:, None, None], axes[1][None, :, None], axes[2][None, None, :]
+    raw = torch.zeros(shape, dtype=torch.float32, device=device)
+    for zb, yb, xb in beads:
+        t_c = zb / math.sin(theta)
+        s_c = r * (yb - zb / math.tan(theta))
+        raw += (BEAD_AMPLITUDE * torch.exp(-0.5 * (
+            ((s_idx - s_c) * (1.0 / r) / BEAD_SIGMA_PX) ** 2
+            + ((t_idx - t_c) / BEAD_SIGMA_PX) ** 2
+            + ((x_idx - xb) / BEAD_SIGMA_PX) ** 2))).float()
+    return raw, beads
+
+
+def bead_fwhm_um() -> tuple[float, float, float]:
+    """The rendered bead's FWHM through its centre along deskewed z, y, x:
+    the raw Gaussian is sigma in (s / r, t, x), so along z (t = z / sin,
+    s / r = y - z cot) sigma / sqrt(cot^2 + csc^2), along y and x sigma."""
+    theta = math.radians(30.0)
+    width = 2 * math.sqrt(2 * math.log(2)) * BEAD_SIGMA_PX * BEAD_PX_UM
+    return (width / math.sqrt(1 / math.tan(theta) ** 2 + 1 / math.sin(theta) ** 2), width, width)
+
+
+def phase_psf(gen) -> dict:
+    """Phase 4p: the bead raw deskewed on the card (row 1) and measured on
+    the host (``psf.py::measure_volume_psf``, ``deskewed`` patch (31, 41,
+    41)), against the CPU plain path (the plain deskew, the same host code,
+    run beside the card's RL): n_beads equal, the PSF within PSF_RTOL.
+    Then deskew + RL-20 on ``fused`` with that PSF (its K terms planned by
+    ``plan_separable_terms`` after the ``psf_crop_tol`` crop, one
+    ``rl_half`` launch a half-step, or three a term past its block) at the
+    production raw with the counts reset, timed as counted: ms, GVox/s,
+    peak. On the deskewed volume the first 2 iterations against float64
+    within RL2_RTOL, and RL-20 on a PSF_CROP crop within STEP_RTOL."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.deconv import plan_terms, prepare_psf, richardson_lucy
+    from shrimpy_tpu_torch.ops.deskew import deskew_volume
+    from shrimpy_tpu_torch.ops.rl_fused import half_layout, half_step_route
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+    from shrimpy_tpu_torch.psf import measure_volume_psf
+
+    t_start = time.monotonic()
+    raw, _ = bead_raw()
+    settings = headline_settings()
+    deskew, deconv = settings.deskew, settings.deconvolve
+    scale = (BEAD_PX_UM / deskew.px_to_scan_ratio, BEAD_PX_UM, BEAD_PX_UM)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = {k: build.BUILD_DIR / f"chip_smoke_psf_{k}" for k in ("card", "cpu")}
+    table = counters()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    report = measure_volume_psf(raw, scale, out["card"], geometry="lightsheet", deskew=deskew)
+    measure_s = time.perf_counter() - t0
+    launched = {k: getattr(obj, attr) for k, (obj, attr) in table.items() if getattr(obj, attr)}
+    if launched != {"deskew": 1}:
+        raise AssertionError(f"the card's PSF measurement launched {launched}, want one deskew")
+    psf = np.load(out["card"].with_suffix(".npy"))
+    host_raw = raw.cpu()
+    del raw
+
+    def cpu_path():
+        t = time.perf_counter()
+        rep = measure_volume_psf(host_raw, scale, out["cpu"], geometry="lightsheet",
+                                 deskew=deskew, device="cpu")
+        return rep, time.perf_counter() - t
+
+    with ThreadPoolExecutor(1) as pool:
+        cpu_run = pool.submit(cpu_path)
+        psf_w = prepare_psf(psf, deconv)
+        terms = plan_terms(psf_w, deconv)
+        radii = tuple(k // 2 for k in psf_w.shape)
+        if terms is None:
+            raise AssertionError(f"measured PSF {psf_w.shape} takes no separable terms")
+        carry = tuple(n + 2 * r for n, r in zip(deskewed_shape(), radii))
+        route = half_step_route(carry, radii, len(terms))
+        layout = half_layout(carry, radii, len(terms)) or {}
+        if route == "one_launch":
+            build.build_geometries([("rl_half", (len(terms), *psf_w.shape, *layout["tile"]))])
+        print(f"  measured PSF (31, 41, 41) from {report.n_beads} beads in {measure_s:.2f} s "
+              f"(deskew launch and host code), FWHM zyx {np.round(report.fwhm_um_zyx, 4)} um "
+              f"(the rendered bead's {np.round(bead_fwhm_um(), 4)}); cropped at psf_crop_tol "
+              f"{deconv.psf_crop_tol:g} to {psf_w.shape} (radii {radii}), K = {len(terms)} "
+              f"terms; rl_half route {route}, tile {layout.get('tile')} "
+              f"({layout.get('smem_bytes')} B of shared memory)", flush=True)
+        batch = uniform((1, *RAW_SHAPE), gen, 0.0, 100.0)
+        step = build_reconstruct_step(settings, psf=psf, device="cuda")
+        # A half-step is one launch, or three a term (z, y, x passes).
+        per_half = 1 if route == "one_launch" else 3 * len(terms)
+        # Timed as counted: every kernel of the step is built and loaded
+        # by now (a second run would add its length to the phase).
+        t0 = time.perf_counter()
+        rl20, counts, peak = drive(step, batch, {"deskew": 1, "rl_half_step": 2 * ITERATIONS,
+                                                 f"rl_half_{route}": 2 * ITERATIONS * per_half})
+        ms = (time.perf_counter() - t0) * 1e3
+        vox = rl20[0].numel()
+        del rl20
+        vol = deskew_volume(batch[0], deskew)
+        del batch
+        torch.cuda.empty_cache()
+        s2 = headline_settings(iterations=2).deconvolve
+        t0 = time.monotonic()
+        ref = richardson_lucy(vol, psf, s2, plain=True, dtype=torch.float64)
+        rl2_s = time.monotonic() - t0
+        rl2 = compare(f"RL-2 with the measured PSF, (128, 2888, 1600), vs float64 plain (the "
+                      f"float64 run {rl2_s:.1f} s)", richardson_lucy(vol, psf, s2), ref, RL2_RTOL)
+        del ref
+        crop = vol[tuple(slice(0, n) for n in PSF_CROP)].contiguous()
+        del vol
+        torch.cuda.empty_cache()
+        t0 = time.monotonic()
+        ref = richardson_lucy(crop, psf, deconv, plain=True, dtype=torch.float64)
+        crop_s = time.monotonic() - t0
+        crop_err = compare(f"RL-20 with the measured PSF on a {PSF_CROP} crop vs float64 plain "
+                           f"(the float64 run {crop_s:.1f} s)", richardson_lucy(crop, psf, deconv),
+                           ref, STEP_RTOL)
+        del ref, crop
+        cpu_report, cpu_s = cpu_run.result()
+    psf_cpu = np.load(out["cpu"].with_suffix(".npy"))
+    psf_err = float(np.abs(psf - psf_cpu).max() / psf_cpu.max())
+    print(f"  the CPU plain path ({cpu_s:.2f} s, beside the card's RL): {cpu_report.n_beads} "
+          f"beads, PSF max|a-b|/max|b| = {psf_err:.3e} (tol {PSF_RTOL:g})", flush=True)
+    if cpu_report.n_beads != report.n_beads or not psf_err <= PSF_RTOL:
+        raise AssertionError(f"the card's PSF ({report.n_beads} beads) against the CPU plain "
+                             f"path's ({cpu_report.n_beads}): {psf_err:.3e}")
+    res = {"n_beads": report.n_beads, "fwhm_um_zyx": list(report.fwhm_um_zyx),
+           "bead_fwhm_um_zyx": list(bead_fwhm_um()), "measure_s": measure_s, "cpu_s": cpu_s,
+           "psf_rel_err": psf_err, "k": len(terms), "psf_shape": psf_w.shape, "radii": radii,
+           "route": route, "tile": layout.get("tile"), "ms": ms, "gvox_s": vox / ms / 1e6,
+           "peak_gib": peak,
+           "rl2_max_abs_err": rl2, "rl2_float64_s": rl2_s, "crop_max_abs_err": crop_err,
+           "crop_float64_s": crop_s,
+           "launches": counts, "seconds": time.monotonic() - t_start}
+    print(f"  deskew + RL-20 with the measured PSF at raw {RAW_SHAPE}: {ms:.1f} ms (the counted "
+          f"run), {res['gvox_s']:.4f} GVox/s, peak {peak:.2f} GiB; phase 4p took "
+          f"{res['seconds']:.1f} s", flush=True)
+    return res
 
 
 def build_all(build) -> None:
@@ -3427,6 +3830,15 @@ def main(argv) -> int:
     stamp(t_start, f"[4n] virtual staining: unet25d through the tracker at {ph['shape']}; "
           f"unext2 at ConvNeXt-V2 Tiny widths; [deskew, phase, vs] at raw {VS_CHAIN_RAW}")
     vs = phase_vs(gen, ph["shape"])
+    torch.cuda.empty_cache()
+    stamp(t_start, f"[4o] virtual-staining training: unet25d and unext2 Tiny at batch 4, patch "
+          f"128; unet25d at batch 16, patch 256; {TRAIN_VOLUMES} volumes of {TRAIN_SHAPE}")
+    trn = phase_train()
+    torch.cuda.empty_cache()
+    stamp(t_start, f"[4p] BASELINE.md config 2: a PSF measured from {BEAD_COUNT} beads at raw "
+          f"{BEAD_RAW}, then deskew + RL-20 with it at raw {RAW_SHAPE}")
+    mpsf = phase_psf(gen)
+    torch.cuda.empty_cache()
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
           f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
           f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
@@ -3521,6 +3933,15 @@ def main(argv) -> int:
                       for k, v in vs["unext2"].items())
           + f"; chain {vs['chain']['ms']:.1f} ms, rel err {vs['chain']['rel_err']:.3e}; phase 4n "
           f"took {vs['seconds']:.1f} s", flush=True)
+    print(f"[5] {card}: VS training: "
+          + ", ".join(f"{r['net']} at batch {r['batch']}, patch {r['patch']}: step "
+                      f"{r['step_ms']:.2f} ms (first {r['first_step_ms']:.1f}, bound "
+                      f"{r['bound_ms']:.3f}), peak {r['peak_gib']:.2f} GiB, loss "
+                      f"{r['first_loss']:.4f} -> {r['last_loss']:.4f}" for r in trn["runs"])
+          + f"; phase 4o took {trn['seconds']:.1f} s; config 2: {mpsf['n_beads']} beads measured "
+          f"in {mpsf['measure_s']:.2f} s, K {mpsf['k']} of {mpsf['psf_shape']}, deskew + RL-20 "
+          f"{mpsf['ms']:.1f} ms, {mpsf['gvox_s']:.4f} GVox/s, peak {mpsf['peak_gib']:.2f} GiB; "
+          f"phase 4p took {mpsf['seconds']:.1f} s", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",

@@ -100,6 +100,15 @@ volume under ``torch.profiler`` as above, and sums the device events by
 kind (:func:`vs_kind`): convolutions (cuDNN), dense products (cuBLAS),
 normalisation and elementwise, copies.
 
+``python3 profile_step.py --train`` runs one warm training step
+(``models/train.py``'s ``train_step``: forward, MSE, backward, AdamW) of
+each run of ``chip_smoke.py`` phase 4o (the default unet25d and unext2 at
+Tiny widths at batch 4, patch 128; unet25d at batch 16, patch 256) on a
+batch already on the card under ``torch.profiler`` as above, and sums the
+device events by kind (:func:`train_kind`): forward and backward
+convolutions, products, LayerNorm and its backward, AdamW's elementwise
+passes, copies and casts, the elementwise rest.
+
 ``python3 profile_step.py --zband`` times the band kernel
 ``csrc/zband.cu`` beside builds of the edits in :data:`ZBAND_VARIANTS`
 (a cap on registers for more warps an SM, smaller blocks, the taps read
@@ -126,11 +135,14 @@ import torch
 
 
 def device_events(prof):
-    """(name, start_us, end_us) of every device event of ``prof``."""
+    """(name, start_us, end_us) of every device event of ``prof``: kernels,
+    copies and memsets, not the optimizer's range that the profiler also
+    draws on the device timeline (``Optimizer.step#AdamW.step``, spanning
+    the optimizer's kernels)."""
     from torch.autograd import DeviceType
 
     return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+            if e.device_type == DeviceType.CUDA and not e.name.startswith("Optimizer.")]
 
 
 def union_us(intervals) -> float:
@@ -189,6 +201,30 @@ def vs_kind(name: str) -> str:
                               "nhwc", "transpose", "shuffle")):
         return "copies"
     return "normalisation and elementwise"
+
+
+def train_kind(name: str) -> str:
+    """The kind of a device event of a training step: forward or backward
+    convolutions (cuDNN's fprop, dgrad and wgrad, PyTorch's depthwise
+    kernels), dense products, LayerNorm and its backward, AdamW's
+    elementwise passes (``multi_tensor_apply``), copies and casts, or the
+    elementwise rest (GELU and its backward, the GRN, the loss)."""
+    low = name.lower()
+    if "layer_norm" in low or "gammabeta" in low:
+        return "LayerNorm and its backward"
+    if any(k in low for k in ("dgrad", "wgrad", "bprop")) or (
+            "conv" in low and ("backward" in low or "grad" in low)):
+        return "convolutions, backward"
+    if any(k in low for k in ("fprop", "implicit", "winograd", "conv", "cudnn")):
+        return "convolutions, forward"
+    if any(k in low for k in ("gemm", "matmul", "nvjet")):
+        return "products"
+    if "multi_tensor_apply" in low or "foreach" in low:
+        return "AdamW's elementwise passes"
+    if any(k in low for k in ("memcpy", "copy", "cat", "index", "gather", "scatter", "nchw",
+                              "nhwc", "transpose", "shuffle")):
+        return "copies and casts"
+    return "elementwise rest"
 
 
 def profile(step, batch, kind_of=kind) -> dict:
@@ -369,6 +405,29 @@ def profile_vs(cs) -> None:
         print(f"== {label}: one warm predict at {cs.PHASE_SHAPE}", flush=True)
         profile(stainer.predict, vol, vs_kind)
         del stainer
+        torch.cuda.empty_cache()
+
+
+def profile_train(cs) -> None:
+    """One warm training step of each run of phase 4o under the profiler,
+    by ``train_kind``; the batch is on the card before the window."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models import train
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+
+    rng = np.random.default_rng(cs.SEED)
+    for label, kw, batch, patch, _, lr in cs.TRAIN_RUNS:
+        settings = vs_settings(**kw, out_channels=cs.TRAIN_TARGETS)
+        model = VirtualStainer(settings).model.to("cuda").train()
+        opt = train.adamw(model, lr)
+        shapes = ((batch, settings.in_slices, patch, patch),
+                  (batch, len(cs.TRAIN_TARGETS), patch, patch))
+        x, y = (torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).cuda() for s in shapes)
+        print(f"== {label}, batch {batch}, patch {patch}: one warm step", flush=True)
+        profile(lambda b: train.train_step(model, opt, *b), (x, y), train_kind)
+        del model, opt, x, y
         torch.cuda.empty_cache()
 
 
@@ -1278,6 +1337,9 @@ def main() -> int:
         return 0
     if "--vs" in sys.argv[1:]:
         profile_vs(cs)
+        return 0
+    if "--train" in sys.argv[1:]:
+        profile_train(cs)
         return 0
     if "--tiles" in sys.argv[1:]:
         sweep_zy_tiles(cs)

@@ -1,8 +1,9 @@
 """``shrimpy-tpu-torch`` CLI: the reconstruction verbs of the port.
 
-The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``
-and ``track`` take the same options and YAML as ``shrimpy_tpu/cli/main.py``,
-plus ``--device`` (default ``cuda``). Pixel size and z step come from the store's scale
+The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``,
+``track``, ``measure-psf`` and ``train-vs`` take the same options and YAML as
+``shrimpy_tpu/cli/main.py``, plus ``--device`` (default ``cuda``); ``info``
+and ``microscopes`` print the JAX CLI's JSON. Pixel size and z step come from the store's scale
 metadata and are injected into the settings, as in the JAX CLI. The
 settings are the port's own pydantic models
 (:mod:`shrimpy_tpu_torch.config.schemas`, a copy of the JAX package's:
@@ -36,6 +37,15 @@ def _channel_index(names: list, channel: str) -> int:
         raise click.ClickException(f"channel {channel!r} not in the store (has {names})") from None
 
 
+def _device_or_exit(device: str):
+    from shrimpy_tpu_torch.utils.device import resolve_device
+
+    try:
+        return resolve_device(device)
+    except RuntimeError as exc:
+        raise click.ClickException(str(exc)) from None
+
+
 def _inject_from_store(settings, input_path: Path) -> tuple:
     """Read (pixel size, z step) from the store scale and inject; returns
     the store and its first position."""
@@ -53,7 +63,6 @@ def _run_reconstruct(
     input, output, settings, devices, space, batch, resume, profile_dir, device
 ):
     from shrimpy_tpu_torch.runtime.stream import reconstruct_store
-    from shrimpy_tpu_torch.utils.device import resolve_device
     from shrimpy_tpu_torch.utils.timing import profiler_trace
 
     if (devices or 1) > 1 or space > 1:
@@ -61,10 +70,7 @@ def _run_reconstruct(
             "the PyTorch port runs one device (--devices/--space > 1 is "
             "ROADMAP queue 1 item 11)"
         )
-    try:
-        resolve_device(device)
-    except RuntimeError as exc:
-        raise click.ClickException(str(exc)) from None
+    _device_or_exit(device)
     _inject_from_store(settings, Path(input))
     try:
         with profiler_trace(profile_dir):
@@ -244,13 +250,9 @@ def register(input, fixed_channel, moving_channel, moving_input, output, timepoi
     from shrimpy_tpu_torch.config.schemas import RegistrationSettings
     from shrimpy_tpu_torch.io.ngff import open_ngff
     from shrimpy_tpu_torch.ops.register import estimate_registration
-    from shrimpy_tpu_torch.utils.device import resolve_device
     from shrimpy_tpu_torch.utils.fft import match_shape
 
-    try:
-        dev = resolve_device(device)
-    except RuntimeError as exc:
-        raise click.ClickException(str(exc)) from None
+    dev = _device_or_exit(device)
     pos = open_ngff(input).position()
     mov_pos = open_ngff(moving_input).position() if moving_input else pos
     fixed = pos.volume(timepoint, _channel_index(pos.channel_names, fixed_channel))
@@ -288,12 +290,8 @@ def track(input, config_path, output, device):
 
     from shrimpy_tpu_torch.config.schemas import DynaTrackConfig, load_yaml_config
     from shrimpy_tpu_torch.tracking import ShiftJournal, Tracker
-    from shrimpy_tpu_torch.utils.device import resolve_device
 
-    try:
-        dev = resolve_device(device)
-    except RuntimeError as exc:
-        raise click.ClickException(str(exc)) from None
+    dev = _device_or_exit(device)
     cfg = load_yaml_config(config_path, DynaTrackConfig)
     store, pos = _inject_from_store(cfg, Path(input))
     # With a preprocessing chain, the tracker consumes the processed
@@ -325,6 +323,129 @@ def track(input, config_path, output, device):
                 f"stage_um={np.round(r.stage_shift_xyz, 3).tolist()}"
             )
     click.echo(f"journal: {output}")
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+@click.option("-o", "--output", "psf_out", type=click.Path(), required=True,
+              help="Output PSF path (writes .npy + .json).")
+@click.option("--geometry", type=click.Choice(["epi", "lightsheet"]),
+              default="epi", show_default=True)
+@click.option("--ls-angle-deg", type=float, default=30.0, show_default=True)
+@click.option("--threshold-percentile", type=float, default=99.5, show_default=True)
+@click.option("--device", default="cuda", show_default=True,
+              help="Torch device of the light-sheet deskew: 'cuda', 'cuda:N' or 'cpu'.")
+def measure_psf(input, psf_out, geometry, ls_angle_deg, threshold_percentile, device):
+    """Measure a PSF from a bead z-stack store (deskews light-sheet data)."""
+    from shrimpy_tpu_torch.config.schemas import DeskewSettings
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+    from shrimpy_tpu_torch.psf import measure_psf as _measure
+
+    dev = _device_or_exit(device)
+    deskew_settings = None
+    if geometry == "lightsheet":
+        pos = open_ngff(input).position()
+        sz, sy, _ = pos.zyx_scale
+        deskew_settings = DeskewSettings(
+            ls_angle_deg=ls_angle_deg, pixel_size_um=sy, scan_step_um=sz
+        )
+    report = _measure(
+        input, psf_out, geometry=geometry, deskew=deskew_settings,
+        threshold_percentile=threshold_percentile, device=dev,
+    )
+    click.echo(json.dumps(report.as_dict(), indent=2))
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+@click.option("--input-channel", required=True)
+@click.option("--target-channels", required=True,
+              help="Comma-separated fluorescence target channel names.")
+@click.option("-o", "--output", "ckpt_out", type=click.Path(), required=True,
+              help="Checkpoint directory (consumed by virtual_staining.ckpt_path).")
+@click.option("--steps", type=int, default=500, show_default=True)
+@click.option("--batch", type=int, default=4, show_default=True)
+@click.option("--patch", type=int, default=128, show_default=True)
+@click.option("--learning-rate", type=float, default=1e-3, show_default=True)
+@click.option("--architecture", type=click.Choice(["unet25d", "unext2"]),
+              default="unet25d", show_default=True)
+@click.option("--val-fraction", type=float, default=0.2, show_default=True,
+              help="Held-out validation fraction (0 disables early stop).")
+@click.option("--early-stop-patience", type=int, default=4, show_default=True,
+              help="Stop after N validation evals without improvement.")
+@click.option("--device", default="cuda", show_default=True,
+              help="Torch device: 'cuda', 'cuda:N' or 'cpu'.")
+def train_vs(input, input_channel, target_channels, ckpt_out, steps, batch,
+             patch, learning_rate, architecture, val_fraction,
+             early_stop_patience, device):
+    """Train a virtual-staining model on paired channels of a store."""
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models.train import train_vsunet
+
+    dev = _device_or_exit(device)
+    targets = [c.strip() for c in target_channels.split(",") if c.strip()]
+    _, report = train_vsunet(
+        input,
+        input_channel=input_channel,
+        target_channels=targets,
+        settings=vs_settings(architecture=architecture, out_channels=targets),
+        steps=steps,
+        batch=batch,
+        patch=patch,
+        learning_rate=learning_rate,
+        ckpt_path=ckpt_out,
+        val_fraction=val_fraction,
+        early_stop_patience=early_stop_patience,
+        device=dev,
+    )
+    click.echo(json.dumps({
+        "steps": report.steps,
+        "final_loss": report.final_loss,
+        "best_val_loss": report.best_val_loss,
+        "stopped_early": report.stopped_early,
+        "ckpt": str(ckpt_out),
+    }))
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+def info(input):
+    """Describe an OME-Zarr store (layout, positions, shapes, scales)."""
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    store = open_ngff(input)
+    out = {
+        "path": str(input),
+        "ngff_version": store.version,
+        "layout": "hcs-plate" if store.is_plate else "fov",
+        "positions": {},
+    }
+    for key, pos in store.positions().items():
+        out["positions"][key] = {
+            "shape_tczyx": list(pos.shape),
+            "dtype": str(pos.dtype),
+            "channels": pos.channel_names,
+            "zyx_scale_um": list(pos.zyx_scale),
+        }
+    click.echo(json.dumps(out, indent=2))
+
+
+@cli.command()
+def microscopes():
+    """List registered microscope profiles (downstream packages add
+    instruments via ``shrimpy_tpu_torch.config.microscopes.register_microscope``)."""
+    from shrimpy_tpu_torch.config.microscopes import available_microscopes, get_microscope
+
+    out = {}
+    for name in available_microscopes():
+        p = get_microscope(name)
+        out[name] = {
+            "description": p.description,
+            "implemented": p.implemented,
+            "ls_angle_deg": p.ls_angle_deg,
+            "arms": p.arms,
+        }
+    click.echo(json.dumps(out, indent=2))
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Neural models: the virtual-staining nets and their inference
-(counterpart of ``shrimpy_tpu/models``; training, ``models/train.py``, is
-ROADMAP queue 1 item 10's second part)."""
+and training (counterpart of ``shrimpy_tpu/models``; training is
+``models/train.py``, imported on its own)."""
 
 from shrimpy_tpu_torch.models.vsunet import (  # noqa: F401
     VirtualStainer,

@@ -3,12 +3,13 @@ package's, which they are copies of (CPU).
 
 The port imports nothing of ``shrimpy_tpu``, so ``config/schemas.py``,
 ``config/microscopes.py``, ``config/vs_sidecar.py``, ``io/ngff.py``,
-``io/synthetic.py``, ``utils/fileio.py`` and ``utils/logging.py`` are
-copies. Each is pinned to its original: the code is the same statement
+``io/synthetic.py``, ``utils/fileio.py``, ``utils/cache.py`` and
+``utils/logging.py`` are copies. Each is pinned to its original: the code is the same statement
 for statement (comments and docstrings apart; the logging copy's two
 provenance functions record torch in the place of jax), the pydantic models agree field for field and schema
 for schema, one YAML loads to equal dumps, and a store written by either
-package is read by the other with equal arrays and scales.
+package is read by the other with equal arrays and scales; the ``info``
+and ``microscopes`` verbs print the JAX CLI's JSON.
 """
 
 import ast
@@ -48,17 +49,19 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 COPIES = ["config/schemas.py", "config/microscopes.py", "config/vs_sidecar.py", "io/ngff.py",
-          "io/synthetic.py", "utils/fileio.py"]
+          "io/synthetic.py", "utils/fileio.py", "utils/cache.py"]
 MODELS = sorted(n for n, v in vars(jschemas).items()
                 if isinstance(v, type) and issubclass(v, BaseModel) and v is not BaseModel)
 
 
-def _code(path: Path, skip=()) -> str:
+def _code(path: Path, skip=(), drop_imports=()) -> str:
     """The module's statements without docstrings (comments are not in
     the tree), the package name normalised; top-level functions named in
-    ``skip`` left out."""
+    ``skip`` and imports from the modules in ``drop_imports`` left out."""
     tree = ast.parse(path.read_text().replace("shrimpy_tpu_torch", "shrimpy_tpu"))
-    tree.body = [n for n in tree.body if not (isinstance(n, ast.FunctionDef) and n.name in skip)]
+    tree.body = [n for n in tree.body
+                 if not (isinstance(n, ast.FunctionDef) and n.name in skip)
+                 and not (isinstance(n, ast.ImportFrom) and n.module in drop_imports)]
     for node in ast.walk(tree):
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
@@ -316,3 +319,26 @@ def test_cli_reconstruct_fused_iter_donate_on_cpu(tmp_path):
     settings.deconvolve.separable_backend = "fused"
     fused = reconstruct_batch(raw[None], settings, psf=psf, device="cpu")[0].numpy()
     assert np.abs(got - fused).max() <= 1e-5 * np.abs(fused).max()
+
+
+@pytest.mark.parametrize("layout", ["fov", "plate", None])
+def test_info_and_microscopes_verbs_print_jax_s_json(tmp_path, layout):
+    """``info`` on a single-FOV store and on a plate, and ``microscopes``:
+    the port's CLI prints the JAX CLI's JSON."""
+    from shrimpy_tpu.cli.main import cli as jax_cli
+
+    if layout == "fov":
+        jsynth.synthetic_ls_stack(tmp_path / "s.zarr", raw_shape_szx=(20, 12, 16))
+        args = ["info", str(tmp_path / "s.zarr")]
+    elif layout == "plate":
+        jsynth.coordinate_encoded_plate(tmp_path / "s.zarr", shape_tczyx=(2, 3, 4, 8, 8))
+        args = ["info", str(tmp_path / "s.zarr")]
+    else:
+        args = ["microscopes"]
+    runner = CliRunner()
+    want, got = runner.invoke(jax_cli, args), runner.invoke(cli, args)
+    assert want.exit_code == 0, want.output
+    assert got.exit_code == 0, got.output
+    assert json.loads(got.output) == json.loads(want.output)
+    if layout == "plate":
+        assert json.loads(got.output)["layout"] == "hcs-plate"

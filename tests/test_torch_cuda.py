@@ -1803,3 +1803,58 @@ def test_vs_step_keeps_its_products_on_the_card(cuda):
         assert all(v.is_cuda for v in out.values())
         assert out["vs_nuclei"].shape == out["phase"].shape == raw.shape
     assert pre.tracking_stack(raw).is_cuda
+
+
+# Virtual-staining training (models/train.py) on the card.
+TRAIN_BULK_SHARE, TRAIN_ADAM_MAX = 0.999, 1e-3  # tests/test_torch_train.py's gate
+
+
+@pytest.mark.parametrize("name", ["unet25d", "unext2"])
+def test_train_steps_on_card_match_the_cpu_float32_run(cuda, name):
+    """Two AdamW steps (``models/train.py``'s ``adamw`` and ``train_step``)
+    of the float32 net from the same seeded weights on the same batches:
+    on the card (no TF32) and on the CPU, each loss within 1e-4 relative;
+    the weights by the CPU tests' gate (99.9 % of each parameter within 1e-4
+    of its max, all within 1e-3: Adam turns a near-zero gradient's rounding
+    into a share of the learning rate)."""
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models import train
+    from shrimpy_tpu_torch.models.vsunet import VirtualStainer
+
+    settings = vs_settings(**VS_NETS[name], out_channels=["vs_nuclei"])
+    rng = np.random.default_rng(83)
+    batches = [(rng.standard_normal((3, 32, 32, 3), dtype=np.float32),
+                rng.standard_normal((3, 32, 32, 1), dtype=np.float32)) for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        stainer = VirtualStainer(settings, device=dev)
+        model = stainer.model.to(dev).train()
+        model.compute_dtype = torch.float32
+        opt = train.adamw(model, 1e-2)
+        losses = [float(train.train_step(model, opt, train.to_nchw(x, dev), train.to_nchw(y, dev)))
+                  for x, y in batches]
+        runs[dev] = (losses, {k: v.cpu() for k, v in model.state_dict().items()})
+    (card, card_w), (cpu, cpu_w) = runs["cuda"], runs["cpu"]
+    assert max(abs(a - b) / abs(b) for a, b in zip(card, cpu)) <= 1e-4
+    for k, w in cpu_w.items():
+        err = (card_w[k] - w).abs() / float(w.abs().max())
+        assert float((err <= 1e-4).double().mean()) >= TRAIN_BULK_SHARE, k
+        assert float(err.max()) <= TRAIN_ADAM_MAX, k
+
+
+def test_measure_psf_on_card_matches_the_cpu(cuda, tmp_path):
+    """``psf.py::measure_volume_psf`` of a light-sheet bead stack
+    (``chip_smoke.bead_raw``, ``synthetic_ls_stack``'s beads) with the deskew
+    kernel against the plain deskew on the CPU, then the same host code:
+    equal bead counts, the PSF within 1e-5 of its max."""
+    import chip_smoke
+    from shrimpy_tpu_torch.psf import measure_volume_psf
+
+    raw, _ = chip_smoke.bead_raw((120, 100, 96), 10, device="cpu")
+    settings = deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386)
+    scale = (0.116 / 0.386, 0.116, 0.116)
+    reports = {dev: measure_volume_psf(raw.numpy(), scale, tmp_path / dev, geometry="lightsheet",
+                                       deskew=settings, device=dev) for dev in ("cuda", "cpu")}
+    assert reports["cuda"].n_beads == reports["cpu"].n_beads >= 2
+    got, want = np.load(tmp_path / "cuda.npy"), np.load(tmp_path / "cpu.npy")
+    assert np.abs(got - want).max() <= 1e-5 * want.max()

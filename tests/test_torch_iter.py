@@ -477,7 +477,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     assert len(files) > 25
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"shrimpy_tpu_torch/{m}.py" for m in ("utils/fft", "ops/pcc", "ops/register",
-                                                   "ops/affine_cuda")} <= names
+                                                   "ops/affine_cuda", "models/train", "psf",
+                                                   "utils/cache")} <= names
     hits = {str(f.relative_to(REPO)): pattern.findall(f.read_text()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
     # The pattern does catch what it is after.
@@ -495,7 +496,10 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                     "shrimpy_tpu_torch.utils.fft",
                                     "shrimpy_tpu_torch.tracking.preprocess",
                                     "shrimpy_tpu_torch.engine.autofocus",
-                                    "shrimpy_tpu_torch.models.convert"])
+                                    "shrimpy_tpu_torch.models.convert",
+                                    "shrimpy_tpu_torch.models.train",
+                                    "shrimpy_tpu_torch.psf",
+                                    "shrimpy_tpu_torch.utils.cache"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no
@@ -507,7 +511,9 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             from click.testing import CliRunner
             assert CliRunner().invoke(mod.cli, ["reconstruct", "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["register", "--help"]).exit_code == 0
-            assert CliRunner().invoke(mod.cli, ["track", "--help"]).exit_code == 0
+            for verb in ("track", "train-vs", "measure-psf", "info"):
+                assert CliRunner().invoke(mod.cli, [verb, "--help"]).exit_code == 0
+            assert CliRunner().invoke(mod.cli, ["microscopes"]).exit_code == 0
             from shrimpy_tpu_torch.config import ReconstructSettings, load_yaml_config
             load_yaml_config("configs/reconstruct_demo.yml", ReconstructSettings)
             from shrimpy_tpu_torch.config.microscopes import get_microscope
