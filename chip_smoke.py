@@ -44,11 +44,19 @@ Phases:
    output's taps in the same order), the two Biggs sums within 1e-5; the
    same kernel timed at the production carry with the streaming
    runtime's default PSF (9, 15, 15) and with two terms of (9, 21, 21);
-   the three-pass route (``csrc/rl_fused.cu``, kept for geometries past
-   the one-launch kernel's block) in all five modes on the (40, 300, 400)
-   carry against the plain version, at the production carry timed and
-   bit-equal to the one-launch kernel, then driven once through
-   ``richardson_lucy`` with a (121, 9, 9) PSF that only it takes; the
+   the three-pass route (for geometries past the one-launch kernel's
+   block; its passes on ``csrc/rl_pass.cu`` compiled for their tap count)
+   in all five modes on the (40, 300, 400) carry bit-equal to the plain
+   version, at the production carry timed and bit-equal to the one-launch
+   kernel, then driven once through ``richardson_lucy`` with a (121, 9, 9)
+   PSF that only it takes; its passes at ``BASELINE.md`` config 2's grid
+   (158, 2928, 1636) with one term of (31, 41, 37) taps: the z and y
+   passes (``axis_pass_kernel``) and the x pass (``x_pass_kernel``, a
+   middle term adding the earlier terms' sum and the last with the ratio
+   epilogue), each bit for bit against its plain version and against
+   ``csrc/rl_fused.cu``'s runtime-length kernel, timed beside its bound,
+   that kernel, the plain version and ``F.conv3d`` with the single-axis
+   kernel; the
    z+y step ``convzy_linear`` and ``convzy_circular`` on both of its
    routes (the march of ``csrc/convzy.cu`` and two ``conv_axis``
    passes), both tap orders, bit-equal to the plain version, on the
@@ -179,7 +187,8 @@ Phases:
    plain path within 1e-3, config 9 by the two-tier gate;
 4l. phase: a brightfield stack (64, 2048, 2048) with the schema's
    defaults (z_padding 5), yx 0.116 um, z 0.25 um: the host transfer
-   function and the card's inverse timed apart, the inverse against its
+   function (computed in a thread beside phases 4i-4k) and the card's
+   inverse timed apart, the inverse against its
    float64 version within 1e-3, then through the reconstruct step; at
    (64, 1024, 1024) where the host has too little memory for the
    transfer function; a simulated weak phase object recovered at
@@ -236,14 +245,17 @@ Phases:
    rendered bead's; K, the cropped radii and the ``rl_half`` tile; deskew +
    RL-20 on ``fused`` with that PSF at the production raw with the counts
    reset (one deskew, 40 ``rl_half`` half-steps, each one launch or, past
-   the one-launch block, three a term): ms, GVox/s, peak; on the
-   deskewed volume RL-2 against float64 within 1.5e-6 and RL-20 on a
+   the one-launch block, three a term, counted on the compiled passes):
+   ms, GVox/s, peak, one term's z, y and x passes timed with the measured
+   taps; on the deskewed volume RL-2 against float64 within 1.5e-6 (the
+   reference's passes as banded float64 products on cuBLAS, held on the
+   crop to the plain float64 path within 1e-10) and RL-20 on a
    (32, 512, 512) crop within 1e-3;
-5. timings (kernel path and plain float32 path, warm, alternated plain,
-   kernel, kernel, plain), launch counts (a path's plain versions must
-   have run on no CUDA tensor), peak memory, then the kernel JSON line
-   (sixteen entries: the fourteen kernels, the kept three-pass half-step
-   and the z+y step's two-pass route),
+5. timings (kernel path and plain float32 path, warm: plain, kernel,
+   kernel), launch counts (a path's plain versions must have run on no
+   CUDA tensor), peak memory, then the kernel JSON line (eighteen
+   entries: the sixteen kernels, the three-pass half-step and the z+y
+   step's two-pass route),
    the card line and the final ``{"ok": true, ...}`` line.
 """
 
@@ -439,10 +451,13 @@ def counters() -> dict:
     from shrimpy_tpu_torch.kernels import probes
     from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
     from shrimpy_tpu_torch.ops.rl_fused import (
+        axis_pass_cuda,
         half_step_cuda,
         half_step_one_launch,
         half_step_plain,
         half_step_three_pass,
+        x_pass_accel_cuda,
+        x_pass_cuda,
     )
     from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, refine_grad_cuda, refine_sums_cuda
     from shrimpy_tpu_torch.ops.register import affine_apply_plain
@@ -473,6 +488,9 @@ def counters() -> dict:
         "convzy_circular": (convzy_circular_cuda, "launches"),
         "convzy_march": (convzy_march, "launches"),
         "convzy_two_pass": (convzy_two_pass, "launches"),
+        "axis_pass": (axis_pass_cuda, "launches"),
+        "x_pass": (x_pass_cuda, "launches"),
+        "x_pass_accel": (x_pass_accel_cuda, "launches"),
         "conv3_circular": (conv3_circular_cuda, "launches"),
         "conv3_one_launch": (conv3_one_launch, "launches"),
         "plain_half_step_on_cuda": (half_step_plain, "cuda_calls"),
@@ -482,11 +500,17 @@ def counters() -> dict:
     }
 
 
+# The compiled passes' launches (csrc/rl_pass.cu): kernels inside the routes
+# counted above (the three-pass half-step, the two-pass z+y step, the x pass
+# of linear_pallas and zy_pallas), checked where a drive names them.
+PASS_COUNTS = ("axis_pass", "x_pass", "x_pass_accel")
+
+
 def drive(step, batch, want: dict | None) -> tuple[torch.Tensor, dict, float]:
     """Run ``step`` once with every count set to 0 just before and read
     just after; fail unless each named kernel ran and no plain version
     saw a CUDA tensor (``want`` None: only read the counts, which the
-    caller checks). Returns (output, counts, peak GiB); the peak
+    caller checks; the PASS_COUNTS only where ``want`` names them). Returns (output, counts, peak GiB); the peak
     counts what was allocated before (the batch, kept references), and
     the line printed also gives the step's own rise above that."""
     table = counters()
@@ -503,7 +527,8 @@ def drive(step, batch, want: dict | None) -> tuple[torch.Tensor, dict, float]:
           f"({peak_gib - before / 2**30:.2f} above the {before / 2**30:.2f} GiB held before)",
           flush=True)
     bad = {k: v for k, v in counts.items()
-           if (want is None and "plain" in k and v) or (want is not None and v != want.get(k, 0))}
+           if (want is None and "plain" in k and v)
+           or (want is not None and (k not in PASS_COUNTS or k in want) and v != want.get(k, 0))}
     if bad:
         raise AssertionError(f"launch counts {bad}, want {want} (others 0)")
     if not bool(torch.isfinite(out).all()):
@@ -512,9 +537,10 @@ def drive(step, batch, want: dict | None) -> tuple[torch.Tensor, dict, float]:
 
 
 def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
-    """Warm host-clock times, alternated plain, kernel, kernel, plain. Every
-    caller has run both paths just before (the kernel path counted, the
-    plain one in float64), so no call is spent on a warm-up."""
+    """Warm host-clock times: plain, kernel, kernel (the plain path once:
+    it is no yardstick of speed, and a second run cost ~8 s a phase).
+    Every caller has run both paths just before (the kernel path counted,
+    the plain one in float64), so no call is spent on a warm-up."""
 
     def wall(fn) -> float:
         torch.cuda.synchronize()
@@ -524,9 +550,9 @@ def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
         return time.perf_counter() - t0
 
     plain_s, kernel_s = [], []
-    for fn, acc in ((plain, plain_s), (step, kernel_s), (step, kernel_s), (plain, plain_s)):
+    for fn, acc in ((plain, plain_s), (step, kernel_s), (step, kernel_s)):
         acc.append(wall(fn))
-    k, p = sum(kernel_s) / 2, sum(plain_s) / 2
+    k, p = sum(kernel_s) / 2, plain_s[0]
     print(f"  {label} kernel path: {k * 1e3:.1f} ms/volume, {vox / k / 1e9:.4f} GVox/s  "
           f"{kernel_s}")
     print(f"  {label} plain f32 path: {p * 1e3:.1f} ms/volume, {vox / p / 1e9:.4f} GVox/s  "
@@ -743,9 +769,7 @@ def phase_rl(gen) -> tuple[dict, dict]:
         for mode, st in (("ratio", conv), ("mult", adj), ("plain", conv)):
             got = step(inp, aux, st, mode, eps)
             want = half_step_plain(inp, aux, st, mode, eps)
-            name = f"rl half-step {mode} {label} ({route})"
-            errs[mode] = (same_bits(name, got, want) if route == "one_launch"
-                          else compare(name, got, want, KERNEL_RTOL))
+            errs[mode] = same_bits(f"rl half-step {mode} {label} ({route})", got, want)
         return errs["ratio"], conv, adj, inp, aux
 
     err, conv, adj, inp, aux = modes(carry, terms, f"{carry}", half_step_one_launch)
@@ -983,6 +1007,152 @@ def phase_three_pass() -> dict:
     return total
 
 
+# BASELINE.md config 2's G grid: the deskewed production volume padded by
+# the radii (15, 20, 18) of the PSF phase 4p measures from beads, (31, 41,
+# 37) after its crop, in 24 terms (ops/rl_fused.py::half_step_three_pass).
+CONFIG2_LENGTHS = (31, 41, 37)
+CONFIG2_TERMS = 24
+
+
+def config2_carry() -> tuple[int, int, int]:
+    return tuple(n + k - 1 for n, k in zip(deskewed_shape(), CONFIG2_LENGTHS))
+
+
+def library_conv_axis(v: torch.Tensor, taps, axis: int) -> torch.Tensor:
+    """``F.conv3d`` with a single-axis kernel (flipped: conv3d
+    correlates), zero padding: one pass of the three-pass route as one
+    library call (float32, TF32 off); never called by the port."""
+    import numpy as np
+
+    import torch.nn.functional as F
+
+    shape = [1, 1, 1]
+    shape[axis] = len(taps)
+    w = torch.tensor(np.ascontiguousarray(np.asarray(taps, np.float32)[::-1]),
+                     device=v.device).reshape(1, 1, *shape)
+    pad = [0, 0, 0]
+    pad[axis] = len(taps) // 2
+    return F.conv3d(v[None, None], w, padding=tuple(pad))[0, 0]
+
+
+def runtime_pass(v, out, taps, view=None, prev=None, aux=None, mode="plain", eps=0.0):
+    """The pass on csrc/rl_fused.cu's runtime-length kernel (the kernel
+    before the compiled passes, which still runs tap lists past 63): the
+    axis pass over ``view``, else the x pass."""
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+    from shrimpy_tpu_torch.ops.rl_fused import MODES, x_piece
+
+    lib, stream = load_library(), torch.cuda.current_stream().cuda_stream
+    if view is not None:
+        check(lib.shrimpy_conv_axis(v.data_ptr(), out.data_ptr(), taps.data_ptr(), taps.numel(),
+                                    *view, None, None, 0, stream), "shrimpy_conv_axis")
+        return
+    gz, gy, gx = v.shape
+    check(lib.shrimpy_conv_x(v.data_ptr(), prev.data_ptr() if prev is not None else None,
+                             aux.data_ptr() if aux is not None else None, out.data_ptr(),
+                             taps.data_ptr(), taps.numel(), gz * gy, gx,
+                             x_piece(gx, taps.numel() // 2), MODES[mode] if aux is not None else 0,
+                             eps, 0, stream), "shrimpy_conv_x")
+
+
+def phase_passes(gen) -> tuple[dict, dict]:
+    """The three-pass route's passes at BASELINE.md config 2's full grid,
+    one term of (31, 41, 37) taps: the z and y passes
+    (``csrc/rl_pass.cu::axis_pass_kernel``) and the x pass
+    (``x_pass_kernel``: a middle term, adding the earlier terms' sum, and
+    the last, with the ratio epilogue), each bit-equal to its plain
+    version, timed beside its bound from the shapes, the plain version,
+    one ``F.conv3d`` with the single-axis kernel and csrc/rl_fused.cu's
+    runtime-length kernel on the same operands (held to the same bits).
+    Returns the axis and x passes' entries."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        _conv_axis_plain,
+        _epilogue,
+        axis_pass_cuda,
+        conv_axis_cuda,
+        conv_x_cuda,
+        x_pass_cuda,
+    )
+
+    carry = config2_carry()
+    gz, gy, gx = carry
+    vox = gz * gy * gx
+    rng = np.random.default_rng(SEED + 16)
+    host = [rng.random(k).astype(np.float32) + 0.1 for k in CONFIG2_LENGTHS]
+    dev = [torch.tensor(h, device="cuda") for h in host]
+    eps = headline_settings().deconvolve.epsilon
+    v = uniform(carry, gen, 0.5, 10.5)
+    out = torch.empty_like(v)
+    res = {}
+    for axis, view, name in ((0, (1, gz, gy * gx), "z"), (1, (gz, gy, gx), "y")):
+        before = axis_pass_cuda.launches
+        conv_axis_cuda(v, out, dev[axis], host[axis], *view)
+        torch.cuda.synchronize()
+        if axis_pass_cuda.launches != before + 1:
+            raise AssertionError(f"the {name} pass did not run the compiled axis pass")
+        want = _conv_axis_plain(v, host[axis].astype(np.float64), axis)
+        err = same_bits(f"{name} pass, {len(host[axis])} taps, config 2 grid {carry}", out, want)
+        runtime_pass(v, want, dev[axis], view)
+        same_bits(f"{name} pass: the runtime-length kernel", want, out)
+        del want
+        lib = library_conv_axis(v, host[axis], axis)
+        lib_err = rel_err(lib, out)
+        del lib
+        res[name] = {
+            "max_abs_err": err,
+            "ms": gpu_ms(lambda: conv_axis_cuda(v, out, dev[axis], host[axis], *view), 10),
+            "runtime_ms": gpu_ms(lambda: runtime_pass(v, out, dev[axis], view), 3),
+            "plain_ms": gpu_ms(lambda: _conv_axis_plain(v, host[axis], axis), 1),
+            "library_ms": gpu_ms(lambda: library_conv_axis(v, host[axis], axis), 2),
+            # A carry read, one written; an FMA a tap a voxel.
+            **bound(2 * 4 * vox, 2 * len(host[axis]) * vox)}
+        print(f"  {name} pass at {carry}: {res[name]['ms']:.3f} ms (the runtime-length kernel "
+              f"{res[name]['runtime_ms']:.3f}, plain {res[name]['plain_ms']:.3f}, F.conv3d "
+              f"{res[name]['library_ms']:.3f} at {lib_err:.1e} of it; bound "
+              f"{res[name]['bound_ms']:.3f} by {res[name]['bound_by']})", flush=True)
+    prev = uniform(carry, gen, 0.0, 1.0)
+    aux = uniform(carry, gen, 0.0, 5.0)
+    x = _conv_axis_plain(v, host[2].astype(np.float64), 2)
+    for label, a, mode in (("mid", None, "plain"), ("last", aux, "ratio")):
+        before = x_pass_cuda.launches
+        conv_x_cuda(v, prev, a, out, dev[2], mode, eps, host=host[2])
+        torch.cuda.synchronize()
+        if x_pass_cuda.launches != before + 1:
+            raise AssertionError("the x pass did not run the compiled x pass")
+        want = _epilogue(x + prev, a, mode, eps)
+        err = same_bits(f"x pass ({label} term, {mode}), 37 taps, config 2 grid", out, want)
+        runtime_pass(v, want, dev[2], prev=prev, aux=a, mode=mode, eps=eps)
+        same_bits(f"x pass ({label} term): the runtime-length kernel", want, out)
+        del want
+        carries = 3 if a is None else 4  # in, prev (and aux) read, out written
+        res[f"x_{label}"] = {
+            "max_abs_err": err,
+            "ms": gpu_ms(lambda: conv_x_cuda(v, prev, a, out, dev[2], mode, eps, host=host[2]),
+                         10),
+            "runtime_ms": gpu_ms(lambda: runtime_pass(v, out, dev[2], prev=prev, aux=a,
+                                                      mode=mode, eps=eps), 3),
+            "plain_ms": gpu_ms(lambda: _epilogue(_conv_axis_plain(v, host[2], 2) + prev, a,
+                                                 mode, eps), 1),
+            **bound(carries * 4 * vox, (2 * len(host[2]) + 1) * vox)}
+    del x, prev, aux
+    res["x_mid"]["library_ms"] = gpu_ms(lambda: library_conv_axis(v, host[2], 2), 2)
+    for label in ("mid", "last"):
+        r = res[f"x_{label}"]
+        print(f"  x pass at {carry}, {label} term: {r['ms']:.3f} ms (the runtime-length kernel "
+              f"{r['runtime_ms']:.3f}, plain {r['plain_ms']:.3f}; bound {r['bound_ms']:.3f} by "
+              f"{r['bound_by']})", flush=True)
+    print(f"  F.conv3d (1, 1, 37) at {carry}: {res['x_mid']['library_ms']:.3f} ms", flush=True)
+    del v, out
+    z, y, xm, xl = res["z"], res["y"], res["x_mid"], res["x_last"]
+    axis = {**y, "z_ms": z["ms"], "z_runtime_ms": z["runtime_ms"], "z_plain_ms": z["plain_ms"],
+            "z_library_ms": z["library_ms"], "z_bound_ms": z["bound_ms"]}
+    xp = {**xm, "last_ms": xl["ms"], "last_runtime_ms": xl["runtime_ms"],
+          "last_plain_ms": xl["plain_ms"], "last_bound_ms": xl["bound_ms"]}
+    return axis, xp
+
+
 @functools.lru_cache(maxsize=1)
 def parent_convzy(parent_dir):
     """The z+y kernel of the commit before the march (``convzy_kernel<kTy,
@@ -1040,7 +1210,8 @@ def time_convzy(v, st, boundary, old=None) -> dict:
         res["ms"] = gpu_ms(new, 10)
         print(f"  convzy {boundary} {tuple(v.shape)}: march {res['ms']:.3f} ms (no --parent-convzy: "
               "the kernel before it not timed)", flush=True)
-    two = lambda: convzy_two_pass(v, kz, ky, boundary=boundary, out=other, tmp=tmp)  # noqa: E731
+    two = lambda: convzy_two_pass(v, kz, ky, boundary=boundary, out=other, tmp=tmp,  # noqa: E731
+                                  host=st.host32[0][:2])
     two()
     same_bits(f"convzy {boundary} {tuple(v.shape)} two_pass vs march", other, out)
     res["ms_two_pass"] = gpu_ms(two, 5)
@@ -1227,17 +1398,18 @@ def phase_circular(gen, parent_dir=None) -> tuple[dict, dict, dict]:
                              ((5, 9, 21), rng.random(45).astype(np.float32), "(5, 9, 21) 45 taps")):
         h = uniform(shape, gen, 0.5, 10.5)
         aux = uniform(shape, gen, 0.0, 5.0)
-        kxd = torch.tensor(np.asarray(kx, np.float32), device="cuda")
+        kxh = np.array(kx, np.float32)
+        kxd = torch.tensor(kxh, device="cuda")
         out = torch.empty_like(h)
         for mode in ("ratio", "mult", "plain"):
             a = None if mode == "plain" else aux
-            conv_x_cuda(h, None, a, out, kxd, mode, eps, wrap=True)
+            conv_x_cuda(h, None, a, out, kxd, mode, eps, wrap=True, host=kxh)
             err = compare(f"circular x pass {mode} {label}", out,
                           _epilogue(x_circulant_plain(h, kx), a, mode, eps), KERNEL_RTOL)
             xp["max_abs_err"] = max(xp["max_abs_err"], err)
         if shape == carry:
             xp["ms"] = gpu_ms(lambda: conv_x_cuda(h, None, aux, out, kxd, "ratio", eps,
-                                                  wrap=True), 10)
+                                                  wrap=True, host=kxh), 10)
             # Mode ratio, as timed: h and aux read, out written; an FMA a
             # tap and the division.
             xp.update(bound(3 * 4 * h.numel(), (2 * len(kx) + 1) * h.numel()))
@@ -2281,7 +2453,7 @@ def phase_linear(steps: Steps, rl20: torch.Tensor, biggs: torch.Tensor) -> dict:
     ):
         step = steps.build(separable_backend="linear_pallas", **kw)
         out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_linear": n,
-                                                      "convzy_march": n})
+                                                      "convzy_march": n, "x_pass": n})
         steps.check_shape(out)
         if ref is rl20:
             err = rel_err(out, ref)
@@ -2302,7 +2474,8 @@ def phase_zy(steps: Steps) -> dict:
     zy = {"separable_backend": "zy_pallas"}
     step = steps.build(**zy)
     out, counts, peak = drive(step, steps.batch, {"deskew": 1, "convzy_circular": 2 * ITERATIONS,
-                                                  "convzy_march": 2 * ITERATIONS})
+                                                  "convzy_march": 2 * ITERATIONS,
+                                                  "x_pass": 2 * ITERATIONS})
     steps.check_shape(out)
     ref = steps.build(plain=True, dtype=torch.float64, **zy)(steps.batch)
     compare("zy_pallas RL-20 step vs float64 plain", out, ref, STEP_RTOL)
@@ -2659,15 +2832,35 @@ def host_available_gib() -> float:
     raise AssertionError("no MemAvailable in /proc/meminfo")
 
 
-def phase_phase(gen) -> dict:
+def phase_tf() -> dict:
+    """The host half of phase 4l, run in a thread beside phases 4i-4k
+    (the card's work there does not wait on the host): the shape the host
+    memory allows and the transfer function of the schema's defaults with
+    yx 0.116 um, z 0.25 um (float64 numpy on the host, cached per shape),
+    timed in its thread."""
+    from shrimpy_tpu_torch.config import phase_settings
+    from shrimpy_tpu_torch.ops.phase import compute_transfer_function
+
+    free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.rstrip()
+    avail = host_available_gib()
+    shape = PHASE_SHAPE if avail >= 1.5 * PHASE_HOST_GIB else PHASE_SMALL_SHAPE
+    settings = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.25})
+    t0 = time.perf_counter()
+    tf = compute_transfer_function(shape, settings.transfer_function)
+    return {"free": free, "avail": avail, "shape": shape, "settings": settings, "tf": tf,
+            "tf_s": time.perf_counter() - t0}
+
+
+def phase_phase(gen, host: dict) -> dict:
     """Phase reconstruction of a brightfield stack (64, 2048, 2048) with
     the schema's defaults (z_padding 5, 0.450 um, NA 1.35 / 0.52), yx
-    0.116 um, z 0.25 um: the host transfer function (float64 numpy) and
-    the card's inverse timed apart, the inverse against its float64 path
-    on the card (STEP_RTOL), then through the reconstruct step with the
-    transfer function handed over. (64, 1024, 1024) where the host cannot
-    hold the transfer function's arrays. Then a weak phase object
-    recovered at (16, 32, 32), as tests/test_phase.py:65 does."""
+    0.116 um, z 0.25 um: the host transfer function (float64 numpy,
+    :func:`phase_tf`'s ``host``) and the card's inverse timed apart, the
+    inverse against its float64 path on the card (STEP_RTOL), then
+    through the reconstruct step with the transfer function handed over.
+    (64, 1024, 1024) where the host cannot hold the transfer function's
+    arrays. Then a weak phase object recovered at (16, 32, 32), as
+    tests/test_phase.py:65 does."""
     import numpy as np
 
     from shrimpy_tpu_torch.config import phase_settings, reconstruct_settings
@@ -2679,16 +2872,11 @@ def phase_phase(gen) -> dict:
     )
     from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
 
-    print(subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.rstrip(),
-          flush=True)
-    avail = host_available_gib()
-    shape = PHASE_SHAPE if avail >= 1.5 * PHASE_HOST_GIB else PHASE_SMALL_SHAPE
-    print(f"  host memory available {avail:.1f} GiB: phase at {shape}", flush=True)
-    settings = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.25})
+    print(host["free"], flush=True)
+    shape, settings, tf, tf_s = host["shape"], host["settings"], host["tf"], host["tf_s"]
+    print(f"  host memory available {host['avail']:.1f} GiB: phase at {shape}; the host TF took "
+          f"{tf_s:.2f} s in its thread beside phases 4i-4k", flush=True)
     tfs, inv = settings.transfer_function, settings.apply_inverse
-    t0 = time.perf_counter()
-    tf = compute_transfer_function(shape, tfs)
-    tf_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     tf_dev = tf_tensor(tf, "cuda")
     torch.cuda.synchronize()
@@ -3558,7 +3746,12 @@ def phase_psf(gen) -> dict:
     from shrimpy_tpu_torch.kernels import build
     from shrimpy_tpu_torch.ops.deconv import plan_terms, prepare_psf, richardson_lucy
     from shrimpy_tpu_torch.ops.deskew import deskew_volume
-    from shrimpy_tpu_torch.ops.rl_fused import half_layout, half_step_route
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        axis_pass_route,
+        half_layout,
+        half_step_route,
+        x_pass_route,
+    )
     from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
     from shrimpy_tpu_torch.psf import measure_volume_psf
 
@@ -3609,14 +3802,23 @@ def phase_psf(gen) -> dict:
               f"({layout.get('smem_bytes')} B of shared memory)", flush=True)
         batch = uniform((1, *RAW_SHAPE), gen, 0.0, 100.0)
         step = build_reconstruct_step(settings, psf=psf, device="cuda")
-        # A half-step is one launch, or three a term (z, y, x passes).
+        # A half-step is one launch, or three a term (z, y, x passes), each
+        # on the passes compiled for its tap count where the lists allow.
         per_half = 1 if route == "one_launch" else 3 * len(terms)
+        want = {"deskew": 1, "rl_half_step": 2 * ITERATIONS,
+                f"rl_half_{route}": 2 * ITERATIONS * per_half}
+        lengths = psf_w.shape
+        if route == "three_pass":
+            halves = 2 * ITERATIONS
+            want["axis_pass"] = halves * len(terms) * sum(
+                axis_pass_route(k) == "compiled" for k in lengths[:2])
+            want["x_pass"] = halves * len(terms) * (x_pass_route(carry[2], lengths[2]) == "compiled")
         # Timed as counted: every kernel of the step is built and loaded
         # by now (a second run would add its length to the phase).
         t0 = time.perf_counter()
-        rl20, counts, peak = drive(step, batch, {"deskew": 1, "rl_half_step": 2 * ITERATIONS,
-                                                 f"rl_half_{route}": 2 * ITERATIONS * per_half})
+        rl20, counts, peak = drive(step, batch, want)
         ms = (time.perf_counter() - t0) * 1e3
+        passes = config2_pass_ms(carry, terms[0], gen) if route == "three_pass" else {}
         vox = rl20[0].numel()
         del rl20
         vol = deskew_volume(batch[0], deskew)
@@ -3624,7 +3826,7 @@ def phase_psf(gen) -> dict:
         torch.cuda.empty_cache()
         s2 = headline_settings(iterations=2).deconvolve
         t0 = time.monotonic()
-        ref = richardson_lucy(vol, psf, s2, plain=True, dtype=torch.float64)
+        ref = rl_float64_banded(vol, psf_w, terms, s2, 2)
         rl2_s = time.monotonic() - t0
         rl2 = compare(f"RL-2 with the measured PSF, (128, 2888, 1600), vs float64 plain (the "
                       f"float64 run {rl2_s:.1f} s)", richardson_lucy(vol, psf, s2), ref, RL2_RTOL)
@@ -3638,6 +3840,10 @@ def phase_psf(gen) -> dict:
         crop_err = compare(f"RL-20 with the measured PSF on a {PSF_CROP} crop vs float64 plain "
                            f"(the float64 run {crop_s:.1f} s)", richardson_lucy(crop, psf, deconv),
                            ref, STEP_RTOL)
+        # The full-size reference's operator is the plain one: on the crop
+        # the two float64 runs agree to their rounding.
+        compare("RL-20 on the crop: the banded float64 reference vs float64 plain",
+                rl_float64_banded(crop, psf_w, terms, deconv, deconv.iterations), ref, 1e-10)
         del ref, crop
         cpu_report, cpu_s = cpu_run.result()
     psf_cpu = np.load(out["cpu"].with_suffix(".npy"))
@@ -3651,13 +3857,74 @@ def phase_psf(gen) -> dict:
            "bead_fwhm_um_zyx": list(bead_fwhm_um()), "measure_s": measure_s, "cpu_s": cpu_s,
            "psf_rel_err": psf_err, "k": len(terms), "psf_shape": psf_w.shape, "radii": radii,
            "route": route, "tile": layout.get("tile"), "ms": ms, "gvox_s": vox / ms / 1e6,
-           "peak_gib": peak,
+           "peak_gib": peak, "pass_ms": passes,
            "rl2_max_abs_err": rl2, "rl2_float64_s": rl2_s, "crop_max_abs_err": crop_err,
            "crop_float64_s": crop_s,
            "launches": counts, "seconds": time.monotonic() - t_start}
     print(f"  deskew + RL-20 with the measured PSF at raw {RAW_SHAPE}: {ms:.1f} ms (the counted "
-          f"run), {res['gvox_s']:.4f} GVox/s, peak {peak:.2f} GiB; phase 4p took "
-          f"{res['seconds']:.1f} s", flush=True)
+          f"run), {res['gvox_s']:.4f} GVox/s, peak {peak:.2f} GiB; one term's passes "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items())
+          + f"; phase 4p took {res['seconds']:.1f} s", flush=True)
+    return res
+
+
+def rl_float64_banded(image, psf_w, terms, settings, iterations: int) -> torch.Tensor:
+    """RL of the ``fused`` backend's operator in float64 on the card: the
+    G grid, start and crop of ``ops/rl_fused.py::rl_fused``, and each 1-D
+    pass of a term a product with its banded Toeplitz matrix
+    (``conv3_cuda.py::toeplitz_banded``, zero boundary) on cuBLAS: the
+    plain half-steps' operator with its sums in another order. Phase 4p's
+    reference at full size (the plain tap passes took 67 s for RL-2)."""
+    from shrimpy_tpu_torch.ops.conv3_cuda import toeplitz_banded
+    from shrimpy_tpu_torch.ops.rl_fused import crop_grid, start_on_grid
+
+    eps = float(settings.epsilon)
+    shape = tuple(image.shape)
+    conv, adj, data, est = start_on_grid(image, psf_w, terms, settings, torch.float64)
+    gz, gy, gx = est.shape
+
+    def matrices(st):
+        return [tuple(torch.from_numpy(toeplitz_banded(n, w)).to(est.device)
+                      for n, w in zip(est.shape, term)) for term in st.host]
+
+    def conv3(v, mats):
+        acc = None
+        for tz, ty, tx in mats:
+            w = (tz @ v.reshape(gz, gy * gx)).reshape(gz, gy, gx)
+            wy = torch.empty_like(w)
+            for z in range(gz):  # a plane at a time: no (gz, gy, gy) copy of ty
+                torch.matmul(ty, w[z], out=wy[z])
+            del w
+            w = torch.matmul(wy, tx.T)
+            del wy
+            acc = w if acc is None else acc.add_(w)
+        return acc
+
+    fwd, bwd = matrices(conv), matrices(adj)
+    for _ in range(iterations):
+        ratio = data / torch.clamp_min(conv3(est, fwd), eps)
+        est = est * conv3(ratio, bwd)
+        del ratio
+    del data
+    return crop_grid(est, shape, conv.radii)
+
+
+def config2_pass_ms(carry, term, gen) -> dict:
+    """Device ms of one term's z, y and x passes (the x pass adding the
+    earlier terms' sum) with the measured PSF's taps on config 2's carry,
+    as the three-pass route launches them (CUDA events, warm)."""
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil, conv_axis_cuda, conv_x_cuda
+
+    gz, gy, gx = carry
+    st = Stencil([term], device="cuda")
+    (kz, ky, kx), (hz, hy, hx) = st.dev[0], st.host32[0]
+    v = uniform(carry, gen, 0.5, 10.5)
+    a, b = torch.empty_like(v), torch.empty_like(v)
+    res = {"z": gpu_ms(lambda: conv_axis_cuda(v, a, kz, hz, 1, gz, gy * gx), 5),
+           "y": gpu_ms(lambda: conv_axis_cuda(a, b, ky, hy, gz, gy, gx), 5),
+           "x": gpu_ms(lambda: conv_x_cuda(b, v, None, a, kx, "plain", 0.0, host=hx), 5)}
+    del v, a, b
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3710,6 +3977,12 @@ def build_all(build) -> None:
                              len(hterms))
         if layout is not None:
             jobs.append(("rl_half", (len(hterms), *psf_w.shape, *layout["tile"])))
+    # The compiled passes (csrc/rl_pass.cu), one library a tap count: every
+    # list of 63 taps or fewer that a three-pass or two-pass route, or an x
+    # pass of linear_pallas, zy_pallas or conv3_circular, runs below (a
+    # cropped PSF's count missed here is compiled at its first launch).
+    pass_taps = {1, 3, 5, 7, 9, 11, 13, 15, 17, 19, 21, 45, 61, *CONFIG2_LENGTHS}
+    jobs += [("rl_pass", (k,)) for k in sorted(pass_taps)]
     with ThreadPoolExecutor(2) as pool:
         geometries = pool.submit(build.build_geometries, jobs)
         build.load_library()
@@ -3717,6 +3990,8 @@ def build_all(build) -> None:
 
 
 def main(argv) -> int:
+    from concurrent.futures import ThreadPoolExecutor
+
     t_start = time.monotonic()
     # --parent-iter DIR: the source of the whole-iteration kernel before its
     # redesign, timed beside the new one in phase 3.
@@ -3759,6 +4034,10 @@ def main(argv) -> int:
     accel = phase_accel(gen)
     print("  the three-pass route through richardson_lucy:", flush=True)
     three = phase_three_pass()
+    print(f"  the three-pass route's compiled passes at BASELINE.md config 2's grid "
+          f"{config2_carry()} (csrc/rl_pass.cu):", flush=True)
+    axis_p, x_p = phase_passes(gen)
+    torch.cuda.empty_cache()
     zy = phase_convzy(gen, parent_zy)
     torch.cuda.empty_cache()
     czy, c3, xcirc = phase_circular(gen, parent_zy)
@@ -3808,6 +4087,10 @@ def main(argv) -> int:
     del steps
     torch.cuda.empty_cache()
     t_fft = time.monotonic()
+    # Phase 4l's host transfer function (~85 s of float64 numpy) beside the
+    # card's phases 4i-4k.
+    tf_pool = ThreadPoolExecutor(1)
+    tf_host = tf_pool.submit(phase_tf)
     stamp(t_start, f"[4i] bench.py config 6: RL-20 with tilted_gaussian_psf() (non-separable) at "
           f"{NONSEP_SHAPE}, fft_backend auto")
     nvol, npsf = uniform(NONSEP_SHAPE, gen, 0.0, 100.0), nonsep_psf()
@@ -3821,7 +4104,8 @@ def main(argv) -> int:
     del nvol
     torch.cuda.empty_cache()
     stamp(t_start, "[4l] phase reconstruction of a brightfield stack")
-    ph = phase_phase(gen)
+    ph = phase_phase(gen, tf_host.result())
+    tf_pool.shutdown()
     fft_s = time.monotonic() - t_fft
     stamp(t_start, f"[4m] tracking: deskew + each method at raw {RAW_SHAPE}; phase + pcc at "
           f"{ph['shape']}")
@@ -3942,6 +4226,15 @@ def main(argv) -> int:
           f"in {mpsf['measure_s']:.2f} s, K {mpsf['k']} of {mpsf['psf_shape']}, deskew + RL-20 "
           f"{mpsf['ms']:.1f} ms, {mpsf['gvox_s']:.4f} GVox/s, peak {mpsf['peak_gib']:.2f} GiB; "
           f"phase 4p took {mpsf['seconds']:.1f} s", flush=True)
+    print(f"[5] {card}: the compiled passes at config 2's grid {config2_carry()}: z "
+          f"{axis_p['z_ms']:.3f} ms (runtime-length kernel {axis_p['z_runtime_ms']:.3f}, bound "
+          f"{axis_p['z_bound_ms']:.3f}, F.conv3d {axis_p['z_library_ms']:.3f}), y "
+          f"{axis_p['ms']:.3f} ms ({axis_p['runtime_ms']:.3f}, bound {axis_p['bound_ms']:.3f}, "
+          f"F.conv3d {axis_p['library_ms']:.3f}), x mid term {x_p['ms']:.3f} ms "
+          f"({x_p['runtime_ms']:.3f}, bound {x_p['bound_ms']:.3f}, F.conv3d "
+          f"{x_p['library_ms']:.3f}), x last term {x_p['last_ms']:.3f} ms "
+          f"({x_p['last_runtime_ms']:.3f}, bound {x_p['last_bound_ms']:.3f}); with the measured "
+          f"taps " + ", ".join(f"{k} {v:.3f}" for k, v in mpsf["pass_ms"].items()), flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
@@ -3955,9 +4248,17 @@ def main(argv) -> int:
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
          "launches": biggs["launches"]["rl_half_one_launch"], **accel},
         {"name": "rl_half_step_three_pass", "route": "cuda",
-         "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
+         "source": "shrimpy_tpu_torch/csrc/rl_pass.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
          "launches": three["rl_half_step"] + three["rl_half_step_accel"], **rl3},
+        {"name": "axis_pass", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/rl_pass.cu",
+         "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
+         "launches": mpsf["launches"]["axis_pass"], **axis_p},
+        {"name": "x_pass", "route": "cuda",
+         "source": "shrimpy_tpu_torch/csrc/rl_pass.cu",
+         "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
+         "launches": mpsf["launches"]["x_pass"], **x_p},
         {"name": "convzy_linear", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
@@ -3970,7 +4271,7 @@ def main(argv) -> int:
          "x_pass_plain_ms": xcirc["plain_ms"], "x_pass_bound_ms": xcirc["bound_ms"],
          "x_pass_bound_by": xcirc["bound_by"]},
         {"name": "convzy_two_pass", "route": "cuda",
-         "source": "shrimpy_tpu_torch/csrc/rl_fused.cu",
+         "source": "shrimpy_tpu_torch/csrc/rl_pass.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
          "launches": routes["launches"], "max_abs_err": 0.0, "ms": zy["ms_two_pass"],
          "ms_circular": czy["ms_two_pass"],

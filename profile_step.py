@@ -43,12 +43,19 @@ on its first tile and held to the kernel's bits.
 config 1, each output held to the kernel's bits, beside the time of a
 copy of the raw and a fill of the output.
 
-``python3 profile_step.py --conv-axis`` times ``conv_axis``
-(``csrc/rl_fused.cu``) beside a copy of its source built with every tap
-list in chunks (:data:`CONV_AXIS_CHUNKED`), in turns, on the z and y
-launches of the two-pass z+y route and of the three-pass half-step at
-the production carry (plain, circular and Biggs-extrapolated input) and
-with y tap lists of 201 and 423, each output held to the other's bits.
+``python3 profile_step.py --conv-axis`` times the three-pass route's
+compiled passes (``csrc/rl_pass.cu``: the z and y passes and the x pass)
+beside ``csrc/rl_fused.cu``'s runtime-length kernels, in turns, at
+``BASELINE.md`` config 2's grid and on the headline's launches at the
+production carry, then beside builds with registers capped
+(:data:`PASS_VARIANTS`) and, for config 2's y pass, other tiles
+(:data:`Y_TILES`), each output held to the compiled pass's bits.
+
+``python3 profile_step.py --config2`` measures the PSF of ``chip_smoke.py``
+phase 4p's beads and runs one warm deskew + RL-20 step with it (the
+three-pass route, K = 24) under ``torch.profiler``, its device events by
+kind (:func:`pass_kind`), then times one term's z+y step on the march
+(``csrc/convzy.cu``) at tile (8, 32) beside the compiled z and y passes.
 
 ``python3 profile_step.py --affine`` times the warp and the refine's kernels of
 ``csrc/affine.cu`` beside builds of the edits in :data:`AFFINE_VARIANTS`
@@ -858,72 +865,237 @@ def sweep_deskew(cs) -> None:
         torch.cuda.empty_cache()
 
 
-# (axis, taps, wrap, extrapolated input) of the conv_axis launches that
-# --conv-axis times at the production carry: the two-pass z+y route's (zero
-# and circular), the three-pass half-step's (plain and Biggs input), and y
-# tap lists of 201 and 423 (the most one staged column holds).
-CONV_AXIS_CASES = (("z", 9, 0, False), ("y", 21, 0, False), ("z", 9, 1, False),
-                   ("y", 21, 1, False), ("z", 9, 0, True), ("y", 21, 0, True),
-                   ("y", 201, 0, False), ("y", 423, 1, False))
+# Builds of csrc/rl_pass.cu that --conv-axis times beside it, (edits of the
+# source, nvcc flags): the axis pass loading a ring pass's inputs only after
+# the pass before (no prefetch), and the axis pass's registers capped for 3
+# or 4 blocks of 128 threads an SM (nvcc's -maxrregcount does not reach a
+# kernel with __launch_bounds__).
+_AXIS_BOUNDS = "__launch_bounds__(kAxisThreads)\n    axis_pass_kernel"
+PASS_VARIANTS = {
+    "no prefetch": ([("constexpr bool kPrefetch = true;", "constexpr bool kPrefetch = false;")],
+                    ()),
+    "min blocks 3": ([(_AXIS_BOUNDS, _AXIS_BOUNDS.replace("kAxisThreads)", "kAxisThreads, 3)"))],
+                     ()),
+    "min blocks 4": ([(_AXIS_BOUNDS, _AXIS_BOUNDS.replace("kAxisThreads)", "kAxisThreads, 4)"))],
+                     ()),
+}
 
 
-# The edit of csrc/rl_fused.cu that --conv-axis times beside it: every tap
-# list through conv_axis_kernel's chunked body, also one that fits a column.
-CONV_AXIS_CHUNKED = ("const bool chunks = k > kMaxChunk;", "const bool chunks = true;")
-
-
-def time_conv_axis(cs) -> None:
-    """``conv_axis`` of the common library beside a copy of
-    ``csrc/rl_fused.cu`` edited by :data:`CONV_AXIS_CHUNKED` (built under
-    shrimpy_tpu_torch/build/), timed in turns (chunked, kernel, kernel,
-    chunked) at the production carry on each of :data:`CONV_AXIS_CASES`,
-    each output held to the kernel's bits."""
-    import ctypes
+def build_pass_variants(lengths) -> dict:
+    """{variant: {tap count: library}} of :data:`PASS_VARIANTS`, each an
+    edited copy of csrc/rl_pass.cu compiled for every tap count of
+    ``lengths`` under shrimpy_tpu_torch/build/, all nvcc runs at once;
+    prints each build's registers by kernel."""
     import subprocess
 
     from shrimpy_tpu_torch.kernels import build
 
-    source = (build.CSRC_DIR / "rl_fused.cu").read_text()
-    if CONV_AXIS_CHUNKED[0] not in source:
-        raise RuntimeError(f"csrc/rl_fused.cu no longer has {CONV_AXIS_CHUNKED[0]!r}")
+    source = (build.CSRC_DIR / "rl_pass.cu").read_text()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = build.BUILD_DIR / "rl_fused_chunked.cu"
-    lib_path = build.BUILD_DIR / "librl_fused_chunked.so"
-    src.write_text(source.replace(*CONV_AXIS_CHUNKED))
-    subprocess.run([build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, "-shared",
-                    "-I", str(build.CSRC_DIR), "-o", str(lib_path), str(src)], check=True)
-    chunked = ctypes.CDLL(str(lib_path))
-    chunked.shrimpy_conv_axis.argtypes = build.SIGNATURES["shrimpy_conv_axis"]
-    libs = {"chunked": chunked, "kernel": build.load_library()}
+    procs = {}
+    for i, (label, (edits, flags)) in enumerate(PASS_VARIANTS.items()):
+        text = source
+        for old, new in edits:
+            if old not in text:
+                raise RuntimeError(f"csrc/rl_pass.cu no longer has {old!r} ({label})")
+            text = text.replace(old, new)
+        src = build.BUILD_DIR / f"rl_pass_variant{i}.cu"
+        src.write_text(text)
+        for k in lengths:
+            lib = build.BUILD_DIR / f"librl_pass_variant{i}_{k}.so"
+            cmd = [build.find_nvcc(), *build.ARCH_FLAGS, *build.NVCC_FLAGS, *flags, "-Xptxas",
+                   "-v", f"-DRL_PASS_NK={k}", "-I", str(build.CSRC_DIR), "-shared", "-o",
+                   str(lib), str(src)]
+            procs[(label, k)] = (lib, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                       stderr=subprocess.PIPE, text=True))
+    libs = {label: {} for label in PASS_VARIANTS}
+    for (label, k), (lib, proc) in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}, {k} taps:\n{err}")
+        regs = [line.split("Used ")[1].split(",")[0] for line in err.splitlines()
+                if "Used" in line and "registers" in line]
+        print(f"  {label}, {k} taps: registers by kernel {regs}", flush=True)
+        libs[label][k] = build.open_geometry_library("rl_pass", lib)
+    return libs
+# Tiles of the y pass at config 2's grid that --conv-axis times beside
+# ops/rl_fused.py::axis_tile's (586): outputs a thread walks.
+Y_TILES = (256, 1024, 2928)
+
+
+def time_passes(cs) -> None:
+    """The three-pass route's compiled passes (``csrc/rl_pass.cu``) beside
+    csrc/rl_fused.cu's runtime-length kernels, in turns (runtime, compiled,
+    compiled, runtime), then beside the builds of :data:`PASS_VARIANTS`
+    and, for the y pass, the tiles of :data:`Y_TILES`; every output held to
+    the compiled pass's bits. At ``BASELINE.md`` config 2's grid (one term
+    of (31, 41, 37) taps: z, y, and x as a middle term (adding the earlier
+    terms' sum) and as the last (ratio epilogue)) and at the headline's
+    production carry (the two-pass z+y route's z 9 and y 21, and the x pass
+    of linear_pallas: 21 taps, ratio, no earlier term)."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.rl_fused import MODES, axis_tile, x_piece
+
+    lengths = sorted({*cs.CONFIG2_LENGTHS, 9, 21})
+    libs = build_pass_variants(lengths)
+    paths = build.build_geometries([("rl_pass", (k,)) for k in lengths])
+    libs["compiled"] = {k: build.open_geometry_library("rl_pass", p) for k, p in zip(lengths, paths)}
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    gz, gy, gx = cs.production_terms()[1]
-    v = cs.uniform((gz, gy, gx), gen, 0.0, 100.0)
-    dx = (cs.uniform((gz, gy, gx), gen, -1.0, 1.0)).to(torch.bfloat16)
-    alpha = torch.tensor([0.5], device="cuda")
-    outs = {which: torch.empty_like(v) for which in libs}
     stream = torch.cuda.current_stream().cuda_stream
-    for axis, k, wrap, accel in CONV_AXIS_CASES:
-        taps = cs.uniform((k,), gen)
-        shape = (1, gz, gy * gx) if axis == "z" else (gz, gy, gx)
-        extra = (dx.data_ptr(), alpha.data_ptr()) if accel else (None, None)
+    rng = np.random.default_rng(cs.SEED + 16)
+    for grid_name, carry, cases in (
+            ("config 2", cs.config2_carry(),
+             (("z", 31, None), ("y", 41, None), ("x mid", 37, "plain"), ("x last", 37, "ratio"))),
+            ("headline", cs.production_terms()[1],
+             (("z", 9, None), ("y", 21, None), ("x", 21, "ratio")))):
+        gz, gy, gx = carry
+        v = cs.uniform(carry, gen, 0.5, 10.5)
+        prev = cs.uniform(carry, gen, 0.0, 1.0)
+        aux = cs.uniform(carry, gen, 0.0, 5.0)
+        want, out = torch.empty_like(v), torch.empty_like(v)
+        for label, k, mode in cases:
+            host = rng.random(k).astype(np.float32) + 0.1
+            dev = torch.tensor(host, device="cuda")
+            if mode is None:
+                view = (1, gz, gy * gx) if label == "z" else (gz, gy, gx)
 
-        def run(which):
-            return libs[which].shrimpy_conv_axis(v.data_ptr(), outs[which].data_ptr(),
-                                                 taps.data_ptr(), k, *shape, *extra, wrap, stream)
+                def compiled(name, o, tile=None, view=view, host=host, k=k):
+                    build.check(libs[name][k].shrimpy_axis_pass(
+                        v.data_ptr(), o.data_ptr(), host.ctypes.data, k, *view,
+                        tile or axis_tile(*view), None, None, 0, stream), "shrimpy_axis_pass")
 
-        for which in outs:
-            build.check(run(which), f"shrimpy_conv_axis ({which})")
-        torch.cuda.synchronize()
-        if not torch.equal(outs["chunked"], outs["kernel"]):
-            raise AssertionError(f"conv_axis {axis} k {k} wrap {wrap} accel {accel}: the chunked "
-                                 "body's bits differ")
-        times = {which: [] for which in libs}
-        for which in ("chunked", "kernel", "kernel", "chunked"):
-            times[which].append(cs.gpu_ms(lambda: run(which), 10))
-        o, n = sum(times["chunked"]) / 2, sum(times["kernel"]) / 2
-        print(f"  conv_axis {axis} k {k} wrap {wrap} accel {int(accel)}: kernel {n:.3f} ms "
-              f"{['%.3f' % x for x in times['kernel']]}, every list chunked {o:.3f} "
-              f"{['%.3f' % x for x in times['chunked']]} ({100 * (o - n) / n:+.2f} %)", flush=True)
+                def runtime(o, view=view, dev=dev, k=k):
+                    build.check(build.load_library().shrimpy_conv_axis(
+                        v.data_ptr(), o.data_ptr(), dev.data_ptr(), k, *view, None, None, 0,
+                        stream), "shrimpy_conv_axis")
+            else:
+                p = prev if label == "x mid" else None
+                a = aux if mode == "ratio" else None
+
+                def compiled(name, o, tile=None, host=host, k=k, p=p, a=a, mode=mode):
+                    vec = int(gx % 4 == 0)
+                    build.check(libs[name][k].shrimpy_x_pass(
+                        v.data_ptr(), p.data_ptr() if p is not None else None,
+                        a.data_ptr() if a is not None else None, o.data_ptr(), host.ctypes.data,
+                        k, gz * gy, gx, x_piece(gx, k // 2), MODES[mode], 1e-6, 0, vec, stream),
+                        "shrimpy_x_pass")
+
+                def runtime(o, dev=dev, k=k, p=p, a=a, mode=mode):
+                    build.check(build.load_library().shrimpy_conv_x(
+                        v.data_ptr(), p.data_ptr() if p is not None else None,
+                        a.data_ptr() if a is not None else None, o.data_ptr(), dev.data_ptr(), k,
+                        gz * gy, gx, x_piece(gx, k // 2), MODES[mode], 1e-6, 0, stream),
+                        "shrimpy_conv_x")
+            compiled("compiled", want)
+            runtime(out)
+            torch.cuda.synchronize()
+            if not torch.equal(out, want):
+                raise AssertionError(f"{grid_name} {label}: the runtime kernel's bits differ")
+            times = {"runtime": [], "compiled": []}
+            for which in ("runtime", "compiled", "compiled", "runtime"):
+                run = (lambda: runtime(out)) if which == "runtime" else \
+                    (lambda: compiled("compiled", out))
+                times[which].append(cs.gpu_ms(run, 10))
+            r, c = sum(times["runtime"]) / 2, sum(times["compiled"]) / 2
+            print(f"  {grid_name} {carry} {label} ({k} taps): compiled {c:.3f} ms "
+                  f"{['%.3f' % x for x in times['compiled']]}, runtime-length {r:.3f} "
+                  f"{['%.3f' % x for x in times['runtime']]}", flush=True)
+            variants = [(name, None) for name in PASS_VARIANTS]
+            if label == "y" and grid_name == "config 2":
+                variants += [("compiled", t) for t in Y_TILES]
+            for name, tile in variants:
+                out.zero_()
+                compiled(name, out, tile)
+                torch.cuda.synchronize()
+                if not torch.equal(out, want):
+                    raise AssertionError(f"{grid_name} {label} {name} tile {tile}: bits differ")
+                ms = cs.gpu_ms(lambda: compiled(name, out, tile), 10)
+                print(f"    {name}{f' tile {tile}' if tile else ''}: {ms:.3f} ms", flush=True)
+        del v, prev, aux, want, out
+        torch.cuda.empty_cache()
+
+
+def pass_kind(name: str) -> str:
+    """The kind of a device event of config 2's step: the compiled axis
+    and x passes, the runtime-length passes, the deskew, the rest."""
+    low = name.lower()
+    for key, label in (("axis_pass", "axis pass"), ("x_pass", "x pass"),
+                       ("conv_axis", "runtime-length pass"), ("conv_x", "runtime-length pass"),
+                       ("deskew", "deskew")):
+        if key in low:
+            return label
+    return "elementwise"
+
+
+def profile_config2(cs) -> None:
+    """``BASELINE.md`` config 2: the PSF measured from ``chip_smoke.py``
+    phase 4p's bead raw, then one warm deskew + RL-20 step with it at the
+    production raw under ``torch.profiler`` (as a step above), its device
+    events by kind (:func:`pass_kind`); then one term's z+y step on the
+    march (``csrc/convzy.cu``) at its radii (15, 20) and tile (8, 32)
+    beside the compiled z and y passes, bit for bit."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.kernels import build
+    from shrimpy_tpu_torch.ops.conv3_cuda import convzy_layout, convzy_march, zy_taps
+    from shrimpy_tpu_torch.ops.deconv import plan_terms, prepare_psf
+    from shrimpy_tpu_torch.ops.rl_fused import Stencil, conv_axis_cuda, conv_x_cuda
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+    from shrimpy_tpu_torch.psf import measure_volume_psf
+
+    settings = cs.headline_settings()
+    raw, _ = cs.bead_raw()
+    scale = (cs.BEAD_PX_UM / settings.deskew.px_to_scan_ratio, cs.BEAD_PX_UM, cs.BEAD_PX_UM)
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    path = build.BUILD_DIR / "profile_config2_psf"
+    report = measure_volume_psf(raw, scale, path, geometry="lightsheet", deskew=settings.deskew)
+    del raw
+    psf = np.load(path.with_suffix(".npy"))
+    psf_w = prepare_psf(psf, settings.deconvolve)
+    terms = plan_terms(psf_w, settings.deconvolve)
+    print(f"== deskew + RL-20, fused, config 2: {report.n_beads} beads, PSF {psf_w.shape}, "
+          f"K = {len(terms)}", flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
+    batch = cs.uniform((1, *cs.RAW_SHAPE), gen, 0.0, 100.0)
+    profile(build_reconstruct_step(settings, psf=psf, device="cuda"), batch, kind_of=pass_kind)
+    del batch
+    torch.cuda.empty_cache()
+    carry = tuple(n + k - 1 for n, k in zip(cs.deskewed_shape(), psf_w.shape))
+    gz, gy, gx = carry
+    st = Stencil(terms[:1], device="cuda")
+    (kz, ky, _), (hz, hy, _) = st.dev[0], st.host32[0]
+    radii = tuple(k // 2 for k in psf_w.shape[:2])
+    layout = convzy_layout(carry, radii, tile=(8, 32))
+    if layout is None:
+        raise AssertionError(f"the march takes no tile (8, 32) at radii {radii}")
+    v = cs.uniform(carry, gen, 0.5, 10.5)
+    march, mid, two = torch.empty_like(v), torch.empty_like(v), torch.empty_like(v)
+    taps = zy_taps(kz, ky)
+
+    def run_march():
+        convzy_march(v, taps, kz.numel(), ky.numel(), boundary="zero", out=march, tile=(8, 32))
+
+    def run_two():
+        conv_axis_cuda(v, mid, kz, hz, 1, gz, gy * gx)
+        conv_axis_cuda(mid, two, ky, hy, gz, gy, gx)
+
+    run_march()
+    run_two()
+    torch.cuda.synchronize()
+    if not torch.equal(march, two):
+        raise AssertionError("the march and the compiled passes differ")
+    m_ms, t_ms = cs.gpu_ms(run_march, 5), cs.gpu_ms(run_two, 5)
+    print(f"  one term's z+y at {carry}: the march, tile (8, 32), {layout['smem_bytes']} bytes, "
+          f"{m_ms:.3f} ms; the compiled z and y passes {t_ms:.3f} ms (the same bits)", flush=True)
+    # The x pass of a middle term as the route runs it (the sum of the
+    # earlier terms updated in place) and into a carry of its own.
+    kx, hx = st.dev[0][2], st.host32[0][2]
+    x_in = cs.gpu_ms(lambda: conv_x_cuda(two, mid, None, mid, kx, "plain", 0.0, host=hx), 5)
+    x_out = cs.gpu_ms(lambda: conv_x_cuda(two, mid, None, march, kx, "plain", 0.0, host=hx), 5)
+    print(f"  the x pass of a middle term: in place {x_in:.3f} ms, into another carry "
+          f"{x_out:.3f} ms", flush=True)
 
 
 # Edits of csrc/affine.cu that --affine builds and times beside it: the x
@@ -1303,7 +1475,10 @@ def main() -> int:
     print(cs.card_line(), flush=True)
     build.load_library()
     if "--conv-axis" in sys.argv[1:]:
-        time_conv_axis(cs)
+        time_passes(cs)
+        return 0
+    if "--config2" in sys.argv[1:]:
+        profile_config2(cs)
         return 0
     if "--deskew" in sys.argv[1:]:
         sweep_deskew(cs)

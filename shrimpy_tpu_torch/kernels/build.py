@@ -16,20 +16,22 @@ against torch's headers and takes minutes). The library lands in
 ``shrimpy_tpu_torch/build/`` under a name keyed by a hash of the
 sources and flags, so an edited kernel is never served a stale build.
 
-Three kernels are compiled for their geometry: ``csrc/rl_half.cu`` and
+Four kernels are compiled for their geometry: ``csrc/rl_half.cu`` and
 ``csrc/rl_iter.cu`` take the number of terms, the PSF lengths and the
 tile as macros (``RL_HALF_TERMS`` .. ``RL_HALF_TX``, ``RL_ITER_TERMS`` ..
 ``RL_ITER_TX``; kind ``rl_half_wrap`` is ``rl_half.cu``'s circular build
 with ``RL_HALF_WRAP=1``, ``conv3_circular``'s one launch),
 ``csrc/convzy.cu`` the z and y tap lengths, the tile
-and the boundary (``CONVZY_NKZ`` .. ``CONVZY_WRAP``), so that their tap
-loops unroll. :func:`load_geometry_library` compiles one at its first
+and the boundary (``CONVZY_NKZ`` .. ``CONVZY_WRAP``), and
+``csrc/rl_pass.cu`` (the three-pass route's axis and x passes) the length
+of one tap list (``RL_PASS_NK``), so that their tap loops unroll.
+:func:`load_geometry_library` compiles one at its first
 launch with a geometry into a library of its own beside the other
 (``lib<kind>_<hash>_<geometry>.so``, one nvcc run);
 :func:`build_geometries` starts several runs together. In the common
 library each file leaves only its shared-memory sum
 (``shrimpy_rl_half_smem``, ``shrimpy_rl_iter_smem``,
-``shrimpy_convzy_smem``).
+``shrimpy_convzy_smem``, ``shrimpy_rl_pass_smem``).
 
 Calling convention of every C entry point: device pointers and the
 CUDA stream are ``void*`` (``ctypes.c_void_p``: a plain int argument
@@ -79,6 +81,8 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_rl_half_smem": [_I32] * 6,
     # nkz, nky, ty, tx -> bytes of shared memory a block takes
     "shrimpy_convzy_smem": [_I32] * 4,
+    # nk, columns of a row piece -> bytes of shared memory an x-pass block takes
+    "shrimpy_rl_pass_smem": [_I32, _I64],
     # n_terms, nkz, nky, nkx, ty, tx -> bytes of shared memory a block takes
     "shrimpy_rl_iter_smem": [_I32] * 6,
     # x, out, rows, cols, width, stream
@@ -104,26 +108,35 @@ SIGNATURES: dict[str, list] = {
 }
 
 # The macros of a geometry of rl_half and rl_iter (n_terms, nkz, nky, nkx,
-# ty, tx; rl_half's circular build also wrap, 1) and of convzy (nkz, nky,
-# ty, tx, wrap), after the prefix.
+# ty, tx; rl_half's circular build also wrap, 1), of convzy (nkz, nky,
+# ty, tx, wrap) and of rl_pass (nk), after the prefix.
 GEOMETRY_MACROS = ("TERMS", "NKZ", "NKY", "NKX", "TY", "TX")
 CONVZY_MACROS = ("NKZ", "NKY", "TY", "TX", "WRAP")
+_RL_HALF_ARGS = [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P]
 # The kernels compiled for a geometry, by kind: source, macro prefix, entry
-# point, its argtypes and the macros. shrimpy_rl_half: in, aux, out, dx, g,
-# alpha, partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, mode,
-# vec, eps, stream. shrimpy_rl_iter: est, data, out, taps, partials, n_terms,
-# nkz, nky, nkx, gz, gy, gx, ty, tx, vec, eps, stream. shrimpy_convzy: in,
-# out, taps, nkz, nky, gz, gy, gx, ty, tx, wrap, vec, clocks, stream.
+# points with their argtypes, and the macros. shrimpy_rl_half: in, aux, out,
+# dx, g, alpha, partials, taps, n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx,
+# mode, vec, eps, stream. shrimpy_rl_iter: est, data, out, taps, partials,
+# n_terms, nkz, nky, nkx, gz, gy, gx, ty, tx, vec, eps, stream.
+# shrimpy_convzy: in, out, taps, nkz, nky, gz, gy, gx, ty, tx, wrap, vec,
+# clocks, stream. shrimpy_axis_pass: in, out, host taps, nk, outer, n,
+# inner, tile, dx, alpha, wrap, stream. shrimpy_x_pass: in, prev, aux, out,
+# host taps, nk, rows, n, piece, mode, eps, wrap, vec, stream.
+# shrimpy_x_pass_accel: in, prev, x, dx, g, alpha, partials, host taps, nk,
+# rows, n, piece, stream.
 GEOMETRY_KERNELS = {
-    "rl_half": ("rl_half.cu", "RL_HALF", "shrimpy_rl_half",
-                [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P], GEOMETRY_MACROS),
-    "rl_half_wrap": ("rl_half.cu", "RL_HALF", "shrimpy_rl_half",
-                     [_P] * 8 + [_I32] * 4 + [_I64] * 3 + [_I32] * 4 + [_F32, _P],
+    "rl_half": ("rl_half.cu", "RL_HALF", {"shrimpy_rl_half": _RL_HALF_ARGS}, GEOMETRY_MACROS),
+    "rl_half_wrap": ("rl_half.cu", "RL_HALF", {"shrimpy_rl_half": _RL_HALF_ARGS},
                      GEOMETRY_MACROS + ("WRAP",)),
-    "rl_iter": ("rl_iter.cu", "RL_ITER", "shrimpy_rl_iter",
-                [_P] * 5 + [_I32] * 4 + [_I64] * 3 + [_I32] * 3 + [_F32, _P], GEOMETRY_MACROS),
-    "convzy": ("convzy.cu", "CONVZY", "shrimpy_convzy",
-               [_P] * 3 + [_I32] * 2 + [_I64] * 3 + [_I32] * 4 + [_P, _P], CONVZY_MACROS),
+    "rl_iter": ("rl_iter.cu", "RL_ITER", {"shrimpy_rl_iter": [_P] * 5 + [_I32] * 4 + [_I64] * 3
+                                          + [_I32] * 3 + [_F32, _P]}, GEOMETRY_MACROS),
+    "convzy": ("convzy.cu", "CONVZY", {"shrimpy_convzy": [_P] * 3 + [_I32] * 2 + [_I64] * 3
+                                       + [_I32] * 4 + [_P, _P]}, CONVZY_MACROS),
+    "rl_pass": ("rl_pass.cu", "RL_PASS", {
+        "shrimpy_axis_pass": [_P] * 3 + [_I32] + [_I64] * 4 + [_P, _P, _I32, _P],
+        "shrimpy_x_pass": [_P] * 5 + [_I32, _I64, _I64, _I64, _I32, _F32, _I32, _I32, _P],
+        "shrimpy_x_pass_accel": [_P] * 8 + [_I32, _I64, _I64, _I64, _P],
+    }, ("NK",)),
 }
 # A C entry point reports a refusal by libcuda (cuTensorMapEncodeTiled) as
 # this plus the CUresult.
@@ -235,7 +248,7 @@ def build_geometries(jobs, flags=()) -> list[Path]:
     procs = []
     try:
         for out, (kind, geometry) in todo.items():
-            source, prefix, _, _, macros = GEOMETRY_KERNELS[kind]
+            source, prefix, _, macros = GEOMETRY_KERNELS[kind]
             tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
             cmd = [nvcc, *ARCH_FLAGS, *NVCC_FLAGS, *flags,
                    *(f"-D{prefix}_{m}={v}" for m, v in zip(macros, geometry)),
@@ -263,9 +276,10 @@ def build_geometries(jobs, flags=()) -> list[Path]:
 def open_geometry_library(kind: str, path) -> ctypes.CDLL:
     """Load a library of ``kind`` built by :func:`build_geometries`."""
     lib = ctypes.CDLL(str(path))
-    entry = getattr(lib, GEOMETRY_KERNELS[kind][2])
-    entry.argtypes = GEOMETRY_KERNELS[kind][3]
-    entry.restype = ctypes.c_int
+    for name, argtypes in GEOMETRY_KERNELS[kind][2].items():
+        entry = getattr(lib, name)
+        entry.argtypes = argtypes
+        entry.restype = ctypes.c_int
     return lib
 
 

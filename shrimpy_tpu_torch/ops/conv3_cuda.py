@@ -16,15 +16,17 @@ circular (``_convzy_pallas_jit`` over per-call wrap pads,
   compiled for the tap lengths, the tile and the boundary, that marches
   through z with a ring of input slabs in shared memory) where its block
   fits (:func:`convzy_layout`), else ``"two_pass"``
-  (:func:`convzy_two_pass`, a z pass and a y pass of ``conv_axis`` in
-  ``csrc/rl_fused.cu``, circular when the boundary is). Both give the
-  plain version's bits; a CPU tensor runs the plain version;
+  (:func:`convzy_two_pass`, a z pass and a y pass of
+  ``rl_fused.py::conv_axis_cuda``: ``csrc/rl_pass.cu`` compiled for the
+  tap count up to 63 taps, else ``csrc/rl_fused.cu``'s ``conv_axis``,
+  circular when the boundary is). Both give the plain version's bits; a
+  CPU tensor runs the plain version;
 * the x axis is the dense product the JAX package computes
   (:func:`x_toeplitz_plain`, :func:`x_circulant_plain`) in the plain
-  version, and the port's ``conv_x`` kernel on the card
-  (``csrc/rl_fused.cu``, its row loaded at ``(x - r) mod gx`` when
-  circular), which also sums the terms and applies the RL epilogue in
-  its launch. The dense product costs ~2 TFLOP per term and
+  version, and the port's x pass on the card (``rl_fused.py::conv_x_cuda``:
+  ``csrc/rl_pass.cu`` or ``csrc/rl_fused.cu``, its row loaded at
+  ``(x - r) mod gx`` when circular), which also sums the terms and applies
+  the RL epilogue in its launch. The dense product costs ~2 TFLOP per term and
   convolution at the production carry, the banded one 21 FMAs a voxel;
 * :func:`conv3_half_step` is one RL half-step of either backend.
 
@@ -71,7 +73,9 @@ from shrimpy_tpu_torch.ops.rl_fused import (
     _epilogue,
     _round4,
     check_io_cuda,
+    conv_axis_cuda,
     half_layout,
+    host_taps,
     run_terms_cuda,
     window_taps,
 )
@@ -219,26 +223,25 @@ def convzy_march(v: torch.Tensor, taps: torch.Tensor, nkz: int, nky: int, *, bou
 
 
 def convzy_two_pass(v: torch.Tensor, kz: torch.Tensor, ky: torch.Tensor, *, boundary: str,
-                    out: torch.Tensor, tmp: torch.Tensor | None = None) -> torch.Tensor:
-    """The z+y step as two launches of ``conv_axis`` (``csrc/rl_fused.cu``),
-    a z pass into ``tmp`` (a carry, allocated when not given) and a y
-    pass into ``out``, circular when ``boundary`` is: the route past the
-    march kernel's block. Operands are checked by the caller."""
-    from shrimpy_tpu_torch.kernels.build import check, load_library
-
+                    out: torch.Tensor, tmp: torch.Tensor | None = None,
+                    host=None) -> torch.Tensor:
+    """The z+y step as two passes of ``rl_fused.py::conv_axis_cuda``
+    (``csrc/rl_pass.cu`` compiled for the tap count, or past 63 taps
+    ``csrc/rl_fused.cu``'s ``conv_axis``), a z pass into ``tmp`` (a carry,
+    allocated when not given) and a y pass into ``out``, circular when
+    ``boundary`` is: the route past the march kernel's block. ``host``:
+    the (kz, ky) float32 host copies (made here when None). Operands are
+    checked by the caller."""
     gz, gy, gx = v.shape
     if tmp is None:
         tmp = torch.empty_like(v)
     _check_cuda_operand("tmp", tmp, tuple(v.shape))
     _check_distinct(v=v, out=out, tmp=tmp)
-    wrap = int(boundary == "circular")
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    lib = load_library()
-    check(lib.shrimpy_conv_axis(v.data_ptr(), tmp.data_ptr(), kz.data_ptr(), kz.numel(),
-                                1, gz, gy * gx, None, None, wrap, stream), "shrimpy_conv_axis(z)")
+    hz, hy = host if host is not None else (host_taps(kz), host_taps(ky))
+    wrap = boundary == "circular"
+    conv_axis_cuda(v, tmp, kz, hz, 1, gz, gy * gx, wrap=wrap)
     convzy_two_pass.launches += 1
-    check(lib.shrimpy_conv_axis(tmp.data_ptr(), out.data_ptr(), ky.data_ptr(), ky.numel(),
-                                gz, gy, gx, None, None, wrap, stream), "shrimpy_conv_axis(y)")
+    conv_axis_cuda(tmp, out, ky, hy, gz, gy, gx, wrap=wrap)
     convzy_two_pass.launches += 1
     return out
 
@@ -249,13 +252,16 @@ convzy_march.launches = 0
 convzy_two_pass.launches = 0
 
 
-def _convzy_cuda(v: torch.Tensor, kz, ky, out, boundary: str, name: str, taps=None):
+def _convzy_cuda(v: torch.Tensor, kz, ky, out, boundary: str, name: str, taps=None, host=None):
     """Check the operands of a z+y step on the card and run it on the
-    route of :func:`convzy_route`."""
+    route of :func:`convzy_route` (``host``: the float32 host copies of
+    the tap lists, for the two-pass route)."""
     if v.dim() != 3:
         raise ValueError(f"{name} takes a 3-D carry, got {tuple(v.shape)}")
     shape = tuple(v.shape)
     _check_cuda_operand("v", v, shape)
+    if host is None and not any(isinstance(t, torch.Tensor) for t in (kz, ky)):
+        host = (host_taps(kz), host_taps(ky))
     kz, ky = (device_taps(t, v.device) for t in (kz, ky))
     for label, t in (("kz", kz), ("ky", ky)):
         if t.dtype != torch.float32 or t.device != v.device or t.dim() != 1 or t.numel() % 2 == 0:
@@ -268,7 +274,7 @@ def _convzy_cuda(v: torch.Tensor, kz, ky, out, boundary: str, name: str, taps=No
     _check_cuda_operand("out", out, shape)
     _check_distinct(v=v, out=out)
     if route == ROUTES[1]:
-        return convzy_two_pass(v, kz, ky, boundary=boundary, out=out)
+        return convzy_two_pass(v, kz, ky, boundary=boundary, out=out, host=host)
     if taps is None:
         taps = zy_taps(kz, ky)
     if not taps.is_cuda or taps.dtype != torch.float32 or taps.device != v.device \
@@ -278,16 +284,18 @@ def _convzy_cuda(v: torch.Tensor, kz, ky, out, boundary: str, name: str, taps=No
 
 
 def convzy_linear_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = None,
-                       taps: torch.Tensor | None = None) -> torch.Tensor:
+                       taps: torch.Tensor | None = None, host=None) -> torch.Tensor:
     """The zero-boundary z+y step on the card (replaces ``conv3_pallas.py::
     _convzy_linear_jit``), on the route of :func:`convzy_route`.
 
     ``v`` is a (gz, gy, gx) float32 CUDA tensor; ``kz``/``ky`` are tap
     lists (numpy, or float32 tensors on ``v``'s device); ``out`` must not
     alias ``v``; ``taps`` (the march kernel's layout, :func:`zy_taps`) is
-    packed here when not given. Every radius runs.
+    packed here when not given; ``host`` (the float32 host copies of
+    ``kz`` and ``ky``, for the two-pass route) is made here when not
+    given. Every radius runs.
     """
-    out = _convzy_cuda(v, kz, ky, out, "zero", "convzy_linear_cuda", taps)
+    out = _convzy_cuda(v, kz, ky, out, "zero", "convzy_linear_cuda", taps, host)
     convzy_linear_cuda.launches += 1
     return out
 
@@ -298,13 +306,13 @@ convzy_linear_cuda.launches = 0
 
 
 def convzy_circular_cuda(v: torch.Tensor, kz, ky, *, out: torch.Tensor | None = None,
-                         taps: torch.Tensor | None = None) -> torch.Tensor:
+                         taps: torch.Tensor | None = None, host=None) -> torch.Tensor:
     """The circular z+y step on the card (replaces ``conv3_pallas.py::
     _convzy_pallas_jit``): the zero-boundary step's routes with rows and
     planes taken at ``m mod N``, so radii past an axis (``r >= N``) wrap
     more than once. Operands as :func:`convzy_linear_cuda`; every radius
     runs, as in JAX's ``zy_pallas``."""
-    out = _convzy_cuda(v, kz, ky, out, "circular", "convzy_circular_cuda", taps)
+    out = _convzy_cuda(v, kz, ky, out, "circular", "convzy_circular_cuda", taps, host)
     convzy_circular_cuda.launches += 1
     return out
 
@@ -419,7 +427,8 @@ def conv3_half_step_cuda(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
 
     def zy(v, t, scratch):
         kz, ky, _ = stencil.dev[t]
-        return zy_cuda(v, kz, ky, out=scratch[0], taps=stencil.packed()[t])
+        return zy_cuda(v, kz, ky, out=scratch[0], taps=stencil.packed()[t],
+                       host=stencil.host32[t][:2])
 
     return run_terms_cuda(inp, aux, stencil, mode, eps, zy, 1, out=out, scratch=scratch,
                           wrap=wrap, name="conv3_half_step_cuda")

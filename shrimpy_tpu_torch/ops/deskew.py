@@ -212,10 +212,10 @@ def deskew_plain(
     return _average_z_groups(out, settings.average_n_slices)
 
 
-def deskew_volume(raw, settings, *, device=None) -> torch.Tensor:
+def deskew_volume(raw_szx, settings, *, device=None) -> torch.Tensor:
     """Deskew a raw (scan, tilt, x) volume -> float32 (Z, Y, X) volume.
 
-    ``raw`` is a tensor, which stays on its device unless ``device``
+    ``raw_szx`` is a tensor, which stays on its device unless ``device``
     moves it, or a numpy array, which goes to ``device`` (the card when
     None; ``"cpu"`` asks for the CPU). A CPU tensor runs
     :func:`deskew_plain`; a CUDA tensor runs the CUDA kernel and raises
@@ -226,7 +226,7 @@ def deskew_volume(raw, settings, *, device=None) -> torch.Tensor:
         raise ValueError(
             f"deskew backend {settings.backend!r} not in {DESKEW_BACKENDS}"
         )
-    raw = as_tensor(raw, device)
+    raw = as_tensor(raw_szx, device)
     if raw.is_cuda:
         from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
 

@@ -30,12 +30,16 @@ whatever the number of terms. The kernel is compiled for the geometry
 it runs (the PSF's lengths, the number of terms, the tile) at the first
 half-step with it. Its shared memory and the 256 x 256 box of
 a TMA copy bound the radii, and its grid the carry's height
-(:func:`half_bound_error`); past that bound the first port's three
-launches a term run
-(``csrc/rl_fused.cu``: z pass, y pass, x pass with the epilogue, two or
-three scratch carries), which take every geometry inside
-:func:`fused_bound_error`. :func:`half_step_route` is that choice, made
-from the shapes alone and the same on every device.
+(:func:`half_bound_error`); past that bound three launches a term run
+(z pass, y pass, x pass with the epilogue, two or three scratch carries),
+which take every geometry inside :func:`fused_bound_error`.
+:func:`half_step_route` is that choice, made from the shapes alone and the
+same on every device. Each of the three passes runs ``csrc/rl_pass.cu``,
+compiled for the length of its tap list, where that list has at most
+:data:`PASS_MAX_TAPS` taps (and, for the x pass, where its block fits:
+:func:`x_pass_route`); a longer list runs ``csrc/rl_fused.cu``'s kernels
+of run-time length (the first port's, which also take tap lists past a
+column of shared memory in chunks). Both give the same bits.
 
 ``acceleration: biggs`` runs Biggs-Andrews RL inside the half-steps,
 as the JAX ``fused`` backend does (``rl_fused.py:937-987``): mode
@@ -78,6 +82,16 @@ _MAX_INT = 2**31 - 1
 # does not fit, and conv_x_accel_kernel's static reduction buffer.
 _X_PIECE = 16384
 _X_STATIC_BYTES = 64
+# csrc/rl_pass.cu, the passes compiled for their tap count: the longest tap
+# list it takes (its axis pass keeps 2 x that many floats in registers), the
+# outputs a thread of its x pass computes, and the axis pass's tiling: a
+# thread takes a whole column where the columns alone give the launch
+# _AXIS_THREADS threads, else tiles of at least _AXIS_MIN_TILE outputs.
+PASS_MAX_TAPS = 63
+PASS_ROUTES = ("compiled", "runtime")
+_X_ROW_OUT = 4
+_AXIS_THREADS = 1 << 20
+_AXIS_MIN_TILE = 256
 
 ROUTES = ("one_launch", "three_pass")
 # (ty, tx) tiles of csrc/rl_half.cu in order of preference: the first
@@ -115,9 +129,10 @@ class Stencil:
     """The tap triples of one convolution direction.
 
     ``host`` holds float64 numpy taps (the plain version reads them as
-    Python floats); ``dev`` holds float32 CUDA tensors for the kernel
-    (None on the CPU). ``flip=True`` reverses every tap list: the
-    adjoint ``conv^T``.
+    Python floats); ``host32`` the same as contiguous float32 numpy
+    arrays (what ``csrc/rl_pass.cu`` takes by value at each launch);
+    ``dev`` holds float32 CUDA tensors for the kernel (None on the CPU).
+    ``flip=True`` reverses every tap list: the adjoint ``conv^T``.
     """
 
     def __init__(self, terms, *, flip: bool = False, device=None):
@@ -137,6 +152,7 @@ class Stencil:
                     "separable terms must share odd per-axis lengths "
                     f"(got {[tuple(len(w) for w in t) for t in self.host]})"
                 )
+        self.host32 = [tuple(np.array(w, np.float32) for w in term) for term in self.host]
         dev = torch.device(device) if device is not None else None
         self.dev = None
         self._packed = None
@@ -310,6 +326,48 @@ def _check_x_radius(gx: int, rx: int) -> None:
         raise ValueError(msg)
 
 
+def axis_pass_route(nk: int) -> str:
+    """Which kernel runs a z or y pass of an ``nk``-tap list:
+    ``"compiled"`` (``csrc/rl_pass.cu::axis_pass_kernel``, built for
+    ``nk``) up to :data:`PASS_MAX_TAPS` taps, else ``"runtime"``
+    (``csrc/rl_fused.cu::conv_axis_kernel``). The same bits either way."""
+    return PASS_ROUTES[0] if nk <= PASS_MAX_TAPS else PASS_ROUTES[1]
+
+
+def axis_tile(outer: int, n: int, inner: int) -> int:
+    """Outputs a thread of the compiled axis pass takes along an axis of
+    ``n`` in an (outer, n, inner) view: the whole column where the
+    ``outer * inner`` columns give :data:`_AXIS_THREADS` threads (the z
+    pass), else enough tiles for that many, of at least
+    :data:`_AXIS_MIN_TILE` outputs (each tile reads its 2 r halo again)."""
+    tiles = -(-_AXIS_THREADS // max(1, outer * inner))
+    return min(n, max(-(-n // tiles), _AXIS_MIN_TILE))
+
+
+def x_pass_smem_bytes(nk: int, length: int) -> int:
+    """Dynamic shared memory of a block of the compiled x pass on a row
+    piece of ``length`` columns with an ``nk``-tap list: the piece from
+    ``round4(r)`` columns before it, in whole 16-byte chunks up to the last
+    window a thread of 4 outputs reads (``shrimpy_rl_pass_smem``)."""
+    r = nk // 2
+    chunks = (3 + _round4(r) + r) // 4 + 1
+    return 16 * (-(-length // _X_ROW_OUT) - 1 + chunks)
+
+
+def x_pass_route(gx: int, nk: int) -> str:
+    """Which kernel runs the x pass of an ``nk``-tap list over rows of
+    ``gx``: ``"compiled"`` (``csrc/rl_pass.cu``) up to
+    :data:`PASS_MAX_TAPS` taps where its block of :func:`x_piece`'s piece
+    fits, else ``"runtime"`` (``csrc/rl_fused.cu::conv_x_kernel``). Both
+    take the same pieces (so the same partial sums) and give the same
+    bits."""
+    piece = x_piece(gx, nk // 2)
+    if nk > PASS_MAX_TAPS or piece == 0 \
+            or x_pass_smem_bytes(nk, piece) + _X_STATIC_BYTES > _SMEM_BYTES:
+        return PASS_ROUTES[1]
+    return PASS_ROUTES[0]
+
+
 def fused_bound_error(shape, radii) -> str | None:
     """Why the ``fused`` backend cannot take a ``shape`` (gz, gy, gx)
     carry with PSF ``radii``, or None when it can: the bound of the
@@ -417,17 +475,94 @@ def partial_rows(shape, radii, n_terms: int = 1) -> int:
     return x_blocks(shape, radii[2])
 
 
-def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
-                wrap: bool = False) -> None:
-    """The x pass of ``csrc/rl_fused.cu`` (``conv_x_kernel``) over the
-    rows of ``src``: ``out = epilogue(X src + prev)``, with mode
-    ``plain`` when ``aux`` is None; ``wrap`` makes X circular (the row
-    is loaded at ``(x - r) mod gx``) instead of zero outside. A block
-    takes a piece of a row (:func:`x_piece`). Operands, and the x radius
-    (:func:`_x_radius_error`), are checked by the caller."""
+def host_taps(taps) -> np.ndarray:
+    """A tap list as the contiguous float32 numpy array the compiled
+    passes take by value; a CUDA tensor is copied to the host (a
+    synchronisation: the RL paths hand over :attr:`Stencil.host32`)."""
+    if isinstance(taps, torch.Tensor):
+        taps = taps.detach().cpu().numpy()
+    return np.array(taps, np.float32)
+
+
+def axis_pass_cuda(v, out, host, outer: int, n: int, inner: int, *, dx=None, alpha=None,
+                   wrap: bool = False) -> None:
+    """One z or y pass as a launch of ``csrc/rl_pass.cu::axis_pass_kernel``
+    (compiled for the tap count at its first launch with it) over the
+    (outer, n, inner) view of ``v`` into ``out``; ``host`` the float32
+    taps. Operands are checked by the caller."""
+    from shrimpy_tpu_torch.kernels.build import check, load_geometry_library
+
+    nk = host.size
+    check(load_geometry_library("rl_pass", (nk,)).shrimpy_axis_pass(
+        v.data_ptr(), out.data_ptr(), host.ctypes.data, nk, outer, n, inner,
+        axis_tile(outer, n, inner), dx.data_ptr() if dx is not None else None,
+        alpha.data_ptr() if alpha is not None else None, int(wrap),
+        torch.cuda.current_stream(v.device).cuda_stream,
+    ), "shrimpy_axis_pass")
+    axis_pass_cuda.launches += 1
+
+
+def conv_axis_cuda(v, out, taps: torch.Tensor, host, outer: int, n: int, inner: int, *,
+                   dx=None, alpha=None, wrap: bool = False) -> None:
+    """``out = A v`` along the middle axis of the (outer, n, inner) view
+    (zero outside, or circular when ``wrap``; ``dx``/``alpha``: the
+    extrapolated input of ``ratio_accel``), on the kernel of
+    :func:`axis_pass_route`. ``taps`` is the list on the card, ``host``
+    its float32 host copy (:func:`host_taps` when None). Operands are
+    checked by the caller."""
+    host = host_taps(taps) if host is None else host
+    if axis_pass_route(host.size) == PASS_ROUTES[0]:
+        axis_pass_cuda(v, out, host, outer, n, inner, dx=dx, alpha=alpha, wrap=wrap)
+        return
+
     from shrimpy_tpu_torch.kernels.build import check, load_library
 
+    check(load_library().shrimpy_conv_axis(
+        v.data_ptr(), out.data_ptr(), taps.data_ptr(), taps.numel(), outer, n, inner,
+        dx.data_ptr() if dx is not None else None, alpha.data_ptr() if alpha is not None else None,
+        int(wrap), torch.cuda.current_stream(v.device).cuda_stream,
+    ), "shrimpy_conv_axis")
+
+
+def x_pass_cuda(src, prev, aux, out, host, mode: str, eps: float, *, wrap: bool = False) -> None:
+    """The x pass as a launch of ``csrc/rl_pass.cu::x_pass_kernel``
+    (compiled for the tap count): ``out = epilogue(X src + prev)`` as
+    :func:`conv_x_cuda`; ``host`` the float32 taps. Operands are checked
+    by the caller."""
+    from shrimpy_tpu_torch.kernels.build import check, load_geometry_library
+
     gz, gy, gx = src.shape
+    nk = host.size
+    piece = x_piece(gx, nk // 2)
+    vec = gx % 4 == 0 and piece % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (prev, aux, out) if t is not None)
+    check(load_geometry_library("rl_pass", (nk,)).shrimpy_x_pass(
+        src.data_ptr(), prev.data_ptr() if prev is not None else None,
+        aux.data_ptr() if aux is not None else None, out.data_ptr(), host.ctypes.data, nk,
+        gz * gy, gx, piece, MODES[mode] if aux is not None else 0, float(eps), int(wrap),
+        int(vec), torch.cuda.current_stream(src.device).cuda_stream,
+    ), "shrimpy_x_pass")
+    x_pass_cuda.launches += 1
+
+
+def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
+                wrap: bool = False, host=None) -> None:
+    """The x pass over the rows of ``src``: ``out = epilogue(X src +
+    prev)``, with mode ``plain`` when ``aux`` is None; ``wrap`` makes X
+    circular (the row is loaded at ``(x - r) mod gx``) instead of zero
+    outside. A block takes a piece of a row (:func:`x_piece`). Runs
+    :func:`x_pass_cuda` or ``csrc/rl_fused.cu::conv_x_kernel``, as
+    :func:`x_pass_route` chooses; ``host`` is ``kx``'s float32 host copy
+    (:func:`host_taps` when None). Operands, and the x radius
+    (:func:`_x_radius_error`), are checked by the caller."""
+    gz, gy, gx = src.shape
+    host = host_taps(kx) if host is None else host
+    if x_pass_route(gx, host.size) == PASS_ROUTES[0]:
+        x_pass_cuda(src, prev, aux, out, host, mode, eps, wrap=wrap)
+        return
+
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+
     check(load_library().shrimpy_conv_x(
         src.data_ptr(), prev.data_ptr() if prev is not None else None,
         aux.data_ptr() if aux is not None else None, out.data_ptr(),
@@ -435,6 +570,50 @@ def conv_x_cuda(src, prev, aux, out, kx: torch.Tensor, mode: str, eps: float, *,
         MODES[mode] if aux is not None else 0, float(eps), int(wrap),
         torch.cuda.current_stream(src.device).cuda_stream,
     ), "shrimpy_conv_x")
+
+
+def x_pass_accel_cuda(h, prev, x, dx, g, alpha, partials, host) -> None:
+    """The x pass of mode ``mult_accel`` as a launch of
+    ``csrc/rl_pass.cu::x_pass_accel_kernel`` (compiled for the tap count),
+    as :func:`conv_x_accel_cuda`; ``host`` the float32 taps."""
+    from shrimpy_tpu_torch.kernels.build import check, load_geometry_library
+
+    gz, gy, gx = h.shape
+    nk = host.size
+    check(load_geometry_library("rl_pass", (nk,)).shrimpy_x_pass_accel(
+        h.data_ptr(), prev.data_ptr() if prev is not None else None, x.data_ptr(),
+        dx.data_ptr(), g.data_ptr(), alpha.data_ptr(), partials.data_ptr(), host.ctypes.data,
+        nk, gz * gy, gx, x_piece(gx, nk // 2), torch.cuda.current_stream(h.device).cuda_stream,
+    ), "shrimpy_x_pass_accel")
+    x_pass_accel_cuda.launches += 1
+
+
+def conv_x_accel_cuda(h, prev, x, dx, g, alpha, partials, kx: torch.Tensor, host) -> None:
+    """The x pass of mode ``mult_accel`` (the last term's): ``x_new = y *
+    (X h + prev)`` over ``x``, ``dx`` and ``g`` with a pair of partial
+    sums a block (:func:`x_blocks`), on :func:`x_pass_accel_cuda` or
+    ``csrc/rl_fused.cu::conv_x_accel_kernel`` (:func:`x_pass_route`).
+    Operands are checked by the caller."""
+    gz, gy, gx = h.shape
+    if x_pass_route(gx, host.size) == PASS_ROUTES[0]:
+        x_pass_accel_cuda(h, prev, x, dx, g, alpha, partials, host)
+        return
+
+    from shrimpy_tpu_torch.kernels.build import check, load_library
+
+    check(load_library().shrimpy_conv_x_accel(
+        h.data_ptr(), prev.data_ptr() if prev is not None else None, x.data_ptr(),
+        dx.data_ptr(), g.data_ptr(), alpha.data_ptr(), partials.data_ptr(), kx.data_ptr(),
+        kx.numel(), gz * gy, gx, x_piece(gx, kx.numel() // 2),
+        torch.cuda.current_stream(h.device).cuda_stream,
+    ), "shrimpy_conv_x_accel")
+
+
+# Launches of the compiled passes (csrc/rl_pass.cu) since the last reset,
+# counted where each kernel is launched.
+axis_pass_cuda.launches = 0
+x_pass_cuda.launches = 0
+x_pass_accel_cuda.launches = 0
 
 
 def check_io_cuda(inp: torch.Tensor, aux: torch.Tensor | None, mode: str, name: str):
@@ -460,10 +639,12 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
     :func:`check_io_cuda`).
 
     Per term ``t``, ``zy(inp, t, scratch)`` runs the term's z and y taps
-    into its ``n_zy`` scratch carries and returns the result; the x pass
-    (``conv_x``, circular when ``wrap``) adds the earlier terms' sum and,
-    on the last term, applies the epilogue of ``mode`` into ``out``.
-    ``x_last(h, prev, kx)`` replaces that last x pass when given. ``out``
+    into its ``n_zy`` scratch carries and returns the last (the others are
+    dead once it returns); the x pass (``conv_x``, circular when ``wrap``)
+    adds the earlier terms' sum and, on the last term, applies the
+    epilogue of ``mode`` into ``out``. With two z+y carries the sum moves
+    into the first of them at each middle term (never updated in place).
+    ``x_last(h, prev, t)`` replaces that last x pass when given. ``out``
     may be ``aux`` but alias no other operand, nor any of ``extra``
     (name -> tensor). ``scratch`` (``n_zy`` carries, one more with
     several terms) and ``out`` are allocated when not given. ``count_on``
@@ -486,16 +667,24 @@ def run_terms_cuda(inp, aux, stencil: Stencil, mode: str, eps: float, zy, n_zy: 
     _check_cuda_operand("out", out, shape)
     _check_distinct(inp=inp, out=out, **{f"scratch[{i}]": s for i, s in enumerate(scratch[:need])},
                     **(extra or {}))
-    acc = scratch[n_zy] if n_terms > 1 else None
+    carries = list(scratch[:need])  # the z+y step's, then the running sum
     for t, (_, _, kx) in enumerate(stencil.dev):
-        h = zy(inp, t, scratch[:n_zy])
+        h = zy(inp, t, carries[:n_zy])
         last = t == n_terms - 1
-        prev = acc if t > 0 else None
+        prev = carries[n_zy] if t > 0 else None
+        target = out if last else carries[n_zy]
+        if not last and prev is not None and n_zy > 1:
+            # The first z+y carry is dead once the step has returned: the
+            # sum goes there, and the carry it leaves takes the next term's
+            # z pass (adding in place ran the x pass ~15 % slower at config
+            # 2's grid on an H100, profile_step.py --config2).
+            target = carries[0]
+            carries[0], carries[n_zy] = carries[n_zy], target
         if last and x_last is not None:
-            x_last(h, prev, kx)
+            x_last(h, prev, t)
         else:
-            conv_x_cuda(h, prev, aux if last and mode != "plain" else None,
-                        out if last else acc, kx, mode, eps, wrap=wrap)
+            conv_x_cuda(h, prev, aux if last and mode != "plain" else None, target, kx, mode,
+                        eps, wrap=wrap, host=stencil.host32[t][2])
             if count_on is not None:
                 count_on.launches += 1
     return out
@@ -588,12 +777,14 @@ def half_step_one_launch(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
 def half_step_three_pass(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-6, *,
                          out=None, scratch=None, dx=None, g_prev=None, alpha=None,
                          partials=None):
-    """One RL half-step as the three launches a term of
-    ``csrc/rl_fused.cu``: a z pass and a y pass into ``scratch`` (2
-    carries, 3 with more than one term; allocated when not given), then
-    the x pass, which adds the earlier terms' partial sum and applies
-    the epilogue. Operands and result as :func:`half_step_cuda`;
-    ``partials`` holds one pair a block of the x pass (:func:`x_blocks`).
+    """One RL half-step as three launches a term: a z pass and a y pass
+    into ``scratch`` (2 carries, 3 with more than one term; allocated
+    when not given), then the x pass, which adds the earlier terms'
+    partial sum and applies the epilogue; each pass on the kernel of
+    :func:`axis_pass_route` / :func:`x_pass_route` (``csrc/rl_pass.cu``
+    compiled for the term's tap lengths, or ``csrc/rl_fused.cu``).
+    Operands and result as :func:`half_step_cuda`; ``partials`` holds one
+    pair a block of the x pass (:func:`x_blocks`).
     Raises :class:`ValueError` past :func:`fused_bound_error`."""
     shape = _check_half_io(inp, aux, mode)
     gz, gy, gx = shape
@@ -603,29 +794,20 @@ def half_step_three_pass(inp, aux, stencil: Stencil, mode: str, eps: float = 1e-
     out, partials, extra = _check_accel(inp, aux, shape, mode, out, dx, g_prev, alpha, partials,
                                         x_blocks(shape, stencil.radii[2]))
 
-    from shrimpy_tpu_torch.kernels.build import check, load_library
-
-    stream = torch.cuda.current_stream(inp.device).cuda_stream
-    z_extra = (dx.data_ptr(), alpha.data_ptr()) if mode == "ratio_accel" else (None, None)
+    accel = {"dx": dx, "alpha": alpha} if mode == "ratio_accel" else {}
 
     def zy(v, t, scratch):
-        kz, ky, _ = stencil.dev[t]
+        (kz, ky, _), (hz, hy, _) = stencil.dev[t], stencil.host32[t]
         s1, s2 = scratch
-        lib = load_library()
-        check(lib.shrimpy_conv_axis(v.data_ptr(), s1.data_ptr(), kz.data_ptr(), kz.numel(),
-                                    1, gz, gy * gx, *z_extra, 0, stream), "shrimpy_conv_axis(z)")
+        conv_axis_cuda(v, s1, kz, hz, 1, gz, gy * gx, **accel)
         half_step_three_pass.launches += 1
-        check(lib.shrimpy_conv_axis(s1.data_ptr(), s2.data_ptr(), ky.data_ptr(), ky.numel(),
-                                    gz, gy, gx, None, None, 0, stream), "shrimpy_conv_axis(y)")
+        conv_axis_cuda(s1, s2, ky, hy, gz, gy, gx)
         half_step_three_pass.launches += 1
         return s2
 
-    def x_accel(h, prev, kx):
-        check(load_library().shrimpy_conv_x_accel(
-            h.data_ptr(), prev.data_ptr() if prev is not None else None, aux.data_ptr(),
-            dx.data_ptr(), g_prev.data_ptr(), alpha.data_ptr(), partials.data_ptr(),
-            kx.data_ptr(), kx.numel(), gz * gy, gx, x_piece(gx, kx.numel() // 2), stream,
-        ), "shrimpy_conv_x_accel")
+    def x_accel(h, prev, t):
+        conv_x_accel_cuda(h, prev, aux, dx, g_prev, alpha, partials, stencil.dev[t][2],
+                          stencil.host32[t][2])
         half_step_three_pass.launches += 1
 
     out = run_terms_cuda(inp, aux, stencil, mode, eps, zy, 2, out=out, scratch=scratch,

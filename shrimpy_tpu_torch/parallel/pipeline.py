@@ -166,6 +166,7 @@ def build_reconstruct_step(
     terms=None,
     plain: bool = False,
     dtype: torch.dtype = torch.float32,
+    donate: bool = True,
 ):
     """Batched step ``fn(batch_raw, tf=None) -> batch_out``.
 
@@ -183,6 +184,14 @@ def build_reconstruct_step(
     warm terms). On a CUDA device the stages run the CUDA kernels;
     ``plain=True`` runs their plain PyTorch versions in ``dtype`` instead
     (the reference path).
+
+    ``donate`` (JAX's default, True) lets the step drop its own reference
+    to the batch once the last volume has entered the first stage, so a
+    device copy the step made of a numpy batch returns to the allocator
+    before the later stages run. The step never writes or empties the
+    caller's tensor (unlike ``donate_input``, which consumes the image,
+    ``ops/rl_fused.py::consume``), so a caller may reuse its batch under
+    both values; ``donate=False`` keeps the reference for the whole call.
     """
     dev = resolve_device(device)
     deskew_fn, phase_fn, register_fn, deconv_fn = _stage_fns(
@@ -204,9 +213,11 @@ def build_reconstruct_step(
         batch = as_tensor(batch_raw, dev)
         if batch.dim() != 4:
             raise ValueError(f"batch must be (B, S, T, X), got {tuple(batch.shape)}")
-        outs = []
-        for b in range(batch.shape[0]):
+        outs, n = [], batch.shape[0]
+        for b in range(n):
             vol = batch[b]
+            if donate and b == n - 1:
+                batch = None
             if deskew_fn is not None:
                 vol = deskew_fn(vol)
             if phase_fn is not None:
@@ -225,7 +236,8 @@ def reconstruct_batch(batch_raw, settings, *, psf=None, mesh=None, device=None,
                       terms=None) -> torch.Tensor:
     """One-shot convenience: build the step and run it (``device`` as in
     :func:`build_reconstruct_step`)."""
-    step = build_reconstruct_step(settings, psf=psf, mesh=mesh, device=device, terms=terms)
+    step = build_reconstruct_step(settings, psf=psf, mesh=mesh, device=device, terms=terms,
+                                  donate=False)
     return step(batch_raw)
 
 

@@ -55,8 +55,14 @@ from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
 from shrimpy_tpu_torch.ops.rl_fused import (
     HALF_TILES,
     Stencil,
+    _conv_axis_circular_plain,
+    _conv_axis_plain,
     _epilogue,
+    axis_pass_cuda,
+    axis_pass_route,
+    conv_axis_cuda,
     conv_x_cuda,
+    extrapolate,
     half_layout,
     half_smem_bytes,
     half_step,
@@ -65,6 +71,10 @@ from shrimpy_tpu_torch.ops.rl_fused import (
     half_step_plain,
     half_step_route,
     half_step_three_pass,
+    x_pass_accel_cuda,
+    x_pass_cuda,
+    x_pass_route,
+    x_pass_smem_bytes,
     x_piece,
 )
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
@@ -665,6 +675,131 @@ def test_three_pass_route_past_the_launch_grid(cuda, shape):
     assert _bf16_close(got[1], want[1]) and _bf16_close(got[2], want[2])
     for a, b in zip(got[3:], want[3:]):
         assert abs(float(a) - float(b)) <= 1e-5 * abs(float(b))
+
+
+# (tap count, (outer, n, inner)) of the compiled axis pass: BASELINE.md
+# config 2's z (31) and y (41) lists on small views, with whole columns,
+# tiles, a column shorter than the radius, an inner extent no warp fills,
+# and one tap.
+AXIS_CASES = [(31, (1, 158, 300)), (41, (6, 700, 37)), (41, (3, 9, 40)), (37, (2, 50, 129)),
+              (9, (5, 13, 1)), (1, (2, 7, 33)), (63, (2, 300, 64))]
+
+
+@pytest.mark.parametrize("boundary", ["zero", "circular", "accel"])
+@pytest.mark.parametrize("nk,view", AXIS_CASES)
+def test_compiled_axis_pass_matches_plain_bitwise(cuda, nk, view, boundary):
+    """``csrc/rl_pass.cu::axis_pass_kernel`` (compiled for ``nk``) gives
+    the plain pass's bits on both boundaries and with the extrapolated
+    input of ratio_accel (y formed on load)."""
+    assert axis_pass_route(nk) == "compiled"
+    taps = np.random.default_rng(nk).random(nk).astype(np.float32) + 0.1
+    outer, n, inner = view
+    v = _rand(view, nk + 1, cuda, 0.0, 10.0)
+    kw = {}
+    if boundary == "accel":
+        dx, _, alpha = _accel_operands(view, nk + 2, cuda)
+        kw = {"dx": dx, "alpha": alpha}
+    out = torch.full_like(v, float("nan"))
+    before = axis_pass_cuda.launches
+    conv_axis_cuda(v, out, torch.tensor(taps, device=cuda), taps, outer, n, inner,
+                   wrap=boundary == "circular", **kw)
+    torch.cuda.synchronize()
+    assert axis_pass_cuda.launches == before + 1
+    plain = _conv_axis_circular_plain if boundary == "circular" else _conv_axis_plain
+    src = extrapolate(v, kw["dx"], kw["alpha"]) if kw else v
+    torch.testing.assert_close(out, plain(src, taps.astype(np.float64), 1), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("nk,shape", [(37, (2, 3, 1636)), (37, (1, 2, 1635)), (21, (3, 5, 1620)),
+                                      (41, (2, 3, 33)), (45, (2, 2, 21)), (1, (2, 3, 9)),
+                                      (63, (1, 2, 70)), (21, (1, 2, 60000))])
+def test_compiled_x_pass_matches_plain_bitwise(cuda, nk, shape, wrap):
+    """``csrc/rl_pass.cu::x_pass_kernel`` in every mode, with and without
+    earlier terms, on rows that are and are not a multiple of 4 (the
+    16-byte and the 4-byte epilogue) and in pieces (60000): the plain x
+    pass's bits, then the sum and the epilogue as the plain half-step
+    takes them."""
+    assert x_pass_route(shape[2], nk) == "compiled"
+    kx = np.random.default_rng(nk).random(nk).astype(np.float32) + 0.1
+    h = _rand(shape, 60, cuda, 0.5, 10.5)
+    prev = _rand(shape, 61, cuda, 0.0, 1.0)
+    aux = _rand(shape, 62, cuda, 0.0, 5.0)
+    plain = _conv_axis_circular_plain if wrap else _conv_axis_plain
+    x = plain(h, kx.astype(np.float64), 2)
+    for mode in ("ratio", "mult", "plain"):
+        for p in (None, prev):
+            out = torch.full_like(h, float("nan"))
+            before = x_pass_cuda.launches
+            conv_x_cuda(h, p, None if mode == "plain" else aux, out, torch.tensor(kx, device=cuda),
+                        mode, 1e-6, wrap=wrap, host=kx)
+            torch.cuda.synchronize()
+            assert x_pass_cuda.launches == before + 1
+            want = _epilogue(x if p is None else x + p, aux, mode, 1e-6)
+            torch.testing.assert_close(out, want, rtol=0, atol=0, msg=f"{mode} prev={p is not None}")
+
+
+@pytest.mark.parametrize("nk", [3, 37, 63])
+def test_compiled_and_runtime_passes_give_the_same_bits(cuda, nk):
+    """The compiled passes against csrc/rl_fused.cu's runtime-length
+    kernels, which still run tap lists past 63: z, y and x passes on
+    both boundaries give equal bits."""
+    from shrimpy_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    taps = np.random.default_rng(nk).random(nk).astype(np.float32) + 0.1
+    k = torch.tensor(taps, device=cuda)
+    gz, gy, gx = 12, 70, 44
+    v = _rand((gz, gy, gx), 63, cuda, 0.0, 10.0)
+    for wrap in (0, 1):
+        for view in ((1, gz, gy * gx), (gz, gy, gx)):
+            a, b = torch.empty_like(v), torch.empty_like(v)
+            conv_axis_cuda(v, a, k, taps, *view, wrap=bool(wrap))
+            assert lib.shrimpy_conv_axis(v.data_ptr(), b.data_ptr(), k.data_ptr(), nk, *view,
+                                         None, None, wrap, stream) == 0
+            torch.cuda.synchronize()
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+        a, b = torch.empty_like(v), torch.empty_like(v)
+        conv_x_cuda(v, None, None, a, k, "plain", 1e-6, wrap=bool(wrap), host=taps)
+        assert lib.shrimpy_conv_x(v.data_ptr(), None, None, b.data_ptr(), k.data_ptr(), nk,
+                                  gz * gy, gx, gx, 0, 1e-6, wrap, stream) == 0
+        torch.cuda.synchronize()
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("shape", [(22, 48, 44), (9, 30, 37)])
+def test_three_pass_half_step_with_24_terms_matches_plain(cuda, shape):
+    """BASELINE.md config 2's plan: 24 terms of (31, 41, 37) on the
+    three-pass route, every pass on the compiled kernels: all five modes
+    give the plain half-step's bits (the Biggs sums within 1e-5)."""
+    terms = _asym_terms(24, (31, 41, 37), seed=64)
+    st, adj = Stencil(terms, device=cuda), Stencil(terms, flip=True, device=cuda)
+    before = (half_step_three_pass.launches, axis_pass_cuda.launches, x_pass_cuda.launches,
+              x_pass_accel_cuda.launches)
+    (inp, aux, dx, gp, alpha), got = _half_all_modes(half_step_three_pass, shape, st, adj, 65,
+                                                    cuda)
+    assert (half_step_three_pass.launches, axis_pass_cuda.launches, x_pass_cuda.launches,
+            x_pass_accel_cuda.launches) == (before[0] + 5 * 3 * 24, before[1] + 5 * 2 * 24,
+                                            before[2] + 5 * 24 - 1, before[3] + 1)
+    for mode, s in (("plain", st), ("ratio", st), ("mult", adj)):
+        torch.testing.assert_close(got[mode], half_step_plain(inp, aux, s, mode, 1e-6),
+                                   rtol=0, atol=0, msg=mode)
+    want = half_step_plain(inp, aux, st, "ratio_accel", 1e-6, dx=dx, alpha=alpha)
+    torch.testing.assert_close(got["ratio_accel"], want, rtol=0, atol=0)
+    want = half_step_plain(inp, aux, adj, "mult_accel", 1e-6, dx=dx, g_prev=gp, alpha=alpha)
+    for k in range(3):
+        torch.testing.assert_close(got["mult_accel"][k], want[k], rtol=0, atol=0)
+    for k in (3, 4):
+        assert abs(float(got["mult_accel"][k]) - float(want[k])) <= 1e-5 * abs(float(want[k]))
+
+
+@pytest.mark.parametrize("nk", [1, 9, 37, 63])
+def test_x_pass_shared_memory_sum_is_the_kernels(cuda, nk):
+    from shrimpy_tpu_torch.kernels.build import load_library
+
+    for length in (1, 4, 5, 130, 1636, 16384):
+        assert load_library().shrimpy_rl_pass_smem(nk, length) == x_pass_smem_bytes(nk, length)
 
 
 @pytest.mark.parametrize("mode", ["ratio", "mult", "plain"])

@@ -507,7 +507,7 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
     calls = log.read_text().splitlines()
     assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu", "rl_half.cu",
                                                  "convzy.cu", "rl_iter.cu", "probes.cu",
-                                                 "affine.cu", "zband.cu"}
+                                                 "affine.cu", "zband.cu", "rl_pass.cu"}
     assert len(calls) == len(build.sources()) + 1
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     compiles = [c for c in calls if " -c " in c]
