@@ -208,6 +208,20 @@ Phases:
    [phase]`` on two brightfield stacks of phase 4l's shape shifted in yx,
    the transfer function a hit of phase 4l's host cache, against float64;
    the focus metric's index against float64;
+4q. DynaTrack's closed loop (run after 4m, whose blobs and tracker settings
+   it takes): one position over six timepoints of production raws whose
+   sample drifts 2 scan steps and 3 x pixels a timepoint, the stage seam
+   rolling each raw by minus the stored offset (the JAX engine's
+   ``_stage_offset_px`` and ``ReplaySource.volume``), through
+   ``tracking/position.py::PositionUpdateManager`` (record the acquisition,
+   submit the stack, drain) whose worker thread runs the engine's updater
+   (``Preprocessor([deskew])`` on the deskew kernel, ``Tracker`` ``pcc``,
+   the stage shift through ``loop_matrix``): every correction applied, no
+   "updater failed" or "no baseline" record, one deskew launch a timepoint
+   and no other kernel, every drain within 120 s, and from t = 2 on the
+   sample within 1 raw px of where it started on every axis after the
+   correction; the first and warm update ms, the drains, the residuals and
+   the peak;
 4n. virtual staining, every net with weights from its seed: (a) the default
    unet25d (base 64, depth 3, batch 8) through the ``Preprocessor``
    (``preprocessing: [phase, vs]``) and the ``Tracker`` (``pcc`` on
@@ -3277,6 +3291,216 @@ def phase_track(gen, phase_shape) -> dict:
             "seconds": time.monotonic() - t_start}
 
 
+# --- DynaTrack's closed loop (tracking/position.py): the manager's worker runs
+# the engine's updater (the Preprocessor's deskew, the Tracker's pcc, the stage
+# shift) on each stack, and the stage seam rolls the next raw by the corrected
+# position, as the JAX engine's replay does (engine.py::_stage_offset_px,
+# engine/replay.py::ReplaySource.volume).
+LOOP_TIMEPOINTS = 6
+LOOP_KEY = "0/0/000"
+LOOP_PIXEL_UM = 0.116  # raw y and x pixel; the scan step is LOOP_PIXEL_UM / ratio
+LOOP_DRAIN_S = 120.0  # the manager's drain timeout (BASELINE.md:18's budget)
+
+
+def loop_raw_scale(deskew) -> tuple[float, float, float]:
+    """The raw's (scan step, y, x) scale in um for the deskew's ratio."""
+    return (LOOP_PIXEL_UM / deskew.px_to_scan_ratio, LOOP_PIXEL_UM, LOOP_PIXEL_UM)
+
+
+def loop_matrix(deskew, raw_scale_zyx) -> list:
+    """The image-to-stage matrix (XYZ) that undoes a deskewed shift on the raw
+    stage seam. A raw roll of (a scan steps, b tilt px, c x px) moves the
+    deskewed volume by (b sin(theta), a / r + b cos(theta), c) px
+    (``ops/deskew.py::_geometry``); the correction ``baseline - M @ shift``
+    must move the stage by (c sx, b sy, a sz) um. The signs are those of -I
+    (the seam rolls the raw by minus the stage offset); the axes are the
+    raw's: the deskewed y drift is a scan drift, which -I would send to the
+    tilt axis instead."""
+    theta = math.radians(deskew.ls_angle_deg)
+    r = deskew.px_to_scan_ratio
+    sz, sy, sx = raw_scale_zyx
+    px = sy  # the deskewed y and x pixel
+    return [[-sx / px, 0.0, 0.0],
+            [0.0, 0.0, -sy / (px * math.sin(theta))],
+            [0.0, -r * sz / px, r * sz / (px * math.tan(theta))]]
+
+
+def stage_offset_px(store, key: str, raw_scale_zyx) -> tuple[int, int, int]:
+    """The stored position as whole raw pixels (ZYX), as the JAX engine's
+    ``_stage_offset_px`` maps it: z by the raw's z scale, y and x by its y
+    and x."""
+    pos = store.get(key)
+    sz, sy, sx = raw_scale_zyx
+    return (int(round(pos.z / sz)), int(round(pos.y / sy)), int(round(pos.x / sx)))
+
+
+def closed_loop(manager, sample, n_timepoints: int, raw_scale_zyx, key: str = LOOP_KEY,
+                drain_timeout_s: float = LOOP_DRAIN_S) -> list:
+    """DynaTrack's loop for one position: at each timepoint the stage offset
+    from the store, ``sample(t, offset)`` (the stack the camera takes there),
+    then ``record_acquisition``, ``on_stack_complete`` and ``drain_pending``
+    in turn. ``manager`` is a ``PositionUpdateManager`` of either package.
+    Returns a record a timepoint: the offset the stack was taken at, the one
+    the correction left, the future's result and the drain's seconds."""
+    manager.store.set(key, 0.0, 0.0, 0.0)
+    records = []
+    for t in range(n_timepoints):
+        manager.record_acquisition(t, key)
+        before = stage_offset_px(manager.store, key, raw_scale_zyx)
+        stack = sample(t, before)
+        future = manager.on_stack_complete(stack, t, key)
+        del stack
+        t0 = time.perf_counter()
+        drained = manager.drain_pending(drain_timeout_s)
+        drain_s = time.perf_counter() - t0
+        pos = manager.store.get(key)
+        records.append({"t": t, "offset_px": before,
+                        "offset_after_px": stage_offset_px(manager.store, key, raw_scale_zyx),
+                        "position_um": [pos.x, pos.y, pos.z],
+                        "applied": future.result(timeout=0) if future.done() else None,
+                        "drained": drained, "drain_s": drain_s})
+    return records
+
+
+def loop_residuals(records, drift_zyx) -> tuple[list, list]:
+    """Per timepoint, the sample's offset from where it started in raw px
+    (ZYX) in the stack the camera took (the drift less the offset it was
+    taken at) and after the loop's correction (less the offset it left)."""
+    taken, after = [], []
+    for rec in records:
+        moved = [rec["t"] * d for d in drift_zyx]
+        taken.append([m - o for m, o in zip(moved, rec["offset_px"])])
+        after.append([m - o for m, o in zip(moved, rec["offset_after_px"])])
+    return taken, after
+
+
+class LoopLog:
+    """A handler on the manager's logger keeping the records that say a
+    correction was not applied: an updater that raised, or a stack with no
+    baseline."""
+
+    def __init__(self):
+        import logging
+
+        self.bad = []
+        self.handler = logging.Handler()
+        self.handler.emit = self._emit
+        self.logger = logging.getLogger("shrimpy_tpu_torch.tracking.position")
+        self.level = self.logger.level
+
+    def _emit(self, record) -> None:
+        import traceback
+
+        msg = record.getMessage()
+        if "updater failed" in msg or "no baseline" in msg:
+            if record.exc_info:
+                msg += "\n" + "".join(traceback.format_exception(*record.exc_info))
+            self.bad.append(msg)
+
+    def __enter__(self):
+        import logging
+
+        self.logger.addHandler(self.handler)
+        self.logger.setLevel(logging.INFO)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self.handler)
+        self.logger.setLevel(self.level)
+
+
+def phase_loop(gen) -> dict:
+    """DynaTrack's closed loop at the production raw: one position whose
+    sample drifts TRACK_DRIFT (scan steps, x px) a timepoint, phase 4m's
+    blobs, LOOP_TIMEPOINTS timepoints. ``PositionUpdateManager``'s worker
+    runs the engine's updater (``Preprocessor([deskew])`` on the deskew
+    kernel, ``Tracker`` ``pcc``, the stage shift through
+    :func:`loop_matrix`); the seam rolls each raw by minus the stored
+    offset. Every correction applied, no "updater failed" or "no baseline"
+    record, one deskew launch a timepoint and no other kernel, every drain
+    within LOOP_DRAIN_S, and from t = 2 on the sample within 1 px of where
+    it started on every axis once the loop has corrected."""
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.position import PositionStore, PositionUpdateManager
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    t_start = time.monotonic()
+    deskew = headline_settings().deskew
+    raw_scale = loop_raw_scale(deskew)
+    matrix = loop_matrix(deskew, raw_scale)
+    cfg = track_config("pcc", preprocessing=["deskew"], deskew=vars(deskew),
+                       image_to_stage_matrix_xyz=matrix)
+    centers, amps = track_blobs(gen)
+    raw0 = track_raw(centers, amps)
+    drift = (TRACK_DRIFT[0], 0, TRACK_DRIFT[1])  # raw px (scan, tilt, x) a timepoint
+
+    def sample(t, offset):
+        """The camera's stack at t: the sample moved t * drift, the field of
+        view following the stage (rolled by minus its offset), new noise."""
+        shift = tuple(t * d - o for d, o in zip(drift, offset))
+        raw = torch.roll(raw0, shift, dims=(0, 1, 2))
+        return raw.add_(torch.randn(RAW_SHAPE, generator=gen, device="cuda"), alpha=TRACK_NOISE)
+
+    pre = Preprocessor(cfg)
+    tracker = Tracker(cfg, scale_zyx_um=pre.tracking_scale_zyx(RAW_SHAPE, raw_scale))
+    update_ms = []
+
+    def updater(stack, t, p):
+        # The engine's closure (JAX engine.py:202-207), timed on the worker.
+        t0 = time.perf_counter()
+        stack = pre.tracking_stack(stack)
+        result = tracker.update(stack, t, p)
+        torch.cuda.current_stream().synchronize()
+        update_ms.append((time.perf_counter() - t0) * 1e3)
+        return result.stage_shift_xyz
+
+    manager = PositionUpdateManager(PositionStore(), updater, drain_timeout_s=LOOP_DRAIN_S)
+    table = counters()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        with LoopLog() as log:
+            records = closed_loop(manager, sample, LOOP_TIMEPOINTS, raw_scale)
+    finally:
+        manager.shutdown()
+    counts = {k: getattr(obj, attr) for k, (obj, attr) in table.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del raw0, pre, tracker
+    torch.cuda.empty_cache()
+    taken, after = loop_residuals(records, drift)
+    drains = [rec["drain_s"] for rec in records]
+    res = {"update_ms": update_ms, "first_ms": update_ms[0] if update_ms else None,
+           "warm_ms": update_ms[-1] if update_ms else None, "drain_s": drains,
+           "residual_taken_px": taken, "residual_px": after, "peak_gib": peak,
+           "positions_um": [rec["position_um"] for rec in records],
+           "launches": counts["deskew"], "seconds": time.monotonic() - t_start}
+    print(f"  matrix {[[round(v, 6) for v in row] for row in matrix]}; raw scale "
+          f"{tuple(round(v, 6) for v in raw_scale)} um", flush=True)
+    for rec, a, b in zip(records, taken, after):
+        print(f"  t={rec['t']}: taken at offset {list(rec['offset_px'])} px, the sample there at "
+              f"{a} px; corrected to {list(rec['offset_after_px'])} px "
+              f"({[round(v, 4) for v in rec['position_um']]} um xyz), residual {b} px; "
+              f"applied {rec['applied']}, drain {rec['drain_s']:.3f} s", flush=True)
+    print(f"  update {res['first_ms']} ms first, {res['warm_ms']} ms warm "
+          f"(all {[round(v, 1) for v in update_ms]}); drains max {max(drains):.3f} s; peak "
+          f"{peak:.2f} GiB; {counts['deskew']} deskew launches; {card_line()}", flush=True)
+    if log.bad:
+        raise AssertionError(f"the loop logged corrections not applied: {log.bad}")
+    if not all(rec["applied"] is True for rec in records):
+        raise AssertionError(f"corrections not applied: {[rec['applied'] for rec in records]}")
+    if not all(rec["drained"] for rec in records) or not max(drains) < LOOP_DRAIN_S:
+        raise AssertionError(f"drains {drains} against {LOOP_DRAIN_S} s")
+    bad = {k: v for k, v in counts.items() if v != (LOOP_TIMEPOINTS if k == "deskew" else 0)}
+    if bad:
+        raise AssertionError(f"loop launch counts {bad}, want {LOOP_TIMEPOINTS} deskew launches, "
+                             "no other")
+    far = [(t, r) for t, r in enumerate(after) if t >= 2 and max(abs(v) for v in r) > 1]
+    if far:
+        raise AssertionError(f"the loop left the sample off where it started: {far}")
+    return res
+
+
 # --- Virtual staining (ROADMAP queue 1 item 10): the default unet25d through
 # the tracker, unext2 at the widths of ConvNeXt-V2 Tiny (Woo et al. 2023) with
 # the plane and the voxel-stack heads, and the [deskew, phase, vs] chain; every
@@ -4111,6 +4335,10 @@ def main(argv) -> int:
           f"{ph['shape']}")
     trk = phase_track(gen, ph["shape"])
     torch.cuda.empty_cache()
+    stamp(t_start, f"[4q] DynaTrack closed loop: {LOOP_TIMEPOINTS} timepoints at raw {RAW_SHAPE}, "
+          "PositionUpdateManager over deskew + pcc, the stage seam rolling each raw")
+    loop = phase_loop(gen)
+    torch.cuda.empty_cache()
     stamp(t_start, f"[4n] virtual staining: unet25d through the tracker at {ph['shape']}; "
           f"unext2 at ConvNeXt-V2 Tiny widths; [deskew, phase, vs] at raw {VS_CHAIN_RAW}")
     vs = phase_vs(gen, ph["shape"])
@@ -4207,6 +4435,11 @@ def main(argv) -> int:
           f"{trk['lf']['shape']} {trk['lf']['warm_ms']:.1f} ms warm, {trk['lf']['first_ms']:.1f} "
           f"first; focus {trk['lf']['focus_ms']:.3f} ms; phase 4m took {trk['seconds']:.1f} s",
           flush=True)
+    print(f"[5] {card}: DynaTrack loop at raw {RAW_SHAPE}: update {loop['first_ms']:.1f} ms first, "
+          f"{loop['warm_ms']:.1f} ms warm (4m's pcc {trk['methods']['pcc']['first_ms']:.1f} / "
+          f"{trk['methods']['pcc']['warm_ms']:.1f}); drains max {max(loop['drain_s']):.3f} s; "
+          f"residual after each correction {loop['residual_px']} px; peak "
+          f"{loop['peak_gib']:.2f} GiB; phase 4q took {loop['seconds']:.1f} s", flush=True)
     print(f"[5] {card}: virtual staining at {vs['unet25d']['shape']}: unet25d VS "
           f"{vs['unet25d']['vs_ms']:.1f} ms warm (bound {vs['unet25d']['bound_ms']:.1f}), "
           f"{vs['unet25d']['first_vs_ms']:.1f} first, update {vs['unet25d']['update_ms']:.1f} ms, "

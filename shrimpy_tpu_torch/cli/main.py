@@ -3,7 +3,9 @@
 The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``,
 ``track``, ``measure-psf`` and ``train-vs`` take the same options and YAML as
 ``shrimpy_tpu/cli/main.py``, plus ``--device`` (default ``cuda``); ``info``
-and ``microscopes`` print the JAX CLI's JSON. Pixel size and z step come from the store's scale
+and ``microscopes`` print the JAX CLI's JSON, and ``plan new | validate |
+show`` write, check and print acquisition plans (``engine/plan.py``) as the
+JAX CLI does. Pixel size and z step come from the store's scale
 metadata and are injected into the settings, as in the JAX CLI. The
 settings are the port's own pydantic models
 (:mod:`shrimpy_tpu_torch.config.schemas`, a copy of the JAX package's:
@@ -323,6 +325,99 @@ def track(input, config_path, output, device):
                 f"stage_um={np.round(r.stage_shift_xyz, 3).tolist()}"
             )
     click.echo(f"journal: {output}")
+
+
+@cli.group()
+def plan():
+    """Author and validate acquisition plans (the headless counterpart
+    of the reference's Qt acquisition widget, reference
+    ``shrimpy/mantis/mantis_acquisition_widget.py``: build an MDA plan
+    interactively, round-trip it to YAML, validate before running)."""
+
+
+@plan.command("new")
+@click.option("-o", "--output", "out_path", type=click.Path(), required=True)
+@click.option("--timepoints", type=int, default=None,
+              help="Skip the prompt for n_timepoints.")
+@click.option("--interval-s", type=float, default=None)
+@click.option("--channels", default=None,
+              help="Comma-separated channel names (empty = all source).")
+def plan_new(out_path, timepoints, interval_s, channels):
+    """Interactively build an AcquisitionPlan YAML (prompts fill
+    whatever the flags leave unset)."""
+    import yaml as _yaml
+
+    from shrimpy_tpu_torch.engine.plan import AcquisitionPlan
+
+    if timepoints is None:
+        timepoints = click.prompt("timepoints", type=int, default=1)
+    if interval_s is None:
+        interval_s = click.prompt(
+            "timepoint interval [s] (0 = as fast as possible)",
+            type=float, default=0.0,
+        )
+    if channels is None:
+        channels = click.prompt(
+            "channels (comma-separated; empty = all source channels)",
+            default="", show_default=False,
+        )
+    chan_list = [c.strip() for c in channels.split(",") if c.strip()]
+    data: dict = {"time": {"n_timepoints": timepoints, "interval_s": interval_s}}
+    if chan_list:
+        data["channels"] = [{"name": c} for c in chan_list]
+    if click.confirm("enable demo autofocus?", default=False):
+        rate = click.prompt("autofocus success rate", type=float, default=1.0)
+        data["autofocus"] = {"enabled": True, "success_rate": rate}
+    if click.confirm("enable drift tracking (DynaTrack)?", default=False):
+        ch = chan_list[0] if chan_list else click.prompt("tracking channel")
+        data["metadata"] = {"dynatrack": {
+            "input_channel": ch, "tracking_channel": ch,
+            "tracking_method": "pcc",
+        }}
+    validated = AcquisitionPlan(**data)  # fail fast before writing
+    with open(out_path, "w") as f:
+        _yaml.safe_dump(
+            validated.model_dump(exclude_defaults=True), f, sort_keys=False
+        )
+    click.echo(f"plan written: {out_path}")
+
+
+@plan.command("validate")
+@click.argument("plan_path", type=click.Path(exists=True))
+@click.option("--input", "store_path", type=click.Path(exists=True),
+              default=None,
+              help="Cross-check channels/positions against this store.")
+def plan_validate(plan_path, store_path):
+    """Validate a plan YAML (schema; with --input also against a store),
+    mirroring the widget's pre-run validation."""
+    from shrimpy_tpu_torch.engine.plan import AcquisitionPlan, validate_plan
+
+    try:
+        p = AcquisitionPlan.from_yaml(plan_path)
+    except Exception as e:
+        raise click.ClickException(f"invalid plan: {e}") from e
+    source = None
+    if store_path is not None:
+        from shrimpy_tpu_torch.engine.replay import ReplaySource
+
+        source = ReplaySource(store_path)
+    # Single source of truth shared with the browser plan editor:
+    # engine.plan.validate_plan (every check the engine fails fast on,
+    # surfaced BEFORE the run).
+    problems = validate_plan(p, source)
+    if problems:
+        raise click.ClickException("; ".join(problems))
+    click.echo(json.dumps({"valid": True, "plan": str(plan_path)}))
+
+
+@plan.command("show")
+@click.argument("plan_path", type=click.Path(exists=True))
+def plan_show(plan_path):
+    """Print the fully-resolved plan (defaults filled in) as JSON."""
+    from shrimpy_tpu_torch.engine.plan import AcquisitionPlan
+
+    p = AcquisitionPlan.from_yaml(plan_path)
+    click.echo(json.dumps(p.model_dump(), indent=2, default=str))
 
 
 @cli.command()

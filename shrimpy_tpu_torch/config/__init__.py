@@ -252,6 +252,25 @@ def dynatrack_settings(**overrides) -> SimpleNamespace:
     return ns
 
 
+# engine/plan.py's AutofocusPlan (the demo PFS of DemoAutofocus).
+AUTOFOCUS_DEFAULTS = {"enabled": False, "success_rate": 1.0, "fail_at_indices": None, "seed": 0}
+
+
+def autofocus_plan(**overrides) -> SimpleNamespace:
+    """``AutofocusPlan`` as a namespace, with its validator's two rules and
+    messages: ``success_rate`` in [0, 1], and no failure settings while the
+    demo PFS is off."""
+    ns = _make(AUTOFOCUS_DEFAULTS, overrides)
+    if not 0.0 <= ns.success_rate <= 1.0:
+        raise ValueError(f"success_rate must be in [0, 1], got {ns.success_rate}")
+    if not ns.enabled and (ns.fail_at_indices is not None or ns.success_rate != 1.0):
+        raise ValueError(
+            "autofocus failure settings (fail_at_indices / "
+            "success_rate) require enabled: true"
+        )
+    return ns
+
+
 UNET25D_DEFAULTS = {"base_width": 64, "depth": 3}
 
 UNEXT2_DEFAULTS = {

@@ -1,6 +1,7 @@
 """In-focus slice selection by midband spatial-frequency power
-(counterpart of ``shrimpy_tpu/engine/autofocus.py``:
-``_focus_metric_jit`` and :func:`focus_from_transverse_band`).
+and the demo PFS (counterpart of ``shrimpy_tpu/engine/autofocus.py``:
+``_focus_metric_jit``, :func:`focus_from_transverse_band` and
+:class:`DemoAutofocus`).
 
 Per z slice, the power of the mean-subtracted slice's spectrum inside the
 transverse band ``lo..hi`` of the incoherent cutoff ``2 NA / lambda``, on
@@ -13,17 +14,51 @@ float64 run (``dtype``, the reference on the card) sums the same bins.
 same half spectrum as matrix products for the TPU's matrix unit); all map
 to ``torch.fft`` here.
 
-``DemoAutofocus`` (the simulated PFS) needs ``engine/plan.py`` and comes
-with ROADMAP queue 1 item 12.
+:class:`DemoAutofocus`, the simulated PFS, is the JAX class statement for
+statement (``tests/test_torch_position.py`` pins it). It reads its plan by
+attribute: an ``AutofocusPlan`` of either package or
+:func:`shrimpy_tpu_torch.config.autofocus_plan`, so this module imports
+neither ``engine/plan.py`` nor pydantic, and loads where the card's host has
+only torch.
 """
 
 from __future__ import annotations
+
+import logging
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 from shrimpy_tpu_torch.ops.pcc import TRANSFORMS
 from shrimpy_tpu_torch.utils.device import as_tensor
+
+if TYPE_CHECKING:
+    from shrimpy_tpu_torch.engine.plan import AutofocusPlan
+
+logger = logging.getLogger(__name__)
+
+
+class DemoAutofocus:
+    """Simulated PFS: deterministic failures + seeded random success."""
+
+    def __init__(self, plan: AutofocusPlan, n_positions: int):
+        self.plan = plan
+        self.n_positions = n_positions
+        self._rng = np.random.default_rng(plan.seed)
+
+    def engage(self, t: int, p_index: int) -> bool:
+        """True when focus locks; False on failure (caller skips/pads)."""
+        if not self.plan.enabled:
+            return True
+        flat = t * self.n_positions + p_index
+        if self.plan.fail_at_indices is not None and flat in self.plan.fail_at_indices:
+            logger.warning("autofocus: deterministic failure at t=%d p=%d", t, p_index)
+            return False
+        if self._rng.random() > self.plan.success_rate:
+            logger.warning("autofocus: simulated failure at t=%d p=%d", t, p_index)
+            return False
+        return True
 
 
 def band_weights(ny: int, nx: int, pixel_size_um: float, lambda_um: float, na_det: float,

@@ -1,6 +1,8 @@
 """DynaTrack-parity tracking: shift estimation, limits, journaling
-(counterpart of ``shrimpy_tpu/tracking``; ``position.py`` and ``debug.py``
-are ROADMAP queue 1 item 12)."""
+(counterpart of ``shrimpy_tpu/tracking``). The position store and its
+update manager are ``tracking/position.py``, the debug artifacts
+``tracking/debug.py``; as in the JAX package, this package exports the
+tracker's names only."""
 
 from shrimpy_tpu_torch.tracking.core import (  # noqa: F401
     ShiftJournal,

@@ -19,8 +19,9 @@ seconds of both moves (``reference_to_host``, ``reference_to_device``).
 Gaussian-blob template is built on the stack's device
 (:func:`_gaussian_blob`, the float32 arithmetic of
 ``io/synthetic.py::gaussian_blob``; the port's ``io/synthetic.py`` imports
-tensorstore through ``io/ngff.py``). The debug writer of
-``tracking/debug.py`` is not ported (ROADMAP queue 1 item 12).
+tensorstore through ``io/ngff.py``). With ``config.debug`` on, a
+``debug_writer`` (``tracking/debug.py::DebugWriter``) records each updated
+stack where the JAX tracker records it; the stack goes to the host for it.
 """
 
 from __future__ import annotations
@@ -226,6 +227,7 @@ class Tracker:
     config: object
     scale_zyx_um: tuple[float, float, float] = (1.0, 1.0, 1.0)
     journal: ShiftJournal | None = None
+    debug_writer: object | None = None  # tracking.debug.DebugWriter
     device: str | torch.device | None = None
     dtype: torch.dtype = torch.float32
     timer: StageTimer = field(default_factory=StageTimer)
@@ -260,6 +262,11 @@ class Tracker:
                 shift_um_zyx=shift_um,
                 stage_shift_xyz=stage_xyz,
                 reanchored=reanchored,
+            )
+        if self.debug_writer is not None and cfg.debug:
+            # Debug artifacts (reference tracking.py:1315-1474).
+            self.debug_writer.record(
+                stack.cpu().numpy(), t, str(p), shift_px_zyx=shift_px
             )
         return TrackerResult(shift_px, shift_um, stage_xyz, reanchored)
 

@@ -7,7 +7,8 @@ stage measures the enqueue unless the work is drained first:
 of a stage whenever CUDA is initialised. It waits on that stream only,
 not the whole device (``torch.cuda.synchronize()``), so a copy that the
 streaming runtime runs on a side stream keeps overlapping the next
-stage instead of being drained at every edge. Device memory comes from the
+stage instead of being drained at every edge; :func:`stage_timer`, the
+one-stage form, does the same. Device memory comes from the
 caching allocator (``max_memory_allocated``) and the CUDA runtime
 (``mem_get_info``); the trace hook is ``torch.profiler``.
 """
@@ -52,6 +53,14 @@ def device_memory_stats() -> dict[str, float]:
         )
         stats[f"cuda:{i}.in_use"] = (total - free) / (1024**3)
     return stats
+
+
+def memory_report() -> str:
+    """One-line host + device memory summary."""
+    parts = [f"rss={rss_gb():.2f}GiB"]
+    for dev, gib in device_memory_stats().items():
+        parts.append(f"{dev}={gib:.2f}GiB")
+    return " ".join(parts)
 
 
 def _sync() -> None:
@@ -99,6 +108,25 @@ class StageTimer:
         for r in self.records:
             out[r.name] = out.get(r.name, 0.0) + r.seconds
         return out
+
+
+@contextlib.contextmanager
+def stage_timer(name: str, level: int = logging.INFO):
+    """Standalone timing context (single stage); the current stream is
+    synchronized at both edges, as in :meth:`StageTimer.stage`."""
+    _sync()
+    t0 = time.monotonic()
+    try:
+        yield
+    finally:
+        _sync()
+        # memory_report() asks the CUDA runtime for every device's free
+        # memory: only pay it when the record will actually be emitted.
+        if logger.isEnabledFor(level):
+            logger.log(
+                level, "%s took %.3fs (%s)",
+                name, time.monotonic() - t0, memory_report(),
+            )
 
 
 @contextlib.contextmanager

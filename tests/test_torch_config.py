@@ -3,8 +3,10 @@ package's, which they are copies of (CPU).
 
 The port imports nothing of ``shrimpy_tpu``, so ``config/schemas.py``,
 ``config/microscopes.py``, ``config/vs_sidecar.py``, ``io/ngff.py``,
-``io/synthetic.py``, ``utils/fileio.py``, ``utils/cache.py`` and
-``utils/logging.py`` are copies. Each is pinned to its original: the code is the same statement
+``io/synthetic.py``, ``io/platemap.py``, ``utils/fileio.py``,
+``utils/cache.py``, ``utils/retry.py``, ``utils/logging.py``, the engine's
+``control.py``, ``autoexposure.py``, ``plan.py`` and ``replay.py``, and the
+tracking's ``position.py`` and ``debug.py`` are copies. Each is pinned to its original: the code is the same statement
 for statement (comments and docstrings apart; the logging copy's two
 provenance functions record torch in the place of jax), the pydantic models agree field for field and schema
 for schema, one YAML loads to equal dumps, and a store written by either
@@ -49,7 +51,9 @@ torch.set_num_threads(1)
 
 REPO = Path(__file__).resolve().parent.parent
 COPIES = ["config/schemas.py", "config/microscopes.py", "config/vs_sidecar.py", "io/ngff.py",
-          "io/synthetic.py", "utils/fileio.py", "utils/cache.py"]
+          "io/synthetic.py", "utils/fileio.py", "utils/cache.py", "utils/retry.py",
+          "io/platemap.py", "engine/control.py", "engine/autoexposure.py", "engine/plan.py",
+          "engine/replay.py", "tracking/position.py", "tracking/debug.py"]
 MODELS = sorted(n for n, v in vars(jschemas).items()
                 if isinstance(v, type) and issubclass(v, BaseModel) and v is not BaseModel)
 

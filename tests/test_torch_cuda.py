@@ -1852,6 +1852,55 @@ def test_tracker_on_card_matches_float64(cuda, method):
         assert ref.device.type == "cpu" and ref.is_pinned()
 
 
+def test_position_loop_on_card_matches_cpu_run(cuda):
+    """DynaTrack's closed loop (``tracking/position.py``) with the card's
+    ``Preprocessor([deskew])`` and ``Tracker("pcc")`` on a small raw whose
+    sample drifts (2 scan steps, 3 x px a timepoint), through
+    ``chip_smoke.py``'s stage seam: every correction applied, no "updater
+    failed" or "no baseline" record, one deskew launch a timepoint, and the
+    stored positions those of the same loop on the CPU (the shifts are whole
+    pixels, so the sums are the same numbers)."""
+    from shrimpy_tpu_torch.config import dynatrack_settings
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.position import PositionStore, PositionUpdateManager
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    smoke = _chip_smoke()
+    desk = deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386)
+    scale = smoke.loop_raw_scale(desk)
+    cfg = dynatrack_settings(tracking_method="pcc", preprocessing=["deskew"], deskew=vars(desk),
+                             image_to_stage_matrix_xyz=smoke.loop_matrix(desk, scale))
+    shape, drift = (160, 48, 64), (2, 0, 3)
+    raw0 = _blobs(shape, [(70.0, 20.0, 24.0), (72.0, 24.0, 30.0), (90.0, 30.0, 36.0)], "cpu")
+    noise = [torch.from_numpy(np.random.default_rng((75, t)).normal(0.0, 1.0, shape)
+                              .astype(np.float32)) for t in range(5)]
+    runs = {}
+    for device in ("cpu", cuda):
+        def sample(t, offset, device=device):
+            raw = torch.roll(raw0, tuple(t * d - o for d, o in zip(drift, offset)), (0, 1, 2))
+            return (raw + noise[t]).to(device)
+
+        pre = Preprocessor(cfg, device=device)
+        tracker = Tracker(cfg, scale_zyx_um=pre.tracking_scale_zyx(shape, scale), device=device)
+        manager = PositionUpdateManager(
+            PositionStore(), lambda st, t, p: tracker.update(pre.tracking_stack(st), t,
+                                                             p).stage_shift_xyz)
+        deskew_cuda.launches = 0
+        try:
+            with smoke.LoopLog() as log:
+                runs[str(device)] = smoke.closed_loop(manager, sample, 5, scale)
+        finally:
+            manager.shutdown()
+        assert not log.bad
+        assert deskew_cuda.launches == (0 if device == "cpu" else 5)
+    card, cpu = runs["cuda"], runs["cpu"]
+    for a, b in zip(card, cpu):
+        assert a["applied"] is True and b["applied"] is True and a["drained"]
+        np.testing.assert_allclose(a["position_um"], b["position_um"], rtol=0, atol=1e-6)
+    _, after = smoke.loop_residuals(card, drift)
+    assert all(max(abs(v) for v in r) <= 1 for r in after[2:]), after
+
+
 # Virtual staining: the nets of tests/test_torch_vs.py on the card.
 VS_NETS = {
     "unet25d": {"architecture": "unet25d", "base_width": 8, "depth": 2, "in_slices": 3},

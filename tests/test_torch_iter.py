@@ -478,7 +478,10 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {f"shrimpy_tpu_torch/{m}.py" for m in ("utils/fft", "ops/pcc", "ops/register",
                                                    "ops/affine_cuda", "models/train", "psf",
-                                                   "utils/cache")} <= names
+                                                   "utils/cache", "utils/retry", "io/platemap",
+                                                   "engine/control", "engine/autoexposure",
+                                                   "engine/plan", "engine/replay",
+                                                   "tracking/position", "tracking/debug")} <= names
     hits = {str(f.relative_to(REPO)): pattern.findall(f.read_text()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
     # The pattern does catch what it is after.
@@ -499,7 +502,17 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                     "shrimpy_tpu_torch.models.convert",
                                     "shrimpy_tpu_torch.models.train",
                                     "shrimpy_tpu_torch.psf",
-                                    "shrimpy_tpu_torch.utils.cache"])
+                                    "shrimpy_tpu_torch.utils.cache",
+                                    "shrimpy_tpu_torch.utils.retry",
+                                    "shrimpy_tpu_torch.utils.timing",
+                                    "shrimpy_tpu_torch.io.platemap",
+                                    "shrimpy_tpu_torch.engine",
+                                    "shrimpy_tpu_torch.engine.control",
+                                    "shrimpy_tpu_torch.engine.autoexposure",
+                                    "shrimpy_tpu_torch.engine.plan",
+                                    "shrimpy_tpu_torch.engine.replay",
+                                    "shrimpy_tpu_torch.tracking.position",
+                                    "shrimpy_tpu_torch.tracking.debug"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no
@@ -511,9 +524,13 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             from click.testing import CliRunner
             assert CliRunner().invoke(mod.cli, ["reconstruct", "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["register", "--help"]).exit_code == 0
-            for verb in ("track", "train-vs", "measure-psf", "info"):
+            for verb in ("track", "train-vs", "measure-psf", "info", "plan"):
                 assert CliRunner().invoke(mod.cli, [verb, "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["microscopes"]).exit_code == 0
+            result = CliRunner().invoke(mod.cli, ["plan", "validate", "configs/plan_demo.yml"])
+            assert result.exit_code == 0, result.output
+            assert CliRunner().invoke(mod.cli, ["plan", "show",
+                                                "configs/plan_demo.yml"]).exit_code == 0
             from shrimpy_tpu_torch.config import ReconstructSettings, load_yaml_config
             load_yaml_config("configs/reconstruct_demo.yml", ReconstructSettings)
             from shrimpy_tpu_torch.config.microscopes import get_microscope
@@ -521,6 +538,62 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             import shrimpy_tpu_torch.io.synthetic
         bad = [m for m in sys.modules if m == "shrimpy_tpu" or m.startswith("shrimpy_tpu.")]
         assert not bad, bad
+        print("ok")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          env=env, cwd=REPO, timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
+
+
+def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotlib():
+    """The card's machine has torch, numpy and scipy but none of pydantic,
+    yaml, tensorstore, click or matplotlib: with those made unimportable,
+    the modules the card path needs of ROADMAP item 12a and 12b import and
+    run (the demo PFS on the plan namespace, the position loop with a
+    tracker's correction, the timing context, run control, the plate map,
+    autoexposure), and ``engine/__init__.py`` serves the plan only on
+    demand."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("pydantic", "yaml", "tensorstore", "click", "matplotlib"):
+            sys.modules[name] = None
+        import logging
+        import numpy as np
+        from shrimpy_tpu_torch.config import autofocus_plan
+        from shrimpy_tpu_torch.engine import RunControl
+        from shrimpy_tpu_torch.engine.autoexposure import AutoexposureSettings, mean_intensity
+        from shrimpy_tpu_torch.engine.autofocus import DemoAutofocus, focus_from_transverse_band
+        from shrimpy_tpu_torch.engine.control import AbortRun
+        from shrimpy_tpu_torch.io.platemap import PositionList
+        from shrimpy_tpu_torch.tracking.position import PositionStore, PositionUpdateManager
+        from shrimpy_tpu_torch.utils.timing import memory_report, stage_timer
+
+        af = DemoAutofocus(autofocus_plan(enabled=True, fail_at_indices=[1]), 2)
+        assert [af.engage(0, p) for p in range(2)] == [True, False]
+        store = PositionStore()
+        store.set("P", 1.0, 2.0, 3.0)
+        mgr = PositionUpdateManager(store, lambda s, t, p: np.array([1.0, 1.0, 1.0]))
+        mgr.record_acquisition(0, "P")
+        assert mgr.on_stack_complete(np.zeros((2, 2, 2)), 0, "P").result(timeout=10)
+        assert mgr.drain_pending() and store.get("P").as_array().tolist() == [0.0, 1.0, 2.0]
+        mgr.shutdown()
+        with stage_timer("stage", level=logging.WARNING):
+            pass
+        assert memory_report().startswith("rss=")
+        assert RunControl().checkpoint() == 0.0 and issubclass(AbortRun, Exception)
+        assert len(PositionList.from_plate_grid(["A"], ["1", "2"])) == 2
+        assert mean_intensity(np.full((4, 4), 30000.0), 10.0, 5.0, AutoexposureSettings())[0] == 0
+        try:
+            import shrimpy_tpu_torch.engine as engine
+            engine.AcquisitionPlan
+        except ImportError:
+            pass
+        else:
+            raise AssertionError("the plan loaded without pydantic")
+        for name in ("shrimpy_tpu_torch.engine.plan", "shrimpy_tpu_torch.engine.replay",
+                     "shrimpy_tpu_torch.io.ngff"):
+            assert sys.modules.get(name) is None, name
         print("ok")
     """)
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -44,8 +44,6 @@ ALLOWED = {
     ("ops.rl_fused_iter", "iter_layout"): ({"tile"}, {"bz", "bx"},
                                            "the card's (ty, tx) tile in place of the TPU's "
                                            "z and x block"),
-    ("tracking.core", "Tracker"): (set(), {"debug_writer"},
-                                   "the debug writer arrives with ROADMAP queue 1 item 12b"),
 }
 
 
@@ -72,11 +70,25 @@ def _public_pairs():
     return pairs
 
 
+def _has_signature(obj) -> bool:
+    """False for a class with no Python signature of its own (an exception
+    class such as ``engine.control.AbortRun`` takes ``BaseException``'s)."""
+    try:
+        inspect.signature(obj)
+    except ValueError:
+        return False
+    return True
+
+
 def test_every_shared_entry_point_takes_jax_s_parameter_names():
     pairs = _public_pairs()
     assert len(pairs) >= 25, [p[:2] for p in pairs]
     used, wrong = set(), []
     for suffix, name, obj, other in pairs:
+        if not (_has_signature(obj) and _has_signature(other)):
+            if _has_signature(obj) or _has_signature(other):
+                wrong.append((f"{suffix}.{name}", "one side has no signature"))
+            continue
         extra, missing, _ = ALLOWED.get((suffix, name), (set(), set(), ""))
         full_ours = set(inspect.signature(obj).parameters)
         full_theirs = set(inspect.signature(other).parameters)
