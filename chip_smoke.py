@@ -187,7 +187,7 @@ Phases:
    plain path within 1e-3, config 9 by the two-tier gate;
 4l. phase: a brightfield stack (64, 2048, 2048) with the schema's
    defaults (z_padding 5), yx 0.116 um, z 0.25 um: the host transfer
-   function (computed in a thread beside phases 4i-4k) and the card's
+   function (computed in a thread beside phases 4-4k) and the card's
    inverse timed apart, the inverse against its
    float64 version within 1e-3, then through the reconstruct step; at
    (64, 1024, 1024) where the host has too little memory for the
@@ -222,6 +222,23 @@ Phases:
    sample within 1 raw px of where it started on every axis after the
    correction; the first and warm update ms, the drains, the residuals and
    the peak;
+4r. the acquisition engine (run after 4q, with 4m's blobs and 4q's matrix):
+   ``engine/engine.py::AcquisitionEngine(source, device="cuda").acquire`` of
+   a plan namespace (``config.acquisition_plan``: an HCS plate of two
+   positions, two channels with the tracking one first, three timepoints,
+   ``interval_s`` 0, DynaTrack ``pcc`` after ``[deskew]`` with
+   ``loop_matrix``) over production raws whose samples (a blob seed a
+   position) drift 2 scan steps and 3 x px a timepoint, through two
+   in-memory stand-ins for the host file IO the card's machine lacks
+   (``MemorySource``, ``ReplaySource.volume``'s one-volume cache, depth
+   modulo and stage roll; ``MemoryStore`` in the place of ``io/ngff.py``,
+   a digest of each written volume): every (t, p) update applied, no
+   "updater failed" or "no baseline" record, one deskew launch an update and
+   no other kernel, every drain within 120 s, from t = 2 on each sample
+   within 1 raw px of where it started after the correction, every written
+   volume the one served at its (t, c, p) and offset, the summary (12
+   volumes, none skipped, no error) and the journal (6 rows); the update ms,
+   the host seconds a volume, the drains and the peak;
 4n. virtual staining, every net with weights from its seed: (a) the default
    unet25d (base 64, depth 3, batch 8) through the ``Preprocessor``
    (``preprocessing: [phase, vs]``) and the ``Tracker`` (``pcc`` on
@@ -2847,7 +2864,7 @@ def host_available_gib() -> float:
 
 
 def phase_tf() -> dict:
-    """The host half of phase 4l, run in a thread beside phases 4i-4k
+    """The host half of phase 4l, run in a thread beside phases 4-4k
     (the card's work there does not wait on the host): the shape the host
     memory allows and the transfer function of the schema's defaults with
     yx 0.116 um, z 0.25 um (float64 numpy on the host, cached per shape),
@@ -2889,7 +2906,7 @@ def phase_phase(gen, host: dict) -> dict:
     print(host["free"], flush=True)
     shape, settings, tf, tf_s = host["shape"], host["settings"], host["tf"], host["tf_s"]
     print(f"  host memory available {host['avail']:.1f} GiB: phase at {shape}; the host TF took "
-          f"{tf_s:.2f} s in its thread beside phases 4i-4k", flush=True)
+          f"{tf_s:.2f} s in its thread beside phases 4-4k", flush=True)
     tfs, inv = settings.transfer_function, settings.apply_inverse
     t0 = time.perf_counter()
     tf_dev = tf_tensor(tf, "cuda")
@@ -3498,6 +3515,410 @@ def phase_loop(gen) -> dict:
     far = [(t, r) for t, r in enumerate(after) if t >= 2 and max(abs(v) for v in r) > 1]
     if far:
         raise AssertionError(f"the loop left the sample off where it started: {far}")
+    return res
+
+
+# --- The acquisition engine on the card (engine/engine.py): its own event loop
+# (t -> p -> c, the tracking updates in the position manager's worker, the
+# drains at timepoint boundaries, the summary and the journal) over a plan
+# namespace (config.acquisition_plan) and two in-memory stand-ins for the host
+# file IO the card's machine cannot do (no tensorstore, no pydantic): a replay
+# source and an output store. Neither touches the tracking's device work.
+ENGINE_TIMEPOINTS = 3  # the residual check starts at t = 2: not fewer
+ENGINE_POSITIONS = ("0/0/000", "0/1/001")  # one HCS plate
+ENGINE_CHANNELS = ("LS", "GFP")  # the tracking channel first
+ENGINE_GAIN = 0.5  # the second channel: the sample at half the brightness
+
+
+def volume_digest(vol: torch.Tensor) -> tuple:
+    """A float32 volume's digest, computed where it lies: its shape, and the
+    sum and the first moments along z, y and x of its bit patterns read as
+    integers (int64 arithmetic, exact in any order of summation). A volume
+    of another (t, c, position), or rolled by another offset, gives another
+    digest."""
+    if vol.dtype != torch.float32 or vol.dim() != 3:
+        raise ValueError(f"a float32 ZYX volume, not {vol.dtype} {tuple(vol.shape)}")
+    bits = vol.contiguous().view(torch.int32)
+    sums = [bits.sum(dim=d, dtype=torch.int64) for d in ((1, 2), (0, 2), (0, 1))]
+    moments = [int((s * torch.arange(1, s.numel() + 1, device=s.device)).sum()) for s in sums]
+    return (tuple(vol.shape), int(sums[0].sum()), *moments)
+
+
+def on_stream(stream):
+    """``torch.cuda.stream(stream)``, or nothing for None (the CPU)."""
+    import contextlib
+
+    return torch.cuda.stream(stream) if stream is not None else contextlib.nullcontext()
+
+
+class MemorySource:
+    """``engine/replay.py::ReplaySource`` over volumes made in memory:
+    ``render(position, t, c)`` gives the recorded ZYX volume of that
+    position, timepoint and channel as a float32 tensor (on the card, or on
+    the CPU). ``volume`` is ``ReplaySource.volume``: one volume cached, ``t``
+    taken modulo the source's depth, the volume rolled by minus the stage
+    offset, a host array returned (read-only at zero offset). The attributes
+    the engine reads are there (``shape_tczyx``, ``zyx_scale``,
+    ``channel_names``, ``channel_index``, ``position_keys``,
+    ``store.is_plate``: the source is an HCS plate). ``served`` keeps, for each (position, t, c) asked,
+    the offsets and the digest (:func:`volume_digest`) of what was served;
+    ``seconds`` the time of each call, ``ends`` the clock at its return.
+    Tensor work runs on ``stream``, apart from the default stream a tracking
+    worker uses; a volume on the card comes back through pinned memory (the
+    caching host allocator's, reused call after call)."""
+
+    def __init__(self, render, shape_tczyx, zyx_scale, channel_names, position_keys, *,
+                 stream=None):
+        from types import SimpleNamespace
+
+        self.render = render
+        self.shape_tczyx = tuple(shape_tczyx)
+        self.zyx_scale = tuple(zyx_scale)
+        self.channel_names = list(channel_names)
+        self._keys = list(position_keys)
+        self.store = SimpleNamespace(is_plate=True)
+        self.stream = stream
+        self._cache_key = None
+        self._cache_vol = None
+        self.cache_misses = 0
+        self.served: dict = {}
+        self.seconds: list = []
+        self.ends: list = []
+
+    @property
+    def position_keys(self) -> list:
+        return list(self._keys)
+
+    @property
+    def n_timepoints(self) -> int:
+        return self.shape_tczyx[0]
+
+    def channel_index(self, name: str) -> int:
+        return self.channel_names.index(name)
+
+    def volume(self, position, t, c, *, offset_px_zyx=(0, 0, 0)):
+        t0 = time.perf_counter()
+        shift = tuple(-int(round(o)) for o in offset_px_zyx)
+        with on_stream(self.stream):
+            key = (position, t % self.n_timepoints, c)
+            if key != self._cache_key:
+                self._cache_vol = None  # one volume resident
+                self._cache_vol = self.render(*key)
+                self._cache_key = key
+                self.cache_misses += 1
+            vol = self._cache_vol
+            if any(shift):
+                vol = torch.roll(vol, shift, dims=(0, 1, 2))
+            digest = volume_digest(vol)
+            host = torch.empty(vol.shape, dtype=vol.dtype, pin_memory=vol.is_cuda)
+            out = host.copy_(vol).numpy()
+        if not any(shift):
+            out.flags.writeable = False
+        self.served.setdefault((position, t, c), []).append(
+            (tuple(-s for s in shift), digest))
+        self.ends.append(time.perf_counter())
+        self.seconds.append(self.ends[-1] - t0)
+        return out
+
+
+class MemoryStore:
+    """The writer of ``io/ngff.py`` as the engine calls it for a plate
+    (``create_hcs`` -> ``create_position`` -> ``create_array``, ``write``),
+    keeping of each volume written its digest (:func:`volume_digest`,
+    computed on ``device``), not its data. Creating a store makes its
+    directory, empty, so the engine's name auto-increment sees it as it sees
+    a store. ``positions`` maps (store path, position key) to the
+    position; ``seconds`` holds each write's time, ``starts`` the clock at
+    its call."""
+
+    def __init__(self, device="cuda", stream=None):
+        self.device = device
+        self.stream = stream
+        self.positions: dict = {}
+        self.seconds: list = []
+        self.starts: list = []
+
+    def create_hcs(self, path, channel_names=None, **_):
+        from pathlib import Path
+
+        Path(path).mkdir(parents=True)
+        return MemoryPlate(self, str(path), channel_names)
+
+
+class MemoryPlate:
+    def __init__(self, owner: MemoryStore, path: str, channel_names):
+        self.owner, self.path, self.channel_names = owner, path, channel_names
+
+    def create_position(self, row, col, fov, channel_names=None, zyx_scale=(1.0, 1.0, 1.0),
+                        **_):
+        pos = MemoryWritten(self.owner, channel_names or self.channel_names, zyx_scale)
+        self.owner.positions[(self.path, f"{row}/{col}/{fov}")] = pos
+        return pos
+
+
+class MemoryWritten:
+    """One position of a :class:`MemoryStore`: ``written`` maps (t, c) to the
+    digest of the volume written there."""
+
+    def __init__(self, owner: MemoryStore, channel_names, zyx_scale):
+        self.owner = owner
+        self.channel_names = list(channel_names or [])
+        self.zyx_scale = tuple(zyx_scale)
+        self.shape = None
+        self.written: dict = {}
+
+    def create_array(self, shape, dtype="float32", **_):
+        if dtype != "float32":
+            raise ValueError(f"the engine writes float32, not {dtype}")
+        self.shape = tuple(shape)
+
+    def write(self, selection, data) -> None:
+        import numpy as np
+
+        t0 = time.perf_counter()
+        self.owner.starts.append(t0)
+        t, c = selection
+        if tuple(data.shape) != self.shape[2:] or data.dtype != np.float32:
+            raise ValueError(f"volume {data.dtype} {data.shape} for an array of {self.shape}")
+        with on_stream(self.owner.stream):
+            vol = torch.from_numpy(np.ascontiguousarray(data)).to(self.owner.device)
+            self.written[(t, c)] = volume_digest(vol)
+        self.owner.seconds.append(time.perf_counter() - t0)
+
+
+def memory_ngff(store: MemoryStore):
+    """Puts ``store`` in the place of ``shrimpy_tpu_torch.io.ngff`` while the
+    context lasts: in ``sys.modules``, and as the package's attribute where
+    the real module was imported."""
+    import contextlib
+    from unittest import mock
+
+    import shrimpy_tpu_torch.io as io_pkg
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.dict(sys.modules, {"shrimpy_tpu_torch.io.ngff": store}))
+    stack.enter_context(mock.patch.object(io_pkg, "ngff", store, create=True))
+    return stack
+
+
+def recording_manager(records: dict):
+    """``tracking/position.py::PositionUpdateManager`` as the engine builds
+    it, keeping what it does: each updater call's seconds (the worker's
+    tracking update, from the host stack to the stage shift), each future
+    ``on_stack_complete`` returns, each drain's seconds and result."""
+    from shrimpy_tpu_torch.tracking.position import PositionUpdateManager
+
+    class RecordingManager(PositionUpdateManager):
+        def __init__(self, store, updater, **kw):
+            def timed(stack, t, p):
+                t0 = time.perf_counter()
+                out = updater(stack, t, p)
+                records["update_ms"].append((t, p, (time.perf_counter() - t0) * 1e3))
+                return out
+
+            super().__init__(store, timed, **kw)
+
+        def on_stack_complete(self, stack, t, p):
+            future = super().on_stack_complete(stack, t, p)
+            records["futures"].append((t, p, future))
+            return future
+
+        def drain_pending(self, timeout_s=None):
+            t0 = time.perf_counter()
+            ok = super().drain_pending(timeout_s)
+            records["drains"].append((time.perf_counter() - t0, ok))
+            return ok
+
+    return RecordingManager
+
+
+def engine_plan(deskew, matrix, n_timepoints: int, channels):
+    """Phase 4r's plan, as the namespace the card's host can build: one
+    tracking channel first, ``interval_s`` 0, DynaTrack ``pcc`` after
+    ``[deskew]`` with ``matrix`` as the image-to-stage matrix."""
+    from shrimpy_tpu_torch.config import acquisition_plan
+
+    return acquisition_plan(
+        time={"n_timepoints": n_timepoints, "interval_s": 0.0},
+        channels=[{"name": c} for c in channels],
+        metadata={"dynatrack": {
+            "input_channel": channels[0], "tracking_channel": channels[0],
+            "tracking_method": "pcc", "preprocessing": ["deskew"],
+            "deskew": {"ls_angle_deg": deskew.ls_angle_deg,
+                       "px_to_scan_ratio": deskew.px_to_scan_ratio},
+            "image_to_stage_matrix_xyz": matrix}})
+
+
+def run_engine(source, store, plan, device, out_dir, name: str = "smoke") -> tuple:
+    """``AcquisitionEngine(source, device=device).acquire(out_dir, name,
+    plan)`` with ``store`` in the place of the store module and the position
+    manager recording (:func:`recording_manager`), under a shared
+    ``PositionStore`` read after the run. The package logger's handlers,
+    level and propagation are restored after, a failed run's log file
+    released. Returns (output path, records, stage store, LoopLog)."""
+    import logging
+    from unittest import mock
+
+    import shrimpy_tpu_torch.engine.engine as engine_mod
+    from shrimpy_tpu_torch.tracking.position import PositionStore
+
+    records = {"update_ms": [], "futures": [], "drains": []}
+    stage = PositionStore()
+    pkg_logger = logging.getLogger("shrimpy_tpu_torch")
+    saved = (list(pkg_logger.handlers), pkg_logger.level, pkg_logger.propagate)
+    try:
+        with LoopLog() as log, memory_ngff(store), mock.patch.object(
+                engine_mod, "PositionUpdateManager", recording_manager(records)):
+            out = engine_mod.AcquisitionEngine(source, position_store=stage,
+                                               device=device).acquire(out_dir, name, plan)
+    finally:
+        for h in list(pkg_logger.handlers):
+            if h not in saved[0]:
+                pkg_logger.removeHandler(h)
+                h.close()
+        for h in saved[0]:
+            if h not in pkg_logger.handlers:
+                pkg_logger.addHandler(h)
+        pkg_logger.setLevel(saved[1])
+        pkg_logger.propagate = saved[2]
+    return out, records, stage, log
+
+
+def engine_residuals(source, stage, raw_scale, positions, n_timepoints, drift) -> dict:
+    """Per position and timepoint, the sample's offset from where it started
+    (raw px, ZYX) once the loop corrected it: the drift less the offset the
+    next timepoint was taken at, or for the last one the offset the final
+    stage position gives."""
+    out = {}
+    for p in positions:
+        res = []
+        for t in range(n_timepoints):
+            if t + 1 < n_timepoints:
+                after = source.served[(p, t + 1, 0)][0][0]
+            else:
+                after = stage_offset_px(stage, p, raw_scale)
+            res.append([t * d - o for d, o in zip(drift, after)])
+        out[p] = res
+    return out
+
+
+def phase_engine() -> dict:
+    """The acquisition engine's own loop at the production raw:
+    ``AcquisitionEngine(source, device="cuda").acquire(tmp, "smoke", plan)``
+    over an HCS plate of ENGINE_POSITIONS, ENGINE_CHANNELS (the tracking
+    channel first) and ENGINE_TIMEPOINTS, ``interval_s`` 0, DynaTrack ``pcc``
+    after ``[deskew]`` with :func:`loop_matrix`. Each position's sample (phase
+    4m's blobs, a seed a position) drifts TRACK_DRIFT (scan steps, x px) a
+    timepoint; the in-memory source rolls it by minus the stage offset, the
+    in-memory store keeps digests. Every (t, p) gets an update whose future is
+    True, no "updater failed" or "no baseline" record, one deskew launch an
+    update and no other kernel, every drain within LOOP_DRAIN_S, from t = 2 on
+    each position's sample within 1 raw px of where it started once
+    corrected, every written volume the one served at its (t, c, p) and
+    offset, and a summary of every volume, no skipped visit and no error,
+    with a journal row an update."""
+    import csv
+    import tempfile
+    from pathlib import Path
+
+    t_start = time.monotonic()
+    deskew = headline_settings().deskew
+    raw_scale = loop_raw_scale(deskew)
+    matrix = loop_matrix(deskew, raw_scale)
+    bases = []
+    for i in range(len(ENGINE_POSITIONS)):
+        centers, amps = track_blobs(torch.Generator(device="cuda").manual_seed(SEED + 40 + i))
+        bases.append(track_raw(centers, amps))
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    drift = (TRACK_DRIFT[0], 0, TRACK_DRIFT[1])  # raw px (scan, tilt, x) a timepoint
+
+    def render(p, t, c):
+        """The recording at (p, t, c): the position's sample moved t * drift,
+        the second channel at ENGINE_GAIN, noise of its own seed."""
+        i = ENGINE_POSITIONS.index(p)
+        raw = torch.roll(bases[i], tuple(t * d for d in drift), dims=(0, 1, 2))
+        if c:
+            raw.mul_(ENGINE_GAIN)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 100 * i + 10 * t + c + 1)
+        return raw.add_(torch.randn(RAW_SHAPE, generator=g, device="cuda"), alpha=TRACK_NOISE)
+
+    n_t, n_p, n_c = ENGINE_TIMEPOINTS, len(ENGINE_POSITIONS), len(ENGINE_CHANNELS)
+    source = MemorySource(render, (n_t, n_c, *RAW_SHAPE), raw_scale, ENGINE_CHANNELS,
+                          ENGINE_POSITIONS, stream=stream)
+    store = MemoryStore("cuda", stream)
+    plan = engine_plan(deskew, matrix, n_t, ENGINE_CHANNELS)
+    table = counters()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.monotonic()
+        out, records, stage, log = run_engine(source, store, plan, "cuda", tmp)
+        acquire_s = time.monotonic() - t0
+        counts = {k: getattr(obj, attr) for k, (obj, attr) in table.items()}
+        summary = json.loads((Path(tmp) / "smoke_summary_metadata.json").read_text())
+        with open(Path(tmp) / "smoke_dynatrack_log.csv") as f:
+            journal = list(csv.DictReader(f))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del bases, source._cache_vol
+    torch.cuda.empty_cache()
+    residuals = engine_residuals(source, stage, raw_scale, ENGINE_POSITIONS, n_t, drift)
+    update_ms = [ms for _, _, ms in records["update_ms"]]
+    drains = [s for s, _ in records["drains"]]
+    n_volumes = n_t * n_p * n_c
+    res = {"update_ms": update_ms, "first_ms": update_ms[0] if update_ms else None,
+           "warm_ms": update_ms[-1] if update_ms else None, "drain_s": drains,
+           "host_s_per_volume": acquire_s / n_volumes, "acquire_s": acquire_s,
+           "serve_s": sum(source.seconds) / len(source.seconds),
+           "write_s": sum(store.seconds) / len(store.seconds),
+           "engine_copy_s": sum(w - e for w, e in zip(store.starts, source.ends)) / n_volumes,
+           "residual_px": residuals,
+           "peak_gib": peak, "launches": counts["deskew"], "volumes": summary["volumes_acquired"],
+           "positions_um": {p: [float(v) for v in stage.get(p).as_array()]
+                            for p in ENGINE_POSITIONS},
+           "seconds": time.monotonic() - t_start}
+    print(f"  {out.name}: {summary['volumes_acquired']} volumes of {RAW_SHAPE} in "
+          f"{acquire_s:.3f} s, {res['host_s_per_volume']:.3f} host s a volume (the source "
+          f"{res['serve_s']:.3f} s a volume, the engine's [z_idx] and .astype copies "
+          f"{res['engine_copy_s']:.3f}, the store {res['write_s']:.3f}); journal "
+          f"{len(journal)} rows", flush=True)
+    for p in ENGINE_POSITIONS:
+        print(f"  {p}: residual after each correction {residuals[p]} px; stage "
+              f"{[round(v, 4) for v in res['positions_um'][p]]} um xyz", flush=True)
+    print(f"  update {res['first_ms']} ms first, {res['warm_ms']} ms warm (all "
+          f"{[round(v, 1) for v in update_ms]}); drains {[round(v, 3) for v in drains]} s; peak "
+          f"{peak:.2f} GiB; {counts['deskew']} deskew launches; {card_line()}", flush=True)
+    if log.bad:
+        raise AssertionError(f"the engine logged corrections not applied: {log.bad}")
+    applied = {(t, p): f.result(timeout=0) if f.done() else None
+               for t, p, f in records["futures"]}
+    want = {(t, p) for t in range(n_t) for p in ENGINE_POSITIONS}
+    if set(applied) != want or not all(v is True for v in applied.values()):
+        raise AssertionError(f"tracking updates {applied}, want True at each of {sorted(want)}")
+    if not all(ok for _, ok in records["drains"]) or not max(drains) < LOOP_DRAIN_S:
+        raise AssertionError(f"drains {records['drains']} against {LOOP_DRAIN_S} s")
+    bad = {k: v for k, v in counts.items() if v != (n_t * n_p if k == "deskew" else 0)}
+    if bad:
+        raise AssertionError(f"engine launch counts {bad}, want {n_t * n_p} deskew launches, "
+                             "no other")
+    far = [(p, t, r) for p in ENGINE_POSITIONS for t, r in enumerate(residuals[p])
+           if t >= 2 and max(abs(v) for v in r) > 1]
+    if far:
+        raise AssertionError(f"the engine left a sample off where it started: {far}")
+    written = {(p, t, c): d for (_, p), pos in store.positions.items()
+               for (t, c), d in pos.written.items()}
+    served = {k: v[-1][1] for k, v in source.served.items()}
+    if written != served or len(written) != n_volumes or any(
+            len(v) != 1 for v in source.served.values()):
+        raise AssertionError(f"written volumes differ from those served: written "
+                             f"{sorted(written)}, served {sorted(source.served)}")
+    if (summary["volumes_acquired"], summary["skipped_autofocus"], summary["error"],
+            len(journal)) != (n_volumes, [], None, n_t * n_p):
+        raise AssertionError(f"summary {summary['volumes_acquired']} volumes, skipped "
+                             f"{summary['skipped_autofocus']}, error {summary['error']}; "
+                             f"journal {len(journal)} rows")
     return res
 
 
@@ -4282,6 +4703,10 @@ def main(argv) -> int:
     print("  the band of the fft2z RL (csrc/zband.cu):", flush=True)
     band = phase_band(gen)
     torch.cuda.empty_cache()
+    # Phase 4l's host transfer function (~85 s of float64 numpy, one host
+    # thread) beside the card's phases 4-4k.
+    tf_pool = ThreadPoolExecutor(1)
+    tf_host = tf_pool.submit(phase_tf)
     steps = Steps(gen)
     stamp(t_start, "[4] main path: deskew + RL-20 at raw (1201, 256, 1600)")
     step = phase_step(steps)
@@ -4311,10 +4736,6 @@ def main(argv) -> int:
     del steps
     torch.cuda.empty_cache()
     t_fft = time.monotonic()
-    # Phase 4l's host transfer function (~85 s of float64 numpy) beside the
-    # card's phases 4i-4k.
-    tf_pool = ThreadPoolExecutor(1)
-    tf_host = tf_pool.submit(phase_tf)
     stamp(t_start, f"[4i] bench.py config 6: RL-20 with tilted_gaussian_psf() (non-separable) at "
           f"{NONSEP_SHAPE}, fft_backend auto")
     nvol, npsf = uniform(NONSEP_SHAPE, gen, 0.0, 100.0), nonsep_psf()
@@ -4338,6 +4759,12 @@ def main(argv) -> int:
     stamp(t_start, f"[4q] DynaTrack closed loop: {LOOP_TIMEPOINTS} timepoints at raw {RAW_SHAPE}, "
           "PositionUpdateManager over deskew + pcc, the stage seam rolling each raw")
     loop = phase_loop(gen)
+    torch.cuda.empty_cache()
+    stamp(t_start, f"[4r] the acquisition engine: {len(ENGINE_POSITIONS)} positions x "
+          f"{len(ENGINE_CHANNELS)} channels x {ENGINE_TIMEPOINTS} timepoints at raw {RAW_SHAPE}, "
+          "AcquisitionEngine(device='cuda').acquire with a plan namespace, DynaTrack pcc after "
+          "[deskew]")
+    eng = phase_engine()
     torch.cuda.empty_cache()
     stamp(t_start, f"[4n] virtual staining: unet25d through the tracker at {ph['shape']}; "
           f"unext2 at ConvNeXt-V2 Tiny widths; [deskew, phase, vs] at raw {VS_CHAIN_RAW}")
@@ -4440,6 +4867,11 @@ def main(argv) -> int:
           f"{trk['methods']['pcc']['warm_ms']:.1f}); drains max {max(loop['drain_s']):.3f} s; "
           f"residual after each correction {loop['residual_px']} px; peak "
           f"{loop['peak_gib']:.2f} GiB; phase 4q took {loop['seconds']:.1f} s", flush=True)
+    print(f"[5] {card}: the acquisition engine at raw {RAW_SHAPE}: {eng['volumes']} volumes, "
+          f"{eng['host_s_per_volume']:.3f} host s a volume; update {eng['first_ms']:.1f} ms "
+          f"first, {eng['warm_ms']:.1f} ms warm; drains max {max(eng['drain_s']):.3f} s; "
+          f"residual after each correction {eng['residual_px']} px; peak "
+          f"{eng['peak_gib']:.2f} GiB; phase 4r took {eng['seconds']:.1f} s", flush=True)
     print(f"[5] {card}: virtual staining at {vs['unet25d']['shape']}: unet25d VS "
           f"{vs['unet25d']['vs_ms']:.1f} ms warm (bound {vs['unet25d']['bound_ms']:.1f}), "
           f"{vs['unet25d']['first_vs_ms']:.1f} first, update {vs['unet25d']['update_ms']:.1f} ms, "
@@ -4471,7 +4903,7 @@ def main(argv) -> int:
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
-         "launches": step["launches"]["deskew"], **desk},
+         "launches": step["launches"]["deskew"] + eng["launches"], **desk},
         {"name": "rl_half_step", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",

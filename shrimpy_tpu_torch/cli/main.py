@@ -1,8 +1,10 @@
-"""``shrimpy-tpu-torch`` CLI: the reconstruction verbs of the port.
+"""``shrimpy-tpu-torch`` CLI: the reconstruction and acquisition verbs of the
+port (15 of the JAX CLI's 16; ``monitor`` is ROADMAP queue 1 item 12d).
 
 The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``,
-``track``, ``measure-psf`` and ``train-vs`` take the same options and YAML as
-``shrimpy_tpu/cli/main.py``, plus ``--device`` (default ``cuda``); ``info``
+``track``, ``replay``, ``replay-dual``, ``measure-psf`` and ``train-vs`` take
+the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
+(default ``cuda``; ``replay --viewer`` waits for item 12d); ``info``
 and ``microscopes`` print the JAX CLI's JSON, and ``plan new | validate |
 show`` write, check and print acquisition plans (``engine/plan.py``) as the
 JAX CLI does. Pixel size and z step come from the store's scale
@@ -325,6 +327,160 @@ def track(input, config_path, output, device):
                 f"stage_um={np.round(r.stage_shift_xyz, 3).tolist()}"
             )
     click.echo(f"journal: {output}")
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+@click.option("-o", "--output-dir", required=True, type=click.Path())
+@click.option("-n", "--name", default="replay", show_default=True)
+@click.option("--plan", "plan_path", type=click.Path(exists=True), default=None,
+              help="AcquisitionPlan YAML; default replays the full source.")
+@click.option("--viewer/--no-viewer", default=False,
+              help="Stream frames to the live monitor (ROADMAP queue 1 item 12d: "
+                   "not ported yet).")
+@click.option("--viewer-cache-mb", type=float, default=512.0, show_default=True,
+              help="Shared-memory ring budget for the viewer.")
+@click.option("--microscope", default="mantis", show_default=True,
+              help="Registered microscope profile (see `microscopes`).")
+@click.option("--device", default="cuda", show_default=True,
+              help="Torch device of the tracking and refocus: 'cuda', 'cuda:N' or 'cpu'.")
+def replay(input, output_dir, name, plan_path, viewer, viewer_cache_mb, microscope, device):
+    """Replay a pre-acquired dataset through the acquisition engine
+    (hardware-free demo mode, the reference's ReplayCamera role)."""
+    from shrimpy_tpu_torch.config.microscopes import get_microscope
+
+    try:
+        profile = get_microscope(microscope)
+    except KeyError as exc:
+        raise click.ClickException(str(exc)) from None
+    if not profile.implemented:
+        click.echo(click.style(
+            f"{profile.name} acquisition is not yet implemented. "
+            "Coming soon!", fg="yellow",
+        ))
+        return
+    if viewer:
+        raise click.ClickException(
+            "replay --viewer streams to the live monitor, which the PyTorch port "
+            "does not have yet (ROADMAP queue 1 item 12d)"
+        )
+    dev = _device_or_exit(device)
+    from shrimpy_tpu_torch.engine import AcquisitionEngine, AcquisitionPlan, ReplaySource
+
+    source = ReplaySource(input)
+    plan = (
+        AcquisitionPlan.from_yaml(plan_path)
+        if plan_path
+        else AcquisitionPlan(time={"n_timepoints": source.n_timepoints})
+    )
+    from shrimpy_tpu_torch.engine.control import RunControl
+
+    control = RunControl(Path(output_dir) / "run_control.json")
+    click.echo(
+        f"run control: {control.path} "
+        '(write {"command": "pause" | "run" | "abort"})'
+    )
+    engine = AcquisitionEngine(source, device=dev)
+    out = engine.acquire(output_dir, name, plan, run_control=control)
+    if engine.aborted_at is not None:
+        click.echo(click.style(
+            f"aborted at t={engine.aborted_at[0]} (partial output kept)",
+            fg="yellow",
+        ))
+    click.echo(str(out))
+
+
+@cli.command(name="replay-dual")
+@click.argument("config", type=click.Path(exists=True))
+@click.option("-o", "--output-dir", required=True, type=click.Path())
+@click.option("-n", "--name", default="replay", show_default=True)
+@click.option("--microscope", default="mantis", show_default=True,
+              help="Profile whose arm inventory the config must match "
+                   "(see `microscopes`).")
+@click.option("--device", default="cuda", show_default=True,
+              help="Torch device of every arm's tracking and refocus: 'cuda', 'cuda:N' or "
+                   "'cpu'.")
+def replay_dual(config, output_dir, name, microscope, device):
+    """Dual-instance replay: every arm acquires simultaneously on its
+    own engine + store, synchronized per timepoint and sharing one
+    stage (the reference's two-MM-instance production topology,
+    reference ``mantis/archive/pycromanager/acq_engine.py:98-183``).
+
+    CONFIG is a YAML with an ``arms:`` mapping of
+    ``{name: {input: <store>, plan: {...}}}`` plus an optional
+    ``barrier_timeout_s``.
+    """
+    import yaml as _yaml
+
+    from shrimpy_tpu_torch.config.microscopes import get_microscope
+    from shrimpy_tpu_torch.engine.dual import DualArmAcquisition, DualReplayConfig
+    from shrimpy_tpu_torch.engine.replay import ReplaySource
+
+    try:
+        profile = get_microscope(microscope)
+    except KeyError as exc:
+        raise click.ClickException(str(exc)) from None
+    if not profile.implemented:
+        click.echo(click.style(
+            f"{profile.name} acquisition is not yet implemented. "
+            "Coming soon!", fg="yellow",
+        ))
+        return
+    dev = _device_or_exit(device)
+    cfg = DualReplayConfig(**_yaml.safe_load(Path(config).read_text()))
+    if profile.arms and set(cfg.arms) != set(profile.arms):
+        # The arm inventory is instrument knowledge: the mantis has
+        # exactly a label-free and a light-sheet arm.
+        raise click.ClickException(
+            f"config arms {sorted(cfg.arms)} do not match microscope "
+            f"{profile.name!r} arms {sorted(profile.arms)}"
+        )
+    arms = {}
+    for arm, a in cfg.arms.items():
+        plan_a = a.plan
+        cam = plan_a.camera
+        if (
+            profile.max_sequenced_events is not None
+            and "max_sequenced_events" not in cam.model_fields_set
+        ):
+            # The trigger firmware's sequence length is instrument
+            # knowledge; plans inherit it unless they pin their own cap.
+            cam = cam.model_copy(
+                update={
+                    "max_sequenced_events": profile.max_sequenced_events
+                }
+            )
+            plan_a = plan_a.model_copy(update={"camera": cam})
+        if cam.model_acquisition and "mode" not in cam.model_fields_set:
+            # An arm named after a camera mode inherits it unless the plan
+            # says otherwise.
+            from typing import get_args
+
+            from shrimpy_tpu_torch.engine.plan import CameraPlan
+
+            if arm in get_args(CameraPlan.model_fields["mode"].annotation):
+                plan_a = plan_a.model_copy(
+                    update={"camera": cam.model_copy(update={"mode": arm})}
+                )
+        arms[arm] = (ReplaySource(a.input), plan_a)
+    from shrimpy_tpu_torch.engine.control import RunControl
+
+    control = RunControl(Path(output_dir) / "run_control.json")
+    click.echo(
+        f"run control: {control.path} "
+        '(write {"command": "pause" | "run" | "abort"}; applies to '
+        "every arm at the timepoint barrier)"
+    )
+    session = DualArmAcquisition(
+        arms, barrier_timeout_s=cfg.barrier_timeout_s, run_control=control, device=dev
+    )
+    results = session.run(output_dir, name)
+    failed = [r for r in results.values() if r.error]
+    click.echo(json.dumps({a: r.model_dump() for a, r in results.items()}))
+    if failed:
+        raise click.ClickException(
+            f"{len(failed)}/{len(results)} arms failed"
+        )
 
 
 @cli.group()

@@ -19,6 +19,7 @@ The pydantic models, ``inject_derived_parameters`` and
 
 from __future__ import annotations
 
+import copy
 from types import SimpleNamespace
 
 from shrimpy_tpu_torch.config.vs_sidecar import DEFAULT_OUT_CHANNELS, read_vs_sidecar
@@ -210,9 +211,15 @@ def dynatrack_settings(**overrides) -> SimpleNamespace:
     channel-name rules (a ``vs_*`` tracking channel must be among the
     ``out_channels`` of ``virtual_staining``, of its checkpoint's sidecar or
     the defaults), the allowed steps and ``vs`` after ``phase``; the
-    ``deskew`` and ``phase`` dicts must name known fields. A
-    ``tracking_channel`` left unset (None) skips the channel rules."""
+    ``deskew`` and ``phase`` dicts must pass ``DeskewSettings``' and
+    ``PhaseSettings``' checks. A ``tracking_channel`` left unset (None) skips
+    the channel rules. The three dicts are copies of those given, as
+    pydantic's are: :func:`inject_dynatrack_parameters` leaves the caller's
+    dicts (a plan's ``metadata``) as they were."""
     ns = _make(DYNATRACK_DEFAULTS, overrides)
+    for name in ("deskew", "phase", "virtual_staining"):
+        if isinstance(getattr(ns, name), dict):
+            setattr(ns, name, dict(getattr(ns, name)))
     for name, defaults in DYNATRACK_PARTS.items():
         given = getattr(ns, name)
         if not isinstance(given, SimpleNamespace):
@@ -246,10 +253,64 @@ def dynatrack_settings(**overrides) -> SimpleNamespace:
         if "vs" in ns.preprocessing and "phase" not in ns.preprocessing:
             raise ValueError("'vs' preprocessing requires 'phase' first")
     if ns.deskew is not None:
-        deskew_settings(**ns.deskew)
+        _check_deskew(ns.deskew)
     if ns.phase is not None:
-        phase_settings(**ns.phase)
+        _check_phase(ns.phase)
     return ns
+
+
+def _check_deskew(fields: dict) -> None:
+    """``DeskewSettings(**fields)``' checks, with its messages: known fields,
+    ``average_n_slices >= 1``, an angle in (0, 90) and a positive ratio,
+    given or derived from ``pixel_size_um / scan_step_um``."""
+    s = deskew_settings(**fields)
+    ratio = s.px_to_scan_ratio
+    if ratio is None and s.pixel_size_um is not None and s.scan_step_um is not None:
+        ratio = round(s.pixel_size_um / s.scan_step_um, 3)
+    if s.average_n_slices < 1:
+        raise ValueError("average_n_slices must be >= 1")
+    if not (0.0 < s.ls_angle_deg < 90.0):
+        raise ValueError("ls_angle_deg must be in (0, 90)")
+    if ratio is not None and not ratio > 0:
+        raise ValueError("px_to_scan_ratio must be > 0")
+
+
+def _check_phase(fields: dict) -> None:
+    """``PhaseSettings(**fields)``' checks, with its messages: known fields,
+    and a transfer function whose detection NA is within the medium's index
+    and whose ``z_padding`` is not negative."""
+    unknown = set(fields) - {"transfer_function", "apply_inverse"}
+    if unknown:
+        raise TypeError(f"unknown phase settings fields: {sorted(unknown)}")
+    tf = phase_settings(**fields).transfer_function
+    if tf.numerical_aperture_detection > tf.index_of_refraction_media:
+        raise ValueError("detection NA cannot exceed the medium index")
+    if tf.z_padding < 0:
+        raise ValueError("z_padding must be >= 0")
+
+
+def inject_dynatrack_parameters(config, *, pixel_size_um: float, z_step_um: float) -> None:
+    """``inject_derived_parameters`` for a :func:`dynatrack_settings`
+    namespace: the store's pixel size and z step go into the ``deskew``
+    (``pixel_size_um``, ``scan_step_um``) and ``phase`` (the transfer
+    function's ``yx_pixel_size``, ``z_pixel_size``) dicts where these do not
+    set them, a listed step without a dict gets one, and each dict is checked
+    again. The JAX function's ``DynaTrackConfig`` branch, statement for
+    statement, with this package's checks in the place of the models."""
+    steps = tuple(config.preprocessing or ())
+    if config.deskew is None and "deskew" in steps:
+        config.deskew = {}
+    if config.phase is None and "phase" in steps:
+        config.phase = {}
+    if config.deskew is not None:
+        config.deskew.setdefault("pixel_size_um", pixel_size_um)
+        config.deskew.setdefault("scan_step_um", z_step_um)
+        _check_deskew(config.deskew)
+    if config.phase is not None:
+        tf = config.phase.setdefault("transfer_function", {})
+        tf.setdefault("yx_pixel_size", pixel_size_um)
+        tf.setdefault("z_pixel_size", z_step_um)
+        _check_phase(config.phase)
 
 
 # engine/plan.py's AutofocusPlan (the demo PFS of DemoAutofocus).
@@ -269,6 +330,273 @@ def autofocus_plan(**overrides) -> SimpleNamespace:
             "success_rate) require enabled: true"
         )
     return ns
+
+
+# engine/plan.py's AcquisitionPlan and its blocks: the fields in the schema's
+# order with its defaults (a required field None here).
+TIME_DEFAULTS = {"n_timepoints": 1, "interval_s": 0.0}
+CHANNEL_DEFAULTS = {"name": None, "exposure_ms": 10.0}
+Z_DEFAULTS = {"n_slices": None, "step_um": None}
+REFOCUS_DEFAULTS = {"enabled": False, "interval_timepoints": 1, "channel": None,
+                    "wavelength_um": 0.55, "na_det": 1.35, "threshold": 0.0}
+AUTOEXPOSURE_DEFAULTS = {"enabled": False, "algorithm": "intensity_percentile", "channel": None,
+                         "manual_csv": None, "settings": {}}
+STAGE_DEFAULTS = {"model_speed": False, "slow_speed_mm_s": 2.0, "fast_speed_mm_s": 5.75,
+                  "short_distance_um": 2000.0, "negligible_distance_um": 1.0, "time_scale": 1.0}
+CAMERA_DEFAULTS = {"model_acquisition": False, "mode": "demo", "max_fps": 30.0,
+                   "readout_ms": 10.0, "piezo_step_ms": 1.5, "post_readout_delay_ms": 0.05,
+                   "channel_change_ms": None, "time_scale": 1.0, "max_sequenced_events": None}
+LASER_DEFAULTS = {"channel": None, "wavelength_nm": 488, "max_power_mw": 100.0,
+                  "power_mw": 10.0, "port": None}
+HARDWARE_DEFAULTS = {"enabled": False, "lasers": [], "shutter": True, "o3_port": None,
+                     "o3_steps_per_slice": 10, "daq": True}
+PLAN_DEFAULTS = {"time": None, "channels": None, "z": None, "positions": None,
+                 "positions_csv": None, "stage_positions": None, "source_exposure_ms": 10.0,
+                 "mode": "volume", "axis_order": "tpcz", "autofocus": None, "refocus": None,
+                 "autoexposure": None, "stage": None, "camera": None, "hardware": None,
+                 "metadata": {}, "watchdog_s": 100.0}
+
+# What the pydantic plan emulates on the host, by the block's name: set, the
+# namespace raises (acquisition_plan).
+HOST_EMULATIONS = ("camera.model_acquisition", "stage.model_speed", "hardware.enabled",
+                   "autoexposure.enabled", "stage_positions", "positions_csv")
+
+
+def _dump(value):
+    """pydantic's ``model_dump`` of a field: blocks as dicts, containers
+    copied."""
+    if isinstance(value, PlanBlock):
+        return value.model_dump()
+    if isinstance(value, list):
+        return [_dump(v) for v in value]
+    if isinstance(value, dict):
+        return {k: _dump(v) for k, v in value.items()}
+    return copy.deepcopy(value)
+
+
+class PlanBlock(SimpleNamespace):
+    """A block of the plan as a namespace; ``model_dump()`` is the pydantic
+    model's."""
+
+    def model_dump(self) -> dict:
+        return {k: _dump(v) for k, v in vars(self).items()}
+
+
+class ZBlock(PlanBlock):
+    """``ZPlan`` as a namespace."""
+
+    def resolve_z_indices(self, src_nz: int, src_z_um: float) -> list[int]:
+        """Source z indices to acquire, honoring step + count."""
+        if self.step_um is None:
+            stride = 1
+        else:
+            ratio = self.step_um / src_z_um
+            stride = int(round(ratio))
+            if stride < 1 or abs(ratio - stride) > 1e-3 * max(ratio, 1.0):
+                raise ValueError(
+                    f"z.step_um={self.step_um} is not an integer multiple "
+                    f"of the source z step {src_z_um} (ratio {ratio:.4f}); "
+                    "replay serves recorded slices only"
+                )
+        idx = list(range(0, src_nz, stride))
+        if self.n_slices is not None:
+            if self.n_slices > len(idx):
+                raise ValueError(
+                    f"plan z.n_slices={self.n_slices} exceeds the source "
+                    f"depth ({len(idx)} slices at step_um={self.step_um})"
+                )
+            idx = idx[: self.n_slices]
+        return idx
+
+
+class PlanNamespace(PlanBlock):
+    """``AcquisitionPlan`` as a namespace (:func:`acquisition_plan`)."""
+
+    def resolve_positions(self, available: list[str]) -> list[str]:
+        """Position keys to acquire: explicit list, CSV, or all.
+
+        Every explicit key is validated against ``available`` so
+        ``plan validate --input`` fails BEFORE the run, not at the
+        engine's own re-check."""
+        if self.positions is not None:
+            unknown = [p for p in self.positions if p not in available]
+            if unknown:
+                raise ValueError(
+                    f"plan positions {unknown} not in the source store "
+                    f"(has {available})"
+                )
+            return self.positions
+        if self.positions_csv is not None:
+            from shrimpy_tpu_torch.io.platemap import PositionList
+
+            keys = []
+            for entry in PositionList.read(self.positions_csv):
+                key = entry.hcs_key or entry.name
+                if key not in available:
+                    raise ValueError(
+                        f"position {key!r} from {self.positions_csv} not in "
+                        f"the source store (has {available})"
+                    )
+                keys.append(key)
+            return keys
+        return available
+
+    def dynatrack_metadata(self) -> dict | None:
+        """The ``metadata.dynatrack`` block (reference
+        ``metadata.mantis.dynatrack``, ``manager.py:170-240``)."""
+        return self.metadata.get("dynatrack")
+
+
+def _fields(given) -> dict:
+    """A block's fields given as a dict, a namespace or None."""
+    return dict(vars(given) if isinstance(given, SimpleNamespace) else given or {})
+
+
+def _block(defaults: dict, given, cls=PlanBlock, required: str | None = None) -> PlanBlock:
+    """A block from a dict of overrides of its defaults or a namespace
+    (checked again): unknown fields raise, and so does a ``required`` field
+    left unset."""
+    block = cls(**vars(_make(copy.deepcopy(defaults), _fields(given))))
+    if required is not None and getattr(block, required) is None:
+        raise ValueError(f"field {required!r} is required")
+    return block
+
+
+def _check_stage(stage) -> None:
+    if stage.slow_speed_mm_s <= 0 or stage.fast_speed_mm_s <= 0:
+        raise ValueError("stage speeds must be > 0")
+    if stage.time_scale < 0:
+        raise ValueError("time_scale must be >= 0")
+    if stage.negligible_distance_um < 0:
+        raise ValueError("negligible_distance_um must be >= 0")
+
+
+def _check_camera(cam) -> None:
+    if cam.mode not in ("demo", "labelfree", "lightsheet"):
+        raise ValueError(f"camera.mode={cam.mode!r}; use 'demo', 'labelfree' or 'lightsheet'")
+    for f in ("max_fps", "readout_ms", "piezo_step_ms"):
+        if getattr(cam, f) <= 0:
+            raise ValueError(f"camera.{f} must be > 0")
+    if cam.post_readout_delay_ms < 0 or cam.time_scale < 0:
+        raise ValueError(
+            "camera.post_readout_delay_ms and camera.time_scale "
+            "must be >= 0"
+        )
+    if cam.channel_change_ms is not None and cam.channel_change_ms < 0:
+        raise ValueError("camera.channel_change_ms must be >= 0")
+    if cam.max_sequenced_events is not None and cam.max_sequenced_events < 1:
+        raise ValueError("camera.max_sequenced_events must be >= 1")
+
+
+def _check_hardware(hw) -> None:
+    for laser in hw.lasers:
+        if laser.max_power_mw <= 0 or laser.power_mw < 0:
+            raise ValueError("laser powers must be positive")
+        if laser.power_mw > laser.max_power_mw:
+            raise ValueError(
+                f"laser {laser.channel}: power_mw ({laser.power_mw}) exceeds "
+                f"max_power_mw ({laser.max_power_mw})"
+            )
+    if hw.o3_steps_per_slice < 1:
+        raise ValueError("hardware.o3_steps_per_slice must be >= 1")
+    seen: set[str] = set()
+    for laser in hw.lasers:
+        if laser.channel in seen:
+            raise ValueError(f"hardware.lasers: duplicate channel {laser.channel!r}")
+        seen.add(laser.channel)
+
+
+def acquisition_plan(**fields) -> PlanNamespace:
+    """``engine/plan.py::AcquisitionPlan`` as a namespace, for the engine on
+    a host without pydantic (the card's).
+
+    Every field of the plan with the schema's defaults; each block
+    (``time``, ``channels``, ``z``, ``autofocus``, ``refocus``,
+    ``autoexposure``, ``stage``, ``camera``, ``hardware``) a dict of
+    overrides of its defaults or a namespace, with its validator's rules and
+    messages, and the plan's own. ``z.resolve_z_indices``,
+    ``resolve_positions`` and ``dynatrack_metadata`` are the plan's methods
+    statement for statement, and ``model_dump()`` is pydantic's dump, so
+    ``acquisition_plan(**plan.model_dump())`` carries a plan of either
+    package across. The engine's host emulations that call the pydantic
+    models' methods (a camera timing model, the stage-speed model, the
+    instrument rig, autoexposure, a generated plate grid, a position CSV;
+    :data:`HOST_EMULATIONS`) are not carried: one of them set raises
+    ``NotImplementedError``, and ``engine.plan.AcquisitionPlan`` runs it on a
+    host with pydantic."""
+    ns = _make(PLAN_DEFAULTS, fields)
+    plan = PlanNamespace()
+    plan.time = _block(TIME_DEFAULTS, ns.time)
+    if plan.time.n_timepoints < 1:
+        raise ValueError("n_timepoints must be >= 1")
+    plan.channels = None
+    if ns.channels is not None:
+        plan.channels = [_block(CHANNEL_DEFAULTS, c, required="name") for c in ns.channels]
+        for c in plan.channels:
+            if not c.exposure_ms > 0:
+                raise ValueError("exposure_ms must be > 0")
+    plan.z = _block(Z_DEFAULTS, ns.z, ZBlock)
+    if plan.z.step_um is not None and not plan.z.step_um > 0:
+        raise ValueError("step_um must be > 0")
+    if plan.z.n_slices is not None and plan.z.n_slices < 1:
+        raise ValueError("n_slices must be >= 1")
+    plan.positions = None if ns.positions is None else list(ns.positions)
+    plan.positions_csv = ns.positions_csv
+    plan.stage_positions = ns.stage_positions
+    plan.source_exposure_ms = ns.source_exposure_ms
+    if ns.mode not in ("volume", "camera"):
+        raise ValueError(f"mode={ns.mode!r}; use 'volume' or 'camera'")
+    plan.mode = ns.mode
+    plan.axis_order = ns.axis_order
+    plan.autofocus = PlanBlock(**vars(autofocus_plan(**_fields(ns.autofocus))))
+    plan.refocus = _block(REFOCUS_DEFAULTS, ns.refocus)
+    if plan.refocus.interval_timepoints < 1:
+        raise ValueError("interval_timepoints must be >= 1")
+    plan.autoexposure = _block(AUTOEXPOSURE_DEFAULTS, ns.autoexposure)
+    plan.stage = _block(STAGE_DEFAULTS, ns.stage)
+    _check_stage(plan.stage)
+    plan.camera = _block(CAMERA_DEFAULTS, ns.camera)
+    _check_camera(plan.camera)
+    hw = _fields(ns.hardware)
+    plan.hardware = _block(HARDWARE_DEFAULTS, {
+        **hw, "lasers": [_block(LASER_DEFAULTS, laser, required="channel")
+                   for laser in hw.get("lasers", [])]})
+    _check_hardware(plan.hardware)
+    plan.metadata = dict(ns.metadata)
+    plan.watchdog_s = ns.watchdog_s
+    # AcquisitionPlan._check
+    if plan.channels is not None and not plan.channels:
+        raise ValueError(
+            "channels must be a non-empty list (omit it or use null "
+            "for all source channels)"
+        )
+    if plan.positions is not None and not plan.positions:
+        raise ValueError(
+            "positions must be a non-empty list (omit it or use "
+            "null for all source positions)"
+        )
+    if plan.axis_order != "tpcz":
+        raise ValueError("only axis_order='tpcz' is supported")
+    n_sources = sum(
+        x is not None
+        for x in (plan.positions, plan.positions_csv, plan.stage_positions)
+    )
+    if n_sources > 1:
+        raise ValueError(
+            "set only one of positions / positions_csv / stage_positions"
+        )
+    if not plan.source_exposure_ms > 0:
+        raise ValueError("source_exposure_ms must be > 0")
+    for name in HOST_EMULATIONS:
+        block, _, flag = name.partition(".")
+        value = getattr(getattr(plan, block), flag) if flag else getattr(plan, block)
+        if value:
+            raise NotImplementedError(
+                f"{name} is emulated on the host by shrimpy_tpu_torch.engine.plan."
+                "AcquisitionPlan (pydantic), which the engine runs where pydantic is "
+                "installed; this namespace does not carry it"
+            )
+    return plan
 
 
 UNET25D_DEFAULTS = {"base_width": 64, "depth": 3}

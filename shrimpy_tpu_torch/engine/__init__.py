@@ -1,22 +1,30 @@
-"""Acquisition engine (counterpart of ``shrimpy_tpu/engine``): run control,
-acquisition plans, replay sources, autoexposure and autofocus.
+"""Acquisition engine (counterpart of ``shrimpy_tpu/engine``): the event
+loop, run control, acquisition plans, replay sources, autoexposure,
+autofocus and the dual-arm session.
 
-Run control (``control.py``) loads with the standard library alone and is
-imported here. The plan (``plan.py``: pydantic and yaml) and the replay
-source (``replay.py``: tensorstore through ``io/ngff.py``) are served at
-first access, as ``shrimpy_tpu_torch.config`` serves its pydantic models, so
-``import shrimpy_tpu_torch.engine.autofocus`` on a host with torch alone
-loads neither. The event loop (``engine.py``) and the dual-arm session
-(``dual.py``) are ROADMAP queue 1 item 12c.
+The event loop (``engine.py``) and run control (``control.py``) load with
+torch, numpy and the standard library, and are imported here. The plan
+(``plan.py``: pydantic and yaml), the replay source (``replay.py``:
+tensorstore through ``io/ngff.py``) and the dual-arm session (``dual.py``:
+pydantic) are served at first access, as ``shrimpy_tpu_torch.config`` serves
+its pydantic models, so ``import shrimpy_tpu_torch.engine`` on a host with
+torch alone loads none of them.
 """
 
 from shrimpy_tpu_torch.engine.control import AbortRun, RunControl  # noqa: F401
+from shrimpy_tpu_torch.engine.engine import (  # noqa: F401
+    AcquisitionEngine,
+    SkipEvent,
+    resolve_acquisition_name,
+)
 
-# Names served lazily, by module: they need pydantic and yaml (plan) or
-# tensorstore (replay).
+# Names served lazily, by module: they need pydantic and yaml (plan, dual)
+# or tensorstore (replay).
 _LAZY = {
     "AcquisitionPlan": "plan",
     "AcqEvent": "replay",
+    "DualArmAcquisition": "dual",
+    "DualReplayConfig": "dual",
     "ReplayCamera": "replay",
     "ReplaySource": "replay",
     "SequencedBurst": "replay",

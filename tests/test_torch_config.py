@@ -53,20 +53,63 @@ REPO = Path(__file__).resolve().parent.parent
 COPIES = ["config/schemas.py", "config/microscopes.py", "config/vs_sidecar.py", "io/ngff.py",
           "io/synthetic.py", "utils/fileio.py", "utils/cache.py", "utils/retry.py",
           "io/platemap.py", "engine/control.py", "engine/autoexposure.py", "engine/plan.py",
-          "engine/replay.py", "tracking/position.py", "tracking/debug.py"]
+          "engine/replay.py", "tracking/position.py", "tracking/debug.py",
+          "devices/__init__.py", "devices/bus.py", "devices/daq.py", "devices/kim101.py",
+          "devices/rig.py", "devices/shutter.py", "devices/vortran.py"]
 MODELS = sorted(n for n, v in vars(jschemas).items()
                 if isinstance(v, type) and issubclass(v, BaseModel) and v is not BaseModel)
 
 
-def _code(path: Path, skip=(), drop_imports=()) -> str:
+class _WithoutDevice(ast.NodeTransformer):
+    """Takes out the port's ``device``: the parameter, the keyword passed on,
+    and ``self.device = device``."""
+
+    def visit_arguments(self, node):
+        for args, defaults in ((node.args, node.defaults), (node.kwonlyargs, node.kw_defaults)):
+            while any(a.arg == "device" for a in args):
+                i = next(i for i, a in enumerate(args) if a.arg == "device")
+                j = i - (len(args) - len(defaults))  # the default's index
+                del args[i]
+                if j >= 0:
+                    del defaults[j]
+        return node
+
+    def visit_Call(self, node):
+        self.generic_visit(node)
+        node.keywords = [k for k in node.keywords if k.arg != "device"]
+        return node
+
+    def visit_Assign(self, node):
+        self.generic_visit(node)
+        target = node.targets[0]
+        if isinstance(target, ast.Attribute) and target.attr == "device" \
+                and isinstance(node.value, ast.Name) and node.value.id == "device":
+            return None
+        return node
+
+
+def _code(path: Path, skip=(), drop_imports=(), deferred=(), without_device=False) -> str:
     """The module's statements without docstrings (comments are not in
-    the tree), the package name normalised; top-level functions named in
-    ``skip`` and imports from the modules in ``drop_imports`` left out."""
+    the tree), the package name normalised; top-level functions and methods
+    (``Class.method``) named in ``skip``, imports from the modules in
+    ``drop_imports``, and imports from those in ``deferred`` at any depth
+    (the port defers them into the function that needs them) left out; with
+    ``without_device`` the port's ``device`` too (:class:`_WithoutDevice`)."""
     tree = ast.parse(path.read_text().replace("shrimpy_tpu_torch", "shrimpy_tpu"))
     tree.body = [n for n in tree.body
                  if not (isinstance(n, ast.FunctionDef) and n.name in skip)
                  and not (isinstance(n, ast.ImportFrom) and n.module in drop_imports)]
+    for cls in tree.body:
+        if isinstance(cls, ast.ClassDef):
+            cls.body = [n for n in cls.body
+                        if not (isinstance(n, ast.FunctionDef) and f"{cls.name}.{n.name}" in skip)]
+    if without_device:
+        tree = _WithoutDevice().visit(tree)
     for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if deferred and isinstance(body, list):
+            node.body = body = [n for n in body
+                                if not (isinstance(n, ast.ImportFrom) and n.module in deferred)]
         body = getattr(node, "body", None)
         if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
                 and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
@@ -77,6 +120,43 @@ def _code(path: Path, skip=(), drop_imports=()) -> str:
 @pytest.mark.parametrize("rel", COPIES)
 def test_copy_is_the_original_statement_for_statement(rel):
     assert _code(REPO / "shrimpy_tpu_torch" / rel) == _code(REPO / "shrimpy_tpu" / rel)
+
+
+# engine/engine.py's module-level imports of JAX's that the port defers to
+# their use, and the one method that differs past ``device``
+# (tests/test_torch_acquire.py tests each difference on its own).
+ENGINE_DEFERRED = ("shrimpy_tpu.config.schemas", "shrimpy_tpu.engine.plan",
+                   "shrimpy_tpu.engine.replay", "shrimpy_tpu.io")
+ENGINE_SKIP = ("AcquisitionEngine._setup_tracking",)
+
+
+def test_engine_is_the_original_but_for_its_four_differences():
+    """``engine/engine.py`` is JAX's statement for statement once the deferred
+    imports, ``device`` and ``_setup_tracking`` (the namespace config) are
+    left out; the port's module level imports none of the deferred modules,
+    and each difference is there."""
+    rel = "engine/engine.py"
+    ours, theirs = REPO / "shrimpy_tpu_torch" / rel, REPO / "shrimpy_tpu" / rel
+    kw = {"skip": ENGINE_SKIP, "deferred": ENGINE_DEFERRED}
+    assert _code(ours, without_device=True, **kw) == _code(theirs, without_device=True, **kw)
+    assert _code(ours, **kw) != _code(theirs, **kw)  # device
+    assert _code(ours, without_device=True, deferred=ENGINE_DEFERRED) != _code(
+        theirs, without_device=True, deferred=ENGINE_DEFERRED)  # _setup_tracking
+    top = [n.module for n in ast.parse(ours.read_text()).body if isinstance(n, ast.ImportFrom)]
+    assert not {m.replace("shrimpy_tpu_torch", "shrimpy_tpu") for m in top} & set(
+        ENGINE_DEFERRED), top
+    assert {m for m in (n.module for n in ast.parse(theirs.read_text()).body
+                        if isinstance(n, ast.ImportFrom))} & set(ENGINE_DEFERRED) == set(
+        ENGINE_DEFERRED)
+
+
+def test_dual_is_the_original_but_for_device():
+    rel = "engine/dual.py"
+    ours, theirs = REPO / "shrimpy_tpu_torch" / rel, REPO / "shrimpy_tpu" / rel
+    assert _code(ours, without_device=True) == _code(theirs, without_device=True)
+    assert _code(ours) != _code(theirs)
+    text = ours.read_text()
+    assert "device=self.device" in text and "self.device = device" in text
 
 
 def test_logging_copy_is_the_original_but_for_its_provenance(tmp_path):

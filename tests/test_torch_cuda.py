@@ -2042,3 +2042,84 @@ def test_measure_psf_on_card_matches_the_cpu(cuda, tmp_path):
     assert reports["cuda"].n_beads == reports["cpu"].n_beads >= 2
     got, want = np.load(tmp_path / "cuda.npy"), np.load(tmp_path / "cpu.npy")
     assert np.abs(got - want).max() <= 1e-5 * want.max()
+
+
+ENGINE_RAW = (120, 64, 160)  # raw (scan, tilt, x)
+ENGINE_DRIFT = (2, 0, 3)  # raw px (scan, tilt, x) a timepoint
+ENGINE_KEYS = ("0/0/000", "0/1/001")
+
+
+def _engine_source(device: str):
+    """``chip_smoke.MemorySource`` over two positions of seeded blobs, rendered
+    at the raw voxels from their deskewed coordinates and drifting
+    ENGINE_DRIFT a timepoint, two channels, noise of each volume's seed; the
+    volumes made on the CPU and moved to ``device``."""
+    import chip_smoke
+    from shrimpy_tpu_torch.ops.deskew import _geometry
+
+    g = _geometry(ENGINE_RAW, deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386))
+    ns, nt, nx = ENGINE_RAW
+    s = np.arange(ns, dtype=np.float64)[:, None, None]
+    t = np.arange(nt, dtype=np.float64)[None, :, None]
+    x = np.arange(nx, dtype=np.float64)[None, None, :]
+    zd, yd = t * g["sin_t"], s / g["r"] + t * g["cos_t"] - g["y_offset"]
+    bases = []
+    for i in range(len(ENGINE_KEYS)):
+        rng = np.random.default_rng(17 + i)
+        raw = np.full(ENGINE_RAW, 100.0)
+        for b in range(6):
+            c = [m + rng.random() * (n - 2 * m)
+                 for n, m in zip((g["nz_full"], g["ny"], nx), (6.0, 30.0, 20.0))]
+            amp = 4000.0 if b == 0 else 500.0 + 1000.0 * rng.random()
+            raw += amp * np.exp(-0.5 * (((zd - c[0]) / 2.0) ** 2 + ((yd - c[1]) / 4.0) ** 2
+                                        + ((x - c[2]) / 4.0) ** 2))
+        bases.append(raw.astype(np.float32))
+
+    def render(p, t, c):
+        i = ENGINE_KEYS.index(p)
+        moved = np.roll(bases[i], tuple(t * d for d in ENGINE_DRIFT), axis=(0, 1, 2))
+        noise = np.random.default_rng((i, t, c)).normal(0.0, 10.0, ENGINE_RAW)
+        return torch.from_numpy((moved * (0.5 if c else 1.0) + noise).astype(np.float32)).to(
+            device)
+
+    scale = (0.116 / 0.386, 0.116, 0.116)
+    return chip_smoke.MemorySource(render, (4, 2, *ENGINE_RAW), scale, ["LS", "GFP"],
+                                   ENGINE_KEYS)
+
+
+@pytest.mark.parametrize("matrix", ["minus_identity", "loop_matrix"])
+def test_engine_on_card_matches_the_cpu(cuda, tmp_path, matrix):
+    """``AcquisitionEngine(device="cuda")`` over a plan namespace
+    (``config.acquisition_plan``) and ``chip_smoke.py``'s in-memory source and
+    store, DynaTrack ``pcc`` after ``[deskew]`` (the deskew kernel, one launch
+    an update): the journal's shifts and the stage positions equal those of
+    the same run on the CPU (plain deskew), every volume written the one
+    served."""
+    import csv
+
+    import chip_smoke
+
+    deskew = deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386)
+    scale = chip_smoke.loop_raw_scale(deskew)
+    m = ([[-1.0, 0.0, 0.0], [0.0, -1.0, 0.0], [0.0, 0.0, -1.0]] if matrix == "minus_identity"
+         else chip_smoke.loop_matrix(deskew, scale))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        source = _engine_source(dev)
+        store = chip_smoke.MemoryStore(dev)
+        plan = chip_smoke.engine_plan(deskew, m, 4, ("LS", "GFP"))
+        deskew_cuda.launches = 0
+        out, records, stage, log = chip_smoke.run_engine(source, store, plan, dev,
+                                                         tmp_path / dev)
+        launches = deskew_cuda.launches
+        assert not log.bad and all(f.result(timeout=0) is True for _, _, f in records["futures"])
+        assert launches == (8 if dev == "cuda" else 0)
+        written = {(p, t, c): d for (_, p), pos in store.positions.items()
+                   for (t, c), d in pos.written.items()}
+        assert written == {k: v[-1][1] for k, v in source.served.items()} and len(written) == 16
+        with open(tmp_path / dev / "smoke_dynatrack_log.csv") as f:
+            journal = [r[1:] for r in csv.reader(f)]
+        runs[dev] = (journal, {k: stage.get(k).as_array() for k in ENGINE_KEYS})
+    assert runs["cuda"][0] == runs["cpu"][0] and len(runs["cuda"][0]) == 9
+    for k in ENGINE_KEYS:
+        np.testing.assert_allclose(runs["cuda"][1][k], runs["cpu"][1][k], rtol=0, atol=1e-6)

@@ -8,7 +8,7 @@ of the JAX package's, pinned statement for statement in
 (``test_platemap.py``, ``test_retry.py``, ``test_autoexposure.py``,
 ``test_replay_camera.py`` and the ``RunControl`` tests of
 ``test_control.py``) run on both packages; the engine tests of
-``test_control.py`` wait for the event loop (ROADMAP item 12c). The plan's
+``test_control.py`` run in ``tests/test_torch_acquire.py``. The plan's
 pydantic models agree with JAX's field for field and schema for schema,
 and ``shrimpy-tpu-torch plan new | validate | show`` writes the same YAML,
 prints the same JSON and gives the same messages as ``shrimpy-tpu``.

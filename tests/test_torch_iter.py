@@ -524,7 +524,8 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             from click.testing import CliRunner
             assert CliRunner().invoke(mod.cli, ["reconstruct", "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["register", "--help"]).exit_code == 0
-            for verb in ("track", "train-vs", "measure-psf", "info", "plan"):
+            for verb in ("track", "train-vs", "measure-psf", "info", "plan", "replay",
+                         "replay-dual"):
                 assert CliRunner().invoke(mod.cli, [verb, "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["microscopes"]).exit_code == 0
             result = CliRunner().invoke(mod.cli, ["plan", "validate", "configs/plan_demo.yml"])
@@ -546,14 +547,18 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 
-def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotlib():
+def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotlib(tmp_path):
     """The card's machine has torch, numpy and scipy but none of pydantic,
     yaml, tensorstore, click or matplotlib: with those made unimportable,
-    the modules the card path needs of ROADMAP item 12a and 12b import and
-    run (the demo PFS on the plan namespace, the position loop with a
+    the modules the card path needs of ROADMAP item 12a, 12b and 12c import
+    and run (the demo PFS on the plan namespace, the position loop with a
     tracker's correction, the timing context, run control, the plate map,
-    autoexposure), and ``engine/__init__.py`` serves the plan only on
-    demand."""
+    autoexposure, the instrument rig, and the engine's event loop: a
+    namespace plan with DynaTrack through ``chip_smoke.py``'s in-memory
+    source and store), a run without the store's stand-in raises an
+    ``ImportError`` that names tensorstore before it writes anything, and
+    ``engine/__init__.py`` serves the plan, the replay source and the
+    dual-arm session only on demand."""
     code = textwrap.dedent("""
         import sys
         for name in ("pydantic", "yaml", "tensorstore", "click", "matplotlib"):
@@ -591,14 +596,51 @@ def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotl
             pass
         else:
             raise AssertionError("the plan loaded without pydantic")
+        from shrimpy_tpu_torch.devices import LaserSpec, build_rig
+        rig = build_rig([LaserSpec(channel="LS", power_mw=5.0)], o3_port="kim:o3")
+        rig.run_start()
+        rig.run_end()
+        assert rig.summary()["lasers"]["LS"]["power_mw"] == 5.0
+        import torch
+        import chip_smoke
+        from shrimpy_tpu_torch.config import acquisition_plan
+        from shrimpy_tpu_torch.engine import AcquisitionEngine
+        out_dir = sys.argv[1]
+        blob = torch.zeros(6, 24, 24)
+        blob[2:4, 10:13, 9:12] = 100.0
+
+        def render(p, t, c):
+            return torch.roll(blob, (0, t, -t), dims=(0, 1, 2)) + 1.0 + c
+
+        def source():
+            return chip_smoke.MemorySource(render, (3, 2, 6, 24, 24), (1.0, 1.0, 1.0),
+                                           ["BF", "GFP"], ["0/0/000", "0/1/001"])
+
+        plan = acquisition_plan(time={"n_timepoints": 3}, metadata={"dynatrack": {
+            "input_channel": "BF", "tracking_channel": "BF", "tracking_method": "pcc",
+            "image_to_stage_matrix_xyz": [[-1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]]}})
+        try:
+            AcquisitionEngine(source(), device="cpu").acquire(out_dir, "bare", plan)
+        except ImportError as e:
+            assert "tensorstore" in str(e), e
+        else:
+            raise AssertionError("the engine ran without a store")
+        import os
+        assert not os.listdir(out_dir), os.listdir(out_dir)
+        store = chip_smoke.MemoryStore("cpu")
+        out, records, stage, log = chip_smoke.run_engine(source(), store, plan, "cpu", out_dir)
+        assert not log.bad and all(f.result(timeout=0) is True for _, _, f in records["futures"])
+        assert len(records["futures"]) == 6
+        assert sum(len(p.written) for p in store.positions.values()) == 12
+        assert stage.get("0/0/000").as_array().tolist() == [-2.0, 2.0, 0.0]  # x, y, z
         for name in ("shrimpy_tpu_torch.engine.plan", "shrimpy_tpu_torch.engine.replay",
-                     "shrimpy_tpu_torch.io.ngff"):
+                     "shrimpy_tpu_torch.engine.dual", "shrimpy_tpu_torch.io.ngff"):
             assert sys.modules.get(name) is None, name
         print("ok")
     """)
     env = {**os.environ, "PYTHONPATH": str(REPO)}
-    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                          env=env, cwd=REPO, timeout=120)
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], capture_output=True,
+                          text=True, env=env, cwd=REPO, timeout=120)
     assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
 
 

@@ -319,9 +319,17 @@ def test_divergence_falls_back_to_the_seed_as_jax(caplog):
     fixed, moving = _affine_pair()
     kw = dict(refine_iterations=5, learning_rate=40.0)
     want = jr.estimate_registration(fixed, moving, RegistrationSettings(**kw))
-    with caplog.at_level(logging.WARNING, logger="shrimpy_tpu_torch.ops.register"):
-        got = tr.estimate_registration(fixed, moving, tconfig.registration_settings(**kw),
-                                       device="cpu")
+    # caplog's handler on the module's logger too: a CLI or an acquisition
+    # run earlier in the process (configure_logging) stops the package's
+    # records from reaching the root logger.
+    reg_logger = logging.getLogger("shrimpy_tpu_torch.ops.register")
+    reg_logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING, logger="shrimpy_tpu_torch.ops.register"):
+            got = tr.estimate_registration(fixed, moving, tconfig.registration_settings(**kw),
+                                           device="cpu")
+    finally:
+        reg_logger.removeHandler(caplog.handler)
     assert "diverged" in caplog.text
     np.testing.assert_array_equal(want.matrix, np.eye(3, dtype=np.float32))
     np.testing.assert_array_equal(got.matrix, np.eye(3, dtype=np.float32))
