@@ -3749,9 +3749,9 @@ def engine_plan(deskew, matrix, n_timepoints: int, channels):
             "image_to_stage_matrix_xyz": matrix}})
 
 
-def run_engine(source, store, plan, device, out_dir, name: str = "smoke") -> tuple:
-    """``AcquisitionEngine(source, device=device).acquire(out_dir, name,
-    plan)`` with ``store`` in the place of the store module and the position
+def run_engine(source, store, plan, device, out_dir, name: str = "smoke", **engine_kw) -> tuple:
+    """``AcquisitionEngine(source, device=device, **engine_kw).acquire(out_dir,
+    name, plan)`` with ``store`` in the place of the store module and the position
     manager recording (:func:`recording_manager`), under a shared
     ``PositionStore`` read after the run. The package logger's handlers,
     level and propagation are restored after, a failed run's log file
@@ -3769,8 +3769,8 @@ def run_engine(source, store, plan, device, out_dir, name: str = "smoke") -> tup
     try:
         with LoopLog() as log, memory_ngff(store), mock.patch.object(
                 engine_mod, "PositionUpdateManager", recording_manager(records)):
-            out = engine_mod.AcquisitionEngine(source, position_store=stage,
-                                               device=device).acquire(out_dir, name, plan)
+            out = engine_mod.AcquisitionEngine(source, position_store=stage, device=device,
+                                               **engine_kw).acquire(out_dir, name, plan)
     finally:
         for h in list(pkg_logger.handlers):
             if h not in saved[0]:
@@ -3919,6 +3919,322 @@ def phase_engine() -> dict:
         raise AssertionError(f"summary {summary['volumes_acquired']} volumes, skipped "
                              f"{summary['skipped_autofocus']}, error {summary['error']}; "
                              f"journal {len(journal)} rows")
+    return res
+
+
+# --- The live viewer beside the acquisition engine (viewer/, ROADMAP item
+# 12d): the feeder as `replay --viewer` builds it, publishing each volume the
+# engine acquires to its shared-memory ring (native/ring.c) and its spawned
+# monitor, and a monitor attached in this process as `monitor --live` attaches.
+# The viewer is host code; its one kernel is the deskew its preview stands in
+# for, held against the preview on the card.
+VIEWER_TIMEPOINTS = 2
+VIEWER_CACHE_MB = 512.0  # replay --viewer's default budget
+VIEWER_TILT_ROW = 128  # lab z = 128 sin(30 deg) = 64, a whole deskewed plane
+PREVIEW_CORR = 0.95  # tests/test_viewer.py's bound on the preview against the deskew
+CONTRAST_Q = (1.0, 99.7)  # viewer/live.py's auto-contrast percentiles
+
+
+def shm_bytes() -> tuple[int, int]:
+    """(size, free) of /dev/shm, where the feeder's ring lives."""
+    import os
+
+    st = os.statvfs("/dev/shm")
+    return st.f_blocks * st.f_frsize, st.f_bavail * st.f_frsize
+
+
+def viewer_raw(free: int) -> tuple[int, int, int]:
+    """RAW_SHAPE, or its scan depth cut to the largest whose ring (the
+    feeder's floor of n_z + 1 frames and their sequence words) fits in
+    nine tenths of ``free`` bytes of /dev/shm: a ring past it would take a
+    SIGBUS at its first write to a page the segment cannot back."""
+    frame = RAW_SHAPE[1] * RAW_SHAPE[2] * 4 + 8
+    return (min(RAW_SHAPE[0], int(0.9 * free) // frame - 1), *RAW_SHAPE[1:])
+
+
+class LiveLog:
+    """A handler on the port's monitor logger keeping every record at
+    WARNING or above."""
+
+    def __init__(self):
+        import logging
+
+        self.records = []
+        self.handler = logging.Handler(logging.WARNING)
+        self.handler.emit = self.records.append
+        self.logger = logging.getLogger("shrimpy_tpu_torch.viewer.live")
+
+    def __enter__(self):
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.logger.removeHandler(self.handler)
+
+
+def phase_viewer(engine_host_s: float) -> dict:
+    """The live viewer beside ``AcquisitionEngine(source, device="cuda",
+    viewer_hooks=[feeder.on_volume])`` over one position of 4r's plate, both
+    channels, VIEWER_TIMEPOINTS timepoints of the production raw (its depth
+    cut where /dev/shm cannot hold the ring: :func:`viewer_raw`), DynaTrack
+    off. The feeder is ``replay --viewer``'s (``cache_mb`` 512, ``n_z`` the
+    raw's depth, its monitor spawned); each hook call is timed, and at the
+    last timepoint a monitor attached in this process (``live.attach``, a
+    ``LiveMonitor`` with the headline geometry as a
+    ``config.deskew_settings`` namespace, ``view.json`` asking for the
+    per-render auto-contrast) takes each volume as ``monitor --live`` does
+    (poll, refresh, render) before the next one laps it. Checks: (a) the native ring is loaded and both rings use it;
+    (b) ``volumes.jsonl`` has a row a volume, ``ring.json`` the feeder's
+    floor of n_z + 1 slots (the 512 MB budget holds fewer production
+    frames), nothing dropped; (c) each channel's newest
+    volume, as the render gathers it from the ring (``LiveMonitor._gather``),
+    has the digest of the volume served there, and so has the volume the
+    hook was given;
+    (d) the row-gather preview of the resident volume at VIEWER_TILT_ROW is
+    bit-equal to ``deskew_preview_plane`` of the served volume's row and
+    correlates above PREVIEW_CORR with that lab plane of ``deskew_cuda``'s
+    output (``keep_overhang``, y offset t cos(theta)), one deskew launch and
+    no other kernel in the phase; (e) ``state.json`` selects each channel's
+    last timepoint and holds as its contrast ``np.percentile`` of the
+    served volume, a PNG for each where matplotlib imports (else its
+    ``ImportError`` is the only record the monitor logs, and ``displayed``
+    is empty). The monitor subprocess's exit after ``stop()`` is reported,
+    not checked."""
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    import numpy as np
+
+    from shrimpy_tpu_torch import config, native
+    from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
+    from shrimpy_tpu_torch.viewer import FrameRing, ViewerFeeder
+    from shrimpy_tpu_torch.viewer.deskew_preview import deskew_preview_plane, preview_from_ring
+    from shrimpy_tpu_torch.viewer.live import LiveMonitor, attach
+
+    t_start = time.monotonic()
+    shm_size, shm_free = shm_bytes()
+    raw_shape = viewer_raw(shm_free)
+    n_z, frame = raw_shape[0], raw_shape[1:]
+    try:
+        import matplotlib  # noqa: F401
+
+        has_mpl = True
+    except ImportError:
+        has_mpl = False
+    print(f"  /dev/shm {shm_size} bytes, {shm_free} free; raw {raw_shape}"
+          + ("" if raw_shape == RAW_SHAPE else f", cut from {RAW_SHAPE} to fit the ring")
+          + f"; matplotlib {'present' if has_mpl else 'absent: no PNG is drawn'}", flush=True)
+    if n_z < 2:
+        raise AssertionError(f"/dev/shm holds {n_z + 1} frames of {frame}: too few for a ring")
+    deskew = headline_settings().deskew
+    raw_scale = loop_raw_scale(deskew)
+    position = ENGINE_POSITIONS[0]
+    centers, amps = track_blobs(torch.Generator(device="cuda").manual_seed(SEED + 40))
+    base = track_raw(centers, amps)[:n_z].contiguous()
+
+    def render(p, t, c):
+        """4r's recording at (p, t, c), cut to the raw's depth."""
+        raw = torch.roll(base, (t * TRACK_DRIFT[0], 0, t * TRACK_DRIFT[1]), dims=(0, 1, 2))
+        if c:
+            raw.mul_(ENGINE_GAIN)
+        g = torch.Generator(device="cuda").manual_seed(SEED + 10 * t + c + 1)
+        return raw.add_(torch.randn(raw_shape, generator=g, device="cuda"), alpha=TRACK_NOISE)
+
+    n_t, n_c = VIEWER_TIMEPOINTS, len(ENGINE_CHANNELS)
+    n_volumes = n_t * n_c
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    source = MemorySource(render, (n_t, n_c, *raw_shape), raw_scale, ENGINE_CHANNELS,
+                          [position], stream=stream)
+    store = MemoryStore("cuda", stream)
+    plan = config.acquisition_plan(time={"n_timepoints": n_t, "interval_s": 0.0},
+                                   channels=[{"name": c} for c in ENGINE_CHANNELS])
+    if native.load_ring() is None:
+        raise AssertionError("(a) the native ring (native/ring.c) did not build or load")
+    table = counters()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    rec = {"feeder_s": [], "watch_s": [], "gather_s": [], "hook_digest": {}, "gathered": {},
+           "errors": []}
+    pool = ThreadPoolExecutor(n_c)  # the reference percentiles, beside the run
+    percentiles = {}
+    attached = {}
+    with tempfile.TemporaryDirectory() as tmp, LiveLog() as log:
+        preview = Path(tmp) / "preview"
+        feeder = ViewerFeeder(frame_shape=frame, cache_mb=VIEWER_CACHE_MB, preview_dir=preview,
+                              n_z=n_z)
+
+        def gather(msg):
+            """``LiveMonitor._gather`` as the render calls it, keeping the
+            seconds and the digest of each volume gathered whole."""
+            t0 = time.perf_counter()
+            vol = attached["gather"](msg)
+            if vol is not None:
+                rec["gather_s"].append(time.perf_counter() - t0)
+                key = (msg["p"], msg["t"], ENGINE_CHANNELS.index(msg["channel"]))
+                rec["gathered"][key] = volume_digest(torch.from_numpy(vol).cuda())
+            return vol
+
+        def watch(vol, t, p, channel):
+            """``_monitor_live``'s loop body, the gathers of its render
+            recorded; the digest of the volume the hook was given."""
+            c = ENGINE_CHANNELS.index(channel)
+            if not attached:
+                # The browser's auto-contrast box (web.py): each render
+                # re-stretches, so a channel's limits are its newest volume's.
+                (Path(tmp) / "attached").mkdir()
+                (Path(tmp) / "attached" / "view.json").write_text('{"contrast_mode": "auto"}')
+                ring, tail = attach(preview)
+                attached.update(ring=ring, tail=tail, monitor=LiveMonitor(
+                    ring, Path(tmp) / "attached",
+                    deskew=config.deskew_settings(ls_angle_deg=deskew.ls_angle_deg,
+                                                  px_to_scan_ratio=deskew.px_to_scan_ratio)),
+                    msgs=[])
+                attached["gather"] = attached["monitor"]._gather
+                attached["monitor"]._gather = gather
+            monitor = attached["monitor"]
+            for msg in attached["tail"].poll():
+                monitor.on_volume(msg)
+                attached["msgs"].append(msg)
+            msg = attached["msgs"][-1]
+            if (msg["p"], msg["t"], msg["channel"]) != (str(p), t, channel):
+                raise AssertionError(f"the index's last row {msg} is not ({p}, {t}, {channel})")
+            rec["hook_digest"][(p, t, c)] = volume_digest(torch.from_numpy(vol).cuda())
+            percentiles[(p, t, c)] = pool.submit(np.percentile, vol, CONTRAST_Q)
+            monitor.refresh_controls()
+            monitor.render_dirty()
+            if (p, t, c) not in rec["gathered"]:
+                raise AssertionError(f"({p}, {t}, {channel}) was not gathered whole by the render")
+
+        def hook(vol, t, p, channel):
+            t0 = time.perf_counter()
+            feeder.on_volume(vol, t, p, channel)
+            rec["feeder_s"].append(time.perf_counter() - t0)
+            if t == n_t - 1:
+                t0 = time.perf_counter()
+                try:
+                    watch(vol, t, p, channel)
+                except Exception as exc:  # raised after the run: the engine ignores hooks'
+                    rec["errors"].append(exc)
+                rec["watch_s"].append(time.perf_counter() - t0)
+
+        torch.cuda.synchronize()
+        feeder.start()
+        proc = feeder._proc
+        try:
+            t0 = time.monotonic()
+            out, _, _, _ = run_engine(source, store, plan, "cuda", tmp, "viewer",
+                                      viewer_hooks=[hook])
+            acquire_s = time.monotonic() - t0
+            engine_counts = {k: getattr(obj, attr) for k, (obj, attr) in table.items()}
+            rows = [json.loads(line) for line in
+                    (preview / "volumes.jsonl").read_text().splitlines()]
+            desc = json.loads((preview / "ring.json").read_text())
+            if rec["errors"]:
+                raise rec["errors"][0]
+            ring, monitor, msgs = attached["ring"], attached["monitor"], attached["msgs"]
+            state = json.loads((Path(tmp) / "attached" / "state.json").read_text())
+            selected = {c: monitor._select_t((str(position), c)) for c in ENGINE_CHANNELS}
+            evicted = sum(attached["gather"](m) is None for m in msgs[:-1])
+            resident = msgs[-1]
+            p, t, c = resident["p"], resident["t"], ENGINE_CHANNELS.index(resident["channel"])
+            served = render(p, t, c)
+            served_host = served.cpu().numpy()
+            from_ring = preview_from_ring(ring, resident["slots"], VIEWER_TILT_ROW, monitor.deskew)
+            plain_plane = deskew_preview_plane(served_host[:, VIEWER_TILT_ROW, :], monitor.deskew)
+            full = deskew_cuda(served, config.deskew_settings(
+                ls_angle_deg=deskew.ls_angle_deg, px_to_scan_ratio=deskew.px_to_scan_ratio,
+                keep_overhang=True))
+            counts = {k: getattr(obj, attr) for k, (obj, attr) in table.items()}
+            z_lab = round(VIEWER_TILT_ROW * math.sin(math.radians(deskew.ls_angle_deg)))
+            y_off = VIEWER_TILT_ROW * math.cos(math.radians(deskew.ls_angle_deg))
+            n = min(from_ring.shape[0], full.shape[1] - math.ceil(y_off) - 1)
+            lab = full[z_lab, round(y_off):round(y_off) + n].cpu().numpy()
+            corr = float(np.corrcoef(from_ring[:n].ravel(), lab.ravel())[0, 1])
+            want_contrast = {ENGINE_CHANNELS[c]: [float(v) for v in f.result()]
+                             for (_, _, c), f in percentiles.items()}
+            ring_libs = (feeder.ring._lib is not None, ring._lib is not None)
+            pngs = sorted(f.name for f in (Path(tmp) / "attached").glob("*.png"))
+            ring.close()
+            del served, full
+        finally:
+            pool.shutdown()
+            dropped = feeder.dropped
+            feeder.stop()
+            proc.join(timeout=30)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+    torch.cuda.empty_cache()
+    exit_code = proc.exitcode
+    hook_s = sum(rec["watch_s"])
+    res = {"raw": raw_shape, "shm_bytes": shm_size, "shm_free": shm_free, "matplotlib": has_mpl,
+           "feeder_s": rec["feeder_s"], "feeder_s_per_volume": sum(rec["feeder_s"]) / n_volumes,
+           "watch_s": rec["watch_s"], "gather_ms": [s * 1e3 for s in rec["gather_s"]],
+           "acquire_s": acquire_s,
+           "host_s_per_volume": (acquire_s - hook_s) / n_volumes,
+           "engine_4r_host_s_per_volume": engine_host_s, "evicted": evicted,
+           "n_slots": desc["n_slots"], "corr": corr, "launches": counts["deskew"],
+           "monitor_exit": exit_code, "seconds": time.monotonic() - t_start}
+    print(f"  {out.name}: {n_volumes} volumes of {raw_shape} in {acquire_s:.3f} s; the feeder "
+          f"{res['feeder_s_per_volume']:.3f} s a volume on the acquisition thread (each "
+          f"{[round(s, 3) for s in rec['feeder_s']]}); the attached monitor's work at the last "
+          f"timepoint {[round(s, 3) for s in rec['watch_s']]} s, gathers "
+          f"{[round(v, 1) for v in res['gather_ms']]} ms a volume; the engine "
+          f"{res['host_s_per_volume']:.3f} host s a volume without that work (4r "
+          f"{engine_host_s:.3f}); ring {desc['n_slots']} slots ({FrameRing.slots_for_budget(VIEWER_CACHE_MB, frame)} "
+          f"in {VIEWER_CACHE_MB:.0f} MB), {evicted} older volumes evicted by design", flush=True)
+    print(f"  preview at tilt row {VIEWER_TILT_ROW}: {from_ring.shape}, correlation {corr:.6f} with "
+          f"lab plane z={z_lab} of deskew_cuda (y offset {y_off:.3f}); {counts['deskew']} deskew "
+          f"launches; contrast {state['contrast']}; displayed {state['displayed']}; the monitor "
+          + ("subprocess exited with code " + str(exit_code) if exit_code is not None
+             and exit_code >= 0 else f"subprocess was terminated by stop() after its 5 s join "
+             f"(exit code {exit_code}, -{int(signal.SIGTERM)} is SIGTERM)")
+          + f"; {card_line()}", flush=True)
+    if not all(ring_libs):
+        raise AssertionError(f"(a) a ring ran on the numpy path: native (feeder, attached) "
+                             f"{ring_libs}")
+    slots = max(FrameRing.slots_for_budget(VIEWER_CACHE_MB, frame), n_z + 1)
+    if (len(rows), desc["n_slots"], dropped) != (n_volumes, slots, 0):
+        raise AssertionError(f"(b) volumes.jsonl {len(rows)} rows, ring {desc['n_slots']} slots, "
+                             f"dropped {dropped}; want {n_volumes}, {slots}, 0")
+    served_digest = {k: v[-1][1] for k, v in source.served.items()}
+    for key, digest in rec["gathered"].items():
+        if digest != served_digest[key]:
+            raise AssertionError(f"(c) the volume gathered at {key} is not the one served")
+    for key, digest in rec["hook_digest"].items():
+        if digest != served_digest[key] or key not in rec["gathered"]:
+            raise AssertionError(f"(c) the hook's volume at {key} is not the one served, or the "
+                                 "render did not gather it")
+    if sorted(rec["hook_digest"]) != [(position, n_t - 1, c) for c in range(n_c)]:
+        raise AssertionError(f"(c) watched {sorted(rec['hook_digest'])}, want each channel's last t")
+    if volume_digest(torch.from_numpy(served_host).cuda()) != served_digest[(p, t, c)]:
+        raise AssertionError("(d) the re-rendered volume is not the one served")
+    if not np.array_equal(from_ring, plain_plane) or not corr > PREVIEW_CORR:
+        raise AssertionError(f"(d) preview from the ring bit-equal "
+                             f"{np.array_equal(from_ring, plain_plane)}, correlation {corr} "
+                             f"against {PREVIEW_CORR}")
+    bad = {k: v for k, v in counts.items() if v != (1 if k == "deskew" else 0)}
+    if bad or any(engine_counts.values()):
+        raise AssertionError(f"(d) launch counts {bad} (the run alone: {engine_counts}); want one "
+                             "deskew launch and no other kernel")
+    if selected != {ch: n_t - 1 for ch in ENGINE_CHANNELS} or state["contrast"] != want_contrast \
+            or monitor.contrast_mode != "auto":
+        raise AssertionError(f"(e) selected {selected}, contrast {state['contrast']} "
+                             f"({monitor.contrast_mode}); want t = {n_t - 1}, {want_contrast} (auto)")
+    if has_mpl:
+        want_pngs = sorted(f"live_p{position.replace('/', '_')}_{ch}.png" for ch in ENGINE_CHANNELS)
+        if state["displayed"] != {f"{position}|{ch}": n_t - 1 for ch in ENGINE_CHANNELS} \
+                or pngs != want_pngs or log.records:
+            raise AssertionError(f"(e) displayed {state['displayed']}, PNGs {pngs}, records "
+                                 f"{[r.getMessage() for r in log.records]}")
+    elif state["displayed"] != {} or pngs or not log.records or not all(
+            r.exc_info and issubclass(r.exc_info[0], ImportError)
+            and "matplotlib" in str(r.exc_info[1]) for r in log.records):
+        raise AssertionError(f"(e) displayed {state['displayed']}, records "
+                             f"{[(r.getMessage(), r.exc_info) for r in log.records]}")
     return res
 
 
@@ -4766,6 +5082,11 @@ def main(argv) -> int:
           "[deskew]")
     eng = phase_engine()
     torch.cuda.empty_cache()
+    stamp(t_start, f"[4s] the live viewer beside the acquisition engine: 1 position x "
+          f"{len(ENGINE_CHANNELS)} channels x {VIEWER_TIMEPOINTS} timepoints at raw {RAW_SHAPE}, "
+          "replay --viewer's feeder (native ring, spawned monitor) and a monitor attached here")
+    view = phase_viewer(eng["host_s_per_volume"])
+    torch.cuda.empty_cache()
     stamp(t_start, f"[4n] virtual staining: unet25d through the tracker at {ph['shape']}; "
           f"unext2 at ConvNeXt-V2 Tiny widths; [deskew, phase, vs] at raw {VS_CHAIN_RAW}")
     vs = phase_vs(gen, ph["shape"])
@@ -4872,6 +5193,17 @@ def main(argv) -> int:
           f"first, {eng['warm_ms']:.1f} ms warm; drains max {max(eng['drain_s']):.3f} s; "
           f"residual after each correction {eng['residual_px']} px; peak "
           f"{eng['peak_gib']:.2f} GiB; phase 4r took {eng['seconds']:.1f} s", flush=True)
+    print(f"[5] {card}: the live viewer at raw {view['raw']} (/dev/shm {view['shm_bytes']} "
+          f"bytes): the feeder {view['feeder_s_per_volume']:.3f} s a volume on the acquisition "
+          f"thread (each {[round(v, 3) for v in view['feeder_s']]}), the engine "
+          f"{view['host_s_per_volume']:.3f} host s a volume beside it (4r "
+          f"{view['engine_4r_host_s_per_volume']:.3f}), the attached monitor's work "
+          f"{[round(v, 3) for v in view['watch_s']]} s, gathers "
+          f"{[round(v, 1) for v in view['gather_ms']]} ms a volume, {view['evicted']} older volumes "
+          f"evicted, {view['n_slots']} slots, preview correlation "
+          f"{view['corr']:.6f}, matplotlib {'present' if view['matplotlib'] else 'absent'}, the "
+          f"monitor subprocess's exit code {view['monitor_exit']}; phase 4s took "
+          f"{view['seconds']:.1f} s", flush=True)
     print(f"[5] {card}: virtual staining at {vs['unet25d']['shape']}: unet25d VS "
           f"{vs['unet25d']['vs_ms']:.1f} ms warm (bound {vs['unet25d']['bound_ms']:.1f}), "
           f"{vs['unet25d']['first_vs_ms']:.1f} first, update {vs['unet25d']['update_ms']:.1f} ms, "
@@ -4903,7 +5235,7 @@ def main(argv) -> int:
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
-         "launches": step["launches"]["deskew"] + eng["launches"], **desk},
+         "launches": step["launches"]["deskew"] + eng["launches"] + view["launches"], **desk},
         {"name": "rl_half_step", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",

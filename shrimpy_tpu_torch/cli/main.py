@@ -1,10 +1,15 @@
 """``shrimpy-tpu-torch`` CLI: the reconstruction and acquisition verbs of the
-port (15 of the JAX CLI's 16; ``monitor`` is ROADMAP queue 1 item 12d).
+port, all 16 of the JAX CLI's (its 14 commands, ``plan`` counted as its
+three: ``new``, ``validate``, ``show``).
 
 The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``,
 ``track``, ``replay``, ``replay-dual``, ``measure-psf`` and ``train-vs`` take
 the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
-(default ``cuda``; ``replay --viewer`` waits for item 12d); ``info``
+(default ``cuda``); ``replay --viewer`` streams each volume to the port's
+live monitor (``viewer/``), and ``monitor`` (a store's progress, or
+``--live`` attached to a running acquisition's ring, ``--serve`` for the
+browser) is the JAX verb with its helpers ``_start_web`` and
+``_monitor_live``, statement for statement; ``info``
 and ``microscopes`` print the JAX CLI's JSON, and ``plan new | validate |
 show`` write, check and print acquisition plans (``engine/plan.py``) as the
 JAX CLI does. Pixel size and z step come from the store's scale
@@ -336,8 +341,8 @@ def track(input, config_path, output, device):
 @click.option("--plan", "plan_path", type=click.Path(exists=True), default=None,
               help="AcquisitionPlan YAML; default replays the full source.")
 @click.option("--viewer/--no-viewer", default=False,
-              help="Stream frames to the live monitor (ROADMAP queue 1 item 12d: "
-                   "not ported yet).")
+              help="Stream frames to the live monitor subprocess "
+                   "(PNG previews under <output>/preview).")
 @click.option("--viewer-cache-mb", type=float, default=512.0, show_default=True,
               help="Shared-memory ring budget for the viewer.")
 @click.option("--microscope", default="mantis", show_default=True,
@@ -359,11 +364,6 @@ def replay(input, output_dir, name, plan_path, viewer, viewer_cache_mb, microsco
             "Coming soon!", fg="yellow",
         ))
         return
-    if viewer:
-        raise click.ClickException(
-            "replay --viewer streams to the live monitor, which the PyTorch port "
-            "does not have yet (ROADMAP queue 1 item 12d)"
-        )
     dev = _device_or_exit(device)
     from shrimpy_tpu_torch.engine import AcquisitionEngine, AcquisitionPlan, ReplaySource
 
@@ -373,6 +373,22 @@ def replay(input, output_dir, name, plan_path, viewer, viewer_cache_mb, microsco
         if plan_path
         else AcquisitionPlan(time={"n_timepoints": source.n_timepoints})
     )
+    feeder = None
+    hooks = []
+    if viewer:
+        from shrimpy_tpu_torch.viewer import ViewerFeeder
+
+        ny, nx = source.shape_tczyx[3:]
+        feeder = ViewerFeeder(
+            frame_shape=(ny, nx),
+            cache_mb=viewer_cache_mb,
+            preview_dir=Path(output_dir) / "preview",
+            # Ring floor: at least one whole volume must stay resident
+            # or the seq check evicts everything (feeder.py).
+            n_z=source.shape_tczyx[2],
+        )
+        feeder.start()
+        hooks.append(feeder.on_volume)
     from shrimpy_tpu_torch.engine.control import RunControl
 
     control = RunControl(Path(output_dir) / "run_control.json")
@@ -380,8 +396,12 @@ def replay(input, output_dir, name, plan_path, viewer, viewer_cache_mb, microsco
         f"run control: {control.path} "
         '(write {"command": "pause" | "run" | "abort"})'
     )
-    engine = AcquisitionEngine(source, device=dev)
-    out = engine.acquire(output_dir, name, plan, run_control=control)
+    engine = AcquisitionEngine(source, device=dev, viewer_hooks=hooks)
+    try:
+        out = engine.acquire(output_dir, name, plan, run_control=control)
+    finally:
+        if feeder is not None:
+            feeder.stop()
     if engine.aborted_at is not None:
         click.echo(click.style(
             f"aborted at t={engine.aborted_at[0]} (partial output kept)",
@@ -605,6 +625,251 @@ def measure_psf(input, psf_out, geometry, ls_angle_deg, threshold_percentile, de
         threshold_percentile=threshold_percentile, device=dev,
     )
     click.echo(json.dumps(report.as_dict(), indent=2))
+
+
+@cli.command()
+@click.argument("input", type=click.Path(exists=True))
+@click.option("--preview-dir", type=click.Path(), default=None,
+              help="Directory for preview PNGs (default: <input>/_preview).")
+@click.option("--interval", type=float, default=2.0, show_default=True,
+              help="Refresh period in seconds.")
+@click.option("--once", is_flag=True, help="Render one snapshot and exit.")
+@click.option("--live", is_flag=True,
+              help="Attach to a running acquisition's viewer ring "
+                   "(INPUT = the feeder's preview dir, or the output dir "
+                   "containing preview/ring.json) and follow the latest "
+                   "volumes. view.json / deskew.json in the preview dir "
+                   "scrub time and edit the deskew geometry live.")
+@click.option("--ls-angle-deg", type=float, default=None,
+              help="[--live] Initial deskew-preview light-sheet angle.")
+@click.option("--px-to-scan-ratio", type=float, default=None,
+              help="[--live] Initial deskew-preview pixel/scan ratio.")
+@click.option("--serve", type=int, default=None, metavar="PORT",
+              help="Serve the previews + controls to browsers on "
+                   "127.0.0.1:PORT (0 = pick a free port) — the "
+                   "graphical counterpart of the reference napari "
+                   "viewer, usable over an SSH port-forward.")
+@click.option("--plan", "plan_path", type=click.Path(exists=True),
+              default=None,
+              help="[--serve] Attach this plan YAML to the browser's "
+                   "plan editor (edit, validate, save — the graphical "
+                   "counterpart of the reference acquisition widget's "
+                   "settings editor).")
+@click.option("--plan-store", type=click.Path(exists=True), default=None,
+              help="[--serve --plan] Cross-check edited plans against "
+                   "this replay store (the `plan validate --input` "
+                   "tier).")
+def monitor(input, preview_dir, interval, once, live, ls_angle_deg,
+            px_to_scan_ratio, serve, plan_path, plan_store):
+    """Watch a (possibly growing) store: progress stats + preview PNGs.
+
+    The headless counterpart of the reference's live napari viewer
+    (reference ``shrimpy/viewer/_napari_process.py``); add ``--serve``
+    for an actual browser GUI over the same control files.
+    """
+    if live:
+        _monitor_live(
+            input, preview_dir, interval, once, ls_angle_deg,
+            px_to_scan_ratio, serve, plan_path=plan_path,
+            plan_store=plan_store,
+        )
+        return
+    import time as _time
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    out_dir = Path(preview_dir) if preview_dir else Path(input) / "_preview"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    in_path = Path(input)
+    # A store-mode monitor usually points at <output_dir>/<name>.zarr;
+    # the engine's run-control file sits beside the store.
+    web = _start_web(
+        out_dir, serve, live=False, near=[in_path.parent],
+        plan_path=plan_path, plan_store=plan_store,
+    )
+    # Reconstruction outputs carry a progress journal sidecar; a
+    # growing acquisition store doesn't, but its written chunks are on
+    # disk. Both are O(positions)/O(written chunks) per tick — never
+    # O(timepoints x volume) voxel scans (round-1 monitor read whole
+    # volumes backwards from the end on every refresh).
+    journal = in_path.with_suffix(in_path.suffix + ".progress.jsonl")
+    while True:
+        store = open_ngff(input)
+        # Per-(position, t) channel sets via the journal's single
+        # source of truth (runtime/stream.py _Progress.iter_done_keys —
+        # mark_failed records are not done).
+        done_c: dict[str, dict[int, set[int]]] = {}
+        if journal.exists():
+            from shrimpy_tpu_torch.runtime.stream import _Progress
+
+            for pos_key, t, c in _Progress.iter_done_keys(journal):
+                done_c.setdefault(pos_key, {}).setdefault(t, set()).add(c)
+        status = {}
+        for key, pos in store.positions().items():
+            t_size, c_size = pos.shape[0], pos.shape[1]
+            if key in done_c:
+                by_t = done_c[key]
+                # A timepoint counts written only when EVERY channel's
+                # record exists (a failed channel would otherwise show
+                # as a black 'latest' preview of a healthy run).
+                ts_written = sorted(
+                    t for t, cs in by_t.items() if len(cs) >= c_size
+                )
+                # Preview channel: one that is actually on disk for the
+                # newest (possibly partial) timepoint.
+                t_latest = max(by_t) if by_t else None
+                c_prev = min(by_t[t_latest]) if t_latest is not None else 0
+            else:
+                ts_written = pos.written_timepoints()
+                t_latest = ts_written[-1] if ts_written else None
+                c_prev = 0
+            status[key] = {
+                "timepoints_written": len(ts_written),
+                "latest": ts_written[-1] if ts_written else None,
+                "of": t_size,
+            }
+            if t_latest is not None:
+                # Read ONLY the mid-z plane of the latest volume.
+                mid_z = pos.shape[2] // 2
+                mid = pos.read((t_latest, c_prev, mid_z))
+                fig, ax = plt.subplots(figsize=(4, 4))
+                ax.imshow(mid, cmap="gray")
+                ax.set_title(f"{key} t={t_latest} c={c_prev} mid-z")
+                ax.axis("off")
+                fig.savefig(
+                    out_dir / f"{key.replace('/', '_')}.png",
+                    dpi=72, bbox_inches="tight",
+                )
+                plt.close(fig)
+        if web is not None:
+            # Surface the progress table on the web page's /state pane;
+            # atomic publish — the server reads it concurrently.
+            from shrimpy_tpu_torch.utils.fileio import atomic_write_text
+
+            atomic_write_text(
+                out_dir / "state.json", json.dumps(status, indent=2)
+            )
+        click.echo(json.dumps(status))
+        if once:
+            break
+        _time.sleep(interval)
+    if web is not None:
+        web.stop()
+
+
+def _start_web(out_dir, serve, *, live, near=None, plan_path=None,
+               plan_store=None):
+    """Start the browser UI against a preview dir (None = off).
+
+    ``near`` are directories to search for a running acquisition's
+    ``run_control.json`` (engine/control.py): when found, the page's
+    pause/resume/abort buttons drive that run. ``plan_path`` attaches
+    the browser plan editor; ``plan_store`` its store cross-checks.
+    """
+    if serve is None:
+        return None
+    from shrimpy_tpu_torch.viewer.web import MonitorWebServer
+
+    run_control = None
+    for d in near or ():
+        cand = Path(d) / "run_control.json"
+        if cand.exists():
+            run_control = cand
+            break
+    web = MonitorWebServer(
+        out_dir, port=serve, live=live, run_control=run_control,
+        plan_path=plan_path, plan_store=plan_store,
+    ).start()
+    click.echo(json.dumps({
+        "web_ui": web.url,
+        "run_control": str(run_control) if run_control else None,
+        "plan": str(plan_path) if plan_path else None,
+    }))
+    return web
+
+
+def _monitor_live(input, preview_dir, interval, once, ls_angle_deg,
+                  px_to_scan_ratio, serve=None, plan_path=None,
+                  plan_store=None):
+    """Attach-mode live monitor: ring descriptor + volumes.jsonl tail.
+
+    Ports the reference napari process's live behaviors (follow-latest
+    with scrub-pause, per-channel auto-contrast, editable deskew
+    geometry — reference ``_napari_process.py:202-329,416-433``) onto
+    the headless PNG renderer; see ``shrimpy_tpu_torch.viewer.live``.
+    """
+    import time as _time
+
+    from shrimpy_tpu_torch.viewer.live import LiveMonitor, attach
+
+    in_path = Path(input)
+    ring_dir = in_path if (in_path / "ring.json").exists() else in_path / "preview"
+    if not (ring_dir / "ring.json").exists():
+        raise click.ClickException(
+            f"no ring.json under {in_path} — is a --viewer acquisition running?"
+        )
+    deskew = None
+    if ls_angle_deg is not None or px_to_scan_ratio is not None:
+        if px_to_scan_ratio is None:
+            raise click.ClickException(
+                "--ls-angle-deg needs --px-to-scan-ratio too (the deskew "
+                "preview resamples the scan axis by pixel/scan_step)"
+            )
+        if ls_angle_deg is None:
+            # Symmetric with the check above: the tilt angle is
+            # instrument knowledge (the deskew verb refuses to default
+            # it without a microscope profile); silently assuming 30
+            # deg would render a geometrically wrong preview.
+            raise click.ClickException(
+                "--px-to-scan-ratio needs --ls-angle-deg too (the "
+                "preview's tilt angle is instrument-specific)"
+            )
+        from shrimpy_tpu_torch.config.schemas import DeskewSettings
+
+        deskew = DeskewSettings(
+            ls_angle_deg=ls_angle_deg,
+            px_to_scan_ratio=px_to_scan_ratio,
+        )
+    out_dir = Path(preview_dir) if preview_dir else ring_dir
+    try:
+        ring, tail = attach(ring_dir)
+    except FileNotFoundError as e:
+        raise click.ClickException(
+            f"viewer ring is gone ({e}) — the acquisition has finished; "
+            "use plain `monitor <store>` on the output store instead"
+        ) from e
+    monitor = LiveMonitor(ring, out_dir, deskew=deskew)
+    # `replay --viewer -o OUT` puts the ring under OUT/preview and the
+    # run-control file in OUT itself; when attaching to either path the
+    # control file is in the ring dir's parent (or the input itself).
+    web = _start_web(
+        out_dir, serve, live=True, near=[in_path, ring_dir.parent],
+        plan_path=plan_path, plan_store=plan_store,
+    )
+    try:
+        while True:
+            for msg in tail.poll():
+                monitor.on_volume(msg)
+            monitor.refresh_controls()
+            drawn = monitor.render_dirty()
+            click.echo(json.dumps({
+                "drawn": drawn,
+                "displayed": monitor._last_drawn,
+                "follow": monitor.follow,
+                "evicted": monitor.evicted,
+            }))
+            if once:
+                break
+            _time.sleep(interval)
+    finally:
+        if web is not None:
+            web.stop()
+        ring.close()
 
 
 @cli.command()

@@ -275,6 +275,59 @@ def _check_deskew(fields: dict) -> None:
         raise ValueError("px_to_scan_ratio must be > 0")
 
 
+_TRUE = ("1", "on", "t", "true", "y", "yes")
+_FALSE = ("0", "off", "f", "false", "n", "no")
+
+
+def _lax_float(v) -> float:
+    if isinstance(v, (bool, int, float, str)):
+        return float(v)  # an int past float's range raises, as pydantic does
+    raise TypeError(f"a number, not {v!r}")
+
+
+def _lax_int(v) -> int:
+    if isinstance(v, int):  # a bool too
+        return int(v)
+    f = _lax_float(v)
+    if not f.is_integer():
+        raise ValueError(f"an integer, not {v!r}")
+    return int(f)
+
+
+def _lax_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    if isinstance(v, (int, float)) and v in (0, 1):
+        return bool(v)
+    if isinstance(v, str) and v.lower() in _TRUE + _FALSE:
+        return v.lower() in _TRUE
+    raise ValueError(f"a boolean, not {v!r}")
+
+
+def deskew_geometry(**fields) -> SimpleNamespace:
+    """``DeskewSettings(**fields)`` as a :func:`deskew_settings` namespace:
+    what the model rejects raises (an unknown field, a value of another
+    type, a slice count that is not whole, a backend it does not name,
+    ``_derive_ratio``'s checks with their messages), and what it takes comes
+    out as its ``model_dump()`` would: pydantic's lax coercions (a number
+    from a bool or a numeric string, a whole float as the count, ``"yes"`` /
+    ``"off"`` / 0 / 1 as the flag) and the ratio derived from
+    ``pixel_size_um / scan_step_um`` when unset."""
+    s = deskew_settings(**fields)
+    s.ls_angle_deg = _lax_float(s.ls_angle_deg)
+    for name in ("px_to_scan_ratio", "pixel_size_um", "scan_step_um"):
+        if getattr(s, name) is not None:
+            setattr(s, name, _lax_float(getattr(s, name)))
+    s.keep_overhang = _lax_bool(s.keep_overhang)
+    s.average_n_slices = _lax_int(s.average_n_slices)
+    if s.backend not in ("auto", "xla", "pallas"):
+        raise ValueError(f"backend must be 'auto', 'xla' or 'pallas', not {s.backend!r}")
+    if s.px_to_scan_ratio is None and s.pixel_size_um is not None and s.scan_step_um is not None:
+        s.px_to_scan_ratio = round(s.pixel_size_um / s.scan_step_um, 3)
+    _check_deskew(vars(s))
+    return s
+
+
 def _check_phase(fields: dict) -> None:
     """``PhaseSettings(**fields)``' checks, with its messages: known fields,
     and a transfer function whose detection NA is within the medium's index
@@ -363,10 +416,12 @@ HOST_EMULATIONS = ("camera.model_acquisition", "stage.model_speed", "hardware.en
 
 
 def _dump(value):
-    """pydantic's ``model_dump`` of a field: blocks as dicts, containers
-    copied."""
-    if isinstance(value, PlanBlock):
+    """pydantic's ``model_dump`` of a field: blocks (a model, a plan block or
+    a settings namespace) as dicts, containers copied."""
+    if hasattr(value, "model_dump"):
         return value.model_dump()
+    if isinstance(value, SimpleNamespace):
+        return {k: _dump(v) for k, v in vars(value).items()}
     if isinstance(value, list):
         return [_dump(v) for v in value]
     if isinstance(value, dict):

@@ -176,6 +176,27 @@ class _Progress:
             f.write(json.dumps(rec) + "\n")
         self.failed.append(rec)
 
+    @staticmethod
+    def iter_done_keys(path: Path):
+        """Yield (position, t, c) for every DONE record in a journal: dict
+        records only, lines with a ``failed`` field are not done, ``key`` is
+        ``"pos|t|c"``; torn or corrupt lines are skipped. What the store-mode
+        ``monitor`` reads (the JAX package's method, statement for
+        statement)."""
+        try:
+            text = Path(path).read_text()
+        except OSError:
+            return
+        for line in text.splitlines():
+            try:
+                rec = json.loads(line)
+                if not isinstance(rec, dict) or "failed" in rec:
+                    continue
+                pos_key, t, c = rec["key"].split("|")
+                yield pos_key, int(t), int(c)
+            except (json.JSONDecodeError, KeyError, ValueError):
+                continue  # torn/corrupt line
+
 
 def reconstruct_store(
     input_path: str | Path,

@@ -6,7 +6,8 @@ The port imports nothing of ``shrimpy_tpu``, so ``config/schemas.py``,
 ``io/synthetic.py``, ``io/platemap.py``, ``utils/fileio.py``,
 ``utils/cache.py``, ``utils/retry.py``, ``utils/logging.py``, the engine's
 ``control.py``, ``autoexposure.py``, ``plan.py`` and ``replay.py``, and the
-tracking's ``position.py`` and ``debug.py`` are copies. Each is pinned to its original: the code is the same statement
+tracking's ``position.py`` and ``debug.py``, the devices, ``native/`` and the
+viewer's ``ring.py``, ``feeder.py`` and ``web.py`` are copies. Each is pinned to its original: the code is the same statement
 for statement (comments and docstrings apart; the logging copy's two
 provenance functions record torch in the place of jax), the pydantic models agree field for field and schema
 for schema, one YAML loads to equal dumps, and a store written by either
@@ -55,7 +56,9 @@ COPIES = ["config/schemas.py", "config/microscopes.py", "config/vs_sidecar.py", 
           "io/platemap.py", "engine/control.py", "engine/autoexposure.py", "engine/plan.py",
           "engine/replay.py", "tracking/position.py", "tracking/debug.py",
           "devices/__init__.py", "devices/bus.py", "devices/daq.py", "devices/kim101.py",
-          "devices/rig.py", "devices/shutter.py", "devices/vortran.py"]
+          "devices/rig.py", "devices/shutter.py", "devices/vortran.py",
+          "native/__init__.py", "native/build.py", "viewer/__init__.py", "viewer/ring.py",
+          "viewer/feeder.py", "viewer/web.py"]
 MODELS = sorted(n for n, v in vars(jschemas).items()
                 if isinstance(v, type) and issubclass(v, BaseModel) and v is not BaseModel)
 
@@ -88,14 +91,21 @@ class _WithoutDevice(ast.NodeTransformer):
         return node
 
 
-def _code(path: Path, skip=(), drop_imports=(), deferred=(), without_device=False) -> str:
+def _code(path: Path, skip=(), drop_imports=(), deferred=(), without_device=False,
+          replace=()) -> str:
     """The module's statements without docstrings (comments are not in
-    the tree), the package name normalised; top-level functions and methods
+    the tree), the package name normalised, each ``(old, new)`` of
+    ``replace`` made in the source text first (each ``old`` must occur);
+    top-level functions and methods
     (``Class.method``) named in ``skip``, imports from the modules in
     ``drop_imports``, and imports from those in ``deferred`` at any depth
     (the port defers them into the function that needs them) left out; with
     ``without_device`` the port's ``device`` too (:class:`_WithoutDevice`)."""
-    tree = ast.parse(path.read_text().replace("shrimpy_tpu_torch", "shrimpy_tpu"))
+    text = path.read_text()
+    for old, new in replace:
+        assert old in text, (path, old)
+        text = text.replace(old, new)
+    tree = ast.parse(text.replace("shrimpy_tpu_torch", "shrimpy_tpu"))
     tree.body = [n for n in tree.body
                  if not (isinstance(n, ast.FunctionDef) and n.name in skip)
                  and not (isinstance(n, ast.ImportFrom) and n.module in drop_imports)]

@@ -481,7 +481,11 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                                    "utils/cache", "utils/retry", "io/platemap",
                                                    "engine/control", "engine/autoexposure",
                                                    "engine/plan", "engine/replay",
-                                                   "tracking/position", "tracking/debug")} <= names
+                                                   "tracking/position", "tracking/debug",
+                                                   "native/__init__", "native/build",
+                                                   "viewer/__init__", "viewer/ring",
+                                                   "viewer/deskew_preview", "viewer/live",
+                                                   "viewer/feeder", "viewer/web")} <= names
     hits = {str(f.relative_to(REPO)): pattern.findall(f.read_text()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
     # The pattern does catch what it is after.
@@ -512,7 +516,12 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                     "shrimpy_tpu_torch.engine.plan",
                                     "shrimpy_tpu_torch.engine.replay",
                                     "shrimpy_tpu_torch.tracking.position",
-                                    "shrimpy_tpu_torch.tracking.debug"])
+                                    "shrimpy_tpu_torch.tracking.debug",
+                                    "shrimpy_tpu_torch.native",
+                                    "shrimpy_tpu_torch.viewer",
+                                    "shrimpy_tpu_torch.viewer.deskew_preview",
+                                    "shrimpy_tpu_torch.viewer.live",
+                                    "shrimpy_tpu_torch.viewer.web"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no
@@ -525,7 +534,7 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             assert CliRunner().invoke(mod.cli, ["reconstruct", "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["register", "--help"]).exit_code == 0
             for verb in ("track", "train-vs", "measure-psf", "info", "plan", "replay",
-                         "replay-dual"):
+                         "replay-dual", "monitor"):
                 assert CliRunner().invoke(mod.cli, [verb, "--help"]).exit_code == 0
             assert CliRunner().invoke(mod.cli, ["microscopes"]).exit_code == 0
             result = CliRunner().invoke(mod.cli, ["plan", "validate", "configs/plan_demo.yml"])
@@ -537,6 +546,8 @@ def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
             from shrimpy_tpu_torch.config.microscopes import get_microscope
             get_microscope("mantis")
             import shrimpy_tpu_torch.io.synthetic
+        if mod.__name__ == "shrimpy_tpu_torch.native":
+            assert mod.load_ring() is not None
         bad = [m for m in sys.modules if m == "shrimpy_tpu" or m.startswith("shrimpy_tpu.")]
         assert not bad, bad
         print("ok")

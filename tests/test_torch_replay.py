@@ -22,8 +22,12 @@ differences from JAX's, the plan namespace, the card's stand-ins and the
   namespace config and its injection, ``device``, the deferred imports
   (with ``tests/test_torch_iter.py``'s subprocess gate), any plan object.
 * **The verbs.** ``shrimpy-tpu-torch replay`` and ``replay-dual`` write
-  the JAX CLI's stores, sidecars and messages; ``replay --viewer`` cites
-  ROADMAP item 12d.
+  the JAX CLI's stores, sidecars and messages; ``replay --viewer`` writes the
+  JAX CLI's ring descriptor (but the ring's name) and volume index, and
+  ``monitor`` (a store, a growing store, a progress journal, ``--live`` on a
+  ring) prints its status lines (ROADMAP item 12d). ``monitor``,
+  ``_start_web`` and ``_monitor_live`` are the JAX CLI's, and ``replay`` is
+  too but for ``device``, pinned by AST.
 """
 
 import ast
@@ -646,15 +650,199 @@ def test_replay_verb_as_the_jax_cli(tmp_path):
     _same_outputs(tmp_path, ["out/replay.zarr"], ["out/replay_summary_metadata.json"])
 
 
-def test_replay_viewer_waits_for_item_12d(tmp_path):
+# -- the viewer's verbs against the JAX CLI ----------------------------------------------
+
+VIEWER_FUNCTIONS = ("monitor", "_start_web", "_monitor_live")
+
+
+def _cli_functions(path: Path) -> dict:
+    """The CLI module's functions (decorators included, docstrings out), by
+    name, the package name normalised."""
+    tree = ast.parse(path.read_text().replace("shrimpy_tpu_torch", "shrimpy_tpu"))
+    funcs = {n.name: n for n in tree.body if isinstance(n, ast.FunctionDef)}
+    for node in ast.walk(tree):
+        body = getattr(node, "body", None)
+        if isinstance(body, list) and body and isinstance(body[0], ast.Expr) \
+                and isinstance(body[0].value, ast.Constant) and isinstance(body[0].value.value, str):
+            node.body = body[1:] or [ast.Pass()]
+    return funcs
+
+
+def _without_device(func: ast.FunctionDef) -> str:
+    """A port verb less its ``device``: the ``--device`` option, the
+    parameter, ``dev = _device_or_exit(device)`` and the keyword passed on."""
+    from tests.test_torch_config import _WithoutDevice
+
+    func.decorator_list = [d for d in func.decorator_list
+                           if not (isinstance(d, ast.Call) and d.args
+                                   and getattr(d.args[0], "value", None) == "--device")]
+    func.body = [n for n in func.body
+                 if not (isinstance(n, ast.Assign) and ast.unparse(n) == "dev = _device_or_exit(device)")]
+    return ast.dump(_WithoutDevice().visit(func))
+
+
+def test_monitor_helpers_and_replay_are_jax_s_but_for_device():
+    """``monitor``, ``_start_web`` and ``_monitor_live`` are the JAX CLI's
+    statement for statement; ``replay`` (its viewer block with the feeder
+    stopped in a ``finally``) is too once ``device`` is taken out, and
+    ``device`` is its one difference."""
+    ours = _cli_functions(REPO / "shrimpy_tpu_torch/cli/main.py")
+    theirs = _cli_functions(REPO / "shrimpy_tpu/cli/main.py")
+    for name in VIEWER_FUNCTIONS:
+        assert ast.dump(ours[name]) == ast.dump(theirs[name]), name
+    assert ast.dump(ours["replay"]) != ast.dump(theirs["replay"])
+    assert "device=dev, viewer_hooks=hooks" in ast.unparse(ours["replay"])
+    assert _without_device(ours["replay"]) == _without_device(theirs["replay"])
+
+
+def test_cli_has_the_jax_cli_s_verbs():
+    jax_verbs = {n: sorted(c.commands) if hasattr(c, "commands") else None
+                 for n, c in jax_cli.commands.items()}
+    verbs = {n: sorted(c.commands) if hasattr(c, "commands") else None
+             for n, c in cli.commands.items()}
+    assert verbs == jax_verbs and "monitor" in verbs
+    assert sum(len(v or [None]) for v in verbs.values()) == 16
+    result = CliRunner().invoke(cli, ["--help"])
+    assert result.exit_code == 0
+    listed = result.stdout.split("Commands:")[1].split()
+    assert set(jax_verbs) <= set(listed)
+
+
+def _both_status(args, tmp_path):
+    """Both CLIs' ``monitor`` on the same input: exit codes and the status
+    JSON of each one's last line."""
+    out = []
+    for group in (jax_cli, cli):
+        result = CliRunner().invoke(group, args)
+        assert result.exit_code == 0, result.output
+        out.append(json.loads(result.stdout.strip().splitlines()[-1]))
+    return out
+
+
+def test_monitor_once_as_the_jax_cli(tmp_path):
     from shrimpy_tpu_torch.io.synthetic import synthetic_blob_fov
 
-    synthetic_blob_fov(tmp_path / "src.zarr", shape_zyx=(4, 16, 16), n_timepoints=1)
-    result = CliRunner().invoke(cli, ["replay", str(tmp_path / "src.zarr"), "-o",
-                                      str(tmp_path / "out"), "--viewer", "--device", "cpu"])
-    assert result.exit_code != 0
-    assert "ROADMAP queue 1 item 12d" in result.output
-    assert not (tmp_path / "out").exists()
+    synthetic_blob_fov(tmp_path / "tl.zarr", n_timepoints=2, shape_zyx=(4, 16, 16))
+    png = tmp_path / "tl.zarr" / "_preview" / "0.png"
+    jax_status, status = _both_status(["monitor", str(tmp_path / "tl.zarr"), "--once"], tmp_path)
+    assert status == jax_status and status["0"]["timepoints_written"] == 2
+    assert status["0"]["latest"] == 1 and png.exists()
+
+
+def test_monitor_partial_store_uses_chunk_metadata_as_the_jax_cli(tmp_path):
+    from shrimpy_tpu_torch.io.ngff import create_fov
+
+    pos = create_fov(tmp_path / "grow.zarr", shape=(5, 1, 4, 16, 16), dtype="float32",
+                     channel_names=["c"], zyx_scale=(1.0, 1.0, 1.0))
+    pos.write((0, 0), np.ones((4, 16, 16), np.float32))
+    pos.write((2, 0), np.ones((4, 16, 16), np.float32))
+    jax_status, status = _both_status(["monitor", str(tmp_path / "grow.zarr"), "--once"],
+                                      tmp_path)
+    assert status == jax_status == {"0": {"timepoints_written": 2, "latest": 2, "of": 5}}
+
+
+def test_progress_journal_reader_is_jax_s(tmp_path):
+    """``_Progress.iter_done_keys`` (what ``monitor`` reads) is JAX's method
+    statement for statement and yields its keys on a journal with failed,
+    torn and foreign lines."""
+    from shrimpy_tpu.runtime.stream import _Progress as JaxProgress
+    from shrimpy_tpu_torch.runtime.stream import _Progress
+
+    def method(path):
+        tree = ast.parse(path.read_text())
+        cls = next(n for n in tree.body if isinstance(n, ast.ClassDef) and n.name == "_Progress")
+        fn = next(n for n in cls.body if isinstance(n, ast.FunctionDef)
+                  and n.name == "iter_done_keys")
+        fn.body = fn.body[1:]  # the docstring
+        return ast.dump(fn)
+
+    assert method(REPO / "shrimpy_tpu_torch/runtime/stream.py") == method(
+        REPO / "shrimpy_tpu/runtime/stream.py")
+    journal = tmp_path / "j.jsonl"
+    journal.write_text("\n".join([json.dumps({"key": "0/0/000|0|1"}), "[1, 2]", '{"key": "0|1',
+                                  json.dumps({"key": "0|2|0", "failed": "write"}),
+                                  json.dumps({"key": "a|b|c"}), json.dumps({"k": 1}),
+                                  json.dumps({"key": "B/3/7|5|0"})]) + "\n")
+    assert list(_Progress.iter_done_keys(journal)) == list(JaxProgress.iter_done_keys(journal)) \
+        == [("0/0/000", 0, 1), ("B/3/7", 5, 0)]
+    assert list(_Progress.iter_done_keys(tmp_path / "none.jsonl")) == []
+
+
+def test_monitor_consumes_progress_journal_as_the_jax_cli(tmp_path):
+    from shrimpy_tpu_torch.io.synthetic import synthetic_blob_fov
+
+    synthetic_blob_fov(tmp_path / "out.zarr", n_timepoints=3, shape_zyx=(4, 16, 16))
+    (tmp_path / "out.zarr.progress.jsonl").write_text(
+        json.dumps({"key": "0|0|0"}) + "\n" + json.dumps({"key": "0|1|0"}) + "\n")
+    jax_status, status = _both_status(["monitor", str(tmp_path / "out.zarr"), "--once"],
+                                      tmp_path)
+    assert status == jax_status
+    assert status["0"]["timepoints_written"] == 2 and status["0"]["latest"] == 1
+
+
+def test_monitor_live_attach_as_the_jax_cli(tmp_path):
+    """``monitor --live`` of each CLI on one ring (the JAX package's): the
+    same status line, ``state.json`` and PNG names."""
+    from shrimpy_tpu.viewer.ring import FrameRing
+
+    preview = tmp_path / "preview"
+    preview.mkdir()
+    ring = FrameRing(None, n_slots=8, frame_shape=(8, 16))
+    try:
+        (preview / "ring.json").write_text(json.dumps({
+            "ring": ring.name, "n_slots": 8, "frame_shape": [8, 16], "dtype": "float32"}))
+        lines = []
+        for t in range(2):
+            slots = [ring.write(t * 4 + z, np.full((8, 16), t + z, np.float32)) for z in range(4)]
+            lines.append(json.dumps({"type": "volume", "t": t, "p": "0", "channel": "BF",
+                                     "slots": slots, "seq0": t * 4, "shape": [4, 8, 16]}))
+        (preview / "volumes.jsonl").write_text("\n".join(lines) + "\n")
+        states = []
+        for name, group in (("jax", jax_cli), ("torch", cli)):
+            result = CliRunner().invoke(group, [
+                "monitor", str(tmp_path), "--live", "--once", "--preview-dir",
+                str(tmp_path / name), "--ls-angle-deg", "30", "--px-to-scan-ratio", "0.5"])
+            assert result.exit_code == 0, result.output
+            status = json.loads(result.stdout.splitlines()[-1])
+            assert status == {"drawn": 1, "displayed": {"0|BF": 1}, "follow": True, "evicted": 0}
+            assert (tmp_path / name / "live_p0_BF.png").exists()
+            states.append(json.loads((tmp_path / name / "state.json").read_text()))
+        assert states[0] == states[1] and states[1]["deskew"]["ls_angle_deg"] == 30.0
+        # The port's monitor needs both angle and ratio, as JAX's.
+        result = CliRunner().invoke(cli, ["monitor", str(tmp_path), "--live", "--once",
+                                          "--ls-angle-deg", "30"])
+        assert result.exit_code != 0 and "--px-to-scan-ratio" in result.output
+    finally:
+        ring.close()
+
+
+def test_replay_with_viewer_as_the_jax_cli(tmp_path):
+    """``replay --viewer`` of each CLI on one store: the same output, the
+    same store, a ``ring.json`` equal but for the ring's name (the floor of
+    one volume: 4 MB holds 1024 of these frames) and the same
+    ``volumes.jsonl`` rows; the feeder's ring is gone after the run."""
+    from multiprocessing import shared_memory
+
+    from shrimpy_tpu_torch.io.synthetic import synthetic_blob_fov
+
+    synthetic_blob_fov(tmp_path / "src.zarr", n_timepoints=2, shape_zyx=(4, 32, 32))
+    args = ["replay", str(tmp_path / "src.zarr"), "-o", "{dir}/out", "-n", "v", "--viewer",
+            "--viewer-cache-mb", "4"]
+    (j_code, j_text), (t_code, t_text) = _both(args, tmp_path)
+    assert t_code == j_code == 0, (t_text, j_text)
+    assert t_text == j_text and t_text.endswith("{dir}/out/v.zarr")
+    _same_outputs(tmp_path, ["out/v.zarr"], ["out/v_summary_metadata.json"])
+    descs, rows = [], []
+    for name in ("jax", "torch"):
+        preview = tmp_path / name / "out" / "preview"
+        descs.append(json.loads((preview / "ring.json").read_text()))
+        rows.append([json.loads(line) for line in
+                     (preview / "volumes.jsonl").read_text().splitlines()])
+        with pytest.raises(FileNotFoundError):
+            shared_memory.SharedMemory(name=descs[-1]["ring"])
+    assert descs[0].pop("ring") != descs[1].pop("ring")
+    assert descs[0] == descs[1] == {"n_slots": 1024, "frame_shape": [32, 32], "dtype": "float32"}
+    assert rows[0] == rows[1] and [(r["t"], r["seq0"]) for r in rows[1]] == [(0, 0), (1, 4)]
 
 
 def test_replay_dual_verb_as_the_jax_cli(tmp_path):
