@@ -146,8 +146,7 @@ Phases:
    RL-10 within the two-tier gate of phase 4b's;
 4d. the same two steps on ``separable_backend: zy_pallas`` (circular
    boundaries on the same G grid), each against its float64 plain path:
-   RL-20 within 1e-3, timed against the plain float32 path; Biggs RL-10
-   by the two-tier gate;
+   RL-20 within 1e-3, timed; Biggs RL-10 by the two-tier gate;
 4e. deskew + RL-20 on ``separable_backend: matmul`` (circulant products
    on the block-rounded (136, 2944, 1664) grid, no kernel of the
    repository) against the same backend in float64 on the card, within
@@ -156,7 +155,7 @@ Phases:
    launch per iteration, no half-step launch: the production geometry
    takes the one-launch route) against its float64 plain
    path within 1e-3 and against phase 4's ``fused`` output within 1e-4,
-   timed against its plain float32 path; Biggs RL-10 (generic loop) by
+   timed; Biggs RL-10 (generic loop) by
    the two-tier gate; the peak of Biggs RL-10 through
    ``richardson_lucy`` with and without ``donate_input``, the two
    results bit-equal;
@@ -169,8 +168,8 @@ Phases:
    ``--parent-affine``); at ``bench.py``'s (64, 256, 256) the
    kernel path's estimate against the plain path's;
 4h. deskew + register-apply (a transform JSON) + RL-20 on ``fused``: one
-   warp launch, against its float64 plain step within 1e-3, timed against
-   the plain float32 path, peak memory;
+   warp launch, against its float64 plain step within 1e-3, timed, peak
+   memory;
 4i. ``bench.py`` config 6: RL-20 ``algorithm: fft`` with
    ``tilted_gaussian_psf()`` (15, 31, 31), non-separable, on a
    (128, 2888, 1600) volume uniform in [0, 100) through ``richardson_lucy``
@@ -280,10 +279,34 @@ Phases:
    ms, GVox/s, peak, one term's z, y and x passes timed with the measured
    taps; on the deskewed volume RL-2 against float64 within 1.5e-6 (the
    reference's passes as banded float64 products on cuBLAS, held on the
-   crop to the plain float64 path within 1e-10) and RL-20 on a
+   crop to the plain float64 path within 1e-10) and RL-10 on a
    (32, 512, 512) crop within 1e-3;
-5. timings (kernel path and plain float32 path, warm: plain, kernel,
-   kernel), launch counts (a path's plain versions must have run on no
+4t. (run right after phase 3, with a seed of its own) the mesh on one
+   card (item 11): four ranks share cuda:0 over gloo
+   (``parallel/launch.py::Ranks``; NCCL refuses two ranks on one card), each
+   check against the single-device step run in this process on the same
+   inputs: (a) ``__graft_entry__.py``'s pass 1 on a (2, 2) mesh, raw
+   (2, 16, 12, 256), within 1e-5; (b) the main path at full width: four
+   production raws (on the card, mapped by the ranks through CUDA IPC)
+   over (2, 2), the deskew
+   kernel on X slabs of 800, the reshard to one whole volume a rank, RL-20
+   on ``fused``, every rank's counts set to 0 just before its step and read
+   just after (2 deskew, 40 ``rl_half`` launches a rank, no plain version
+   on a CUDA tensor), each rank's volume against the single-device output
+   (bit for bit, or within 1e-5), its peak, and the reshard's
+   ``all_to_all`` timed alone; (c) pass 3, ``shard_volumes`` phase +
+   ``dft2z`` RL-2 over (1, 4), within 1e-5, and within 1e-3 of the float64
+   plain path; (d) pass 4(b) run for real: ``tilted_gaussian_psf()``,
+   ``shard_volumes``, ``dft2z`` RL-2 at the production carry over (1, 4),
+   each rank's carry (1, 144, 2920, 416), its peak beside the 5.21 GiB
+   estimate, its X slab within 1e-5, one slab transpose timed alone; (e)
+   one rank on NCCL, the card's default backend, on (a)'s inputs, beside
+   the rest; the phase's seconds. The ranks start beside phase 3 (their
+   allocators with expandable segments: five processes share the card)
+   and exit beside phase 4. Four ranks on one card measure correctness
+   and the gloo transfers, not multi-GPU speed;
+5. timings (kernel path, warm, twice), launch counts (a path's plain
+   versions must have run on no
    CUDA tensor), peak memory, then the kernel JSON line (eighteen
    entries: the sixteen kernels, the three-pass half-step and the z+y
    step's two-pass route),
@@ -297,6 +320,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import torch
@@ -567,29 +591,15 @@ def drive(step, batch, want: dict | None) -> tuple[torch.Tensor, dict, float]:
     return out, counts, peak_gib
 
 
-def timed_pair(step, plain, batch, vox: int, label: str) -> dict:
-    """Warm host-clock times: plain, kernel, kernel (the plain path once:
-    it is no yardstick of speed, and a second run cost ~8 s a phase).
-    Every caller has run both paths just before (the kernel path counted,
-    the plain one in float64), so no call is spent on a warm-up."""
-
-    def wall(fn) -> float:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn(batch)
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    plain_s, kernel_s = [], []
-    for fn, acc in ((plain, plain_s), (step, kernel_s), (step, kernel_s)):
-        acc.append(wall(fn))
-    k, p = sum(kernel_s) / 2, plain_s[0]
-    print(f"  {label} kernel path: {k * 1e3:.1f} ms/volume, {vox / k / 1e9:.4f} GVox/s  "
-          f"{kernel_s}")
-    print(f"  {label} plain f32 path: {p * 1e3:.1f} ms/volume, {vox / p / 1e9:.4f} GVox/s  "
-          f"{plain_s}")
-    return {"gvox_s": vox / k / 1e9, "plain_gvox_s": vox / p / 1e9, "ms": k * 1e3,
-            "plain_ms": p * 1e3}
+def kernel_times(step, steps, label: str) -> dict:
+    """Warm host-clock time of the kernel path, twice. The plain float32
+    path of a step is held to float64 just before and not timed (3-8 s a
+    phase): phase 3 times every kernel beside its plain version."""
+    ms = [warm_ms(step, steps) for _ in range(2)]
+    k = sum(ms) / 2
+    print(f"  {label} kernel path: {k:.1f} ms/volume, {steps.vox / k / 1e6:.4f} GVox/s  "
+          f"{[round(m, 1) for m in ms]} ms", flush=True)
+    return {"gvox_s": steps.vox / k / 1e6, "ms": k}
 
 
 CONFIG1_RAW = (300, 2048, 2048)  # BASELINE.md config 1: deskew ~2048 x 2048 x 300
@@ -2454,7 +2464,7 @@ def phase_step(steps: Steps) -> dict:
     ref = steps.build(plain=True, dtype=torch.float64)(steps.batch)
     compare("whole step (deskew + RL-20) vs float64 plain", out, ref, STEP_RTOL)
     del ref
-    times = timed_pair(step, steps.build(plain=True), steps.batch, steps.vox, "RL-20")
+    times = kernel_times(step, steps, "RL-20")
     return {"out": out, "launches": counts, "peak_gib": peak, **times}
 
 
@@ -2469,8 +2479,7 @@ def phase_biggs(steps: Steps) -> dict:
     ref = steps.build(plain=True, dtype=torch.float64, **kw)(steps.batch)
     err = two_tier("Biggs RL-10 step vs float64 plain (bf16 state)", out, ref)
     del ref
-    times = timed_pair(step, steps.build(plain=True, **kw), steps.batch, steps.vox,
-                       "Biggs RL-10 (RL-20-equivalent)")
+    times = kernel_times(step, steps, "Biggs RL-10 (RL-20-equivalent)")
     return {"out": out, "launches": counts, "peak_gib": peak, "rel_err": err, **times}
 
 
@@ -2512,8 +2521,7 @@ def phase_zy(steps: Steps) -> dict:
     compare("zy_pallas RL-20 step vs float64 plain", out, ref, STEP_RTOL)
     err = rel_err(out, ref)
     del out, ref
-    times = timed_pair(step, steps.build(plain=True, **zy), steps.batch, steps.vox,
-                       "zy_pallas RL-20")
+    times = kernel_times(step, steps, "zy_pallas RL-20")
     kw = {**zy, "acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
     bstep = steps.build(**kw)
     bout, bcounts, bpeak = drive(bstep, steps.batch,
@@ -2562,8 +2570,7 @@ def phase_fused_iter(steps: Steps, rl20: torch.Tensor) -> dict:
     compare("fused_iter RL-20 step vs float64 plain", out, ref, STEP_RTOL)
     err = rel_err(out, ref)
     del out, ref
-    times = timed_pair(step, steps.build(plain=True, **fi), steps.batch, steps.vox,
-                       "fused_iter RL-20")
+    times = kernel_times(step, steps, "fused_iter RL-20")
     kw = {**fi, "acceleration": "biggs", "iterations": BIGGS_ITERATIONS}
     bstep = steps.build(**kw)
     bout, bcounts, bpeak = drive(bstep, steps.batch, {"deskew": 1, "rl_iter": BIGGS_ITERATIONS})
@@ -2624,8 +2631,7 @@ def phase_step_reg(steps: Steps) -> dict:
     compare("registered step (deskew + affine + RL-20) vs float64 plain", out, ref, STEP_RTOL)
     err = rel_err(out, ref)
     del out, ref
-    times = timed_pair(step, steps.build(plain=True, transform=path), steps.batch, steps.vox,
-                       "deskew + register + RL-20")
+    times = kernel_times(step, steps, "deskew + register + RL-20")
     return {"launches": counts, "peak_gib": peak, "rel_err": err, **times}
 
 
@@ -2855,6 +2861,20 @@ def phase_hybrid(vol, psf, config: str) -> dict:
     return res
 
 
+def host_line() -> str:
+    """The host's available and shared memory and this process's resident
+    size, GiB (``/proc``)."""
+    info = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            key, value = line.split(":", 1)
+            info[key] = int(value.split()[0]) / 2**20
+    with open("/proc/self/status") as f:
+        rss = next(int(line.split()[1]) / 2**20 for line in f if line.startswith("VmRSS:"))
+    return (f"host available {info['MemAvailable']:.1f} GiB, shared {info['Shmem']:.1f}, "
+            f"this process {rss:.1f}")
+
+
 def host_available_gib() -> float:
     with open("/proc/meminfo") as f:
         for line in f:
@@ -2872,6 +2892,11 @@ def phase_tf() -> dict:
     from shrimpy_tpu_torch.config import phase_settings
     from shrimpy_tpu_torch.ops.phase import compute_transfer_function
 
+    # 4t's ranks give their pinned host buffers back some seconds after they
+    # exit (this thread starts right after them): wait for them.
+    t0 = time.monotonic()
+    while host_available_gib() < 1.5 * PHASE_HOST_GIB and time.monotonic() - t0 < 60.0:
+        time.sleep(1.0)
     free = subprocess.run(["free", "-g"], capture_output=True, text=True).stdout.rstrip()
     avail = host_available_gib()
     shape = PHASE_SHAPE if avail >= 1.5 * PHASE_HOST_GIB else PHASE_SMALL_SHAPE
@@ -4650,6 +4675,9 @@ BEAD_PX_UM = 0.116  # synthetic_ls_stack's pixel size
 PSF_RTOL = 1e-5  # the card's PSF against the CPU plain path's, of its max
 RL2_RTOL = 1.5e-6  # the first 2 iterations against float64 (ROADMAP queue 3)
 PSF_CROP = (32, 512, 512)
+# RL on the crop against float64: 10 iterations (20 before phase 4t's time
+# was paid for; the full-size RL-2 check is unchanged).
+PSF_CROP_ITERATIONS = 10
 
 
 def bead_raw(shape=BEAD_RAW, n_beads: int = BEAD_COUNT, *, device="cuda", seed: int = SEED + 5):
@@ -4699,7 +4727,7 @@ def phase_psf(gen) -> dict:
     ``rl_half`` launch a half-step, or three a term past its block) at the
     production raw with the counts reset, timed as counted: ms, GVox/s,
     peak. On the deskewed volume the first 2 iterations against float64
-    within RL2_RTOL, and RL-20 on a PSF_CROP crop within STEP_RTOL."""
+    within RL2_RTOL, and RL-10 on a PSF_CROP crop within STEP_RTOL."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -4796,15 +4824,17 @@ def phase_psf(gen) -> dict:
         del vol
         torch.cuda.empty_cache()
         t0 = time.monotonic()
-        ref = richardson_lucy(crop, psf, deconv, plain=True, dtype=torch.float64)
+        s_crop = headline_settings(iterations=PSF_CROP_ITERATIONS).deconvolve
+        ref = richardson_lucy(crop, psf, s_crop, plain=True, dtype=torch.float64)
         crop_s = time.monotonic() - t0
-        crop_err = compare(f"RL-20 with the measured PSF on a {PSF_CROP} crop vs float64 plain "
-                           f"(the float64 run {crop_s:.1f} s)", richardson_lucy(crop, psf, deconv),
-                           ref, STEP_RTOL)
+        crop_err = compare(f"RL-{PSF_CROP_ITERATIONS} with the measured PSF on a {PSF_CROP} crop "
+                           f"vs float64 plain (the float64 run {crop_s:.1f} s)",
+                           richardson_lucy(crop, psf, s_crop), ref, STEP_RTOL)
         # The full-size reference's operator is the plain one: on the crop
         # the two float64 runs agree to their rounding.
-        compare("RL-20 on the crop: the banded float64 reference vs float64 plain",
-                rl_float64_banded(crop, psf_w, terms, deconv, deconv.iterations), ref, 1e-10)
+        compare(f"RL-{PSF_CROP_ITERATIONS} on the crop: the banded float64 reference vs float64 "
+                "plain", rl_float64_banded(crop, psf_w, terms, s_crop, PSF_CROP_ITERATIONS), ref,
+                1e-10)
         del ref, crop
         cpu_report, cpu_s = cpu_run.result()
     psf_cpu = np.load(out["cpu"].with_suffix(".npy"))
@@ -4889,6 +4919,350 @@ def config2_pass_ms(carry, term, gen) -> dict:
     return res
 
 
+MESH_RANKS = 4  # ranks sharing cuda:0 over gloo: the one-card stand-in for four cards
+MESH_SMALL_RAW = (2, 16, 12, 256)  # __graft_entry__.py's pass 1 on a (2, 2) mesh
+MESH_SMALL_PSF = ((3, 3, 3), (0.8, 0.8, 0.8))
+MESH_SHARD_RAW = (1, 8, 16, 256)  # its pass 3 on a (1, 4) mesh
+MESH_SHARD_PSF = ((3, 7, 7), (0.8, 1.2, 1.2))
+MESH_MAIN_BATCH = 4  # production raws over a (2, 2) mesh: one whole volume a rank after the reshard
+MESH_RTOL = 1e-5  # the dryrun's gate against the single-device step
+MESH_PLAIN_RTOL = 1e-3  # pass 3 against the float64 plain path
+MESH_SHARD_EST_GIB = 5.21  # __graft_entry__.py pass 4(b)'s per-device estimate
+
+
+def mesh_settings(which: str):
+    """The settings of ``__graft_entry__.py``'s dryrun passes, as
+    namespaces: ``pass1`` deskew + RL-5 on ``auto``; ``pass3`` phase
+    (``transform: matmul``) + ``dft2z`` RL-2 under ``shard_volumes``;
+    ``pass4`` ``dft2z`` RL-2 alone under ``shard_volumes``; ``*_whole``
+    the same without ``shard_volumes`` (the single-device reference)."""
+    from shrimpy_tpu_torch.config import (
+        deconvolve_settings,
+        deskew_settings,
+        phase_settings,
+        reconstruct_settings,
+    )
+
+    name, _, whole = which.partition("_")
+    if name == "pass1":
+        return reconstruct_settings(
+            deskew=deskew_settings(ls_angle_deg=30.0, px_to_scan_ratio=0.386),
+            deconvolve=deconvolve_settings(iterations=5))
+    extra = {}
+    if name == "pass3":
+        extra["phase"] = phase_settings({"yx_pixel_size": 0.116, "z_pixel_size": 0.25,
+                                         "z_padding": 0}, {"transform": "matmul"})
+    return reconstruct_settings(
+        deconvolve=deconvolve_settings(iterations=2, algorithm="fft", fft_backend="dft2z"),
+        shard_volumes=not whole, **extra)
+
+
+def rank_stats(mesh, mine: dict) -> list:
+    """Every rank's ``mine``, gathered (on rank 0's return)."""
+    import torch.distributed as dist
+
+    if mesh.world is None:
+        return [mine]
+    every = [None] * mesh.devices.size
+    dist.all_gather_object(every, mine)
+    return every
+
+
+def mesh_rank_batch(raw, settings, psf, *, mesh) -> dict:
+    """A rank of checks (a), (c) and (e): ``reconstruct_batch`` on the
+    mesh, the global output on the host; with one rank on NCCL also an
+    ``all_reduce`` on the card (the mesh itself calls no collective)."""
+    import torch.distributed as dist
+
+    from shrimpy_tpu_torch.parallel.pipeline import reconstruct_batch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = reconstruct_batch(raw, settings, psf=psf, mesh=mesh)
+    torch.cuda.synchronize()
+    mine = {"s": time.perf_counter() - t0, "backend": mesh.backend, "device": str(mesh.device)}
+    if mesh.backend == "nccl":
+        t = torch.full((4,), float(mesh.rank + 1), device=mesh.device)
+        dist.all_reduce(t)
+        mine["all_reduce"] = float(t.sum())
+    return {"out": out, "ranks": rank_stats(mesh, mine)}
+
+
+def mesh_rank_main(raws, ref, settings, psf, *, mesh) -> list:
+    """A rank of check (b): the step on this rank's block of the
+    production batch with every count at 0 just before and read just
+    after, its output against the single-device step's on the host, and
+    the reshard's all_to_all timed alone at its size."""
+    from shrimpy_tpu_torch.parallel.fft import _all_to_all_tiled
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+
+    step = build_reconstruct_step(settings, psf=psf, mesh=mesh)
+    table = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for obj, attr in table.values():
+        setattr(obj, attr, 0)
+    t0 = time.perf_counter()
+    blk = step(raws)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = {name: getattr(obj, attr) for name, (obj, attr) in table.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    got, want = blk.data, ref[blk.index]
+    del blk
+    equal = bool(torch.equal(got, want))
+    err = 0.0 if equal else rel_err(got, want)
+    del got, want
+    b_row = raws.shape[0] // mesh.devices.shape[0]
+    zyx = ref.shape[1:]
+    local = torch.zeros((b_row, *zyx[:2], zyx[2] // mesh.devices.shape[1]), device=mesh.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _all_to_all_tiled(local, mesh.group("space"), 0, 3)
+    torch.cuda.synchronize()
+    reshard_s = time.perf_counter() - t1
+    return rank_stats(mesh, {"rank": mesh.rank, "s": seconds, "counts": counts, "peak_gib": peak,
+                             "reserved_gib": reserved, "equal": equal, "rel_err": err,
+                             "reshard_s": reshard_s,
+                             "reshard_gib": local.numel() * 4 / 2**30})
+
+
+def mesh_rank_shard(vol, ref, settings, psf, *, mesh) -> list:
+    """A rank of check (d): ``shard_volumes`` RL-2 at the production
+    carry, the rank's carry and peak, its X slab against the
+    single-device output on the host, and one slab transpose of the
+    carry's size timed alone."""
+    from shrimpy_tpu_torch.parallel.fft import _all_to_all_tiled
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+
+    step = build_reconstruct_step(settings, psf=psf, mesh=mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    blk = step(vol)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    carry = (blk.data.shape[0], *step.sharded.carry)
+    err = rel_err(blk.data, ref[blk.index])
+    del blk
+    block = torch.zeros(carry[1:], dtype=torch.complex64, device=mesh.device)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    _all_to_all_tiled(block, mesh.group("space"), 1, 2)
+    torch.cuda.synchronize()
+    transpose_s = time.perf_counter() - t1
+    return rank_stats(mesh, {"rank": mesh.rank, "s": seconds, "carry": carry, "peak_gib": peak,
+                             "before_gib": before, "rel_err": err, "transpose_s": transpose_s,
+                             "transpose_gib": block.numel() * 8 / 2**30})
+
+
+def host_shared(shape) -> torch.Tensor:
+    """A host float32 tensor in shared memory: the ranks map it rather
+    than take a copy each through their pipes (a tensor on the card
+    reaches them as a CUDA IPC handle)."""
+    return torch.empty(shape, dtype=torch.float32).share_memory_()
+
+
+def mesh_gate(name: str, got: torch.Tensor, want: torch.Tensor, tol: float) -> float:
+    equal = bool(torch.equal(got, want))
+    err = 0.0 if equal else rel_err(got, want)
+    print(f"  {name}: {'bit-equal' if equal else f'max|a-b|/max|b| = {err:.3e}'} (tol {tol:g}) "
+          f"{'ok' if err <= tol else 'FAIL'}", flush=True)
+    if not err <= tol:
+        raise AssertionError(f"{name}: relative error {err:.3e} > {tol:g}")
+    return err
+
+
+def card_free_gib() -> float:
+    return torch.cuda.mem_get_info()[0] / 2**30
+
+
+def mesh_ranks() -> tuple:
+    """4t's ranks: four sharing cuda:0 over gloo and one on NCCL (the
+    card's default backend). Their caching allocators take expandable
+    segments: five processes share the card, and a rank's fragmented
+    reserve (up to 2.3x its 9.4 GiB peak in 4t(b)) would not leave the
+    others theirs."""
+    import os
+
+    from shrimpy_tpu_torch.parallel import launch
+
+    torch.cuda.empty_cache()
+    key, saved = "PYTORCH_CUDA_ALLOC_CONF", os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    os.environ[key] = "expandable_segments:True"
+    try:
+        return (launch.Ranks(MESH_RANKS, backend="gloo", devices=["cuda:0"] * MESH_RANKS),
+                launch.Ranks(1))
+    finally:
+        if saved is None:
+            del os.environ[key]
+        else:
+            os.environ[key] = saved
+
+
+def phase_mesh(gen, ranks=None, nccl_rank=None) -> dict:
+    """Phase 4t: the mesh on one card. Four ranks share cuda:0 over gloo
+    (``launch.Ranks``): (a) ``__graft_entry__.py``'s pass 1 on a (2, 2)
+    mesh; (b) the main path at full width, four production raws over
+    (2, 2): the deskew on X slabs of 800, the reshard to one whole volume a
+    rank, RL-20 on the fused kernels; (c) pass 3, ``shard_volumes`` phase +
+    ``dft2z`` RL-2 over (1, 4); (d) pass 4(b) run for real, the
+    non-separable PSF under ``shard_volumes`` at the production carry over
+    (1, 4); then (e) one rank on NCCL (the card's default backend) on
+    pass 1's inputs. Each against the single-device step run here on the
+    same inputs. Four ranks on one card measure correctness and the gloo
+    transfers, not multi-GPU speed. ``ranks`` and ``nccl_rank`` are
+    :func:`mesh_ranks`' (started here when None); they stop in the
+    thread ``out["closing"]``, which the caller joins."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf
+    from shrimpy_tpu_torch.parallel import launch
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step, reconstruct_batch
+
+    t_phase = time.monotonic()
+    out = {"host_gib_before": host_available_gib()}
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    s1, psf1 = mesh_settings("pass1"), gaussian_psf(*MESH_SMALL_PSF)
+    raw_a = uniform(MESH_SMALL_RAW, gen).cpu()
+
+    def on_nccl():
+        t0 = time.monotonic()
+        try:
+            return nccl_rank.run(mesh_rank_batch, args=(raw_a, s1, psf1)), time.monotonic() - t0
+        finally:
+            nccl_rank.close()
+
+    card_before = card_free_gib()
+    if ranks is None:
+        ranks, nccl_rank = mesh_ranks()
+    # (e) runs beside the rest: its own process group of one rank.
+    pool = ThreadPoolExecutor(1)
+    nccl = pool.submit(on_nccl)
+    try:
+        # The references, on the card in this process, while the ranks start.
+        t0 = time.monotonic()
+        ref_a = reconstruct_batch(raw_a, s1, psf=psf1, device="cuda").cpu()
+        headline, psf_b = headline_settings(), gaussian_psf(PSF_SHAPE, PSF_SIGMA)
+        # (b)'s batch and outputs stay on the card: the ranks map them by
+        # CUDA IPC ((d)'s input is a host tensor).
+        raws = torch.empty((MESH_MAIN_BATCH, *RAW_SHAPE), device="cuda")
+        ref_b = torch.empty((MESH_MAIN_BATCH, *deskewed_shape()), device="cuda")
+        single = build_reconstruct_step(headline, psf=psf_b, device="cuda")
+        for k in range(MESH_MAIN_BATCH):
+            raws[k] = uniform(RAW_SHAPE, gen, 0.0, 100.0)
+            ref_b[k] = single(raws[k:k + 1])[0]
+        s3, psf3 = mesh_settings("pass3"), gaussian_psf(*MESH_SHARD_PSF)
+        raw_c = (uniform(MESH_SHARD_RAW, gen) * 50.0).cpu()
+        ref_c = reconstruct_batch(raw_c, mesh_settings("pass3_whole"), psf=psf3,
+                                  device="cuda").cpu()
+        ref_c64 = build_reconstruct_step(mesh_settings("pass3_whole"), psf=psf3, device="cuda",
+                                         plain=True, dtype=torch.float64)(raw_c).cpu()
+        s4, psf4 = mesh_settings("pass4"), nonsep_psf()
+        vol_d = host_shared((1, *deskewed_shape()))
+        vol_d[0].copy_(uniform(deskewed_shape(), gen, 0.0, 100.0))
+        ref_d = reconstruct_batch(vol_d, mesh_settings("pass4_whole"), psf=psf4, device="cuda")
+        del single
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        out["refs_s"] = time.monotonic() - t0
+        print(f"  references on the card: {out['refs_s']:.1f} s; the card's free memory "
+              f"{card_before:.1f} GiB before them, {card_free_gib():.1f} after; {host_line()}",
+              flush=True)
+
+        t0 = time.monotonic()
+        got = ranks.run(mesh_rank_batch, space=2, args=(raw_a, s1, psf1))
+        print(f"  (a) pass 1, mesh (2, 2), raw {MESH_SMALL_RAW}: {time.monotonic() - t0:.1f} s, "
+              f"step {[round(r['s'], 3) for r in got['ranks']]} s", flush=True)
+        out["a"] = {"rel_err": mesh_gate("(a) mesh vs the single-device step", got["out"], ref_a,
+                                         MESH_RTOL),
+                    "s": [r["s"] for r in got["ranks"]], "wall_s": time.monotonic() - t0}
+
+        t0 = time.monotonic()
+        every = ranks.run(mesh_rank_main, space=2, args=(raws, ref_b, headline, psf_b))
+        wall = time.monotonic() - t0
+        print(f"  (b) the main path: {MESH_MAIN_BATCH} raws {RAW_SHAPE} over (2, 2), deskew on "
+              f"X slabs of {RAW_SHAPE[2] // 2}, reshard, RL-20 on fused: {wall:.1f} s", flush=True)
+        for r in every:
+            parity = "bit-equal" if r["equal"] else f"rel err {r['rel_err']:.3e}"
+            print(f"    rank {r['rank']}: step {r['s']:.2f} s, peak {r['peak_gib']:.2f} GiB "
+                  f"({r['reserved_gib']:.2f} reserved), {parity}; "
+                  f"reshard all_to_all of {r['reshard_gib']:.2f} GiB alone {r['reshard_s']:.3f} s; "
+                  f"launches {dict((k, v) for k, v in r['counts'].items() if v)}", flush=True)
+            want = {"deskew": MESH_MAIN_BATCH // 2, "rl_half_step": 2 * ITERATIONS,
+                    "rl_half_one_launch": 2 * ITERATIONS}
+            bad = {k: v for k, v in r["counts"].items()
+                   if k not in PASS_COUNTS and v != want.get(k, 0)}
+            if bad:
+                raise AssertionError(f"(b) rank {r['rank']}: launch counts {bad}, want {want}")
+            if not r["rel_err"] <= MESH_RTOL:
+                raise AssertionError(f"(b) rank {r['rank']}: rel err {r['rel_err']:.3e}")
+        out["b"] = {"ranks": every, "wall_s": wall,
+                    "launches": {k: sum(r["counts"][k] for r in every)
+                                 for k in ("deskew", "rl_half_one_launch")}}
+        print(f"  after (b): {host_line()}", flush=True)
+        del raws, ref_b
+        torch.cuda.ipc_collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.monotonic()
+        got = ranks.run(mesh_rank_batch, space=4, args=(raw_c, s3, psf3))
+        print(f"  (c) pass 3, shard_volumes phase + dft2z RL-2, mesh (1, 4), raw "
+              f"{MESH_SHARD_RAW}: {time.monotonic() - t0:.1f} s", flush=True)
+        out["c"] = {"rel_err": mesh_gate("(c) mesh vs the single-device step", got["out"], ref_c,
+                                         MESH_RTOL),
+                    "rel_err_f64": mesh_gate("(c) mesh vs the float64 plain path", got["out"],
+                                             ref_c64.float(), MESH_PLAIN_RTOL),
+                    "wall_s": time.monotonic() - t0}
+
+        t0 = time.monotonic()
+        every = ranks.run(mesh_rank_shard, space=4, args=(vol_d, ref_d, s4, psf4))
+        wall = time.monotonic() - t0
+        print(f"  (d) pass 4(b) for real: tilted_gaussian_psf() under shard_volumes, dft2z RL-2 at "
+              f"{deskewed_shape()} over (1, 4): {wall:.1f} s", flush=True)
+        for r in every:
+            print(f"    rank {r['rank']}: carry {r['carry']}, step {r['s']:.2f} s, peak "
+                  f"{r['peak_gib']:.2f} GiB (estimate {MESH_SHARD_EST_GIB}; "
+                  f"{r['before_gib']:.2f} held before), rel err {r['rel_err']:.3e}; one slab "
+                  f"transpose of {r['transpose_gib']:.2f} GiB alone {r['transpose_s']:.3f} s",
+                  flush=True)
+            if tuple(r["carry"]) != (1, 144, 2920, 416):
+                raise AssertionError(f"(d) rank {r['rank']}: carry {r['carry']}")
+            if not r["rel_err"] <= MESH_RTOL:
+                raise AssertionError(f"(d) rank {r['rank']}: rel err {r['rel_err']:.3e}")
+        out["d"] = {"ranks": every, "wall_s": wall}
+        del vol_d, ref_d
+        print(f"  after (d): {host_line()}", flush=True)
+    except BaseException:
+        ranks.close(force=True)
+        raise
+    finally:
+        got, seconds = nccl.result()
+        pool.shutdown()
+    # The ranks exit beside the next phases (their teardown and their pinned
+    # host buffers, which gloo stages CUDA tensors through, take seconds;
+    # 4l's host thread waits for that memory).
+    out["closing"] = threading.Thread(target=ranks.close)
+    out["closing"].start()
+
+    (rank,) = got["ranks"]
+    print(f"  (e) mesh (1, 1) on {rank['backend']} ({rank['device']}), pass 1's inputs, "
+          f"all_reduce {rank['all_reduce']}: {seconds:.1f} s (beside the others)", flush=True)
+    if rank["backend"] != "nccl" or rank["all_reduce"] != 4.0:
+        raise AssertionError(f"(e) backend {rank['backend']}, all_reduce {rank['all_reduce']}")
+    out["e"] = {"rel_err": mesh_gate("(e) NCCL mesh vs the single-device step", got["out"], ref_a,
+                                     MESH_RTOL), "wall_s": seconds}
+    out["seconds"] = time.monotonic() - t_phase
+    print(f"  phase 4t took {out['seconds']:.1f} s; the host's available memory "
+          f"{out['host_gib_before']:.1f} GiB before it, {host_available_gib():.1f} at its end "
+          "(its ranks still exiting)", flush=True)
+    return out
+
+
 def build_all(build) -> None:
     """The common library and, beside it, the kernels compiled for their
     geometry (the one-launch half-step and its circular build, the whole
@@ -4938,6 +5312,19 @@ def build_all(build) -> None:
                              len(hterms))
         if layout is not None:
             jobs.append(("rl_half", (len(hterms), *psf_w.shape, *layout["tile"])))
+    # 4t(a)'s step: dryrun pass 1's PSF on its deskewed volume, run here and
+    # in each rank.
+    from shrimpy_tpu_torch.ops.deconv import gaussian_psf, plan_terms
+    from shrimpy_tpu_torch.parallel.pipeline import output_shape
+
+    s1 = mesh_settings("pass1")
+    psf_a = prepare_psf(gaussian_psf(*MESH_SMALL_PSF), s1.deconvolve)
+    terms_a = plan_terms(psf_a, s1.deconvolve)
+    radii_a = tuple(k // 2 for k in psf_a.shape)
+    shape_a = tuple(n + 2 * r for n, r in zip(output_shape(MESH_SMALL_RAW[1:], s1), radii_a))
+    layout = half_layout(shape_a, radii_a, len(terms_a))
+    if terms_a is not None and layout is not None:
+        jobs.append(("rl_half", (len(terms_a), *(len(w) for w in terms_a[0]), *layout["tile"])))
     # The compiled passes (csrc/rl_pass.cu), one library a tap count: every
     # list of 63 taps or fewer that a three-pass or two-pass route, or an x
     # pass of linear_pallas, zy_pallas or conv3_circular, runs below (a
@@ -4951,8 +5338,6 @@ def build_all(build) -> None:
 
 
 def main(argv) -> int:
-    from concurrent.futures import ThreadPoolExecutor
-
     t_start = time.monotonic()
     # --parent-iter DIR: the source of the whole-iteration kernel before its
     # redesign, timed beside the new one in phase 3.
@@ -4987,6 +5372,22 @@ def main(argv) -> int:
     print(f"[2] kernels built from {build.CSRC_DIR.name}/ and loaded in "
           f"{time.monotonic() - t0:.1f} s", flush=True)
 
+    # 4t's ranks start here: their imports and CUDA set-up (~15 s of the
+    # host) run beside phase 3, which waits on the card.
+    ranks = mesh_ranks()
+    try:
+        return run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk,
+                          parent_aff, parent_prb)
+    finally:
+        for r in ranks:
+            r.close(force=True)
+
+
+def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_aff,
+               parent_prb) -> int:
+    """Phases 3 to 5 of ``main``, after the build."""
+    from concurrent.futures import ThreadPoolExecutor
+
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     print("[3] kernels against their plain versions", flush=True)
     desk = phase_deskew(gen, parent_desk)
@@ -5018,6 +5419,15 @@ def main(argv) -> int:
     torch.cuda.empty_cache()
     print("  the band of the fft2z RL (csrc/zband.cu):", flush=True)
     band = phase_band(gen)
+    torch.cuda.empty_cache()
+    # Phase 4t runs here, before the host-heavy phases (4l's TF, 4n, 4o, 4s)
+    # have grown this process: its ranks' gloo transfers stage through host
+    # memory, and after those phases the machine's 96 GiB do not hold both.
+    # Its own seed, so that the later phases draw what they drew without it.
+    stamp(t_start, f"[4t] the mesh on one card: {MESH_RANKS} ranks on cuda:0 over gloo, "
+          f"(a) dryrun pass 1, (b) {MESH_MAIN_BATCH} production raws over (2, 2), (c) pass 3, "
+          "(d) pass 4(b) at the production carry; (e) one rank on NCCL")
+    mesh = phase_mesh(torch.Generator(device="cuda").manual_seed(SEED + 20), *ranks)
     torch.cuda.empty_cache()
     # Phase 4l's host transfer function (~85 s of float64 numpy, one host
     # thread) beside the card's phases 4-4k.
@@ -5099,9 +5509,9 @@ def main(argv) -> int:
           f"{BEAD_RAW}, then deskew + RL-20 with it at raw {RAW_SHAPE}")
     mpsf = phase_psf(gen)
     torch.cuda.empty_cache()
-    print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s (plain f32 "
-          f"{step['plain_gvox_s']:.4f}); Biggs RL-10 kernel path {biggs['gvox_s']:.4f} "
-          f"RL-20-equivalent GVox/s (plain f32 {biggs['plain_gvox_s']:.4f}), max rel err "
+    mesh.pop("closing").join()
+    print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s; Biggs RL-10 kernel "
+          f"path {biggs['gvox_s']:.4f} RL-20-equivalent GVox/s, max rel err "
           f"{biggs['rel_err']:.3e}; linear_pallas RL-20 {lin['RL-20']['ms']:.1f} ms, "
           f"Biggs RL-10 {lin['Biggs RL-10']['ms']:.1f} ms; deskew kernel {desk['ms']:.3f} ms "
           f"(before the redesign {desk.get('ms_parent', 'not timed')}, plain "
@@ -5121,8 +5531,8 @@ def main(argv) -> int:
           f"{zy['plain_ms']:.3f}, bound {zy['bound_ms']:.3f}); peak {step['peak_gib']:.2f} / "
           f"{biggs['peak_gib']:.2f} / {lin['RL-20']['peak_gib']:.2f} / "
           f"{lin['Biggs RL-10']['peak_gib']:.2f} GiB", flush=True)
-    print(f"[5] {card}: zy_pallas RL-20 {zyp['ms']:.1f} ms, {zyp['gvox_s']:.4f} GVox/s (plain "
-          f"f32 {zyp['plain_ms']:.1f} ms), rel err {zyp['rel_err']:.3e}, peak "
+    print(f"[5] {card}: zy_pallas RL-20 {zyp['ms']:.1f} ms, {zyp['gvox_s']:.4f} GVox/s, "
+          f"rel err {zyp['rel_err']:.3e}, peak "
           f"{zyp['peak_gib']:.2f} GiB; its Biggs RL-10 {zyp['biggs']['ms']:.1f} ms, max rel err "
           f"{zyp['biggs']['rel_err']:.3e}, peak {zyp['biggs']['peak_gib']:.2f} GiB; matmul RL-20 "
           f"{mmp['ms']:.1f} ms, {mmp['gvox_s']:.4f} GVox/s, rel err {mmp['rel_err']:.3e}, peak "
@@ -5133,7 +5543,7 @@ def main(argv) -> int:
           f"conv3_circular {c3['ms']:.3f} ms (plain "
           f"{c3['plain_ms']:.3f})", flush=True)
     print(f"[5] {card}: fused_iter RL-20 {fip['ms']:.1f} ms, {fip['gvox_s']:.4f} GVox/s (fused "
-          f"{step['ms']:.1f} ms; plain f32 {fip['plain_ms']:.1f} ms), rel err {fip['rel_err']:.3e}, "
+          f"{step['ms']:.1f} ms), rel err {fip['rel_err']:.3e}, "
           f"peak {fip['peak_gib']:.2f} GiB (fused {step['peak_gib']:.2f}); its Biggs RL-10 "
           f"{fip['biggs']['ms']:.1f} ms, max rel err {fip['biggs']['rel_err']:.3e}, peak "
           f"{fip['biggs']['peak_gib']:.2f} GiB; through richardson_lucy "
@@ -5149,7 +5559,7 @@ def main(argv) -> int:
           f"{p_dot['fma_ms']:.4f} ms beside torch.matmul {p_dot['fma_library_ms']:.4f}",
           flush=True)
     print(f"[5] {card}: deskew + register + RL-20 {sreg['ms']:.1f} ms, {sreg['gvox_s']:.4f} GVox/s "
-          f"(without the registration {step['ms']:.1f} ms; plain f32 {sreg['plain_ms']:.1f} ms), "
+          f"(without the registration {step['ms']:.1f} ms), "
           f"rel err {sreg['rel_err']:.3e}, peak {sreg['peak_gib']:.2f} GiB (without "
           f"{step['peak_gib']:.2f}); affine_warp {aff['ms']:.3f} ms (bound {aff['bound_ms']:.3f}, "
           f"plain {aff['plain_ms']:.3f}, F.grid_sample {aff['library_ms']:.3f}; "
@@ -5232,14 +5642,30 @@ def main(argv) -> int:
           f"{x_p['library_ms']:.3f}), x last term {x_p['last_ms']:.3f} ms "
           f"({x_p['last_runtime_ms']:.3f}, bound {x_p['last_bound_ms']:.3f}); with the measured "
           f"taps " + ", ".join(f"{k} {v:.3f}" for k, v in mpsf["pass_ms"].items()), flush=True)
+    mb, md = mesh["b"], mesh["d"]
+    print(f"[5] {card}: the mesh on one card ({MESH_RANKS} gloo ranks): (a) pass 1 "
+          f"{mesh['a']['rel_err']:.3e}; (b) {MESH_MAIN_BATCH} production raws over (2, 2): steps "
+          f"{[round(r['s'], 2) for r in mb['ranks']]} s, peaks "
+          f"{[round(r['peak_gib'], 2) for r in mb['ranks']]} GiB, reshard alone "
+          f"{[round(r['reshard_s'], 3) for r in mb['ranks']]} s, "
+          f"{'bit-equal' if all(r['equal'] for r in mb['ranks']) else 'within 1e-5'}, launches "
+          f"{mb['launches']}; (c) pass 3 {mesh['c']['rel_err']:.3e} ({mesh['c']['rel_err_f64']:.3e} "
+          f"of float64); (d) pass 4(b) carry {tuple(md['ranks'][0]['carry'])}, steps "
+          f"{[round(r['s'], 2) for r in md['ranks']]} s, peaks "
+          f"{[round(r['peak_gib'], 2) for r in md['ranks']]} GiB (estimate {MESH_SHARD_EST_GIB}), "
+          f"a transpose alone {[round(r['transpose_s'], 3) for r in md['ranks']]} s, rel err "
+          f"{max(r['rel_err'] for r in md['ranks']):.3e}; (e) NCCL {mesh['e']['rel_err']:.3e}; "
+          f"phase 4t took {mesh['seconds']:.1f} s", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
-         "launches": step["launches"]["deskew"] + eng["launches"] + view["launches"], **desk},
+         "launches": step["launches"]["deskew"] + eng["launches"] + view["launches"]
+         + mb["launches"]["deskew"], **desk},
         {"name": "rl_half_step", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
-         "launches": step["launches"]["rl_half_one_launch"], **rl},
+         "launches": step["launches"]["rl_half_one_launch"] + mb["launches"]["rl_half_one_launch"],
+         **rl},
         {"name": "rl_half_step_accel", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",

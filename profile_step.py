@@ -36,6 +36,13 @@ flight, the order of a step's passes, the registers that keep older
 planes; copies built under ``shrimpy_tpu_torch/build/``), timed in turns
 on its first tile and held to the kernel's bits.
 
+``python3 profile_step.py --mesh`` starts four gloo ranks on cuda:0 and
+times a tiled ``all_to_all`` of CUDA complex64 over them, given to gloo
+as it is (``parallel/mesh.py``'s way) and staged through pageable host
+tensors, at
+``chip_smoke.py`` phase 4t(d)'s carry and a small shape; then runs phase
+4t alone.
+
 ``python3 profile_step.py --deskew`` times the deskew kernel
 ``csrc/deskew.cu`` and the variants of its source in
 :data:`DESKEW_VARIANTS` (band slots, rows a thread) on the tiles of
@@ -1465,6 +1472,72 @@ def sweep_probes(cs) -> None:
     print(f"  torch.matmul float32: {cs.kernel_ms(lambda: torch.matmul(a, b)):.5f} ms", flush=True)
 
 
+MESH_PROBE_SHAPES = ((144, 2920, 416), (8, 16, 64))  # chip_smoke 4t(d)'s carry, and a small one
+
+
+def gloo_probe(*, mesh) -> list:
+    """A rank of ``--mesh``: a tiled ``all_to_all_single`` over the mesh's
+    row of CUDA complex64 tensors, given to gloo as they are (what
+    ``parallel/mesh.py::all_to_all`` does) and staged through pageable
+    host tensors (``.cpu()``, the host exchange, a copy back); seconds of
+    each (three runs), or the error gloo raised."""
+    import torch.distributed as dist
+
+    group = mesh.group("space")
+
+    def staged(src):
+        host = src.cpu()
+        got = torch.empty_like(host)
+        dist.all_to_all_single(got, host, group=group)
+        return got.to(src.device)
+
+    def timed(fn) -> list:
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return times
+
+    out = []
+    for shape in MESH_PROBE_SHAPES:
+        src = torch.view_as_real(torch.randn(shape, dtype=torch.complex64, device=mesh.device))
+        rec = {"shape": shape, "gib": src.numel() * 4 / 2**30}
+        try:
+            dst = torch.empty_like(src)
+            dist.all_to_all_single(dst, src, group=group)
+            torch.cuda.synchronize()
+            rec["direct_equal_staged"] = bool(torch.equal(dst, staged(src)))
+            rec["direct_s"] = timed(lambda: dist.all_to_all_single(dst, src, group=group))
+        except Exception as exc:  # noqa: BLE001 — the finding is what gloo says
+            rec["direct_error"] = f"{type(exc).__name__}: {exc}"[:300]
+        rec["staged_s"] = timed(lambda: staged(src))
+        out.append(rec)
+    every = [None] * mesh.devices.size
+    dist.all_gather_object(every, out)
+    return every
+
+
+def probe_mesh(cs) -> None:
+    """``--mesh``: four gloo ranks on cuda:0, the transpose of
+    :func:`gloo_probe` on each, then ``chip_smoke.py``'s phase 4t alone."""
+    from shrimpy_tpu_torch.parallel import launch
+
+    t0 = time.monotonic()
+    every = launch.spawn(gloo_probe, 4, space=4, backend="gloo", devices=["cuda:0"] * 4)
+    print(f"  gloo all_to_all of CUDA complex64 over 4 ranks on one card "
+          f"({time.monotonic() - t0:.1f} s with the ranks' start):", flush=True)
+    for rank, recs in enumerate(every):
+        for rec in recs:
+            print(f"    rank {rank} {rec}", flush=True)
+    cs.phase_mesh(torch.Generator(device="cuda").manual_seed(cs.SEED + 20))["closing"].join()
+    for _ in range(6):
+        time.sleep(5)
+        print(f"  5 s later: {cs.host_line()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_step: torch.cuda.is_available() is False", file=sys.stderr)
@@ -1474,6 +1547,9 @@ def main() -> int:
 
     print(cs.card_line(), flush=True)
     build.load_library()
+    if "--mesh" in sys.argv[1:]:
+        probe_mesh(cs)
+        return 0
     if "--conv-axis" in sys.argv[1:]:
         time_passes(cs)
         return 0

@@ -5,7 +5,8 @@ three: ``new``, ``validate``, ``show``).
 The verbs ``deskew``, ``deconvolve``, ``phase``, ``reconstruct``, ``register``,
 ``track``, ``replay``, ``replay-dual``, ``measure-psf`` and ``train-vs`` take
 the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
-(default ``cuda``); ``replay --viewer`` streams each volume to the port's
+(default ``cuda``); the store verbs' ``--devices N --space S`` run a
+``(N / S, S)`` mesh of ranks (``_run_reconstruct``); ``replay --viewer`` streams each volume to the port's
 live monitor (``viewer/``), and ``monitor`` (a store's progress, or
 ``--live`` attached to a running acquisition's ring, ``--serve`` for the
 browser) is the JAX verb with its helpers ``_start_web`` and
@@ -68,25 +69,68 @@ def _inject_from_store(settings, input_path: Path) -> tuple:
     return store, pos
 
 
+def _store_rank(input, output, settings, batch, resume, *, mesh):
+    """One rank of a ``--devices N`` run that this process spawned."""
+    from shrimpy_tpu_torch.runtime.stream import reconstruct_store
+
+    return reconstruct_store(input, output, settings, mesh=mesh, batch_size=batch, resume=resume)
+
+
 def _run_reconstruct(
     input, output, settings, devices, space, batch, resume, profile_dir, device
 ):
+    """JAX's ``_run_reconstruct`` with the port's process model: under
+    torchrun (``WORLD_SIZE`` set) this process is one rank and
+    ``--devices`` must be the world size; otherwise ``--devices N > 1``
+    spawns N local ranks (gloo on the CPU with ``--device cpu``, NCCL on
+    the cards ``cuda:0..N-1``), and ``--devices 1`` runs a one-device
+    mesh here. Rank 0 prints the summary."""
+    import os
+
+    from shrimpy_tpu_torch.parallel.launch import RankError, resolve_launch, spawn
+    from shrimpy_tpu_torch.parallel.mesh import init_distributed, make_mesh
     from shrimpy_tpu_torch.runtime.stream import reconstruct_store
     from shrimpy_tpu_torch.utils.timing import profiler_trace
 
-    if (devices or 1) > 1 or space > 1:
+    dev = _device_or_exit(device)
+    if space > 1 and not devices:
         raise click.ClickException(
-            "the PyTorch port runs one device (--devices/--space > 1 is "
-            "ROADMAP queue 1 item 11)"
-        )
-    _device_or_exit(device)
+            f"--space {space} needs --devices N (a multiple of {space}): the mesh's X "
+            "sharding runs over N devices")
     _inject_from_store(settings, Path(input))
+    cpu = dev is not None and dev.type == "cpu"
+    world = os.environ.get("WORLD_SIZE")
     try:
         with profiler_trace(profile_dir):
-            summary = reconstruct_store(
-                input, output, settings, batch_size=batch, resume=resume, device=device
-            )
-    except NotImplementedError as exc:
+            if world is not None and (devices or 1) != int(world):
+                raise click.ClickException(
+                    f"--devices {devices} under torchrun with WORLD_SIZE={world}: launch one "
+                    "rank a device, e.g. `torchrun --nproc-per-node N -m "
+                    "shrimpy_tpu_torch.cli.main reconstruct ... --devices N`")
+            if world is not None and int(world) > 1:
+                init_distributed(backend="gloo" if cpu else "nccl")
+                mesh = make_mesh(devices, space=space,
+                                 devices=["cpu"] * devices if cpu else None)
+                summary = reconstruct_store(input, output, settings, mesh=mesh,
+                                            batch_size=batch, resume=resume)
+                if mesh.rank != 0:
+                    return
+            elif devices and devices > 1:
+                try:
+                    backend, devs = resolve_launch(devices, "gloo" if cpu else None,
+                                                   ["cpu"] * devices if cpu else None)
+                except ValueError as exc:
+                    raise click.ClickException(str(exc)) from None
+                summary = spawn(_store_rank, devices, space=space, backend=backend,
+                                devices=devs, args=(input, output, settings, batch, resume))
+            elif devices == 1:
+                mesh = make_mesh(1, space=space, devices=[dev or "cuda"])
+                summary = reconstruct_store(input, output, settings, mesh=mesh,
+                                            batch_size=batch, resume=resume)
+            else:
+                summary = reconstruct_store(input, output, settings, batch_size=batch,
+                                            resume=resume, device=device)
+    except (NotImplementedError, RankError) as exc:
         raise click.ClickException(str(exc)) from None
     click.echo(json.dumps(summary, indent=2))
 
@@ -94,8 +138,8 @@ def _run_reconstruct(
 _shared = [
     click.argument("input", type=click.Path(exists=True)),
     click.option("-o", "--output", required=True, type=click.Path()),
-    click.option("--devices", type=int, default=None, help="Device count (1 only)."),
-    click.option("--space", type=int, default=1, help="X-axis sharding factor (1 only)."),
+    click.option("--devices", type=int, default=None, help="Mesh device count."),
+    click.option("--space", type=int, default=1, help="X-axis sharding factor."),
     click.option("--batch", type=int, default=None, help="Volumes per step."),
     click.option("--resume", is_flag=True, help="Skip completed volumes."),
     click.option("--profile", "profile_dir", type=click.Path(), default=None,

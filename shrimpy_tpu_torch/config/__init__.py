@@ -196,9 +196,20 @@ def registration_settings(**overrides) -> SimpleNamespace:
 
 
 def reconstruct_settings(**overrides) -> SimpleNamespace:
+    """``ReconstructSettings`` as a namespace, with its validator's rule:
+    ``shard_volumes`` refuses the separable and hybrid deconvolutions
+    (``_check_shard_volumes``, with its message)."""
     ns = _make({**RECONSTRUCT_DEFAULTS, "io_retry": None}, overrides)
     if ns.io_retry is None:
         ns.io_retry = SimpleNamespace(**IO_RETRY_DEFAULTS)
+    if (ns.shard_volumes and ns.deconvolve is not None
+            and ns.deconvolve.algorithm in ("separable", "hybrid")):
+        raise ValueError(
+            "shard_volumes requires the FFT deconvolution path "
+            "(algorithm='fft' or 'auto'); the separable kernels "
+            f"(algorithm='{ns.deconvolve.algorithm}') are "
+            "volume-local"
+        )
     return ns
 
 

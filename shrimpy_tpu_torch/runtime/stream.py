@@ -12,6 +12,12 @@ and a ``non_blocking`` host-to-device copy, and the previous batch's
 device-to-host copy runs on a side CUDA stream while the next batch
 computes.
 
+With a mesh (:mod:`shrimpy_tpu_torch.parallel.mesh`, one process a
+device) every rank runs the loop on the same work list; rank 0 owns the
+output store's creation and the journal, and the ranks that hold whole
+output volumes write them (:func:`_reconstruct_on_mesh`). That path
+reads and writes synchronously, without the feed's side stream.
+
 This layer reads and writes stores through the port's own
 :mod:`shrimpy_tpu_torch.io.ngff` (tensorstore). ``plan_work``,
 ``_Progress``, ``_load_psf``, ``_create_output_store`` and
@@ -34,6 +40,7 @@ from shrimpy_tpu_torch.io import ngff
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf
 from shrimpy_tpu_torch.ops.deskew import get_deskewed_shape
 from shrimpy_tpu_torch.ops.phase import compute_transfer_function, tf_tensor
+from shrimpy_tpu_torch.parallel.mesh import all_reduce, barrier, gather
 from shrimpy_tpu_torch.parallel.pipeline import (
     _stage_input_shape_for_phase,
     build_reconstruct_step,
@@ -42,6 +49,7 @@ from shrimpy_tpu_torch.parallel.pipeline import (
 from shrimpy_tpu_torch.runtime.feed import DeviceFeed
 from shrimpy_tpu_torch.utils.device import resolve_device
 from shrimpy_tpu_torch.utils.retry import robust_call
+from shrimpy_tpu_torch.utils.shapes import round_up
 from shrimpy_tpu_torch.utils.timing import StageTimer, device_memory_stats
 
 logger = logging.getLogger(__name__)
@@ -198,73 +206,15 @@ class _Progress:
                 continue  # torn/corrupt line
 
 
-def reconstruct_store(
-    input_path: str | Path,
-    output_path: str | Path,
-    settings,
-    *,
-    mesh=None,
-    batch_size: int | None = None,
-    resume: bool = False,
-    timer: StageTimer | None = None,
-    device: str | torch.device = "cuda",
-    terms=None,
-) -> dict:
-    """Reconstruct every selected volume of ``input_path`` into
-    ``output_path`` on ``device``; returns a summary dict.
-
-    ``batch_size`` defaults to 1. With ``resume=True``, previously
-    completed items (per the progress journal sidecar) are skipped.
-    ``terms`` overrides the planned separable PSF decomposition.
-    """
-    input_path, output_path = Path(input_path), Path(output_path)
-    dev = resolve_device(device)
-    timer = timer or StageTimer()
-    in_store = ngff.open_ngff(input_path)
-    items = plan_work(in_store, settings)
-    if not items:
-        raise ValueError(f"no work selected in {input_path}")
-
-    first_pos = in_store.positions()[items[0].position]
-    raw_zyx = tuple(first_pos.shape[2:])
-    raw_scale = first_pos.zyx_scale
-    for it in items:
-        shape = tuple(in_store.positions()[it.position].shape[2:])
-        if shape != raw_zyx:
-            raise ValueError(
-                f"position {it.position!r} has volume shape {shape} != "
-                f"{raw_zyx}; reconstruct heterogeneous stores in "
-                "per-shape runs using settings.positions"
-            )
-
-    out_zyx = output_shape(raw_zyx, settings)
-    if settings.deskew is not None:
-        _, out_voxel = get_deskewed_shape(
-            raw_zyx, settings.deskew, pixel_size_um=raw_scale[1]
-        )
-    else:
-        out_voxel = raw_scale
-
-    # Builds the step first: unported settings raise before any output
-    # store or journal is touched.
-    psf = _load_psf(settings)
-    step = build_reconstruct_step(settings, psf=psf, mesh=mesh, device=dev, terms=terms)
-    tf = None
-    if settings.phase is not None:
-        # Once per store, for the volume entering the phase stage;
-        # compute_transfer_function pads by z_padding itself (a padded
-        # shape here would pad twice).
-        tf = tf_tensor(compute_transfer_function(_stage_input_shape_for_phase(raw_zyx, settings),
-                                                 settings.phase.transfer_function),
-                       dev or torch.device("cpu"))
-    batch_size = batch_size or 1
-
+def _prepare_output(in_store, output_path: Path, settings, out_zyx, out_voxel, items,
+                    resume: bool):
+    """(progress journal, output positions): a stale journal dropped,
+    the output store created or checked against this run."""
     progress_path = output_path.with_suffix(output_path.suffix + ".progress.jsonl")
     if progress_path.exists() and (not resume or not output_path.exists()):
         # A journal without its output store is stale.
         progress_path.unlink()
     progress = _Progress(progress_path)
-    todo = [it for it in items if it.key not in progress.done]
 
     if not output_path.exists():
         positions_out = _create_output_store(
@@ -300,6 +250,84 @@ def reconstruct_store(
                 f"existing FOV output {output_path} lacks positions "
                 f"{sorted(missing)}; remove it or reconcile the selection"
             )
+    return progress, positions_out
+
+
+def reconstruct_store(
+    input_path: str | Path,
+    output_path: str | Path,
+    settings,
+    *,
+    mesh=None,
+    batch_size: int | None = None,
+    resume: bool = False,
+    timer: StageTimer | None = None,
+    device: str | torch.device = "cuda",
+    terms=None,
+) -> dict:
+    """Reconstruct every selected volume of ``input_path`` into
+    ``output_path`` on ``device``; returns a summary dict.
+
+    ``batch_size`` defaults to 1. With ``resume=True``, previously
+    completed items (per the progress journal sidecar) are skipped.
+    ``terms`` overrides the planned separable PSF decomposition.
+
+    With ``mesh`` every rank calls it with the same arguments and the
+    step runs on the rank's mesh device (``device`` is not read);
+    ``batch_size`` defaults to the mesh's device count, rounded up to its
+    batch axis; rank 0 returns the summary, with the mesh's shape, and
+    the other ranks None (:func:`_reconstruct_on_mesh`).
+    """
+    input_path, output_path = Path(input_path), Path(output_path)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    timer = timer or StageTimer()
+    in_store = ngff.open_ngff(input_path)
+    items = plan_work(in_store, settings)
+    if not items:
+        raise ValueError(f"no work selected in {input_path}")
+
+    first_pos = in_store.positions()[items[0].position]
+    raw_zyx = tuple(first_pos.shape[2:])
+    raw_scale = first_pos.zyx_scale
+    for it in items:
+        shape = tuple(in_store.positions()[it.position].shape[2:])
+        if shape != raw_zyx:
+            raise ValueError(
+                f"position {it.position!r} has volume shape {shape} != "
+                f"{raw_zyx}; reconstruct heterogeneous stores in "
+                "per-shape runs using settings.positions"
+            )
+
+    out_zyx = output_shape(raw_zyx, settings)
+    if settings.deskew is not None:
+        _, out_voxel = get_deskewed_shape(
+            raw_zyx, settings.deskew, pixel_size_um=raw_scale[1]
+        )
+    else:
+        out_voxel = raw_scale
+
+    # Builds the step first: unported settings raise before any output
+    # store or journal is touched.
+    psf = _load_psf(settings)
+    step = build_reconstruct_step(settings, psf=psf, mesh=mesh, device=dev, terms=terms)
+    tf = None
+    if settings.phase is not None:
+        # Once per store, for the volume entering the phase stage;
+        # compute_transfer_function pads by z_padding itself (a padded
+        # shape here would pad twice). The mesh step takes it on the host
+        # and moves what its rank needs.
+        tf = compute_transfer_function(_stage_input_shape_for_phase(raw_zyx, settings),
+                                       settings.phase.transfer_function)
+        if mesh is None:
+            tf = tf_tensor(tf, dev or torch.device("cpu"))
+    if mesh is not None:
+        return _reconstruct_on_mesh(in_store, input_path, output_path, settings, mesh, items,
+                                    raw_zyx, out_zyx, out_voxel, step, tf, batch_size, resume,
+                                    timer)
+    batch_size = batch_size or 1
+    progress, positions_out = _prepare_output(in_store, output_path, settings, out_zyx,
+                                              out_voxel, items, resume)
+    todo = [it for it in items if it.key not in progress.done]
 
     in_positions = in_store.positions()
     batches = [todo[i : i + batch_size] for i in range(0, len(todo), batch_size)]
@@ -416,6 +444,14 @@ def reconstruct_store(
         retire(inflight)
     flush_writes()
 
+    return _finish(input_path, output_path, settings, positions_out, items, todo, progress,
+                   n_done, raw_zyx, out_zyx, out_voxel, timer, {"device": str(dev)})
+
+
+def _finish(input_path: Path, output_path: Path, settings, positions_out, items, todo,
+            progress, n_done: int, raw_zyx, out_zyx, out_voxel, timer, where: dict) -> dict:
+    """The pyramid levels, then the run summary (``where``: the device, and
+    the mesh's shape on a mesh) written beside the output and returned."""
     if settings.pyramid_levels > 0:
         written = {it.position for it in todo if it.key in progress.done}
         with timer.stage("pyramid"):
@@ -428,7 +464,7 @@ def reconstruct_store(
     summary = {
         "input": str(input_path),
         "output": str(output_path),
-        "device": str(dev),
+        **where,
         "volumes": n_done,
         "skipped_resume": len(items) - len(todo),
         "failed": progress.failed,
@@ -442,3 +478,129 @@ def reconstruct_store(
     with open(output_path / "reconstruct_summary.json", "w") as f:
         json.dump(summary, f, indent=2)
     return summary
+
+
+def _agree(mesh, failed: bool) -> bool:
+    """True on every rank when any rank of the mesh reports ``failed``."""
+    flag = torch.tensor([1.0 if failed else 0.0], device=mesh.device)
+    return bool(all_reduce(flag, mesh.world).item() > 0)
+
+
+def _reconstruct_on_mesh(in_store, input_path: Path, output_path: Path, settings, mesh, items,
+                         raw_zyx, out_zyx, out_voxel, step, tf, batch_size, resume,
+                         timer) -> dict | None:
+    """``reconstruct_store`` on a mesh, called by every rank with the
+    same arguments.
+
+    As in JAX, the batch is rounded up to the mesh's batch axis and a
+    short batch is zero-padded. Rank 0 alone creates (or checks) the
+    output store, keeps the progress journal and returns the summary
+    (the others return None). Every rank reads the batch and the step
+    moves its own block; a read that fails on any rank fails on all. An
+    output chunk is one whole (t, c) volume, so two ranks never write
+    one chunk: with whole volumes out of the step, the ranks that hold
+    distinct volumes write them; X-sharded outputs (deskew only, or
+    ``shard_volumes``) are gathered on the host by each row's first rank,
+    which writes the row's volumes. Writes are awaited before the
+    batch's outcome is agreed over the mesh (the barrier), and then rank
+    0 journals it.
+    """
+    nb, ns = mesh.devices.shape
+    lead = mesh.rank == 0
+    batch_size = round_up(batch_size or mesh.devices.size, nb)
+    setup_error = None
+    if lead:
+        try:
+            progress, positions_out = _prepare_output(in_store, output_path, settings, out_zyx,
+                                                      out_voxel, items, resume)
+        except Exception as e:  # noqa: BLE001 — re-raised below, after the other ranks hear
+            setup_error = e
+    if _agree(mesh, setup_error is not None):
+        if setup_error is not None:
+            raise setup_error
+        raise RuntimeError(f"rank 0 failed to prepare the output store {output_path}")
+    if not lead:
+        progress = _Progress(output_path.with_suffix(output_path.suffix + ".progress.jsonl"))
+        wanted = {it.position for it in items}
+        positions_out = {k: v for k, v in ngff.open_ngff(output_path).positions().items()
+                         if k in wanted}
+    todo = [it for it in items if it.key not in progress.done]
+    in_positions = in_store.positions()
+    retry_cfg = settings.io_retry
+    batches = [todo[i : i + batch_size] for i in range(0, len(todo), batch_size)]
+    j_col = mesh.coords[1]
+    row = mesh.group("space")
+    n_done = 0
+
+    def read_item(it: WorkItem):
+        def once():
+            return np.asarray(in_positions[it.position].read_async((it.t, it.c)).result(),
+                              dtype=np.float32)
+
+        try:
+            return robust_call(once, attempts=retry_cfg.attempts, wait_s=retry_cfg.wait_s), None
+        except Exception as e:  # noqa: BLE001 — containment policy
+            if not retry_cfg.contain_failures:
+                raise
+            logger.error("read failed for %s after %d attempts: %s",
+                         it.key, retry_cfg.attempts, e)
+            return None, str(e)
+
+    def write_item(it: WorkItem, vol: np.ndarray):
+        try:
+            robust_call(lambda: positions_out[it.position].write_async((it.t, it.c), vol).result(),
+                        attempts=retry_cfg.attempts, wait_s=retry_cfg.wait_s)
+            return None
+        except Exception as e:  # noqa: BLE001 — containment policy
+            if not retry_cfg.contain_failures:
+                raise
+            logger.error("write failed for %s after %d attempts: %s",
+                         it.key, retry_cfg.attempts, e)
+            return str(e)
+
+    for batch in batches:
+        with timer.stage("read"):
+            got = [read_item(it) for it in batch]
+            bad = torch.tensor([0.0 if v is not None else 1.0 for v, _ in got]
+                               + [0.0] * (batch_size - len(batch)), device=mesh.device)
+            bad = all_reduce(bad, mesh.world).cpu().numpy() > 0
+            stacked = np.zeros((batch_size, *raw_zyx), np.float32)
+            for k, (v, _) in enumerate(got):
+                if not bad[k]:
+                    stacked[k] = v
+        with timer.stage("compute"):
+            blk = step(stacked, tf)
+        with timer.stage("d2h"):
+            if step.whole_volumes:
+                flat = ns > 1 and batch_size % mesh.devices.size == 0
+                host = blk.data.cpu().numpy() if (flat or j_col == 0) else None
+            else:
+                parts = gather(blk.data, row)
+                host = None if parts is None else torch.cat(parts, dim=-1).numpy()
+            first = blk.batch.start
+        with timer.stage("write"):
+            wrote_bad = np.zeros(batch_size)
+            if host is not None:
+                for k, vol in enumerate(_as_output_dtype(host, settings.output_dtype)):
+                    g = first + k
+                    if g < len(batch) and not bad[g]:
+                        wrote_bad[g] = 1.0 if write_item(batch[g], vol) is not None else 0.0
+            wrote_bad = all_reduce(torch.tensor(wrote_bad, device=mesh.device),
+                                   mesh.world).cpu().numpy() > 0
+        committed = [it for k, it in enumerate(batch) if not bad[k] and not wrote_bad[k]]
+        if lead:
+            for k, it in enumerate(batch):
+                if bad[k]:
+                    progress.mark_failed(it, "read", got[k][1] or "read failed on another rank")
+                elif wrote_bad[k]:
+                    progress.mark_failed(it, "write", "write failed (see the writing rank's log)")
+            progress.mark(committed)
+        n_done += len(committed)
+        logger.info("reconstructed %d/%d volumes", n_done, len(todo))
+
+    barrier()
+    if not lead:
+        return None
+    return _finish(input_path, output_path, settings, positions_out, items, todo, progress,
+                   n_done, raw_zyx, out_zyx, out_voxel, timer,
+                   {"device": str(mesh.device), "mesh": mesh.shape})

@@ -485,7 +485,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                                    "native/__init__", "native/build",
                                                    "viewer/__init__", "viewer/ring",
                                                    "viewer/deskew_preview", "viewer/live",
-                                                   "viewer/feeder", "viewer/web")} <= names
+                                                   "viewer/feeder", "viewer/web",
+                                                   "parallel/mesh", "parallel/fft",
+                                                   "parallel/launch")} <= names
     hits = {str(f.relative_to(REPO)): pattern.findall(f.read_text()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
     # The pattern does catch what it is after.
@@ -521,7 +523,9 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                     "shrimpy_tpu_torch.viewer",
                                     "shrimpy_tpu_torch.viewer.deskew_preview",
                                     "shrimpy_tpu_torch.viewer.live",
-                                    "shrimpy_tpu_torch.viewer.web"])
+                                    "shrimpy_tpu_torch.viewer.web",
+                                    "shrimpy_tpu_torch.parallel.launch",
+                                    "shrimpy_tpu_torch.parallel.fft"])
 def test_store_and_cli_layer_load_nothing_of_the_jax_package(module):
     """In a fresh interpreter, importing the layer (and, for the CLI,
     running a verb's ``--help`` and building the schema models) leaves no

@@ -335,10 +335,12 @@ def test_robust_call_copy_behaves_as_original(fails, attempts, no_retry):
     ({"deconvolve": DeconvolveSettings(separable_backend="fused_iter", iterations=3)}, None),
 ])
 def test_unported_pipeline_settings_raise(update, match, tmp_path):
-    """Stages and settings the port does not run raise; those it has
-    come to run (``match`` None) give a finite batch of the right shape,
-    and the phase and hybrid stages JAX's ``reconstruct_batch`` within
-    1e-4 (the deskew's budget). A registration case reads a real
+    """Settings the step refuses raise (``shard_volumes`` without a mesh
+    whose space axis is > 1: JAX's ``ValueError``); those it runs
+    (``match`` None) give a finite batch of the right shape, and the
+    phase and hybrid stages JAX's ``reconstruct_batch`` within 1e-4 (the
+    deskew's budget). A mesh that is not the port's ``Mesh`` is a
+    ``TypeError`` that names a mesh. A registration case reads a real
     transform JSON from ``tmp_path``."""
     if "registration" in update:
         path = tmp_path / update["registration"].transform_path
@@ -357,9 +359,9 @@ def test_unported_pipeline_settings_raise(update, match, tmp_path):
             ref = np.asarray(jax_reconstruct_batch(raw, settings, psf=psf))
             assert np.abs(out.numpy() - ref).max() / np.abs(ref).max() <= 1e-4
     else:
-        with pytest.raises(NotImplementedError, match=match):
+        with pytest.raises(ValueError, match=f"{match} requires a device mesh with space > 1"):
             build_reconstruct_step(settings, psf=psf, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh must be a .*Mesh"):
         build_reconstruct_step(ReconstructSettings(), mesh=object(), device="cpu")
 
 

@@ -44,7 +44,19 @@ ALLOWED = {
     ("ops.rl_fused_iter", "iter_layout"): ({"tile"}, {"bz", "bx"},
                                            "the card's (ty, tx) tile in place of the TPU's "
                                            "z and x block"),
+    ("parallel.mesh", "init_distributed"): ({"backend"}, set(),
+                                            "torch.distributed's backend: NCCL on the cards, "
+                                            "gloo on the CPU or for ranks that share a card"),
+    ("parallel.mesh", "Mesh"): ({"rank", "backend", "groups"}, {"axis_types"},
+                                "one process a device: the mesh holds this rank, the backend "
+                                "and the process groups of its axes; torch has no axis types"),
 }
+
+# The mesh slice's entry points, each among the pairs checked.
+MESH_NAMES = {("parallel.mesh", "init_distributed"), ("parallel.mesh", "make_mesh"),
+              ("parallel.mesh", "Mesh"), ("parallel.fft", "fft3_sharded"),
+              ("parallel.fft", "ifft3_sharded"), ("parallel.pipeline", "build_reconstruct_step"),
+              ("parallel.pipeline", "reconstruct_batch")}
 
 
 def _public_pairs():
@@ -83,6 +95,7 @@ def _has_signature(obj) -> bool:
 def test_every_shared_entry_point_takes_jax_s_parameter_names():
     pairs = _public_pairs()
     assert len(pairs) >= 25, [p[:2] for p in pairs]
+    assert MESH_NAMES <= {p[:2] for p in pairs}
     used, wrong = set(), []
     for suffix, name, obj, other in pairs:
         if not (_has_signature(obj) and _has_signature(other)):
