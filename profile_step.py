@@ -350,10 +350,11 @@ def sweep_zband(cs) -> None:
 
 def profile_fft(cs) -> None:
     """One warm call of bench.py configs 6 and 8 under the profiler."""
+    from shrimpy_tpu_torch.io.synthetic import tilted_gaussian_psf
     from shrimpy_tpu_torch.ops.deconv import richardson_lucy
 
     gen = torch.Generator(device="cuda").manual_seed(cs.SEED)
-    vol, psf = cs.uniform(cs.NONSEP_SHAPE, gen, 0.0, 100.0), cs.nonsep_psf()
+    vol, psf = cs.uniform(cs.NONSEP_SHAPE, gen, 0.0, 100.0), tilted_gaussian_psf()
     for label, config in (("RL-20 fft2z (config 6)", "config6"),
                           ("hybrid 16 + 6 (config 8)", "config8")):
         s = cs.nonsep_settings(config)

@@ -21,7 +21,8 @@ separable Richardson-Lucy on every separable backend:
 
 No module of the port imports anything of ``shrimpy_tpu``: the store and
 CLI layer has its own copies of the config schemas and the store code
-(pydantic, yaml, tensorstore), and the compute path (ops, kernels,
+(pydantic, yaml; the stores on the port's own zarr chunk engine,
+``io/chunkstore.py``, no tensorstore), and the compute path (ops, kernels,
 parallel, utils) runs on a GPU host that has none of those.
 
 On a CPU tensor every kernel wrapper runs its plain PyTorch twin; on a

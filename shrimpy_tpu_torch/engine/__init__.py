@@ -5,7 +5,7 @@ autofocus and the dual-arm session.
 The event loop (``engine.py``) and run control (``control.py``) load with
 torch, numpy and the standard library, and are imported here. The plan
 (``plan.py``: pydantic and yaml), the replay source (``replay.py``:
-tensorstore through ``io/ngff.py``) and the dual-arm session (``dual.py``:
+``io/ngff.py`` and its chunk engine) and the dual-arm session (``dual.py``:
 pydantic) are served at first access, as ``shrimpy_tpu_torch.config`` serves
 its pydantic models, so ``import shrimpy_tpu_torch.engine`` on a host with
 torch alone loads none of them.
@@ -19,7 +19,7 @@ from shrimpy_tpu_torch.engine.engine import (  # noqa: F401
 )
 
 # Names served lazily, by module: they need pydantic and yaml (plan, dual)
-# or tensorstore (replay).
+# or the store and its chunk codec (replay).
 _LAZY = {
     "AcquisitionPlan": "plan",
     "AcqEvent": "replay",

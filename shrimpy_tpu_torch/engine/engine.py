@@ -24,15 +24,15 @@ for statement by ``tests/test_torch_config.py`` but for four differences,
 each tested on its own:
 
 * **Deferred imports.** The plan (``engine/plan.py``: pydantic, yaml), the
-  replay source (``engine/replay.py``) and the store (``io/ngff.py``:
-  tensorstore) are imported where they are used, never when this module
+  replay source (``engine/replay.py``) and the store (``io/ngff.py`` on the
+  chunk engine) are imported where they are used, never when this module
   loads: it loads, and runs a plan, on a host with torch, numpy and scipy
-  alone (the card's). ``AcquisitionPlan`` and ``ReplaySource`` name the
-  interfaces in annotations only. The output store is
-  ``shrimpy_tpu_torch.io.ngff`` as ``sys.modules`` holds it when
-  :meth:`AcquisitionEngine.acquire` starts: where tensorstore is missing and
-  no stand-in is there, the run raises an ``ImportError`` that names it
-  before it creates anything.
+  alone. ``AcquisitionPlan`` and ``ReplaySource`` name the interfaces in
+  annotations only. The output store is ``shrimpy_tpu_torch.io.ngff`` as
+  ``sys.modules`` holds it when :meth:`AcquisitionEngine.acquire` starts
+  (a stand-in there is used in its place): where it cannot be imported,
+  the run raises an ``ImportError`` that names it before it creates
+  anything.
 * **DynaTrack's config** is :func:`shrimpy_tpu_torch.config.dynatrack_settings`
   with :func:`~shrimpy_tpu_torch.config.inject_dynatrack_parameters`, which
   keep ``DynaTrackConfig``'s rules and messages, never the pydantic model.
@@ -257,7 +257,7 @@ class AcquisitionEngine:
         run_control: RunControl | None = None,
     ) -> Path:
         t_start = time.monotonic()
-        # The output store (tensorstore), as sys.modules holds it now:
+        # The output store, as sys.modules holds it now:
         # without it the run raises here, before it creates anything.
         from shrimpy_tpu_torch.io import ngff
 

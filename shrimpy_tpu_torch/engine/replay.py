@@ -10,7 +10,7 @@ tracking corrections visibly re-center a drifting sample in demo mode
 (the reference tracks the z-stage the same way, ``:400-438``).
 
 The port's own copy of ``shrimpy_tpu/engine/replay.py`` over the port's
-``io/ngff.py`` (tensorstore), pinned statement for statement by
+``io/ngff.py`` (on the chunk engine), pinned statement for statement by
 ``tests/test_torch_config.py`` (``COPIES``).
 """
 

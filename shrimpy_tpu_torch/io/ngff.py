@@ -1,15 +1,16 @@
-"""OME-Zarr (OME-NGFF 0.4 / 0.5) stores on tensorstore.
+"""OME-Zarr (OME-NGFF 0.4 / 0.5) stores on the port's chunk engine.
 
-The port's own copy of ``shrimpy_tpu/io/ngff.py``; ``tests/test_torch_config.py``
-reads a store written by either package with the other.
+The port's own copy of ``shrimpy_tpu/io/ngff.py``, statement for statement
+but one: the array IO runs on :mod:`shrimpy_tpu_torch.io.chunkstore`
+(imported as ``ts``), the port's zarr v2 / v3 chunk engine with blosc-zstd
+decoded in C (``native/zarrcodec.c``), where JAX's runs on tensorstore; the
+card's machine has no tensorstore. ``tests/test_torch_config.py`` pins the
+copy and reads a store written by either package with the other.
 
 The reference reads/writes OME-Zarr via iohub + ome-writers/acquire-zarr
 (reference ``shrimpy/replay_camera.py:86-308``, ``mantis_engine.py:486-493``,
-``docs/data_structure.md:60-94``). Here the array IO runs on
-**tensorstore** — a native C++ chunked-array engine with threaded
-blosc-zstd (de)compression and async reads/writes, which is exactly the
-role acquire-zarr's native writer plays in the reference — while this
-module owns the NGFF group metadata (multiscales / plate / well JSON).
+``docs/data_structure.md:60-94``). This module owns the NGFF group metadata
+(multiscales / plate / well JSON).
 
 Two layouts, as in the reference:
 
@@ -37,7 +38,8 @@ from dataclasses import dataclass, field
 from pathlib import Path
 
 import numpy as np
-import tensorstore as ts
+
+from shrimpy_tpu_torch.io import chunkstore as ts
 
 AXES_TCZYX = [
     {"name": "t", "type": "time"},

@@ -340,48 +340,51 @@ def convzy_circular(v: torch.Tensor, kz, ky, *, flip: bool = False, out=None) ->
     return convzy_circular_plain(v, kz, ky)
 
 
-def toeplitz_banded(n: int, taps) -> np.ndarray:
-    """n x n banded Toeplitz of the centred zero-boundary convolution
-    (``deconv.py::_toeplitz_banded``, in float64)."""
+def _band_matrix(n: int, taps, wrap: bool, device) -> torch.Tensor:
+    """n x n float64 matrix of the centred convolution by ``taps``, built on
+    ``device`` tap after tap: circular (``wrap``) or zero-boundary."""
     taps = np.asarray(taps, np.float64)
     r = len(taps) // 2
-    mat = np.zeros((n, n), np.float64)
-    rows = np.arange(n)
+    mat = torch.zeros((n, n), dtype=torch.float64, device=device)
+    rows = torch.arange(n, device=device)
     for i, k in enumerate(taps):
         cols = rows - (i - r)
-        ok = (cols >= 0) & (cols < n)
-        mat[rows[ok], cols[ok]] += k
+        if wrap:
+            mat[rows, cols % n] += float(k)
+        else:
+            ok = (cols >= 0) & (cols < n)
+            mat[rows[ok], cols[ok]] += float(k)
     return mat
 
 
-def circulant(n: int, taps) -> np.ndarray:
+def toeplitz_banded(n: int, taps, device=None) -> np.ndarray | torch.Tensor:
+    """n x n banded Toeplitz of the centred zero-boundary convolution
+    (``deconv.py::_toeplitz_banded``, in float64): a numpy array, or with
+    ``device`` a tensor built there (a long row's matrix, 28.8 GB at 60,020
+    columns, is then never made on the host)."""
+    mat = _band_matrix(n, taps, False, device or "cpu")
+    return mat if device is not None else mat.numpy()
+
+
+def circulant(n: int, taps, device=None) -> np.ndarray | torch.Tensor:
     """n x n circulant of the centred circular convolution
     (``deconv.py::_circulant``, in float64): taps that wrap onto one
-    column (more taps than ``n``) add up."""
-    taps = np.asarray(taps, np.float64)
-    r = len(taps) // 2
-    mat = np.zeros((n, n), np.float64)
-    rows = np.arange(n)
-    for i, k in enumerate(taps):
-        mat[rows, (rows - (i - r)) % n] += k
-    return mat
-
-
-def _x_dense(h: torch.Tensor, mat: np.ndarray) -> torch.Tensor:
-    """``einsum("ab,zyb->zya", mat, h)``."""
-    return torch.matmul(h, torch.from_numpy(mat).to(h.device, h.dtype).T)
+    column (more taps than ``n``) add up. A numpy array, or with ``device``
+    a tensor built there."""
+    mat = _band_matrix(n, taps, True, device or "cpu")
+    return mat if device is not None else mat.numpy()
 
 
 def x_toeplitz_plain(h: torch.Tensor, kx) -> torch.Tensor:
     """The zero-boundary x axis as the JAX package computes it: the dense
     product ``einsum("ab,zyb->zya", T, h)`` with ``T = toeplitz_banded(gx, kx)``."""
-    return _x_dense(h, toeplitz_banded(h.shape[2], kx))
+    return torch.matmul(h, toeplitz_banded(h.shape[2], kx, h.device).to(h.dtype).T)
 
 
 def x_circulant_plain(h: torch.Tensor, kx) -> torch.Tensor:
     """The circular x axis as ``_rl_sep_zy`` computes it: the dense
     product ``einsum("ab,zyb->zya", C, h)`` with ``C = circulant(gx, kx)``."""
-    return _x_dense(h, circulant(h.shape[2], kx))
+    return torch.matmul(h, circulant(h.shape[2], kx, h.device).to(h.dtype).T)
 
 
 # Per boundary: the plain z+y step, the plain x axis, the z+y step on the

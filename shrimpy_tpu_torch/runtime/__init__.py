@@ -1,1 +1,1 @@
-"""Streaming store reconstruction (imports tensorstore via shrimpy_tpu_torch.io)."""
+"""Streaming store reconstruction (stores through shrimpy_tpu_torch.io's chunk engine)."""

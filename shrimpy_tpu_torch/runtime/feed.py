@@ -1,8 +1,8 @@
 """Host<->device transfers of the streaming runtime.
 
-Kept apart from :mod:`shrimpy_tpu_torch.runtime.stream` (which imports
-tensorstore through ``shrimpy_tpu.io``) so the CUDA path can be tested
-on a machine without tensorstore.
+Kept apart from :mod:`shrimpy_tpu_torch.runtime.stream` (which reads and
+writes stores through ``shrimpy_tpu_torch.io`` and its chunk engine) so
+the transfers can be tested without a store.
 """
 
 from __future__ import annotations

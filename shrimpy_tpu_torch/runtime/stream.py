@@ -2,7 +2,7 @@
 (counterpart of ``shrimpy_tpu/runtime/stream.py``).
 
 Same contract as the JAX runtime: the work plan enumerates independent
-(position, timepoint, channel) volumes; tensorstore async reads
+(position, timepoint, channel) volumes; the chunk engine's async reads
 prefetch the next batch while the current one computes; writes are
 async and awaited one batch later; every read/write retries in place
 and persistent failures are journaled failed-and-skipped; a JSON-lines
@@ -19,9 +19,14 @@ output volumes write them (:func:`_reconstruct_on_mesh`). That path
 reads and writes synchronously, without the feed's side stream.
 
 This layer reads and writes stores through the port's own
-:mod:`shrimpy_tpu_torch.io.ngff` (tensorstore). ``plan_work``,
-``_Progress``, ``_load_psf``, ``_create_output_store`` and
-``_as_output_dtype`` are copies of the JAX module's. With a phase stage
+:mod:`shrimpy_tpu_torch.io.ngff` on its chunk engine
+(:mod:`shrimpy_tpu_torch.io.chunkstore`). ``plan_work``, ``_Progress``,
+``_load_psf`` and ``_as_output_dtype`` are copies of the JAX module's, and
+``_create_output_store`` is but for the output's chunks: a chunk is one
+(t, c) volume, its z split evenly where the volume passes blosc's largest
+chunk (:func:`_output_chunks`). A resumed run also redoes a volume the
+journal has done with fewer chunks on disk than the journal recorded
+(:func:`_redo_unstored`). With a phase stage
 the transfer function is computed once per store, for the post-deskew
 volume, and handed to every step on the device.
 """
@@ -36,7 +41,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from shrimpy_tpu_torch.io import ngff
+from shrimpy_tpu_torch.io import chunkstore, ngff
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf
 from shrimpy_tpu_torch.ops.deskew import get_deskewed_shape
 from shrimpy_tpu_torch.ops.phase import compute_transfer_function, tf_tensor
@@ -124,12 +129,14 @@ def _create_output_store(in_store, out_path: Path, settings, out_zyx, out_voxel,
             )
     else:
         in_pos = in_store.position()
+        shape = (in_pos.shape[0], in_pos.shape[1], *out_zyx)
         pos = ngff.create_fov(
             out_path,
-            shape=(in_pos.shape[0], in_pos.shape[1], *out_zyx),
+            shape=shape,
             dtype=dtype,
             channel_names=in_pos.channel_names,
             zyx_scale=out_voxel,
+            chunks=_output_chunks(shape, dtype),
             version=in_store.version,
         )
         positions_out[ngff.DEFAULT_POSITION_KEY] = pos
@@ -141,8 +148,43 @@ def _create_plate_position(out_store, in_pos, pos_key: str, out_zyx, out_voxel, 
     pos = out_store.create_position(
         row, col, fov, channel_names=in_pos.channel_names, zyx_scale=out_voxel
     )
-    pos.create_array((in_pos.shape[0], in_pos.shape[1], *out_zyx), dtype=dtype)
+    shape = (in_pos.shape[0], in_pos.shape[1], *out_zyx)
+    pos.create_array(shape, dtype=dtype, chunks=_output_chunks(shape, dtype))
     return pos
+
+
+def _output_chunks(shape, dtype: str) -> tuple[int, ...]:
+    """``ngff.default_chunks``, its z split evenly where one chunk would pass
+    blosc 1's largest buffer (``chunkstore.BLOSC_MAX_BUFFERSIZE``): the
+    production output (128, 2888, 1600) float32 is 2.37 GB, which neither
+    the chunk engine nor tensorstore writes as one blosc chunk."""
+    t, c, z, y, x = ngff.default_chunks(shape)
+    plane = y * x * np.dtype(dtype).itemsize
+    pieces = -(-z * plane // chunkstore.BLOSC_MAX_BUFFERSIZE)
+    return (t, c, -(-z // pieces), y, x)
+
+
+def _stored_chunks(positions_out, it) -> tuple[int, int]:
+    """(the item's output chunks on disk, the chunks its volume spans)."""
+    return positions_out[it.position].array()[it.t, it.c].stored_chunks()
+
+
+def _redo_unstored(progress, positions_out, items) -> None:
+    """On resume, take out of ``progress.done`` every volume with fewer
+    output chunks on disk than its journal line recorded (a chunk lost or
+    deleted since), so it is done again. The count, not the volume's span:
+    a chunk equal to the fill value everywhere is not stored (by the engine
+    as by tensorstore), so an all-zero volume has none. A line without a
+    count (JAX's journal) is trusted."""
+    for it in items:
+        want = progress.chunks.get(it.key)
+        if it.key not in progress.done or want is None:
+            continue
+        present, total = _stored_chunks(positions_out, it)
+        if present < want:
+            logger.warning("resume: %s is journaled done with %d of its %d chunks on disk, "
+                           "%d now; redoing it", it.key, want, total, present)
+            progress.done.discard(it.key)
 
 
 def _as_output_dtype(batch: np.ndarray, dtype: str) -> np.ndarray:
@@ -156,11 +198,14 @@ def _as_output_dtype(batch: np.ndarray, dtype: str) -> np.ndarray:
 class _Progress:
     """JSON-lines journal of completed work items (resume support).
     Lines with a ``failed`` field record contained per-item IO failures
-    and do NOT count as done."""
+    and do NOT count as done. JAX's journal but for a line's ``chunks``:
+    how many of the item's output chunks were on disk when it was
+    journaled (:func:`_redo_unstored`); JAX's reader takes these lines."""
 
     def __init__(self, path: Path):
         self.path = path
         self.done: set[str] = set()
+        self.chunks: dict[str, int] = {}
         self.failed: list[dict] = []
         if path.exists():
             for line in path.read_text().splitlines():
@@ -169,13 +214,21 @@ class _Progress:
                     if not isinstance(rec, dict) or "failed" in rec:
                         continue
                     self.done.add(rec["key"])
+                    if isinstance(rec.get("chunks"), int):
+                        self.chunks[rec["key"]] = rec["chunks"]
                 except (json.JSONDecodeError, KeyError):
                     continue
 
-    def mark(self, items: list[WorkItem]) -> None:
+    def mark(self, items: list[WorkItem], positions_out: dict | None = None) -> None:
+        """Journal ``items`` as done, with the output chunks each has on
+        disk where ``positions_out`` is given."""
         with open(self.path, "a") as f:
             for it in items:
-                f.write(json.dumps({"key": it.key}) + "\n")
+                rec = {"key": it.key}
+                if positions_out is not None:
+                    rec["chunks"] = _stored_chunks(positions_out, it)[0]
+                    self.chunks[it.key] = rec["chunks"]
+                f.write(json.dumps(rec) + "\n")
                 self.done.add(it.key)
 
     def mark_failed(self, item: WorkItem, stage: str, error: str) -> None:
@@ -327,12 +380,16 @@ def reconstruct_store(
     batch_size = batch_size or 1
     progress, positions_out = _prepare_output(in_store, output_path, settings, out_zyx,
                                               out_voxel, items, resume)
+    if resume:
+        _redo_unstored(progress, positions_out, items)
     todo = [it for it in items if it.key not in progress.done]
 
     in_positions = in_store.positions()
     batches = [todo[i : i + batch_size] for i in range(0, len(todo), batch_size)]
     retry_cfg = settings.io_retry
-    feed = DeviceFeed(dev or torch.device("cpu"), (batch_size, *raw_zyx))
+    # Its two pinned host buffers of a batch are slow to allocate: none for
+    # a run with nothing to do (a finished store resumed).
+    feed = DeviceFeed(dev or torch.device("cpu"), (batch_size, *raw_zyx)) if batches else None
 
     def start_reads(batch: list[WorkItem]):
         # An issue-time failure leaves None: read_item re-issues with
@@ -395,7 +452,7 @@ def reconstruct_store(
                              it.key, retry_cfg.attempts, e)
                 progress.mark_failed(it, "write", str(e))
         pending = None
-        progress.mark(committed)
+        progress.mark(committed, positions_out)
         n_done += len(committed)
         logger.info("reconstructed %d/%d volumes", n_done, len(todo))
 
@@ -430,7 +487,8 @@ def reconstruct_store(
             continue
         with timer.stage("h2d"):
             pad = batch_size - len(vols)
-            stacked = np.stack(vols + [np.zeros(raw_zyx, np.float32)] * pad)
+            stacked = vols[0][None] if len(vols) == 1 and not pad else np.stack(
+                vols + [np.zeros(raw_zyx, np.float32)] * pad)
             device_batch = feed.to_device(stacked)
         with timer.stage("compute"):
             out = step(device_batch, tf)
@@ -524,6 +582,8 @@ def _reconstruct_on_mesh(in_store, input_path: Path, output_path: Path, settings
         wanted = {it.position for it in items}
         positions_out = {k: v for k, v in ngff.open_ngff(output_path).positions().items()
                          if k in wanted}
+    if resume:
+        _redo_unstored(progress, positions_out, items)
     todo = [it for it in items if it.key not in progress.done]
     in_positions = in_store.positions()
     retry_cfg = settings.io_retry
@@ -594,7 +654,7 @@ def _reconstruct_on_mesh(in_store, input_path: Path, output_path: Path, settings
                     progress.mark_failed(it, "read", got[k][1] or "read failed on another rank")
                 elif wrote_bad[k]:
                     progress.mark_failed(it, "write", "write failed (see the writing rank's log)")
-            progress.mark(committed)
+            progress.mark(committed, positions_out)
         n_done += len(committed)
         logger.info("reconstructed %d/%d volumes", n_done, len(todo))
 

@@ -19,7 +19,7 @@ seconds of both moves (``reference_to_host``, ``reference_to_device``).
 Gaussian-blob template is built on the stack's device
 (:func:`_gaussian_blob`, the float32 arithmetic of
 ``io/synthetic.py::gaussian_blob``; the port's ``io/synthetic.py`` imports
-tensorstore through ``io/ngff.py``). With ``config.debug`` on, a
+the store layer, ``io/ngff.py``). With ``config.debug`` on, a
 ``debug_writer`` (``tracking/debug.py::DebugWriter``) records each updated
 stack where the JAX tracker records it; the stack goes to the host for it.
 """

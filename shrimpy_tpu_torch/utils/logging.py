@@ -107,10 +107,10 @@ def environment_provenance() -> dict:
     }
     from importlib import metadata
 
-    for mod in ("torch", "numpy", "tensorstore"):
+    for mod in ("torch", "numpy"):
         try:
             v = getattr(__import__(mod), "__version__", None)
-            if v is None:  # tensorstore keeps it in dist metadata only
+            if v is None:  # a version kept in dist metadata only
                 v = metadata.version(mod)
             env[mod] = v
         except Exception:  # pragma: no cover - absent optional dep

@@ -8,7 +8,7 @@ The reference wraps every public MMCore method with 3-attempt / 5 s
 retry via ``__getattribute__`` interception, with no-retry exclusion
 lists (``shrimpy/robust_cmmcore.py:13-84``). Here the production
 wiring is :func:`robust_call` around the streaming runtime's
-tensorstore read/write futures (``runtime/stream.py``, per-item
+store's read/write futures (``runtime/stream.py``, per-item
 failure containment). :class:`RobustProxy` is the reference-shaped
 general wrapper for METHOD calls only — dunder-dispatched protocols
 (indexing, iteration) bypass ``__getattr__`` and are not retried.

@@ -49,6 +49,7 @@ from shrimpy_tpu_torch.ops.conv3_cuda import (
     x_toeplitz_plain,
     zy_taps,
 )
+from shrimpy_tpu_torch.io.synthetic import tilted_gaussian_psf
 from shrimpy_tpu_torch.ops.deconv import gaussian_psf, richardson_lucy
 from shrimpy_tpu_torch.ops.deskew import deskew_plain, deskew_volume
 from shrimpy_tpu_torch.ops.deskew_cuda import deskew_cuda
@@ -1634,16 +1635,6 @@ def test_zband_cuda_guards(cuda):
         zband_cuda(spec, taps, "conv", out=spec)
 
 
-def _tilted():
-    """``io/synthetic.py::tilted_gaussian_psf((7, 9, 9))``, computed here
-    (that module imports tensorstore, which a card's machine need not have)."""
-    zz, yy, xx = np.meshgrid(np.arange(7) - 3.0, np.arange(9) - 4.0, np.arange(9) - 4.0,
-                             indexing="ij")
-    psf = np.exp(-0.5 * (((zz + 0.9 * yy) / 1.5) ** 2 + ((yy + 0.8 * xx) / 2.5) ** 2
-                         + (xx / 5.0) ** 2)).astype(np.float32)
-    return psf / psf.sum()
-
-
 @pytest.mark.parametrize("settings", [
     {"algorithm": "fft"},
     {"algorithm": "fft", "fft_backend": "dft2z", "fft_z_chunk": 3},
@@ -1659,11 +1650,12 @@ def test_fft_rl_on_card_matches_float64_plain(cuda, settings):
 
     img = _rand((12, 40, 44), 61, cuda, 0.0, 100.0)
     s = deconvolve_settings(iterations=3, **settings)
+    psf = tilted_gaussian_psf((7, 9, 9))
     zband_cuda.launches = zband_plain.cuda_calls = 0
-    out = richardson_lucy(img, _tilted(), s)
+    out = richardson_lucy(img, psf, s)
     torch.cuda.synchronize()
     assert zband_cuda.launches == 6 and zband_plain.cuda_calls == 0
-    ref = richardson_lucy(img, _tilted(), s, plain=True, dtype=torch.float64)
+    ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
     assert zband_plain.cuda_calls == 6
     zband_plain.cuda_calls = 0
     if s.acceleration == "biggs":

@@ -436,7 +436,8 @@ def _bench_settings(fn):
 def test_chip_smoke_fft_settings_equal_bench_nonsep():
     """chip_smoke.py's FFT phases run bench.py configs 6, 8 and 9:
     the settings of ``_config_nonsep*`` in every field the port reads,
-    the same PSF and the same volume shape."""
+    the same PSF (the port's ``io/synthetic.py::tilted_gaussian_psf``) and
+    the same volume shape."""
     import importlib.util
     from pathlib import Path
 
@@ -455,4 +456,7 @@ def test_chip_smoke_fft_settings_equal_bench_nonsep():
         assert "tilted_gaussian_psf()" in inspect.getsource(fn)
         assert '"128,2888,1600"' in inspect.getsource(fn)
     assert smoke.NONSEP_SHAPE == (128, 2888, 1600)
-    np.testing.assert_array_equal(smoke.nonsep_psf(), tilted_gaussian_psf())
+    from shrimpy_tpu_torch.io import synthetic as tsynthetic
+
+    assert "tilted_gaussian_psf()" in inspect.getsource(smoke.run_phases)
+    np.testing.assert_array_equal(tsynthetic.tilted_gaussian_psf(), tilted_gaussian_psf())

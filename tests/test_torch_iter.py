@@ -487,7 +487,8 @@ def test_port_sources_import_no_jax_and_nothing_of_the_jax_package():
                                                    "viewer/deskew_preview", "viewer/live",
                                                    "viewer/feeder", "viewer/web",
                                                    "parallel/mesh", "parallel/fft",
-                                                   "parallel/launch")} <= names
+                                                   "parallel/launch", "io/chunkstore",
+                                                   "io/ngff")} <= names
     hits = {str(f.relative_to(REPO)): pattern.findall(f.read_text()) for f in files}
     assert not {f: h for f, h in hits.items() if h}
     # The pattern does catch what it is after.
@@ -570,10 +571,10 @@ def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotl
     tracker's correction, the timing context, run control, the plate map,
     autoexposure, the instrument rig, and the engine's event loop: a
     namespace plan with DynaTrack through ``chip_smoke.py``'s in-memory
-    source and store), a run without the store's stand-in raises an
-    ``ImportError`` that names tensorstore before it writes anything, and
-    ``engine/__init__.py`` serves the plan, the replay source and the
-    dual-arm session only on demand."""
+    source and store), a run without the store's stand-in writes its
+    OME-Zarr store through ``io/ngff.py`` on the port's chunk engine (no
+    tensorstore), and ``engine/__init__.py`` serves the plan, the replay
+    source and the dual-arm session only on demand."""
     code = textwrap.dedent("""
         import sys
         for name in ("pydantic", "yaml", "tensorstore", "click", "matplotlib"):
@@ -634,14 +635,13 @@ def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotl
         plan = acquisition_plan(time={"n_timepoints": 3}, metadata={"dynatrack": {
             "input_channel": "BF", "tracking_channel": "BF", "tracking_method": "pcc",
             "image_to_stage_matrix_xyz": [[-1.0, 0, 0], [0, -1.0, 0], [0, 0, -1.0]]}})
-        try:
-            AcquisitionEngine(source(), device="cpu").acquire(out_dir, "bare", plan)
-        except ImportError as e:
-            assert "tensorstore" in str(e), e
-        else:
-            raise AssertionError("the engine ran without a store")
         import os
-        assert not os.listdir(out_dir), os.listdir(out_dir)
+        AcquisitionEngine(source(), device="cpu").acquire(out_dir, "bare", plan)
+        from shrimpy_tpu_torch.io import ngff
+        bare = ngff.open_ngff(os.path.join(out_dir, "bare.zarr"))
+        assert sorted(bare.positions()) == ["0/0/000", "0/1/001"]
+        for pos in bare.positions().values():
+            assert pos.written_timepoints() == [0, 1, 2] and pos.read().shape == (3, 2, 6, 24, 24)
         store = chip_smoke.MemoryStore("cpu")
         out, records, stage, log = chip_smoke.run_engine(source(), store, plan, "cpu", out_dir)
         assert not log.bad and all(f.result(timeout=0) is True for _, _, f in records["futures"])
@@ -649,8 +649,10 @@ def test_card_host_modules_load_without_pydantic_yaml_tensorstore_click_matplotl
         assert sum(len(p.written) for p in store.positions.values()) == 12
         assert stage.get("0/0/000").as_array().tolist() == [-2.0, 2.0, 0.0]  # x, y, z
         for name in ("shrimpy_tpu_torch.engine.plan", "shrimpy_tpu_torch.engine.replay",
-                     "shrimpy_tpu_torch.engine.dual", "shrimpy_tpu_torch.io.ngff"):
+                     "shrimpy_tpu_torch.engine.dual"):
             assert sys.modules.get(name) is None, name
+        assert sys.modules["shrimpy_tpu_torch.io.ngff"] is ngff and ngff.ts.__name__.endswith(
+            "chunkstore")
         print("ok")
     """)
     env = {**os.environ, "PYTHONPATH": str(REPO)}

@@ -23,6 +23,7 @@ from shrimpy_tpu_torch.ops.conv3_cuda import (
     conv3_half_step_plain,
     convzy_linear,
     convzy_linear_cuda,
+    circulant,
     toeplitz_banded,
     x_toeplitz_plain,
 )
@@ -55,6 +56,38 @@ def test_toeplitz_banded_equals_original(n, k):
     taps = np.random.default_rng(n * k).random(k).astype(np.float32)
     np.testing.assert_array_equal(toeplitz_banded(n, taps).astype(np.float32),
                                   jdeconv._toeplitz_banded(n, taps))
+
+
+def _numpy_band(n: int, taps, wrap: bool) -> np.ndarray:
+    """The numpy build of :func:`toeplitz_banded` (``wrap`` False) and
+    :func:`circulant` before they could build on a device."""
+    taps = np.asarray(taps, np.float64)
+    r = len(taps) // 2
+    mat = np.zeros((n, n), np.float64)
+    rows = np.arange(n)
+    for i, k in enumerate(taps):
+        cols = rows - (i - r)
+        if wrap:
+            mat[rows, cols % n] += k
+        else:
+            ok = (cols >= 0) & (cols < n)
+            mat[rows[ok], cols[ok]] += k
+    return mat
+
+
+@pytest.mark.parametrize("wrap", [False, True])
+@pytest.mark.parametrize("n,k", [(1, 3), (9, 13), (40, 7), (131, 13), (60, 37)])
+def test_band_matrices_on_a_device_equal_the_numpy_build(n, k, wrap):
+    """Built as numpy arrays or as float64 tensors on a device, the x pass's
+    dense matrices are the numpy build's bit for bit, taps that wrap onto
+    one column included."""
+    taps = np.random.default_rng(n + k).random(k).astype(np.float32)
+    build = circulant if wrap else toeplitz_banded
+    want = _numpy_band(n, taps, wrap)
+    np.testing.assert_array_equal(build(n, taps), want)
+    got = build(n, taps, torch.device("cpu"))
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.float64
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("flip", [False, True])
