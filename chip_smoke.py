@@ -315,10 +315,15 @@ Phases:
    ``tests/data/ts_fixtures`` decoded by the port's chunk engine to their
    SHA-256, its counters, and its rate on a 1 GiB blosc-zstd container of
    4096 blocks built from their frames, block-parallel and on one thread;
+   the encoder on a production raw of camera counts (4m's blobs and
+   noise, uint16), block-parallel and on one thread, its ratio, and the
+   container decoded back bit for bit with its block and literal modes;
    (b) an OME-Zarr store of two production raws from the seed, ``python3 -m
    shrimpy_tpu_torch.cli.main reconstruct -c configs/reconstruct_demo.yml``
    on it in a subprocess on the card, each volume read back and held to the
-   step run here (bit for bit), the stages, the bytes on disk, the peak;
+   step run here (bit for bit), the stages, the bytes on disk of the input
+   and the output (blosc-zstd: below their raw bytes), the decoder's
+   counters, the peak;
    (c) through the CLI in this process, each run's counts set to 0 just
    before and read just after: ``--resume`` does nothing and launches
    nothing, and redoes exactly a volume whose chunk was deleted, with 1
@@ -337,12 +342,24 @@ from __future__ import annotations
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
-import torch
+# Run as a script from a checkout, this process writes the bytecode of what
+# it imports (torch's too, which its installation may hold none of) into the
+# checkout's build directory, and the processes it starts (4t's ranks, 4s's
+# monitor, 4u's `reconstruct`) load it there instead of compiling torch's
+# sources again.
+if __name__ == "__main__" and (Path(__file__).resolve().parent / "shrimpy_tpu_torch").is_dir():
+    sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"] = str(
+        Path(__file__).resolve().parent / "shrimpy_tpu_torch" / "build" / "pycache")
+    sys.dont_write_bytecode = False
+
+import torch  # noqa: E402
 
 SEED = 0
 RAW_SHAPE = (1201, 256, 1600)  # bench.py::_run_headline
@@ -4964,6 +4981,10 @@ STORE_GAP_RTOL = 1e-3  # deskew then deconvolve against reconstruct (BASELINE.md
 STORE_EQUAL_RTOL = 1e-6  # the CLI against the in-process step where not bit-equal
 DEMO_CONFIG = "configs/reconstruct_demo.yml"
 FIXTURES = "tests/data/ts_fixtures"
+ENCODE_CLEVEL = 3  # the blosc-zstd level of the port's stores (io/ngff.py)
+ENCODE_ONE_THREAD_BLOCKS = 512  # 4u(a)'s blocks encoded on one thread, for the pool's gain
+
+
 def run_cli(runs: list) -> tuple[list, list, float]:
     """The CLI's command lines in turn in this process (``cli.main`` as the
     console script calls it, its summary echo kept off this output). Each
@@ -5119,6 +5140,78 @@ def phase_fixtures() -> dict:
     return res
 
 
+def camera_raw():
+    """A production raw of camera counts from 4m's generator: TRACK_BLOBS
+    blobs on the camera offset TRACK_BACKGROUND with N(0, TRACK_NOISE)
+    noise (:func:`track_raws`' first timepoint), rendered on the card from
+    its own seed and rounded to uint16 on the host (0.98 GB)."""
+    import numpy as np
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
+    centers, amps = track_blobs(gen)
+    raw = track_raw(centers, amps).add_(torch.randn(RAW_SHAPE, generator=gen, device="cuda"),
+                                        alpha=TRACK_NOISE)
+    counts = raw.round_().clamp_(0, 65535).to(torch.int32).cpu().numpy()
+    del raw
+    torch.cuda.empty_cache()
+    return counts.astype(np.uint16)
+
+
+def phase_encode() -> dict:
+    """4u(a), the encoder: :func:`camera_raw` as one blosc-zstd chunk at
+    ENCODE_CLEVEL with byte shuffle (the codec of the port's stores), twice
+    by ``chunkstore.blosc_encode`` (block ranges on the codec pool), and its
+    first ENCODE_ONE_THREAD_BLOCKS blocks on one thread, to the pool's
+    bytes; the container decoded back by the port's decoder, bit for bit,
+    and its block, literal and sequence modes from the decoder's counters."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.io import chunkstore
+
+    raw = camera_raw()
+    src = raw.reshape(-1).view(np.uint8)
+    secs = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        pieces = chunkstore.blosc_encode(raw, 2, True, ENCODE_CLEVEL, key="camera")
+        secs.append(time.perf_counter() - t0)
+    container = np.concatenate([np.asarray(p).reshape(-1).view(np.uint8) for p in pieces])
+    info = chunkstore.blosc_info(container)
+    if info["flags"] != 0x91 or info["nbytes"] != src.size:
+        raise AssertionError(f"(a) the camera raw's container: {info}")
+    units, block = info["units"], info["blocksize"]
+    one = min(ENCODE_ONE_THREAD_BLOCKS, units)
+    buf, sizes = np.empty(one * (block + 4), np.uint8), np.zeros(one, np.int64)
+    t0 = time.perf_counter()
+    got = chunkstore.codec().zc_blosc_encode(src.ctypes.data, src.size, 2, 1, ENCODE_CLEVEL, 0,
+                                             one, buf.ctypes.data, buf.size, sizes.ctypes.data)
+    one_s = time.perf_counter() - t0
+    at = 16 + 4 * units
+    if got != int(sizes.sum()) or not np.array_equal(buf[:got], container[at:at + got]):
+        raise AssertionError(f"(a) {one} blocks on one thread: {got} bytes, not the pool's")
+    chunkstore.reset_counters()
+    t0 = time.perf_counter()
+    decoded = chunkstore.blosc_decode(container, key="camera")
+    decode_s = time.perf_counter() - t0
+    if not np.array_equal(decoded, src):
+        raise AssertionError("(a) the camera raw's container decodes to other bytes")
+    modes = {k: v for k, v in chunkstore.counters().items() if v}
+    if not modes.get("block_compressed"):
+        raise AssertionError(f"(a) no compressed zstd block in the camera raw's container: {modes}")
+    res = {"raw_bytes": int(src.size), "bytes": int(container.size),
+           "ratio": container.size / src.size, "s": secs, "mb_s": src.size / min(secs) / 1e6,
+           "one_thread_mb_s": one * block / one_s / 1e6, "decode_mb_s": src.size / decode_s / 1e6,
+           "blocks": units, "block_bytes": block, "modes": modes}
+    print(f"  (a) the encoder: a camera raw {RAW_SHAPE} uint16 ({TRACK_BLOBS} blobs on "
+          f"{TRACK_BACKGROUND:g} with N(0, {TRACK_NOISE:g}) noise), blosc-zstd clevel "
+          f"{ENCODE_CLEVEL} with byte shuffle, {units} blocks of {block} bytes: {res['bytes']} "
+          f"bytes for {res['raw_bytes']} ({res['ratio']:.4f}); {[round(t, 4) for t in secs]} s, "
+          f"{res['mb_s']:.1f} MB/s on the codec pool, {res['one_thread_mb_s']:.1f} MB/s on one "
+          f"thread ({one} blocks, the pool's bytes); decoded back bit for bit at "
+          f"{res['decode_mb_s']:.1f} MB/s; modes {modes}", flush=True)
+    return res
+
+
 def store_inputs() -> dict:
     """4u's input stores, written by the port's ``io/ngff.py::create_fov`` in
     a temporary directory (removed at exit): ``raw.zarr``, an FOV store
@@ -5179,13 +5272,14 @@ def phase_store(inputs: dict | None = None) -> dict:
 
     t_start = time.monotonic()
     fixtures = phase_fixtures()
+    encode = phase_encode()
     inputs = inputs or store_inputs()
     tmp = inputs["tmp"]
     try:
         res = phase_store_runs(tmp, inputs["raws"])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    res.update(fixtures=fixtures, write_input_s=inputs["write_s"],
+    res.update(fixtures=fixtures, encode=encode, write_input_s=inputs["write_s"],
                inputs_s=inputs["seconds"], seconds=time.monotonic() - t_start)
     print(f"  (e) the stores deleted; phase 4u took {res['seconds']:.1f} s (its inputs, "
           f"{inputs['seconds']:.1f} s, written beside the phases before)", flush=True)
@@ -5201,7 +5295,7 @@ def phase_store_runs(tmp, raws) -> dict:
 
     from shrimpy_tpu_torch.cli.main import _inject_from_store
     from shrimpy_tpu_torch.config.schemas import ReconstructSettings, load_yaml_config
-    from shrimpy_tpu_torch.io import ngff
+    from shrimpy_tpu_torch.io import chunkstore, ngff
     from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
     from shrimpy_tpu_torch.runtime.stream import _load_psf
 
@@ -5211,9 +5305,11 @@ def phase_store_runs(tmp, raws) -> dict:
     src, out = tmp / "raw.zarr", tmp / "recon.zarr"
     raw_bytes = STORE_TIMEPOINTS * int(np.prod(RAW_SHAPE)) * 2
     res: dict = {"in_disk": store_bytes(src), "in_raw": raw_bytes}
-    print(f"  (b) input {src.name}: {STORE_TIMEPOINTS} x 1 x {RAW_SHAPE} uint16, "
-          f"{res['in_disk']} bytes on disk for {raw_bytes} raw "
-          f"({res['in_disk'] / raw_bytes:.6f}: its last z chunk of 512 planes holds "
+    if not res["in_disk"] < raw_bytes:
+        raise AssertionError(f"(b) the input store takes {res['in_disk']} bytes for {raw_bytes}")
+    print(f"  (b) input {src.name}: {STORE_TIMEPOINTS} x 1 x {RAW_SHAPE} uint16 in [0, "
+          f"{STORE_RAW_MAX}), {res['in_disk']} bytes on disk for {raw_bytes} raw "
+          f"({res['in_disk'] / raw_bytes:.6f}; its last z chunk of 512 planes holds "
           f"{RAW_SHAPE[0] % 512})", flush=True)
 
     t0 = time.monotonic()
@@ -5233,11 +5329,14 @@ def phase_store_runs(tmp, raws) -> dict:
                peak_gib=summary["device_memory_gib"].get("cuda:0.peak_allocated"),
                chunks=tuple(ngff.open_ngff(out).position().array()
                             .chunk_layout.read_chunk_template.shape))
+    if not res["out_disk"] < out_bytes:
+        raise AssertionError(f"(b) the output takes {res['out_disk']} bytes for {out_bytes}")
     print(f"  (b) `python3 -m shrimpy_tpu_torch.cli.main reconstruct raw.zarr -o recon.zarr -c "
           f"{DEMO_CONFIG}` on {summary['device']}: {res['cli_s']:.2f} s wall; stages "
           f"{summary['stages']}; output {res['out_shape']} float32 in chunks "
           f"{res['chunks']}, {res['out_disk']} bytes on disk for {out_bytes} raw "
-          f"({res['out_disk'] / out_bytes:.6f}); peak {res['peak_gib']:.2f} GiB", flush=True)
+          f"({res['out_disk'] / out_bytes:.6f}); peak "
+          f"{res['peak_gib']:.2f} GiB", flush=True)
 
     settings = load_yaml_config(repo / DEMO_CONFIG, ReconstructSettings)
     _, in_pos = _inject_from_store(settings, src)
@@ -5253,6 +5352,7 @@ def phase_store_runs(tmp, raws) -> dict:
 
     outs, res["gap"] = [], 0.0
     t0 = time.monotonic()
+    chunkstore.reset_counters()
     for t in range(STORE_TIMEPOINTS):
         raw = in_pos.read((t, 0))
         if not np.array_equal(raw, raws[t]):
@@ -5269,13 +5369,16 @@ def phase_store_runs(tmp, raws) -> dict:
         outs.append(got)
         del want
     res["check_s"] = time.monotonic() - t0
+    res["read_counts"] = {k: v for k, v in chunkstore.counters().items() if v}
+    if not res["read_counts"].get("block_compressed"):
+        raise AssertionError(f"(b) no compressed block read back: {res['read_counts']}")
     del step
     torch.cuda.empty_cache()
     print(f"  (b) each output volume "
           + ("bit-equal to" if res["gap"] == 0.0 else f"within {res['gap']:.3e} of")
           + " build_reconstruct_step run here on the raw read back (its launches: 1 deskew "
-          f"and {2 * ITERATIONS} rl_half a volume); reads and checks {res['check_s']:.2f} s",
-          flush=True)
+          f"and {2 * ITERATIONS} rl_half a volume); reads and checks {res['check_s']:.2f} s; the "
+          f"decoder's counters over the reads {res['read_counts']}", flush=True)
 
     last = STORE_TIMEPOINTS - 1
     chunk = out / "0" / "c" / str(last) / "0" / "0" / "0" / "0"
@@ -6085,14 +6188,18 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
           f"{max(r['rel_err'] for r in md['ranks']):.3e}; (e) NCCL {mesh['e']['rel_err']:.3e}; "
           f"phase 4t took {mesh['seconds']:.1f} s", flush=True)
     st = store["stages"]
-    fx = store["fixtures"]
+    fx, enc = store["fixtures"], store["encode"]
     print(f"[5] {card}: the store path (4u): blosc-zstd decoded at {fx['mb_s']:.1f} MB/s (1 GiB "
           f"of the fixtures' frames, {fx['threads']} cores; {fx['one_thread_mb_s']:.1f} on one); "
+          f"encoded at {enc['mb_s']:.1f} MB/s ({enc['one_thread_mb_s']:.1f} on one) to "
+          f"{enc['ratio']:.4f} of a camera raw; "
           f"`reconstruct` of {STORE_TIMEPOINTS} production raws {store['cli_s']:.2f} s wall "
           f"(read {st['read']:.2f}, h2d {st['h2d']:.2f}, compute {st['compute']:.2f}, d2h {st['d2h']:.4f}, write {st['write']:.2f} s), "
           + ("bit-equal to the step" if store["gap"] == 0.0 else f"{store['gap']:.3e} of the step")
           + f", peak {store['peak_gib']:.2f} GiB, {store['out_disk']} bytes on disk for "
-          f"{store['out_raw']}; input {store['in_disk']} for {store['in_raw']}; --resume and "
+          f"{store['out_raw']} ({store['out_disk'] / store['out_raw']:.4f}); input "
+          f"{store['in_disk']} for {store['in_raw']} ({store['in_disk'] / store['in_raw']:.4f}); "
+          "--resume and "
           f"the verbs {store['runs_s']:.2f} s (gap {store['verbs_gap']:.3e}, launches "
           f"{store['launches']}); phase 4u took "
           f"{store['seconds']:.1f} s", flush=True)

@@ -137,6 +137,12 @@ tiles, the clocks that thread 0 of a block spends in each stage of a
 plane step (mean over the blocks and plane steps; what it waits at a
 barrier is part of the stage before it, unless the barrier is a stage of
 its own).
+
+``python3 profile_step.py --child-start`` times a child process's start as
+``chip_smoke.py``'s children make it, in turns, twice: ``import torch``
+with a CUDA tensor, and the ``reconstruct`` verb's imports with one, each
+without a bytecode prefix (as before the smoke kept one) and reading the
+prefix a writer process has filled, as the smoke fills it.
 """
 
 from __future__ import annotations
@@ -1521,6 +1527,39 @@ def gloo_probe(*, mesh) -> list:
     return every
 
 
+def time_child_start() -> None:
+    """See the module docstring (``--child-start``)."""
+    import os
+    import subprocess
+    import tempfile
+    from pathlib import Path
+
+    repo = Path(__file__).resolve().parent
+    torch_dir = Path(torch.__file__).parent
+    print(f"PYTHONDONTWRITEBYTECODE={os.environ.get('PYTHONDONTWRITEBYTECODE')!r}; torch's "
+          f"__pycache__ beside its sources: {(torch_dir / '__pycache__').is_dir()}", flush=True)
+    base = {k: v for k, v in os.environ.items() if k != "PYTHONPYCACHEPREFIX"}
+    base["PYTHONPATH"] = str(repo)
+    children = {"import torch, a CUDA tensor": "import torch; torch.zeros(1, device='cuda')",
+                "the `reconstruct` verb's imports, a CUDA tensor": (
+                    "import shrimpy_tpu_torch.cli.main, shrimpy_tpu_torch.parallel.launch, "
+                    "shrimpy_tpu_torch.parallel.mesh, shrimpy_tpu_torch.runtime.stream, torch; "
+                    "torch.zeros(1, device='cuda')")}
+    with tempfile.TemporaryDirectory() as prefix:
+        writer = {k: v for k, v in base.items() if k != "PYTHONDONTWRITEBYTECODE"}
+        subprocess.run([sys.executable, "-c", children["the `reconstruct` verb's imports, a "
+                                                        "CUDA tensor"].replace("cuda", "cpu")],
+                       env={**writer, "PYTHONPYCACHEPREFIX": prefix}, check=True)
+        for turn in range(2):
+            for label, code in children.items():
+                for how, env in (("no prefix", base),
+                                 ("the filled prefix", {**base, "PYTHONPYCACHEPREFIX": prefix})):
+                    t0 = time.monotonic()
+                    subprocess.run([sys.executable, "-c", code], env=env, check=True)
+                    print(f"turn {turn}, {label}, {how}: {time.monotonic() - t0:.2f} s",
+                          flush=True)
+
+
 def probe_mesh(cs) -> None:
     """``--mesh``: four gloo ranks on cuda:0, the transpose of
     :func:`gloo_probe` on each, then ``chip_smoke.py``'s phase 4t alone."""
@@ -1547,6 +1586,9 @@ def main() -> int:
     from shrimpy_tpu_torch.kernels import build
 
     print(cs.card_line(), flush=True)
+    if "--child-start" in sys.argv[1:]:
+        time_child_start()
+        return 0
     build.load_library()
     if "--mesh" in sys.argv[1:]:
         probe_mesh(cs)

@@ -25,12 +25,19 @@ stored (its file is removed).
 
 The codec is ``native/zarrcodec.c``, built with ``cc`` on first use and
 called through ``ctypes`` (which releases the GIL): blosc 1 around zstd,
-decoded block by block on a thread pool of the engine's own, and written in
-blosc's uncompressed ("memcpyed") form, which every blosc reader takes. No
-zstd encoder: the port's chunks are the raw bytes and a 16-byte header. A
-chunk past blosc 1's 2,147,483,631 bytes cannot be written (tensorstore
-refuses it too). Where the codec cannot be built or loaded the engine
-raises; there is no other decoder.
+encoded and decoded in ranges of blocks on a thread pool of the engine's
+own. A chunk is written as tensorstore writes it for the same codec: where
+the array's blosc codec names ``zstd`` at ``clevel`` 1 or more without
+bitshuffle, blosc-zstd (flags 0x91 with byte shuffle, c-blosc's block
+size), else, and where that would not be smaller, blosc's uncompressed
+("memcpyed") form, which every blosc reader takes. A chunk in that form is
+read from its file a run of bytes at a time; a compressed one decodes whole.
+The encoder runs zstd levels 1-3 (a higher ``clevel`` runs level 3's
+search; c-blosc maps ``clevel`` 3 to zstd's level 5), so its chunks are
+near, not equal to, tensorstore's bytes. A chunk past blosc 1's
+2,147,483,631 bytes cannot be written (tensorstore refuses it too). Where
+the codec cannot be built or loaded, or fails on a chunk, the engine
+raises; there is no other codec.
 """
 
 from __future__ import annotations
@@ -74,9 +81,11 @@ _ERRORS = {
 BLOSC_COMPRESSORS = {0: "blosclz", 1: "lz4", 2: "snappy", 3: "zlib", 4: "zstd"}
 _CNAME_CODE = {"blosclz": 0, "lz4": 1, "lz4hc": 1, "snappy": 2, "zlib": 3, "zstd": 4}
 
-# Blocks a chunk is split into for the decode pool: below this many bytes a
-# chunk decodes in one call.
+# Blocks a chunk is split into for the codec pool: below this many bytes a
+# chunk is encoded or decoded in one call.
 _PARALLEL_MIN_BYTES = 4 << 20
+# c-blosc stores a buffer under this many bytes in its uncompressed form.
+BLOSC_MIN_BUFFERSIZE = 128
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -117,6 +126,14 @@ def codec() -> ctypes.CDLL:
             lib.zc_blosc_memcpyed.restype = i64
             lib.zc_all_equal.argtypes = [ptr, i64, ptr, i64]
             lib.zc_all_equal.restype = i64
+            lib.zc_zstd_compress.argtypes = [ptr, i64, ptr, i64, i64]
+            lib.zc_zstd_compress.restype = i64
+            lib.zc_blosc_blocksize.argtypes = [i64, i64, i64]
+            lib.zc_blosc_blocksize.restype = i64
+            lib.zc_blosc_encode.argtypes = [ptr, i64, i64, i64, i64, i64, i64, ptr, i64, ptr]
+            lib.zc_blosc_encode.restype = i64
+            lib.zc_blosc_header.argtypes = [i64, i64, i64, i64, ptr, i64, ptr, i64]
+            lib.zc_blosc_header.restype = i64
             if lib.zc_counter_count() != len(COUNTERS):
                 raise RuntimeError("zarrcodec.c and chunkstore.COUNTERS disagree")
             _lib = lib
@@ -140,8 +157,9 @@ def _add_counts(c: np.ndarray) -> None:
 
 
 def _pool(kind: str) -> ThreadPoolExecutor:
-    """``"io"`` runs the futures; ``"decode"`` runs block ranges of one chunk
-    (its jobs never wait on another job, so neither pool can deadlock)."""
+    """``"io"`` runs the futures; ``"codec"`` runs block ranges of one chunk's
+    encode or decode (its jobs never wait on another job, so neither pool can
+    deadlock)."""
     with _pools_lock:
         if kind not in _pools:
             n = os.cpu_count() or 1
@@ -161,9 +179,9 @@ def _done(fn, *args) -> Future:
     return fut
 
 
-def _check(rc: int, key: str, what: str) -> None:
+def _check(rc: int, key: str, what: str, status: str = "DATA_LOSS") -> None:
     if rc < 0:
-        raise ChunkStoreError(f"DATA_LOSS: {what} of chunk {key!r}: {_ERRORS.get(rc, rc)}")
+        raise ChunkStoreError(f"{status}: {what} of chunk {key!r}: {_ERRORS.get(rc, rc)}")
 
 
 # ---------------------------------------------------------------------------
@@ -198,6 +216,14 @@ def blosc_info(data, key: str = "<blosc>") -> dict:
     return out
 
 
+def _parts(units: int, nbytes: int) -> list[tuple[int, int]]:
+    """Ranges of ``units`` blocks for the codec pool: one below
+    _PARALLEL_MIN_BYTES."""
+    parts = 1 if nbytes < _PARALLEL_MIN_BYTES else min(units, 4 * (os.cpu_count() or 1))
+    bounds = [units * i // parts for i in range(parts + 1)]
+    return [(a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+
+
 def blosc_decode(data, out: np.ndarray | None = None, key: str = "<blosc>") -> np.ndarray:
     """Decode a blosc 1 container into ``out`` (uint8, at least its bytes) or
     a new buffer; a large one's blocks on the decode pool."""
@@ -221,8 +247,6 @@ def blosc_decode(data, out: np.ndarray | None = None, key: str = "<blosc>") -> n
         raise ChunkStoreError(f"DATA_LOSS: chunk {key!r} holds {n} bytes, more than "
                               f"its {dst.size}")
     units = info["units"]
-    parts = 1 if n < _PARALLEL_MIN_BYTES else min(units, 4 * (os.cpu_count() or 1))
-    bounds = [units * i // parts for i in range(parts + 1)]
 
     def run(a: int, b: int) -> None:
         c = np.zeros(len(COUNTERS), np.int64)
@@ -231,13 +255,68 @@ def blosc_decode(data, out: np.ndarray | None = None, key: str = "<blosc>") -> n
         _add_counts(c)
         _check(rc, key, "blosc decode")
 
-    if parts <= 1:
+    ranges = _parts(units, n)
+    if len(ranges) <= 1:
         run(0, units)
     else:
-        jobs = [_pool("decode").submit(run, a, b) for a, b in zip(bounds, bounds[1:]) if b > a]
+        jobs = [_pool("codec").submit(run, a, b) for a, b in ranges]
         for j in jobs:
             j.result()
     return dst[:n]
+
+
+def zstd_compress(data, level: int = 3) -> bytes:
+    """One zstd frame of ``data`` (levels 1-3; a higher level runs level
+    3's search)."""
+    src = np.frombuffer(data, np.uint8)
+    cap = src.size + 3 * (src.size // (1 << 17) + 1) + 18
+    out = np.empty(cap, np.uint8)
+    n = codec().zc_zstd_compress(src.ctypes.data, src.size, out.ctypes.data, cap, level)
+    _check(n, "<zstd>", "zstd encode", "INTERNAL")
+    return out[:n].tobytes()
+
+
+def blosc_encode(chunk, typesize: int, shuffle: bool, clevel: int,
+                 key: str = "<blosc>") -> list:
+    """The blosc 1 container of ``chunk``'s bytes, blosc-zstd at ``clevel``
+    (at least 1) with byte shuffle where ``shuffle``, as pieces to write in
+    turn: the header with the block starts, then each range's blocks (a
+    large chunk's ranges encoded at once on the codec pool, each into its
+    own buffer; no full-size copy is made). Where the container would not
+    be smaller than the chunk and a 16-byte header, or the chunk is under
+    BLOSC_MIN_BUFFERSIZE bytes, blosc's uncompressed form: its header, then
+    the chunk's own bytes. An encoder failure raises, naming ``key``."""
+    lib = codec()
+    src = np.ascontiguousarray(chunk).reshape(-1).view(np.uint8)
+    n = src.size
+    flags = (4 << 5) | 0x10 | int(bool(shuffle))
+    if n < BLOSC_MIN_BUFFERSIZE or n > BLOSC_MAX_BUFFERSIZE:
+        return [blosc_memcpyed_header(n, typesize, flags), src]
+    bs = lib.zc_blosc_blocksize(n, typesize, clevel)
+    nblocks = -(-n // bs)
+    sizes = np.zeros(nblocks, np.int64)
+
+    def run(a: int, b: int) -> np.ndarray:
+        cap = (b - a) * (bs + 4)
+        buf = np.empty(cap, np.uint8)  # pages are touched only as far as written
+        got = lib.zc_blosc_encode(src.ctypes.data, n, typesize, int(bool(shuffle)), clevel, a, b,
+                                  buf.ctypes.data, cap, sizes[a:].ctypes.data)
+        _check(got, key, "blosc encode", "INTERNAL")
+        return buf[:got]
+
+    ranges = _parts(nblocks, n)
+    if len(ranges) == 1:
+        bodies = [run(*ranges[0])]
+    else:
+        jobs = [_pool("codec").submit(run, a, b) for a, b in ranges]
+        bodies = [j.result() for j in jobs]
+    if 16 + 4 * nblocks + int(sizes.sum()) >= n + 16:
+        return [blosc_memcpyed_header(n, typesize, flags), src]
+    head = np.empty(16 + 4 * nblocks, np.uint8)
+    rc = lib.zc_blosc_header(n, typesize, int(bool(shuffle)), clevel, sizes.ctypes.data, nblocks,
+                             head.ctypes.data, head.size)
+    _check(rc, key, "blosc encode", "INTERNAL")
+    return [head, *bodies]
 
 
 def blosc_memcpyed_header(nbytes: int, typesize: int, flags: int) -> bytes:
@@ -286,8 +365,8 @@ def _fill_value(value, dtype: np.dtype) -> np.ndarray:
 
 class _Meta:
     """One array's metadata, parsed: the shape, chunks, dtype, fill value,
-    the blosc codec's compressor name and shuffle, and the chunk keys'
-    layout. What this engine does not read (another codec or compressor,
+    the blosc codec's compressor name, level and shuffle, and the chunk
+    keys' layout. What this engine does not read (another codec or compressor,
     big-endian or Fortran-ordered chunks, filters, another grid or key
     encoding) raises, naming it."""
 
@@ -334,6 +413,10 @@ class _Meta:
         shuffle = blosc.get("shuffle", -1)
         self.shuffle = {"noshuffle": 0, "shuffle": 1, "bitshuffle": 2}.get(shuffle, shuffle)
         self.cname = blosc.get("cname", "lz4")
+        self.clevel = int(blosc.get("clevel", 5))
+        # blosc's -1 (zarr v2) is bitshuffle for one-byte types, else byte shuffle.
+        self.byte_shuffle = self.shuffle == 1 or (self.shuffle == -1 and self.dtype.itemsize > 1)
+        self.bitshuffle = self.shuffle == 2 or (self.shuffle == -1 and self.dtype.itemsize == 1)
         self.fill_array = _fill_value(self.fill, self.dtype)
         # tensorstore stores no chunk equal to a non-null fill value.
         self.skip_fill = self.fill is not None
@@ -489,9 +572,10 @@ class _Array:
 
     def read_run(self, idx, box, dst: np.ndarray) -> bool | None:
         """Read ``box`` (an axis's (start, stop) within the chunk) of a chunk
-        in blosc's uncompressed form (this engine's own) straight from its
-        file into ``dst`` (C-contiguous), where the box is one run of the
-        chunk's bytes: no decode buffer, and only the bytes the box holds.
+        in blosc's uncompressed form (clevel 0, another compressor, or a
+        chunk that did not compress) straight from its file into ``dst``
+        (C-contiguous), where the box is one run of the chunk's bytes: no
+        decode buffer, and only the bytes the box holds.
         None: the chunk is not on disk; False: this does not apply (a
         compressed chunk, or a box of several runs)."""
         m = self.meta
@@ -518,17 +602,24 @@ class _Array:
         return True
 
     def encode_and_store(self, idx, chunk: np.ndarray) -> None:
-        """Publish ``chunk`` as blosc's uncompressed form (the header, then
-        its bytes), or remove its file where it equals the fill value."""
+        """Publish ``chunk`` blosc-zstd where the codec names zstd at clevel
+        1 or more without bitshuffle (:func:`blosc_encode`), else in blosc's
+        uncompressed form (the header, then its bytes), which the engine's
+        decoder and every blosc reader take; or remove its file where it
+        equals the fill value."""
         m = self.meta
         path = self.chunk_path(idx)
         if m.skip_fill and _all_equal(chunk, m.fill_array):
             path.unlink(missing_ok=True)
             return
-        body = memoryview(np.ascontiguousarray(chunk)).cast("B")
-        byte_shuffle = m.shuffle == 1 or (m.shuffle == -1 and m.dtype.itemsize > 1)
-        flags = (_CNAME_CODE.get(m.cname, 4) << 5) | 0x10 | int(byte_shuffle)
-        _write_file(path, [blosc_memcpyed_header(body.nbytes, m.dtype.itemsize, flags), body])
+        chunk = np.ascontiguousarray(chunk)
+        if m.cname == "zstd" and m.clevel >= 1 and not m.bitshuffle:
+            pieces = blosc_encode(chunk, m.dtype.itemsize, m.byte_shuffle, m.clevel, str(path))
+        else:
+            body = memoryview(chunk).cast("B")
+            flags = (_CNAME_CODE.get(m.cname, 4) << 5) | 0x10 | int(m.byte_shuffle)
+            pieces = [blosc_memcpyed_header(body.nbytes, m.dtype.itemsize, flags), body]
+        _write_file(path, pieces)
 
 
 class TensorStore:

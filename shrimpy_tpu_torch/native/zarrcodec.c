@@ -1,6 +1,6 @@
 /*
  * The chunk codec of the port's zarr engine (io/chunkstore.py): the blosc 1
- * container around zstd, decoded here and called through ctypes.
+ * container around zstd, decoded and encoded here and called through ctypes.
  *
  *   zc_blosc_info      the 16-byte header: version, versionlz, flags,
  *                      typesize, nbytes, blocksize, cbytes, block count.
@@ -23,12 +23,21 @@
  *                      offsets; skippable frames; the xxHash64 checksum.
  *   zc_all_equal       whether a buffer is one value repeated (a chunk
  *                      equal to the fill value is not stored).
+ *   zc_zstd_compress   one zstd frame of a buffer, levels 1-3 (the
+ *                      decoder's mirror; see "zstd encoder" below).
+ *   zc_blosc_blocksize c-blosc's block size for zstd at a clevel.
+ *   zc_blosc_encode    blocks [first, last) of a blosc-zstd container: each
+ *                      an int32 size and a zstd frame of the block (byte-
+ *                      shuffled first where asked), or the block's bytes.
+ *   zc_blosc_header    the container's header and block starts from the
+ *                      sizes zc_blosc_encode gave.
  *
  * Every entry point checks its bounds and returns a negative ZC_E* code on
  * bad input; none reads or writes past a buffer it was given. Blocks of one
- * container are independent, so the caller decodes ranges of them on
- * several threads at once (ctypes releases the GIL). Counters of the modes
- * a decode took are added into an int64 array the caller passes (or NULL).
+ * container are independent, so the caller encodes and decodes ranges of
+ * them on several threads at once (ctypes releases the GIL). Counters of
+ * the modes a decode took are added into an int64 array the caller passes
+ * (or NULL).
  */
 
 #include <stddef.h>
@@ -72,11 +81,7 @@ static uint32_t rd32(const uint8_t *p) {
 
 static uint64_t rd64(const uint8_t *p) { return (uint64_t)rd32(p) | ((uint64_t)rd32(p + 4) << 32); }
 
-static int highbit32(uint32_t v) {  /* v > 0 */
-  int n = 0;
-  while (v >>= 1) n++;
-  return n;
-}
+static inline int highbit32(uint32_t v) { return 31 - __builtin_clz(v); } /* v > 0 */
 
 /* ------------------------------------------------------------------ */
 /* xxHash64                                                            */
@@ -830,6 +835,1028 @@ int64_t zc_zstd_decompress(const uint8_t *src, int64_t srclen, uint8_t *dst, int
 }
 
 /* ------------------------------------------------------------------ */
+/* zstd encoder                                                        */
+/* ------------------------------------------------------------------ */
+
+/* The mirror of the decoder above. A frame is one segment with its content
+ * size and no checksum (what c-blosc's ZSTD_compressCCtx writes), its window
+ * the whole frame. Each block: RLE where it is one byte repeated, raw where
+ * the compressed form would not be smaller, else compressed. The match
+ * finder keeps hash tables of positions across the blocks of a frame:
+ * level 1 one table of 6-byte prefixes (zstd's "fast"), levels 2 and 3 a
+ * table of 8-byte and one of 5-byte prefixes ("dfast"); matches are of 4
+ * bytes or more (the format's least is 3). Literals go raw, RLE or Huffman
+ * coded (package-merge lengths of at most 11 bits; the weights direct or
+ * FSE-coded; one stream under 1 KiB, else four; the frame's last table
+ * reused, treeless, where that is smaller). Each of the three sequence codes
+ * takes the predefined, RLE or an FSE-compressed table, whichever costs
+ * least; the repeat offsets carry across blocks as the decoder keeps them. */
+
+#if defined(__BYTE_ORDER__) && __BYTE_ORDER__ != __ORDER_LITTLE_ENDIAN__
+#error "the encoder stores its bit streams with little-endian word writes"
+#endif
+
+#define ZE_BLOCK (1 << 17)            /* zstd's largest block */
+#define ZE_MAX_SEQ (ZE_BLOCK / 4 + 1) /* matches are of 4 bytes or more */
+#define ZE_TAIL 16                    /* bytes at a block's end the search leaves (8-byte reads) */
+#define ZE_HUF_MAX_BITS 11
+
+static inline void st16(uint8_t *p, uint32_t v) {
+  p[0] = (uint8_t)v;
+  p[1] = (uint8_t)(v >> 8);
+}
+
+static inline void st24(uint8_t *p, uint32_t v) {
+  st16(p, v);
+  p[2] = (uint8_t)(v >> 16);
+}
+
+static inline void st32(uint8_t *p, uint32_t v) {
+  st16(p, v);
+  st16(p + 2, v >> 16);
+}
+
+/* A forward bit stream that the decoder reads backward (BitBack). Stores
+ * are whole 64-bit words; past `cap` it stops writing and flags overflow. */
+typedef struct {
+  uint8_t *start, *ptr, *end;
+  uint64_t acc;
+  int bits;
+  int overflow;
+} BitOut;
+
+static void bo_init(BitOut *b, uint8_t *dst, int64_t cap) {
+  b->start = b->ptr = dst;
+  b->end = dst + (cap >= 8 ? cap - 8 : 0);
+  b->acc = 0;
+  b->bits = 0;
+  b->overflow = cap < 8;
+}
+
+/* Add the n low bits of v (v < 2^n); at most 56 bits between flushes. */
+static inline void bo_add(BitOut *b, uint64_t v, int n) {
+  b->acc |= v << b->bits;
+  b->bits += n;
+}
+
+static inline void bo_flush(BitOut *b) {
+  int nb = b->bits >> 3;
+  if (!b->overflow) memcpy(b->ptr, &b->acc, 8);
+  b->ptr += nb;
+  if (b->ptr > b->end) {
+    b->ptr = b->end;
+    b->overflow = 1;
+  }
+  b->acc = nb ? (nb == 8 ? 0 : b->acc >> (8 * nb)) : b->acc;
+  b->bits &= 7;
+}
+
+/* The closing 1 bit; returns the stream's bytes, or -1 past its capacity. */
+static int64_t bo_close(BitOut *b) {
+  bo_add(b, 1, 1);
+  bo_flush(b);
+  if (b->overflow) return -1;
+  return (b->ptr - b->start) + (b->bits > 0);
+}
+
+/* Fixed-point log2 (1/256 bit) of 1 <= x < 2^24. */
+static int log2_fix(uint32_t x) {
+  int hb = highbit32(x);
+  uint32_t f = hb >= 8 ? (x >> (hb - 8)) & 255 : (x << (8 - hb)) & 255;
+  return (hb << 8) + (int)f + (int)((f * (256 - f) * 89) >> 16);
+}
+
+/* ---- FSE tables for encoding ---- */
+
+typedef struct {
+  int log;
+  uint16_t state[512];
+  int32_t dnb[64];  /* (nbits out << 16) - the least state that takes them */
+  int32_t dfs[64];  /* the symbol's first entry in `state`, less its count */
+  int32_t first[64];
+} FseCTable;
+
+static int fse_ctable(FseCTable *ct, const int16_t *norm, int max_sym, int log) {
+  int size = 1 << log, high = size - 1;
+  uint8_t sym_at[512];
+  int cumul[65];
+  cumul[0] = 0;
+  for (int s = 0; s <= max_sym; s++) {
+    if (norm[s] == -1) {
+      sym_at[high--] = (uint8_t)s;
+      cumul[s + 1] = cumul[s] + 1;
+    } else {
+      cumul[s + 1] = cumul[s] + norm[s];
+    }
+  }
+  int pos = 0, step = (size >> 1) + (size >> 3) + 3, mask = size - 1;
+  for (int s = 0; s <= max_sym; s++) {
+    for (int i = 0; i < norm[s]; i++) {
+      sym_at[pos] = (uint8_t)s;
+      do pos = (pos + step) & mask; while (pos > high);
+    }
+  }
+  if (pos != 0 || cumul[max_sym + 1] != size) return ZC_E_ARG;
+  int next[64];
+  memcpy(next, cumul, sizeof(int) * (max_sym + 1));
+  for (int u = 0; u < size; u++) ct->state[next[sym_at[u]]++] = (uint16_t)(size + u);
+  for (int s = 0; s <= max_sym; s++) {
+    int n = norm[s];
+    ct->first[s] = cumul[s];
+    if (n == 0) {
+      ct->dnb[s] = ((log + 1) << 16) - size;
+      ct->dfs[s] = 0;
+    } else if (n == -1 || n == 1) {
+      ct->dnb[s] = (log << 16) - size;
+      ct->dfs[s] = cumul[s] - 1;
+    } else {
+      int out = log - highbit32((uint32_t)n - 1);
+      ct->dnb[s] = (out << 16) - (n << out);
+      ct->dfs[s] = cumul[s] - n;
+    }
+  }
+  ct->log = log;
+  return 0;
+}
+
+/* The state that decodes s with no bits before it: its first cell, whose
+ * update reads the most bits (at least 1), so a stream's end is seen. */
+static inline uint32_t fse_init(const FseCTable *ct, int s) { return ct->state[ct->first[s]]; }
+
+static inline void fse_enc(BitOut *b, const FseCTable *ct, uint32_t *state, int s) {
+  uint32_t nb = (uint32_t)((int64_t)*state + ct->dnb[s]) >> 16;
+  bo_add(b, *state & ((1u << nb) - 1), (int)nb);
+  *state = ct->state[(*state >> nb) + ct->dfs[s]];
+}
+
+/* Counts to a table of 2^log (zstd's FSE_normalizeCount, with a plain
+ * fix-up where the largest symbol cannot take the rounding alone). A count
+ * at most total >> log becomes -1 where low_prob, else 1. Returns 0, or
+ * ZC_E_ARG for one symbol or more symbols than cells. */
+static int fse_normalize(int16_t *norm, int log, const uint32_t *count, uint32_t total,
+                         int max_sym, int low_prob) {
+  static const uint32_t rtb[8] = {0, 473195, 504333, 520860, 550000, 700000, 750000, 830000};
+  const int scale = 62 - log;
+  const uint64_t step = ((uint64_t)1 << 62) / total, vstep = (uint64_t)1 << (scale - 20);
+  const uint32_t low = total >> log;
+  int still = 1 << log, largest = 0, present = 0;
+  int16_t largest_p = 0;
+  for (int s = 0; s <= max_sym; s++) {
+    if (count[s] == total) return ZC_E_ARG;
+    norm[s] = 0;
+    if (!count[s]) continue;
+    present++;
+    if (count[s] <= low) {
+      norm[s] = low_prob ? -1 : 1;
+      still--;
+    } else {
+      int16_t p = (int16_t)((count[s] * step) >> scale);
+      if (p < 8) p += (count[s] * step) - ((uint64_t)p << scale) > vstep * rtb[p];
+      if (p < 1) p = 1;
+      if (p > largest_p) {
+        largest_p = p;
+        largest = s;
+      }
+      norm[s] = p;
+      still -= p;
+    }
+  }
+  if (present > (1 << log)) return ZC_E_ARG;
+  if (-still < (norm[largest] >> 1)) {
+    norm[largest] = (int16_t)(norm[largest] + still);
+    return 0;
+  }
+  while (still != 0) {
+    /* Take from (or give to) the symbol with the most cells. */
+    int best = -1;
+    for (int s = 0; s <= max_sym; s++) {
+      if (norm[s] > (still < 0 ? 1 : 0) && (best < 0 || norm[s] > norm[best])) best = s;
+    }
+    if (best < 0) return ZC_E_ARG;
+    norm[best] = (int16_t)(norm[best] + (still < 0 ? -1 : 1));
+    still += still < 0 ? 1 : -1;
+  }
+  return 0;
+}
+
+/* The table description (the inverse of fse_read_counts); returns bytes. */
+static int64_t fse_write_counts(uint8_t *out, int64_t cap, const int16_t *norm, int max_sym,
+                                int log) {
+  uint64_t acc = 0;
+  int bits = 0;
+  int64_t o = 0;
+#define PUT(v, n)                                  \
+  do {                                             \
+    acc |= (uint64_t)(v) << bits;                  \
+    bits += (n);                                   \
+    while (bits >= 8) {                            \
+      if (o >= cap) return ZC_E_DST;               \
+      out[o++] = (uint8_t)acc;                     \
+      acc >>= 8;                                   \
+      bits -= 8;                                   \
+    }                                              \
+  } while (0)
+  PUT(log - 5, 4);
+  int remaining = (1 << log) + 1, threshold = 1 << log, nbits = log + 1, s = 0, prev0 = 0;
+  while (s <= max_sym && remaining > 1) {
+    if (prev0) {
+      int start = s;
+      while (s <= max_sym && !norm[s]) s++;
+      if (s > max_sym) return ZC_E_ARG;
+      while (s >= start + 3) {
+        start += 3;
+        PUT(3, 2);
+      }
+      PUT(s - start, 2);
+    }
+    int count = norm[s++];
+    int max = (2 * threshold - 1) - remaining;
+    remaining -= count < 0 ? -count : count;
+    count++;
+    if (count >= threshold) count += max;
+    PUT(count, nbits - (count < max));
+    prev0 = count == 1;
+    if (remaining < 1) return ZC_E_ARG;
+    while (remaining < threshold) {
+      nbits--;
+      threshold >>= 1;
+    }
+  }
+  if (remaining != 1) return ZC_E_ARG;
+  if (bits > 0) {
+    if (o >= cap) return ZC_E_DST;
+    out[o++] = (uint8_t)acc;
+  }
+#undef PUT
+  return o;
+}
+
+/* zstd's FSE_optimalTableLog. */
+static int fse_table_log(int max_log, uint32_t total, int max_sym) {
+  int log = max_log;
+  int from_src = highbit32(total - 1) - 2;
+  int min_src = highbit32(total) + 1, min_sym = highbit32((uint32_t)max_sym) + 2;
+  int min_bits = min_src < min_sym ? min_src : min_sym;
+  if (from_src < log) log = from_src;
+  if (min_bits > log) log = min_bits;
+  if (log < 5) log = 5;
+  if (log > max_log) log = max_log;
+  return log;
+}
+
+/* Bits (1/256) that counts cost under a table's normalised counts. */
+static uint64_t fse_cost(const uint32_t *count, int max_sym, const int16_t *norm, int log) {
+  uint64_t c = 0;
+  for (int s = 0; s <= max_sym; s++) {
+    if (!count[s]) continue;
+    int n = norm[s] < 0 ? 1 : norm[s];
+    c += (uint64_t)count[s] * (uint64_t)((log << 8) - log2_fix((uint32_t)n));
+  }
+  return c;
+}
+
+/* ---- the encoder's state ---- */
+
+typedef struct {
+  uint32_t ll, ml, of;  /* literal length, match length, offset value (1-3 repeat codes) */
+} ZSeq;
+
+typedef struct {
+  int valid, maxbits;
+  uint8_t len[256];
+  uint16_t code[256];
+} HufCode;
+
+typedef struct {
+  int level, hlog, slog;
+  /* Frame position + gen; below gen, an earlier frame's. A candidate is
+   * taken only where it lies before the search's position. */
+  uint32_t *hash, *hash_short;
+  uint64_t gen;
+  uint32_t rep[3];
+  HufCode huf;                  /* the frame's last Huffman table the decoder holds */
+  uint8_t *lit;
+  int64_t nlit;
+  ZSeq *seq;
+  int64_t nseq;
+  uint8_t *codes;               /* three code arrays of ZE_MAX_SEQ */
+  uint8_t *body;                /* a compressed block, ZE_BLOCK + 64 */
+  uint8_t ll_code[64], ml_code[128];
+} Enc;
+
+static void enc_free(Enc *e) {
+  if (!e) return;
+  free(e->hash);
+  free(e->hash_short);
+  free(e->lit);
+  free(e->seq);
+  free(e->codes);
+  free(e->body);
+  free(e);
+}
+
+static Enc *enc_new(int level) {
+  Enc *e = (Enc *)calloc(1, sizeof(Enc));
+  if (!e) return NULL;
+  e->level = level < 1 ? 1 : (level > 3 ? 3 : level);
+  e->hlog = e->level == 1 ? 14 : (e->level == 2 ? 15 : 16);
+  e->slog = e->level == 1 ? 0 : e->hlog - 1;
+  e->hash = (uint32_t *)calloc((size_t)1 << e->hlog, 4);
+  e->hash_short = e->slog ? (uint32_t *)calloc((size_t)1 << e->slog, 4) : NULL;
+  e->lit = (uint8_t *)malloc(ZE_BLOCK + 64);
+  e->seq = (ZSeq *)malloc(sizeof(ZSeq) * ZE_MAX_SEQ);
+  e->codes = (uint8_t *)malloc(3 * ZE_MAX_SEQ);
+  e->body = (uint8_t *)malloc(ZE_BLOCK + 64);
+  if (!e->hash || (e->slog && !e->hash_short) || !e->lit || !e->seq || !e->codes || !e->body) {
+    enc_free(e);
+    return NULL;
+  }
+  e->gen = 1;
+  for (int v = 0; v < 64; v++) {
+    int c = 0;
+    while (c + 1 < 36 && LL_BASE[c + 1] <= (uint32_t)v) c++;
+    e->ll_code[v] = (uint8_t)c;
+  }
+  for (int v = 0; v < 128; v++) {
+    int c = 0;
+    while (c + 1 < 53 && ML_BASE[c + 1] <= (uint32_t)v + 3) c++;
+    e->ml_code[v] = (uint8_t)c;
+  }
+  return e;
+}
+
+/* ---- match finding ---- */
+
+static inline uint32_t hash5(const uint8_t *p, int h) {
+  return (uint32_t)(((rd64(p) << 24) * 889523592379ULL) >> (64 - h));
+}
+
+static inline uint32_t hash6(const uint8_t *p, int h) {
+  return (uint32_t)(((rd64(p) << 16) * 227718039650203ULL) >> (64 - h));
+}
+
+static inline uint32_t hash8(const uint8_t *p, int h) {
+  return (uint32_t)((rd64(p) * 0xCF1BBCDCB7A56463ULL) >> (64 - h));
+}
+
+/* Equal bytes at a and at b (b before a), a running to end. */
+static inline int64_t match_len(const uint8_t *a, const uint8_t *b, const uint8_t *end) {
+  const uint8_t *s = a;
+  while (a + 8 <= end) {
+    uint64_t d = rd64(a) ^ rd64(b);
+    if (d) return (a - s) + (__builtin_ctzll(d) >> 3);
+    a += 8;
+    b += 8;
+  }
+  while (a < end && *a == *b) a++, b++;
+  return a - s;
+}
+
+/* One sequence: `ll` literals from `lits`, then a match of `ml` bytes at
+ * distance `off`; its offset value and the repeat offsets as the decoder
+ * will update them. */
+static void emit(Enc *e, const uint8_t *lits, int64_t ll, int64_t ml, uint32_t off) {
+  memcpy(e->lit + e->nlit, lits, (size_t)ll);
+  e->nlit += ll;
+  uint32_t *rep = e->rep, of;
+  int idx;
+  if (ll > 0) {
+    idx = off == rep[0] ? 0 : (off == rep[1] ? 1 : (off == rep[2] ? 2 : -1));
+    of = idx < 0 ? off + 3 : (uint32_t)idx + 1;
+  } else {
+    idx = off == rep[1] ? 1 : (off == rep[2] ? 2 : (off == rep[0] - 1 ? 3 : -1));
+    of = idx < 0 ? off + 3 : (uint32_t)idx;
+  }
+  if (idx < 0) {
+    rep[2] = rep[1];
+    rep[1] = rep[0];
+    rep[0] = off;
+  } else if (idx > 0) {
+    if (idx != 1) rep[2] = rep[1];
+    rep[1] = rep[0];
+    rep[0] = off;
+  }
+  ZSeq *q = &e->seq[e->nseq++];
+  q->ll = (uint32_t)ll;
+  q->ml = (uint32_t)ml;
+  q->of = of;
+}
+
+/* Sequences of block [bs, be) of the frame src: level 1. */
+static int64_t search_fast(Enc *e, const uint8_t *src, int64_t bs, int64_t be) {
+  const int h = e->hlog;
+  uint32_t *t = e->hash;
+  const uint64_t g = e->gen;
+  const uint8_t *end = src + be;
+  const int64_t ilimit = be - ZE_TAIL;
+  int64_t ip = bs > 0 ? bs : 1, anchor = bs;
+  while (ip < ilimit) {
+    const uint8_t *p = src + ip;
+    uint32_t hv = hash6(p, h);
+    uint64_t cand = t[hv];
+    t[hv] = (uint32_t)(ip + g);
+    uint32_t r0 = e->rep[0];
+    if (ip + 1 >= (int64_t)r0 && rd32(p + 1) == rd32(p + 1 - r0)) {
+      int64_t ml = 4 + match_len(p + 5, p + 5 - r0, end);
+      emit(e, src + anchor, ip + 1 - anchor, ml, r0);
+      ip += 1 + ml;
+      anchor = ip;
+    } else if (cand >= g && cand < g + ip && rd32(src + (cand - g)) == rd32(p)) {
+      int64_t m = (int64_t)(cand - g);
+      int64_t ml = 4 + match_len(p + 4, src + m + 4, end);
+      while (ip > anchor && m > 0 && src[ip - 1] == src[m - 1]) ip--, m--, ml++;
+      emit(e, src + anchor, ip - anchor, ml, (uint32_t)(ip - m));
+      ip += ml;
+      anchor = ip;
+    } else {
+      ip += ((ip - anchor) >> 8) + 1;
+      continue;
+    }
+    if (ip < ilimit) t[hash6(src + ip - 2, h)] = (uint32_t)(ip - 2 + g);
+    /* The second repeat offset straight after a match. */
+    while (ip < ilimit && ip >= (int64_t)e->rep[1] && rd32(src + ip) == rd32(src + ip - e->rep[1])) {
+      uint32_t r1 = e->rep[1];
+      int64_t rl = 4 + match_len(src + ip + 4, src + ip + 4 - r1, end);
+      t[hash6(src + ip, h)] = (uint32_t)(ip + g);
+      emit(e, src + ip, 0, rl, r1);
+      ip += rl;
+      anchor = ip;
+    }
+  }
+  return anchor;
+}
+
+/* Levels 2 and 3: a long (8-byte) and a short (5-byte) hash. */
+static int64_t search_dfast(Enc *e, const uint8_t *src, int64_t bs, int64_t be) {
+  const int hl = e->hlog, hs = e->slog;
+  uint32_t *lt = e->hash, *stt = e->hash_short;
+  const uint64_t g = e->gen;
+  const uint8_t *end = src + be;
+  const int64_t ilimit = be - ZE_TAIL;
+  int64_t ip = bs > 0 ? bs : 1, anchor = bs;
+  while (ip < ilimit) {
+    const uint8_t *p = src + ip;
+    uint32_t h8 = hash8(p, hl), h5 = hash5(p, hs);
+    uint64_t cl = lt[h8], cs = stt[h5];
+    lt[h8] = stt[h5] = (uint32_t)(ip + g);
+    uint32_t r0 = e->rep[0];
+    int64_t start = ip, ml, m = -1;
+    if (ip + 1 >= (int64_t)r0 && rd32(p + 1) == rd32(p + 1 - r0)) {
+      ml = 4 + match_len(p + 5, p + 5 - r0, end);
+      ip++;
+      emit(e, src + anchor, ip - anchor, ml, r0);
+    } else {
+      if (cl >= g && cl < g + ip && rd64(src + (cl - g)) == rd64(p)) {
+        m = (int64_t)(cl - g);
+        ml = 8 + match_len(p + 8, src + m + 8, end);
+      } else if (cs >= g && cs < g + ip && rd32(src + (cs - g)) == rd32(p)) {
+        uint32_t h8n = hash8(p + 1, hl);
+        uint64_t c3 = lt[h8n];
+        lt[h8n] = (uint32_t)(ip + 1 + g);
+        if (c3 >= g && c3 < g + ip + 1 && rd64(src + (c3 - g)) == rd64(p + 1)) {
+          ip++;
+          m = (int64_t)(c3 - g);
+          ml = 8 + match_len(src + ip + 8, src + m + 8, end);
+        } else {
+          m = (int64_t)(cs - g);
+          ml = 4 + match_len(p + 4, src + m + 4, end);
+        }
+      } else {
+        ip += ((ip - anchor) >> 8) + 1;
+        continue;
+      }
+      while (ip > anchor && m > 0 && src[ip - 1] == src[m - 1]) ip--, m--, ml++;
+      emit(e, src + anchor, ip - anchor, ml, (uint32_t)(ip - m));
+    }
+    ip += ml;
+    anchor = ip;
+    if (ip < ilimit) {
+      lt[hash8(src + start + 2, hl)] = (uint32_t)(start + 2 + g);
+      stt[hash5(src + start + 2, hs)] = (uint32_t)(start + 2 + g);
+      lt[hash8(src + ip - 2, hl)] = (uint32_t)(ip - 2 + g);
+      stt[hash5(src + ip - 1, hs)] = (uint32_t)(ip - 1 + g);
+    }
+    while (ip < ilimit && ip >= (int64_t)e->rep[1] && rd32(src + ip) == rd32(src + ip - e->rep[1])) {
+      uint32_t r1 = e->rep[1];
+      int64_t rl = 4 + match_len(src + ip + 4, src + ip + 4 - r1, end);
+      stt[hash5(src + ip, hs)] = lt[hash8(src + ip, hl)] = (uint32_t)(ip + g);
+      emit(e, src + ip, 0, rl, r1);
+      ip += rl;
+      anchor = ip;
+    }
+  }
+  return anchor;
+}
+
+/* ---- literals ---- */
+
+/* Optimal code lengths of at most `limit` bits (package-merge) for the
+ * symbols with a count (at least two); returns the longest. */
+static int huf_lengths(const uint32_t *count, int max_sym, int limit, uint8_t *len) {
+  int sym[256], n = 0;
+  for (int s = 0; s <= max_sym; s++) {
+    len[s] = 0;
+    if (count[s]) {
+      /* insertion by count, ascending */
+      int i = n++;
+      while (i > 0 && count[sym[i - 1]] > count[s]) {
+        sym[i] = sym[i - 1];
+        i--;
+      }
+      sym[i] = s;
+    }
+  }
+  static const int MAXN = 512;
+  uint64_t wa[512], wb[512], *prev = wa, *cur = wb;
+  uint8_t pkg[ZE_HUF_MAX_BITS][512];
+  int cnt[ZE_HUF_MAX_BITS];
+  for (int i = 0; i < n; i++) {
+    prev[i] = count[sym[i]];
+    pkg[0][i] = 0;
+  }
+  cnt[0] = n;
+  for (int l = 1; l < limit; l++) {
+    int np = cnt[l - 1] / 2, a = 0, b = 0, k = 0;
+    while (a < n || b < np) {
+      uint64_t pw = b < np ? prev[2 * b] + prev[2 * b + 1] : 0;
+      if (b >= np || (a < n && count[sym[a]] <= pw)) {
+        cur[k] = count[sym[a++]];
+        pkg[l][k++] = 0;
+      } else {
+        cur[k] = pw;
+        pkg[l][k++] = 1;
+        b++;
+      }
+      if (k >= MAXN) break;
+    }
+    cnt[l] = k;
+    uint64_t *t = prev;
+    prev = cur;
+    cur = t;
+  }
+  int c = 2 * n - 2, maxbits = 0;
+  for (int l = limit - 1; l >= 0; l--) {
+    int p = 0, leaf = 0;
+    if (c > cnt[l]) c = cnt[l];
+    for (int i = 0; i < c; i++) {
+      if (pkg[l][i]) p++;
+      else len[sym[leaf++]]++;
+    }
+    c = 2 * p;
+  }
+  for (int s = 0; s <= max_sym; s++) maxbits = len[s] > maxbits ? len[s] : maxbits;
+  return maxbits;
+}
+
+/* Canonical codes the decoder's table gives for lengths `len`. */
+static void huf_codes(HufCode *h, const uint8_t *len, int max_sym, int maxbits) {
+  uint32_t rank[ZE_HUF_MAX_BITS + 2] = {0}, start[ZE_HUF_MAX_BITS + 2] = {0};
+  memset(h->len, 0, sizeof(h->len));
+  for (int s = 0; s <= max_sym; s++) {
+    h->len[s] = len[s];
+    if (len[s]) rank[maxbits + 1 - len[s]]++;
+  }
+  uint32_t nxt = 0;
+  for (int w = 1; w <= maxbits; w++) {
+    start[w] = nxt;
+    nxt += rank[w] << (w - 1);
+  }
+  for (int s = 0; s <= max_sym; s++) {
+    if (!len[s]) continue;
+    int w = maxbits + 1 - len[s];
+    h->code[s] = (uint16_t)(start[w] >> (w - 1));
+    start[w] += 1u << (w - 1);
+  }
+  h->maxbits = maxbits;
+  h->valid = 1;
+}
+
+/* The weights FSE-coded behind their byte count (hb < 128); 0 where that
+ * cannot be. */
+static int64_t huf_weights_fse(const uint8_t *w, int nw, uint8_t *out) {
+  if (nw < 2) return 0;
+  uint32_t count[16] = {0};
+  int maxw = 0;
+  for (int i = 0; i < nw; i++) {
+    count[w[i]]++;
+    maxw = w[i] > maxw ? w[i] : maxw;
+  }
+  int64_t best = 0;
+  uint8_t buf[160];
+  for (int log = 5; log <= 6; log++) {
+    int16_t norm[16];
+    FseCTable ct;
+    if (fse_normalize(norm, log, count, (uint32_t)nw, maxw, 0) < 0) return 0;
+    int64_t hsz = fse_write_counts(buf, 128, norm, maxw, log);
+    if (hsz < 0 || fse_ctable(&ct, norm, maxw, log) < 0) continue;
+    BitOut b;
+    bo_init(&b, buf + hsz, 150 - hsz);
+    uint32_t s1, s2;
+    int i;
+    if (nw & 1) {
+      s1 = fse_init(&ct, w[nw - 1]);
+      s2 = fse_init(&ct, w[nw - 2]);
+      fse_enc(&b, &ct, &s1, w[nw - 3]);
+      i = nw - 3;
+    } else {
+      s2 = fse_init(&ct, w[nw - 1]);
+      s1 = fse_init(&ct, w[nw - 2]);
+      i = nw - 2;
+    }
+    bo_flush(&b);
+    while (i > 0) {
+      fse_enc(&b, &ct, &s2, w[--i]);
+      fse_enc(&b, &ct, &s1, w[--i]);
+      bo_flush(&b);
+    }
+    bo_add(&b, s2 & ((1u << log) - 1), log);
+    bo_add(&b, s1 & ((1u << log) - 1), log);
+    int64_t bsz = bo_close(&b);
+    if (bsz < 0 || hsz + bsz > 127) continue;
+    if (!best || hsz + bsz < best) {
+      best = hsz + bsz;
+      out[0] = (uint8_t)best;
+      memcpy(out + 1, buf, (size_t)best);
+    }
+  }
+  return best ? best + 1 : 0;
+}
+
+/* The Huffman tree description: the weights of symbols 0 .. max_sym - 1
+ * (the last one's is implied), direct or FSE-coded, whichever is smaller;
+ * 0 where neither can be written. */
+static int64_t huf_describe(const HufCode *h, int max_sym, uint8_t *out) {
+  uint8_t w[256];
+  int nw = max_sym;
+  for (int s = 0; s < nw; s++) w[s] = h->len[s] ? (uint8_t)(h->maxbits + 1 - h->len[s]) : 0;
+  uint8_t fse[160];
+  int64_t nf = huf_weights_fse(w, nw, fse);
+  int64_t nd = nw <= 128 ? 1 + (nw + 1) / 2 : 0;
+  if (nf && (!nd || nf < nd)) {
+    memcpy(out, fse, (size_t)nf);
+    return nf;
+  }
+  if (!nd) return 0;
+  out[0] = (uint8_t)(127 + nw);
+  memset(out + 1, 0, (size_t)(nd - 1));
+  for (int i = 0; i < nw; i++) out[1 + i / 2] |= (uint8_t)(i & 1 ? w[i] : w[i] << 4);
+  return nd;
+}
+
+static int64_t huf_write_stream(const uint8_t *lit, int64_t n, const HufCode *h, uint8_t *dst,
+                          int64_t cap) {
+  BitOut b;
+  bo_init(&b, dst, cap);
+  int64_t i = n;
+  while (i >= 4) {
+    for (int k = 0; k < 4; k++) {
+      uint8_t c = lit[--i];
+      bo_add(&b, h->code[c], h->len[c]);
+    }
+    bo_flush(&b);
+    if (b.overflow) return -1;
+  }
+  while (i > 0) {
+    uint8_t c = lit[--i];
+    bo_add(&b, h->code[c], h->len[c]);
+  }
+  return bo_close(&b);
+}
+
+static int lit_header_raw(uint8_t *dst, int type, int64_t n) {
+  if (n < 32) {
+    dst[0] = (uint8_t)(type | (n << 3));
+    return 1;
+  }
+  if (n < 4096) {
+    dst[0] = (uint8_t)(type | (1 << 2) | ((n & 15) << 4));
+    dst[1] = (uint8_t)(n >> 4);
+    return 2;
+  }
+  dst[0] = (uint8_t)(type | (3 << 2) | ((n & 15) << 4));
+  dst[1] = (uint8_t)(n >> 4);
+  dst[2] = (uint8_t)(n >> 12);
+  return 3;
+}
+
+/* Huffman-coded literals, under `limit` bytes; 0 where they would not be. */
+static int64_t huf_literals(Enc *e, const uint32_t *count, int max_sym, uint8_t *dst,
+                            int64_t limit) {
+  const uint8_t *lit = e->lit;
+  int64_t n = e->nlit;
+  uint8_t len[256];
+  HufCode fresh;
+  int maxbits = huf_lengths(count, max_sym, ZE_HUF_MAX_BITS, len);
+  huf_codes(&fresh, len, max_sym, maxbits);
+  uint64_t bits_new = 0, bits_old = 0;
+  int old_ok = e->huf.valid;
+  for (int s = 0; s <= max_sym; s++) {
+    if (!count[s]) continue;
+    bits_new += (uint64_t)count[s] * len[s];
+    if (!e->huf.len[s]) old_ok = 0;
+    bits_old += (uint64_t)count[s] * e->huf.len[s];
+  }
+  const int MAXHDR = 5;
+  uint8_t *p = dst + MAXHDR;
+  int64_t cap = limit - MAXHDR, o = 0;
+  if (cap <= 0) return 0;
+  uint8_t desc[160];
+  int64_t dsize = huf_describe(&fresh, max_sym, desc);
+  int treeless = old_ok && (!dsize || (bits_old + 7) / 8 <= (bits_new + 7) / 8 + (uint64_t)dsize);
+  if (!treeless && !dsize) return 0;
+  /* The streams' sizes are known from the counts: write none that lose. */
+  uint64_t need = (treeless ? (bits_old + 7) / 8 : (bits_new + 7) / 8 + (uint64_t)dsize) + 3;
+  if (need >= (uint64_t)limit) return 0;
+  const HufCode *h = treeless ? &e->huf : &fresh;
+  if (!treeless) {
+    if (dsize > cap) return 0;
+    memcpy(p, desc, (size_t)dsize);
+    o = dsize;
+  }
+  int four = n >= 1024;
+  if (!four) {
+    int64_t s = huf_write_stream(lit, n, h, p + o, cap - o);
+    if (s < 0) return 0;
+    o += s;
+  } else {
+    if (cap - o < 6) return 0;
+    int64_t seg = (n + 3) / 4, jt = o;
+    o += 6;
+    for (int k = 0; k < 4; k++) {
+      int64_t m = k < 3 ? seg : n - 3 * seg;
+      int64_t s = huf_write_stream(lit + k * seg, m, h, p + o, cap - o);
+      if (s < 0 || (k < 3 && s > 65535)) return 0;
+      if (k < 3) st16(p + jt + 2 * k, (uint32_t)s);
+      o += s;
+    }
+  }
+  /* The header's size format, then the payload moved up against it. */
+  int64_t big = n > o ? n : o;
+  int type = treeless ? 3 : 2, hsz;
+  uint64_t hv;
+  if (!four) {
+    if (big >= 1024) return 0;
+    hsz = 3;
+    hv = (uint64_t)type | ((uint64_t)n << 4) | ((uint64_t)o << 14);
+  } else if (big < 1024) {
+    hsz = 3;
+    hv = (uint64_t)type | (1 << 2) | ((uint64_t)n << 4) | ((uint64_t)o << 14);
+  } else if (big < 16384) {
+    hsz = 4;
+    hv = (uint64_t)type | (2 << 2) | ((uint64_t)n << 4) | ((uint64_t)o << 18);
+  } else {
+    hsz = 5;
+    hv = (uint64_t)type | (3 << 2) | ((uint64_t)n << 4) | ((uint64_t)o << 22);
+  }
+  if (hsz + o >= limit) return 0;
+  memmove(dst + hsz, p, (size_t)o);
+  for (int i = 0; i < hsz; i++) dst[i] = (uint8_t)(hv >> (8 * i));
+  if (!treeless) e->huf = fresh;
+  return hsz + o;
+}
+
+static int64_t enc_literals(Enc *e, uint8_t *dst, int64_t cap) {
+  const uint8_t *lit = e->lit;
+  int64_t n = e->nlit;
+  int64_t hraw = n < 32 ? 1 : (n < 4096 ? 2 : 3);
+  if (n == 0) {
+    if (cap < 1) return ZC_E_DST;
+    dst[0] = 0;
+    return 1;
+  }
+  uint32_t count[4][256];
+  memset(count, 0, sizeof(count));
+  int64_t i = 0;
+  for (; i + 4 <= n; i += 4) {
+    count[0][lit[i]]++;
+    count[1][lit[i + 1]]++;
+    count[2][lit[i + 2]]++;
+    count[3][lit[i + 3]]++;
+  }
+  for (; i < n; i++) count[0][lit[i]]++;
+  uint32_t maxc = 0;
+  int max_sym = 0;
+  for (int s = 0; s < 256; s++) {
+    count[0][s] += count[1][s] + count[2][s] + count[3][s];
+    if (count[0][s]) max_sym = s;
+    if (count[0][s] > maxc) maxc = count[0][s];
+  }
+  if (maxc == n) {
+    if (cap < hraw + 1) return ZC_E_DST;
+    int hsz = lit_header_raw(dst, 1, n);
+    dst[hsz] = lit[0];
+    return hsz + 1;
+  }
+  if (n >= 64) {
+    int64_t lim = hraw + n < cap ? hraw + n : cap;
+    int64_t got = huf_literals(e, count[0], max_sym, dst, lim);
+    if (got > 0) return got;
+  }
+  if (cap < hraw + n) return ZC_E_DST;
+  int hsz = lit_header_raw(dst, 0, n);
+  memcpy(dst + hsz, lit, (size_t)n);
+  return hsz + n;
+}
+
+/* ---- sequences ---- */
+
+typedef struct {
+  int mode;  /* 0 predefined, 1 RLE, 2 FSE-compressed */
+  FseCTable ct;
+} SeqTable;
+
+/* The cheapest table of one code's symbols, its description into dst;
+ * returns the bytes written. */
+static int64_t seq_choose(SeqTable *t, const uint8_t *codes, int64_t n, int max_log,
+                          const int16_t *def, int def_max, int def_log, uint8_t *dst,
+                          int64_t cap) {
+  uint32_t count[64] = {0};
+  for (int64_t i = 0; i < n; i++) count[codes[i]]++;
+  int ms = 63;
+  while (!count[ms]) ms--;
+  if (count[ms] == (uint32_t)n) {
+    if (cap < 1) return ZC_E_DST;
+    t->mode = 1;
+    dst[0] = (uint8_t)ms;
+    return 1;
+  }
+  uint64_t c_def = UINT64_MAX, c_fse = UINT64_MAX;
+  if (ms <= def_max) c_def = fse_cost(count, ms, def, def_log);
+  int16_t norm[64];
+  uint8_t desc[128];
+  int log = fse_table_log(max_log, (uint32_t)n, ms);
+  int64_t dsize = -1;
+  if (fse_normalize(norm, log, count, (uint32_t)n, ms, 1) == 0) {
+    dsize = fse_write_counts(desc, sizeof(desc), norm, ms, log);
+    if (dsize > 0) c_fse = fse_cost(count, ms, norm, log) + ((uint64_t)dsize << 11);
+  }
+  if (c_def <= c_fse) {
+    if (c_def == UINT64_MAX) return ZC_E_ARG;
+    t->mode = 0;
+    return fse_ctable(&t->ct, def, def_max, def_log) < 0 ? ZC_E_ARG : 0;
+  }
+  if (dsize > cap) return ZC_E_DST;
+  t->mode = 2;
+  memcpy(dst, desc, (size_t)dsize);
+  return fse_ctable(&t->ct, norm, ms, log) < 0 ? ZC_E_ARG : dsize;
+}
+
+static int64_t enc_sequences(Enc *e, uint8_t *dst, int64_t cap) {
+  int64_t n = e->nseq, o = 0;
+  if (cap < 4) return ZC_E_DST;
+  if (n < 128) {
+    dst[o++] = (uint8_t)n;
+  } else if (n < 0x7F00) {
+    dst[o++] = (uint8_t)((n >> 8) + 128);
+    dst[o++] = (uint8_t)n;
+  } else {
+    dst[o++] = 255;
+    st16(dst + o, (uint32_t)(n - 0x7F00));
+    o += 2;
+  }
+  if (n == 0) return o;
+  uint8_t *llc = e->codes, *ofc = e->codes + ZE_MAX_SEQ, *mlc = e->codes + 2 * ZE_MAX_SEQ;
+  for (int64_t i = 0; i < n; i++) {
+    const ZSeq *q = &e->seq[i];
+    uint32_t mb = q->ml - 3;
+    llc[i] = q->ll < 64 ? e->ll_code[q->ll] : (uint8_t)(highbit32(q->ll) + 19);
+    mlc[i] = mb < 128 ? e->ml_code[mb] : (uint8_t)(highbit32(mb) + 36);
+    ofc[i] = (uint8_t)highbit32(q->of);
+  }
+  int64_t at_modes = o++;
+  SeqTable tl, to, tm;
+  int64_t u;
+  if ((u = seq_choose(&tl, llc, n, 9, LL_DEFAULT, 35, 6, dst + o, cap - o)) < 0) return u;
+  o += u;
+  if ((u = seq_choose(&to, ofc, n, 8, OF_DEFAULT, 28, 5, dst + o, cap - o)) < 0) return u;
+  o += u;
+  if ((u = seq_choose(&tm, mlc, n, 9, ML_DEFAULT, 52, 6, dst + o, cap - o)) < 0) return u;
+  o += u;
+  dst[at_modes] = (uint8_t)((tl.mode << 6) | (to.mode << 4) | (tm.mode << 2));
+  BitOut b;
+  bo_init(&b, dst + o, cap - o);
+  uint32_t sl = 0, so = 0, sm = 0;
+  int64_t last = n - 1;
+  if (tl.mode != 1) sl = fse_init(&tl.ct, llc[last]);
+  if (to.mode != 1) so = fse_init(&to.ct, ofc[last]);
+  if (tm.mode != 1) sm = fse_init(&tm.ct, mlc[last]);
+  for (int64_t i = last; i >= 0; i--) {
+    const ZSeq *q = &e->seq[i];
+    if (i < last) {
+      if (to.mode != 1) fse_enc(&b, &to.ct, &so, ofc[i]);
+      if (tm.mode != 1) fse_enc(&b, &tm.ct, &sm, mlc[i]);
+      if (tl.mode != 1) fse_enc(&b, &tl.ct, &sl, llc[i]);
+      bo_flush(&b);
+    }
+    bo_add(&b, q->ll - LL_BASE[llc[i]], LL_BITS[llc[i]]);
+    bo_add(&b, q->ml - ML_BASE[mlc[i]], ML_BITS[mlc[i]]);
+    bo_flush(&b);
+    bo_add(&b, q->of - (1u << ofc[i]), ofc[i]);
+    bo_flush(&b);
+    if (b.overflow) return ZC_E_DST;
+  }
+  if (tm.mode != 1) bo_add(&b, sm & ((1u << tm.ct.log) - 1), tm.ct.log);
+  if (to.mode != 1) bo_add(&b, so & ((1u << to.ct.log) - 1), to.ct.log);
+  bo_flush(&b);
+  if (tl.mode != 1) bo_add(&b, sl & ((1u << tl.ct.log) - 1), tl.ct.log);
+  int64_t s = bo_close(&b);
+  if (s < 0) return ZC_E_DST;
+  return o + s;
+}
+
+/* ---- blocks and frames ---- */
+
+/* Block [bs, be) of the frame src (header included) into dst. */
+static int64_t enc_block(Enc *e, const uint8_t *src, int64_t bs, int64_t be, int last,
+                         uint8_t *dst, int64_t cap) {
+  int64_t n = be - bs;
+  if (n > 1 && src[bs] == src[be - 1] && !memcmp(src + bs, src + bs + 1, (size_t)(n - 1))) {
+    if (cap < 4) return ZC_E_DST;
+    st24(dst, (uint32_t)(last | (1 << 1) | (n << 3)));
+    dst[3] = src[bs];
+    return 4;
+  }
+  uint32_t rep[3] = {e->rep[0], e->rep[1], e->rep[2]};
+  HufCode huf = e->huf;
+  e->nlit = e->nseq = 0;
+  int64_t anchor = bs;
+  if (n > ZE_TAIL) anchor = e->level == 1 ? search_fast(e, src, bs, be) : search_dfast(e, src, bs, be);
+  memcpy(e->lit + e->nlit, src + anchor, (size_t)(be - anchor));
+  e->nlit += be - anchor;
+  int64_t body = -1, l = enc_literals(e, e->body, n);
+  if (l > 0 && l < n) {
+    int64_t s = enc_sequences(e, e->body + l, n - l);
+    if (s > 0 && l + s < n) body = l + s;
+  }
+  if (body > 0) {
+    if (cap < 3 + body) return ZC_E_DST;
+    st24(dst, (uint32_t)(last | (2 << 1) | (body << 3)));
+    memcpy(dst + 3, e->body, (size_t)body);
+    return 3 + body;
+  }
+  /* Raw: the decoder's state stays as it was before this block. */
+  memcpy(e->rep, rep, sizeof(rep));
+  e->huf = huf;
+  if (cap < 3 + n) return ZC_E_DST;
+  st24(dst, (uint32_t)(last | (n << 3)));
+  memcpy(dst + 3, src + bs, (size_t)n);
+  return 3 + n;
+}
+
+/* One frame of src in blocks of at most `block` bytes into dst; ZC_E_DST
+ * where it does not fit in cap. */
+static int64_t enc_frame(Enc *e, const uint8_t *src, int64_t n, int64_t block, uint8_t *dst,
+                         int64_t cap) {
+  int flag = n < 256 ? 0 : (n < 65536 + 256 ? 1 : (n <= 0xFFFFFFFFLL ? 2 : 3));
+  int fcs = flag == 0 ? 1 : (flag == 1 ? 2 : (flag == 2 ? 4 : 8));
+  int64_t o = 5 + fcs;
+  if (cap < o + 3) return ZC_E_DST;
+  st32(dst, 0xFD2FB528u);
+  dst[4] = (uint8_t)((flag << 6) | 0x20);
+  uint64_t v = flag == 1 ? (uint64_t)n - 256 : (uint64_t)n;
+  for (int i = 0; i < fcs; i++) dst[5 + i] = (uint8_t)(v >> (8 * i));
+  if (e->gen + (uint64_t)n >= 0xFFFFFFFFull) {
+    memset(e->hash, 0, (size_t)4 << e->hlog);
+    if (e->hash_short) memset(e->hash_short, 0, (size_t)4 << e->slog);
+    e->gen = 1;
+  }
+  e->rep[0] = 1;
+  e->rep[1] = 4;
+  e->rep[2] = 8;
+  e->huf.valid = 0;
+  memset(e->huf.len, 0, sizeof(e->huf.len));
+  if (n == 0) {
+    st24(dst + o, 1);
+    return o + 3;
+  }
+  if (block > ZE_BLOCK || block < 1) block = ZE_BLOCK;
+  int64_t r = 0;
+  for (int64_t bs = 0; bs < n; bs += block) {
+    int64_t be = n - bs > block ? bs + block : n;
+    r = enc_block(e, src, bs, be, be == n, dst + o, cap - o);
+    if (r < 0) break;
+    o += r;
+  }
+  /* However the frame ends: the tables hold its positions, which the next
+   * frame must not take for its own. */
+  e->gen += (uint64_t)n;
+  return r < 0 ? r : o;
+}
+
+/* One zstd frame of src[0, n) into dst; returns its bytes, ZC_E_DST where
+ * they do not fit in cap (n + 3 a block + 18 always do). Levels 1-3; a
+ * higher level runs level 3's search. */
+int64_t zc_zstd_compress(const uint8_t *src, int64_t n, uint8_t *dst, int64_t cap,
+                         int64_t level) {
+  if ((n > 0 && !src) || n < 0 || !dst || cap < 0 || level < 1) return ZC_E_ARG;
+  Enc *e = enc_new((int)level);
+  if (!e) return ZC_E_NOMEM;
+  int64_t r = enc_frame(e, src, n, ZE_BLOCK, dst, cap);
+  enc_free(e);
+  return r;
+}
+
+/* ------------------------------------------------------------------ */
 /* Blosc 1                                                             */
 /* ------------------------------------------------------------------ */
 
@@ -979,6 +2006,131 @@ int64_t zc_blosc_memcpyed(int64_t nbytes, int64_t typesize, int64_t flags, uint8
   }
   memcpy(dst, h, 16);
   return 16;
+}
+
+/* c-blosc 1's block size for zstd (compute_blocksize, no forced size, no
+ * split): 64 KiB scaled by the level, at most the buffer, a multiple of the
+ * type. */
+int64_t zc_blosc_blocksize(int64_t nbytes, int64_t typesize, int64_t clevel) {
+  if (nbytes < typesize) return 1;
+  int64_t bs = nbytes;
+  if (nbytes >= 32 * 1024) {
+    static const int scale[10] = {0, 1, 2, 4, 8, 8, 16, 16, 16, 32};  /* in 32 KiB */
+    bs = clevel < 1 ? 16 * 1024 : 32 * 1024 * (int64_t)scale[clevel > 9 ? 9 : clevel];
+  }
+  if (bs > nbytes) bs = nbytes;
+  if (bs > typesize) bs = bs / typesize * typesize;
+  return bs;
+}
+
+static void shuffle_bytes(int ts, int64_t n, const uint8_t *src, uint8_t *dst) {
+  int64_t elems = n / ts;
+  if (ts == 2) {
+    uint8_t *a = dst, *b = dst + elems;
+    for (int64_t i = 0; i < elems; i++) {
+      a[i] = src[2 * i];
+      b[i] = src[2 * i + 1];
+    }
+  } else if (ts == 4) {
+    uint8_t *a = dst, *b = dst + elems, *c = dst + 2 * elems, *d = dst + 3 * elems;
+    for (int64_t i = 0; i < elems; i++) {
+      a[i] = src[4 * i];
+      b[i] = src[4 * i + 1];
+      c[i] = src[4 * i + 2];
+      d[i] = src[4 * i + 3];
+    }
+  } else {
+    for (int j = 0; j < ts; j++) {
+      uint8_t *d = dst + j * elems;
+      for (int64_t i = 0; i < elems; i++) d[i] = src[i * ts + j];
+    }
+  }
+  memcpy(dst + elems * ts, src + elems * ts, (size_t)(n - elems * ts));
+}
+
+/* Blocks [first, last) of the blosc 1 container of src[0, nbytes) (blocks
+ * of zc_blosc_blocksize) into dst, one after another: each an int32 size and
+ * one zstd frame of the block, byte-shuffled first where `shuffle` (in the
+ * call's own scratch), or the block's bytes where the frame would not be
+ * smaller (c-blosc's raw block). A shuffled block's zstd blocks are its byte
+ * planes (at most 128 KiB each), so each plane gets its own literal table.
+ * sizes[k - first]: block k's bytes. Returns the bytes written. Calls on
+ * disjoint ranges may run at once; zc_blosc_header then writes the header
+ * and block starts from the sizes. */
+int64_t zc_blosc_encode(const uint8_t *src, int64_t nbytes, int64_t typesize, int64_t shuffle,
+                        int64_t clevel, int64_t first, int64_t last, uint8_t *dst, int64_t cap,
+                        int64_t *sizes) {
+  if (!src || !dst || !sizes || nbytes < 1 || typesize < 1 || typesize > 255 || clevel < 1)
+    return ZC_E_ARG;
+  if (nbytes > 2147483631LL) return ZC_E_ARG;
+  int64_t bs = zc_blosc_blocksize(nbytes, typesize, clevel);
+  int64_t nblocks = (nbytes + bs - 1) / bs;
+  if (first < 0 || first > last || last > nblocks) return ZC_E_ARG;
+  int ts = (int)typesize, shuf = shuffle && ts > 1;
+  Enc *e = enc_new((int)clevel);
+  uint8_t *tmp = shuf ? (uint8_t *)malloc((size_t)bs) : NULL;
+  if (!e || (shuf && !tmp)) {
+    enc_free(e);
+    free(tmp);
+    return ZC_E_NOMEM;
+  }
+  int64_t o = 0, rc = 0;
+  for (int64_t k = first; k < last; k++) {
+    int64_t bsize = k == nblocks - 1 ? nbytes - k * bs : bs;
+    const uint8_t *blk = src + k * bs;
+    int64_t zblock = ZE_BLOCK;
+    if (shuf) {
+      shuffle_bytes(ts, bsize, blk, tmp);
+      blk = tmp;
+      if (bsize % ts == 0 && bsize / ts < ZE_BLOCK) zblock = bsize / ts;
+    }
+    if (cap - o < 4 + bsize) {
+      rc = ZC_E_DST;
+      break;
+    }
+    int64_t r = enc_frame(e, blk, bsize, zblock, dst + o + 4, bsize - 1);
+    if (r == ZC_E_DST) {
+      memcpy(dst + o + 4, blk, (size_t)bsize);
+      r = bsize;
+    } else if (r < 0) {
+      rc = r;
+      break;
+    }
+    st32(dst + o, (uint32_t)r);
+    sizes[k - first] = 4 + r;
+    o += 4 + r;
+  }
+  enc_free(e);
+  free(tmp);
+  return rc < 0 ? rc : o;
+}
+
+/* The header and block starts of the container whose blocks (sizes[k]
+ * bytes each, as zc_blosc_encode wrote them) follow: version 2, zstd format
+ * 1, flags 0x90 (zstd, no split) | 0x01 with byte shuffle, the typesize,
+ * nbytes, the block size and the total. Returns the bytes written,
+ * 16 + 4 * nblocks. */
+int64_t zc_blosc_header(int64_t nbytes, int64_t typesize, int64_t shuffle, int64_t clevel,
+                        const int64_t *sizes, int64_t nblocks, uint8_t *dst, int64_t cap) {
+  if (!sizes || !dst || nbytes < 1 || typesize < 1 || typesize > 255) return ZC_E_ARG;
+  int64_t bs = zc_blosc_blocksize(nbytes, typesize, clevel);
+  if (nblocks != (nbytes + bs - 1) / bs) return ZC_E_ARG;
+  int64_t head = 16 + 4 * nblocks, at = head;
+  if (cap < head) return ZC_E_DST;
+  for (int64_t k = 0; k < nblocks; k++) {
+    if (at > 2147483647LL) return ZC_E_ARG;
+    st32(dst + 16 + 4 * k, (uint32_t)at);
+    at += sizes[k];
+  }
+  if (at > 2147483647LL) return ZC_E_ARG;
+  dst[0] = 2;
+  dst[1] = 1;
+  dst[2] = (uint8_t)(0x90 | (shuffle ? 0x01 : 0));
+  dst[3] = (uint8_t)typesize;
+  st32(dst + 4, (uint32_t)nbytes);
+  st32(dst + 8, (uint32_t)bs);
+  st32(dst + 12, (uint32_t)at);
+  return head;
 }
 
 /* 1 when buf (n bytes) is the item of `item` bytes repeated, else 0. */

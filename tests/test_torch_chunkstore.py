@@ -230,17 +230,17 @@ DTYPES = ["uint8", "uint16", "float32", "float64"]
 
 
 def _spec(path, driver, dtype, sep="/", shape=SHAPE, chunks=CHUNKS, shuffle=1, cname="zstd",
-          fill=None):
+          fill=None, clevel=3):
     if driver == "zarr":
         md = {"shape": list(shape), "chunks": list(chunks), "dtype": np.dtype(dtype).str,
-              "compressor": {"id": "blosc", "cname": cname, "clevel": 3, "shuffle": shuffle},
+              "compressor": {"id": "blosc", "cname": cname, "clevel": clevel, "shuffle": shuffle},
               "dimension_separator": sep}
     else:
         name = {0: "noshuffle", 1: "shuffle", 2: "bitshuffle"}[shuffle]
         md = {"shape": list(shape), "data_type": dtype,
               "chunk_grid": {"name": "regular", "configuration": {"chunk_shape": list(chunks)}},
               "codecs": [{"name": "bytes", "configuration": {"endian": "little"}},
-                         {"name": "blosc", "configuration": {"cname": cname, "clevel": 3,
+                         {"name": "blosc", "configuration": {"cname": cname, "clevel": clevel,
                                                              "shuffle": name}}]}
     if fill is not None:
         md["fill_value"] = fill
@@ -290,6 +290,13 @@ def test_tensorstore_reads_what_the_engine_wrote(tmp_path, driver, sep, dtype):
         tensorstore.open(_open_spec(tmp_path / "a", driver)).result().read().result(), x)
     np.testing.assert_array_equal(arr.read().result(), x)
     assert not list(tmp_path.rglob("*.tmp"))  # every chunk published by rename
+    # What tensorstore read is blosc-zstd (flags 0x91), no chunk past its
+    # bytes and a 16-byte header.
+    heads = [p.read_bytes()[:16] for p in (tmp_path / "a").rglob("*")
+             if p.is_file() and p.name not in (".zarray", "zarr.json")]
+    assert any(h[2] == 0x91 for h in heads)
+    nbytes = int(np.prod(CHUNKS)) * np.dtype(dtype).itemsize
+    assert all(struct.unpack("<i", h[12:])[0] <= nbytes + 16 for h in heads)
     # The fill-valued chunk is stored where tensorstore stores it.
     (tmp_path / "t").mkdir()
     tensorstore.open(_spec(tmp_path / "t/a", driver, dtype, sep)).result().write(x).result()
@@ -327,18 +334,18 @@ def test_metadata_json_is_tensorstore_s(tmp_path, version, dtype):
 
 
 def test_reads_of_uncompressed_chunks_read_their_byte_runs(tmp_path, monkeypatch):
-    """The engine's own chunks (blosc's memcpyed form): a box that is one
-    run of a chunk's bytes is read from the file straight into the output
-    (no decode), any other box through the decoder; both give numpy's
-    values, edge chunks included, and a truncated chunk raises naming its
-    key."""
+    """Chunks in blosc's memcpyed form (the engine writes it at clevel 0):
+    a box that is one run of a chunk's bytes is read from the file straight
+    into the output (no decode), any other box through the decoder; both
+    give numpy's values, edge chunks included, and a truncated chunk raises
+    naming its key."""
     x = _data("float32", seed=4)
     runs = []
     real = cs._Array.read_run
     monkeypatch.setattr(cs._Array, "read_run",
                         lambda self, idx, box, dst: runs.append(real(self, idx, box, dst))
                         or runs[-1])
-    arr = cs.open(_spec(tmp_path / "b", "zarr3", "float32")).result()
+    arr = cs.open(_spec(tmp_path / "b", "zarr3", "float32", clevel=0)).result()
     arr.write(x).result()
     rng = np.random.default_rng(5)
     for _ in range(40):
@@ -543,7 +550,7 @@ def test_tiled_container_of_the_fixtures_frames_decodes_on_the_pool(monkeypatch)
 
     monkeypatch.setattr(cs, "_pool", recording)
     np.testing.assert_array_equal(cs.blosc_decode(buf), plain)
-    assert jobs.count("decode") > 1
+    assert jobs.count("codec") > 1
 
 
 # ---------------------------------------------------------------------------
