@@ -329,6 +329,29 @@ Phases:
    nothing, and redoes exactly a volume whose chunk was deleted, with 1
    deskew and 40 ``rl_half`` launches; (d) the ``deskew`` (1 launch) and
    ``deconvolve`` (40) verbs in turn within 1e-3 of (b);
+4v. (after 4u) every other verb through the CLI in this process
+   (:func:`phase_verbs`), ``--device`` at its default, each run's counts set
+   to 0 just before and held just after, on stores the port wrote from the
+   data of the phases before (written beside 4n-4p): (a) ``measure-psf`` of
+   4p's bead raw, bit for bit 4p's PSF (1 deskew); (b) ``register`` across
+   two single-arm stores of 4g's blob pair, bit for bit 4g's map and within
+   its gates of the truth (4g's refine launches); (c) ``reconstruct`` with
+   (a)'s PSF (``BASELINE.md`` config 2) of 4p's raw, bit for bit 4p's
+   deskew + RL-20 (its three-pass launches); (d) with (b)'s transform
+   (config 4) and (e) with ``--devices 1``, of 4u's one-timepoint raw, bit
+   for bit the step run here and 4u(b)'s volume; (g) ``phase`` of 4l's
+   stack, its transfer function a hit of 4l's host cache, bit for bit 4l's
+   step; (i) ``track`` of 4m's raws as camera counts, without and with a
+   deskew (1 launch a timepoint): the baked drift, 4m's pcc run here; (h)
+   ``plan validate`` and ``replay`` with the demo plan (DynaTrack, -I,
+   autofocus): each frame the source's rolled by minus the stage offset it
+   was acquired under, the journal against (i)'s; (j) ``replay-dual`` with
+   a label-free arm beside: both arms' frames so, the final stage the
+   journal's; (k) ``train-vs`` of 4o's volumes: the checkpoint reloads bit
+   for bit; (f) ``monitor --once`` (no matplotlib on the card's machine:
+   the status all the same, no PNG), ``info`` of every store 4v wrote,
+   ``microscopes``, ``plan show``. A line a run: its wall seconds, launches,
+   peak and checks;
 5. timings (kernel path, warm, twice), launch counts (a path's plain
    versions must have run on no
    CUDA tensor), peak memory, then the kernel JSON line (eighteen
@@ -489,13 +512,15 @@ def compare(name: str, a: torch.Tensor, b: torch.Tensor, tol: float) -> float:
 
 
 def same_bits(name: str, a: torch.Tensor, b: torch.Tensor) -> float:
-    """Check that a kernel that sums in its plain version's order gives
-    its bits; returns max|a-b| (0.0)."""
+    """Check that ``a`` has ``b``'s bits (a kernel that sums in its plain
+    version's order, an output against the run it repeats); returns
+    max|a-b| (0.0)."""
     equal = bool(torch.equal(a, b))
-    print(f"  {name}: {'bit-equal' if equal else f'max|a-b|/max|b| = {rel_err(a, b):.3e} FAIL'}",
-          flush=True)
+    gap = "" if equal else (f"max|a-b|/max|b| = {rel_err(a, b):.3e}" if a.shape == b.shape
+                            else f"shape {tuple(a.shape)} against {tuple(b.shape)}")
+    print(f"  {name}: {'bit-equal' if equal else gap + ' FAIL'}", flush=True)
     if not equal:
-        raise AssertionError(f"{name}: not bit-equal to the plain version")
+        raise AssertionError(f"{name}: not bit-equal ({gap})")
     return 0.0
 
 
@@ -2459,7 +2484,7 @@ def phase_register(gen, parent_dir=None) -> dict:
           f"{disp:.4f} px, final loss {res.final_loss:.5f}; its PCC seed alone after it "
           f"{pcc[0]:.3f} s, then {pcc[1]:.3f} s; a refine step {step_ms:.3f} ms (the warm "
           f"estimate less one with no step, over {iters})", flush=True)
-    if not (off_err <= 0.3 and diag_err <= 0.02):
+    if not (off_err <= REG_OFFSET_TOL and diag_err <= REG_DIAG_TOL):
         raise AssertionError(f"estimate_registration: offset {off_err:.4f} px, diagonal "
                              f"{diag_err:.2e} from the truth")
     out = {"first_s": first, "warm_s": warm, "pcc_s": pcc[1], "step_ms": step_ms,
@@ -2467,7 +2492,10 @@ def phase_register(gen, parent_dir=None) -> dict:
            **({"step_ms_parent": sum(alone["before"]) / 2} if "before" in alone else {}),
            "offset_err_px": off_err,
            "diag_err": diag_err, "matrix_err": mat_err,
-           "corner_err_px": disp, "launches": counts, "peak_gib": peak}
+           "corner_err_px": disp, "launches": counts, "peak_gib": peak,
+           # Phase 4v's register verb: these volumes, this map.
+           "verb": {"lf": fixed.cpu().numpy(), "ls": moving.cpu().numpy(),
+                    "map": {"matrix": res.matrix, "offset": res.offset}}}
     del fixed, moving, runs
     torch.cuda.empty_cache()
     small = blob_volume(REGISTER_SMALL, gen, 12)
@@ -3014,6 +3042,7 @@ def phase_phase(gen, host: dict) -> dict:
     if not torch.equal(got[0], out):
         raise AssertionError("the step's phase stage differs from the inverse")
     _, step_s = wall_s(step, stack[None], tf_dev)
+    verb = {"bf": stack.cpu().numpy(), "phase_out": got[0].cpu().numpy()}  # phase 4v's
     del got, out, stack
     torch.cuda.empty_cache()
     # Recovery of a simulated weak phase object (tests/test_phase.py:65).
@@ -3037,7 +3066,7 @@ def phase_phase(gen, host: dict) -> dict:
           f"{ms:.3f} ms ({vox / ms / 1e6:.4f} GVox/s), peak {peak:.2f} GiB, the step "
           f"{step_s * 1e3:.1f} ms", flush=True)
     return {"shape": shape, "tf_s": tf_s, "h2d_s": h2d_s, "ms": ms, "peak_gib": peak,
-            "step_ms": step_s * 1e3, "rel_err": err, "recovery_corr": corr}
+            "step_ms": step_s * 1e3, "rel_err": err, "recovery_corr": corr, "verb": verb}
 
 
 # --- Tracking (DynaTrack): the tracker and its preprocessor at the production
@@ -3338,6 +3367,7 @@ def phase_track(gen, phase_shape) -> dict:
     from shrimpy_tpu_torch.ops.deskew import deskew_volume
 
     ops = track_ops(deskew_volume(raws[1], headline_settings().deskew), slice_zyx)
+    session = [camera_counts(raw) for raw in raws]  # phase 4v's session store
     del raws, host_raw
     torch.cuda.empty_cache()
     ls_s = time.monotonic() - t_start
@@ -3388,7 +3418,7 @@ def phase_track(gen, phase_shape) -> dict:
           f"{warm_ms:.1f} ms, the inverse {lf['phase_ms']:.1f} ms an update; peak {peak:.2f} GiB; "
           f"focus index {focus} (float64 {focus64}) in {focus_ms:.3f} ms", flush=True)
     return {"methods": methods, "ops": ops, "lf": lf, "ls_seconds": ls_s,
-            "seconds": time.monotonic() - t_start}
+            "verb": {"session": session}, "seconds": time.monotonic() - t_start}
 
 
 # --- DynaTrack's closed loop (tracking/position.py): the manager's worker runs
@@ -4060,29 +4090,31 @@ class LiveLog:
 
 def phase_viewer(engine_host_s: float) -> dict:
     """The live viewer beside ``AcquisitionEngine(source, device="cuda",
-    viewer_hooks=[feeder.on_volume])`` over one position of 4r's plate, both
-    channels, VIEWER_TIMEPOINTS timepoints of the production raw (its depth
-    cut where /dev/shm cannot hold the ring: :func:`viewer_raw`), DynaTrack
-    off. The feeder is ``replay --viewer``'s (``cache_mb`` 512, ``n_z`` the
-    raw's depth, its monitor spawned); each hook call is timed, and at the
-    last timepoint a monitor attached in this process (``live.attach``, a
-    ``LiveMonitor`` with the headline geometry as a
+    viewer_hooks=[feeder.on_volume])`` over one position of 4r's plate,
+    both channels, VIEWER_TIMEPOINTS timepoints of the production raw (its
+    depth cut where /dev/shm cannot hold the ring: :func:`viewer_raw`),
+    DynaTrack off. The feeder is ``replay --viewer``'s (``cache_mb`` 512,
+    ``n_z`` the raw's depth, its monitor spawned); each hook call is timed,
+    and at the last volume a monitor attached in this process
+    (``live.attach``, a ``LiveMonitor`` with the headline geometry as a
     ``config.deskew_settings`` namespace, ``view.json`` asking for the
-    per-render auto-contrast) takes each volume as ``monitor --live`` does
-    (poll, refresh, render) before the next one laps it. Checks: (a) the native ring is loaded and both rings use it;
-    (b) ``volumes.jsonl`` has a row a volume, ``ring.json`` the feeder's
-    floor of n_z + 1 slots (the 512 MB budget holds fewer production
-    frames), nothing dropped; (c) each channel's newest
-    volume, as the render gathers it from the ring (``LiveMonitor._gather``),
-    has the digest of the volume served there, and so has the volume the
-    hook was given;
+    per-render auto-contrast) takes the index as ``monitor --live`` does
+    (poll, refresh, render). Checks: (a) the native ring is loaded and both
+    rings use it; (b) ``volumes.jsonl`` has a row a volume, ``ring.json``
+    the feeder's floor of n_z + 1 slots (the 512 MB budget holds fewer
+    production frames), nothing dropped, and every volume but the last
+    lapped by the next (its gather None, its layer not drawn) where the
+    ring holds fewer than two; (c) the last volume, as the render gathers
+    it from the ring (``LiveMonitor._gather``), has the digest of the
+    volume served there, and so has the volume the hook was given;
     (d) the row-gather preview of the resident volume at VIEWER_TILT_ROW is
     bit-equal to ``deskew_preview_plane`` of the served volume's row and
     correlates above PREVIEW_CORR with that lab plane of ``deskew_cuda``'s
     output (``keep_overhang``, y offset t cos(theta)), one deskew launch and
     no other kernel in the phase; (e) ``state.json`` selects each channel's
     last timepoint and holds as its contrast ``np.percentile`` of the
-    served volume, a PNG for each where matplotlib imports (else its
+    served volume of each channel drawn, a PNG for each where matplotlib
+    imports (else its
     ``ImportError`` is the only record the monitor logs, and ``displayed``
     is empty). The monitor subprocess's exit after ``stop()`` is reported,
     not checked."""
@@ -4196,7 +4228,7 @@ def phase_viewer(engine_host_s: float) -> dict:
             t0 = time.perf_counter()
             feeder.on_volume(vol, t, p, channel)
             rec["feeder_s"].append(time.perf_counter() - t0)
-            if t == n_t - 1:
+            if (t, channel) == (n_t - 1, ENGINE_CHANNELS[-1]):
                 t0 = time.perf_counter()
                 try:
                     watch(vol, t, p, channel)
@@ -4265,7 +4297,7 @@ def phase_viewer(engine_host_s: float) -> dict:
     print(f"  {out.name}: {n_volumes} volumes of {raw_shape} in {acquire_s:.3f} s; the feeder "
           f"{res['feeder_s_per_volume']:.3f} s a volume on the acquisition thread (each "
           f"{[round(s, 3) for s in rec['feeder_s']]}); the attached monitor's work at the last "
-          f"timepoint {[round(s, 3) for s in rec['watch_s']]} s, gathers "
+          f"volume {[round(s, 3) for s in rec['watch_s']]} s, gathers "
           f"{[round(v, 1) for v in res['gather_ms']]} ms a volume; the engine "
           f"{res['host_s_per_volume']:.3f} host s a volume without that work (4r "
           f"{engine_host_s:.3f}); ring {desc['n_slots']} slots ({FrameRing.slots_for_budget(VIEWER_CACHE_MB, frame)} "
@@ -4281,9 +4313,11 @@ def phase_viewer(engine_host_s: float) -> dict:
         raise AssertionError(f"(a) a ring ran on the numpy path: native (feeder, attached) "
                              f"{ring_libs}")
     slots = max(FrameRing.slots_for_budget(VIEWER_CACHE_MB, frame), n_z + 1)
-    if (len(rows), desc["n_slots"], dropped) != (n_volumes, slots, 0):
+    lapped = n_volumes - 1 if slots < 2 * n_z else 0
+    if (len(rows), desc["n_slots"], dropped, evicted) != (n_volumes, slots, 0, lapped):
         raise AssertionError(f"(b) volumes.jsonl {len(rows)} rows, ring {desc['n_slots']} slots, "
-                             f"dropped {dropped}; want {n_volumes}, {slots}, 0")
+                             f"dropped {dropped}, {evicted} evicted; want {n_volumes}, {slots}, "
+                             f"0, {lapped}")
     served_digest = {k: v[-1][1] for k, v in source.served.items()}
     for key, digest in rec["gathered"].items():
         if digest != served_digest[key]:
@@ -4292,8 +4326,8 @@ def phase_viewer(engine_host_s: float) -> dict:
         if digest != served_digest[key] or key not in rec["gathered"]:
             raise AssertionError(f"(c) the hook's volume at {key} is not the one served, or the "
                                  "render did not gather it")
-    if sorted(rec["hook_digest"]) != [(position, n_t - 1, c) for c in range(n_c)]:
-        raise AssertionError(f"(c) watched {sorted(rec['hook_digest'])}, want each channel's last t")
+    if sorted(rec["hook_digest"]) != [(position, n_t - 1, n_c - 1)]:
+        raise AssertionError(f"(c) watched {sorted(rec['hook_digest'])}, want the last volume")
     if volume_digest(torch.from_numpy(served_host).cuda()) != served_digest[(p, t, c)]:
         raise AssertionError("(d) the re-rendered volume is not the one served")
     if not np.array_equal(from_ring, plain_plane) or not corr > PREVIEW_CORR:
@@ -4308,9 +4342,10 @@ def phase_viewer(engine_host_s: float) -> dict:
             or monitor.contrast_mode != "auto":
         raise AssertionError(f"(e) selected {selected}, contrast {state['contrast']} "
                              f"({monitor.contrast_mode}); want t = {n_t - 1}, {want_contrast} (auto)")
+    drawn = [ch for ch in ENGINE_CHANNELS if ch in want_contrast]
     if has_mpl:
-        want_pngs = sorted(f"live_p{position.replace('/', '_')}_{ch}.png" for ch in ENGINE_CHANNELS)
-        if state["displayed"] != {f"{position}|{ch}": n_t - 1 for ch in ENGINE_CHANNELS} \
+        want_pngs = sorted(f"live_p{position.replace('/', '_')}_{ch}.png" for ch in drawn)
+        if state["displayed"] != {f"{position}|{ch}": n_t - 1 for ch in drawn} \
                 or pngs != want_pngs or log.records:
             raise AssertionError(f"(e) displayed {state['displayed']}, PNGs {pngs}, records "
                                  f"{[r.getMessage() for r in log.records]}")
@@ -4543,6 +4578,9 @@ TRAIN_RUNS = (  # (net, settings, batch, patch, steps, learning rate)
     ("unet25d", {}, 4, 128, 20, 1e-3),
     ("unext2 plane head", VS_NETS["unext2 plane head"], 4, 128, 20, 1e-4),
 )
+# 4o's runs: unet25d's ran here too until phase 4v's time was paid for
+# (6.5-8.3 s); 4v(k) trains it through `train-vs` at the same batch and patch.
+TRAIN_PHASE_RUNS = TRAIN_RUNS[1:]
 TRAIN_VAL = {"val_fraction": 0.25, "val_every": 5}
 TRAIN_CHECK_STEPS = 3  # the bf16 steps held to the float32 run's
 TRAIN_F32_RTOL = 5e-2  # their losses, relative
@@ -4604,7 +4642,7 @@ def train_steps(stainer, batches, lr: float) -> tuple[list, list]:
 
 
 def phase_train() -> dict:
-    """Phase 4o: each run of TRAIN_RUNS. First TRAIN_CHECK_STEPS steps of
+    """Phase 4o: each run of TRAIN_PHASE_RUNS. First TRAIN_CHECK_STEPS steps of
     the module's step on sampled batches, from the seeded weights, in bf16
     (the first and warm step's ms) and in float32 (no TF32): the losses
     within TRAIN_F32_RTOL. Then ``train_positions`` (validation every 5
@@ -4629,7 +4667,7 @@ def phase_train() -> dict:
     entries, _, ny0 = train.position_entries(positions, "phase", TRAIN_TARGETS)
     bank = train._VolumeBank(entries)
     runs = []
-    for i, (label, kw, batch, patch, steps, lr) in enumerate(TRAIN_RUNS):
+    for i, (label, kw, batch, patch, steps, lr) in enumerate(TRAIN_PHASE_RUNS):
         t_run = time.monotonic()
         settings = vs_settings(**kw, out_channels=TRAIN_TARGETS)
         brng = np.random.default_rng(SEED)
@@ -4720,7 +4758,8 @@ def phase_train() -> dict:
               f"{run['seconds']:.1f} s", flush=True)
         del stainer, loaded, vol, want, scripted, state
         torch.cuda.empty_cache()
-    return {"runs": runs, "seconds": time.monotonic() - t_start}
+    return {"runs": runs, "verb": {"pairs": [p.volume(0, 0) for p in positions]},
+            "seconds": time.monotonic() - t_start}
 
 
 # --- BASELINE.md config 2: RL-20 of the deskewed production volume with a
@@ -4774,7 +4813,7 @@ def bead_fwhm_um() -> tuple[float, float, float]:
     return (width / math.sqrt(1 / math.tan(theta) ** 2 + 1 / math.sin(theta) ** 2), width, width)
 
 
-def phase_psf(gen) -> dict:
+def phase_psf(gen, verb_stores=None) -> dict:
     """Phase 4p: the bead raw deskewed on the card (row 1) and measured on
     the host (``psf.py::measure_volume_psf``, ``deskewed`` patch (31, 41,
     41)), against the CPU plain path (the plain deskew, the same host code,
@@ -4785,20 +4824,16 @@ def phase_psf(gen) -> dict:
     production raw with the counts reset, timed as counted: ms, GVox/s,
     peak. On the deskewed volume the first 2 iterations against float64
     within RL2_RTOL, and RL-PSF_CROP_ITERATIONS on a PSF_CROP crop within
-    STEP_RTOL."""
+    STEP_RTOL. Once the timed runs are done, ``verb_stores`` (where given)
+    takes phase 4v's inputs from here, the bead raw and the production raw
+    as numpy arrays, to write them beside the float64 checks."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
     from shrimpy_tpu_torch.kernels import build
-    from shrimpy_tpu_torch.ops.deconv import plan_terms, prepare_psf, richardson_lucy
+    from shrimpy_tpu_torch.ops.deconv import richardson_lucy
     from shrimpy_tpu_torch.ops.deskew import deskew_volume
-    from shrimpy_tpu_torch.ops.rl_fused import (
-        axis_pass_route,
-        half_layout,
-        half_step_route,
-        x_pass_route,
-    )
     from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
     from shrimpy_tpu_torch.psf import measure_volume_psf
 
@@ -4820,6 +4855,7 @@ def phase_psf(gen) -> dict:
     psf = np.load(out["card"].with_suffix(".npy"))
     host_raw = raw.cpu()
     del raw
+    beads = host_raw.numpy()
 
     def cpu_path():
         t = time.perf_counter()
@@ -4829,14 +4865,9 @@ def phase_psf(gen) -> dict:
 
     with ThreadPoolExecutor(1) as pool:
         cpu_run = pool.submit(cpu_path)
-        psf_w = prepare_psf(psf, deconv)
-        terms = plan_terms(psf_w, deconv)
-        radii = tuple(k // 2 for k in psf_w.shape)
-        if terms is None:
-            raise AssertionError(f"measured PSF {psf_w.shape} takes no separable terms")
-        carry = tuple(n + 2 * r for n, r in zip(deskewed_shape(), radii))
-        route = half_step_route(carry, radii, len(terms))
-        layout = half_layout(carry, radii, len(terms)) or {}
+        plan = config2_want(psf, deconv)
+        psf_w, terms, radii, carry, route, layout = (
+            plan[k] for k in ("psf_w", "terms", "radii", "carry", "route", "layout"))
         if route == "one_launch":
             build.build_geometries([("rl_half", (len(terms), *psf_w.shape, *layout["tile"]))])
         print(f"  measured PSF (31, 41, 41) from {report.n_beads} beads in {measure_s:.2f} s "
@@ -4847,24 +4878,17 @@ def phase_psf(gen) -> dict:
               f"({layout.get('smem_bytes')} B of shared memory)", flush=True)
         batch = uniform((1, *RAW_SHAPE), gen, 0.0, 100.0)
         step = build_reconstruct_step(settings, psf=psf, device="cuda")
-        # A half-step is one launch, or three a term (z, y, x passes), each
-        # on the passes compiled for its tap count where the lists allow.
-        per_half = 1 if route == "one_launch" else 3 * len(terms)
-        want = {"deskew": 1, "rl_half_step": 2 * ITERATIONS,
-                f"rl_half_{route}": 2 * ITERATIONS * per_half}
-        lengths = psf_w.shape
-        if route == "three_pass":
-            halves = 2 * ITERATIONS
-            want["axis_pass"] = halves * len(terms) * sum(
-                axis_pass_route(k) == "compiled" for k in lengths[:2])
-            want["x_pass"] = halves * len(terms) * (x_pass_route(carry[2], lengths[2]) == "compiled")
         # Timed as counted: every kernel of the step is built and loaded
         # by now (a second run would add its length to the phase).
         t0 = time.perf_counter()
-        rl20, counts, peak = drive(step, batch, want)
+        rl20, counts, peak = drive(step, batch, plan["want"])
         ms = (time.perf_counter() - t0) * 1e3
         passes = config2_pass_ms(carry, terms[0], gen) if route == "three_pass" else {}
         vox = rl20[0].numel()
+        # Phase 4v's config 2 through the CLI: this raw and this output.
+        verb = {"psf": {"psf": psf, "report": report.as_dict()}, "cfg2_out": rl20[0]}
+        if verb_stores is not None:
+            verb_stores({"beads": beads, "cfg2_raw": batch[0].cpu().numpy()})
         del rl20
         vol = deskew_volume(batch[0], deskew)
         del batch
@@ -4907,7 +4931,8 @@ def phase_psf(gen) -> dict:
            "peak_gib": peak, "pass_ms": passes,
            "rl2_max_abs_err": rl2, "rl2_float64_s": rl2_s, "crop_max_abs_err": crop_err,
            "crop_float64_s": crop_s,
-           "launches": counts, "seconds": time.monotonic() - t_start}
+           "launches": counts, "verb": verb,
+           "seconds": time.monotonic() - t_start}
     print(f"  deskew + RL-20 with the measured PSF at raw {RAW_SHAPE}: {ms:.1f} ms (the counted "
           f"run), {res['gvox_s']:.4f} GVox/s, peak {peak:.2f} GiB; one term's passes "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in passes.items())
@@ -4985,36 +5010,49 @@ ENCODE_CLEVEL = 3  # the blosc-zstd level of the port's stores (io/ngff.py)
 ENCODE_ONE_THREAD_BLOCKS = 512  # 4u(a)'s blocks encoded on one thread, for the pool's gain
 
 
-def run_cli(runs: list) -> tuple[list, list, float]:
+def run_cli(runs: list) -> tuple[list, float]:
     """The CLI's command lines in turn in this process (``cli.main`` as the
-    console script calls it, its summary echo kept off this output). Each
-    entry of ``runs`` is ``(args, want)``: every count set to 0 just before
-    the run and read just after, held to ``want`` as :func:`check_counts`
-    holds them; a ``(["unlink", path], None)`` entry removes a file between
-    two runs. Returns (each run's summary, each run's counts, seconds)."""
+    console script calls it, its standard output captured). Each entry of
+    ``runs`` is ``(args, want)``: every count set to 0 just before the run
+    and read just after, held to ``want`` as :func:`check_counts` holds them
+    (None: only read); a ``(["unlink", path], None)`` entry removes a file
+    between two runs. Returns each run's record (``args``, its standard
+    output ``out``, its wall seconds ``s``, the counts that were not 0
+    ``launches``, the card's peak allocated GiB ``peak_gib``, 0 on the CPU)
+    and the seconds in all."""
     import contextlib
     import io
     import os
-    from pathlib import Path
 
     from shrimpy_tpu_torch.cli.main import cli
 
-    t0, summaries, launches = time.monotonic(), [], []
+    t0, records = time.monotonic(), []
     for args, want in runs:
         if args[0] == "unlink":
             os.unlink(args[1])
             continue
-        torch.cuda.synchronize()
+        sync()
+        if torch.cuda.is_available():
+            torch.cuda.reset_peak_memory_stats()
         table = zero_counts()
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli.main(args=args, standalone_mode=False)
-        torch.cuda.synchronize()
+        out = io.StringIO()
+        t1 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            cli.main(args=list(args), standalone_mode=False)
+        sync()
         counts = {name: getattr(obj, attr) for name, (obj, attr) in table.items()}
         check_counts(counts, want)
-        launches.append({k: v for k, v in counts.items() if v})
-        out = Path(args[args.index("-o") + 1])
-        summaries.append(json.loads((out / "reconstruct_summary.json").read_text()))
-    return summaries, launches, time.monotonic() - t0
+        records.append({"args": list(args), "out": out.getvalue(), "s": time.monotonic() - t1,
+                        "launches": {k: v for k, v in counts.items() if v},
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30
+                        if torch.cuda.is_available() else 0.0})
+    return records, time.monotonic() - t0
+
+
+def sync() -> None:
+    """Wait for the card, where there is one (the CPU tests run 4v's pieces)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
 
 
 def store_bytes(root) -> int:
@@ -5145,16 +5183,22 @@ def camera_raw():
     blobs on the camera offset TRACK_BACKGROUND with N(0, TRACK_NOISE)
     noise (:func:`track_raws`' first timepoint), rendered on the card from
     its own seed and rounded to uint16 on the host (0.98 GB)."""
-    import numpy as np
-
     gen = torch.Generator(device="cuda").manual_seed(SEED + 22)
     centers, amps = track_blobs(gen)
     raw = track_raw(centers, amps).add_(torch.randn(RAW_SHAPE, generator=gen, device="cuda"),
                                         alpha=TRACK_NOISE)
-    counts = raw.round_().clamp_(0, 65535).to(torch.int32).cpu().numpy()
+    counts = camera_counts(raw)
     del raw
     torch.cuda.empty_cache()
-    return counts.astype(np.uint16)
+    return counts
+
+
+def camera_counts(raw: torch.Tensor):
+    """A raw on the card as a camera gives it: rounded, clamped to uint16, on
+    the host (numpy)."""
+    import numpy as np
+
+    return raw.round().clamp_(0, 65535).to(torch.int32).cpu().numpy().astype(np.uint16)
 
 
 def phase_encode() -> dict:
@@ -5212,9 +5256,9 @@ def phase_encode() -> dict:
     return res
 
 
-def store_inputs() -> dict:
+def store_inputs(tmp=None) -> dict:
     """4u's input stores, written by the port's ``io/ngff.py::create_fov`` in
-    a temporary directory (removed at exit): ``raw.zarr``, an FOV store
+    ``tmp``, or a temporary directory (removed at exit): ``raw.zarr``, an FOV store
     (OME-NGFF 0.5) of ``STORE_TIMEPOINTS`` timepoints of one channel at the
     production raw, uint16 from the seed, with the scale
     ``configs/reconstruct_demo.yml`` reads (pixel 0.116 um, scan step
@@ -5230,8 +5274,9 @@ def store_inputs() -> dict:
     from shrimpy_tpu_torch.io import ngff
 
     t0 = time.monotonic()
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_4u_"))
-    atexit.register(shutil.rmtree, tmp, ignore_errors=True)
+    if tmp is None:
+        tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_4u_"))
+        atexit.register(shutil.rmtree, tmp, ignore_errors=True)
     scale = loop_raw_scale(headline_settings().deskew)
     rng = np.random.default_rng(SEED + 21)
     pos = ngff.create_fov(tmp / "raw.zarr", shape=(STORE_TIMEPOINTS, 1, *RAW_SHAPE),
@@ -5267,37 +5312,42 @@ def phase_store(inputs: dict | None = None) -> dict:
     same bits, with 1 deskew and 2 * ITERATIONS one-launch half-steps; (d)
     ``deskew`` (1 deskew) then ``deconvolve`` (2 * ITERATIONS half-steps) on
     ``raw1.zarr``, at the same width, within ``STORE_GAP_RTOL`` of (b)'s
-    first volume. (e) The stores are deleted at the end."""
-    import shutil
-
+    first volume. The stores stay for phase 4v (``store_inputs`` removes
+    their directory at exit)."""
     t_start = time.monotonic()
     fixtures = phase_fixtures()
     encode = phase_encode()
     inputs = inputs or store_inputs()
-    tmp = inputs["tmp"]
-    try:
-        res = phase_store_runs(tmp, inputs["raws"])
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    res = phase_store_runs(inputs["tmp"], inputs["raws"])
     res.update(fixtures=fixtures, encode=encode, write_input_s=inputs["write_s"],
                inputs_s=inputs["seconds"], seconds=time.monotonic() - t_start)
-    print(f"  (e) the stores deleted; phase 4u took {res['seconds']:.1f} s (its inputs, "
-          f"{inputs['seconds']:.1f} s, written beside the phases before)", flush=True)
+    print(f"  phase 4u took {res['seconds']:.1f} s (its inputs, {inputs['seconds']:.1f} s, "
+          "written beside the phases before)", flush=True)
     return res
 
 
+def store_step(cfg, src) -> tuple:
+    """``build_reconstruct_step`` on the card as ``reconstruct -c cfg``
+    builds it for the store ``src`` (its scale injected), and ``src``'s
+    position."""
+    from shrimpy_tpu_torch.cli.main import _inject_from_store
+    from shrimpy_tpu_torch.config.schemas import ReconstructSettings, load_yaml_config
+    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
+    from shrimpy_tpu_torch.runtime.stream import _load_psf
+
+    settings = load_yaml_config(cfg, ReconstructSettings)
+    _, pos = _inject_from_store(settings, Path(src))
+    return build_reconstruct_step(settings, psf=_load_psf(settings), device="cuda"), pos
+
+
 def phase_store_runs(tmp, raws) -> dict:
-    """(b)-(d) of :func:`phase_store` on the input stores in ``tmp``."""
+    """(b)-(d) of :func:`phase_store` on the input stores in ``tmp``; keeps
+    (b)'s first volume on the card (``recon0``) for phase 4v."""
     import os
-    from pathlib import Path
 
     import numpy as np
 
-    from shrimpy_tpu_torch.cli.main import _inject_from_store
-    from shrimpy_tpu_torch.config.schemas import ReconstructSettings, load_yaml_config
     from shrimpy_tpu_torch.io import chunkstore, ngff
-    from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
-    from shrimpy_tpu_torch.runtime.stream import _load_psf
 
     repo = Path(__file__).resolve().parent
     env = {**os.environ, "PYTHONPATH": str(repo) + os.pathsep + os.environ.get("PYTHONPATH", "")}
@@ -5315,11 +5365,28 @@ def phase_store_runs(tmp, raws) -> dict:
     t0 = time.monotonic()
     cmd = [sys.executable, "-m", "shrimpy_tpu_torch.cli.main", "reconstruct", str(src),
            "-o", str(out), "-c", str(repo / DEMO_CONFIG)]
-    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=600)
+    # Its log (the stages' lines once the volumes are done) timed as it
+    # arrives: the first line less the stages bounds the child's start from
+    # below (stages may overlap), the exit less the last line is its end.
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                            text=True)
+    log: list = []
+    reader = threading.Thread(target=lambda: log.extend(
+        (time.monotonic() - t0, line) for line in proc.stderr), daemon=True)
+    reader.start()
+    try:
+        rc = proc.wait(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"(b) reconstruct ran past 600 s: {''.join(l for _, l in log)[-4000:]}")
+    reader.join()
     res["cli_s"] = time.monotonic() - t0
-    if proc.returncode != 0:
-        raise AssertionError(f"(b) reconstruct exited {proc.returncode}: {proc.stderr[-4000:]}")
+    if rc != 0 or not log:
+        raise AssertionError(f"(b) reconstruct exited {rc}: {''.join(l for _, l in log)[-4000:]}")
     summary = json.loads((out / "reconstruct_summary.json").read_text())
+    res["child_s"] = {"first_line": log[0][0], "stages": sum(summary["stages"].values()),
+                      "end": res["cli_s"] - log[-1][0], "first": log[0][1].strip()}
     if summary["volumes"] != STORE_TIMEPOINTS or summary["failed"] \
             or not summary["device"].startswith("cuda"):
         raise AssertionError(f"(b) the run summary {summary}")
@@ -5333,14 +5400,15 @@ def phase_store_runs(tmp, raws) -> dict:
         raise AssertionError(f"(b) the output takes {res['out_disk']} bytes for {out_bytes}")
     print(f"  (b) `python3 -m shrimpy_tpu_torch.cli.main reconstruct raw.zarr -o recon.zarr -c "
           f"{DEMO_CONFIG}` on {summary['device']}: {res['cli_s']:.2f} s wall; stages "
-          f"{summary['stages']}; output {res['out_shape']} float32 in chunks "
+          f"{summary['stages']}; the child's first log line at "
+          f"{res['child_s']['first_line']:.2f} s ({res['child_s']['first']!r}; its stages sum "
+          f"{res['child_s']['stages']:.2f} s), its exit {res['child_s']['end']:.2f} s after its "
+          f"last; output {res['out_shape']} float32 in chunks "
           f"{res['chunks']}, {res['out_disk']} bytes on disk for {out_bytes} raw "
           f"({res['out_disk'] / out_bytes:.6f}); peak "
           f"{res['peak_gib']:.2f} GiB", flush=True)
 
-    settings = load_yaml_config(repo / DEMO_CONFIG, ReconstructSettings)
-    _, in_pos = _inject_from_store(settings, src)
-    step = build_reconstruct_step(settings, psf=_load_psf(settings), device="cuda")
+    step, in_pos = store_step(repo / DEMO_CONFIG, src)
     got_pos = ngff.open_ngff(out).position()
 
     def on_card(vol) -> torch.Tensor:
@@ -5391,7 +5459,9 @@ def phase_store_runs(tmp, raws) -> dict:
             (["deskew", str(tmp / "raw1.zarr"), "-o", str(desk), "--ls-angle-deg", "30"],
              {"deskew": 1}),
             (["deconvolve", str(desk), "-o", str(deconv), "--iterations", str(ITERATIONS)], rl)]
-    (noop, redo, _, _), launches, res["runs_s"] = run_cli(runs)
+    records, res["runs_s"] = run_cli(runs)
+    noop, redo = (json.loads(r["out"]) for r in records[:2])  # the verbs' summaries
+    launches = [r["launches"] for r in records]
     res["launches"] = {k: sum(c.get(k, 0) for c in launches) for k in ("deskew", *rl)}
     if noop["volumes"] != 0 or noop["skipped_resume"] != STORE_TIMEPOINTS:
         raise AssertionError(f"(c) the first --resume did work: {noop}")
@@ -5414,8 +5484,670 @@ def phase_store_runs(tmp, raws) -> dict:
           f"{res['verbs_gap']:.3e} of max from (b)'s volume, launches {launches[2]} then "
           f"{launches[3]}; (c) and (d) through the CLI in this process {res['runs_s']:.2f} s",
           flush=True)
+    res["recon0"] = outs[0]
     del outs, got
     torch.cuda.empty_cache()
+    return res
+
+
+# --- Phase 4v: the rest of the CLI on the card, each verb as the console
+# script runs it (``cli.main(args=..., standalone_mode=False)``), ``--device``
+# at its default, on stores the port's io/ngff.py writes (blosc-zstd).
+VERB_PHASE_SCALE = (0.25, 0.116, 0.116)  # phase_tf's z and yx pixel: the verb's TF is 4l's
+PAIR_CHANNELS = ("phase", "nuclei", "membrane")  # train-vs's store: the input and two targets
+# 25 steps: the verb validates every 25 (``train_vsunet``'s default), so one
+# validation runs and the best weights are its.
+TRAIN_VERB_ARGS = ["--steps", "25", "--batch", "4", "--patch", "128", "--learning-rate", "1e-4"]
+REG_OFFSET_TOL, REG_DIAG_TOL = 0.3, 0.02  # 4g's gates on a recovered map: px, the diagonal
+DRIFT_ATOL = 1.0  # px: pcc's shift against the drift baked into the frames (4m's gate)
+
+
+def fov_store(path, volumes, channels, zyx_scale):
+    """An FOV store (OME-NGFF 0.5, the port's ``io/ngff.py``: blosc-zstd) of
+    ``volumes[t][c]`` (numpy arrays of one dtype and shape), with the
+    channel names and the scale given, in the store runtime's chunks (a
+    volume past blosc's largest chunk split in z). Returns its path."""
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.io import ngff
+    from shrimpy_tpu_torch.runtime.stream import _output_chunks
+
+    first = volumes[0][0]
+    shape, dtype = (len(volumes), len(channels), *first.shape), str(first.dtype)
+    pos = ngff.create_fov(path, shape=shape, dtype=dtype, channel_names=list(channels),
+                          zyx_scale=tuple(zyx_scale), chunks=_output_chunks(shape, dtype),
+                          version="0.5")
+    for t, vols in enumerate(volumes):
+        for c, vol in enumerate(vols):
+            pos.write((t, c), vol)
+    return Path(path)
+
+
+def pair_volumes(phase) -> list:
+    """train-vs's channels of one volume: the input and the targets
+    ``tanh(2 x)`` and ``sin(3 x)`` (:class:`MemoryPosition`'s)."""
+    import numpy as np
+
+    return [phase, np.tanh(2 * phase), np.sin(3 * phase)]
+
+
+VERB_CHANNELS = {"beads": ["beads"], "lf": ["phase"], "ls": ["gfp"], "cfg2_raw": ["LS"],
+                 "session": ["BF"], "bf": ["BF"], "lf_session": ["BF"],
+                 "pairs": list(PAIR_CHANNELS)}
+
+
+def verb_inputs(tmp, data: dict) -> dict:
+    """4v's input stores ``<name>.zarr`` in ``tmp``, one for each entry of
+    ``data``: ``beads`` (the bead raw), ``lf`` and ``ls`` (the registration's
+    fixed and moving volumes), ``cfg2_raw`` (the raw config 2 deconvolves)
+    and ``bf`` (a brightfield stack) a volume each; ``session``,
+    ``lf_session`` and ``pairs`` a list of timepoints' volumes (``pairs``
+    each a training volume with its targets, :func:`pair_volumes`). The
+    channels are VERB_CHANNELS'; the raws (``beads``, ``cfg2_raw``,
+    ``session``) take the raw's scale, the phase stacks VERB_PHASE_SCALE,
+    the others a cubic BEAD_PX_UM. Returns their ``paths`` by name, what
+    was ``written`` (path: (shape TCZYX, scale)) and the seconds."""
+    from pathlib import Path
+
+    t0 = time.monotonic()
+    raw, cubic = loop_raw_scale(headline_settings().deskew), (BEAD_PX_UM,) * 3
+    scales = {"beads": raw, "cfg2_raw": raw, "session": raw, "bf": VERB_PHASE_SCALE,
+              "lf_session": VERB_PHASE_SCALE}
+    out: dict = {"paths": {}, "written": {}}
+    for name, value in data.items():
+        vols = ([pair_volumes(v) for v in value] if name == "pairs" else
+                [[v] for v in value] if isinstance(value, list) else [[value]])
+        scale = scales.get(name, cubic)
+        path = str(fov_store(Path(tmp) / f"{name}.zarr", vols, VERB_CHANNELS[name], scale))
+        out["paths"][name] = path
+        out["written"][path] = ((len(vols), len(vols[0]), *vols[0][0].shape), scale)
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def lf_session_frames(n_t: int) -> list:
+    """The label-free arm's timepoints for replay-dual: brightfield camera
+    counts (uint16 in [900, 1100)) at PHASE_SMALL_SHAPE, from a seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 23)
+    return [rng.integers(900, 1100, PHASE_SMALL_SHAPE, dtype=np.uint16) for _ in range(n_t)]
+
+
+def verb_configs(tmp, psf_npy, transform, n_timepoints: int, deconvolve: str = "") -> dict:
+    """The YAMLs 4v's verbs read, written in ``tmp``: ``cfg2.yml`` and
+    ``cfg4.yml`` (``configs/reconstruct_demo.yml`` with ``psf_path`` the
+    measured PSF's ``.npy``, and with ``registration.transform_path`` the
+    register verb's JSON; ``deconvolve`` adds lines to its deconvolve
+    block), ``phase.yml`` (the phase settings' defaults), ``plan.yml``
+    (``configs/plan_demo.yml`` at ``n_timepoints``), ``track_deskew.yml``
+    (``configs/dynatrack_demo.yml`` with ``preprocessing: [deskew]``) and
+    ``dual.yml`` (arms ``labelfree`` on ``lf_session.zarr`` and
+    ``lightsheet`` on ``session.zarr`` with the plan's DynaTrack block).
+    Returns {name: path}."""
+    from pathlib import Path
+
+    import yaml
+
+    tmp, repo = Path(tmp), Path(__file__).resolve().parent
+    demo = (repo / DEMO_CONFIG).read_text()
+    tol = "  separable_tol: 1.0e-4\n"
+    plan = (repo / "configs/plan_demo.yml").read_text()
+    track = (repo / "configs/dynatrack_demo.yml").read_text()
+    if demo.count(tol) != 1 or plan.count("  n_timepoints: 4\n") != 1 \
+            or track.count("# preprocessing: [deskew, phase, vs]\n") != 1:
+        raise AssertionError("the demo configs changed: 4v's edits of them no longer apply")
+    texts = {
+        "cfg2": demo.replace(tol, f"{tol}{deconvolve}  psf_path: {psf_npy}\n"),
+        "cfg4": demo.replace(tol, tol + deconvolve)
+        + f"\nregistration:\n  transform_path: {transform}\n",
+        "phase": "transfer_function:\n  z_padding: 5\n",
+        "plan": plan.replace("  n_timepoints: 4\n", f"  n_timepoints: {n_timepoints}\n"),
+        "track_deskew": track.replace("# preprocessing: [deskew, phase, vs]\n",
+                                      "preprocessing: [deskew]\ndeskew:\n  ls_angle_deg: 30.0\n"),
+    }
+    paths = {k: tmp / f"{k}.yml" for k in texts}
+    for k, text in texts.items():
+        paths[k].write_text(text)
+    arm_plan = yaml.safe_load(texts["plan"])
+    dual = {"arms": {
+        "labelfree": {"input": str(tmp / "lf_session.zarr"),
+                      "plan": {"time": {"n_timepoints": n_timepoints}}},
+        "lightsheet": {"input": str(tmp / "session.zarr"), "plan": arm_plan}},
+        "barrier_timeout_s": LOOP_DRAIN_S}
+    paths["dual"] = tmp / "dual.yml"
+    paths["dual"].write_text(yaml.safe_dump(dual, sort_keys=False))
+    paths["track"] = repo / "configs/dynatrack_demo.yml"
+    return {k: str(v) for k, v in paths.items()}
+
+
+def verb_runs(tmp, paths: dict, cfgs: dict, device: str | None = None) -> dict:
+    """4v's command lines by letter, in the order an operator runs them:
+    (a) measure-psf, (b) register, (c) reconstruct with the measured PSF,
+    (d) with the transform, (e) on a one-device mesh, (g) phase, (i) track
+    without and with a deskew, (h) ``plan validate`` then replay, (j)
+    replay-dual, (k) train-vs, each verb that computes with ``device``
+    appended as ``--device`` (None: at its default); (f) the verbs with no
+    device: ``monitor --once`` of (d)'s and (h)'s stores, ``microscopes``
+    and ``plan show``."""
+    from pathlib import Path
+
+    tmp = Path(tmp)
+    dev = [] if device is None else ["--device", device]
+    return {
+        "a": [["measure-psf", paths["beads"], "-o", str(tmp / "psf"), "--geometry", "lightsheet",
+               "--ls-angle-deg", "30", *dev]],
+        "b": [["register", paths["lf"], "--fixed-channel", "phase", "--moving-input",
+               paths["ls"], "--moving-channel", "gfp", "-o", str(tmp / "transform.json"), *dev]],
+        "c": [["reconstruct", paths["cfg2_raw"], "-o", str(tmp / "cfg2.zarr"), "-c",
+               cfgs["cfg2"], *dev]],
+        "d": [["reconstruct", paths["raw1"], "-o", str(tmp / "cfg4.zarr"), "-c", cfgs["cfg4"],
+               *dev]],
+        "e": [["reconstruct", paths["raw1"], "-o", str(tmp / "mesh1.zarr"), "-c",
+               str(Path(__file__).resolve().parent / DEMO_CONFIG), "--devices", "1", *dev]],
+        "g": [["phase", paths["bf"], "-o", str(tmp / "phase.zarr"), "--config", cfgs["phase"],
+               *dev]],
+        "i": [["track", paths["session"], "-c", cfgs["track"], "-o", str(tmp / "shifts.csv"),
+               *dev],
+              ["track", paths["session"], "-c", cfgs["track_deskew"], "-o",
+               str(tmp / "shifts_deskew.csv"), *dev]],
+        "h": [["plan", "validate", cfgs["plan"], "--input", paths["session"]],
+              ["replay", paths["session"], "-o", str(tmp / "replay"), "-n", "demo", "--plan",
+               cfgs["plan"], *dev]],
+        "j": [["replay-dual", cfgs["dual"], "-o", str(tmp / "dual"), "-n", "session", *dev]],
+        "k": [["train-vs", paths["pairs"], "--input-channel", "phase", "--target-channels",
+               ",".join(PAIR_CHANNELS[1:]), "-o", str(tmp / "ckpt"), *TRAIN_VERB_ARGS, *dev]],
+        "f": [["monitor", str(tmp / "cfg4.zarr"), "--once"],
+              ["monitor", str(tmp / "replay" / "demo.zarr"), "--once"],
+              ["microscopes"], ["plan", "show", cfgs["plan"]]],
+    }
+
+
+def journal_rows(path) -> list:
+    """A DynaTrack journal's rows (``ShiftJournal.rows``), its numbers as
+    floats."""
+    from shrimpy_tpu_torch.tracking.core import ShiftJournal
+
+    return [{k: v if k in ("position", "method") else float(v) for k, v in row.items()}
+            for row in ShiftJournal(path).rows()]
+
+
+def journal_shifts(rows) -> list:
+    return [[r["shift_z_px"], r["shift_y_px"], r["shift_x_px"]] for r in rows]
+
+
+JOURNAL_UM_ATOL = 5e-5  # the journal writes the stage's moves to 4 decimals (um)
+
+
+def stage_position(rows, before: float = math.inf) -> list:
+    """The stage (x, y, z) um after the journal's updates of the timepoints
+    before ``before``, from 0: each update sets the position acquired at
+    less its stage shift (``tracking/core.py::corrected_position``)."""
+    moves = [r for r in rows if r["timepoint"] < before]
+    return [-sum(r[f"stage_d{a}_um"] for r in moves) for a in "xyz"]
+
+
+def stage_offsets(rows, zyx_scale, n_timepoints: int, lag: int = 0) -> list:
+    """The stage offset, whole pixels (ZYX) of a source at ``zyx_scale``,
+    under which each timepoint was acquired: :func:`stage_position` before
+    it (the tracking arm drains every update before the next timepoint),
+    mapped as ``AcquisitionEngine._stage_offset_px`` maps the stage. With
+    ``lag`` 1, after its own update too: an arm that shares the stage but
+    does not track reads it at its own pace, before or after the tracking
+    arm's update of the same timepoint lands."""
+    sz, sy, sx = zyx_scale
+    out = []
+    for t in range(n_timepoints):
+        x, y, z = stage_position(rows, t + lag)
+        out.append((int(round(z / sz)), int(round(y / sy)), int(round(x / sx))))
+    return out
+
+
+def store_frames(path, device) -> list:
+    """A one-channel store's timepoints (:func:`store_volume`)."""
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    return [store_volume(path, t, device=device)
+            for t in range(open_ngff(path).position().shape[0])]
+
+
+def replayed_as_served(frames: list, output, offsets, later=None) -> list:
+    """Each timepoint of ``output``'s one position (one channel) against its
+    source's frame (``frames``, :func:`store_frames`) rolled by minus its
+    stage offset (``engine/replay.py::ReplaySource``), or by minus its
+    ``later`` one where given (:func:`stage_offsets` with ``lag`` 1), on the
+    frames' device: bit for bit, or AssertionError. Returns the offsets the
+    frames were served at that moved them."""
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    (out,) = open_ngff(output).positions().values()
+    if out.shape != (len(frames), 1, *frames[0].shape):
+        raise AssertionError(f"{output}: shape {out.shape}, its source {len(frames)} x "
+                             f"{tuple(frames[0].shape)}")
+    served = []
+    for t, frame in enumerate(frames):
+        got = torch.from_numpy(out.volume(t, 0)).to(frame.device)
+        offs = list(dict.fromkeys([offsets[t], *([later[t]] if later else [])]))
+        off = next((o for o in offs if torch.equal(
+            got, torch.roll(frame, tuple(-v for v in o), dims=(0, 1, 2)))), None)
+        if off is None:
+            raise AssertionError(f"{output}: t={t} is not its source's frame rolled by minus a "
+                                 f"stage offset of {offs}")
+        served.append(off)
+    return [off for off in served if any(off)]
+
+
+def config2_want(psf, deconv) -> dict:
+    """The launches of deskew + RL-``deconv.iterations`` with ``psf`` at the
+    production raw on ``fused`` (4p's count, and 4v(c)'s): the deskew, a
+    half-step each, one ``rl_half`` launch a half-step or, past its block,
+    three a term with the compiled passes where the tap lists allow. Returns
+    {"want", "terms", "psf_w", "radii", "carry", "route", "layout"}."""
+    from shrimpy_tpu_torch.ops.deconv import plan_terms, prepare_psf
+    from shrimpy_tpu_torch.ops.rl_fused import (
+        axis_pass_route,
+        half_layout,
+        half_step_route,
+        x_pass_route,
+    )
+
+    psf_w = prepare_psf(psf, deconv)
+    terms = plan_terms(psf_w, deconv)
+    if terms is None:
+        raise AssertionError(f"measured PSF {psf_w.shape} takes no separable terms")
+    radii = tuple(k // 2 for k in psf_w.shape)
+    carry = tuple(n + 2 * r for n, r in zip(deskewed_shape(), radii))
+    route = half_step_route(carry, radii, len(terms))
+    halves = 2 * deconv.iterations
+    per_half = 1 if route == "one_launch" else 3 * len(terms)
+    want = {"deskew": 1, "rl_half_step": halves, f"rl_half_{route}": halves * per_half}
+    if route == "three_pass":
+        want["axis_pass"] = halves * len(terms) * sum(
+            axis_pass_route(k) == "compiled" for k in psf_w.shape[:2])
+        want["x_pass"] = halves * len(terms) * (
+            x_pass_route(carry[2], psf_w.shape[2]) == "compiled")
+    return {"want": want, "terms": terms, "psf_w": psf_w, "radii": radii, "carry": carry,
+            "route": route, "layout": half_layout(carry, radii, len(terms)) or {}}
+
+
+def verb_line(tag: str, recs: list, checks: str, where: str = "on cuda (--device at its "
+              "default)") -> None:
+    """A 4v run's line: its verbs, where they ran, seconds, launches, the
+    card's peak and its checks."""
+    verbs = " then ".join(f"`{' '.join(r['args'][:2])}`" for r in recs)
+    print(f"  ({tag}) {verbs}: exit 0 {where}, {sum(r['s'] for r in recs):.2f} s, "
+          f"launches {[r['launches'] for r in recs]}, peak "
+          f"{max(r['peak_gib'] for r in recs):.2f} GiB; {checks}", flush=True)
+
+
+def store_volume(path, t: int = 0, c: int = 0, device="cuda") -> torch.Tensor:
+    """A store's volume in float32 on ``device`` (a camera's uint16 made
+    float on the host, as the store runtime reads it)."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    vol = open_ngff(path).position().volume(t, c)
+    return torch.from_numpy(np.ascontiguousarray(vol, dtype=np.float32)).to(device)
+
+
+def verb_psf(tmp, paths, runs, refs) -> dict:
+    """(a) measure-psf of the bead store: one deskew launch; its PSF and
+    report bit for bit 4p's ``measure_volume_psf`` of the same raw with the
+    same defaults (``refs["psf"]``): 4v measures nothing in process."""
+    import numpy as np
+
+    (rec,), _ = run_cli([(runs["a"][0], {"deskew": 1})])
+    report = json.loads(rec["out"])
+    psf = np.load(tmp / "psf.npy")
+    want, against = refs["psf"], "4p's measure_volume_psf of the same raw"
+    if not (np.array_equal(psf, want["psf"])
+            and json.dumps(report, sort_keys=True) == json.dumps(want["report"], sort_keys=True)):
+        raise AssertionError(f"(a) the verb's PSF ({report}) is not {against} ({want['report']})")
+    verb_line("a", [rec], f"PSF {psf.shape} from {report['n_beads']} beads, FWHM zyx "
+              f"{np.round(report['fwhm_um_zyx'], 4).tolist()} um, bit for bit {against}")
+    return {"n_beads": report["n_beads"], "fwhm_um_zyx": report["fwhm_um_zyx"], "rec": rec,
+            "psf_npy": str(tmp / "psf.npy")}
+
+
+def verb_register(tmp, paths, runs, refs) -> dict:
+    """(b) register across the two single-arm stores (``pcc+refine``, the
+    defaults): 4g's launches; the JSON's map against the truth's inverse
+    within 4g's gates and bit for bit 4g's ``estimate_registration`` of the
+    same volumes (``refs["register"]``): 4v estimates nothing in process."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config import registration_settings
+
+    iters = registration_settings().refine_iterations
+    (rec,), _ = run_cli([(runs["b"][0], {"refine_sums": iters + 2, "refine_grad": iters})])
+    got = json.loads((tmp / "transform.json").read_text())
+    matrix, offset = np.array(got["matrix_zyx"]), np.array(got["offset_zyx"])
+    m, t = f32_map(*TRUE_MAP)
+    inv = np.linalg.inv(m.astype(np.float64))
+    off_err = float(np.abs(offset - (-inv @ t.astype(np.float64))).max())
+    diag_err = float(np.abs(np.diag(matrix) - np.diag(inv)).max())
+    if not (off_err <= REG_OFFSET_TOL and diag_err <= REG_DIAG_TOL):
+        raise AssertionError(f"(b) the verb's map: offset {off_err:.4f} px, diagonal "
+                             f"{diag_err:.2e} from the truth")
+    want, against = refs["register"], "4g's estimate of the same volumes"
+    if not (np.array_equal(matrix, want["matrix"]) and np.array_equal(offset, want["offset"])):
+        raise AssertionError(f"(b) the verb's map {got} is not {against}: {want}")
+    verb_line("b", [rec], f"offset error {off_err:.4f} px (tol {REG_OFFSET_TOL}), diagonal "
+              f"{diag_err:.2e} (tol {REG_DIAG_TOL}), final loss {got['final_loss']:.5f}; the map "
+              f"bit for bit {against}")
+    return {"offset_err_px": off_err, "diag_err": diag_err, "rec": rec}
+
+
+def verb_reconstructs(tmp, paths, runs, cfgs, refs, psf) -> dict:
+    """(c) config 2 through the CLI with the measured PSF: its launches
+    (:func:`config2_want`), bit for bit 4p's deskew + RL-20 of the same raw
+    with the same PSF (``refs["cfg2_out"]``; (a) holds the PSF to 4p's). (d)
+    config 4's deskew + register + RL-20 with the register verb's JSON: 1
+    deskew, 1 warp and 40 ``rl_half``, bit for bit :func:`store_step` with
+    the same YAML run here on 4u's raw (``refs["raw1"]``, the store's
+    timepoint as 4u wrote it). (e) ``--devices 1`` (a one-device mesh,
+    ``reconstruct_store(mesh=)``): 1 deskew and 40 ``rl_half``, bit for bit
+    4u(b)'s timepoint 0 (``refs["recon0"]``, kept on the card)."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.config.schemas import ReconstructSettings, load_yaml_config
+
+    res = {}
+    deconv = load_yaml_config(cfgs["cfg2"], ReconstructSettings).deconvolve
+    plan = config2_want(np.load(psf), deconv)
+    (rec,), _ = run_cli([(runs["c"][0], plan["want"])])
+    same_bits("(c) the CLI against 4p's step", store_volume(tmp / "cfg2.zarr"),
+              refs.pop("cfg2_out"))
+    verb_line("c", [rec], f"K = {len(plan['terms'])} of {plan['psf_w'].shape}, route "
+              f"{plan['route']}; bit for bit 4p's deskew + RL-20 of the same raw with the same PSF")
+    res["c"] = {"rec": rec, "k": len(plan["terms"]), "route": plan["route"]}
+    rl = {"rl_half_step": 2 * ITERATIONS, "rl_half_one_launch": 2 * ITERATIONS}
+    (rec,), _ = run_cli([(runs["d"][0], {"deskew": 1, "affine_warp": 1, **rl})])
+    step, _ = store_step(cfgs["cfg4"], paths["raw1"])
+    want = step(torch.from_numpy(refs.pop("raw1")).cuda().float()[None])[0]
+    del step
+    same_bits("(d) the CLI against the step run here", store_volume(tmp / "cfg4.zarr"), want)
+    del want
+    verb_line("d", [rec], "deskew + register-apply + RL-20 bit for bit build_reconstruct_step "
+              "run here with the same YAML")
+    res["d"] = {"rec": rec}
+    (rec,), _ = run_cli([(runs["e"][0], {"deskew": 1, **rl})])
+    summary = json.loads((tmp / "mesh1.zarr" / "reconstruct_summary.json").read_text())
+    same_bits("(e) --devices 1 against 4u(b)", store_volume(tmp / "mesh1.zarr"),
+              refs.pop("recon0"))
+    verb_line("e", [rec], f"the run summary's mesh {summary.get('mesh')}, device "
+              f"{summary['device']}; bit for bit 4u(b)'s timepoint 0")
+    res["e"] = {"rec": rec, "mesh": summary.get("mesh")}
+    return res
+
+
+def verb_phase(tmp, paths, runs, refs) -> dict:
+    """(g) phase of the brightfield store: no kernel of the repository
+    (cuFFT); the transfer function a hit of 4l's host cache (the store's
+    scale is 4l's), and the output bit for bit 4l's step on the same stack
+    (``refs["phase_out"]``)."""
+    from shrimpy_tpu_torch.ops.phase import _compute_tf_cached
+
+    before = _compute_tf_cached.cache_info()
+    (rec,), _ = run_cli([(runs["g"][0], {})])
+    after = _compute_tf_cached.cache_info()
+    hit = after.hits == before.hits + 1 and after.misses == before.misses
+    got = store_volume(tmp / "phase.zarr")
+    if not hit:
+        raise AssertionError(f"(g) the verb's TF missed 4l's host cache: {before} -> {after}")
+    same_bits("(g) the CLI against 4l's step", got, torch.from_numpy(refs["phase_out"]).cuda())
+    verb_line("g", [rec], f"output {tuple(got.shape)}, the host TF cache "
+              f"{'hit' if hit else 'missed'} "
+              f"({after}); bit for bit 4l's step on the same stack")
+    shape = tuple(got.shape)
+    del got
+    return {"rec": rec, "tf_hit": hit, "shape": shape}
+
+
+def verb_track(tmp, runs, frames: list) -> dict:
+    """(i) track of the session store: without preprocessing (no kernel)
+    the journal's shifts are the drift baked into the frames, (2, 0, 3) raw
+    px a timepoint, within DRIFT_ATOL; with ``[deskew]`` (1 deskew launch a
+    timepoint) they equal 4m's pcc (its settings, ``Preprocessor`` and
+    ``Tracker``) run here on the frames read back, and its deskewed drift
+    within DRIFT_ATOL; a row a timepoint."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.tracking import Tracker
+    from shrimpy_tpu_torch.tracking.preprocess import Preprocessor
+
+    n_t = len(frames)
+    recs, _ = run_cli([(runs["i"][0], {}), (runs["i"][1], {"deskew": n_t})])
+    raw_rows = journal_rows(tmp / "shifts.csv")
+    desk_rows = journal_rows(tmp / "shifts_deskew.csv")
+    r = headline_settings().deskew.px_to_scan_ratio
+    baked = [np.array([t * TRACK_DRIFT[0], 0.0, t * TRACK_DRIFT[1]]) for t in range(n_t)]
+    deskewed = [np.array([0.0, t * TRACK_DRIFT[0] / r, t * TRACK_DRIFT[1]]) for t in range(n_t)]
+    if len(raw_rows) != n_t or len(desk_rows) != n_t:
+        raise AssertionError(f"(i) {len(raw_rows)} and {len(desk_rows)} journal rows for {n_t}")
+    raw_err = max(float(np.abs(np.array(s) - b).max())
+                  for s, b in zip(journal_shifts(raw_rows), baked))
+    cfg = track_config("pcc", preprocessing=["deskew"], deskew=vars(headline_settings().deskew))
+    pre, tracker = Preprocessor(cfg), Tracker(cfg)
+    here = [[float(f"{v:.4f}") for v in tracker.update(  # to the journal's 4 decimals
+        pre.tracking_stack(frame), t).shift_px_zyx] for t, frame in enumerate(frames)]
+    del pre, tracker
+    desk_err = max(float(np.abs(np.array(s) - b).max())
+                   for s, b in zip(journal_shifts(desk_rows), deskewed))
+    if not (raw_err <= DRIFT_ATOL and desk_err <= DRIFT_ATOL and journal_shifts(desk_rows) == here):
+        raise AssertionError(f"(i) raw shifts {journal_shifts(raw_rows)} (baked {baked}), "
+                             f"deskewed {journal_shifts(desk_rows)} (here {here}, baked "
+                             f"{deskewed})")
+    verb_line("i", recs, f"{n_t} rows each; raw shifts {journal_shifts(raw_rows)} px (the baked "
+              f"drift within {raw_err:.3f}); after [deskew] {journal_shifts(desk_rows)} (4m's pcc "
+              f"run here on the frames read back: the same; the deskewed drift within "
+              f"{desk_err:.3f})")
+    return {"recs": recs, "raw_shifts": journal_shifts(raw_rows),
+            "deskew_shifts": journal_shifts(desk_rows), "rows": raw_rows}
+
+
+def verb_replay(tmp, paths, runs, frames: list, track_rows) -> dict:
+    """(h) ``plan validate`` of the plan against the session store, then
+    replay with it (DynaTrack ``pcc`` on BF, -I, autofocus on): each output
+    frame bit for bit the source's rolled by minus the stage offset it was
+    acquired under (``ReplaySource`` follows the stage: the journal's moves
+    before its timepoint); every update finite; the journal's shifts equal
+    (i)'s where no correction had moved the frame, and the shift (i) found
+    less the offset within DRIFT_ATOL where one had."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    n_t = len(frames)
+    recs, _ = run_cli([(runs["h"][0], {}), (runs["h"][1], {})])
+    if json.loads(recs[0]["out"]) != {"valid": True, "plan": runs["h"][0][2]}:
+        raise AssertionError(f"(h) plan validate: {recs[0]['out']}")
+    out = tmp / "replay" / "demo.zarr"
+    if recs[1]["out"].strip().splitlines()[-1] != str(out):
+        raise AssertionError(f"(h) replay printed {recs[1]['out'][-400:]}")
+    rows = journal_rows(tmp / "replay" / "demo_dynatrack_log.csv")
+    shifts = journal_shifts(rows)
+    if len(rows) != n_t or not np.isfinite(np.array(shifts, float)).all():
+        raise AssertionError(f"(h) the journal's rows {rows}")
+    scale = open_ngff(paths["session"]).position().zyx_scale
+    offsets = stage_offsets(rows, scale, n_t)
+    moved = replayed_as_served(frames, out, offsets)
+    found = journal_shifts(track_rows)
+    for t, (s, f, off) in enumerate(zip(shifts, found, offsets)):
+        if not any(off) and s != f:
+            raise AssertionError(f"(h) t={t}: the engine's shift {s}, track's {f} on the same "
+                                 "frame")
+        if any(off) and not np.abs(np.array(s) - (np.array(f) - np.array(off))).max() <= DRIFT_ATOL:
+            raise AssertionError(f"(h) t={t}: the engine's shift {s} on a frame moved by {off}, "
+                                 f"track's {f}")
+    verb_line("h", recs, f"plan valid; {n_t} frames bit for bit the source's rolled by minus the "
+              f"stage offsets {offsets} px; journal shifts {shifts} (track's {found}: equal on "
+              f"unmoved frames, less the offset on moved ones)")
+    return {"recs": recs, "offsets": offsets, "moved": moved, "shifts": shifts}
+
+
+def verb_dual(tmp, paths, runs, frames: list) -> dict:
+    """(j) replay-dual: the label-free arm untracked, the light-sheet arm
+    with the plan's DynaTrack block, each on its own engine and thread
+    sharing one stage: every arm's frames bit for bit its source's rolled by
+    minus the shared stage's offset at its own scale (the label-free arm's
+    read before or after the tracking arm's update of the same timepoint
+    lands: the engines are in step only at the timepoint's barrier); the
+    summary's final
+    stage the position the tracking arm's journaled moves give
+    (:func:`stage_position`, to the journal's 4 decimals)."""
+    import numpy as np
+
+    from shrimpy_tpu_torch.io.ngff import open_ngff
+
+    n_t = len(frames)
+    (rec,), _ = run_cli([(runs["j"][0], {})])
+    lines = rec["out"].strip().splitlines()
+    results = json.loads(lines[-1])
+    if set(results) != {"labelfree", "lightsheet"} or any(r["error"] for r in results.values()):
+        raise AssertionError(f"(j) the arms' results {results}")
+    rows = journal_rows(tmp / "dual" / "session_lightsheet_dynatrack_log.csv")
+    summary = json.loads((tmp / "dual" / "session_dualarm_summary.json").read_text())
+    (final,) = summary["stage_final_um"].values()
+    moved = stage_position(rows)
+    if len(rows) != n_t or not np.allclose(final, moved, rtol=0, atol=JOURNAL_UM_ATOL * n_t):
+        raise AssertionError(f"(j) final stage {final}, the journal's moves {moved} ({rows})")
+    offsets = {}
+    for arm, src, arm_frames in (("labelfree", paths["lf_session"],
+                                  store_frames(paths["lf_session"], "cuda")),
+                                 ("lightsheet", paths["session"], frames)):
+        scale = open_ngff(src).position().zyx_scale
+        later = stage_offsets(rows, scale, n_t, lag=1) if arm == "labelfree" else None
+        offsets[arm] = replayed_as_served(arm_frames, tmp / "dual" / f"session_{arm}.zarr",
+                                          stage_offsets(rows, scale, n_t), later)
+    verb_line("j", [rec], f"both arms' frames bit for bit their sources' rolled by minus the "
+              f"shared stage's offsets (the moved frames' {offsets}); final stage {final} um, "
+              f"the position the tracking arm's {n_t} journaled moves give")
+    return {"rec": rec, "final_um": final, "offsets": offsets}
+
+
+def verb_train(tmp, paths, runs) -> dict:
+    """(k) train-vs (unet25d) on the pairs store: no kernel of the
+    repository (cuDNN, cuBLAS); the losses and the best validation loss
+    finite; the checkpoint and its sidecar reload into the port's stainer,
+    whose weights are the saved tensors bit for bit and whose ``predict``
+    of one volume is finite."""
+    import math as _math
+
+    from shrimpy_tpu_torch.config import vs_settings
+    from shrimpy_tpu_torch.models.vsunet import STATE_DICT_FILE, VirtualStainer
+
+    (rec,), _ = run_cli([(runs["k"][0], {})])
+    report = json.loads(rec["out"].strip().splitlines()[-1])
+    if not (0 < report["steps"] <= int(TRAIN_VERB_ARGS[1]) and _math.isfinite(report["final_loss"])
+            and _math.isfinite(report["best_val_loss"])):
+        raise AssertionError(f"(k) train-vs reported {report}")
+    ckpt = tmp / "ckpt"
+    saved = torch.load(ckpt / STATE_DICT_FILE, map_location="cpu")
+    loaded = VirtualStainer(vs_settings(ckpt_path=str(ckpt)))
+    state = loaded.model.state_dict()
+    if sorted(state) != sorted(saved) or any(not torch.equal(state[k].cpu(), v)
+                                             for k, v in saved.items()):
+        raise AssertionError("(k) the reloaded stainer's weights are not the saved tensors")
+    vol = store_volume(paths["pairs"])
+    pred = loaded.predict(vol)
+    if sorted(pred) != sorted(PAIR_CHANNELS[1:]) or not all(bool(torch.isfinite(v).all())
+                                                             for v in pred.values()):
+        raise AssertionError(f"(k) predict of the reloaded checkpoint: {sorted(pred)}")
+    verb_line("k", [rec], f"{report['steps']} steps, final loss {report['final_loss']:.4f}, best "
+              f"validation {report['best_val_loss']:.4f}; the checkpoint's {len(saved)} tensors "
+              f"reload bit for bit, predict of a {tuple(vol.shape)} volume finite")
+    del loaded, vol, pred
+    return {"rec": rec, "report": report}
+
+
+def verb_status(tmp, paths, runs, cfgs, n_t: int, written: dict) -> dict:
+    """(f) ``monitor --once`` of (d)'s output and of (h)'s replay store (the
+    status counts the timepoints written; the card's machine has no
+    matplotlib, so no PNG there, and the status is printed all the same),
+    ``info`` of every store 4v wrote (their shapes and scales as written),
+    ``microscopes`` and ``plan show``."""
+    import importlib.util
+
+    recs, _ = run_cli([(args, {}) for args in runs["f"]])
+    status = [json.loads(r["out"].strip().splitlines()[-1]) for r in recs[:2]]
+    for st, n, store in zip(status, (1, n_t), (tmp / "cfg4.zarr", tmp / "replay" / "demo.zarr")):
+        (one,) = st.values()
+        if one["timepoints_written"] != n or one["of"] != n:
+            raise AssertionError(f"(f) monitor {store}: {st}, want {n} written")
+    plt = importlib.util.find_spec("matplotlib") is not None
+    pngs = sorted(p.name for p in (tmp / "cfg4.zarr" / "_preview").glob("*.png"))
+    if bool(pngs) != plt:
+        raise AssertionError(f"(f) matplotlib {'present' if plt else 'absent'}, PNGs {pngs}")
+    info = {}
+    for name, (shape, scale) in written.items():
+        (rec,), _ = run_cli([(["info", str(name)], {})])
+        (pos,) = json.loads(rec["out"])["positions"].values()
+        if tuple(pos["shape_tczyx"]) != tuple(shape) or (
+                scale is not None and tuple(pos["zyx_scale_um"]) != tuple(scale)):
+            raise AssertionError(f"(f) info {name}: {pos}, written {shape} at {scale}")
+        info[name] = pos["shape_tczyx"]
+    scopes = json.loads(recs[2]["out"])
+    shown = json.loads(recs[3]["out"])
+    if "mantis" not in scopes or shown["time"]["n_timepoints"] != n_t:
+        raise AssertionError(f"(f) microscopes {sorted(scopes)}, plan show {shown['time']}")
+    verb_line("f", recs, f"monitor status {status} (matplotlib "
+              f"{'present' if plt else 'absent'}: PNGs {pngs}); info of {len(info)} stores, "
+              f"shapes and scales as written; microscopes {sorted(scopes)}; plan show "
+              f"n_timepoints {n_t}", where="(verbs with no --device)")
+    return {"recs": recs, "status": status, "info": len(info), "matplotlib": plt}
+
+
+def phase_verbs(tmp, inputs: dict, refs: dict, n_t: int) -> dict:
+    """4v: every CLI verb 4u does not run, on the card as the console script
+    runs it, in the order an operator would (:func:`verb_runs`): (a)
+    measure-psf, (b) register, (c) reconstruct with the measured PSF
+    (``BASELINE.md`` config 2), (d) with the transform (config 4), (e) on a
+    one-device mesh, (g) phase, (i) track, (h) replay, (j) replay-dual, (k)
+    train-vs, then (f) monitor, info, microscopes and plan. ``inputs`` are
+    :func:`verb_inputs`' stores in ``tmp`` beside 4u's ``raw1.zarr``,
+    ``refs`` what the phases before computed in process on the same data:
+    4p's PSF and deskew + RL-20 (``psf``, ``cfg2_out``), 4g's map
+    (``register``), 4l's phase step (``phase_out``), 4u's raw and its
+    reconstruction (``raw1``, ``recon0``). Each run's counts
+    are set to 0 before and held after (:func:`run_cli`), and each run
+    prints its wall seconds, launches and checks."""
+    from pathlib import Path
+
+    t_start = time.monotonic()
+    tmp = Path(tmp)
+    paths = {**inputs["paths"], "raw1": str(tmp / "raw1.zarr")}
+    cfgs = verb_configs(tmp, tmp / "psf.npy", tmp / "transform.json", n_t)
+    runs = verb_runs(tmp, paths, cfgs)
+    res = {"a": verb_psf(tmp, paths, runs, refs), "b": verb_register(tmp, paths, runs, refs)}
+    res.update(verb_reconstructs(tmp, paths, runs, cfgs, refs, res["a"]["psf_npy"]))
+    res["g"] = verb_phase(tmp, paths, runs, refs)
+    torch.cuda.empty_cache()
+    frames = store_frames(paths["session"], "cuda")  # the source of (i), (h) and (j)
+    res["i"] = verb_track(tmp, runs, frames)
+    res["h"] = verb_replay(tmp, paths, runs, frames, res["i"]["rows"])
+    res["j"] = verb_dual(tmp, paths, runs, frames)
+    del frames
+    res["k"] = verb_train(tmp, paths, runs)
+    torch.cuda.empty_cache()
+    shape = {name: inputs["written"][paths[name]][0] for name in ("bf", "session", "lf_session")}
+    desk = (1, 1, *deskewed_shape())
+    written = {**inputs["written"], str(tmp / "cfg2.zarr"): (desk, None),
+               str(tmp / "cfg4.zarr"): (desk, None), str(tmp / "mesh1.zarr"): (desk, None),
+               str(tmp / "phase.zarr"): (shape["bf"], None),
+               str(tmp / "replay" / "demo.zarr"): (shape["session"], None),
+               str(tmp / "dual" / "session_lightsheet.zarr"): (shape["session"], None),
+               str(tmp / "dual" / "session_labelfree.zarr"): (shape["lf_session"], None)}
+    res["f"] = verb_status(tmp, paths, runs, cfgs, n_t, written)
+    recs = [r for v in res.values() for r in ([v["rec"]] if "rec" in v else v.get("recs", []))]
+    res["launches"] = {k: sum(r["launches"].get(k, 0) for r in recs)
+                       for k in ("deskew", "rl_half_one_launch", "rl_half_three_pass", "axis_pass",
+                                 "x_pass", "affine_warp", "refine_sums", "refine_grad")}
+    res["verbs_s"] = sum(r["s"] for r in recs)
+    res["seconds"] = time.monotonic() - t_start
+    print(f"  phase 4v took {res['seconds']:.1f} s ({res['verbs_s']:.1f} s in the verbs); its "
+          f"launches {res['launches']}", flush=True)
     return res
 
 
@@ -5892,7 +6624,11 @@ def main(argv) -> int:
 def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_aff,
                parent_prb) -> int:
     """Phases 3 to 5 of ``main``, after the build."""
+    import atexit
+    import shutil
+    import tempfile
     from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
 
     from shrimpy_tpu_torch.io.synthetic import tilted_gaussian_psf
     from shrimpy_tpu_torch.kernels import build
@@ -6015,30 +6751,61 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
     eng = phase_engine()
     torch.cuda.empty_cache()
     stamp(t_start, f"[4s] the live viewer beside the acquisition engine: 1 position x "
-          f"{len(ENGINE_CHANNELS)} channels x {VIEWER_TIMEPOINTS} timepoints at raw {RAW_SHAPE}, "
+          f"{len(ENGINE_CHANNELS)} channels x {VIEWER_TIMEPOINTS} timepoint at raw {RAW_SHAPE}, "
           "replay --viewer's feeder (native ring, spawned monitor) and a monitor attached here")
     view = phase_viewer(eng["host_s_per_volume"])
     torch.cuda.empty_cache()
-    # Phase 4u's input stores (host work: numpy and file writes) beside 4n-4p.
+    # Phase 4u's and 4v's input stores (host work: numpy and file writes)
+    # beside 4n-4p, in a directory removed after 4v (or at exit).
+    store_tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_store_"))
+    atexit.register(shutil.rmtree, store_tmp, ignore_errors=True)
     store_pool = ThreadPoolExecutor(1)
-    store_in = store_pool.submit(store_inputs)
+    store_in = store_pool.submit(store_inputs, store_tmp)
+    verb_data = {**reg.pop("verb"), **ph.pop("verb"), **trk.pop("verb")}
+    refs = {"register": verb_data.pop("map"), "phase_out": verb_data.pop("phase_out")}
+    n_t = len(verb_data["session"])
+    verb_in = [store_pool.submit(lambda d: verb_inputs(store_tmp, {
+        **d, "lf_session": lf_session_frames(n_t)}), verb_data)]
+    del verb_data
     stamp(t_start, f"[4n] virtual staining: unet25d through the tracker at {ph['shape']}; "
           f"unext2 at ConvNeXt-V2 Tiny widths; [deskew, phase, vs] at raw {VS_CHAIN_RAW}")
     vs = phase_vs(gen, ph["shape"])
     torch.cuda.empty_cache()
-    stamp(t_start, f"[4o] virtual-staining training: unet25d and unext2 Tiny at batch 4, patch "
-          f"128; unet25d at batch 16, patch 256; {TRAIN_VOLUMES} volumes of {TRAIN_SHAPE}")
+    stamp(t_start, f"[4o] virtual-staining training: unext2 Tiny at batch 4, patch 128 (unet25d "
+          f"through the CLI in 4v(k)); {TRAIN_VOLUMES} volumes of {TRAIN_SHAPE}")
     trn = phase_train()
+    verb_in.append(store_pool.submit(verb_inputs, store_tmp, trn.pop("verb")))
     torch.cuda.empty_cache()
     stamp(t_start, f"[4p] BASELINE.md config 2: a PSF measured from {BEAD_COUNT} beads at raw "
           f"{BEAD_RAW}, then deskew + RL-20 with it at raw {RAW_SHAPE}")
-    mpsf = phase_psf(gen)
+    mpsf = phase_psf(gen, lambda d: verb_in.append(store_pool.submit(verb_inputs, store_tmp, d)))
     torch.cuda.empty_cache()
+    # All of 4v's stores written before 4u(a) times the codec pool alone.
+    inputs: dict = {"paths": {}, "written": {}}
+    for f in verb_in:
+        done = f.result()
+        for k in inputs:
+            inputs[k].update(done[k])
+    store_pool.shutdown()
+    stamp(t_start, "  (4v's input stores written)")
+    u_in = store_in.result()
+    refs["raw1"] = u_in["raws"][0]
     stamp(t_start, f"[4u] the store path and the CLI: the tensorstore fixtures; `reconstruct -c "
           f"{DEMO_CONFIG}` over {STORE_TIMEPOINTS} production raws store to store on the card; "
           "--resume; the deskew and deconvolve verbs")
-    store = phase_store(store_in.result())
-    store_pool.shutdown()
+    store = phase_store(u_in)
+    del u_in
+    refs["recon0"] = store.pop("recon0")
+    torch.cuda.empty_cache()
+    stamp(t_start, "[4v] the other verbs through the CLI on the card: measure-psf -> register -> "
+          "reconstruct with the measured PSF and the transform, --devices 1, phase, track, "
+          "replay, replay-dual, train-vs, monitor, info, microscopes, plan")
+    refs.update(mpsf.pop("verb"))
+    try:
+        verbs = phase_verbs(store_tmp, inputs, refs, n_t)
+    finally:
+        del refs
+        shutil.rmtree(store_tmp, ignore_errors=True)
     torch.cuda.empty_cache()
     mesh.pop("closing").join()
     print(f"[5] {card}: RL-20 kernel path {step['gvox_s']:.4f} GVox/s; Biggs RL-10 kernel "
@@ -6203,16 +6970,27 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
           f"the verbs {store['runs_s']:.2f} s (gap {store['verbs_gap']:.3e}, launches "
           f"{store['launches']}); phase 4u took "
           f"{store['seconds']:.1f} s", flush=True)
+    vl = verbs["launches"]
+    print(f"[5] {card}: the other verbs through the CLI (4v): "
+          + ", ".join(f"({k}) {sum(r['s'] for r in v.get('recs', [v.get('rec')])):.2f} s"
+                      for k, v in verbs.items()
+                      if isinstance(v, dict) and ("rec" in v or "recs" in v))
+          + f"; measured PSF from {verbs['a']['n_beads']} beads, the map's offset error "
+          f"{verbs['b']['offset_err_px']:.4f} px, config 2 K {verbs['c']['k']}, the phase TF "
+          f"{'a cache hit' if verbs['g']['tf_hit'] else 'missed'}, replay's stage offsets "
+          f"{verbs['h']['offsets']}, train-vs best validation "
+          f"{verbs['k']['report']['best_val_loss']:.4f}; launches {vl}; phase 4v took "
+          f"{verbs['seconds']:.1f} s", flush=True)
     kernels = [
         {"name": "deskew", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/deskew.cu",
          "replaces": "shrimpy_tpu/ops/deskew_pallas.py:293",
          "launches": step["launches"]["deskew"] + eng["launches"] + view["launches"]
-         + mb["launches"]["deskew"] + store["launches"]["deskew"], **desk},
+         + mb["launches"]["deskew"] + store["launches"]["deskew"] + vl["deskew"], **desk},
         {"name": "rl_half_step", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
          "launches": step["launches"]["rl_half_one_launch"] + mb["launches"]["rl_half_one_launch"]
-         + store["launches"]["rl_half_one_launch"], **rl},
+         + store["launches"]["rl_half_one_launch"] + vl["rl_half_one_launch"], **rl},
         {"name": "rl_half_step_accel", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_half.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
@@ -6224,11 +7002,11 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
         {"name": "axis_pass", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_pass.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
-         "launches": mpsf["launches"]["axis_pass"], **axis_p},
+         "launches": mpsf["launches"]["axis_pass"] + vl["axis_pass"], **axis_p},
         {"name": "x_pass", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/rl_pass.cu",
          "replaces": "shrimpy_tpu/ops/rl_fused.py:312",
-         "launches": mpsf["launches"]["x_pass"], **x_p},
+         "launches": mpsf["launches"]["x_pass"] + vl["x_pass"], **x_p},
         {"name": "convzy_linear", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/convzy.cu",
          "replaces": "shrimpy_tpu/ops/conv3_pallas.py:356",
@@ -6254,15 +7032,15 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
          "launches": fip["launches"]["rl_iter"], **it},
         {"name": "affine_warp", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/affine.cu",
          "replaces": "shrimpy_tpu/ops/register.py:472 (XLA, no TPU kernel)",
-         "launches": sreg["launches"]["affine_warp"], **aff},
+         "launches": sreg["launches"]["affine_warp"] + vl["affine_warp"], **aff},
         {"name": "affine_refine_sums", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/affine.cu",
          "replaces": "shrimpy_tpu/ops/register.py:609 (XLA, no TPU kernel)",
-         "launches": reg["launches"]["refine_sums"], **rsums},
+         "launches": reg["launches"]["refine_sums"] + vl["refine_sums"], **rsums},
         {"name": "affine_refine_grad", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/affine.cu",
          "replaces": "shrimpy_tpu/ops/register.py:609 (XLA, no TPU kernel)",
-         "launches": reg["launches"]["refine_grad"], **rgrad},
+         "launches": reg["launches"]["refine_grad"] + vl["refine_grad"], **rgrad},
         {"name": "probe_smem_slice", "route": "cuda",
          "source": "shrimpy_tpu_torch/csrc/probes.cu",
          "replaces": "scripts/probe_mosaic.py:22", **p_slice},

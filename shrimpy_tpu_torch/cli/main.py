@@ -10,7 +10,8 @@ the same options and YAML as ``shrimpy_tpu/cli/main.py``, plus ``--device``
 live monitor (``viewer/``), and ``monitor`` (a store's progress, or
 ``--live`` attached to a running acquisition's ring, ``--serve`` for the
 browser) is the JAX verb with its helpers ``_start_web`` and
-``_monitor_live``, statement for statement; ``info``
+``_monitor_live``, statement for statement, but that store mode draws its
+PNGs only where matplotlib imports (:func:`_pyplot`); ``info``
 and ``microscopes`` print the JAX CLI's JSON, and ``plan new | validate |
 show`` write, check and print acquisition plans (``engine/plan.py``) as the
 JAX CLI does. Pixel size and z step come from the store's scale
@@ -720,10 +721,7 @@ def monitor(input, preview_dir, interval, once, live, ls_angle_deg,
         return
     import time as _time
 
-    import matplotlib
-
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    plt = _pyplot()
 
     from shrimpy_tpu_torch.io.ngff import open_ngff
 
@@ -777,7 +775,7 @@ def monitor(input, preview_dir, interval, once, live, ls_angle_deg,
                 "latest": ts_written[-1] if ts_written else None,
                 "of": t_size,
             }
-            if t_latest is not None:
+            if t_latest is not None and plt is not None:
                 # Read ONLY the mid-z plane of the latest volume.
                 mid_z = pos.shape[2] // 2
                 mid = pos.read((t_latest, c_prev, mid_z))
@@ -804,6 +802,23 @@ def monitor(input, preview_dir, interval, once, live, ls_angle_deg,
         _time.sleep(interval)
     if web is not None:
         web.stop()
+
+
+def _pyplot():
+    """matplotlib's pyplot on the Agg backend, or None where matplotlib is
+    missing (the ``ImportError`` logged once): store-mode ``monitor`` then
+    draws no PNG and still prints its status, writes ``state.json`` and
+    loops, as ``viewer/live.py`` does for the live monitor. The one
+    difference from the JAX verb, which imports matplotlib unconditionally."""
+    try:
+        import matplotlib
+    except ImportError as exc:
+        logging.getLogger(__name__).warning("monitor: no preview PNGs (%s)", exc)
+        return None
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    return plt
 
 
 def _start_web(out_dir, serve, *, live, near=None, plan_path=None,

@@ -25,8 +25,8 @@ differences from JAX's, the plan namespace, the card's stand-ins and the
   the JAX CLI's stores, sidecars and messages; ``replay --viewer`` writes the
   JAX CLI's ring descriptor (but the ring's name) and volume index, and
   ``monitor`` (a store, a growing store, a progress journal, ``--live`` on a
-  ring) prints its status lines (ROADMAP item 12d). ``monitor``,
-  ``_start_web`` and ``_monitor_live`` are the JAX CLI's, and ``replay`` is
+  ring) prints its status lines (ROADMAP item 12d). ``monitor`` (but its
+  matplotlib guard), ``_start_web`` and ``_monitor_live`` are the JAX CLI's, and ``replay`` is
   too but for ``device``, pinned by AST.
 """
 
@@ -681,15 +681,31 @@ def _without_device(func: ast.FunctionDef) -> str:
     return ast.dump(_WithoutDevice().visit(func))
 
 
+def _pyplot_guarded(jax_monitor: ast.FunctionDef) -> str:
+    """JAX's ``monitor`` with its one named difference in the port: pyplot
+    from ``_pyplot()`` (None where matplotlib is missing) in the place of
+    the unconditional import, and no PNG drawn where it is None."""
+    src = ast.unparse(jax_monitor)
+    guarded = src.replace("import matplotlib\n    matplotlib.use('Agg')\n    import "
+                          "matplotlib.pyplot as plt", "plt = _pyplot()").replace(
+        "if t_latest is not None:", "if t_latest is not None and plt is not None:")
+    assert guarded.count("_pyplot()") == 1 and "plt is not None" in guarded
+    return guarded
+
+
 def test_monitor_helpers_and_replay_are_jax_s_but_for_device():
-    """``monitor``, ``_start_web`` and ``_monitor_live`` are the JAX CLI's
-    statement for statement; ``replay`` (its viewer block with the feeder
-    stopped in a ``finally``) is too once ``device`` is taken out, and
-    ``device`` is its one difference."""
+    """``_start_web`` and ``_monitor_live`` are the JAX CLI's statement for
+    statement, and ``monitor`` too but that it draws its PNGs only where
+    matplotlib imports (``_pyplot``, the store-mode repair); ``replay`` (its
+    viewer block with the feeder stopped in a ``finally``) is too once
+    ``device`` is taken out, and ``device`` is its one difference."""
     ours = _cli_functions(REPO / "shrimpy_tpu_torch/cli/main.py")
     theirs = _cli_functions(REPO / "shrimpy_tpu/cli/main.py")
     for name in VIEWER_FUNCTIONS:
-        assert ast.dump(ours[name]) == ast.dump(theirs[name]), name
+        if name == "monitor":
+            assert ast.unparse(ours[name]) == _pyplot_guarded(theirs[name])
+        else:
+            assert ast.dump(ours[name]) == ast.dump(theirs[name]), name
     assert ast.dump(ours["replay"]) != ast.dump(theirs["replay"])
     assert "device=dev, viewer_hooks=hooks" in ast.unparse(ours["replay"])
     assert _without_device(ours["replay"]) == _without_device(theirs["replay"])
