@@ -74,6 +74,7 @@ from shrimpy_tpu_torch.config import deconvolve_settings
 from shrimpy_tpu_torch.utils.device import as_tensor
 from shrimpy_tpu_torch.utils.fft import next_fast_len, next_fast_len_tpu
 from shrimpy_tpu_torch.utils.shapes import round_up
+from shrimpy_tpu_torch.utils.timing import span
 
 logger = logging.getLogger(__name__)
 
@@ -365,12 +366,14 @@ def rl_conv3(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
 
     eps = float(settings.epsilon)
     shape = tuple(image.shape)
-    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype, donate=donate)
-    del image
-    kernel = not plain and est.is_cuda
-    if kernel:
-        scratch = [torch.empty_like(est) for _ in range(1 if len(terms) == 1 else 2)]
-        ratio_buf = torch.empty_like(est)
+    with span("shrimpy.rl.start"):
+        conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype,
+                                             donate=donate)
+        del image
+        kernel = not plain and est.is_cuda
+        if kernel:
+            scratch = [torch.empty_like(est) for _ in range(1 if len(terms) == 1 else 2)]
+            ratio_buf = torch.empty_like(est)
 
     def step(v: torch.Tensor) -> torch.Tensor:
         # Updates v in place on the card: run_rl_outer never reads it again.

@@ -45,6 +45,7 @@ from shrimpy_tpu_torch.ops.rl_fused import consume
 from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
 from shrimpy_tpu_torch.ops.zband_cuda import zband, zband_plain
 from shrimpy_tpu_torch.utils.fft import _pad
+from shrimpy_tpu_torch.utils.timing import span
 
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
@@ -97,7 +98,8 @@ def _start(image: torch.Tensor, init, pads, settings, dtype: torch.dtype, donate
 
 
 def _crop(est: torch.Tensor, shape, pads) -> torch.Tensor:
-    return est[tuple(slice(lo, lo + n) for (lo, _), n in zip(pads, shape))].contiguous()
+    with span("shrimpy.rl.crop"):
+        return est[tuple(slice(lo, lo + n) for (lo, _), n in zip(pads, shape))].contiguous()
 
 
 def rl_fft3(image: torch.Tensor, psf_np, settings, iterations: int, *, grid, pads,
@@ -107,11 +109,12 @@ def rl_fft3(image: torch.Tensor, psf_np, settings, iterations: int, *, grid, pad
     (``_rl_jit``). No kernel of the repository runs here."""
     shape = tuple(image.shape)
     eps = float(settings.epsilon)
-    data, est = _start(image, init, pads, settings, dtype, donate)
-    del image
     grid = tuple(grid)
-    otf = torch.fft.rfftn(embed_psf(psf_np, grid, dtype, est.device)).div_(math.prod(grid))
-    otf_adj = otf.conj()
+    with span("shrimpy.rl.start"):
+        data, est = _start(image, init, pads, settings, dtype, donate)
+        del image
+        otf = torch.fft.rfftn(embed_psf(psf_np, grid, dtype, est.device)).div_(math.prod(grid))
+        otf_adj = otf.conj()
 
     def step(v: torch.Tensor) -> torch.Tensor:
         # Updates v in place: run_rl_outer never reads it again.
@@ -144,11 +147,12 @@ def rl_fft2z(image: torch.Tensor, psf_np, settings, iterations: int, *, grid, pa
     shape = tuple(image.shape)
     eps = float(settings.epsilon)
     gz, gy, gx = grid
-    data, est = _start(image, init, pads, settings, dtype, donate)
-    del image
-    taps = plane_otfs(psf_np, grid, dtype, est.device).div_(gy * gx)
-    spec = torch.empty((gz, gy, gx // 2 + 1), dtype=_COMPLEX[dtype], device=est.device)
-    band_out = None if plain or not est.is_cuda else torch.empty_like(spec)
+    with span("shrimpy.rl.start"):
+        data, est = _start(image, init, pads, settings, dtype, donate)
+        del image
+        taps = plane_otfs(psf_np, grid, dtype, est.device).div_(gy * gx)
+        spec = torch.empty((gz, gy, gx // 2 + 1), dtype=_COMPLEX[dtype], device=est.device)
+        band_out = None if plain or not est.is_cuda else torch.empty_like(spec)
     chunks = [(a, min(a + z_chunk, gz)) for a in range(0, gz, z_chunk)]
 
     def band(mode: str) -> torch.Tensor:

@@ -65,6 +65,7 @@ import torch.nn.functional as F
 
 from shrimpy_tpu_torch.ops.rl_outer import biggs_state, next_alpha
 from shrimpy_tpu_torch.utils.shapes import round_up
+from shrimpy_tpu_torch.utils.timing import span
 
 MODES = {"plain": 0, "ratio": 1, "mult": 2, "ratio_accel": 1, "mult_accel": 2}
 ACCEL_MODES = ("ratio_accel", "mult_accel")
@@ -939,8 +940,9 @@ def start_on_grid(image: torch.Tensor, psf_np, terms, settings, dtype: torch.dty
 
 def crop_grid(est: torch.Tensor, shape, lo) -> torch.Tensor:
     """The image's (Z, Y, X) ``shape`` cut from the grid, starting at the
-    low pads ``lo`` (the radii on the G grid)."""
-    return est[tuple(slice(a, a + n) for a, n in zip(lo, shape))].contiguous()
+    low pads ``lo`` (the radii on the G grid): the span ``shrimpy.rl.crop``."""
+    with span("shrimpy.rl.crop"):
+        return est[tuple(slice(a, a + n) for a, n in zip(lo, shape))].contiguous()
 
 
 def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
@@ -961,19 +963,27 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     """
     eps = float(settings.epsilon)
     shape = tuple(image.shape)
-    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype, donate=donate)
-    del image
-    kernel = not plain and est.is_cuda
     step = half_step_plain if plain else half_step
     biggs = settings.acceleration == "biggs"
     bufs, ratio_buf = {}, None  # the kernels' buffers, allocated once per run
-    if kernel:
-        ratio_buf = torch.empty_like(est)
-        if half_step_route(est.shape, conv.radii, len(terms)) == "three_pass":
-            bufs["scratch"] = [torch.empty_like(est) for _ in range(2 if len(terms) == 1 else 3)]
+    with span("shrimpy.rl.start"):
+        conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype,
+                                             donate=donate)
+        del image
+        kernel = not plain and est.is_cuda
+        if kernel:
+            ratio_buf = torch.empty_like(est)
+            if half_step_route(est.shape, conv.radii, len(terms)) == "three_pass":
+                bufs["scratch"] = [torch.empty_like(est)
+                                   for _ in range(2 if len(terms) == 1 else 3)]
+            if biggs:
+                bufs["partials"] = torch.empty(
+                    (2, partial_rows(est.shape, conv.radii, len(terms))),
+                    dtype=torch.float32, device=est.device)
         if biggs:
-            bufs["partials"] = torch.empty((2, partial_rows(est.shape, conv.radii, len(terms))),
-                                           dtype=torch.float32, device=est.device)
+            # Biggs-Andrews in the half-steps (rl_outer.py has the
+            # algorithm): alpha, num and den never leave the device.
+            dx, g_prev, den_prev, alpha = biggs_state(est)
 
     def hs(inp, aux, st, mode, out=None, **kw):
         if kernel:
@@ -981,21 +991,20 @@ def rl_fused(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
         return step(inp, aux, st, mode, eps, **kw)
 
     if biggs:
-        # Biggs-Andrews in the half-steps (rl_outer.py has the
-        # algorithm): alpha, num and den never leave the device.
-        dx, g_prev, den_prev, alpha = biggs_state(est)
         for _ in range(iterations):
-            ratio = hs(est, data, conv, "ratio_accel", out=ratio_buf, dx=dx, alpha=alpha)
-            est, dx, g_prev, num, den = hs(ratio, est, adj, "mult_accel",
-                                           dx=dx, g_prev=g_prev, alpha=alpha)
-            del ratio
-            alpha = next_alpha(num, den_prev)
-            den_prev = den.float()
+            with span("shrimpy.rl.iteration"):
+                ratio = hs(est, data, conv, "ratio_accel", out=ratio_buf, dx=dx, alpha=alpha)
+                est, dx, g_prev, num, den = hs(ratio, est, adj, "mult_accel",
+                                               dx=dx, g_prev=g_prev, alpha=alpha)
+                del ratio
+                alpha = next_alpha(num, den_prev)
+                den_prev = den.float()
         del dx, g_prev
     else:
         for _ in range(iterations):
-            ratio = hs(est, data, conv, "ratio", out=ratio_buf)
-            est = hs(ratio, est, adj, "mult", out=est)
-            del ratio
+            with span("shrimpy.rl.iteration"):
+                ratio = hs(est, data, conv, "ratio", out=ratio_buf)
+                est = hs(ratio, est, adj, "mult", out=est)
+                del ratio
     del data, bufs, ratio_buf
     return crop_grid(est, shape, conv.radii)

@@ -73,6 +73,7 @@ from shrimpy_tpu_torch.ops.rl_fused import (
 )
 from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
 from shrimpy_tpu_torch.utils.shapes import round_up
+from shrimpy_tpu_torch.utils.timing import span
 
 ROUTES = ("one_launch", "half_steps")
 # (ty, tx) tiles of csrc/rl_iter.cu in order of preference: the first that
@@ -361,36 +362,38 @@ def rl_fused_iter(image: torch.Tensor, psf_np, terms, settings, iterations: int,
             "geometry/PSF outside the fused_iter backend's constraints "
             f"(image {shape}, psf {tuple(psf_np.shape)}): {bound}; "
             "use separable_backend='matmul'")
-    conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype, donate=donate)
-    del image
-    if plain or not est.is_cuda:
-        def step(v: torch.Tensor) -> torch.Tensor:
-            return rl_iter_plain(v, data, conv, adj, eps)
-    else:
-        g_shape, n_terms = tuple(est.shape), len(terms)
-        if rl_iter_route(g_shape, conv.radii, n_terms) == ROUTES[0]:
-            taps = pack_taps(conv, adj, est.device)
-
-            def one(v, out):
-                return rl_iter_cuda(v, data, conv, adj, eps, out, taps=taps)
+    with span("shrimpy.rl.start"):
+        conv, adj, data, est = start_on_grid(image, psf_np, terms, settings, dtype,
+                                             donate=donate)
+        del image
+        if plain or not est.is_cuda:
+            def step(v: torch.Tensor) -> torch.Tensor:
+                return rl_iter_plain(v, data, conv, adj, eps)
         else:
-            ratio = torch.empty_like(est)
-            scratch = None
-            if half_step_route(g_shape, conv.radii, n_terms) == "three_pass":
-                scratch = [torch.empty_like(est) for _ in range(2 if n_terms == 1 else 3)]
+            g_shape, n_terms = tuple(est.shape), len(terms)
+            if rl_iter_route(g_shape, conv.radii, n_terms) == ROUTES[0]:
+                taps = pack_taps(conv, adj, est.device)
 
-            def one(v, out):
-                return rl_iter_half_steps(v, data, conv, adj, eps, out, ratio=ratio,
-                                          scratch=scratch)
-        # The step writes bufs[turn] and flips: never its input (est, or
-        # the last output) nor, in the Biggs loop, the output before.
-        bufs, turn = [est, torch.empty_like(est)], 1
+                def one(v, out):
+                    return rl_iter_cuda(v, data, conv, adj, eps, out, taps=taps)
+            else:
+                ratio = torch.empty_like(est)
+                scratch = None
+                if half_step_route(g_shape, conv.radii, n_terms) == "three_pass":
+                    scratch = [torch.empty_like(est) for _ in range(2 if n_terms == 1 else 3)]
 
-        def step(v: torch.Tensor) -> torch.Tensor:
-            nonlocal turn
-            out = one(v, bufs[turn])
-            turn ^= 1
-            return out
+                def one(v, out):
+                    return rl_iter_half_steps(v, data, conv, adj, eps, out, ratio=ratio,
+                                              scratch=scratch)
+            # The step writes bufs[turn] and flips: never its input (est, or
+            # the last output) nor, in the Biggs loop, the output before.
+            bufs, turn = [est, torch.empty_like(est)], 1
+
+            def step(v: torch.Tensor) -> torch.Tensor:
+                nonlocal turn
+                out = one(v, bufs[turn])
+                turn ^= 1
+                return out
 
     est = run_rl_outer([(step, iterations)], est, settings.acceleration == "biggs")
     return crop_grid(est, shape, conv.radii)

@@ -41,6 +41,7 @@ import torch
 from shrimpy_tpu_torch.ops.conv3_cuda import circulant
 from shrimpy_tpu_torch.ops.rl_fused import crop_grid, grid_start
 from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
+from shrimpy_tpu_torch.utils.timing import span
 
 # Block size of the banded scheme and the axis length past which an axis
 # is banded (deconv.py:895-896, measured on the TPU's MXU).
@@ -196,11 +197,12 @@ def rl_matmul(image: torch.Tensor, psf_np, terms, settings, iterations: int, *,
     pads = _sep_pads(shape, psf_np.shape)
     grid = tuple(n + lo + hi for n, (lo, hi) in zip(shape, pads))
     radii = tuple(k // 2 for k in psf_np.shape)
-    mats = sep_operators(terms, grid, radii, image.device, dtype)
-    fwd, adj = mats[:3], mats[3:]
     eps = float(settings.epsilon)
-    data, est = grid_start(image, pads, settings, dtype, donate=donate)
-    del image
+    with span("shrimpy.rl.start"):
+        mats = sep_operators(terms, grid, radii, image.device, dtype)
+        fwd, adj = mats[:3], mats[3:]
+        data, est = grid_start(image, pads, settings, dtype, donate=donate)
+        del image
 
     def step(v: torch.Tensor) -> torch.Tensor:
         # Updates v in place: run_rl_outer never reads it again.

@@ -30,6 +30,8 @@ from __future__ import annotations
 
 import torch
 
+from shrimpy_tpu_torch.utils.timing import span
+
 
 def biggs_state(carry: torch.Tensor, state_dtype: torch.dtype = torch.bfloat16):
     """The zero Biggs state of a run on ``carry``: ``(dx, g_prev,
@@ -51,34 +53,37 @@ def run_rl_outer(phases, est0: torch.Tensor, accelerated: bool,
     """Run the RL ``phases``, a sequence of ``(step, length)``; the
     accelerated state persists across phase boundaries and zero-length
     phases are skipped. ``step`` may update its argument in place (the
-    loop never reads it afterwards).
+    loop never reads it afterwards). Each iteration is the span
+    ``shrimpy.rl.iteration``.
     """
     if not accelerated:
         est = est0
         for step, length in phases:
             for _ in range(length):
-                est = step(est)
+                with span("shrimpy.rl.iteration"):
+                    est = step(est)
         return est
 
     x = est0
     dx, g_prev, den_prev, alpha = biggs_state(est0, state_dtype)
     for step, length in phases:
         for _ in range(length):
-            # In place where it saves a carry, each value rounded as in
-            # the JAX loop: (alpha * dx) + x is x + alpha * dx, and
-            # d + min(-alpha * dx, x) is d - max(alpha * dx, -x).
-            y = dx.to(x.dtype, copy=True).mul_(alpha).add_(x).clamp_min_(0.0)
-            x_new = step(y)
-            del y
-            d = x_new - x
-            t = dx.to(x.dtype, copy=True).mul_(alpha).neg_()
-            g = torch.minimum(t, x, out=t).add_(d).to(state_dtype)
-            dx = d.to(state_dtype)
-            del t, d
-            gf = g.to(x.dtype)
-            den = torch.sum(gf * gf).float()
-            num = torch.sum(gf.mul_(g_prev.to(x.dtype)))
-            del gf
-            alpha = next_alpha(num, den_prev)
-            g_prev, den_prev, x = g, den, x_new
+            with span("shrimpy.rl.iteration"):
+                # In place where it saves a carry, each value rounded as in
+                # the JAX loop: (alpha * dx) + x is x + alpha * dx, and
+                # d + min(-alpha * dx, x) is d - max(alpha * dx, -x).
+                y = dx.to(x.dtype, copy=True).mul_(alpha).add_(x).clamp_min_(0.0)
+                x_new = step(y)
+                del y
+                d = x_new - x
+                t = dx.to(x.dtype, copy=True).mul_(alpha).neg_()
+                g = torch.minimum(t, x, out=t).add_(d).to(state_dtype)
+                dx = d.to(state_dtype)
+                del t, d
+                gf = g.to(x.dtype)
+                den = torch.sum(gf * gf).float()
+                num = torch.sum(gf.mul_(g_prev.to(x.dtype)))
+                del gf
+                alpha = next_alpha(num, den_prev)
+                g_prev, den_prev, x = g, den, x_new
     return x

@@ -82,6 +82,7 @@ from shrimpy_tpu_torch.parallel.fft import _all_to_all_tiled, fft3_sharded, ifft
 from shrimpy_tpu_torch.parallel.mesh import Mesh, all_gather, all_reduce, all_to_all, assemble
 from shrimpy_tpu_torch.utils.device import as_tensor, resolve_device
 from shrimpy_tpu_torch.utils.fft import _pad
+from shrimpy_tpu_torch.utils.timing import span
 
 
 def _deskew_fn(settings, *, plain: bool, dtype: torch.dtype):
@@ -310,56 +311,62 @@ def _fft_stages_sharded(settings, psf, mesh: Mesh):
     def run(vol: torch.Tensor, tf) -> torch.Tensor:
         vol = vol.to(torch.float32)
         if phase is not None:
-            zp = phase.transfer_function.z_padding
-            reg = float(phase.apply_inverse.regularization_strength)
-            if zp:
-                vol = _pad(vol, ((zp, zp), (0, 0), (0, 0)), "reflect")
-            if vol.shape[1] % n_space:
-                raise ValueError(
-                    f"shard_volumes: Y extent {vol.shape[1]} must be divisible "
-                    f"by the space axis ({n_space}) for the slab transpose"
-                )
-            ph_tr = resolve_transform(phase.apply_inverse)
-            mean = all_reduce(vol.mean().reshape(1), group) / n_space
-            spectrum = fft3_sharded((vol - mean).to(torch.complex64), group, ph_tr)
-            recon = tf.conj() * spectrum / (tf.abs() ** 2 + reg)
-            del spectrum
-            vol = ifft3_sharded(recon, group, ph_tr).real.to(torch.float32)
-            if zp:
-                vol = vol[zp:-zp]
+            with span("shrimpy.phase"):
+                zp = phase.transfer_function.z_padding
+                reg = float(phase.apply_inverse.regularization_strength)
+                if zp:
+                    vol = _pad(vol, ((zp, zp), (0, 0), (0, 0)), "reflect")
+                if vol.shape[1] % n_space:
+                    raise ValueError(
+                        f"shard_volumes: Y extent {vol.shape[1]} must be divisible "
+                        f"by the space axis ({n_space}) for the slab transpose"
+                    )
+                ph_tr = resolve_transform(phase.apply_inverse)
+                mean = all_reduce(vol.mean().reshape(1), group) / n_space
+                spectrum = fft3_sharded((vol - mean).to(torch.complex64), group, ph_tr)
+                recon = tf.conj() * spectrum / (tf.abs() ** 2 + reg)
+                del spectrum
+                vol = ifft3_sharded(recon, group, ph_tr).real.to(torch.float32)
+                if zp:
+                    vol = vol[zp:-zp]
 
         if deconv is not None:
-            shape = tuple(vol.shape[:2]) + (vol.shape[2] * n_space,)
-            rl_tr, grid, pads = sharded_rl_grid(shape, psf_np.shape, deconv, n_space)
-            eps = float(deconv.epsilon)
-            mode = deconv.pad_mode
-            padded = _pad(vol, (*pads[:2], (0, 0)), mode)
-            del vol
-            (xlo, xhi), gl = pads[2], grid[2] // n_space
-            src = np.pad(np.arange(shape[2]), (xlo, xhi), mode=mode,
-                         **({"constant_values": -1} if mode == "constant" else {}))
-            padded = _reslab_x(padded, src, gl, group, index, n_space)
-            run.carry = tuple(padded.shape)
+            with span("shrimpy.rl"):
+                shape = tuple(vol.shape[:2]) + (vol.shape[2] * n_space,)
+                rl_tr, grid, pads = sharded_rl_grid(shape, psf_np.shape, deconv, n_space)
+                eps = float(deconv.epsilon)
+                mode = deconv.pad_mode
+                with span("shrimpy.rl.start"):
+                    padded = _pad(vol, (*pads[:2], (0, 0)), mode)
+                    del vol
+                    (xlo, xhi), gl = pads[2], grid[2] // n_space
+                    src = np.pad(np.arange(shape[2]), (xlo, xhi), mode=mode,
+                                 **({"constant_values": -1} if mode == "constant" else {}))
+                    padded = _reslab_x(padded, src, gl, group, index, n_space)
+                    run.carry = tuple(padded.shape)
 
-            # Each rank builds ITS X slab of the OTF analytically: a
-            # whole-grid fftn would hold a whole volume on one rank.
-            otf = _local_otf_block(psf_np, grid, index, n_space, padded.device)
-            data = torch.clamp_min(padded, 0.0)
-            est = torch.clamp_min(padded, eps)
-            del padded
+                    # Each rank builds ITS X slab of the OTF analytically: a
+                    # whole-grid fftn would hold a whole volume on one rank.
+                    otf = _local_otf_block(psf_np, grid, index, n_space, padded.device)
+                    data = torch.clamp_min(padded, 0.0)
+                    est = torch.clamp_min(padded, eps)
+                    del padded
 
-            def conv(u, kernel):
-                f = fft3_sharded(u.to(torch.complex64), group, rl_tr)
-                return ifft3_sharded(f.mul_(kernel), group, rl_tr).real
+                def conv(u, kernel):
+                    f = fft3_sharded(u.to(torch.complex64), group, rl_tr)
+                    return ifft3_sharded(f.mul_(kernel), group, rl_tr).real
 
-            for _ in range(deconv.iterations):
-                ratio = data / torch.clamp_min(conv(est, otf), eps)
-                est = est * conv(ratio, otf.conj())
-                del ratio
-            del data, otf
-            est = est[tuple(slice(lo, lo + n) for (lo, _), n in zip(pads[:2], shape[:2]))]
-            crop = np.arange(shape[2]) + xlo
-            vol = _reslab_x(est, crop, shape[2] // n_space, group, index, n_space)
+                for _ in range(deconv.iterations):
+                    with span("shrimpy.rl.iteration"):
+                        ratio = data / torch.clamp_min(conv(est, otf), eps)
+                        est = est * conv(ratio, otf.conj())
+                        del ratio
+                del data, otf
+                with span("shrimpy.rl.crop"):
+                    est = est[tuple(slice(lo, lo + n)
+                                    for (lo, _), n in zip(pads[:2], shape[:2]))]
+                    crop = np.arange(shape[2]) + xlo
+                    vol = _reslab_x(est, crop, shape[2] // n_space, group, index, n_space)
         return vol
 
     return run
@@ -482,12 +489,21 @@ def build_reconstruct_step(
     def volume(vol: torch.Tensor, tf) -> torch.Tensor:
         """The per-volume stages after the deskew."""
         if phase_fn is not None:
-            vol = phase_fn(vol, phase_tf(vol, tf))
+            with span("shrimpy.phase"):
+                vol = phase_fn(vol, phase_tf(vol, tf))
         if register_fn is not None:
-            vol = register_fn(vol)
+            with span("shrimpy.register"):
+                vol = register_fn(vol)
         if deconv_fn is not None:
-            vol = deconv_fn(vol)
+            with span("shrimpy.rl"):
+                vol = deconv_fn(vol)
         return vol
+
+    def deskew(vol: torch.Tensor) -> torch.Tensor:
+        if deskew_fn is None:
+            return vol
+        with span("shrimpy.deskew"):
+            return deskew_fn(vol)
 
     def step(batch_raw, tf=None) -> torch.Tensor:
         batch = as_tensor(batch_raw, dev)
@@ -495,12 +511,11 @@ def build_reconstruct_step(
             raise ValueError(f"batch must be (B, S, T, X), got {tuple(batch.shape)}")
         outs, n = [], batch.shape[0]
         for b in range(n):
-            vol = batch[b]
-            if donate and b == n - 1:
-                batch = None
-            if deskew_fn is not None:
-                vol = deskew_fn(vol)
-            outs.append(volume(vol, tf).to(dtype))
+            with span("shrimpy.volume"):
+                vol = batch[b]
+                if donate and b == n - 1:
+                    batch = None
+                outs.append(volume(deskew(vol), tf).to(dtype))
         return outs[0][None] if len(outs) == 1 else torch.stack(outs)
 
     if mesh is None:
@@ -549,14 +564,19 @@ def build_reconstruct_step(
         block = _host_block(batch_raw, places[mesh.rank], dev)
         vols = []
         for b in range(block.shape[0]):
-            vol = block[b]
-            if donate and b == block.shape[0] - 1:
-                block = None
-            vols.append(deskew_fn(vol) if deskew_fn is not None else vol)
+            with span("shrimpy.volume"):
+                vol = block[b]
+                if donate and b == block.shape[0] - 1:
+                    block = None
+                vols.append(deskew(vol))
         if sharded is not None:
             tf_x = None if settings.phase is None else tf_slab(
                 _stage_input_shape_for_phase(shape[1:], settings), tf, cols)
-            vols = [sharded(v, tf_x) for v in vols]
+            outs = []
+            for v in vols:
+                with span("shrimpy.volume"):
+                    outs.append(sharded(v, tf_x))
+            vols = outs
         if not whole:
             return Block(torch.stack(vols).to(dtype), rows, cols)
         local = torch.stack(vols)
@@ -571,7 +591,10 @@ def build_reconstruct_step(
                 local = torch.cat(all_gather(local, row), dim=3)
         if tf is not None and phase_fn is not None:
             tf = tf_tensor(tf, dev)  # once for the rank's volumes
-        outs = [volume(local[b], tf).to(dtype) for b in range(local.shape[0])]
+        outs = []
+        for b in range(local.shape[0]):
+            with span("shrimpy.volume"):
+                outs.append(volume(local[b], tf).to(dtype))
         return Block(torch.stack(outs), mine[0], mine[2])
 
     mesh_step.whole_volumes = whole

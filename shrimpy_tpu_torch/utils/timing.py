@@ -1,5 +1,5 @@
 """Per-stage wall-clock + memory telemetry (counterpart of
-``shrimpy_tpu/utils/timing.py``).
+``shrimpy_tpu/utils/timing.py``), and the spans a profiler trace shows.
 
 PyTorch launches CUDA work asynchronously, so a host clock around a
 stage measures the enqueue unless the work is drained first:
@@ -7,10 +7,13 @@ stage measures the enqueue unless the work is drained first:
 of a stage whenever CUDA is initialised. It waits on that stream only,
 not the whole device (``torch.cuda.synchronize()``), so a copy that the
 streaming runtime runs on a side stream keeps overlapping the next
-stage instead of being drained at every edge; :func:`stage_timer`, the
-one-stage form, does the same. Device memory comes from the
-caching allocator (``max_memory_allocated``) and the CUDA runtime
+stage instead of being drained at every edge. Device memory comes from
+the caching allocator (``max_memory_allocated``) and the CUDA runtime
 (``mem_get_info``); the trace hook is ``torch.profiler``.
+
+:func:`span` names a stretch of the program on a profiler's timeline
+(``shrimpy.volume``, ``shrimpy.rl.iteration``, ...) and costs one flag
+check when no profiler records: it never synchronizes.
 """
 
 from __future__ import annotations
@@ -37,6 +40,20 @@ def rss_gb() -> float:
         return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / (1024**2)
 
 
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks ``name`` on the profiler's timeline:
+    a ``torch.profiler.record_function`` range while a profiler records,
+    else one shared no-op context (no op recorded, nothing allocated,
+    launched or synchronized). A span nests in the span around it; its
+    name carries no index or shape, so spans add up by name."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
+
+
 def _cuda_active() -> bool:
     return torch.cuda.is_available() and torch.cuda.is_initialized()
 
@@ -55,14 +72,6 @@ def device_memory_stats() -> dict[str, float]:
     return stats
 
 
-def memory_report() -> str:
-    """One-line host + device memory summary."""
-    parts = [f"rss={rss_gb():.2f}GiB"]
-    for dev, gib in device_memory_stats().items():
-        parts.append(f"{dev}={gib:.2f}GiB")
-    return " ".join(parts)
-
-
 def _sync() -> None:
     if _cuda_active():
         torch.cuda.current_stream().synchronize()
@@ -79,6 +88,8 @@ class StageRecord:
 class StageTimer:
     """Accumulates named stage timings for a pipeline run.
 
+    Each stage is also the span ``shrimpy.stage.<name>``.
+
     Usage::
 
         timer = StageTimer()
@@ -94,7 +105,8 @@ class StageTimer:
         _sync()
         t0 = time.monotonic()
         try:
-            yield
+            with span(f"shrimpy.stage.{name}"):
+                yield
         finally:
             _sync()
             dt = time.monotonic() - t0
@@ -108,25 +120,6 @@ class StageTimer:
         for r in self.records:
             out[r.name] = out.get(r.name, 0.0) + r.seconds
         return out
-
-
-@contextlib.contextmanager
-def stage_timer(name: str, level: int = logging.INFO):
-    """Standalone timing context (single stage); the current stream is
-    synchronized at both edges, as in :meth:`StageTimer.stage`."""
-    _sync()
-    t0 = time.monotonic()
-    try:
-        yield
-    finally:
-        _sync()
-        # memory_report() asks the CUDA runtime for every device's free
-        # memory: only pay it when the record will actually be emitted.
-        if logger.isEnabledFor(level):
-            logger.log(
-                level, "%s took %.3fs (%s)",
-                name, time.monotonic() - t0, memory_report(),
-            )
 
 
 @contextlib.contextmanager

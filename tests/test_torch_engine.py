@@ -491,38 +491,3 @@ def test_plan_validate_as_the_jax_cli(plan_text, store, valid, tmp_path):
     assert t_text == j_text.replace("shrimpy_tpu.", "shrimpy_tpu_torch."), (t_text, j_text)
     if valid:
         assert json.loads(t_text.splitlines()[-1])["valid"] is True
-
-
-# -- utils/timing.py: stage_timer and memory_report ---------------------------
-
-@pytest.mark.parametrize("level", [20, 10])
-def test_stage_timer_logs_as_jax_s(pkg, level):
-    """One record at ``level`` when that level is enabled, none otherwise,
-    in JAX's words: the stage, its seconds and the memory report (host RSS
-    first; the CPU has no device entry in either package). The handler sits
-    on the module's logger: the CLI's ``configure_logging`` stops the
-    package's records from reaching the root."""
-    import logging
-    import re
-
-    timing = pkg("utils.timing")
-    assert re.fullmatch(r"rss=\d+\.\d\dGiB", timing.memory_report())
-    records = []
-    handler = logging.Handler()
-    handler.emit = records.append
-    logger = logging.getLogger(timing.__name__)
-    old_level = logger.level
-    logger.addHandler(handler)
-    logger.setLevel(logging.INFO)
-    try:
-        with timing.stage_timer("work", level=level):
-            sum(range(1000))
-    finally:
-        logger.removeHandler(handler)
-        logger.setLevel(old_level)
-    if level < logging.INFO:
-        assert not records
-        return
-    (record,) = records
-    assert record.levelno == level
-    assert re.fullmatch(r"work took \d+\.\d{3}s \(rss=\d+\.\d\dGiB\)", record.getMessage())
