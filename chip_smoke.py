@@ -124,7 +124,14 @@ Phases:
    version within 1e-6 on the production grid (144, 3000, 961) with
    kz = 15 and on (9, 33, 17) with kz = 9 = gz, (20, 37, 45) with kz = 7
    and one plane (kz = 1), timed at the production grid beside its bound,
-   the plain version and the einsum over a window view of the spectrum.
+   the plain version and the einsum over a window view of the spectrum;
+   the FFT RL's loop between its bands (``csrc/rl_fft.cu``) at a chunk of
+   ``ls-fft.rl20``'s grid, (8, 2916, 1920): the cuFFT plans on the loop's
+   buffers against ``torch.fft.rfft2`` / ``irfft2`` within 1e-6, the
+   update's two kernels (``rl_ratio_kernel``, ``rl_scale_kernel``) bit for
+   bit against their plain versions with eps hits, zeros and a NaN, each
+   timed beside its bound, its plain version and the out-of-place torch
+   calls.
    Tolerance: max|a-b| / max|b| <= 1e-4 (float32 sums taken in
    another order); the bf16 Biggs state within one bf16 ulp, the
    step-length sums within 1e-5 relative. Beside each kernel's time the
@@ -177,7 +184,8 @@ Phases:
    ``tilted_gaussian_psf()`` (15, 31, 31), non-separable, on a
    (128, 2888, 1600) volume uniform in [0, 100) through ``richardson_lucy``
    (``fft_backend: auto`` -> ``fft2z``, grid (144, 3000, 1920)): two band
-   launches an iteration, against the same call on the plain versions in
+   launches an iteration and, a z chunk, two transforms each way and one
+   launch of each update kernel, against the same call on the plain versions in
    float64 on the card within 1e-3; ms, GVox/s and peak; ``fft3`` timed
    and held within 2e-4 of ``fft2z``;
 4j-4k. ``bench.py`` configs 8 (``hybrid``, 16 warm + 6 exact) and 9 (16 +
@@ -587,11 +595,20 @@ def counters() -> dict:
     from shrimpy_tpu_torch.ops.affine_cuda import affine_warp_cuda, refine_grad_cuda, refine_sums_cuda
     from shrimpy_tpu_torch.ops.register import affine_apply_plain
     from shrimpy_tpu_torch.ops.rl_fused_iter import rl_iter_cuda, rl_iter_half_steps, rl_iter_plain
+    from shrimpy_tpu_torch.ops import fft_cuda
     from shrimpy_tpu_torch.ops.zband_cuda import zband_cuda, zband_plain
 
     return {
         "zband": (zband_cuda, "launches"),
         "plain_zband_on_cuda": (zband_plain, "cuda_calls"),
+        "fft_r2c": (fft_cuda.r2c_cuda, "launches"),
+        "fft_c2r": (fft_cuda.c2r_cuda, "launches"),
+        "rl_ratio": (fft_cuda.ratio_cuda, "launches"),
+        "rl_scale": (fft_cuda.scale_cuda, "launches"),
+        "plain_r2c_on_cuda": (fft_cuda.r2c_plain, "cuda_calls"),
+        "plain_c2r_on_cuda": (fft_cuda.c2r_plain, "cuda_calls"),
+        "plain_ratio_on_cuda": (fft_cuda.ratio_plain, "cuda_calls"),
+        "plain_scale_on_cuda": (fft_cuda.scale_plain, "cuda_calls"),
         "affine_warp": (affine_warp_cuda, "launches"),
         "refine_sums": (refine_sums_cuda, "launches"),
         "refine_grad": (refine_grad_cuda, "launches"),
@@ -2833,6 +2850,89 @@ def phase_band(gen) -> dict:
     return res
 
 
+# A z chunk of ls-fft.rl20's grid (144, 2916, 1920) at the default
+# fft_z_chunk, and the transforms' tolerance against torch.fft (the same
+# library, another plan).
+FFT_CHUNK = (8, 2916, 1920)
+FFT_RTOL = 1e-6
+
+
+def fft2z_counts(shape, psf, settings, iterations: int) -> dict:
+    """The launches of an ``fft2z`` RL of ``iterations`` on a volume of
+    ``shape``: two bands an iteration and, a z chunk, two transforms each
+    way and one launch of each update kernel."""
+    from shrimpy_tpu_torch.ops.deconv import _fft2z_chunk, _padded_grid_shape, prepare_psf
+
+    gz = _padded_grid_shape(tuple(shape), prepare_psf(psf, settings).shape)[0][0]
+    chunks = -(-gz // _fft2z_chunk(gz, settings.fft_z_chunk))
+    return {"zband": 2 * iterations, "fft_r2c": 2 * chunks * iterations,
+            "fft_c2r": 2 * chunks * iterations, "rl_ratio": chunks * iterations,
+            "rl_scale": chunks * iterations}
+
+
+def phase_fft_chunk(gen) -> tuple[dict, dict]:
+    """``csrc/rl_fft.cu`` at FFT_CHUNK: the R2C and C2R plans against
+    ``torch.fft`` (FFT_RTOL), ``rl_ratio_kernel`` and ``rl_scale_kernel``
+    bit for bit against their plain versions (eps hits, zeros, a NaN);
+    each timed beside its bound by bytes and its plain version, the
+    kernels also beside the out-of-place torch calls. Returns the two
+    kernels' entries; the plans' numbers are printed."""
+    from shrimpy_tpu_torch.ops import fft_cuda
+
+    n, gy, gx = FFT_CHUNK
+    eps = float(nonsep_settings("config6").epsilon)
+    x = uniform(FFT_CHUNK, gen, 0.0, 2.0)
+    spec = torch.empty((n, gy, gx // 2 + 1), dtype=torch.complex64, device="cuda")
+    real_b, spec_b = 4 * x.numel(), 8 * spec.numel()
+    fft_cuda.r2c_cuda(x, spec)
+    compare("r2c plan vs torch.fft.rfft2", torch.view_as_real(spec),
+            torch.view_as_real(torch.fft.rfft2(x)), FFT_RTOL)
+    back = torch.empty_like(x)
+    want = torch.fft.irfft2(spec, s=(gy, gx), norm="forward")
+    fft_cuda.c2r_cuda(spec.clone(), back)
+    compare("c2r plan vs torch.fft.irfft2", back, want, FFT_RTOL)
+    del want
+    for kind, name, cuda_fn, plain_fn, args in (
+            (fft_cuda.R2C, "r2c", fft_cuda.r2c_cuda, fft_cuda.r2c_plain, (x, spec)),
+            (fft_cuda.C2R, "c2r", fft_cuda.c2r_cuda, fft_cuda.c2r_plain, (spec, back))):
+        ms = kernel_ms(lambda: cuda_fn(*args), 20)
+        plain_ms = kernel_ms(lambda: plain_fn(*args), 20)
+        print(f"  cuFFT {name} plan {FFT_CHUNK}: {ms:.4f} ms, torch.fft {plain_ms:.4f} ms, bound "
+              f"{bound(real_b + spec_b, 0.0)['bound_ms']:.4f} by bytes, work area "
+              f"{fft_cuda.plan(kind, x)[1] / 2**20:.1f} MiB", flush=True)
+    del spec, back
+    data = uniform(FFT_CHUNK, gen, 0.0, 100.0)
+    # eps hits (below, at and just above it), zeros of either sign, a NaN;
+    # zeros in data.
+    edge = torch.tensor([float("nan"), 0.0, -0.0, -1.0, eps, eps / 2, eps * (1 + 1e-6), 1e-30],
+                        device="cuda")
+    x.view(-1)[:edge.numel()] = edge
+    data.view(-1)[edge.numel():2 * edge.numel()] = 0.0
+    out = {}
+    for name, cuda_fn, plain_fn, lib_fn, arg in (
+            ("rl_ratio", lambda a, b: fft_cuda.ratio_cuda(a, b, eps),
+             lambda a, b: fft_cuda.ratio_plain(a, b, eps),
+             lambda a, b: torch.div(b, torch.clamp_min(a, eps)), data),
+            ("rl_scale", fft_cuda.scale_cuda, fft_cuda.scale_plain, torch.mul,
+             uniform(FFT_CHUNK, gen, 0.99, 1.01))):
+        got, ref = cuda_fn(x.clone(), arg), plain_fn(x.clone(), arg)
+        same_bits(f"{name} vs its plain version {FFT_CHUNK}", got.view(torch.int32),
+                  ref.view(torch.int32))
+        del got, ref
+        t = x.clone()
+        out[name] = {"max_abs_err": 0.0, "ms": kernel_ms(lambda: cuda_fn(t, arg)),
+                     "plain_ms": kernel_ms(lambda: plain_fn(t, arg)),
+                     "library_ms": kernel_ms(lambda: lib_fn(t, arg)),
+                     **bound(3 * real_b, float(x.numel()))}
+        del t
+        print(f"  {name} {FFT_CHUNK}: {out[name]['ms']:.4f} ms, bound "
+              f"{out[name]['bound_ms']:.4f} by {out[name]['bound_by']}, plain "
+              f"{out[name]['plain_ms']:.4f}, torch {out[name]['library_ms']:.4f}", flush=True)
+    fft_cuda.r2c_plain.cuda_calls = fft_cuda.c2r_plain.cuda_calls = 0
+    fft_cuda.ratio_plain.cuda_calls = fft_cuda.scale_plain.cuda_calls = 0
+    return out["rl_ratio"], out["rl_scale"]
+
+
 def wall_s(fn, *args) -> tuple[torch.Tensor, float]:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2844,7 +2944,7 @@ def wall_s(fn, *args) -> tuple[torch.Tensor, float]:
 def phase_nonsep(vol, psf) -> dict:
     """bench.py config 6: RL-20 ``algorithm: fft`` (``auto`` -> ``fft2z``)
     through ``richardson_lucy`` at the production volume, counts reset:
-    two band launches an iteration. Against the same call on the plain
+    the launches of ``fft2z_counts``. Against the same call on the plain
     versions in float64 on the card (STEP_RTOL); then ``fft3`` timed and
     held within FFT3_RTOL of ``fft2z``."""
     from shrimpy_tpu_torch.ops.deconv import resolve_fft_backend, richardson_lucy
@@ -2854,7 +2954,7 @@ def phase_nonsep(vol, psf) -> dict:
     if backend != "fft2z":
         raise AssertionError(f"fft_backend auto resolved to {backend}, want fft2z")
     out, counts, peak = drive(lambda v: richardson_lucy(v, psf, s), vol,
-                              {"zband": 2 * ITERATIONS})
+                              fft2z_counts(vol.shape, psf, s, ITERATIONS))
     _, first = wall_s(richardson_lucy, vol, psf, s)
     _, ms = wall_s(richardson_lucy, vol, psf, s)
     ms = min(first, ms) * 1e3
@@ -2888,7 +2988,7 @@ def phase_hybrid(vol, psf, config: str) -> dict:
     separable backend the warm phase resolves to, the warm phase's and the
     tail's ms, the total and the peak. Counts: the warm phase alone with
     the counts reset, then the whole call, which must count exactly those
-    plus two band launches a tail iteration, each timed as counted. The
+    plus the ``fft2z_counts`` of the tail, each timed as counted. The
     float64 check runs at the depth of HYBRID_CHECK (the plain warm phase
     with K terms takes seconds a half-step in float64): config 8 within
     STEP_RTOL, config 9 by the two-tier Biggs gate."""
@@ -2918,7 +3018,8 @@ def phase_hybrid(vol, psf, config: str) -> dict:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     out, counts, peak = drive(lambda v: richardson_lucy(v, psf, s), vol,
-                              {**warm_counts, "zband": 2 * s.iterations})
+                              {**warm_counts,
+                               **fft2z_counts(vol.shape, psf, s, s.iterations)})
     total_s = time.perf_counter() - t0
     del out
     torch.cuda.empty_cache()
@@ -6677,6 +6778,9 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
     print("  the band of the fft2z RL (csrc/zband.cu):", flush=True)
     band = phase_band(gen)
     torch.cuda.empty_cache()
+    print("  the FFT RL's transforms and update on a z chunk (csrc/rl_fft.cu):", flush=True)
+    ratio, scale = phase_fft_chunk(gen)
+    torch.cuda.empty_cache()
     stamp(t_start, "  (phase 3 so far)")
     # Phase 4t runs here, before the host-heavy phases (4l's TF, 4n, 4o, 4s)
     # have grown this process: its ranks' gloo transfers stage through host
@@ -7053,6 +7157,14 @@ def run_phases(t_start, card, ranks, parent_dir, parent_zy, parent_desk, parent_
          "replaces": "shrimpy_tpu/ops/deconv.py:445 (XLA band of _rl_fft2z_jit :340, no TPU "
                      "kernel)",
          "launches": nonsep["launches"]["zband"], **band},
+        {"name": "rl_ratio", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/rl_fft.cu",
+         "replaces": "shrimpy_tpu/ops/deconv.py:340 (XLA update of _rl_fft2z_jit, no TPU "
+                     "kernel)",
+         "launches": nonsep["launches"]["rl_ratio"], **ratio},
+        {"name": "rl_scale", "route": "cuda", "source": "shrimpy_tpu_torch/csrc/rl_fft.cu",
+         "replaces": "shrimpy_tpu/ops/deconv.py:340 (XLA update of _rl_fft2z_jit, no TPU "
+                     "kernel)",
+         "launches": nonsep["launches"]["rl_scale"], **scale},
     ]
     for entry in kernels:  # gpu_ms times a call over SLOW_CALL_MS once, as its first run
         lib = entry["library_ms"]

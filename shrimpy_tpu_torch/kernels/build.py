@@ -8,10 +8,12 @@ into one shared library with a plain C interface::
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
          -Xcompiler -fPIC -c -o <obj> csrc/<source>.cu     # each, in parallel
     nvcc -gencode arch=compute_90a,code=sm_90a -shared \\
-         -o build/libshrimpy_kernels_<hash>.so <objs>
+         -o build/libshrimpy_kernels_<hash>.so <objs> -lcufft
 
-and loaded with :mod:`ctypes`. The sources include no PyTorch header,
-so the build takes seconds (PyTorch's ``cpp_extension.load`` builds
+linked against cuFFT (``-lcufft``: ``csrc/rl_fft.cu`` makes and runs the
+FFT RL's plans; the soname ``libcufft.so.11`` resolves to the copy that
+PyTorch has already loaded) and loaded with :mod:`ctypes`. The sources
+include no PyTorch header, so the build takes seconds (PyTorch's ``cpp_extension.load`` builds
 against torch's headers and takes minutes). The library lands in
 ``shrimpy_tpu_torch/build/`` under a name keyed by a hash of the
 sources and flags, so an edited kernel is never served a stale build.
@@ -56,6 +58,8 @@ BUILD_DIR = PKG_DIR / "build"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
+# Libraries the common library links (the geometry libraries link none).
+LINK_FLAGS = ["-lcufft"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -105,6 +109,14 @@ SIGNATURES: dict[str, list] = {
     "shrimpy_affine_refine_grad": [_P] * 5 + [_I32, _P] + [_I64] * 6 + [_P],
     # spec, taps, out, gz, kz, cols, corr, stream
     "shrimpy_zband": [_P] * 3 + [_I64] * 3 + [_I32, _P],
+    # kind, dbl, batch, gy, gx, handle (int*), work bytes (long long*)
+    "shrimpy_fft_plan": [_I32, _I32] + [_I64] * 3 + [ctypes.POINTER(_I32), ctypes.POINTER(_I64)],
+    # handle, kind, dbl, in, out, work, stream
+    "shrimpy_fft_exec": [_I32] * 3 + [_P] * 4,
+    # x, data, n, eps, dbl, stream
+    "shrimpy_rl_ratio": [_P, _P, _I64, ctypes.c_double, _I32, _P],
+    # v, x, n, dbl, stream
+    "shrimpy_rl_scale": [_P, _P, _I64, _I32, _P],
 }
 
 # The macros of a geometry of rl_half and rl_iter (n_terms, nkz, nky, nkx,
@@ -139,8 +151,10 @@ GEOMETRY_KERNELS = {
     }, ("NK",)),
 }
 # A C entry point reports a refusal by libcuda (cuTensorMapEncodeTiled) as
-# this plus the CUresult.
+# this plus the CUresult, and a cuFFT status as CUFFT_ERROR plus the
+# cufftResult.
 ENCODE_ERROR = 100000
+CUFFT_ERROR = 200000
 
 _LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
@@ -179,7 +193,7 @@ def library_path() -> Path:
     for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libshrimpy_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -208,7 +222,7 @@ def build() -> Path:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
         if failed:
             raise RuntimeError("\n".join(failed))
-        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs), *LINK_FLAGS]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
@@ -314,6 +328,8 @@ def load_library() -> ctypes.CDLL:
 
 def check(code: int, name: str) -> None:
     """Raise when a C entry point reported a CUDA error."""
+    if code >= CUFFT_ERROR:
+        raise RuntimeError(f"{name}: cuFFT error {code - CUFFT_ERROR} (cufftResult)")
     if code >= ENCODE_ERROR:
         raise RuntimeError(f"{name}: libcuda refused the tensor map of the carry "
                            f"(cuTensorMapEncodeTiled, CUresult {code - ENCODE_ERROR})")

@@ -8,9 +8,11 @@ with ``conv`` and ``corr`` circular on the padded grid of
 package's, so both wrap at the same distance), ``data = max(g, 0)`` and
 ``est = max(g, eps)`` of the image ``g`` padded with ``pad_mode``, or of
 ``init`` padded so (the hybrid's warm start: ``data`` stays the image's).
-The transforms are ``torch.fft`` (cuFFT on the card, as JAX leaves them
-to XLA outside any Pallas kernel); the one kernel of this path is the
-banded z-sum of ``fft2z`` (:mod:`~shrimpy_tpu_torch.ops.zband_cuda`).
+The transforms are cuFFT's on the card, as JAX leaves them to XLA
+outside any Pallas kernel: ``torch.fft`` in :func:`rl_fft3`, plans on the
+loop's own buffers in :func:`rl_fft2z`, whose kernels are the banded
+z-sum (:mod:`~shrimpy_tpu_torch.ops.zband_cuda`) and the update's two
+elementwise passes (:mod:`~shrimpy_tpu_torch.ops.fft_cuda`).
 
 How each ``fft_backend`` maps (the port has no matmul-DFT: ``ops/dft.py``
 exists for the TPU's FFT):
@@ -26,7 +28,8 @@ Setting     JAX off the TPU                             Port
 ``dftz``    the same, z by a dense DFT, tile grid       :func:`rl_fft3` on the tile-rounded grid
 ==========  ==========================================  ======================================
 
-Each loop takes ``plain=`` (the plain band in place of the kernel),
+Each loop takes ``plain=`` (the plain band and torch calls in place of
+the kernels and plans),
 ``dtype=`` (float32, or float64 for the reference path) and ``init=``,
 and iterates through :func:`~shrimpy_tpu_torch.ops.rl_outer.run_rl_outer`
 (Biggs with ``acceleration: biggs``). ``donate`` consumes the image once
@@ -40,14 +43,13 @@ import math
 import numpy as np
 import torch
 
+from shrimpy_tpu_torch.ops import fft_cuda
 from shrimpy_tpu_torch.ops.deconv import _fft2z_chunk, _padded_grid_shape, resolve_fft_backend
 from shrimpy_tpu_torch.ops.rl_fused import consume
 from shrimpy_tpu_torch.ops.rl_outer import run_rl_outer
 from shrimpy_tpu_torch.ops.zband_cuda import zband, zband_plain
 from shrimpy_tpu_torch.utils.fft import _pad
 from shrimpy_tpu_torch.utils.timing import span
-
-_COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
 def _unit_psf(psf_np, dtype: torch.dtype, device) -> torch.Tensor:
@@ -139,11 +141,15 @@ def rl_fft2z(image: torch.Tensor, psf_np, settings, iterations: int, *, grid, pa
     planes, so the 3-D convolution is, per plane of the spectrum, a sum
     of kz per-plane OTFs times the spectrum kz planes around it.
 
-    Memory: est, data, the spectrum and the band's output over the whole
-    grid (four carries; complex ones of gz x gy x (gx // 2 + 1)); the
-    transforms' scratch is bounded by ``z_chunk`` planes. ``plain=True``
-    runs :func:`~shrimpy_tpu_torch.ops.zband_cuda.zband_plain` on any
-    device in ``dtype``."""
+    The transforms and the update go through
+    :mod:`~shrimpy_tpu_torch.ops.fft_cuda` (on the card: cuFFT plans for
+    the chunk's shape, reading and writing these buffers, and one kernel
+    for each update). Memory: est, data, the spectrum and the band's
+    output over the whole grid (four carries; complex ones of gz x gy x
+    (gx // 2 + 1)), one real chunk of ``z_chunk`` planes, and cuFFT's work
+    area. ``plain=True`` runs the plain versions on any device in
+    ``dtype``: :func:`~shrimpy_tpu_torch.ops.zband_cuda.zband_plain` and
+    the torch calls of :data:`~shrimpy_tpu_torch.ops.fft_cuda.PLAIN`."""
     shape = tuple(image.shape)
     eps = float(settings.epsilon)
     gz, gy, gx = grid
@@ -151,9 +157,13 @@ def rl_fft2z(image: torch.Tensor, psf_np, settings, iterations: int, *, grid, pa
         data, est = _start(image, init, pads, settings, dtype, donate)
         del image
         taps = plane_otfs(psf_np, grid, dtype, est.device).div_(gy * gx)
-        spec = torch.empty((gz, gy, gx // 2 + 1), dtype=_COMPLEX[dtype], device=est.device)
+        spec = torch.empty((gz, gy, gx // 2 + 1), dtype=fft_cuda.COMPLEX[dtype],
+                           device=est.device)
         band_out = None if plain or not est.is_cuda else torch.empty_like(spec)
+        # Each chunk's inverse transform and update: the loop's one real scratch.
+        real = torch.empty((min(z_chunk, gz), gy, gx), dtype=dtype, device=est.device)
     chunks = [(a, min(a + z_chunk, gz)) for a in range(0, gz, z_chunk)]
+    r2c, c2r_, ratio_, scale_ = fft_cuda.PLAIN if plain else fft_cuda.WRAPPERS
 
     def band(mode: str) -> torch.Tensor:
         if plain:
@@ -161,20 +171,23 @@ def rl_fft2z(image: torch.Tensor, psf_np, settings, iterations: int, *, grid, pa
         return zband(spec, taps, mode, out=band_out)
 
     def step(v: torch.Tensor) -> torch.Tensor:
-        # Updates v in place: run_rl_outer never reads it again.
+        # Updates v in place: run_rl_outer never reads it again. On the card
+        # c2r_ destroys its chunk of the band's output: nothing reads that
+        # again before the next band launch rewrites all of it.
         for a, b in chunks:
-            torch.fft.rfft2(v[a:b], out=spec[a:b])
+            r2c(v[a:b], spec[a:b])
         acc = band("conv")
         for a, b in chunks:
-            conv = torch.fft.irfft2(acc[a:b], s=(gy, gx), norm="forward")
-            torch.fft.rfft2(torch.div(data[a:b], conv.clamp_min_(eps), out=conv),
-                            out=spec[a:b])
+            x = c2r_(acc[a:b], real[:b - a])
+            r2c(ratio_(x, data[a:b], eps), spec[a:b])
         acc = band("corr")
         for a, b in chunks:
-            v[a:b].mul_(torch.fft.irfft2(acc[a:b], s=(gy, gx), norm="forward"))
+            scale_(v[a:b], c2r_(acc[a:b], real[:b - a]))
         return v
 
     est = run_rl_outer([(step, iterations)], est, settings.acceleration == "biggs")
+    # The loop's buffers are freed before the crop makes its copy.
+    del step, band, data, taps, spec, band_out, real
     return _crop(est, shape, pads)
 
 

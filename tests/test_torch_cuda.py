@@ -1651,13 +1651,18 @@ def test_fft_rl_on_card_matches_float64_plain(cuda, settings):
     img = _rand((12, 40, 44), 61, cuda, 0.0, 100.0)
     s = deconvolve_settings(iterations=3, **settings)
     psf = tilted_gaussian_psf((7, 9, 9))
+    from shrimpy_tpu_torch.ops import fft_cuda
+
     zband_cuda.launches = zband_plain.cuda_calls = 0
     out = richardson_lucy(img, psf, s)
     torch.cuda.synchronize()
     assert zband_cuda.launches == 6 and zband_plain.cuda_calls == 0
+    assert [fn.cuda_calls for fn in fft_cuda.PLAIN] == [0] * 4
     ref = richardson_lucy(img, psf, s, plain=True, dtype=torch.float64)
     assert zband_plain.cuda_calls == 6
     zband_plain.cuda_calls = 0
+    for fn in fft_cuda.PLAIN:
+        fn.cuda_calls = 0
     if s.acceleration == "biggs":
         scale = float(ref.abs().max())
         diff = (out.double() - ref).abs()
@@ -1665,6 +1670,173 @@ def test_fft_rl_on_card_matches_float64_plain(cuda, settings):
         assert float(diff.max()) <= 2e-2 * scale
     else:
         assert _rel(out, ref) <= 1e-4
+
+
+def _zero_fft_counts():
+    from shrimpy_tpu_torch.ops import fft_cuda
+
+    for fn in (fft_cuda.r2c_cuda, fft_cuda.c2r_cuda, fft_cuda.ratio_cuda, fft_cuda.scale_cuda):
+        fn.launches = 0
+    for fn in fft_cuda.PLAIN:
+        fn.cuda_calls = 0
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,off", [(1, 0), (3, 0), (7, 0), (4097, 0), (1 << 20, 0), (4099, 1),
+                                   (1000, 3)])
+def test_ratio_and_scale_kernels_equal_the_torch_chain_bitwise(cuda, dtype, n, off):
+    """``rl_ratio_kernel`` and ``rl_scale_kernel`` give the bits of
+    ``div(data, x.clamp_min_(eps))`` and ``v.mul_(x)``: lengths that are no
+    multiple of the vector width, arrays off the 16-byte grid (``off``
+    elements in), eps hits, zeros of either sign, infinities and a NaN."""
+    from shrimpy_tpu_torch.ops import fft_cuda
+
+    eps = 1e-3
+    g = np.random.default_rng(n + off)
+    x = torch.from_numpy(g.uniform(-0.01, 2.0, n + off)).to(cuda, dtype)[off:]
+    data = torch.from_numpy(g.uniform(0.0, 100.0, n + off)).to(cuda, dtype)[off:]
+    edge = torch.tensor([float("nan"), 0.0, -0.0, eps, eps / 2, float("inf"), -1.0, 1e-30],
+                        dtype=dtype, device=cuda)[:n]
+    x[:edge.numel()] = edge
+    data[-min(n, 3):] = 0.0
+    _zero_fft_counts()
+    before = (fft_cuda.ratio_cuda.launches, fft_cuda.scale_cuda.launches)
+    got = fft_cuda.ratio_(x.clone(), data, eps)
+    want = torch.div(data, x.clone().clamp_min_(eps))
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(got), _bits(want))
+    got = fft_cuda.scale_(x.clone(), data)
+    assert torch.equal(_bits(got), _bits(x.clone().mul_(data)))
+    assert (fft_cuda.ratio_cuda.launches, fft_cuda.scale_cuda.launches) == (before[0] + 1,
+                                                                            before[1] + 1)
+    assert fft_cuda.ratio_plain.cuda_calls == fft_cuda.scale_plain.cuda_calls == 0
+    fft_cuda.ratio_plain(x.clone(), data, eps)
+    assert fft_cuda.ratio_plain.cuda_calls == 1
+    fft_cuda.ratio_plain.cuda_calls = 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("shape", [(1, 33, 40), (8, 33, 45), (8, 96, 120), (1, 729, 480)])
+def test_cufft_plans_match_torch_fft(cuda, dtype, shape):
+    """R2C and C2R through the port's plans against ``torch.fft.rfft2`` and
+    ``irfft2(norm="forward")`` within 1e-6, batch 1 and 8, an odd gx; R2C
+    keeps its input, each counts one launch, no plain call on the card."""
+    from shrimpy_tpu_torch.ops import fft_cuda
+
+    x = torch.from_numpy(np.random.default_rng(sum(shape)).uniform(-1, 1, shape)).to(cuda, dtype)
+    kept = x.clone()
+    n, gy, gx = shape
+    _zero_fft_counts()
+    spec = torch.empty((n, gy, gx // 2 + 1), dtype=fft_cuda.COMPLEX[dtype], device=cuda)
+    before = (fft_cuda.r2c_cuda.launches, fft_cuda.c2r_cuda.launches)
+    fft_cuda.r2c(x, spec)
+    r2c_gap = _rel(torch.view_as_real(spec), torch.view_as_real(torch.fft.rfft2(x)))
+    assert r2c_gap <= 1e-6
+    assert torch.equal(x, kept)
+    back = torch.empty_like(x)
+    want = torch.fft.irfft2(spec, s=(gy, gx), norm="forward")
+    fft_cuda.c2r_(spec, back)  # destroys spec
+    print(f"{shape} {dtype}: r2c against torch.fft {r2c_gap:.3e}, c2r {_rel(back, want):.3e}")
+    assert _rel(back, want) <= 1e-6
+    assert _rel(back, x * (gy * gx)) <= 1e-5
+    assert (fft_cuda.r2c_cuda.launches, fft_cuda.c2r_cuda.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    assert fft_cuda.r2c_plain.cuda_calls == fft_cuda.c2r_plain.cuda_calls == 0
+
+
+@pytest.mark.parametrize("case", ["small", "chunks", "init", "biggs", "ragged"])
+def test_fft2z_kernel_path_matches_plain(cuda, monkeypatch, case):
+    """``rl_fft2z`` on the plans and kernels after RL-5: within 1e-5 of the
+    same loop with the four operations' plain versions (the band kernel in
+    both), and of ``plain=True`` (the plain band too; with Biggs, whose
+    bf16 state turns the band's float32 reordering into bf16 steps, by the
+    two-tier gate). One chunk, several, a warm start, Biggs, and a chunk
+    that does not divide the grid's z. The kernel path counts two
+    transforms each way and one launch of each kernel a chunk an
+    iteration, the plain versions as many calls."""
+    from shrimpy_tpu_torch.ops import fft_cuda
+    from shrimpy_tpu_torch.ops.deconv import _padded_grid_shape
+    from shrimpy_tpu_torch.ops.rl_fft import rl_fft2z
+
+    img = _rand((12, 40, 44), 63, cuda, 0.0, 100.0)
+    psf = tilted_gaussian_psf((7, 9, 9))
+    psf = psf / psf.sum()
+    grid, pads = _padded_grid_shape(tuple(img.shape), psf.shape)
+    z_chunk = {"small": grid[0], "chunks": 4, "ragged": 5}.get(case, 8)
+    chunks = -(-grid[0] // z_chunk)
+    s = deconvolve_settings(algorithm="fft", acceleration="biggs" if case == "biggs" else "none")
+    init = _rand((12, 40, 44), 64, cuda, 1.0, 90.0) if case == "init" else None
+    cuda_fns = (fft_cuda.r2c_cuda, fft_cuda.c2r_cuda, fft_cuda.ratio_cuda, fft_cuda.scale_cuda)
+    want = [10 * chunks, 10 * chunks, 5 * chunks, 5 * chunks]
+
+    def run(**kw):
+        return rl_fft2z(img, psf, s, 5, grid=grid, pads=pads, z_chunk=z_chunk, init=init, **kw)
+
+    _zero_fft_counts()
+    out = run()
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in cuda_fns] == want
+    assert [fn.cuda_calls for fn in fft_cuda.PLAIN] == [0] * 4
+    assert bool(torch.isfinite(out).all())
+    monkeypatch.setattr(fft_cuda, "WRAPPERS", fft_cuda.PLAIN)
+    mixed = run()
+    monkeypatch.undo()
+    assert [fn.cuda_calls for fn in fft_cuda.PLAIN] == want
+    print(f"{case}: against the plain operations {_rel(out, mixed):.3e}")
+    assert _rel(out, mixed) <= 1e-5
+    ref = run(plain=True)
+    assert [fn.cuda_calls for fn in fft_cuda.PLAIN] == [2 * w for w in want]
+    _zero_fft_counts()
+    if s.acceleration == "biggs":
+        scale = float(ref.abs().max())
+        diff = (out.double() - ref.double()).abs()
+        assert float((diff <= 5e-4 * scale).double().mean()) >= 0.9999
+        assert float(diff.max()) <= 2e-2 * scale
+    else:
+        assert _rel(out, ref) <= 1e-5
+
+
+def test_cufft_work_area_comes_from_the_caching_allocator(cuda):
+    """At the production chunk each plan needs a work area, and the
+    allocator's count rises by at least that much while a transform runs,
+    then falls back: cuFFT allocates none itself."""
+    from shrimpy_tpu_torch.ops import fft_cuda
+
+    x = torch.rand((8, 2916, 1920), device=cuda)
+    spec = torch.empty((8, 2916, 961), dtype=torch.complex64, device=cuda)
+    for kind, fn, args in ((fft_cuda.R2C, fft_cuda.r2c_cuda, (x, spec)),
+                           (fft_cuda.C2R, fft_cuda.c2r_cuda, (spec, x))):
+        _, work = fft_cuda.plan(kind, x)
+        assert work > 0
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*args)
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before >= work
+        assert torch.cuda.memory_allocated() == before
+
+
+def test_kernel_library_shares_the_cufft_torch_loaded(cuda):
+    """The kernel library links ``libcufft.so.11`` and the process maps one
+    cuFFT: the copy PyTorch loaded, not a second one from the toolkit."""
+    from pathlib import Path
+
+    from shrimpy_tpu_torch.kernels.build import load_library
+    from shrimpy_tpu_torch.ops import fft_cuda
+
+    torch.fft.rfft2(torch.rand((2, 8, 8), device=cuda))
+    load_library()
+    x = torch.rand((1, 8, 8), device=cuda)
+    fft_cuda.r2c_cuda(x, torch.empty((1, 8, 5), dtype=torch.complex64, device=cuda))
+    torch.cuda.synchronize()
+    maps = Path("/proc/self/maps").read_text().splitlines()
+    cufft = {line.split()[-1] for line in maps if "libcufft" in line.split()[-1]}
+    assert len(cufft) == 1, cufft
 
 
 def test_phase_stage_on_card_matches_float64(cuda):

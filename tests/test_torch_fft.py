@@ -11,7 +11,10 @@ relative error ``max|a-b| / max|b|`` <= 1e-5 for every ``fft_backend``
 1e-6 for the port's float64 plain path against it. Biggs runs keep a
 bf16 state, so they are held to 1e-3. The band's plain version
 (what a CPU tensor runs) is held against a direct numpy loop of its two
-formulas within 1e-12 in float64.
+formulas within 1e-12 in float64. The loop's four operations
+(``ops/fft_cuda.py``) run their plain versions on a CPU tensor, bit for
+bit the torch calls they stand for, and refuse what the card's versions
+cannot take.
 """
 
 import inspect
@@ -30,6 +33,7 @@ from shrimpy_tpu.ops import deconv as jdeconv
 from shrimpy_tpu.parallel.pipeline import _deconv_fn as jax_deconv_fn
 from shrimpy_tpu_torch.cli.main import cli
 from shrimpy_tpu_torch.ops import deconv as tdeconv
+from shrimpy_tpu_torch.ops import fft_cuda
 from shrimpy_tpu_torch.ops import rl_fft as trl_fft
 from shrimpy_tpu_torch.ops.zband_cuda import zband, zband_cuda, zband_plain
 from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
@@ -460,3 +464,139 @@ def test_chip_smoke_fft_settings_equal_bench_nonsep():
 
     assert "tilted_gaussian_psf()" in inspect.getsource(smoke.run_phases)
     np.testing.assert_array_equal(tsynthetic.tilted_gaussian_psf(), tilted_gaussian_psf())
+
+
+def _fft_args(op, dtype=torch.float32, shape=(3, 10, 9)):
+    """Fresh arguments of one of fft_cuda's four operations on the CPU."""
+    g = torch.Generator().manual_seed(7)
+    real = torch.rand(shape, generator=g, dtype=dtype) * 2.0
+    n, gy, gx = shape
+    spec = torch.fft.rfft2(torch.rand(shape, generator=g, dtype=dtype))
+    other = torch.rand(shape, generator=g, dtype=dtype) * 100.0
+    return {"r2c": (real, torch.empty_like(spec)),
+            "c2r_": (spec, torch.empty_like(real)),
+            "ratio_": (real, other, 1e-3),
+            "scale_": (real, other)}[op]
+
+
+def _torch_call(op, args):
+    """What each operation stands for, written as the loop wrote it before."""
+    a, b, *rest = (t.clone() if isinstance(t, torch.Tensor) else t for t in args)
+    if op == "r2c":
+        return torch.fft.rfft2(a)
+    if op == "c2r_":
+        return torch.fft.irfft2(a, s=tuple(b.shape[1:]), norm="forward")
+    if op == "ratio_":
+        return torch.div(b, a.clamp_min_(rest[0]))
+    return a.mul_(b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("op", ["r2c", "c2r_", "ratio_", "scale_"])
+def test_fft_wrappers_run_the_plain_versions_on_the_cpu(op, dtype):
+    """Each wrapper takes a CPU tensor to its plain version: the torch call
+    it stands for, bit for bit, written into the caller's buffer; no
+    launch is counted, nor a plain call on a CUDA tensor."""
+    args = _fft_args(op, dtype)
+    want = _torch_call(op, args)
+    cuda_fn = getattr(fft_cuda, op.rstrip("_") + "_cuda")
+    plain_fn = getattr(fft_cuda, op.rstrip("_") + "_plain")
+    launches, calls = cuda_fn.launches, plain_fn.cuda_calls
+    got = getattr(fft_cuda, op)(*args)
+    assert got.data_ptr() == (args[1] if op in ("r2c", "c2r_") else args[0]).data_ptr()
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(plain_fn(*_fft_args(op, dtype)).numpy(), want.numpy())
+    assert cuda_fn.launches == launches == 0 and plain_fn.cuda_calls == calls == 0
+    assert fft_cuda.WRAPPERS[fft_cuda.PLAIN.index(plain_fn)] is getattr(fft_cuda, op)
+
+
+def _views(op):
+    """(label, args, message) of inputs each operation must refuse."""
+    args = _fft_args(op)
+    a, b = args[0], args[1]
+    rest = args[2:]
+    half = (a, b.half()) if op == "c2r_" else (a.half(), b, *rest)
+    bad = [("float16", half, "float32|float64"),
+           ("not contiguous", (a.transpose(1, 2), b, *rest), "contiguous|shape|spectrum")]
+    if op in ("r2c", "c2r_"):
+        # The real array laid over the spectrum's own bytes.
+        spec, real = (b, a) if op == "r2c" else (a, b)
+        over = torch.view_as_real(spec).reshape(-1)[:real.numel()].view(real.shape)
+        bad.append(("overlapping", (over, spec) if op == "r2c" else (spec, over), "overlap"))
+        bad.append(("complex128 for float32", (a, b.to(torch.complex128)) if op == "r2c"
+                    else (a.to(torch.complex128), b), "complex64"))
+        bad.append(("wrong planes", (a, b[:2]) if op == "r2c" else (a[:2], b), "spectrum"))
+    else:
+        bad.append(("overlapping", (a, a.view(a.shape), *rest), "overlap"))
+        bad.append(("float64 beside float32", (a, b.double(), *rest), "both"))
+        bad.append(("shape", (a, b[:2].contiguous(), *rest), "shape"))
+    return bad
+
+
+@pytest.mark.parametrize("op", ["r2c", "c2r_", "ratio_", "scale_"])
+def test_fft_wrappers_refuse_bad_input(op):
+    """The wrapper, its plain version and its card version refuse the same
+    inputs (wrong dtype, not contiguous, the output overlapping the input,
+    a spectrum of another shape) before any work; the card's version also
+    refuses a CPU tensor."""
+    stem = op.rstrip("_")
+    for fn in (getattr(fft_cuda, op), getattr(fft_cuda, stem + "_plain"),
+               getattr(fft_cuda, stem + "_cuda")):
+        for label, args, msg in _views(op):
+            with pytest.raises(ValueError, match=msg):
+                fn(*args)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        getattr(fft_cuda, stem + "_cuda")(*_fft_args(op))
+
+
+def test_fft_kernels_are_filed_as_elementwise_by_the_trace():
+    """Every ``__global__`` kernel of ``csrc/rl_fft.cu`` is filed as
+    ``elementwise`` by the benchmark's trace reader, as the torch kernels it
+    replaces were, under any name the profiler may show; cuFFT's own
+    kernels stay ``transforms``."""
+    import re
+    from pathlib import Path
+
+    from gpubench import trace
+
+    src = (Path(fft_cuda.__file__).resolve().parent.parent / "csrc" / "rl_fft.cu").read_text()
+    names = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", src)
+    assert sorted(names) == ["rl_ratio_kernel", "rl_scale_kernel"]
+    for name in names:
+        for shown in (name, f"void (anonymous namespace)::{name}<float>(float*, float const*, "
+                            "long long, int)", f"{name}<double>"):
+            assert trace.kind(shown) == "elementwise", shown
+    assert trace.kind("void regular_fft_c2r_1920u<EPT_10u>(...)") == "transforms"
+
+
+@pytest.mark.parametrize("z_chunk", [4, 5, 16])
+@pytest.mark.parametrize("accel", ["none", "biggs"])
+def test_fft2z_loop_goes_through_the_wrappers(monkeypatch, z_chunk, accel):
+    """``rl_fft2z`` calls the four operations once per chunk and half-step
+    (r2c and c2r_ twice a chunk an iteration, ratio_ and scale_ once),
+    the wrappers unless ``plain``, the plain versions with it, and on the
+    CPU both give the same bits."""
+    psf, img = _scene((12, 32, 36))
+    s = DeconvolveSettings(algorithm="fft", fft_backend="fft2z", acceleration=accel)
+    grid, pads = tdeconv._padded_grid_shape(img.shape, psf.shape)
+    chunks = -(-grid[0] // z_chunk)
+    outs = {}
+    for plain in (False, True):
+        calls = []
+
+        def counted(fn):
+            def wrapped(*args):
+                calls.append(fn.__name__)
+                return fn(*args)
+            return wrapped
+
+        name = "PLAIN" if plain else "WRAPPERS"
+        monkeypatch.setattr(fft_cuda, name, tuple(counted(f) for f in getattr(fft_cuda, name)))
+        outs[plain] = trl_fft.rl_fft2z(torch.from_numpy(img), psf, s, 3, grid=grid, pads=pads,
+                                       z_chunk=z_chunk, plain=plain).numpy()
+        want = ["r2c", "c2r_", "ratio_", "scale_"]
+        if plain:
+            want = [w.rstrip("_") + "_plain" for w in want]
+        assert {w: calls.count(w) for w in want} == dict(zip(want, [6 * chunks, 6 * chunks,
+                                                                    3 * chunks, 3 * chunks]))
+    np.testing.assert_array_equal(outs[False], outs[True])

@@ -509,7 +509,8 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
     calls = log.read_text().splitlines()
     assert {s.name for s in build.sources()} == {"deskew.cu", "rl_fused.cu", "rl_half.cu",
                                                  "convzy.cu", "rl_iter.cu", "probes.cu",
-                                                 "affine.cu", "zband.cu", "rl_pass.cu"}
+                                                 "affine.cu", "zband.cu", "rl_pass.cu",
+                                                 "rl_fft.cu"}
     assert len(calls) == len(build.sources()) + 1
     assert all("arch=compute_90a,code=sm_90a" in c for c in calls)
     compiles = [c for c in calls if " -c " in c]
@@ -517,7 +518,16 @@ def test_build_invokes_nvcc_for_sm90a_once(tmp_path, monkeypatch):
         assert sum(str(src) in c for c in compiles) == 1
     (link,) = [c for c in calls if "-shared" in c]
     assert sum(w.endswith(".o") for w in link.split()) == len(build.sources())
+    assert link.split()[-1] == "-lcufft"  # after the objects that call it
     assert not list((tmp_path / "build").glob("objs.*"))  # objects removed
+
+
+def test_build_key_covers_the_link_flags(monkeypatch):
+    """The common library's name changes with what it links, so a build
+    without cuFFT is never served for one with it."""
+    with_cufft = build.library_path()
+    monkeypatch.setattr(build, "LINK_FLAGS", [])
+    assert build.library_path() != with_cufft
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
