@@ -8,7 +8,8 @@ Run one cell from the repository root::
 ``BENCHMARK.json`` at the root names the cells, configurations, traffic
 mixes and metrics; each lives in a file of its own here, found by its
 name: ``configs/<config>.json``, ``traffic/<traffic>.json``,
-``workloads/<cell>.json`` and ``metrics/<metric>.py``. A cell, a
+``workloads/<cell>.json`` and ``metrics/<metric>.py`` (a measured PSF
+is a file under ``psfs/``, named and hashed in its configuration). A cell, a
 configuration, a traffic mix or a metric is added by adding files and
 entries, never by editing one that is here.
 

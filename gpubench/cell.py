@@ -58,11 +58,12 @@ class Context:
         return int(np.prod(self.out_shape))
 
 
-def port_step(config: dict, psf: np.ndarray, device):
-    """The program's step for ``config``, built once."""
+def port_step(config: dict, psf: np.ndarray, device, **kw):
+    """The program's step for ``config``, built once (``kw`` to
+    ``build_reconstruct_step``)."""
     from shrimpy_tpu_torch.parallel.pipeline import build_reconstruct_step
 
-    return build_reconstruct_step(port_settings(config), psf=psf, device=device)
+    return build_reconstruct_step(port_settings(config), psf=psf, device=device, **kw)
 
 
 def port_settings(config: dict):
@@ -132,7 +133,7 @@ class Run:
     def setup(self) -> None:
         cfg = self.config
         self.raw_shape = tuple(cfg["raw_shape"])
-        self.psf = inputs.make_psf(cfg["psf"])
+        self.psf = inputs.make_psf(cfg["psf"], self.root)
         self.raws = inputs.make_raws(self.raw_shape, self.traffic["raw"], self.seed,
                                      int(cfg["distinct_volumes"]), self.device)
         self.sums = [float(r.sum(dtype=torch.float64)) for r in self.raws]
@@ -273,10 +274,13 @@ def run(cell: str, seed: int, seconds: float, traced: bool, *, device: str = "cu
     gc.collect()
     if r.cuda:
         torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
     t_ref = time.perf_counter()
     numbers, over = r.compare(kept)
+    ref_peak = (f", peak {torch.cuda.max_memory_allocated()} bytes with the ring and the kept "
+                f"outputs" if r.cuda else "")
     print(f"gpubench: reference of {len({s for _, s, _ in kept})} raw(s) for {len(kept)} "
-          f"output(s) took {time.perf_counter() - t_ref:.3f} s", file=err, flush=True)
+          f"output(s) took {time.perf_counter() - t_ref:.3f} s{ref_peak}", file=err, flush=True)
     correct = all(v <= lim for v, lim in numbers.values())
     result = {"correct": correct, "attempted": n, "failed": over if over or correct else 1,
               "metrics": metrics, "device": dev}

@@ -10,6 +10,10 @@ the harness (``FAULTS``). The benchmark's own runs never run this.
         --seeds 101 102 103 --control-seeds 201 202 203 \\
         --fault dim_voxel --fault-seeds 301 302 303
 
+``term_dropped`` and ``whole_psf`` plant a wrong operator on a measured
+PSF's route (``ls-meas.rl20``): the last of its separable terms left out,
+or the whole PSF convolved in place of the tier's terms.
+
 Prints a JSON line a run (``side``, ``seed``, each number, ``correct``,
 ``attempted``) and last a summary: for each number the program's largest
 reading and the smallest of the control and of each fault.
@@ -74,6 +78,34 @@ def _stale_output(config, psf, device):  # each call returns the one before it
     return stale
 
 
+def _term_dropped(config, psf, device):  # the last of the K separable terms left out
+    from gpubench import cell
+    from shrimpy_tpu_torch.ops.deconv import plan_terms, prepare_psf
+
+    d = cell.port_settings(config).deconvolve
+    terms = plan_terms(prepare_psf(psf, d), d)
+    if not terms or len(terms) < 2:
+        raise ValueError("the cell's PSF takes no route of two separable terms or more")
+    return cell.port_step(config, psf, device, terms=terms[:-1])
+
+
+def _whole_psf(config, psf, device):  # RL with the whole PSF, not the tier's terms
+    from gpubench import geometry, reference
+
+    d = config["deconvolve"]
+    if geometry.rl_route(geometry.working_psf(psf, float(d["psf_crop_tol"])),
+                         d) not in geometry.TERM_ROUTES:
+        raise ValueError("the cell's PSF is not on the extended or the truncated tier")
+    # The reference on the strict tier, which any tolerance of 1 takes: the
+    # same zero-boundary RL on the same grid with the whole working PSF.
+    whole = {**config, "deconvolve": {**d, "separable_tol": 1.0}}
+
+    def step(batch, tf=None):
+        return torch.stack([reference.reconstruct(raw, psf, whole, torch.float32).float()
+                            for raw in batch])
+    return step
+
+
 def _altered(fault):
     def make(config, psf, device):
         from gpubench import cell
@@ -88,7 +120,9 @@ def _altered(fault):
     return make
 
 
-FAULTS = {"state_unchanged": _state_unchanged, "stale_output": _stale_output}
+FAULTS = {"state_unchanged": _state_unchanged, "stale_output": _stale_output,
+          "term_dropped": _term_dropped, "whole_psf": _whole_psf}
+OPERATOR_FAULTS = ("term_dropped", "whole_psf")  # only on the extended or the truncated tier
 FAULTS |= {f: _altered(f) for f in ("half_left_out", "peak_voxel", "dim_voxel",
                                     "background_region")}
 

@@ -1,5 +1,5 @@
 """The benchmark's own arithmetic, frozen here: the deskew's geometry,
-the RL grids, the working PSF and its separable rank, the device's
+the RL grids, the working PSF and its separable tiers, the device's
 peaks, and the least bytes and operations of each kernel a metric holds
 to its roofline.
 
@@ -141,57 +141,139 @@ def working_psf(psf, crop_tol: float) -> np.ndarray:
     return p / p.sum()
 
 
-def separable_residuals(psf: np.ndarray, n_terms: int) -> list[float]:
-    """Relative Frobenius residual of ``psf`` after its 1, 2, ...
-    strongest rank-1 terms, the terms taken from an SVD of the (z, yx)
-    unfolding and of each (y, x) mode (mutually orthogonal, so the
-    residual falls with every term)."""
-    nz, ny, nx = psf.shape
-    u, s, vt = np.linalg.svd(psf.reshape(nz, ny * nx), full_matrices=False)
-    weights = []
-    for r in range(len(s)):
+def separable_candidates(psf: np.ndarray, max_terms: int) -> list[tuple]:
+    """The rank-1 terms ``(weight, wz, wy, wx)`` of ``psf`` in float64,
+    the strongest first: an SVD of the (z, yx) unfolding, then of each of
+    its first ``max_terms`` (y, x) modes, keeping the first ``max_terms``
+    terms of each; ``wz`` and ``wx`` unit vectors, ``wy`` carrying the
+    weight. Mutually orthogonal, so the residual falls with every term."""
+    p = np.asarray(psf, dtype=np.float64)
+    nz, ny, nx = p.shape
+    u, s, vt = np.linalg.svd(p.reshape(nz, ny * nx), full_matrices=False)
+    out = []
+    for r in range(min(len(s), max_terms)):
         if s[r] <= 0:
             break
-        ps = np.linalg.svd(vt[r].reshape(ny, nx), compute_uv=False)
-        weights.extend(float(s[r] * q) for q in ps if q > 0)
-    weights.sort(reverse=True)
-    total = float(np.sum(psf.astype(np.float64) ** 2))
-    out, kept = [], 0.0
-    for w in weights[:n_terms]:
-        kept += w * w
-        out.append(math.sqrt(max(total - kept, 0.0) / total))
+        pu, ps, pvt = np.linalg.svd(vt[r].reshape(ny, nx), full_matrices=False)
+        for q in range(min(len(ps), max_terms)):
+            if s[r] * ps[q] <= 0:
+                break
+            out.append((float(s[r] * ps[q]), u[:, r], pu[:, q] * ps[q] * s[r], pvt[q]))
+    out.sort(key=lambda c: -c[0])
     return out
+
+
+def terms_psf(terms) -> np.ndarray:
+    """The PSF that ``(wz, wy, wx)`` terms stand for: the sum of their
+    outer products, float64."""
+    return sum(np.einsum("z,y,x->zyx", *(np.asarray(w, np.float64) for w in t)) for t in terms)
+
+
+def _residuals(psf: np.ndarray, candidates) -> list[float]:
+    """Relative Frobenius residual of ``psf`` after each prefix of
+    ``candidates``, each from the sum of the terms kept."""
+    norm = max(float(np.linalg.norm(psf)), 1e-30)
+    recon, out = np.zeros_like(psf), []
+    for _, wz, wy, wx in candidates:
+        recon = recon + np.einsum("z,y,x->zyx", wz, wy, wx)
+        out.append(float(np.linalg.norm(psf - recon)) / norm)
+    return out
+
+
+PLATEAU_GAIN = 0.08  # the denoise tier stops once a term takes < 8 % off the residual
+
+
+def separable_terms(psf_unit: np.ndarray, deconvolve: dict) -> tuple[str, list, float]:
+    """The separable tier the settings give this working PSF, its terms
+    ``(wz, wy, wx)`` in float64 and its relative residual, as the
+    measured-PSF algorithm defines them (each tier's terms
+    :func:`separable_candidates` of its own rank, the strongest first):
+
+    * ``"separable"``: the fewest of the strongest ``max_separable_terms``
+      terms that reproduce the PSF within ``separable_tol``;
+    * ``"extended"``: the same at ``max_extended_terms``, where that is
+      more;
+    * ``"truncated"`` (unless ``psf_denoise`` is ``off``): the strongest
+      terms up to ``max_extended_terms``, stopping before a term that
+      takes less than 8 % off the residual once the residual is at or
+      under ``psf_denoise_max_residual``, and accepted where the
+      residual then is at or under it;
+    * ``"fft"`` otherwise (no terms)."""
+    p = np.asarray(psf_unit, dtype=np.float64)
+    tol = float(deconvolve["separable_tol"])
+    strict = int(deconvolve["max_separable_terms"])
+    extended = max(int(deconvolve["max_extended_terms"]), strict)
+    tiers = [("separable", strict)] + ([("extended", extended)] if extended > strict else [])
+    for tier, rank in tiers:
+        cands = separable_candidates(p, rank)[:rank]
+        for k, res in enumerate(_residuals(p, cands), start=1):
+            if res <= tol:
+                return tier, [c[1:] for c in cands[:k]], res
+    if deconvolve["psf_denoise"] == "off":
+        return "fft", [], 1.0
+    top = float(deconvolve["psf_denoise_max_residual"])
+    cands = separable_candidates(p, extended)[:extended]
+    kept, residual = 0, 1.0
+    for res in _residuals(p, cands):
+        if kept and residual - res < PLATEAU_GAIN * residual and residual <= top:
+            break
+        kept, residual = kept + 1, res
+    if residual <= top:
+        return "truncated", [c[1:] for c in cands[:kept]], residual
+    return "fft", [], residual
+
+
+# The tiers whose operator is the sum of their terms, not the whole PSF
+# (the strict tier's terms reproduce it within ``separable_tol``).
+TERM_ROUTES = ("extended", "truncated")
 
 
 def rl_route(psf_unit: np.ndarray, deconvolve: dict) -> str:
     """The RL the configuration's settings call for with this working
-    PSF: ``"separable"`` (zero boundary on the G grid) where a few
-    rank-1 terms reproduce it within ``separable_tol``, ``"fft"``
-    (circular on the FFT grid) where ``algorithm`` says so or no
-    separable tier takes it. Raises for the tiers in between (extended
-    rank, denoised truncation), which no configuration here uses."""
+    PSF: ``"fft"`` (circular on the FFT grid) where ``algorithm`` says so
+    or no separable tier takes it under ``auto``, else the tier of
+    :func:`separable_terms` (zero boundary on the G grid). Raises where
+    ``algorithm: separable`` meets a PSF no tier takes, as the program
+    does, and for the algorithms the reference does not run."""
     algorithm = deconvolve["algorithm"]
     if algorithm == "fft":
         return "fft"
     if algorithm not in ("auto", "separable"):
         raise ValueError(f"the reference runs algorithm auto, separable or fft, not {algorithm!r}")
-    strict = separable_residuals(psf_unit, int(deconvolve["max_separable_terms"]))
-    if any(res <= deconvolve["separable_tol"] for res in strict):
-        return "separable"
-    extended = max(int(deconvolve["max_extended_terms"]), int(deconvolve["max_separable_terms"]))
-    last = separable_residuals(psf_unit, extended)[-1]
-    denoise_off = deconvolve["psf_denoise"] == "off"
-    if algorithm == "auto" and last > deconvolve["separable_tol"] and (
-            denoise_off or last > deconvolve["psf_denoise_max_residual"]):
-        return "fft"
-    raise ValueError("the PSF falls in a separable tier past the strict one "
-                     f"(rank-{extended} residual {last:.3e}); the reference does not model it")
+    tier, _, residual = separable_terms(psf_unit, deconvolve)
+    if tier == "fft" and algorithm == "separable":
+        raise ValueError(f"algorithm separable with a PSF no separable tier takes (residual "
+                         f"{residual:.3e})")
+    return tier
 
 
 def bound_s(bytes_moved: float, flops: float = 0.0) -> float:
     """The least time the card could take: bytes at the memory rate or
     float32 operations at their peak, whichever is longer."""
     return max(bytes_moved / HBM_BYTES_S, flops / FP32_FLOPS_S)
+
+
+def rl_roofline(ctx, routes, flops: bool = False):
+    """RL's share of its roofline, in %, where the cell's working PSF
+    takes one of ``routes``: RL's least time on the G grid (two
+    half-steps an iteration, each :func:`half_step_bytes` at the memory
+    rate or, with ``flops``, its rank-1 multiply-adds at the float32
+    peak, whichever is longer) over the device time a volume outside the
+    deskew, whatever kernels do the work. Nothing on another route or
+    without a trace."""
+    from gpubench import trace
+
+    d = ctx.config.get("deconvolve")
+    if ctx.trace is None or d is None:
+        return None
+    psf = working_psf(ctx.psf, float(d["psf_crop_tol"]))
+    if rl_route(psf, d) not in routes:
+        return None
+    grid = g_grid(ctx.out_shape, psf.shape)
+    half = bound_s(half_step_bytes(grid), half_step_flops(grid, psf.shape) if flops else 0.0)
+    deskew = trace.seconds_by(ctx.trace, trace.kind).get("deskew", 0.0)
+    spent = (trace.busy_s(ctx.trace) - deskew) / len(ctx.volumes)
+    return 100.0 * 2 * int(d["iterations"]) * half / spent if spent > 0 else None
 
 
 def deskew_bytes(raw_shape, deskew: dict) -> int:

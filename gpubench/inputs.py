@@ -3,7 +3,8 @@ configuration and the camera-like raw stacks of a traffic mix.
 
 Both sides of the check get the same arrays: the program the raws and
 the PSF as they are, the reference the same tensors and the same numpy
-array. Nothing here imports the package under test.
+array. Nothing here imports the package under test; a measured PSF is
+a file under this folder, made once and checked by its hash.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import hashlib
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from gpubench.spec import HERE
 
 
 def gaussian_psf(shape_zyx, sigma_zyx) -> np.ndarray:
@@ -40,18 +43,35 @@ def tilted_gaussian_psf(shape_zyx, shears, sigma_zyx) -> np.ndarray:
     return psf / psf.sum()
 
 
+def npy_psf(root, path: str, sha256: str) -> np.ndarray:
+    """A PSF frozen as a ``.npy`` file at ``path`` under the benchmark's
+    folder ``root`` (a measurement made once and committed, never the
+    program's output at run time), float32. Refuses a path that leads out
+    of ``root`` and a file whose sha256 is not ``sha256``."""
+    base = root.resolve()
+    file = (base / path).resolve()
+    if base not in file.parents:
+        raise ValueError(f"PSF file {path!r} is not inside {base}")
+    digest = hashlib.sha256(file.read_bytes()).hexdigest()
+    if digest != sha256:
+        raise ValueError(f"PSF file {path!r} has sha256 {digest}, the configuration {sha256}")
+    return np.load(file, allow_pickle=False).astype(np.float32)
+
+
 PSF_KINDS = {
-    "gaussian": lambda p: gaussian_psf(p["shape_zyx"], p["sigma_zyx"]),
-    "tilted_gaussian": lambda p: tilted_gaussian_psf(p["shape_zyx"], p["shears"], p["sigma_zyx"]),
+    "gaussian": lambda p, root: gaussian_psf(p["shape_zyx"], p["sigma_zyx"]),
+    "tilted_gaussian": lambda p, root: tilted_gaussian_psf(p["shape_zyx"], p["shears"],
+                                                           p["sigma_zyx"]),
+    "npy": lambda p, root: npy_psf(root, p["path"], p["sha256"]),
 }
 
 
-def make_psf(spec: dict) -> np.ndarray:
-    """The PSF a configuration's ``psf`` entry names."""
-    try:
-        return PSF_KINDS[spec["kind"]](spec)
-    except KeyError as err:
-        raise ValueError(f"unknown PSF {spec!r}") from err
+def make_psf(spec: dict, root=None) -> np.ndarray:
+    """The PSF a configuration's ``psf`` entry names; a file's path is
+    under ``root`` (default: this folder)."""
+    if spec.get("kind") not in PSF_KINDS:
+        raise ValueError(f"unknown PSF {spec!r}")
+    return PSF_KINDS[spec["kind"]](spec, HERE if root is None else root)
 
 
 def stream_seed(seed: int, index: int) -> int:

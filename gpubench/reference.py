@@ -4,14 +4,17 @@ it, in float64 PyTorch on whatever device holds the raw.
 
 It imports nothing of the program and takes nothing the program made:
 it works out the working PSF, the RL route and its grid from the PSF
-and the settings itself (``geometry.py``), and convolves with the whole
+and the settings itself (``geometry.py``), and convolves with a whole
 3-D PSF by FFTs on a grid of its own, never with separable terms or
-OTFs the program planned.
+OTFs the program planned: the working PSF itself, or on the extended
+and truncated tiers (a measured PSF's) the sum of the tier's terms
+(``geometry.separable_terms``, worked out again in float64), the
+operator those tiers define.
 
 * Deskew: each output voxel the trilinear sample of the raw at its lab
   position (``geometry.deskew_geometry``), z averaged over groups of
   ``average_n_slices``.
-* Separable route: RL on the G grid (the image padded by the PSF's
+* Separable routes: RL on the G grid (the image padded by the PSF's
   radii with ``pad_mode``), ``data = max(g, 0)``, ``est = max(g,
   eps)``, ``est <- est * corr(data / max(conv(est), eps))`` with zero
   outside the grid; each convolution a circular one on a grid at least
@@ -174,8 +177,11 @@ def richardson_lucy(image: torch.Tensor, psf, deconvolve: dict, store=None) -> t
         raise ValueError("the reference runs plain RL (acceleration none)")
     psf_unit = geometry.working_psf(psf, float(deconvolve["psf_crop_tol"]))
     route = geometry.rl_route(psf_unit, deconvolve)
-    run = _rl_separable if route == "separable" else _rl_fft
-    return run(image, psf_unit, deconvolve, store)
+    if route == "fft":
+        return _rl_fft(image, psf_unit, deconvolve, store)
+    if route in geometry.TERM_ROUTES:
+        psf_unit = geometry.terms_psf(geometry.separable_terms(psf_unit, deconvolve)[1])
+    return _rl_separable(image, psf_unit, deconvolve, store)
 
 
 def reconstruct(raw: torch.Tensor, psf, config: dict, compute=torch.float64,

@@ -1,5 +1,5 @@
 """Fixtures of the benchmark's CPU tests: a copy of the benchmark's
-layout in a temporary directory with tiny cells of the two
+layout in a temporary directory with tiny cells of the three
 configurations, run on the CPU through the program's plain path."""
 
 from __future__ import annotations
@@ -19,9 +19,10 @@ TINY_RAW = [64, 16, 24]
 
 def tiny_layout(dest: Path) -> Path:
     """``dest/BENCHMARK.json`` and ``dest/gpubench/`` with the real
-    metrics and, beside the real configurations, cells ``tiny-sep.rl3``
-    and ``tiny-fft.rl3``: the same settings and checks at a raw of
-    ``TINY_RAW``, RL-3 and small PSFs. Returns the folder."""
+    metrics and, beside the real configurations, cells ``tiny-sep.rl3``,
+    ``tiny-fft.rl3`` and ``tiny-meas.rl3``: the same settings and checks
+    at a raw of ``TINY_RAW``, RL-3 and small PSFs (the last the measured
+    one itself, on its K = 24 truncated tier). Returns the folder."""
     root = dest / "gpubench"
     shutil.copytree(spec.HERE, root, ignore=shutil.ignore_patterns("tests", "__pycache__"))
     sep = spec.load_named("configs", "mantis-ls-sep")
@@ -32,22 +33,27 @@ def tiny_layout(dest: Path) -> Path:
     fft["psf"] = {"kind": "tilted_gaussian", "shape_zyx": [5, 9, 9], "shears": [0.9, 0.8],
                   "sigma_zyx": [1.0, 1.5, 2.5]}
     fft["deconvolve"]["algorithm"] = "fft"
+    meas = spec.load_named("configs", "mantis-ls-meas")
+    meas["raw_shape"] = TINY_RAW
+    meas["deconvolve"]["iterations"] = 3
     traffic = spec.load_named("traffic", "ring4-closed")
     traffic["raw"]["structures"] = 40
     files = {"configs/tiny-sep.json": sep, "configs/tiny-fft.json": fft,
-             "traffic/tiny.json": traffic}
+             "configs/tiny-meas.json": meas, "traffic/tiny.json": traffic}
     bench = spec.load_benchmark()
     bench["workloads"] = []
+    tiny_of = {"ls-sep.rl20": "tiny-sep.rl3", "ls-fft.rl20": "tiny-fft.rl3",
+               "ls-meas.rl20": "tiny-meas.rl3"}
     for cell, config, real in (("tiny-sep.rl3", "tiny-sep", "ls-sep.rl20"),
-                               ("tiny-fft.rl3", "tiny-fft", "ls-fft.rl20")):
+                               ("tiny-fft.rl3", "tiny-fft", "ls-fft.rl20"),
+                               ("tiny-meas.rl3", "tiny-meas", "ls-meas.rl20")):
         files[f"workloads/{cell}.json"] = {"config": config, "traffic": "tiny",
                                            "check": spec.load_named("workloads", real)["check"]}
         bench["workloads"].append({"name": cell, "config": config, "traffic": "tiny",
                                    "chips": 1, "why": "a test's tiny cell"})
     for m in bench["end_to_end"] + bench["per_layer"]:
         if "workloads" in m:
-            m["workloads"] = ["tiny-sep.rl3" if "sep" in w else "tiny-fft.rl3"
-                              for w in m["workloads"]]
+            m["workloads"] = [tiny_of[w] for w in m["workloads"]]
     for name, body in files.items():
         (root / name).write_text(json.dumps(body))
     (dest / "BENCHMARK.json").write_text(json.dumps(bench))

@@ -10,13 +10,16 @@ import torch
 from gpubench import cell, control
 
 
-@pytest.mark.parametrize("cell_name", ["tiny-sep.rl3", "tiny-fft.rl3"])
+CELLS = ["tiny-sep.rl3", "tiny-fft.rl3", "tiny-meas.rl3"]
+
+
+@pytest.mark.parametrize("cell_name", CELLS)
 def test_sound_program_is_correct(run_tiny, cell_name):
     rc, _, _, result = run_tiny(cell_name, 2**33 + 1)
     assert rc == 0 and result["correct"] is True
 
 
-@pytest.mark.parametrize("cell_name", ["tiny-sep.rl3", "tiny-fft.rl3"])
+@pytest.mark.parametrize("cell_name", CELLS)
 def test_control_in_bfloat16_is_not_correct(run_tiny, cell_name):
     rc, _, errs, result = run_tiny(cell_name, 2**33 + 2, make_step=cell.control_step)
     assert rc == 0 and result["correct"] is False
@@ -24,8 +27,8 @@ def test_control_in_bfloat16_is_not_correct(run_tiny, cell_name):
     assert check["value"] > 10 * check["limit"]
 
 
-@pytest.mark.parametrize("fault", sorted(control.FAULTS))
-@pytest.mark.parametrize("cell_name", ["tiny-sep.rl3", "tiny-fft.rl3"])
+@pytest.mark.parametrize("fault", sorted(set(control.FAULTS) - set(control.OPERATOR_FAULTS)))
+@pytest.mark.parametrize("cell_name", CELLS)
 def test_faults_are_not_correct(run_tiny, cell_name, fault):
     rc, _, _, result = run_tiny(cell_name, 2**33 + 3, seconds=0.2,
                                 make_step=control.FAULTS[fault])

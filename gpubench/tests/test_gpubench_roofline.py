@@ -54,8 +54,9 @@ def test_routes_of_the_two_configurations():
         c = _config(name)
         psf = geometry.working_psf(inputs.make_psf(c["psf"]), c["deconvolve"]["psf_crop_tol"])
         assert geometry.rl_route(psf, c["deconvolve"]) == route
-    tilted = geometry.working_psf(inputs.make_psf(_config("mantis-ls-fft")["psf"]), 1e-5)
-    assert geometry.separable_residuals(tilted, 24)[-1] == pytest.approx(0.087, abs=1e-3)
+    c = _config("mantis-ls-fft")
+    tilted = geometry.working_psf(inputs.make_psf(c["psf"]), 1e-5)
+    assert geometry.separable_terms(tilted, c["deconvolve"])[2] == pytest.approx(0.087, abs=1e-3)
 
 
 @pytest.mark.parametrize("n, multiple, want", [(142, 1, 144), (2918, 1, 3000), (2916, 1, 2916), (1630, 128, 1920),

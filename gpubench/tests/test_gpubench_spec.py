@@ -33,6 +33,10 @@ def test_metrics_of_a_cell():
     assert "rl_roofline.sep" in names("ls-sep.rl20", True)
     assert "zband_roofline" not in names("ls-sep.rl20", True)
     assert {"transform_ms.fft", "zband_roofline"} <= set(names("ls-fft.rl20", True))
+    assert names("ls-meas.rl20", False) == ["gvox_s", "peak_gib", "setup_s"]
+    meas = set(names("ls-meas.rl20", True))
+    assert {"rl_roofline.meas", "device_idle", "step_host_ms", "deskew_roofline"} <= meas
+    assert not meas & {"rl_roofline.sep", "zband_roofline", "rl_edges_ms", "step_syncs"}
 
 
 def test_benchmark_file_keeps_its_contract():
